@@ -7,28 +7,42 @@ It runs every phase, needs one card, and exits non-zero
 
 1. device:  the card's name and power limit (nvidia-smi).
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
-3. kernels: each kernel (K1-K4) against its plain PyTorch version on the card,
+3. kernels: each kernel (K1-K7) against its plain PyTorch version on the card,
             at the llama32-1b main-path shapes, with the stated tolerances;
-            times from CUDA events (kernel, plain version, one-call library
-            yardstick) beside the bound from the published H100 SXM peaks.
-4. main:    full-width llama32-1b (synthetic q8_0 -> q8_row, seed 0):
-            prefill 512 then 128 greedy tokens through the port's Engine, with
-            each kernel's launch count read over that run.
-5. cpu:     the same model at n_layers=2 on the card and on the CPU (plain
-            versions): f32 prefill logits held to 1e-4 of the largest, greedy
-            agreement and the bf16 int8-path difference reported.
+            times from CUDA events and torch.profiler (kernel, plain version,
+            one-call library yardstick) beside the bound from the published
+            H100 SXM peaks.
+4. main:    slice 1's path, full-width llama32-1b (synthetic q8_0 -> q8_row,
+            seed 0): prefill 512 then 128 greedy tokens through the port's
+            Engine, with K1-K4's launch counts read over that run.
+5. gguf:    slice 2's path. The same synthetic model, written by the port's
+            GGUF writer as a full-width, full-depth Q8_0 Llama 3 GGUF (tied
+            head, byte-level BPE vocab of 128256 ids with the Llama 3
+            specials at their ids), then: `llamatpu_torch.cli run` on it
+            in-process; Engine(rowq=False) prefill 512 + 128 greedy tokens
+            with the launch counts of K5 and K6 (and K1-K4 at 0); a sampled
+            generation (temperature 0.3, top-p 0.95, seed 42) run twice.
+6. pack4:   the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
+            32 decode steps through K7 (K5 at 0).
+7. cpu:     the port on the card against the port on the CPU (plain
+            versions), full width, 2 layers: slice 1's q8_row model and the
+            Q8_0 GGUF, f32 prefill logits held to 1e-4 of the largest, greedy
+            agreement reported.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
+The GGUF files go to build/smoke/ in the checkout and are deleted at the end.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -86,16 +100,16 @@ def kernel_ms(fn, names, iters: int = 16):
     return tot / iters / 1e3 if tot > 0 else None
 
 
-def timings(fn, names, plain, library) -> dict:
+def timings(fn, names, plain, library, iters: int = 16) -> dict:
     """ms: the kernels' own device time (profiler; the wrapper's graph time if
     the profiler saw none); wrapper_ms: the wrapper call in a CUDA graph;
     plain_ms / library_ms: the plain version and the library yardstick."""
-    wrapper = time_ms(fn)
-    own = kernel_ms(fn, names)
+    wrapper = time_ms(fn, iters=iters)
+    own = kernel_ms(fn, names, iters=iters)
     return dict(ms=own if own is not None else wrapper,
                 ms_source="profiler" if own is not None else "cuda graph",
-                wrapper_ms=wrapper, plain_ms=time_ms(plain, iters=4),
-                library_ms=None if library is None else time_ms(library))
+                wrapper_ms=wrapper, plain_ms=time_ms(plain, iters=min(iters, 4)),
+                library_ms=None if library is None else time_ms(library, iters=iters))
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -267,6 +281,165 @@ def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
     return rows
 
 
+# K5 / K7 per decode token at llama32-1b: 16 layers x (wqkv, wo, w13, w2) + the head
+def block_shapes(dims) -> dict:
+    D, F, KV, G, HD, V = (dims[k] for k in ("D", "F", "KV", "G", "HD", "V"))
+    return {"wqkv": (KV * (G + 2) * HD, D), "wo": (D, KV * G * HD), "w13": (2 * F, D),
+            "w2": (D, F), "head": (V, D)}
+
+
+def check_block_matmul(dev, dims, packed: bool) -> dict:
+    """K5 (packed=False) or K7 (packed=True) against its plain version at
+    every main-path shape, T = 1 and T = T_prefill, bf16 and f32; timed in
+    bf16. The table row is one decode token: 16 layers' four projections +
+    the head at T = 1."""
+    import torch
+
+    from llamatpu_torch.models.weights import unpack4_pairs
+    from llamatpu_torch.ops import quant_matmul as qm
+
+    kern = qm.packed4_matmul if packed else qm.block_matmul
+    plain = qm.packed4_matmul_plain if packed else qm.block_matmul_plain
+    names = ("bq_gemv_kernel", "bq_gemm_kernel")
+    gen = torch.Generator(device=dev).manual_seed(1 + packed)
+    L, T = dims["L"], dims["T"]
+    per, worst = {}, {"bf16": 0.0, "f32": 0.0}
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, wrapper_ms=0.0)
+    abs_max = 0.0
+    for name, (o, i) in block_shapes(dims).items():
+        if packed:
+            q = torch.randint(-8, 8, (o, i), dtype=torch.int8, device=dev, generator=gen)
+            lo, hi = q[:, 0::2].to(torch.int32) & 0xF, q[:, 1::2].to(torch.int32) & 0xF
+            w = (lo | (hi << 4)).to(torch.uint8).view(torch.int8).contiguous()
+            assert torch.equal(unpack4_pairs(w), q)
+        else:
+            q = torch.randint(-127, 128, (o, i), dtype=torch.int8, device=dev, generator=gen)
+            w = q
+        s = (torch.rand((o, i // 32), device=dev, generator=gen) * 0.001 + 0.0005) \
+            * (16.0 if packed else 1.0)
+        w_bf = qm.dequant_blocks(q, s, torch.bfloat16)
+        del q
+        for t in (1, T):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((t, i), device=dev, generator=gen).to(dt)
+                got, want = kern(x, w, s), plain(x, w, s)
+                torch.cuda.synchronize()
+                abs_e, rel_e = max_err(got, want)
+                key = "f32" if dt == torch.float32 else "bf16"
+                # f32: sums in another order; bf16: identical rounded operands,
+                # tensor-core f32 accumulation (not IEEE round-to-nearest)
+                tol = 1e-5 if key == "f32" else 1e-3
+                assert rel_e <= tol, \
+                    f"{kern.__name__} {name} T={t} {key}: max abs {abs_e} rel {rel_e}"
+                worst[key] = max(worst[key], rel_e)
+                abs_max = max(abs_max, abs_e)
+            xb = torch.randn((t, i), device=dev, generator=gen).to(torch.bfloat16)
+            wbytes = o * (i // 2 if packed else i) + o * (i // 32) * 4
+            b_ms, b_by = bound(wbytes + t * i * 2 + t * o * 4, 2 * t * o * i, BF16_OPS_S)
+            iters = 4 if (name == "head" and t > 1) else 16
+            tm = timings(lambda: kern(xb, w, s), names, lambda: plain(xb, w, s),
+                         lambda: torch.matmul(xb, w_bf.T), iters=iters)
+            per[f"{name} T={t}"] = dict(**tm, bound_ms=b_ms, bound_by=b_by,
+                                        shape=f"T={t} O={o} I={i}")
+            if t == 1:
+                reps = 1 if name == "head" else L
+                for k in tot:
+                    tot[k] += reps * (b_ms if k == "bound_ms" else tm[k])
+            log(f"{kern.__name__} {name} T={t}: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                f"plain {tm['plain_ms']:.4f}, bf16 matmul {tm['library_ms']:.4f})")
+        del w, s, w_bf
+        torch.cuda.empty_cache()
+    return dict(
+        name=kern.__name__, route="cuda", source="llamatpu_torch/csrc/block_matmul.cu",
+        replaces="llamatpu/ops/pallas_matmul.py:212" if packed
+        else "llamatpu/ops/pallas_matmul.py:101",
+        max_abs_err=abs_max, max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst,
+        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-3 (all shapes, T=1 and "
+                  f"T={T})",
+        ms=tot["ms"], ms_source=per["wo T=1"]["ms_source"], wrapper_ms=tot["wrapper_ms"],
+        plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
+        library="bf16 torch.matmul against the bf16-dequantized weight",
+        bound_ms=tot["bound_ms"], bound_by="bytes",
+        shape=f"one decode token at T=1: {L} x (wqkv+wo+w13+w2) + head", per_shape=per)
+
+
+def check_attention(dev, dims) -> dict:
+    """K6 against its plain version: cache bit-equal everywhere, output
+    within 1e-5 in f32 (bf16 cache: 1e-5 too, the cast rows are the same),
+    at pos 0, 31, 32, 511, S-1 on S = dims["S"] and at pos 8191 on S = 9216
+    (the physical length of an 8192-row cache); timed at pos 512."""
+    import torch
+    import torch.nn.functional as F
+
+    from llamatpu_torch.models.transformer import physical_cache_len
+    from llamatpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    KV, G, HD, S = dims["KV"], dims["G"], dims["HD"], dims["S"]
+    scale = HD ** -0.5
+    worst = worst_abs = 0.0
+    long_s = physical_cache_len(8192, 512)
+    cases = [(S, p, dt) for p in (0, 31, 32, 511 % S, S - 1)
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(long_s, 8191, torch.bfloat16), (long_s, 8191, torch.float32)]
+    for s_len, pos, dt in cases:
+        kvc = torch.randn((2, 1, KV, s_len, 2 * HD), device=dev, generator=gen).to(dt)
+        q = torch.randn((1, KV, G, HD), device=dev, generator=gen).to(dt)
+        kvn = torch.randn((1, KV, 2 * HD), device=dev, generator=gen).to(dt)
+        pv = torch.tensor([pos], dtype=torch.int32, device=dev)
+        c1, c2 = kvc.clone(), kvc.clone()
+        got, _ = attention.decode_attention_fused_write(q, kvn, c1, pv, scale, 1, HD)
+        want, _ = attention.decode_attention_fused_write_plain(q, kvn, c2, pv, scale, 1, HD)
+        torch.cuda.synchronize()
+        assert torch.equal(c1, c2), f"K6 cache differs at pos {pos} S {s_len} ({dt})"
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-5, f"K6 disagrees at pos {pos} S {s_len} ({dt}): {abs_e} {rel_e}"
+        worst, worst_abs = max(worst, rel_e), max(worst_abs, abs_e)
+        log(f"K6 pos {pos} S {s_len} {dt}: max abs {abs_e:.3g} rel {rel_e:.3g}, cache bit-equal")
+    pos = 512 % S
+    kvc = torch.randn((2, 1, KV, S, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn((1, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    kvn = torch.randn((1, KV, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
+    pv = torch.tensor([pos], dtype=torch.int32, device=dev)
+    qs = q.reshape(1, KV * G, 1, HD)
+    ks = kvc[1, :, :, : pos + 1, :HD].contiguous()
+    vs = kvc[1, :, :, : pos + 1, HD:].contiguous()
+    try:
+        F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)
+        lib_name = "scaled_dot_product_attention (GQA) over rows <= pos"
+    except TypeError:  # a torch without enable_gqa: K/V expanded to the query heads
+        ke, ve = ks.repeat_interleave(G, dim=1), vs.repeat_interleave(G, dim=1)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ke, ve, scale=scale)
+        lib_name = "scaled_dot_product_attention over rows <= pos (K/V expanded)"
+    nbytes = KV * (pos + 1) * 2 * HD * 2 + KV * G * HD * 2 + 2 * KV * 2 * HD * 2 \
+        + KV * G * HD * 4
+    b_ms, b_by = bound(nbytes, 2 * KV * G * (pos + 1) * 2 * HD, BF16_OPS_S)
+    tm = timings(lambda: attention.decode_attention_fused_write(q, kvn, kvc, pv, scale, 1, HD),
+                 ("attn_split_kernel", "attn_combine_kernel"),
+                 lambda: attention.decode_attention_fused_write_plain(q, kvn, kvc, pv, scale,
+                                                                      1, HD),
+                 library)
+    row = dict(
+        name="decode_attention_fused_write", route="cuda", source="llamatpu_torch/csrc/attention.cu",
+        replaces="llamatpu/ops/pallas_attention.py:718", max_abs_err=worst_abs, max_rel_err=worst,
+        tolerance="cache bit-equal; rel to max|plain| <= 1e-5 (bf16 and f32 caches)",
+        **tm, library=lib_name, bound_ms=b_ms, bound_by=b_by,
+        shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD}")
+    log(f"K6 pos {pos}: {tm['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
+        f"{tm['plain_ms']:.4f}, sdpa {tm['library_ms']:.4f})")
+    return row
+
+
+def check_block_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
+    return [check_block_matmul(dev, dims, False), check_attention(dev, dims),
+            check_block_matmul(dev, dims, True)]
+
+
 def device_breakdown(fn) -> dict:
     """Run fn() once under torch.profiler (device activity only, so the host
     is barely slowed): device busy time, the traced window's host wall time,
@@ -288,54 +461,55 @@ def device_breakdown(fn) -> dict:
             "kernels": [{"name": k[:120], "ms": ms, "count": n} for k, ms, n in rows]}
 
 
-# each kernel's launches as the profiler names them, and the trace it is on
-# (trace, kernel names, wrapper calls per table row: K4's row is one layer's
-# four projections)
+# each kernel's launches as the profiler names them, and where they are read:
+# (path, trace, kernel names, wrapper calls per table row). K4's row is one
+# layer's four projections; K5's and K7's rows are one decode token (16 layers
+# x 4 projections + the head: 65 calls; K7's path has 4 layers, 17 calls).
 IN_PATH = {
-    "rowq_gemv": ("decode16_trace", ("gemv_kernel<1, 0, 0>",), 1),
-    "qkv_norm_fused_rowq": ("decode16_trace", ("gemv_kernel<1, 1, 1>",), 1),
-    "layer_attn_tail_fused_rowq": ("decode16_trace", (
+    "rowq_gemv": ("main", "decode16_trace", ("gemv_kernel<1, 0, 0>",), 1),
+    "qkv_norm_fused_rowq": ("main", "decode16_trace", ("gemv_kernel<1, 1, 1>",), 1),
+    "layer_attn_tail_fused_rowq": ("main", "decode16_trace", (
         "attn_append_kernel", "gemv_kernel<1, 0, 2>", "gemv_kernel<1, 1, 4>",
         "gemv_kernel<1, 0, 3>"), 1),
-    "rowq_gemm": ("prefill_trace", ("gemm_s8_kernel",), 4),
+    "rowq_gemm": ("main", "prefill_trace", ("gemm_s8_kernel",), 4),
+    "block_matmul": ("gguf", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 65),
+    "decode_attention_fused_write": ("gguf", "decode16_trace",
+                                     ("attn_split_kernel", "attn_combine_kernel"), 1),
+    "packed4_matmul": ("pack4", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 17),
 }
 
 
-def in_path_ms(main_res: dict, name: str) -> float:
-    """Device ms per table row of a kernel inside the traced main path."""
-    trace, keys, per_row = IN_PATH[name]
-    tr = main_res[trace]
+def in_path_ms(paths: dict, name: str) -> float:
+    """Device ms per table row of a kernel inside its traced main path."""
+    path, trace, keys, per_row = IN_PATH[name]
+    tr = paths[path][trace]
     return per_row * sum(r["ms"] for r in tr["kernels"]
                          if any(k in r["name"] for k in keys)) / tr["launches"][name]
 
 
 def counters():
-    from llamatpu_torch.ops import gemm, layer_fused, quant_matmul
+    from llamatpu_torch.ops import attention, gemm, layer_fused, quant_matmul
 
     return {"rowq_gemv": quant_matmul.rowq_gemv, "rowq_gemm": gemm.rowq_gemm,
             "qkv_norm_fused_rowq": layer_fused.qkv_norm_fused_rowq,
-            "layer_attn_tail_fused_rowq": layer_fused.layer_attn_tail_fused_rowq}
+            "layer_attn_tail_fused_rowq": layer_fused.layer_attn_tail_fused_rowq,
+            "block_matmul": quant_matmul.block_matmul,
+            "decode_attention_fused_write": attention.decode_attention_fused_write,
+            "packed4_matmul": quant_matmul.packed4_matmul}
 
 
-def run_main_path(dev, overrides=None) -> dict:
-    import numpy as np
+def drive_engine(engine, prompt: list[int], tg: int, want_fn, label: str,
+                 repeats: int = 3) -> dict:
+    """The main-path run of an engine: every count set to 0, prefill of the
+    whole prompt, then `tg` decode steps; the counts read just after and held
+    to want_fn(decode steps). Then repeats of the same run (host-clock times
+    vary run to run) and traces of one prefill and a 16-token decode window."""
     import torch
 
-    from llamatpu_torch.models.synthetic import build_synthetic_model
-    from llamatpu_torch.runtime.engine import Engine
-
-    pp, tg = 512, 128
-    t0 = time.perf_counter()
-    model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=1024,
-                                  overrides=overrides)
-    engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=True,
-                    device=dev)
-    log(f"main: model built and served in {time.perf_counter() - t0:.1f} s "
-        f"(weight prep + upload {engine.metrics.weight_upload_s:.1f} s)")
-    cfg = model.cfg
-    prompt = np.random.default_rng(42).integers(0, cfg.vocab_size, pp).tolist()
+    cfg = engine.cfg
+    pp = len(prompt)
     engine.reset()
-    engine.generate(prompt, 8)  # warm-up: every kernel, built and launched once
+    engine.generate(prompt, 8)  # warm-up: every kernel built and launched once
     engine.reset()
     torch.cuda.synchronize()
 
@@ -357,22 +531,20 @@ def run_main_path(dev, overrides=None) -> dict:
     tg_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in fns.items()}
 
-    L = cfg.n_layers
-    want = {"rowq_gemv": 1 + len(out), "qkv_norm_fused_rowq": L * len(out),
-            "layer_attn_tail_fused_rowq": L * len(out), "rowq_gemm": 4 * L}
-    assert len(out) == tg, f"decoded {len(out)} of {tg} tokens"
-    assert launches == want, f"launch counts {launches} != path {want}"
+    want = {k: 0 for k in fns}
+    want.update(want_fn(len(out)))
+    assert len(out) == tg, f"{label}: decoded {len(out)} of {tg} tokens"
+    assert launches == want, f"{label}: launch counts {launches} != path {want}"
     assert bool(torch.isfinite(logits).all()) and logits.shape == (1, cfg.vocab_size)
     assert all(0 <= t < cfg.vocab_size for t in [first] + out)
     res = dict(prefill_tok_s=pp / pp_s, decode_tok_s=len(out) / tg_s, prefill_s=pp_s,
                decode_s=tg_s, pp=pp, tg=len(out), launches=launches,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"main: prefill {pp} tok in {pp_s:.4f} s ({res['prefill_tok_s']:.1f} tok/s), "
+    log(f"{label}: prefill {pp} tok in {pp_s:.4f} s ({res['prefill_tok_s']:.1f} tok/s), "
         f"decode {len(out)} tok in {tg_s:.4f} s ({res['decode_tok_s']:.2f} tok/s), "
         f"launches {launches}")
-    # the same run repeated: host-clock times on a shared host vary run to run
     runs = []
-    for _ in range(3):
+    for _ in range(repeats):
         engine.reset()
         t0 = time.perf_counter()
         tok, _ = engine.prefill(prompt, 0)
@@ -381,10 +553,10 @@ def run_main_path(dev, overrides=None) -> dict:
         runs.append((pp / (t1 - t0), len(window) / (time.perf_counter() - t1)))
     res["repeats_prefill_tok_s"] = [r[0] for r in runs]
     res["repeats_decode_tok_s"] = [r[1] for r in runs]
-    log(f"main: repeats prefill tok/s {[round(r[0], 1) for r in runs]}, "
+    log(f"{label}: repeats prefill tok/s {[round(r[0], 1) for r in runs]}, "
         f"decode tok/s {[round(r[1], 2) for r in runs]}")
-    # where the time goes: device busy time of one prefill chunk and of a
-    # 16-token decode window (traced separately; the timed run above is not)
+    # where the time goes: device busy time of one prefill and of a 16-token
+    # decode window (traced separately; the timed runs above are not)
     engine.reset()
     for key, fn in (("prefill_trace", lambda: engine.prefill(prompt, 0)),
                     ("decode16_trace", lambda: engine.decode_window_run(first, pp, 16))):
@@ -392,54 +564,265 @@ def run_main_path(dev, overrides=None) -> dict:
             f.launches = 0
         res[key] = device_breakdown(fn)
         res[key]["launches"] = {k: f.launches for k, f in fns.items()}
-    for k in ("prefill_trace", "decode16_trace"):
-        tr = res[k]
-        log(f"main: {k}: device busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms "
+        tr = res[key]
+        log(f"{label}: {key}: device busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms "
             f"(idle share {tr['idle_share']:.3f}); top "
             f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:6]]}")
-    del engine, model
-    torch.cuda.empty_cache()
     return res
 
 
-def run_cpu_compare(dev, overrides=None) -> dict:
-    """The port on the card against the port on the CPU (plain versions), on
-    the same full-width 2-layer model.
-
-    f32, a 64-token prompt in one 64-row chunk (K1 for every projection) and
-    16 greedy tokens (K1-K3): held to a tolerance. bf16, a 128-token prompt
-    (the K4 path): reported only — the per-token int8 activation rounding of
-    the w8a8 path is discontinuous, so rounding-level differences upstream
-    flip int8 values and move these logits by percents even on one device."""
+def run_main_path(dev, overrides=None) -> dict:
+    """Slice 1's path: synthetic q8_0 served as q8_row (K1-K4)."""
     import numpy as np
     import torch
 
     from llamatpu_torch.models.synthetic import build_synthetic_model
     from llamatpu_torch.runtime.engine import Engine
 
+    pp, tg = 512, 128
+    t0 = time.perf_counter()
+    model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=1024,
+                                  overrides=overrides)
+    engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=True,
+                    device=dev)
+    log(f"main: model built and served in {time.perf_counter() - t0:.1f} s "
+        f"(weight prep + upload {engine.metrics.weight_upload_s:.1f} s)")
+    L = model.cfg.n_layers
+    prompt = np.random.default_rng(42).integers(0, model.cfg.vocab_size, pp).tolist()
+    res = drive_engine(engine, prompt, tg, lambda n: {
+        "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "layer_attn_tail_fused_rowq": L * n,
+        "rowq_gemm": 4 * L}, "main")
+    del engine, model
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------- GGUF path
+# the Llama 3 chat specials at their ids in the published vocab
+LLAMA3_SPECIALS = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                   128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+                   128009: "<|eot_id|>"}
+
+
+def llama3_vocab(vocab_size: int) -> tuple[list[str], list[int], list[str]]:
+    """(tokens, token types, merges) of a byte-level BPE vocab padded to
+    `vocab_size`: the 256 byte tokens, a few merges, filler tokens up to
+    128000, then the Llama 3 specials and reserved control tokens."""
+    from llamatpu_torch.tokenizer.bpe import bytes_to_unicode
+
+    enc = bytes_to_unicode()
+    tokens = [enc[i] for i in range(256)]
+    pairs = [("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("Ġ", "a"), ("e", "r"),
+             ("o", "n"), ("Ġ", "s"), ("Ġ", "w"), ("r", "e"), ("Ġ", "b"), ("l", "u")]
+    merges = [f"{a} {b}" for a, b in pairs]
+    tokens += [a + b for a, b in pairs]
+    tokens += [f"tok{i}" for i in range(len(tokens), 128000)]
+    types = [1] * len(tokens)
+    for i in range(128000, vocab_size):
+        tokens.append(LLAMA3_SPECIALS.get(i, f"<|reserved_special_token_{i - 128000}|>"))
+        types.append(3)
+    return tokens, types, merges
+
+
+def write_llama_gguf(model, path, quant: str = "q8_0") -> None:
+    """A synthetic q8_0 model as a Llama 3 GGUF, through the port's writer:
+    Q8_0 block values as they are with the scales rounded to f16 (Q4_0: the
+    values >> 4, scales x 16), f32 norms, the vocab head tied to token_embd
+    (no output.weight, as Llama-3.2-1B ships)."""
+    import numpy as np
+
+    from llamatpu_torch.gguf import GGMLType, GGUFWriter, quants
+
+    cfg, w = model.cfg, model.weights
+    lw = w["layers"]
+    gw = GGUFWriter()
+    gw.add("general.architecture", "llama")
+    gw.add("general.name", "synthetic llama32-1b")
+    for key, v in (("embedding_length", cfg.dim), ("feed_forward_length", cfg.hidden_dim),
+                   ("block_count", cfg.n_layers), ("attention.head_count", cfg.n_heads),
+                   ("attention.head_count_kv", cfg.n_kv_heads),
+                   ("context_length", cfg.context_length),
+                   ("attention.layer_norm_rms_epsilon", float(cfg.rms_norm_eps)),
+                   ("rope.freq_base", float(cfg.rope_theta)), ("vocab_size", cfg.vocab_size)):
+        gw.add("llama." + key, v)
+    tokens, types, merges = llama3_vocab(cfg.vocab_size)
+    gw.add("tokenizer.ggml.model", "gpt2")
+    gw.add("tokenizer.ggml.pre", "llama-bpe")
+    gw.add("tokenizer.ggml.tokens", tokens)
+    gw.add("tokenizer.ggml.merges", merges)
+    gw.add("tokenizer.ggml.token_type", np.array(types, dtype=np.int32))
+    gw.add("tokenizer.ggml.bos_token_id", 128000)
+    gw.add("tokenizer.ggml.eos_token_id", 128009)
+
+    def qt(name, qs, scales):
+        if quant == "q8_0":
+            gw.add_tensor_raw(name, qs.shape, GGMLType.Q8_0, quants.q8_0_blocks(qs, scales))
+        else:
+            gw.add_tensor_raw(name, qs.shape, GGMLType.Q4_0,
+                              quants.q4_0_blocks(qs >> 4, scales * 16.0))
+
+    qt("token_embd.weight", w["wcls"].qs, w["wcls"].scales)
+    gw.add_tensor("output_norm.weight", np.asarray(w["final_norm"], np.float32))
+    names = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+             "w1": "ffn_gate", "w2": "ffn_down", "w3": "ffn_up"}
+    for li in range(cfg.n_layers):
+        b = f"blk.{li}."
+        gw.add_tensor(b + "attn_norm.weight", np.asarray(lw["attn_norm"][li], np.float32))
+        gw.add_tensor(b + "ffn_norm.weight", np.asarray(lw["ffn_norm"][li], np.float32))
+        for k, n in names.items():
+            qt(b + n + ".weight", lw[k].qs[li], lw[k].scales[li])
+    gw.write(str(path))
+
+
+def make_gguf(workdir: Path, quant: str, n_layers=None, overrides=None) -> Path:
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+
+    t0 = time.perf_counter()
+    model = build_synthetic_model("llama32-1b", quant="q8_0", seed=0, n_layers=n_layers,
+                                  overrides=overrides)
+    path = workdir / f"llama32-1b-{quant}-L{model.cfg.n_layers}.gguf"
+    write_llama_gguf(model, path, quant)
+    log(f"gguf: wrote {path.name} ({path.stat().st_size / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def run_gguf_path(dev, workdir: Path, overrides=None) -> dict:
+    """Slice 2's path: the full-width, full-depth Q8_0 GGUF through the port's
+    CLI `run`, then Engine(rowq=False) pp512 + tg128 (K5 + K6), then a
+    sampled generation run twice with one seed."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from llamatpu_torch import cli
+    from llamatpu_torch.format import Message, Role
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.runtime.engine import Engine
+
+    path = make_gguf(workdir, "q8_0", overrides=overrides)
+    res = {}
+    # 1. the port's command line, in-process, greedy
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["run", "-m", str(path), "-p", "Why is the sky blue?", "-n", "256",
+                       "--temperature", "0", "--metrics-format", "json", "--device", str(dev)])
+    text = buf.getvalue()
+    assert rc == 0 and text.strip(), f"cli run: rc {rc}, output {text[:200]!r}"
+    res["cli"] = dict(rc=rc, seconds=time.perf_counter() - t0, chars=len(text))
+    log(f"gguf: cli run rc {rc} in {res['cli']['seconds']:.1f} s, {len(text)} chars streamed: "
+        f"{text[:80]!r}")
+    # 2. the engine on the loaded checkpoint: block quants, K5 + K6
+    t0 = time.perf_counter()
+    model = load_model(str(path), max_tokens=1024)
+    engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, device=dev)
+    log(f"gguf: loaded {model.quant_label} and served in {time.perf_counter() - t0:.1f} s "
+        f"(upload {engine.metrics.weight_upload_s:.1f} s)")
+    L = model.cfg.n_layers
+    prompt = np.random.default_rng(42).integers(0, 128000, 512).tolist()
+    res.update(drive_engine(engine, prompt, 128, lambda n: {
+        "block_matmul": (4 * L + 1) * (1 + n), "decode_attention_fused_write": L * n}, "gguf"))
+    del engine
+    # 3. sampled at the family's defaults, twice with one seed
+    ids = model.chat_format.build_prompt([Message(Role.USER, "Why is the sky blue?")])
+    e2 = Engine(model, cache_len=1024, prefill_chunk=512, temperature=0.3, top_p=0.95,
+                seed=42, device=dev)
+    a = e2.generate(ids, 48).tokens
+    e2.reset(seed=42)
+    b = e2.generate(ids, 48).tokens
+    assert a == b, f"sampled generations differ with one seed: {a} vs {b}"
+    res["sampled"] = dict(tokens=len(a), identical=True, distinct_ids=len(set(a)))
+    log(f"gguf: sampled (T 0.3, top-p 0.95, seed 42) twice: {len(a)} tokens, identical, "
+        f"{len(set(a))} distinct ids")
+    del e2, model
+    path.unlink()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_pack4_path(dev, workdir: Path, overrides=None) -> dict:
+    """The Q4_0 GGUF at full width and 4 layers, loaded with pack4: prefill
+    128 + 32 decode steps through K7, K5 at 0."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.runtime.engine import Engine
+
+    path = make_gguf(workdir, "q4_0", n_layers=4, overrides=overrides)
+    model = load_model(str(path), max_tokens=1024, pack4=True)
+    assert model.weights["wcls"].layout == "packed4"
+    engine = Engine(model, cache_len=1024, prefill_chunk=128, decode_window=32, device=dev)
+    L = model.cfg.n_layers
+    prompt = np.random.default_rng(7).integers(0, 128000, 128).tolist()
+    res = drive_engine(engine, prompt, 32, lambda n: {
+        "packed4_matmul": (4 * L + 1) * (1 + n), "decode_attention_fused_write": L * n},
+        "pack4", repeats=1)
+    del engine, model
+    path.unlink()
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_engines(dev, model, n: int, cdt, label: str, **kw) -> dict:
+    """Prefill logits and 16 greedy tokens of one model on the card and on
+    the CPU (plain versions)."""
+    import numpy as np
+
+    from llamatpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(7).integers(0, min(model.cfg.vocab_size, 128000), n).tolist()
+    res = {}
+    for where in (dev, "cpu"):
+        e = Engine(model, cache_len=1024, prefill_chunk=n, decode_window=16, cache_dtype=cdt,
+                   device=where, **kw)
+        _, logits = e.prefill(prompt, 0)
+        e.reset()
+        res[str(where)] = (logits.float().cpu(), e.generate(prompt, 16).tokens)
+        del e
+    (lg, tg), (lc, tc) = res[str(dev)], res["cpu"]
+    d = (lg - lc).abs().max().item()
+    agree = next((i for i, (a, b) in enumerate(zip(tg, tc)) if a != b), len(tc))
+    out = dict(prompt=n, logits_max_abs=d, logits_rel=d / lc.abs().max().item(),
+               greedy_agree=agree, greedy_n=len(tc))
+    log(f"cpu {label}: {n}-token prefill logits card vs cpu max abs {d:.4g} "
+        f"(rel {out['logits_rel']:.3g}); greedy tokens agree for the first {agree} "
+        f"of {len(tc)}")
+    return out
+
+
+def run_cpu_compare(dev, workdir: Path, overrides=None) -> dict:
+    """The port on the card against the port on the CPU (plain versions), on
+    full-width 2-layer models.
+
+    Slice 1 (q8_row): f32, a 64-token prompt in one 64-row chunk (K1 for
+    every projection) and 16 greedy tokens (K1-K3), held to a tolerance;
+    bf16, a 128-token prompt (the K4 path), reported only: the per-token int8
+    activation rounding of the w8a8 path is discontinuous, so rounding-level
+    differences upstream flip int8 values and move these logits by percents
+    even on one device. Slice 2 (the Q8_0 GGUF, block quants): f32, a
+    64-token prompt (K5's tiled path) and 16 greedy tokens (K5 + K6), held to
+    the same tolerance."""
+    import torch
+
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+
     out = {}
     for dt, cdt, n in (("f32", torch.float32, 64), ("bf16", torch.bfloat16, 128)):
         model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=1024,
                                       n_layers=2, dtype=dt, overrides=overrides)
-        prompt = np.random.default_rng(7).integers(0, model.cfg.vocab_size, n).tolist()
-        res = {}
-        for where in (dev, "cpu"):
-            e = Engine(model, cache_len=1024, prefill_chunk=n, decode_window=16, rowq=True,
-                       cache_dtype=cdt, device=where)
-            _, logits = e.prefill(prompt, 0)
-            e.reset()
-            res[str(where)] = (logits.float().cpu(), e.generate(prompt, 16).tokens)
-            del e
-        (lg, tg), (lc, tc) = res[str(dev)], res["cpu"]
-        d = (lg - lc).abs().max().item()
-        agree = next((i for i, (a, b) in enumerate(zip(tg, tc)) if a != b), len(tc))
-        out[dt] = dict(prompt=n, logits_max_abs=d, logits_rel=d / lc.abs().max().item(),
-                       greedy_agree=agree, greedy_n=len(tc))
-        log(f"cpu {dt}: {n}-token prefill logits card vs cpu max abs {d:.4g} "
-            f"(rel {out[dt]['logits_rel']:.3g}); greedy tokens agree for the first {agree} "
-            f"of {len(tc)}")
+        out[dt] = compare_engines(dev, model, n, cdt, f"q8_row {dt}", rowq=True)
+    path = make_gguf(workdir, "q8_0", n_layers=2, overrides=overrides)
+    model = load_model(str(path), max_tokens=1024, param_dtype=torch.float32)
+    out["gguf_f32"] = compare_engines(dev, model, 64, torch.float32, "gguf q8_0 f32")
+    path.unlink()
     # f32 sums in another order than the CPU's, over two layers and the head
-    assert out["f32"]["logits_rel"] <= 1e-4, f"card and CPU disagree in f32: {out['f32']}"
+    for k in ("f32", "gguf_f32"):
+        assert out[k]["logits_rel"] <= 1e-4, f"card and CPU disagree ({k}): {out[k]}"
     return out
 
 
@@ -471,12 +854,19 @@ def main() -> int:
         with open(os.path.join(args.log_dir, "ptxas.txt"), "w") as f:
             for name, text in logs.items():
                 f.write(f"==== {name}\n{text}\n")
-    rows = check_kernels(dev)
-    main_res = summary["main"] = run_main_path(dev)
-    for r in rows:
-        r["launches"] = main_res["launches"][r["name"]]
-        r["in_path_ms"] = in_path_ms(main_res, r["name"])
-    summary["cpu"] = run_cpu_compare(dev)
+    workdir = Path(__file__).resolve().parent / "build" / "smoke"
+    workdir.mkdir(parents=True, exist_ok=True)
+    try:
+        rows = check_kernels(dev) + check_block_kernels(dev)
+        paths = {"main": run_main_path(dev), "gguf": run_gguf_path(dev, workdir),
+                 "pack4": run_pack4_path(dev, workdir)}
+        summary.update(paths)
+        for r in rows:
+            r["launches"] = paths[IN_PATH[r["name"]][0]]["launches"][r["name"]]
+            r["in_path_ms"] = in_path_ms(paths, r["name"])
+        summary["cpu"] = run_cpu_compare(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     if args.log_dir:
         with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:
             json.dump({"kernels": rows, **summary}, f, indent=1)

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("quant_matmul", "layer_fused", "gemm")
+SOURCES = ("quant_matmul", "layer_fused", "gemm", "block_matmul", "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +44,13 @@ _SIGNATURES = {
     },
     "gemm": {
         "lt_rowq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "block_matmul": {
+        "lt_block_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "attention": {
+        "lt_decode_attention": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
+                                _P, _P, _P, _I, _P),
     },
 }
 

@@ -10,13 +10,11 @@ ml_dtypes does).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
-
 import numpy as np
 import torch
 
 from llamatpu_torch.models.config import Family, ModelConfig
+from llamatpu_torch.models.loader import LoadedModel
 from llamatpu_torch.models.weights import QTensor
 from llamatpu_torch.ops.rope import precompute_rope_tables
 
@@ -89,19 +87,6 @@ PRESETS: dict[str, dict] = {
                              rope_style="neox", qkv_bias=True,
                              n_experts=60, n_experts_used=4, moe_hidden_dim=1408),
 }
-
-
-@dataclass
-class LoadedModel:
-    """A config plus its (load-time, host-side) weights tree."""
-
-    cfg: ModelConfig
-    weights: dict
-    metadata: dict
-    family: Family
-    tokenizer: Any = None
-    chat_format: Any = None
-    quant_label: str = "f16"
 
 
 def _rand_qtensor(rng: np.random.Generator, shape: tuple[int, ...],

@@ -1,5 +1,5 @@
-"""The transformer forward of the port: dense Llama family, q8_row weights,
-packed KV cache.
+"""The transformer forward of the port: dense Llama family, packed KV cache,
+q8_row or block-quant (Q8_0 / Q4_0 / packed4) or dense weights.
 
 The port of llamatpu/models/transformer.py's main path. Prefill and decode
 are one function over a [B, T] token window that writes the KV cache at
@@ -8,14 +8,20 @@ weights are the views w.qs[li], and the cache is updated IN PLACE (the JAX
 package carried it through its layer scan and donated it).
 
 Per layer:
-- decode (B = 1, T = 1): K2 (rmsnorm + wqkv, ops/layer_fused.py), RoPE, then
-  K3 (KV append + attention + wo + FFN). The JAX package takes this path for
-  caches shorter than its split-attention threshold; the port takes it at
-  every length (on the TPU that limit is VMEM, which this card does not have);
+- decode with q8_row weights (B = 1, T = 1): K2 (rmsnorm + wqkv,
+  ops/layer_fused.py), RoPE, then K3 (KV append + attention + wo + FFN);
+- decode with any other weights (T = 1): rmsnorm, wqkv through ops/matmul.py
+  (K5 / K7 for block quants), RoPE, then K6 (KV append + attention,
+  ops/attention.py), then the unfused tail (wo, residual, rmsnorm, w13,
+  silu * up, w2, residual). The JAX package's fused q8_row kernels decline
+  block quants and take this path (`transformer.py:438-440, 602-609, 699`);
 - otherwise (prefill): the unfused chain with the dtype of every step as the
   JAX package's (`transformer.py:699-712`, `_dense_ffn`): bf16 residual stream
-  between ops, f32 masked softmax, q8_row projections through ops/matmul.py
-  (K1 below 128 rows, K4 at 128 and above).
+  between ops, f32 masked softmax, projections through ops/matmul.py (K5 / K7
+  for block quants; for q8_row K1 below 128 rows, K4 at 128 and above).
+The JAX package's fused decode kernels serve caches shorter than its
+split-attention threshold; K3 and K6 serve every length (on the TPU that
+limit is VMEM, which this card does not have).
 
 Qkv bias, q/k norm, MoE, int8 KV, paged caches and sharding raise until their
 slices of the port.
@@ -28,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from llamatpu_torch.models.config import ModelConfig
+from llamatpu_torch.models.weights import QTensor
+from llamatpu_torch.ops.attention import decode_attention_fused_write
 from llamatpu_torch.ops.layer_fused import layer_attn_tail_fused_rowq, qkv_norm_fused_rowq
 from llamatpu_torch.ops.matmul import matmul
 from llamatpu_torch.ops.rmsnorm import rmsnorm
@@ -132,13 +140,14 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _layer(cfg: ModelConfig, lw: dict, x, kv: torch.Tensor, li: int, pos: int, cos, sin,
-           s_limit: int | None):
+           s_limit: int | None, pos_vec: torch.Tensor | None):
     b, t = x.shape[:2]
     nkv, g, hd = cfg.n_kv_heads, cfg.gqa_groups, cfg.head_dim
     eps, rs = cfg.rms_norm_eps, cfg.residual_scale
     if "wqkv" not in lw or "w13" not in lw:
         raise NotImplementedError("unfused projections: the port serves fused wqkv/w13")
-    decode = b == 1 and t == 1
+    wqkv = lw["wqkv"]
+    decode = b == 1 and t == 1 and isinstance(wqkv, QTensor) and wqkv.kind == "q8_row"
     if decode:
         qkv = qkv_norm_fused_rowq(lw["wqkv"], lw["attn_norm"], x, li, eps)
     else:
@@ -155,13 +164,17 @@ def _layer(cfg: ModelConfig, lw: dict, x, kv: torch.Tensor, li: int, pos: int, c
             lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q.reshape(b, nkv, g, hd),
             kvnew[:, 0], kv, x, pos, li, eps, cfg.attn_score_scale, hd, rs)
         return x
-    _write_rows(kv, kvnew.transpose(1, 2), li, pos)
-    kd_all, vd_all = kv[li, ..., :hd], kv[li, ..., hd:]
-    if s_limit and s_limit < kd_all.shape[2]:
-        # rows past the logical length are write slack, never attended
-        lim = -(-s_limit // 8) * 8
-        kd_all, vd_all = kd_all[:, :, :lim], vd_all[:, :, :lim]
-    attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kd_all, vd_all, pos, t)
+    if t == 1:
+        attn, _ = decode_attention_fused_write(q.reshape(b, nkv, g, hd), kvnew[:, 0], kv,
+                                               pos_vec, cfg.attn_score_scale, li, hd)
+    else:
+        _write_rows(kv, kvnew.transpose(1, 2), li, pos)
+        kd_all, vd_all = kv[li, ..., :hd], kv[li, ..., hd:]
+        if s_limit and s_limit < kd_all.shape[2]:
+            # rows past the logical length are write slack, never attended
+            lim = -(-s_limit // 8) * 8
+            kd_all, vd_all = kd_all[:, :, :lim], vd_all[:, :, :lim]
+        attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kd_all, vd_all, pos, t)
     attn = attn.reshape(b, t, -1).to(x.dtype)
     attn_out = matmul(lw["wo"], attn, li)
     if rs != 1.0:
@@ -189,6 +202,8 @@ def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache: KVCac
     b, t = tokens.shape
     x = embed_tokens(cfg, weights, tokens)
     cos, sin = rope_slices(weights, pos, t)
+    # decode attention (K6) reads the position on the device: no host sync
+    pos_vec = torch.full((b,), pos, dtype=torch.int32, device=x.device) if t == 1 else None
     for li in range(cfg.n_layers):
-        x = _layer(cfg, weights["layers"], x, cache.kv, li, pos, cos, sin, s_limit)
+        x = _layer(cfg, weights["layers"], x, cache.kv, li, pos, cos, sin, s_limit, pos_vec)
     return finish_logits(cfg, weights, x, last_logit_only, logit_index), cache

@@ -1,23 +1,29 @@
-"""Weight containers, the load-time transforms of the q8_row serving path, and
-the bridge from the JAX package's parameters.
+"""Weight containers, the load-time transforms of the serving paths, and the
+bridge from the JAX package's parameters.
 
 A QTensor of logical shape [out, in] stores
 
-    qs:     int8 [..., out, in]    (canonical column order)
-    scales: f32  [..., out, in // 32]  for "q8_0" (per-32 ggml block scales)
+    qs:     int8 [..., out, in]        values: Q8_0 in [-127, 127], Q4_0 in
+                                       [-8, 7] (canonical column order)
+            int8 [..., out, in // 2]   layout "packed4" (Q4_0): byte c holds
+                                       canonical columns 2c (low nibble) and
+                                       2c + 1 (high nibble), two's complement
+    scales: f32  [..., out, in // 32]  for "q8_0" / "q4_0" (ggml block scales)
             f32  [..., out, 1]         for "q8_row" (one scale per out row)
 
 Leading dims stack layers ([L, ...]). At load time the fields are numpy
 arrays and every transform here is numpy, so the port's served weights equal
-the JAX package's bit for bit (tests/test_torch_weights.py).
-`serving_weights` then moves the tree to the device as torch tensors; a
-layer's weights are the view `qs[li]`, so no kernel needs a stacked variant.
+the JAX package's bit for bit (tests/test_torch_weights.py,
+tests/test_torch_gguf.py). `serving_weights` then moves the tree to the
+device as torch tensors; a layer's weights are the view `qs[li]`, so no
+kernel needs a stacked variant.
 
-The interleaved column layout and the row padding of the JAX package's
-`prepare_qtensor` are Mosaic layouts, not semantics: the port keeps every
-tensor canonical and unpadded, and `from_numpy_weights` de-interleaves what
-it is given (padded rows keep their `logical_out`, and the matmul dispatch
-slices them off).
+The interleaved column layout, the column-halves nibble packing and the row
+padding of the JAX package's `prepare_qtensor` are Mosaic layouts, not
+semantics: the port keeps values canonical (packed4 pairs adjacent columns,
+so a 32-block stays inside 16 bytes) and rows unpadded, and
+`from_numpy_weights` converts what it is given (padded rows keep their
+`logical_out`, and the matmul dispatch slices them off).
 """
 from __future__ import annotations
 
@@ -35,12 +41,12 @@ BLOCK = 32  # ggml Q8_0 block size
 class QTensor:
     """Quantized tensor: int8 values plus f32 scales (see module docstring).
 
-    kind: "q8_0" (per-32 block scales) | "q8_row" (per-out-row scales, the
-    serving format of this slice). logical_out: real out-features when rows
-    are zero-padded (0 = all rows are real). layout: "canonical" or, for
+    kind: "q8_0" / "q4_0" (per-32 block scales) | "q8_row" (per-out-row
+    scales). logical_out: real out-features when rows are zero-padded (0 =
+    all rows are real). layout: "canonical", "packed4" (Q4_0 only) or, for
     tensors taken from the JAX package before `from_numpy_weights`,
-    "interleaved". offs: per-32 additive offsets of native K-quants (not in
-    this slice; always None here)."""
+    "interleaved". offs: per-32 additive offsets of native K-quants (the
+    quant-breadth slice; always None here)."""
 
     qs: Any
     scales: Any
@@ -67,6 +73,35 @@ def deinterleave_columns(qs: np.ndarray) -> np.ndarray:
     *lead, o, i = qs.shape
     nb = i // BLOCK
     return np.swapaxes(qs.reshape(*lead, o, BLOCK, nb), -1, -2).reshape(*lead, o, i)
+
+
+def pack4_pairs(qs: np.ndarray) -> np.ndarray:
+    """Canonical int8 values in [-8, 7] [..., in] -> packed4 [..., in // 2]:
+    byte c = (col 2c & 0xF) | (col 2c + 1) << 4. Load-time, numpy."""
+    q = np.asarray(qs)
+    lo = q[..., 0::2].astype(np.uint8) & 0x0F
+    hi = q[..., 1::2].astype(np.uint8) & 0x0F
+    return np.ascontiguousarray(lo | (hi << 4)).view(np.int8)
+
+
+def unpack4_pairs(qp):
+    """packed4 [..., in // 2] -> canonical int8 [..., in], sign-extended:
+    lo = (p << 28) >> 28, hi = p >> 4 on the signed byte widened to int32.
+    numpy or torch."""
+    if isinstance(qp, torch.Tensor):
+        p = qp.to(torch.int32)
+        lo, hi = (p << 28) >> 28, p >> 4
+        return torch.stack([lo, hi], dim=-1).flatten(-2).to(torch.int8)
+    p = np.asarray(qp).astype(np.int32)
+    lo, hi = (p << 28) >> 28, p >> 4
+    return np.stack([lo, hi], axis=-1).reshape(*p.shape[:-1], -1).astype(np.int8)
+
+
+def _unpack4_halves(qp: np.ndarray) -> np.ndarray:
+    """The JAX package's packed4 (byte c = interleaved columns c | c + in/2
+    << 4) -> its interleaved int8 values."""
+    p = np.asarray(qp).astype(np.int32)
+    return np.concatenate([(p << 28) >> 28, p >> 4], axis=-1).astype(np.int8)
 
 
 def rowq_requant(w: QTensor) -> QTensor:
@@ -222,8 +257,12 @@ def rowq_convert_weights(weights: dict) -> dict:
 
 
 def _concat_rows(ts: list[QTensor]) -> QTensor:
-    qs = np.concatenate([_np(t.qs) for t in ts], axis=-2)
-    scales = np.concatenate([_np(t.scales) for t in ts], axis=-2)
+    if isinstance(ts[0].qs, torch.Tensor):  # a tree already on a device
+        qs = torch.cat([t.qs for t in ts], dim=-2)
+        scales = torch.cat([t.scales for t in ts], dim=-2)
+    else:
+        qs = np.concatenate([_np(t.qs) for t in ts], axis=-2)
+        scales = np.concatenate([_np(t.scales) for t in ts], axis=-2)
     return QTensor(qs, scales, ts[0].kind, logical_out=0, layout=ts[0].layout)
 
 
@@ -236,21 +275,35 @@ def _fusable(ts: list[QTensor]) -> bool:
             and len({t.qs.shape[-1] for t in ts}) == 1)
 
 
+def _dense_fusable(ts) -> bool:
+    """Dense stacks (F32/F16/BF16 checkpoints) of one type and in-width."""
+    return (len({type(t) for t in ts}) == 1 and isinstance(ts[0], (np.ndarray, torch.Tensor))
+            and len({t.dtype for t in ts}) == 1 and len({t.shape[-1] for t in ts}) == 1)
+
+
 def fuse_layer_weights(cfg, weights: dict) -> dict:
     """Fuse projections sharing an input into one wider matmul: wq+wk+wv ->
     wqkv and w1+w3 -> w13 (a row concat, bit-exact; the forward splits the
-    output columns). Dense models only in this slice."""
+    output columns; block-quant and packed4 rows are independent too). Dense
+    F32/F16/BF16 projections fuse the same way, where the JAX package leaves
+    them unfused (the same values either way). Dense (not MoE) models only
+    in this slice."""
     if getattr(cfg, "is_moe", False):
         raise NotImplementedError("MoE weights: MoE slice of the port")
     layers = dict(weights["layers"])
-    qkv = [layers.get(k) for k in ("wq", "wk", "wv")]
-    if all(t is not None for t in qkv) and _fusable(qkv):
-        layers["wqkv"] = _concat_rows(qkv)
-        del layers["wq"], layers["wk"], layers["wv"]
-    w13 = [layers.get(k) for k in ("w1", "w3")]
-    if all(t is not None for t in w13) and _fusable(w13):
-        layers["w13"] = _concat_rows(w13)
-        del layers["w1"], layers["w3"]
+    for fused, parts in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3"))):
+        ts = [layers.get(k) for k in parts]
+        if any(t is None for t in ts):
+            continue
+        if _fusable(ts):
+            layers[fused] = _concat_rows(ts)
+        elif _dense_fusable(ts):
+            layers[fused] = (torch.cat(ts, dim=-2) if isinstance(ts[0], torch.Tensor)
+                             else np.concatenate(ts, axis=-2))
+        else:
+            continue
+        for k in parts:
+            del layers[k]
     out = dict(weights)
     out["layers"] = layers
     return out
@@ -269,9 +322,9 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree_to(tree, device):
+def tree_to(tree, device):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, QTensor):
         return replace(tree, qs=_to_torch(tree.qs, device),
                        scales=_to_torch(tree.scales, device))
@@ -282,28 +335,34 @@ def serving_weights(cfg, weights: dict, rowq: bool = False,
                     device: str | torch.device = "cuda") -> dict:
     """Load-time weight prep: fuse per-layer projections, optionally
     requantize Q8_0 to q8_row (numpy, bit-exact with the JAX package), then
-    move the tree to `device` as torch tensors."""
+    move the tree to `device` as torch tensors. rowq=False serves the block
+    quants as loaded (q8_0 / q4_0 / packed4)."""
     w = fuse_layer_weights(cfg, weights)
     if rowq:
         w = rowq_convert_weights(w)
-    return _tree_to(w, device)
+    return tree_to(w, device)
 
 
 def from_numpy_weights(tree: dict, device: str | torch.device = "cpu") -> dict:
     """The weights bridge: the JAX package's parameters (its raw synthetic
-    dict, or its `serving_weights(..., rowq=True)` after `jax.device_get`) ->
-    the port's tree on `device`. A QTensor is recognised and read by its
-    field names, never by its class; interleaved values are de-interleaved,
-    so both packages compute the same thing."""
+    dict, its `load_model(..., device_put=False)` tree, or its
+    `serving_weights(...)` after `jax.device_get`) -> the port's tree on
+    `device`. A QTensor is recognised and read by its field names, never by
+    its class; interleaved values are de-interleaved and the JAX package's
+    packed4 (column halves) is unpacked and re-packed as the port's adjacent
+    pairs, so both packages hold the same values."""
     if isinstance(tree, dict):
         return {k: from_numpy_weights(v, device) for k, v in tree.items()}
     if all(hasattr(tree, f) for f in ("qs", "scales", "kind", "layout")):
-        if getattr(tree, "offs", None) is not None or tree.layout == "packed4":
-            raise NotImplementedError(
-                f"{tree.kind}/{tree.layout} weights: quant-breadth slice")
+        if getattr(tree, "offs", None) is not None:
+            raise NotImplementedError(f"{tree.kind} weights with offsets: quant-breadth slice")
         qs = np.asarray(tree.qs)
-        if tree.layout == "interleaved":
+        layout = "canonical"
+        if tree.layout == "packed4":
+            qs = pack4_pairs(deinterleave_columns(_unpack4_halves(qs)))
+            layout = "packed4"
+        elif tree.layout == "interleaved":
             qs = deinterleave_columns(qs)
         return QTensor(_to_torch(qs, device), _to_torch(np.asarray(tree.scales), device),
-                       tree.kind, int(tree.logical_out), "canonical")
+                       tree.kind, int(tree.logical_out), layout)
     return _to_torch(np.asarray(tree), device)

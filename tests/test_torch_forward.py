@@ -83,10 +83,11 @@ def test_engine_defaults_to_the_card_and_raises_without_one(monkeypatch):
     tm, _ = _models(64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(tm, rowq=True)
-    with pytest.raises(NotImplementedError, match="sampling slice"):
-        Engine(tm, rowq=True, temperature=0.7, device="cpu").generate([1, 2], 2)
-    with pytest.raises(NotImplementedError, match="q8_row"):
-        Engine(tm, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(tm)
+    # sampled decoding and block-quant serving (the default) run on the CPU
+    assert len(Engine(tm, rowq=True, temperature=0.7, device="cpu").generate([1, 2], 2).tokens) == 2
+    assert Engine(tm, device="cpu").weights["layers"]["wqkv"].kind == "q8_0"
     e = Engine(tm, rowq=True, device="cpu", cache_dtype=torch.float32)
     assert e.cache.kv.shape == (2, 1, 2, ttr.physical_cache_len(64, 64), 128)
 
@@ -100,8 +101,9 @@ def test_cache_geometry_matches_jax():
 
 
 def test_port_imports_no_jax_and_no_llamatpu():
-    """Every module of the port, imported in a fresh interpreter, loads no
-    jax and no module of the JAX package."""
+    """Every module of the port (slice 2's GGUF, tokenizer, format, CLI,
+    session and bench modules included), imported in a fresh interpreter,
+    loads no jax, no ml_dtypes, no regex and no module of the JAX package."""
     code = r"""
 import importlib, pkgutil, sys
 before = set(sys.modules)
@@ -110,12 +112,17 @@ for m in pkgutil.walk_packages(llamatpu_torch.__path__, "llamatpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 new = set(sys.modules) - before
-bad = sorted(n for n in new if n.split(".")[0] in ("jax", "jaxlib", "llamatpu", "ml_dtypes"))
+bad = sorted(n for n in new if n.split(".")[0] in ("jax", "jaxlib", "llamatpu", "ml_dtypes", "regex"))
 print("BAD", bad)
+need = ["llamatpu_torch." + m for m in (
+    "cli", "gguf.reader", "gguf.writer", "gguf.quants", "models.loader", "models.detect",
+    "tokenizer.bpe", "tokenizer.builders", "tokenizer.stream", "format.chat_format",
+    "ops.attention", "runtime.session", "bench.perplexity", "bench.validate")]
+print("MISSING", [m for m in need if m not in new])
 print("N", sum(n.startswith("llamatpu_torch") for n in new))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout
-    assert "BAD []" in out, out
-    assert int(out.split("N")[-1]) >= 15, out
+    assert "BAD []" in out and "MISSING []" in out, out
+    assert int(out.split("N")[-1]) >= 35, out

@@ -99,8 +99,13 @@ def test_matmul_dispatch_slices_logical_rows_and_casts():
         x = torch.from_numpy(rng.normal(size=(1, t, 128)).astype(np.float32)).bfloat16()
         y = matmul(w, x)
         assert y.shape == (1, t, 200) and y.dtype == torch.bfloat16
+    # block quants route to K5 (slicing and cast alike); K-quants with
+    # offsets still raise
+    sb = (rng.random((256, 4)) * 0.01).astype(np.float32)
+    yb = matmul(QTensor(_t(qs), _t(sb), "q8_0", logical_out=200), x)
+    assert yb.shape == (1, 128, 200) and yb.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="quant-breadth"):
-        matmul(QTensor(_t(qs), _t(sc), "q8_0"), x)
+        matmul(QTensor(_t(qs), _t(sb), "q4_k", offs=_t(sb)), x)
 
 
 # ------------------------------------------------------------------- K2

@@ -7,11 +7,13 @@ It runs every phase, needs one card, and exits non-zero
 
 1. device:  the card's name and power limit (nvidia-smi).
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
-3. kernels: each kernel (K1-K7) against its plain PyTorch version on the card,
-            at the llama32-1b main-path shapes, with the stated tolerances;
-            times from CUDA events and torch.profiler (kernel, plain version,
-            one-call library yardstick) beside the bound from the published
-            H100 SXM peaks.
+3. kernels: each kernel (K1-K9) against its plain PyTorch version on the card,
+            at the llama32-1b main-path shapes (K2 also at 8 and 32 rows, K5
+            at T = 8, K6 at 8 lanes, K8 at 8 lanes of a shuffled block pool,
+            K9 at 1, 8 and 32 rows), with the stated tolerances; times from
+            CUDA events and torch.profiler (kernel, plain version, one-call
+            library yardstick) beside the bound from the published H100 SXM
+            peaks.
 4. main:    slice 1's path, full-width llama32-1b (synthetic q8_0 -> q8_row,
             seed 0): prefill 512 then 128 greedy tokens through the port's
             Engine, with K1-K4's launch counts read over that run.
@@ -22,12 +24,25 @@ It runs every phase, needs one card, and exits non-zero
             in-process; Engine(rowq=False) prefill 512 + 128 greedy tokens
             with the launch counts of K5 and K6 (and K1-K4 at 0); a sampled
             generation (temperature 0.3, top-p 0.95, seed 42) run twice.
-6. pack4:   the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
+6. serve:   slice 3's path, `cli serve --batch-size 8 --paged` in-process on
+            that GGUF: PagedBatchEngine (8 lanes, block 16, max_len 2048,
+            prefill chunk 128, window 16) behind BatchedInferenceService and
+            make_server on 127.0.0.1; 8 concurrent greedy chat completions,
+            2 streamed ones (SSE to [DONE]), a text completion, /health and
+            /v1/models; launch counts held to the engine's decode steps and
+            prefill chunks (K5 and K8), no scheduler error; a traced 16-step
+            window at 8 lanes; the serving-latency benchmark (16 requests,
+            prompt 128, 64 new, a 1024-token adversary, prefix-cache repeat).
+7. serve --rowq: the same HTTP run with q8_row weights (K1, K2, K4, K8, K9).
+8. pack4:   the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
             32 decode steps through K7 (K5 at 0).
-7. cpu:     the port on the card against the port on the CPU (plain
-            versions), full width, 2 layers: slice 1's q8_row model and the
-            Q8_0 GGUF, f32 prefill logits held to 1e-4 of the largest, greedy
-            agreement reported.
+9. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
+            generate_batch through K6 at each lane's position and K2 + K9.
+10. cpu:    the port on the card against the port on the CPU (plain
+            versions), full width, 2 layers: slice 1's q8_row model, the Q8_0
+            GGUF through Engine and through PagedBatchEngine.generate_batch,
+            f32 prefill logits held to 1e-4 of the largest, greedy agreement
+            reported.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
@@ -184,6 +199,26 @@ def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
                   GEMV, lambda: layer_fused.qkv_norm_plain(wqkv, norm, x, next(li) % L, 1e-5),
                   lambda: torch.matmul(h, w_bf[next(li) % L].T)),
         library="bf16 torch.matmul", bound_ms=b_ms, bound_by=b_by, shape=f"T=1 O={O} D={D}"))
+    # the B lanes of a batched decode step: 8 and 32 rows
+    rows[-1]["by_rows"] = {}
+    for t in (8, 32):
+        xt = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
+        got = layer_fused.qkv_norm_fused_rowq(wqkv, norm, xt, 3 % L, 1e-5)
+        want = layer_fused.qkv_norm_plain(wqkv, norm, xt, 3 % L, 1e-5)
+        torch.cuda.synchronize()
+        abs_t, rel_t = max_err(got, want)
+        assert rel_t <= 1e-2, f"K2 disagrees at {t} rows: max abs {abs_t} rel {rel_t}"
+        ht = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        tb_ms, _ = bound(O * D + O * 4 + t * D * 2 + D * 4 + t * O * 2, 2 * t * O * D,
+                         BF16_OPS_S)
+        rows[-1]["by_rows"][t] = dict(
+            max_abs_err=abs_t, max_rel_err=rel_t, bound_ms=tb_ms,
+            **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, norm, xt, next(li) % L, 1e-5),
+                      ("gemv_tiled_kernel",), lambda: layer_fused.qkv_norm_plain(wqkv, norm, xt, next(li) % L,
+                                                               1e-5),
+                      lambda: torch.matmul(ht, w_bf[next(li) % L].T)))
+        log(f"K2 at {t} rows: {rows[-1]['by_rows'][t]['ms']:.4f} ms (bound {tb_ms:.4f}), "
+            f"rel err {rel_t:.3g}")
     del w_bf, wqkv
 
     # ---- K3: append + attention + wo + FFN, T = 1
@@ -306,6 +341,8 @@ def check_block_matmul(dev, dims, packed: bool) -> dict:
     per, worst = {}, {"bf16": 0.0, "f32": 0.0}
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, wrapper_ms=0.0)
     abs_max = 0.0
+    # K5 also at T = 8: the eight lanes of a batched decode step
+    row_counts = (1, T) if packed else (1, 8, T)
     for name, (o, i) in block_shapes(dims).items():
         if packed:
             q = torch.randint(-8, 8, (o, i), dtype=torch.int8, device=dev, generator=gen)
@@ -319,7 +356,7 @@ def check_block_matmul(dev, dims, packed: bool) -> dict:
             * (16.0 if packed else 1.0)
         w_bf = qm.dequant_blocks(q, s, torch.bfloat16)
         del q
-        for t in (1, T):
+        for t in row_counts:
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((t, i), device=dev, generator=gen).to(dt)
                 got, want = kern(x, w, s), plain(x, w, s)
@@ -354,8 +391,8 @@ def check_block_matmul(dev, dims, packed: bool) -> dict:
         replaces="llamatpu/ops/pallas_matmul.py:212" if packed
         else "llamatpu/ops/pallas_matmul.py:101",
         max_abs_err=abs_max, max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst,
-        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-3 (all shapes, T=1 and "
-                  f"T={T})",
+        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-3 (all shapes, T in "
+                  f"{row_counts})",
         ms=tot["ms"], ms_source=per["wo T=1"]["ms_source"], wrapper_ms=tot["wrapper_ms"],
         plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
         library="bf16 torch.matmul against the bf16-dequantized weight",
@@ -432,12 +469,199 @@ def check_attention(dev, dims) -> dict:
         shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD}")
     log(f"K6 pos {pos}: {tm['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
         f"{tm['plain_ms']:.4f}, sdpa {tm['library_ms']:.4f})")
+
+    # the dense batched cache: 8 lanes at distinct positions, lane 7 parked at
+    # the last physical row as BatchEngine parks an inactive lane
+    B = 8
+    lanes = torch.tensor([0, 31, 32, 100, 511 % S, 700 % S, S - 2, S - 1], dtype=torch.int32,
+                         device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        kvc = torch.randn((2, B, KV, S, 2 * HD), device=dev, generator=gen).to(dt)
+        qb = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(dt)
+        kvnb = torch.randn((B, KV, 2 * HD), device=dev, generator=gen).to(dt)
+        c1, c2 = kvc.clone(), kvc.clone()
+        got, _ = attention.decode_attention_fused_write(qb, kvnb, c1, lanes, scale, 1, HD)
+        want, _ = attention.decode_attention_fused_write_plain(qb, kvnb, c2, lanes, scale, 1, HD)
+        torch.cuda.synchronize()
+        assert torch.equal(c1, c2), f"K6 cache differs at B = {B} ({dt})"
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-5, f"K6 disagrees at B = {B} ({dt}): {abs_e} {rel_e}"
+        row["max_rel_err"] = max(row["max_rel_err"], rel_e)
+        row["max_abs_err"] = max(row["max_abs_err"], abs_e)
+        log(f"K6 B {B} lanes {lanes.tolist()} {dt}: max abs {abs_e:.3g} rel {rel_e:.3g}, "
+            "cache bit-equal")
+    kvc = torch.randn((2, B, KV, S, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
+    qb = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    kvnb = torch.randn((B, KV, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
+    pvb = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    qsb = qb.reshape(B, KV * G, 1, HD)
+    ksb = kvc[1, :, :, : pos + 1, :HD].repeat_interleave(G, dim=1).contiguous()
+    vsb = kvc[1, :, :, : pos + 1, HD:].repeat_interleave(G, dim=1).contiguous()
+    b_ms8, _ = bound(B * nbytes, B * 2 * KV * G * (pos + 1) * 2 * HD, BF16_OPS_S)
+    row["by_lanes"] = {B: dict(
+        bound_ms=b_ms8, shape=f"B={B} lanes at pos={pos}",
+        **timings(lambda: attention.decode_attention_fused_write(qb, kvnb, kvc, pvb, scale, 1, HD),
+                  ("attn_split_kernel", "attn_combine_kernel"),
+                  lambda: attention.decode_attention_fused_write_plain(qb, kvnb, kvc, pvb, scale,
+                                                                       1, HD),
+                  lambda: F.scaled_dot_product_attention(qsb, ksb, vsb, scale=scale)),
+        library="scaled_dot_product_attention over rows <= pos (K/V expanded)")}
+    log(f"K6 B {B} at pos {pos}: {row['by_lanes'][B]['ms']:.4f} ms (bound {b_ms8:.5f})")
     return row
+
+
+def paged_tables(positions, parked, maxblk: int, nblk: int, bs: int, seed: int):
+    """Block tables of a shuffled allocator state: each lane owns the blocks
+    its rows 0..pos need, drawn from a random permutation of the pool; the
+    rest of its row, and a parked lane's whole row, is the trash block."""
+    import torch
+
+    perm = torch.randperm(nblk - 1, generator=torch.Generator().manual_seed(seed)).tolist()
+    tables = torch.full((len(positions), maxblk), nblk - 1, dtype=torch.int32)
+    for b, p in enumerate(positions):
+        if b not in parked:
+            for j in range(p // bs + 1):
+                tables[b, j] = perm.pop()
+    return tables
+
+
+def check_paged_attention(dev, dims=LLAMA32_1B) -> dict:
+    """K8 against its plain version at llama32-1b shapes, B = 8 lanes of a
+    shuffled pool (block size 16, lanes up to 2048 rows, the engine's default
+    pool of 512 blocks), bf16 and f32 pools: lanes at pos 0, 15, 16, 100,
+    511, 1023 and 2047 and one parked at the trash block; output within 1e-5
+    of the largest plain |value|. Timed with the 8 lanes at pos 512."""
+    import torch
+    import torch.nn.functional as F
+
+    from llamatpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    KV, G, HD = dims["KV"], dims["G"], dims["HD"]
+    B, BS, MAXLEN = 8, 16, 2048
+    maxblk = MAXLEN // BS
+    nblk = B * maxblk // 2
+    scale = HD ** -0.5
+    positions = [0, 15, 16, 100, 511, 1023, 2047, 700]
+    tables = paged_tables(positions, {7}, maxblk, nblk, BS, seed=8).to(dev)
+    pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+    worst = worst_abs = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        pool = torch.randn((2, nblk, KV, BS, 2 * HD), device=dev, generator=gen).to(dt)
+        q = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(dt)
+        before = pool.clone()
+        got = attention.decode_attention_paged(q, pool, tables, pv, scale, HD, 1)
+        want = attention.decode_attention_paged_plain(q, pool, tables, pv, scale, HD, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(pool, before), f"K8 wrote the pool ({dt})"
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-5, f"K8 disagrees ({dt}): max abs {abs_e} rel {rel_e}"
+        assert bool(torch.isfinite(got).all())
+        worst, worst_abs = max(worst, rel_e), max(worst_abs, abs_e)
+        log(f"K8 {dt} lanes {positions} (lane 7 parked): max abs {abs_e:.3g} rel {rel_e:.3g}")
+    del pool
+    pos = 512
+    tables = paged_tables([pos] * B, set(), maxblk, nblk, BS, seed=9).to(dev)
+    pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    pool = torch.randn((2, nblk, KV, BS, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    nb = pos // BS + 1
+    # the library yardstick attends a dense view gathered beforehand (the
+    # gather is not timed)
+    dense = pool[1][tables[:, :nb].long()].permute(0, 2, 1, 3, 4).reshape(B, KV, nb * BS, 2 * HD)
+    ks = dense[:, :, : pos + 1, :HD].repeat_interleave(G, dim=1).contiguous()
+    vs = dense[:, :, : pos + 1, HD:].repeat_interleave(G, dim=1).contiguous()
+    qs = q.reshape(B, KV * G, 1, HD)
+    nbytes = B * KV * (pos + 1) * 2 * HD * 2 + B * KV * G * HD * 2 + B * nb * 4 + B * 4 \
+        + B * KV * G * HD * 4
+    b_ms, b_by = bound(nbytes, B * 2 * KV * G * (pos + 1) * 2 * HD, BF16_OPS_S)
+    tm = timings(lambda: attention.decode_attention_paged(q, pool, tables, pv, scale, HD, 1),
+                 ("paged_split_kernel", "attn_combine_kernel"),
+                 lambda: attention.decode_attention_paged_plain(q, pool, tables, pv, scale, HD, 1),
+                 lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale))
+    log(f"K8 B {B} at pos {pos}: {tm['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
+        f"{tm['plain_ms']:.4f}, sdpa on a gathered view {tm['library_ms']:.4f})")
+    return dict(
+        name="decode_attention_paged", route="cuda", source="llamatpu_torch/csrc/attention.cu",
+        replaces="llamatpu/ops/pallas_attention.py:617", max_abs_err=worst_abs, max_rel_err=worst,
+        tolerance="rel to max|plain| <= 1e-5 (bf16 and f32 pools); the pool is not written",
+        **tm, library="scaled_dot_product_attention over a dense view gathered beforehand "
+                      "(gather not timed)",
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"B={B} lanes at pos={pos} BS={BS} MAXBLK={maxblk} NBLK={nblk} KV={KV} G={G} "
+              f"hd={HD}")
+
+
+def check_tail(dev, dims=LLAMA32_1B) -> dict:
+    """K9 against its plain version at llama32-1b widths, T in {1, 8, 32},
+    bf16 and f32 activations: f32 within 1e-5 of the largest plain output
+    (sums in another order), bf16 within 1e-2 (h and act round to bf16, so a
+    sum that rounds the other way moves one bf16 ulp). Timed at each T."""
+    import torch
+
+    from llamatpu_torch.ops import layer_fused
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    L, D, F, KV, G, HD = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD"))
+    H = KV * G * HD
+    wo, w13, w2 = rand_rowq(L, D, H, dev, gen), rand_rowq(L, 2 * F, D, dev, gen), \
+        rand_rowq(L, D, F, dev, gen)
+    nw = torch.rand((L, D), device=dev, generator=gen) + 0.5
+    worst = {"bf16": 0.0, "f32": 0.0}
+    worst_abs = 0.0
+    for dt, key, tol in ((torch.float32, "f32", 1e-5), (torch.bfloat16, "bf16", 1e-2)):
+        for t, rs in ((1, 1.0), (8, 1.0), (32, 1.0), (8, 0.5)):
+            attn = torch.randn((t, H), device=dev, generator=gen).to(dt)
+            x = torch.randn((t, D), device=dev, generator=gen).to(dt)
+            got = layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
+            want = layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == x.shape
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= tol, f"K9 disagrees at T={t} rs={rs} ({key}): {abs_e} {rel_e}"
+            worst[key] = max(worst[key], rel_e)
+            worst_abs = max(worst_abs, abs_e)
+            log(f"K9 T={t} rs={rs} {key}: max abs {abs_e:.3g} rel {rel_e:.3g}")
+        x33 = torch.zeros((33, D), device=dev, dtype=dt)
+        assert layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, torch.zeros((33, H), device=dev,
+                                                                              dtype=dt),
+                                                 x33, 0, 1e-5) is None
+    li = iter(range(10**9))
+    per = {}
+    for t in (1, 8, 32):
+        attn = torch.randn((t, H), device=dev, generator=gen).to(torch.bfloat16)
+        x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        wbytes = D * H + 2 * F * D + D * F + (D + 2 * F + D) * 4 + D * 4
+        b_ms, b_by = bound(wbytes + t * (H + D + D) * 2, 2 * t * (D * H + 2 * F * D + D * F),
+                           BF16_OPS_S)
+        per[t] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
+            lambda: layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, next(li) % L,
+                                                      1e-5),
+            ("gemv_tiled_kernel",),
+            lambda: layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
+            None))
+        log(f"K9 T={t}: {per[t]['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
+            f"{per[t]['plain_ms']:.4f})")
+    del wo, w13, w2
+    torch.cuda.empty_cache()
+    return dict(
+        name="layer_tail_fused_rowq", route="cuda", source="llamatpu_torch/csrc/layer_fused.cu",
+        replaces="llamatpu/ops/layer_fused.py:50", max_abs_err=worst_abs,
+        max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst,
+        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-2 (T in 1, 8, 32; rs 1 and 0.5)",
+        **{k: per[8][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")},
+        library=None, shape=f"T=8 rows (the B lanes of a decode step) D={D} H={H} F={F}",
+        by_rows=per)
 
 
 def check_block_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
     return [check_block_matmul(dev, dims, False), check_attention(dev, dims),
             check_block_matmul(dev, dims, True)]
+
+
+def check_serving_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
+    return [check_paged_attention(dev, dims), check_tail(dev, dims)]
 
 
 def device_breakdown(fn) -> dict:
@@ -476,6 +700,11 @@ IN_PATH = {
     "decode_attention_fused_write": ("gguf", "decode16_trace",
                                      ("attn_split_kernel", "attn_combine_kernel"), 1),
     "packed4_matmul": ("pack4", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 17),
+    "decode_attention_paged": ("serve", "decode16_trace",
+                               ("paged_split_kernel", "attn_combine_kernel"), 1),
+    # K9's three phases (K2 at 8 rows is gemv_tiled_kernel<8, bf16, 1, 1>)
+    "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", tuple(
+        f"{dt}, {p}>" for dt in ("bfloat16", "float") for p in ("0, 2", "1, 4", "0, 3")), 1),
 }
 
 
@@ -495,7 +724,9 @@ def counters():
             "layer_attn_tail_fused_rowq": layer_fused.layer_attn_tail_fused_rowq,
             "block_matmul": quant_matmul.block_matmul,
             "decode_attention_fused_write": attention.decode_attention_fused_write,
-            "packed4_matmul": quant_matmul.packed4_matmul}
+            "packed4_matmul": quant_matmul.packed4_matmul,
+            "decode_attention_paged": attention.decode_attention_paged,
+            "layer_tail_fused_rowq": layer_fused.layer_tail_fused_rowq}
 
 
 def drive_engine(engine, prompt: list[int], tg: int, want_fn, label: str,
@@ -703,7 +934,7 @@ def run_gguf_path(dev, workdir: Path, overrides=None) -> dict:
     from llamatpu_torch.runtime.engine import Engine
 
     path = make_gguf(workdir, "q8_0", overrides=overrides)
-    res = {}
+    res = {"gguf_file": path.name}
     # 1. the port's command line, in-process, greedy
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -738,9 +969,8 @@ def run_gguf_path(dev, workdir: Path, overrides=None) -> dict:
     log(f"gguf: sampled (T 0.3, top-p 0.95, seed 42) twice: {len(a)} tokens, identical, "
         f"{len(set(a))} distinct ids")
     del e2, model
-    path.unlink()
     torch.cuda.empty_cache()
-    return res
+    return res  # the GGUF stays on disk for the serving phases
 
 
 def run_pack4_path(dev, workdir: Path, overrides=None) -> dict:
@@ -765,6 +995,291 @@ def run_pack4_path(dev, workdir: Path, overrides=None) -> dict:
     path.unlink()
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------------- serving path
+def http(url: str, body=None, timeout: float = 600.0):
+    """(status, body bytes) of a GET (body None) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def sse_events(raw: bytes) -> list:
+    """The JSON payloads of an SSE body up to `data: [DONE]` (asserted)."""
+    frames = [f for f in raw.decode().split("\n\n") if f]
+    assert frames and frames[-1] == "data: [DONE]", f"SSE does not end in [DONE]: {frames[-1:]}"
+    assert all(f.startswith("data: ") for f in frames), "SSE frame without `data: `"
+    return [json.loads(f[6:]) for f in frames[:-1]]
+
+
+def serve_requests(url: str, max_tokens: int) -> dict:
+    """Eight concurrent greedy chat completions (distinct prompts), then two
+    streaming chats and one text completion together, then /health and
+    /v1/models; every response checked. Returns the counts."""
+    import threading
+
+    topics = ["the sky", "tides", "volcanoes", "bread", "prime numbers", "glaciers", "comets",
+              "bees"]
+    chats = [{"messages": [{"role": "system", "content": "Answer briefly."},
+                           {"role": "user", "content": f"Explain {t} to a child, step by step."}],
+              "max_tokens": max_tokens, "temperature": 0} for t in topics]
+    second = [("/v1/chat/completions", {"messages": [{"role": "user", "content": f"Tell me about "
+                                                      f"{t}."}], "max_tokens": max_tokens // 2,
+                                        "temperature": 0, "stream": True})
+              for t in ("rivers", "owls")]
+    second.append(("/v1/completions", {"prompt": "The history of the printing press",
+                                       "max_tokens": max_tokens // 2}))
+    results = {}
+
+    def go(key, route, body):
+        results[key] = http(url + route, body)
+
+    def together(jobs):
+        threads = [threading.Thread(target=go, args=job) for job in jobs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+
+    together([(i, "/v1/chat/completions", b) for i, b in enumerate(chats)])
+    together([(f"s{i}", route, b) for i, (route, b) in enumerate(second)])
+    completion_tokens = 0
+    finish = {}
+    for i, body in enumerate(chats):
+        status, raw = results[i]
+        assert status == 200, f"chat {i}: HTTP {status} {raw[:200]!r}"
+        r = json.loads(raw)
+        u, c = r["usage"], r["choices"][0]
+        assert r["object"] == "chat.completion" and c["message"]["role"] == "assistant"
+        assert u["prompt_tokens"] > 0 and 0 < u["completion_tokens"] <= max_tokens
+        assert u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
+        assert c["finish_reason"] in ("stop", "length")
+        assert c["finish_reason"] == "stop" or u["completion_tokens"] == max_tokens
+        completion_tokens += u["completion_tokens"]
+        finish[c["finish_reason"]] = finish.get(c["finish_reason"], 0) + 1
+    for i in range(2):
+        status, raw = results[f"s{i}"]
+        assert status == 200, f"stream {i}: HTTP {status}"
+        events = sse_events(raw)
+        assert events[0]["choices"][0]["delta"] == {"role": "assistant"}
+        assert events[-1]["choices"][0]["finish_reason"] in ("stop", "length")
+        assert all(e["object"] == "chat.completion.chunk" for e in events)
+    status, raw = results["s2"]
+    r = json.loads(raw)
+    assert status == 200 and r["object"] == "text_completion"
+    assert r["choices"][0]["finish_reason"] in ("stop", "length")
+    assert http(url + "/health") == (200, b'{"status": "ok"}')
+    status, raw = http(url + "/v1/models")
+    assert status == 200 and json.loads(raw)["data"][0]["object"] == "model"
+    assert http(url + "/v1/chat/completions", {"messages": []})[0] == 400
+    return dict(chat_requests=len(chats), stream_requests=2, completion_requests=1,
+                chat_completion_tokens=completion_tokens, chat_finish=finish)
+
+
+def decode_window_trace(engine, prompt_len: int = 128, window: int = 16) -> dict:
+    """Traced decode window of a batched engine with every lane active after
+    a `prompt_len`-token prefill, and generate_batch's aggregate decode tok/s
+    over 64 tokens per lane (host clock)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    b = engine.batch_size
+    prompts = [rng.integers(0, 128000, prompt_len).tolist() for _ in range(b)]
+    engine.metrics.decode_s = engine.metrics.decode_tokens = 0
+    engine.generate_batch(prompts, 65)
+    agg = engine.metrics.decode_tokens / engine.metrics.decode_s
+    engine.reset()
+    toks = np.array([engine.prefill_lane(i, p) for i, p in enumerate(prompts)], np.int32)
+    pos = np.full(b, prompt_len, np.int32)
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    tr = device_breakdown(lambda: engine.decode_window_run(toks, pos, np.ones(b, bool),
+                                                          limit=window))
+    tr["launches"] = {k: f.launches for k, f in fns.items()}
+    tr["agg_decode_tok_s"] = agg
+    engine.reset()
+    return tr
+
+
+def run_serving_path(dev, path: Path, rowq: bool, latency: bool) -> dict:
+    """`llamatpu_torch.cli serve -m <gguf> --batch-size 8 --paged [--rowq]`
+    in-process: the full-width, full-depth Q8_0 GGUF, PagedBatchEngine
+    (8 lanes, block 16, max_len 2048, prefill chunk 128, window 16) behind
+    BatchedInferenceService and make_server on 127.0.0.1. The HTTP run's
+    launch counts are held to the engine's own counts of decode steps and
+    prefill chunks; then a traced decode window, and (latency=True) the
+    serving-latency benchmark on the same engine."""
+    import threading
+
+    import torch
+
+    from llamatpu_torch.bench.serving_latency import run_latency_bench
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.runtime.paged_engine import PagedBatchEngine
+    from llamatpu_torch.server.openai_server import make_server
+    from llamatpu_torch.server.service import BatchedInferenceService
+
+    label = "serve_rowq" if rowq else "serve"
+    t0 = time.perf_counter()
+    model = load_model(str(path), max_tokens=2048)
+    engine = PagedBatchEngine(model, batch_size=8, block_size=16, max_len=2048,
+                              prefill_chunk=128, decode_window=16, rowq=rowq, device=dev)
+    svc = BatchedInferenceService(model, engine)
+    srv = make_server(svc, "127.0.0.1", 0, model_id="llama32-1b")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    log(f"{label}: {model.quant_label}{' -> q8_row' if rowq else ''} served on {url} in "
+        f"{time.perf_counter() - t0:.1f} s (pool {engine.n_blocks} blocks of 16, "
+        f"{engine.cache.kv_pool.numel() * 2 / 1e6:.0f} MB)")
+    L = model.cfg.n_layers
+    try:
+        # warm-up: the kernels' first launches and the allocator's first blocks
+        assert http(url + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hi"}], "max_tokens": 4})[0] == 200
+        torch.cuda.synchronize()
+        fns = counters()
+        for f in fns.values():
+            f.launches = 0
+        steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+        t0 = time.perf_counter()
+        res = serve_requests(url, 64)
+        res["wall_s"] = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in fns.items()}
+        steps, chunks = engine.decode_steps - steps0, engine.prefill_chunks - chunks0
+        assert svc.batcher.errors == [], f"{label}: scheduler errors {svc.batcher.errors}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.batcher.shutdown()
+    want = {k: 0 for k in fns}
+    if rowq:  # K2 + K8 + K9 per layer and step; chunks of 128 rows take K4
+        want.update(rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
+                    decode_attention_paged=L * steps, layer_tail_fused_rowq=L * steps,
+                    rowq_gemm=4 * L * chunks)
+    else:  # K5 for the 4 projections of every layer and the head; K8 per layer
+        want.update(block_matmul=(4 * L + 1) * (steps + chunks),
+                    decode_attention_paged=L * steps)
+    assert launches == want, f"{label}: launch counts {launches} != {want} " \
+                             f"({steps} steps, {chunks} chunks)"
+    res.update(launches=launches, decode_steps=steps, prefill_chunks=chunks,
+               completion_tok_s=res["chat_completion_tokens"] / res["wall_s"])
+    log(f"{label}: HTTP run {res['wall_s']:.2f} s, {steps} decode steps, {chunks} prefill "
+        f"chunks, launches {launches}, chat finish {res['chat_finish']}, no scheduler error")
+    res["decode16_trace"] = decode_window_trace(engine)
+    tr = res["decode16_trace"]
+    log(f"{label}: traced 16-step window at B=8: device busy {tr['busy_ms']:.3f} of "
+        f"{tr['wall_ms']:.3f} ms (idle share {tr['idle_share']:.3f}); generate_batch "
+        f"aggregate decode {tr['agg_decode_tok_s']:.1f} tok/s; top "
+        f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:6]]}")
+    if latency:
+        t0 = time.perf_counter()
+        lat = run_latency_bench(engine, n_requests=16, prompt_len=128, max_new=64,
+                                adversary_prompt_len=1024)
+        assert lat["scheduler_errors"] == [], f"latency bench: {lat['scheduler_errors']}"
+        lat["seconds"] = time.perf_counter() - t0
+        res["latency"] = lat
+        log("latency: " + json.dumps({k: v for k, v in lat.items() if not isinstance(v, list)}))
+    del engine, svc, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_dense_batch_path(dev, overrides=None) -> dict:
+    """BatchEngine over the dense batched cache, q8_row, full width and 4
+    layers, 8 lanes: generate_batch of 8 prompts of different lengths, 32
+    tokens each; K6 at each lane's position and K2 + K9 at 8 rows per layer
+    and step."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.runtime.batch_engine import BatchEngine
+
+    model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=1024, n_layers=4,
+                                  overrides=overrides)
+    engine = BatchEngine(model, batch_size=8, cache_len=1024, prefill_chunk=128,
+                         decode_window=16, rowq=True, device=dev)
+    L = model.cfg.n_layers
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).tolist()
+               for n in (20, 57, 128, 129, 200, 31, 300, 90)]
+    engine.generate_batch(prompts[:2], 4)  # warm-up
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+    t0 = time.perf_counter()
+    outs = engine.generate_batch(prompts, 32)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    steps, chunks = engine.decode_steps - steps0, engine.prefill_chunks - chunks0
+    assert [len(o) for o in outs] == [32] * 8 and all(
+        0 <= t < model.cfg.vocab_size for o in outs for t in o), "dense batch: outputs"
+    want = {k: 0 for k in fns}
+    want.update(rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
+                decode_attention_fused_write=L * steps, layer_tail_fused_rowq=L * steps,
+                rowq_gemm=4 * L * chunks)
+    assert launches == want, f"dense batch: launch counts {launches} != {want}"
+    res = dict(wall_s=wall, decode_steps=steps, prefill_chunks=chunks, launches=launches,
+               decode_tok_s=engine.metrics.decode_tokens / max(engine.metrics.decode_s, 1e-9))
+    log(f"dense batch: 8 lanes x 32 tokens in {wall:.2f} s, {steps} steps, {chunks} chunks, "
+        f"launches {launches}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def paged_prefill_logits(engine, prompt: list[int]):
+    """Last-token logits of a one-chunk prefill of lane 0 of a paged engine."""
+    import torch
+
+    from llamatpu_torch.models.transformer import forward_tokens, pad_chunk_len
+
+    n = len(prompt)
+    assert engine.alloc.ensure(0, n, engine.block_size)
+    arr = torch.tensor([prompt + [0] * (pad_chunk_len(n, engine.prefill_chunk) - n)],
+                       device=engine.device)
+    logits, _ = forward_tokens(engine.cfg, engine.weights, arr, engine.cache, 0,
+                               logit_index=n - 1, tables=engine._tables(slice(0, 1)))
+    return logits.float().cpu()
+
+
+def compare_paged(dev, model) -> dict:
+    """PagedBatchEngine on the card against the CPU, f32: a 64-token
+    prefill's logits, and generate_batch on 3 prompts, 16 tokens."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 128000, n).tolist() for n in (64, 37, 100)]
+    res = {}
+    for where in (dev, "cpu"):
+        e = PagedBatchEngine(model, batch_size=3, block_size=16, max_len=1024, prefill_chunk=128,
+                             decode_window=16, cache_dtype=torch.float32, device=where)
+        lg = paged_prefill_logits(e, prompts[0])
+        e.reset()
+        res[str(where)] = (lg, e.generate_batch(prompts, 16))
+        del e
+    (lg, tg), (lc, tc) = res[str(dev)], res["cpu"]
+    d = (lg - lc).abs().max().item()
+    agree = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(y))
+             for x, y in zip(tg, tc)]
+    out = dict(logits_max_abs=d, logits_rel=d / lc.abs().max().item(), greedy_agree=agree,
+               greedy_n=[len(y) for y in tc])
+    log(f"cpu paged f32: 64-token prefill logits card vs cpu max abs {d:.4g} "
+        f"(rel {out['logits_rel']:.3g}); generate_batch greedy agreement per lane {agree} of 16")
+    return out
 
 
 def compare_engines(dev, model, n: int, cdt, label: str, **kw) -> dict:
@@ -819,9 +1334,10 @@ def run_cpu_compare(dev, workdir: Path, overrides=None) -> dict:
     path = make_gguf(workdir, "q8_0", n_layers=2, overrides=overrides)
     model = load_model(str(path), max_tokens=1024, param_dtype=torch.float32)
     out["gguf_f32"] = compare_engines(dev, model, 64, torch.float32, "gguf q8_0 f32")
+    out["paged_f32"] = compare_paged(dev, model)
     path.unlink()
     # f32 sums in another order than the CPU's, over two layers and the head
-    for k in ("f32", "gguf_f32"):
+    for k in ("f32", "gguf_f32", "paged_f32"):
         assert out[k]["logits_rel"] <= 1e-4, f"card and CPU disagree ({k}): {out[k]}"
     return out
 
@@ -857,13 +1373,20 @@ def main() -> int:
     workdir = Path(__file__).resolve().parent / "build" / "smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
-        rows = check_kernels(dev) + check_block_kernels(dev)
-        paths = {"main": run_main_path(dev), "gguf": run_gguf_path(dev, workdir),
-                 "pack4": run_pack4_path(dev, workdir)}
+        rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev)
+        paths = {"main": run_main_path(dev), "gguf": run_gguf_path(dev, workdir)}
+        gguf = workdir / paths["gguf"]["gguf_file"]  # written by the gguf phase
+        paths["serve"] = run_serving_path(dev, gguf, rowq=False, latency=True)
+        paths["serve_rowq"] = run_serving_path(dev, gguf, rowq=True, latency=False)
+        gguf.unlink()
+        paths["pack4"] = run_pack4_path(dev, workdir)
+        paths["dense_batch"] = run_dense_batch_path(dev)
         summary.update(paths)
         for r in rows:
             r["launches"] = paths[IN_PATH[r["name"]][0]]["launches"][r["name"]]
             r["in_path_ms"] = in_path_ms(paths, r["name"])
+            if r["name"] == "layer_tail_fused_rowq":  # K3's tail at T = 1, beside K9's
+                r["k3_in_path_ms"] = in_path_ms(paths, "layer_attn_tail_fused_rowq")
         summary["cpu"] = run_cpu_compare(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -41,6 +42,8 @@ _SIGNATURES = {
         "lt_attn_tail": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P),
+        "lt_tail": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _I, _P),
     },
     "gemm": {
         "lt_rowq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -51,10 +54,15 @@ _SIGNATURES = {
     "attention": {
         "lt_decode_attention": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
                                 _P, _P, _P, _I, _P),
+        "lt_paged_attention": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _P, _P, _P, _I, _P),
     },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+# the serving scheduler launches kernels from its own thread, so the first
+# build and load of a library may race another thread's
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -107,10 +115,17 @@ def build(names=SOURCES, verbose: bool = False) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library `name`, building it first if needed."""
+    """The built library `name`, building it first if needed (thread-safe)."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
+    with _load_lock:
+        if name not in _libs:
+            _libs[name] = _load_unlocked(name)
+        return _libs[name]
+
+
+def _load_unlocked(name: str) -> ctypes.CDLL:
     build([name])
     lib = ctypes.CDLL(str(_target(name)))
     for fn, argtypes in _SIGNATURES[name].items():
@@ -119,7 +134,6 @@ def load(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     lib.lt_error_string.argtypes = [ctypes.c_int]
     lib.lt_error_string.restype = ctypes.c_char_p
-    _libs[name] = lib
     return lib
 
 

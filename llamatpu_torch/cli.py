@@ -1,9 +1,10 @@
-"""The port's command line (the `run` and `validate` commands of
+"""The port's command line (the `run`, `validate` and `serve` commands of
 llamatpu/cli.py), on the card by default:
 
     python -m llamatpu_torch.cli run -m model.gguf -p "Why is the sky blue?"
     python -m llamatpu_torch.cli run -m model.gguf -p "..." --device cpu
     python -m llamatpu_torch.cli validate -m model.gguf --dtype f32
+    python -m llamatpu_torch.cli serve -m model.gguf --batch-size 8 --paged
 
 A Llama 3 GGUF in Q8_0 or Q4_0 loads as block quants (`--pack4` packs Q4_0
 two values per byte; `--rowq` requantizes Q8_0 to per-row int8 and takes the
@@ -14,7 +15,12 @@ unless --temperature / --top-p say otherwise, and streamed to stdout.
 The JAX package's TPU-only flags (--impl, --dump-hlo, --profile-dir) have no
 counterpart here. Flags and commands of later slices of the port are
 accepted and raise, naming the slice: --tp/--dp/--sp/--pipeline/--ep,
---spec-decode, --kv-dtype int8, and serve/bench/ppl/convert.
+--spec-decode, --kv-dtype int8, and bench/ppl/convert.
+
+`serve` answers the OpenAI API (server/openai_server.py): --batch-size 1
+runs one Engine behind a lock with KV prefix reuse; --batch-size N runs N
+lanes through the continuous batcher, over a dense batched cache or, with
+--paged, a shared block pool with block-level prefix caching.
 """
 from __future__ import annotations
 
@@ -25,8 +31,7 @@ import sys
 _LATER_FLAGS = (("tp", 0, "parallelism"), ("dp", 1, "parallelism"), ("sp", 1, "parallelism"),
                 ("pipeline", 1, "parallelism"), ("ep", False, "MoE/parallelism"),
                 ("spec_decode", 0, "speculative-decode"))
-_LATER_COMMANDS = {"serve": "serving", "bench": "benchmark", "ppl": "benchmark",
-                   "convert": "quant-breadth"}
+_LATER_COMMANDS = {"bench": "benchmark", "ppl": "benchmark", "convert": "quant-breadth"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,6 +90,22 @@ def build_parser() -> argparse.ArgumentParser:
                      help="write the observed outputs as the golden fixture")
     val.add_argument("--prompt", "-p", default="The capital of France is",
                      help="deterministic probe prompt")
+
+    srv = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
+    common(srv)
+    srv.add_argument("--host", default="127.0.0.1")
+    srv.add_argument("--port", type=int, default=8080)
+    srv.add_argument("--batch-size", type=int, default=1,
+                     help=">1: continuous batching across this many cache lanes")
+    srv.add_argument("--paged", action="store_true",
+                     help="with --batch-size > 1: paged KV block pool + prefix caching")
+    srv.add_argument("--kv-blocks", type=int, default=0,
+                     help="paged pool size in blocks (0 = half the dense footprint)")
+    srv.add_argument("--kv-block-size", type=int, default=16)
+    srv.add_argument("--no-prefix-cache", action="store_true",
+                     help="disable KV prefix reuse across requests")
+    srv.add_argument("--interleave-decode-steps", type=int, default=4,
+                     help="decode steps between prefill chunks while a prompt is ingested")
 
     for name, slice_name in _LATER_COMMANDS.items():
         sub.add_parser(name, help=f"({slice_name} slice of the port)", add_help=False)
@@ -171,6 +192,11 @@ def main(argv=None) -> int:
     _check_flags(args)
     if args.command == "run":
         return cmd_run(args)
+    if args.command == "serve":
+        from llamatpu_torch.server.openai_server import serve
+
+        serve(args)
+        return 0
     from llamatpu_torch.bench.validate import validate
 
     return validate(args)

@@ -1,10 +1,13 @@
-// K2 and K3: the two fused calls of a q8_row decode layer (T = 1, B = 1).
+// K2, K3 and K9: the fused calls of a q8_row decode layer.
 //
 // K2 replaces llamatpu/ops/layer_fused.py `_qkv_kernel`: h = rmsnorm(x) *
 // attn_norm[li], rounded to the working dtype, then y = (h . wqkv[li]^T) * s.
 // Bound on the H100: bytes (3072 x 2048 int8 = 6.3 MB per llama32-1b layer,
 // ~1.9 us). Design: gemv.cuh with the norm as its prologue; every block
-// recomputes the norm of x (2048 values) instead of a second launch.
+// recomputes the norm of x (2048 values) instead of a second launch. At T
+// rows (the lanes of a batched decode step) the grid has a row per token, so
+// the weights are read T times; K9's tiled GEMV, which reads them once,
+// measured no faster at 8 and 32 rows.
 //
 // K3 replaces llamatpu/ops/layer_fused.py `_attn_tail_kernel` (megakernel
 // v3): append this token's post-RoPE K|V row at `pos`; masked f32 GQA
@@ -27,6 +30,27 @@
 // is cast to the cache dtype before it is attended; aflat, h and act are
 // rounded to the working dtype; x2 stays f32; the output is cast to x's dtype;
 // the cache is written only at `pos`.
+//
+// K9 replaces llamatpu/ops/layer_fused.py `_tail_kernel` (through
+// `layer_tail_fused_rowq`): everything after attention for T <= 32 rows (the
+// B lanes of a batched decode step): x2 = x + rs * (attn . wo^T) * so (f32);
+// h = round(x2 * rsqrt(mean(x2^2) + eps) * ffn_norm); gate | up =
+// (h . w13^T) * s13; act = round(gate * sigmoid(gate) * up) from the f32 gate
+// and up; out = x2 + rs * (act . w2^T) * s2, cast to x's dtype ("round" = to
+// the working dtype: f32 for f32 x, else bf16). Bound on the H100: the weight
+// stream, wo 4.19 + w13 33.55 + w2 16.78 = 54.5 MB per llama32-1b layer
+// (16.3 us) at every T <= 32. Design: K3's three tail phases generalized to T
+// rows, one C entry point issuing three launches in stream order (the scratch
+// x2 and act in device buffers from the wrapper), each the tiled GEMV of
+// gemv.cuh: a warp per output row reads that row once for all T rows, 16
+// bytes per lane and load, the activations staged in shared memory in the
+// working dtype, 1024 columns at a time (at T = 32, f32 and F = 8192 a whole
+// row set would not fit in 227 KB). Every row's activations are read from
+// shared memory once per weight row, so the shared-memory traffic grows with
+// T; a tensor-core tile would read them once per 16 rows (later work).
+// On the TPU one sequential grid carried x2, h, g13 and act in VMEM scratch
+// from phase to phase; here rmsnorm needs all of x2 and w2 all of act, so the
+// phases are separate launches.
 #include "gemv.cuh"
 
 LT_DEFINE_ERROR_STRING
@@ -312,4 +336,77 @@ LT_EXPORT int lt_attn_tail(const void* q, const void* kvn, int x_dtype, void* kv
   d.O = D;
   d.I = F;
   return lt::gemv_launch<1, lt::P_COPY, lt::E_RESID_OUT>(d, st);
+}
+
+namespace {
+
+template <int MAXT, typename XT>
+int tail_phases(const lt::GemvArgs& b, const lt::GemvArgs& c, const lt::GemvArgs& d,
+                cudaStream_t st) {
+  int e = lt::gemv_tiled_launch<MAXT, XT, lt::P_COPY, lt::E_RESID>(b, st);
+  if (e) return e;
+  e = lt::gemv_tiled_launch<MAXT, XT, lt::P_RMSNORM, lt::E_SILU_PAIR>(c, st);
+  if (e) return e;
+  return lt::gemv_tiled_launch<MAXT, XT, lt::P_COPY, lt::E_RESID_OUT>(d, st);
+}
+
+}  // namespace
+
+// K9. attn [T, H], x [T, D] (x_dtype); ffn_norm [D] f32; wo [D, H], w13
+// [2F, D], w2 [D, F] int8 with f32 row scales so, s13, s2; scratch x2 [T, D],
+// act [T, F] f32; out [T, D] (x_dtype). T <= 32.
+LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* ffn_norm,
+                      float eps, float rs, const void* wo, const void* so, const void* w13,
+                      const void* s13, const void* w2, const void* s2, void* x2, void* act,
+                      void* out, int T, int D, int H, int F, int dot_dtype, void* stream) {
+  if (T < 1 || T > 32 || D % 4 || H % 4 || F % 4) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 1. x2 = x + rs * (attn . wo^T) * so, f32
+  lt::GemvArgs b = {};
+  b.x = attn;
+  b.x_dtype = x_dtype;
+  b.dot_dtype = dot_dtype;
+  b.w = static_cast<const int8_t*>(wo);
+  b.s = static_cast<const float*>(so);
+  b.rs = rs;
+  b.res = x;
+  b.res_dtype = x_dtype;
+  b.y = x2;
+  b.y_dtype = LT_F32;
+  b.T = T;
+  b.O = D;
+  b.I = H;
+  // 2. h = round(rmsnorm(x2) * ffn_norm); act = round(silu(gate) * up)
+  lt::GemvArgs c = {};
+  c.x = x2;
+  c.x_dtype = LT_F32;
+  c.norm_w = static_cast<const float*>(ffn_norm);
+  c.eps = eps;
+  c.dot_dtype = dot_dtype;
+  c.w = static_cast<const int8_t*>(w13);
+  c.s = static_cast<const float*>(s13);
+  c.y = act;
+  c.y_dtype = LT_F32;
+  c.T = T;
+  c.O = 2 * F;
+  c.I = D;
+  // 3. out = x2 + rs * (act . w2^T) * s2, cast to x's dtype
+  lt::GemvArgs d = {};
+  d.x = act;
+  d.x_dtype = LT_F32;
+  d.dot_dtype = dot_dtype;
+  d.w = static_cast<const int8_t*>(w2);
+  d.s = static_cast<const float*>(s2);
+  d.rs = rs;
+  d.res = x2;
+  d.res_dtype = LT_F32;
+  d.y = out;
+  d.y_dtype = x_dtype;
+  d.T = T;
+  d.O = D;
+  d.I = F;
+  if (dot_dtype == LT_F32)
+    return T <= 8 ? tail_phases<8, float>(b, c, d, st) : tail_phases<32, float>(b, c, d, st);
+  return T <= 8 ? tail_phases<8, __nv_bfloat16>(b, c, d, st)
+                : tail_phases<32, __nv_bfloat16>(b, c, d, st);
 }

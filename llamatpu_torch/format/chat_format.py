@@ -1,14 +1,15 @@
-"""Chat formats: prompt templates, stop tokens and default sampling
-parameters. The port's copy of the Llama 3 part of
-llamatpu/format/chat_format.py (`Message`, `Role`, the `ChatFormat` base,
-`LlamaChatFormat`, `build_chat_format`). Tool-calling encodings belong to
-the serving slice and the other families' formats to the family-deltas
-slice of the port.
+"""Chat formats: prompt templates, stop tokens, default sampling
+parameters and tool-calling encodings. The port's copy of the Llama 3 part
+of llamatpu/format/chat_format.py (`Message`, `Role`, the `ChatFormat` base
+with its tool-calling defaults, `LlamaChatFormat`, `build_chat_format`). The
+other families' formats belong to the family-deltas slice of the port.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from llamatpu_torch.format.tool_parser import (ToolCall, parse_all_tool_calls,
+                                               parse_tool_call_response)
 from llamatpu_torch.models.config import Family
 
 
@@ -54,6 +55,38 @@ class ChatFormat:
     def default_top_p(self) -> float:
         return 0.9
 
+    # -- tool calling (defaults: unsupported) -----------------------------
+    def supports_tool_calling(self) -> bool:
+        return False
+
+    def tool_system_prompt_suffix(self, tools_json: str) -> str:
+        raise NotImplementedError(f"tool calling not supported for {type(self).__name__}")
+
+    def injects_tools_in_user_message(self) -> bool:
+        return False
+
+    def tool_system_message_prefix(self) -> str:
+        return ""
+
+    def tool_first_user_message_prefix(self, tools_json: str) -> str:
+        return ""
+
+    def encode_tool_call_assistant_turn(self, tool_calls: list[ToolCall]) -> list[int]:
+        raise NotImplementedError(f"tool calling not supported for {type(self).__name__}")
+
+    def encode_tool_result_turn(self, call_id: str, tool_name: str, result: str) -> list[int]:
+        raise NotImplementedError(f"tool calling not supported for {type(self).__name__}")
+
+    def extract_tool_call(self, text: str) -> ToolCall | None:
+        return None
+
+    def extract_all_tool_calls(self, text: str) -> list[ToolCall]:
+        tc = self.extract_tool_call(text)
+        return [tc] if tc else []
+
+    def tool_aware_stop_tokens(self) -> set[int]:
+        return self.stop_tokens()
+
     # -- thinking control --------------------------------------------------
     def supports_thinking(self) -> bool:
         return False
@@ -96,6 +129,8 @@ class LlamaChatFormat(ChatFormat):
         self.end_header = self._sp("<|end_header_id|>")
         self.eot = self._sp("<|eot_id|>")
         self.eos = self._sp("<|end_of_text|>")
+        self.eom = self._sp("<|eom_id|>")             # Llama 3.1 only
+        self.python_tag = self._sp("<|python_tag|>")  # Llama 3.1 only
 
     def begin_of_text(self):
         return self.bot
@@ -114,6 +149,50 @@ class LlamaChatFormat(ChatFormat):
 
     def default_top_p(self):
         return 0.95
+
+    # tools: Llama 3.2 injects the definitions into the FIRST user message
+    def supports_tool_calling(self):
+        return True
+
+    def injects_tools_in_user_message(self):
+        return True
+
+    def tool_system_message_prefix(self):
+        return "Environment: ipython\n\n"
+
+    def tool_first_user_message_prefix(self, tools_json):
+        return (
+            "Given the following functions, please respond with a JSON for a function call "
+            "with its proper arguments that best answers the given prompt.\n\n"
+            'Respond in the format {"name": function name, "parameters": dictionary of '
+            "argument name and its value}. Do not use variables.\n\n" + tools_json + "\n\n"
+        )
+
+    def encode_tool_call_assistant_turn(self, tool_calls):
+        tokens = self.encode_header(Message(Role.ASSISTANT, ""))
+        for tc in tool_calls:
+            if self.python_tag != -1:
+                tokens.append(self.python_tag)
+            tokens.extend(self._enc('{"name": "%s", "parameters": %s}'
+                                    % (tc.name, tc.arguments_json)))
+        tokens.append(self.eom if self.eom != -1 else self.eot)
+        return tokens
+
+    def encode_tool_result_turn(self, call_id, tool_name, result):
+        return [self.start_header, *self._enc("ipython"), self.end_header,
+                *self._enc("\n"), *self._enc(result), self.eot]
+
+    def extract_tool_call(self, text):
+        return parse_tool_call_response(text)
+
+    def extract_all_tool_calls(self, text):
+        return parse_all_tool_calls(text)
+
+    def tool_aware_stop_tokens(self):
+        s = self.stop_tokens()
+        if self.eom != -1:
+            s = s | {self.eom}
+        return s
 
 
 def build_chat_format(family: Family, tokenizer, md: dict | None = None) -> ChatFormat:

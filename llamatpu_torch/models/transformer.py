@@ -1,30 +1,39 @@
-"""The transformer forward of the port: dense Llama family, packed KV cache,
-q8_row or block-quant (Q8_0 / Q4_0 / packed4) or dense weights.
+"""The transformer forward of the port: dense Llama family, packed KV cache
+(dense per lane, or a shared paged block pool), q8_row or block-quant (Q8_0 /
+Q4_0 / packed4) or dense weights.
 
 The port of llamatpu/models/transformer.py's main path. Prefill and decode
-are one function over a [B, T] token window that writes the KV cache at
-`pos`. Layers run as a Python loop over the stacked weights; a layer's
-weights are the views w.qs[li], and the cache is updated IN PLACE (the JAX
-package carried it through its layer scan and donated it).
+are one function over a [B, T] token window at per-lane start positions
+`pos` (a host int, or a device [B] vector: the batched decode reads lane
+positions on the card, with no host sync). Layers run as a Python loop over
+the stacked weights; a layer's weights are the views w.qs[li], and the cache
+is updated IN PLACE (the JAX package carried it through its layer scan and
+donated it).
 
-Per layer:
-- decode with q8_row weights (B = 1, T = 1): K2 (rmsnorm + wqkv,
-  ops/layer_fused.py), RoPE, then K3 (KV append + attention + wo + FFN);
-- decode with any other weights (T = 1): rmsnorm, wqkv through ops/matmul.py
-  (K5 / K7 for block quants), RoPE, then K6 (KV append + attention,
-  ops/attention.py), then the unfused tail (wo, residual, rmsnorm, w13,
-  silu * up, w2, residual). The JAX package's fused q8_row kernels decline
-  block quants and take this path (`transformer.py:438-440, 602-609, 699`);
-- otherwise (prefill): the unfused chain with the dtype of every step as the
-  JAX package's (`transformer.py:699-712`, `_dense_ffn`): bf16 residual stream
-  between ops, f32 masked softmax, projections through ops/matmul.py (K5 / K7
-  for block quants; for q8_row K1 below 128 rows, K4 at 128 and above).
-The JAX package's fused decode kernels serve caches shorter than its
-split-attention threshold; K3 and K6 serve every length (on the TPU that
-limit is VMEM, which this card does not have).
+Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
+429-437, 561-595, 684-695`):
+- q8_row weights: rmsnorm + wqkv is K2 for R <= 32 (ops/layer_fused.py),
+  else the plain rmsnorm and the matmul dispatch (K1 below 128 rows, K4 at
+  128 and above);
+- q8_row weights at B = T = 1 on a dense cache (no batch_offset, a host
+  int pos): K3, KV append + attention + the whole tail in one call;
+- otherwise attention (below), then for q8_row weights and R <= 32 K9 (wo +
+  residual + rmsnorm + w13 + silu * up + w2 + residual), else the unfused
+  tail with the JAX package's dtypes (`transformer.py:699-712`, `_dense_ffn`):
+  bf16 residual stream between ops, projections through ops/matmul.py (K5 /
+  K7 for block quants);
+- attention at T = 1: dense cache without batch_offset, K6 (KV append +
+  attention, ops/attention.py) at each lane's pos; paged pool, the KV write
+  (`runtime/paged_cache.paged_write_stacked`) then K8 through the tables;
+- attention otherwise (prefill, lane prefill into a wider cache through
+  `batch_offset`): the KV rows written, then the plain f32 masked attention
+  over the lane's rows (a gathered dense view for the paged pool).
+The JAX package takes its fused q8_row kernels only where its TPU tiling
+accepts the widths (multiples of 128); the port takes them at every width,
+as K3 and K6 serve every cache length.
 
-Qkv bias, q/k norm, MoE, int8 KV, paged caches and sharding raise until their
-slices of the port.
+Qkv bias, q/k norm, MoE, int8 KV and sharding raise until their slices of the
+port.
 """
 from __future__ import annotations
 
@@ -35,11 +44,13 @@ import torch.nn.functional as F
 
 from llamatpu_torch.models.config import ModelConfig
 from llamatpu_torch.models.weights import QTensor
-from llamatpu_torch.ops.attention import decode_attention_fused_write
-from llamatpu_torch.ops.layer_fused import layer_attn_tail_fused_rowq, qkv_norm_fused_rowq
+from llamatpu_torch.ops.attention import decode_attention_fused_write, decode_attention_paged
+from llamatpu_torch.ops.layer_fused import (MAX_T, layer_attn_tail_fused_rowq,
+                                            layer_tail_fused_rowq, qkv_norm_fused_rowq)
 from llamatpu_torch.ops.matmul import matmul
 from llamatpu_torch.ops.rmsnorm import rmsnorm
 from llamatpu_torch.ops.rope import apply_rope
+from llamatpu_torch.runtime.paged_cache import PagedKVCache, paged_gather, paged_write_stacked
 
 
 @dataclass
@@ -81,15 +92,16 @@ def init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, length: int |
                                dtype=dtype, device=device))
 
 
-def _attention(cfg: ModelConfig, q, kc, vc, pos: int, t_len: int):
+def _attention(cfg: ModelConfig, q, kc, vc, pos_vec: torch.Tensor, t_len: int):
     """Masked GQA attention over the cache, f32 scores and softmax.
-    q [B, T, KV, G, hd]; kc [B, KV, S, hd]; vc [B, KV, S, vhd]. Key s is
-    valid for query t iff s <= pos + t. Returns [B, T, KV, G, vhd] f32."""
+    q [B, T, KV, G, hd]; kc [B, KV, S, hd]; vc [B, KV, S, vhd]; pos_vec [B].
+    Key s is valid for query t of lane b iff s <= pos_vec[b] + t. Returns
+    [B, T, KV, G, vhd] f32."""
     scores = torch.einsum("btkgh,bksh->bkgts", q.float(), kc.float()) * cfg.attn_score_scale
     s_idx = torch.arange(kc.shape[2], device=q.device)
     t_idx = torch.arange(t_len, device=q.device)
-    mask = s_idx[None, :] <= (pos + t_idx)[:, None]   # [T, S]
-    scores = scores.masked_fill(~mask, float("-inf"))
+    mask = s_idx[None, None, :] <= (pos_vec.long()[:, None] + t_idx[None, :])[:, :, None]
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     att = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgts,bksv->btkgv", att, vc.float())
 
@@ -102,14 +114,15 @@ def embed_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor) -> torch.Tenso
     return x
 
 
-def rope_slices(weights, pos: int, t: int):
-    """RoPE table rows for positions pos..pos+t-1: [1, T, 1, half] cos/sin.
-    Positions past the table (the padded tail of a final chunk) clamp to its
-    last row, as the JAX package's gather does."""
+def rope_slices(weights, pos_vec: torch.Tensor, t: int):
+    """Per-lane RoPE table rows for positions pos_vec[b]..pos_vec[b]+t-1:
+    [B, T, 1, half] cos/sin. Positions past the table (the padded tail of a
+    final chunk, a parked lane) clamp to its last row, as the JAX package's
+    gather does."""
     table = weights["rope_cos"]
-    positions = torch.clamp(pos + torch.arange(t, device=table.device), max=table.shape[0] - 1)
-    return (table[positions][None, :, None, :],
-            weights["rope_sin"][positions][None, :, None, :])
+    positions = pos_vec.long()[:, None] + torch.arange(t, device=table.device)[None, :]
+    positions = torch.clamp(positions, max=table.shape[0] - 1)
+    return table[positions][:, :, None, :], weights["rope_sin"][positions][:, :, None, :]
 
 
 def finish_logits(cfg: ModelConfig, weights, x, last_logit_only=False, logit_index=None):
@@ -126,10 +139,18 @@ def finish_logits(cfg: ModelConfig, weights, x, last_logit_only=False, logit_ind
     return logits
 
 
-def _write_rows(kv: torch.Tensor, new: torch.Tensor, li: int, pos: int) -> None:
-    """Write new [B, KV, T, hd + vhd] rows into the stacked cache at layer li,
-    positions pos.. (in place)."""
-    kv[li, :, :, pos:pos + new.shape[2]] = new.to(kv.dtype)
+def _write_rows(kv: torch.Tensor, new: torch.Tensor, li: int, pos, row0: int) -> None:
+    """Write new [B, T, KV, hd + vhd] rows into the stacked cache
+    [L, Ball, KV, S, hd + vhd] at layer li, batch rows row0.., positions
+    pos.. of each lane (a host int, or a [B] vector), in place."""
+    b, t = new.shape[:2]
+    if isinstance(pos, int):
+        kv[li, row0:row0 + b, :, pos:pos + t] = new.transpose(1, 2).to(kv.dtype)
+        return
+    rows = torch.arange(row0, row0 + b, device=kv.device)[:, None]
+    positions = pos.to(device=kv.device, dtype=torch.long)[:, None] \
+        + torch.arange(t, device=kv.device)[None, :]
+    kv[li][rows, :, positions] = new.to(kv.dtype)           # [B, T, KV, W]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -139,16 +160,21 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("MoE: MoE slice of the port")
 
 
-def _layer(cfg: ModelConfig, lw: dict, x, kv: torch.Tensor, li: int, pos: int, cos, sin,
-           s_limit: int | None, pos_vec: torch.Tensor | None):
+def _is_rowq(w) -> bool:
+    return isinstance(w, QTensor) and w.kind == "q8_row"
+
+
+def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Tensor, cos, sin,
+           s_limit: int | None, tables, batch_offset: int | None):
     b, t = x.shape[:2]
     nkv, g, hd = cfg.n_kv_heads, cfg.gqa_groups, cfg.head_dim
     eps, rs = cfg.rms_norm_eps, cfg.residual_scale
     if "wqkv" not in lw or "w13" not in lw:
         raise NotImplementedError("unfused projections: the port serves fused wqkv/w13")
-    wqkv = lw["wqkv"]
-    decode = b == 1 and t == 1 and isinstance(wqkv, QTensor) and wqkv.kind == "q8_row"
-    if decode:
+    paged = isinstance(cache, PagedKVCache)
+    rows = b * t
+    rowq = _is_rowq(lw["wqkv"])
+    if rowq and rows <= MAX_T:
         qkv = qkv_norm_fused_rowq(lw["wqkv"], lw["attn_norm"], x, li, eps)
     else:
         qkv = matmul(lw["wqkv"], rmsnorm(x, lw["attn_norm"][li], eps), li)
@@ -159,23 +185,40 @@ def _layer(cfg: ModelConfig, lw: dict, x, kv: torch.Tensor, li: int, pos: int, c
     q, k = qk[:, :, :cfg.n_heads], qk[:, :, cfg.n_heads:]
     v = qkv[..., qd + kd:].reshape(b, t, nkv, cfg.v_head_dim)
     kvnew = torch.cat([k, v], dim=-1)                 # [B, T, KV, hd + vhd]
-    if decode:
+    stacked = t == 1 and batch_offset is None
+    if (stacked and not paged and b == 1 and isinstance(pos, int) and rowq and _is_rowq(lw["wo"])
+            and _is_rowq(lw["w13"]) and _is_rowq(lw["w2"])):
         x, _ = layer_attn_tail_fused_rowq(
             lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q.reshape(b, nkv, g, hd),
-            kvnew[:, 0], kv, x, pos, li, eps, cfg.attn_score_scale, hd, rs)
+            kvnew[:, 0], cache.kv, x, pos, li, eps, cfg.attn_score_scale, hd, rs)
         return x
-    if t == 1:
-        attn, _ = decode_attention_fused_write(q.reshape(b, nkv, g, hd), kvnew[:, 0], kv,
+    if paged:
+        pool = paged_write_stacked(cache.kv_pool, li, kvnew, tables, pos_vec,
+                                   cache.block_size)
+        if stacked:
+            attn = decode_attention_paged(q.reshape(b, nkv, g, hd), pool, tables, pos_vec,
+                                          cfg.attn_score_scale, hd, li)
+        else:
+            kvd = paged_gather(pool[li], tables)
+            attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kvd[..., :hd], kvd[..., hd:],
+                              pos_vec, t)
+    elif stacked:
+        attn, _ = decode_attention_fused_write(q.reshape(b, nkv, g, hd), kvnew[:, 0], cache.kv,
                                                pos_vec, cfg.attn_score_scale, li, hd)
     else:
-        _write_rows(kv, kvnew.transpose(1, 2), li, pos)
-        kd_all, vd_all = kv[li, ..., :hd], kv[li, ..., hd:]
-        if s_limit and s_limit < kd_all.shape[2]:
+        row0 = batch_offset or 0
+        _write_rows(cache.kv, kvnew, li, pos, row0)
+        kvd = cache.kv[li, row0:row0 + b]
+        if s_limit and s_limit < kvd.shape[2]:
             # rows past the logical length are write slack, never attended
-            lim = -(-s_limit // 8) * 8
-            kd_all, vd_all = kd_all[:, :, :lim], vd_all[:, :, :lim]
-        attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kd_all, vd_all, pos, t)
+            kvd = kvd[:, :, :-(-s_limit // 8) * 8]
+        attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kvd[..., :hd], kvd[..., hd:],
+                          pos_vec, t)
     attn = attn.reshape(b, t, -1).to(x.dtype)
+    new_x = layer_tail_fused_rowq(lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], attn, x, li,
+                                  eps, rs)
+    if new_x is not None:
+        return new_x
     attn_out = matmul(lw["wo"], attn, li)
     if rs != 1.0:
         attn_out = (attn_out.float() * rs).to(x.dtype)
@@ -190,20 +233,33 @@ def _layer(cfg: ModelConfig, lw: dict, x, kv: torch.Tensor, li: int, pos: int, c
     return x + ffn
 
 
-def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache: KVCache, pos: int,
-                   last_logit_only=False, logit_index=None, s_limit: int | None = None):
+def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache, pos,
+                   last_logit_only=False, logit_index=None, s_limit: int | None = None,
+                   tables: torch.Tensor | None = None, batch_offset: int | None = None):
     """Run T tokens at absolute positions pos..pos+T-1 through the model.
 
-    tokens: int [B, T] on the weights' device; pos: the host-side start
-    position. The cache is written in place at those positions. Returns
-    (f32 logits, cache): [B, T, V], or [B, V] with last_logit_only or
-    logit_index (the last REAL token of a padded final prefill chunk)."""
+    tokens: int [B, T] on the weights' device. pos: a host int (every lane
+    at the same start) or an int [B] vector on the device (per-lane starts,
+    read on the card). cache: KVCache, or PagedKVCache with `tables`
+    [B, MAXBLK] int32 block tables on the device. batch_offset (dense cache
+    only): the window's B rows are cache rows [batch_offset, batch_offset +
+    B), e.g. one lane's prefill into the batched cache. The cache is written
+    in place. Returns (f32 logits, cache): [B, T, V], or [B, V] with
+    last_logit_only or logit_index (the last REAL token of a padded final
+    prefill chunk)."""
     _check_supported(cfg)
+    paged = isinstance(cache, PagedKVCache)
+    if paged and (tables is None or batch_offset is not None):
+        raise ValueError("a paged cache takes block tables and no batch_offset")
     b, t = tokens.shape
     x = embed_tokens(cfg, weights, tokens)
-    cos, sin = rope_slices(weights, pos, t)
-    # decode attention (K6) reads the position on the device: no host sync
-    pos_vec = torch.full((b,), pos, dtype=torch.int32, device=x.device) if t == 1 else None
+    if isinstance(pos, torch.Tensor):
+        pos_vec = pos.to(device=x.device, dtype=torch.int32)
+    else:
+        pos = int(pos)
+        pos_vec = torch.full((b,), pos, dtype=torch.int32, device=x.device)
+    cos, sin = rope_slices(weights, pos_vec, t)
     for li in range(cfg.n_layers):
-        x = _layer(cfg, weights["layers"], x, cache.kv, li, pos, cos, sin, s_limit, pos_vec)
+        x = _layer(cfg, weights["layers"], x, cache, li, pos, pos_vec, cos, sin, s_limit,
+                   tables, batch_offset)
     return finish_logits(cfg, weights, x, last_logit_only, logit_index), cache

@@ -1,6 +1,14 @@
-"""K6: the fused KV-append + decode attention of a layer (T = 1), the
-counterpart of llamatpu/ops/pallas_attention.py `_fused_write_kernel`
-(through `decode_attention_fused_write`).
+"""Decode attention kernels (T = 1):
+
+- K6 `decode_attention_fused_write`: the fused KV-append + decode attention
+  of a layer over the dense packed cache, the counterpart of
+  llamatpu/ops/pallas_attention.py `_fused_write_kernel` (through
+  `decode_attention_fused_write`);
+- K8 `decode_attention_paged`: decode attention over the shared paged block
+  pool through per-lane block tables, the counterpart of `_paged_kernel`
+  (body `_split_kernel`, through `decode_attention_paged`).
+
+K6:
 
 q [B, KV, G, hd] and kv_new [B, KV, hd + vhd] are this token's post-RoPE
 queries and packed K|V row; kvc is the packed stacked cache
@@ -13,10 +21,22 @@ softmax is e / sum(e); the output is [B, KV, G, vhd] f32.
 
 The TPU version serves caches below 8192 bf16 rows (its VMEM) and hands
 longer ones to `_split_kernel`; this card has no such limit, so K6 serves
-every length. CUDA source: csrc/attention.cu (design and bound in its
-header note). A CPU tensor takes the plain version; a CUDA tensor launches
-K6 or raises. Int8 caches (the TPU kernel's `quant=True` variant) belong to
-the int8-KV slice of the port.
+every length.
+
+K8: q [B, KV, G, hd] post-RoPE queries; the packed pool
+[L, NBLK, KV, BS, hd + vhd] (with layer_index) or [NBLK, KV, BS, hd + vhd];
+tables [B, MAXBLK] int32; pos_vec [B]. Row s of lane b's logical sequence
+lives in pool block tables[b, s // BS] at offset s % BS; scores are
+(q . k) * scale in f32 over rows s <= pos_vec[b], masked with NEG_INF, and
+the output is acc / l, [B, KV, G, vhd] f32. The KV row of this step is
+written before the call by `runtime/paged_cache.paged_write_stacked` (a
+plain index write, as the JAX package leaves it to XLA); unallocated table
+entries point at the trash block and lie past pos, so they are masked.
+
+CUDA source: csrc/attention.cu (designs and bounds in its header note). A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Int8 caches (the TPU kernels' `quant=True` variants) belong to the
+int8-KV slice of the port.
 """
 from __future__ import annotations
 
@@ -96,3 +116,81 @@ def decode_attention_fused_write(q: torch.Tensor, kv_new: torch.Tensor, kvc: tor
 
 
 decode_attention_fused_write.launches = 0
+
+
+# ----------------------------------------------------------------- K8
+def _check_paged(q, kv_pool, tables, hd, layer_index):
+    if kv_pool.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{kv_pool.dtype} KV pool: int8-KV slice of the port")
+    b, kvh, _, hdq = q.shape
+    pool_dims = 4 if layer_index is None else 5
+    bs = kv_pool.shape[-2]
+    if (hdq != hd or kv_pool.dim() != pool_dims or kv_pool.shape[-3] != kvh
+            or tables.dim() != 2 or tables.shape[0] != b or bs & (bs - 1)):
+        raise ValueError(f"decode_attention_paged: shapes q {tuple(q.shape)}, pool "
+                         f"{tuple(kv_pool.shape)}, tables {tuple(tables.shape)}, hd {hd}, "
+                         f"layer_index {layer_index} (block size a power of two)")
+
+
+def decode_attention_paged_plain(q, kv_pool, tables, pos_vec, scale: float,
+                                 hd: int | None = None, layer_index: int | None = None):
+    """Plain version of K8 (same arguments and result): the lane's blocks
+    gathered into a dense view, masked f32 scores, acc / l."""
+    hd = hd or q.shape[-1]
+    _check_paged(q, kv_pool, tables, hd, layer_index)
+    pool = kv_pool if layer_index is None else kv_pool[layer_index]
+    b, kvh = q.shape[:2]
+    nb, bs = tables.shape[1], pool.shape[-2]
+    g = pool[tables.long()]                                  # [B, MAXBLK, KV, BS, W]
+    kf = g.permute(0, 2, 1, 3, 4).reshape(b, kvh, nb * bs, pool.shape[-1]).float()
+    scores = torch.einsum("bkgh,bksh->bkgs", q.float(), kf[..., :hd]) * scale
+    pos = pos_vec.to(device=kf.device, dtype=torch.long)
+    s_idx = torch.arange(nb * bs, device=kf.device)
+    mask = (s_idx[None, :] <= pos[:, None])[:, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bkgs,bksv->bkgv", e, kf[..., hd:])
+    return acc / e.sum(dim=-1, keepdim=True)
+
+
+def decode_attention_paged(q: torch.Tensor, kv_pool: torch.Tensor, tables: torch.Tensor,
+                           pos_vec: torch.Tensor, scale: float, hd: int | None = None,
+                           layer_index: int | None = None) -> torch.Tensor:
+    """K8. Returns attn [B, KV, G, vhd] f32. tables (int32 [B, MAXBLK]) and
+    pos_vec (int [B]) live on the pool's device and are read by the kernel,
+    so the call does not wait for the host. The pool is only read."""
+    if kv_pool.device.type == "cpu":
+        return decode_attention_paged_plain(q, kv_pool, tables, pos_vec, scale, hd,
+                                            layer_index)
+    hd = hd or q.shape[-1]
+    _check_paged(q, kv_pool, tables, hd, layer_index)
+    b, kvh, g, _ = q.shape
+    bs, width = kv_pool.shape[-2], kv_pool.shape[-1]
+    vhd = width - hd
+    if g > 8 or hd % 8 or vhd % 8 or width > 256:
+        raise NotImplementedError("K8 takes G <= 8, hd and vhd multiples of 8, hd + vhd <= 256")
+    pool = kv_pool if layer_index is None else kv_pool[layer_index]
+    qc = q.contiguous()
+    tb = tables.to(dtype=torch.int32).contiguous()
+    pv = pos_vec.to(dtype=torch.int32).contiguous()
+    _build.require(pool.is_contiguous() and qc.device == pool.device == tb.device == pv.device
+                   and tuple(pv.shape) == (b,),
+                   "decode_attention_paged: contiguous pool, inputs on its device, pos_vec [B]")
+    maxblk = tb.shape[1]
+    s_len = maxblk * bs
+    nsplit = -(-s_len // CHUNK)
+    part_o = torch.empty((b, kvh, nsplit, g, vhd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, kvh, nsplit, g, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, kvh, g, vhd), dtype=torch.float32, device=q.device)
+    lib = _build.load("attention")
+    err = lib.lt_paged_attention(qc.data_ptr(), _build.dtype_code(qc), pool.data_ptr(),
+                                 _build.dtype_code(pool), tb.data_ptr(), pv.data_ptr(), b, kvh,
+                                 g, pool.shape[0], bs.bit_length() - 1, maxblk, hd, vhd,
+                                 float(scale), part_o.data_ptr(), part_ml.data_ptr(),
+                                 out.data_ptr(), nsplit, _build.stream())
+    _build.check(lib, err, "decode_attention_paged")
+    decode_attention_paged.launches += 1
+    return out
+
+
+decode_attention_paged.launches = 0

@@ -1,4 +1,4 @@
-"""K2 and K3: the two fused calls of a q8_row decode layer (B = 1, T = 1).
+"""K2, K3 and K9: the fused calls of a q8_row decode layer.
 
 - K2 `qkv_norm_fused_rowq`, counterpart of llamatpu/ops/layer_fused.py
   `_qkv_kernel`: h = rmsnorm(x) * attn_norm[li] rounded to the working dtype,
@@ -7,7 +7,13 @@
   (megakernel v3): append the post-RoPE K|V row at `pos` (the cache is
   updated IN PLACE, where the JAX package aliased it), masked f32 GQA
   attention over s <= pos, wo + residual (x2 in f32), rmsnorm, w13,
-  silu * up, w2 + residual.
+  silu * up, w2 + residual. B = 1, T = 1 on a dense cache.
+- K9 `layer_tail_fused_rowq`, counterpart of `_tail_kernel`: everything after
+  attention (wo + residual with x2 in f32, rmsnorm, w13, silu * up, w2 +
+  residual) for T <= 32 rows (`ffn_fused._MAX_T`), e.g. the B lanes of a
+  batched decode step; above that it returns None, as the JAX function does.
+K2 takes any number of rows; the forward calls it for B * T <= 32 rows, the
+JAX package's rule.
 
 The working ("dot") dtype is f32 for f32 activations, else bf16. CUDA source:
 csrc/layer_fused.cu (design and bound in its header note). Each entry point
@@ -157,3 +163,90 @@ def layer_attn_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor,
 
 
 layer_attn_tail_fused_rowq.launches = 0
+
+
+# ----------------------------------------------------------------- K9
+MAX_T = 32  # rows the fused tail takes (llamatpu/ops/ffn_fused.py _MAX_T)
+
+
+def _tail_weights(wo, w13, w2, li):
+    for w in (wo, w13, w2):
+        if not (isinstance(w, QTensor) and w.kind == "q8_row" and w.qs.dim() == 3
+                and not w.logical_out):
+            return None
+    return _rowq_layer(wo, li), _rowq_layer(w13, li), _rowq_layer(w2, li)
+
+
+def _tail_rows(attn, x, parts) -> int | None:
+    (wo_q, _), (w13_q, _), (w2_q, _) = parts
+    d, hdim = wo_q.shape
+    t = x.numel() // x.shape[-1]
+    if (t > MAX_T or w13_q.shape != (2 * w2_q.shape[1], d) or w2_q.shape[0] != d
+            or x.shape[-1] != d or attn.shape[-1] != hdim or attn.numel() != t * hdim):
+        return None
+    return t
+
+
+def layer_tail_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, attn, x, li: int,
+                     eps: float, residual_scale: float = 1.0):
+    """Plain version of K9 (same arguments and results)."""
+    parts = _tail_weights(wo, w13, w2, li)
+    t = None if parts is None else _tail_rows(attn, x, parts)
+    if t is None:
+        return None
+    (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
+    dot = _dot_dtype(x)
+    d = x.shape[-1]
+    y = (attn.reshape(t, -1).to(dot).float() @ wo_q.float().T) * so
+    if residual_scale != 1.0:
+        y = y * residual_scale
+    x2 = x.reshape(t, d).float() + y
+    ss = torch.mean(x2 * x2, dim=-1, keepdim=True) + eps
+    h = (x2 * torch.rsqrt(ss) * ffn_norm[li].float()).to(dot)
+    g13 = (h.float() @ w13_q.float().T) * s13
+    f = g13.shape[-1] // 2
+    gate, up = g13[:, :f], g13[:, f:]
+    act = (gate * torch.sigmoid(gate) * up).to(dot)
+    y2 = (act.float() @ w2_q.float().T) * s2
+    if residual_scale != 1.0:
+        y2 = y2 * residual_scale
+    return (x2 + y2).to(x.dtype).reshape(x.shape)
+
+
+def layer_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torch.Tensor,
+                          attn: torch.Tensor, x: torch.Tensor, li: int, eps: float,
+                          residual_scale: float = 1.0):
+    """new x [..., D] (x's dtype) = x + rs * wo(attn), then + rs * FFN(rmsnorm(.)),
+    with stacked q8_row wo [L, D, H], w13 [L, 2F, D], w2 [L, D, F] and
+    ffn_norm [L, D]; attn [..., H]. None for more than 32 rows or weights
+    other than stacked q8_row (the caller takes the unfused chain)."""
+    if x.device.type == "cpu":
+        return layer_tail_plain(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
+    parts = _tail_weights(wo, w13, w2, li)
+    t = None if parts is None else _tail_rows(attn, x, parts)
+    if t is None:
+        return None
+    (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
+    d, hdim = wo_q.shape
+    f = w2_q.shape[1]
+    a2 = attn.reshape(t, hdim).to(x.dtype).contiguous()
+    x2in = x.reshape(t, d).contiguous()
+    _build.require(all(w.is_contiguous() for w in (wo_q, w13_q, w2_q, so, s13, s2))
+                   and min(d, hdim, f) % 4 == 0 and a2.device == x.device == wo_q.device,
+                   "layer_tail_fused_rowq: contiguous weights on x's device, widths % 4 == 0")
+    nw = ffn_norm[li].float().contiguous()
+    x2 = torch.empty((t, d), dtype=torch.float32, device=x.device)
+    act = torch.empty((t, f), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x2in)
+    lib = _build.load("layer_fused")
+    err = lib.lt_tail(a2.data_ptr(), _build.dtype_code(x2in), x2in.data_ptr(), nw.data_ptr(),
+                      float(eps), float(residual_scale), wo_q.data_ptr(), so.data_ptr(),
+                      w13_q.data_ptr(), s13.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
+                      x2.data_ptr(), act.data_ptr(), out.data_ptr(), t, d, hdim, f,
+                      _build.DTYPE_CODES[_dot_dtype(x)], _build.stream())
+    _build.check(lib, err, "layer_tail_fused_rowq")
+    layer_tail_fused_rowq.launches += 1
+    return out.reshape(x.shape)
+
+
+layer_tail_fused_rowq.launches = 0

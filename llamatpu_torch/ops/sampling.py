@@ -10,6 +10,12 @@ always stays). The sort is stable and descending, so ties keep index order
 as `jnp.argsort(descending=True)` does. The draw is Gumbel-max over the
 masked log-probabilities, as `jax.random.categorical` draws: the same
 distribution, though not the same numbers as JAX's generator.
+
+`sample_dynamic` / `sample_lanes` are the batched forms (llamatpu/ops/
+sampling.py `sample_dynamic`, llamatpu/runtime/batch_engine.py
+`_sample_lanes`): temperature and top-p are per-lane tensors [B] on the
+logits' device, so a batched decode step samples with no host sync; lanes at
+temperature 0 take the argmax.
 """
 from __future__ import annotations
 
@@ -22,10 +28,16 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _nucleus(logits: torch.Tensor, temperature: float, top_p: float):
-    """(scaled logits, sorted probs, sorted ids, keep mask in sorted order)."""
-    scaled = logits.float() / max(temperature, 1e-6)
-    top_p = min(max(top_p, 1e-6), 1.0)
+def _nucleus(logits: torch.Tensor, temperature, top_p):
+    """(scaled logits, sorted probs, sorted ids, keep mask in sorted order).
+    temperature / top_p: floats, or tensors broadcasting against logits'
+    leading axes with a trailing 1 (per-lane [B, 1])."""
+    if isinstance(temperature, torch.Tensor):
+        scaled = logits.float() / torch.clamp(temperature.float(), min=1e-6)
+        top_p = torch.clamp(top_p.float(), 1e-6, 1.0)
+    else:
+        scaled = logits.float() / max(temperature, 1e-6)
+        top_p = min(max(top_p, 1e-6), 1.0)
     probs = torch.softmax(scaled, dim=-1)
     sorted_probs, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     cum = torch.cumsum(sorted_probs, dim=-1)
@@ -33,8 +45,8 @@ def _nucleus(logits: torch.Tensor, temperature: float, top_p: float):
     return scaled, sorted_probs, sorted_idx, keep
 
 
-def filtered_scaled_logits(logits: torch.Tensor, temperature: float,
-                           top_p: float) -> torch.Tensor:
+def filtered_scaled_logits(logits: torch.Tensor, temperature,
+                           top_p) -> torch.Tensor:
     """Temperature-scaled logits with the tokens outside the top-p nucleus
     masked to -inf, in the original token order: softmax of a row is the
     distribution `sample` draws from. logits [..., V] -> [..., V] f32."""
@@ -49,6 +61,10 @@ def sample(logits: torch.Tensor, temperature: float, top_p: float = 1.0,
     0, else one nucleus draw per row from `generator` (on logits' device)."""
     if temperature == 0.0:
         return greedy(logits)
+    return _draw(logits, temperature, top_p, generator)
+
+
+def _draw(logits, temperature, top_p, generator):
     _, sorted_probs, sorted_idx, keep = _nucleus(logits, temperature, top_p)
     masked = torch.where(keep, torch.log(sorted_probs.clamp_min(1e-38)),
                          torch.full_like(sorted_probs, float("-inf")))
@@ -56,3 +72,23 @@ def sample(logits: torch.Tensor, temperature: float, top_p: float = 1.0,
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     choice = torch.argmax(masked + gumbel, dim=-1, keepdim=True)
     return torch.gather(sorted_idx, -1, choice)[..., 0].to(torch.int32)
+
+
+def sample_dynamic(logits: torch.Tensor, temperatures: torch.Tensor, top_ps: torch.Tensor,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """One nucleus draw per row of [B, V] logits with per-row temperature
+    (> 0) and top-p tensors [B]. Returns [B] int32."""
+    return _draw(logits, temperatures[:, None], top_ps[:, None], generator)
+
+
+def sample_lanes(logits: torch.Tensor, temperatures: torch.Tensor, top_ps: torch.Tensor,
+                 generator: torch.Generator | None = None,
+                 any_sampled: bool = True) -> torch.Tensor:
+    """Per-lane sampling: argmax where temperature == 0, else a nucleus draw.
+    any_sampled=False (the caller knows every lane is greedy) skips the draw
+    and leaves the generator untouched."""
+    greedy_ids = greedy(logits)
+    if not any_sampled:
+        return greedy_ids
+    return torch.where(temperatures == 0.0, greedy_ids,
+                       sample_dynamic(logits, temperatures, top_ps, generator))

@@ -95,6 +95,12 @@ class Engine:
         if seed is not None:
             self.generator.manual_seed(seed)
 
+    def reseed(self, seed: int) -> None:
+        """Restart the sampling generator WITHOUT dropping the KV cache (the
+        service's prefix reuse keeps the cache across requests; rows past
+        the written length are never attended)."""
+        self.generator.manual_seed(seed)
+
     def _resolve_sampling(self, temperature, top_p) -> tuple[float, float]:
         t = self.default_temperature if temperature is None else temperature
         p = self.default_top_p if top_p is None else top_p

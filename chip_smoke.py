@@ -2,29 +2,48 @@
 
     python3 chip_smoke.py [--log-dir DIR]
 
+(--log-dir DIR also writes the progress lines, the ptxas report and every
+measured number as JSON into DIR.)
+
 It runs every phase, needs one card, and exits non-zero
 (printing no result) where CUDA is missing or the package is not beside it:
 
 1. device:  the card's name and power limit (nvidia-smi).
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
-3. kernels: each kernel (K1-K9) against its plain PyTorch version on the card,
-            at the llama32-1b main-path shapes (K2 also at 8 and 32 rows, K5
-            at T = 8, K6 at 8 lanes, K8 at 8 lanes of a shuffled block pool,
-            K9 at 1, 8 and 32 rows), with the stated tolerances; times from
-            CUDA events and torch.profiler (kernel, plain version, one-call
-            library yardstick) beside the bound from the published H100 SXM
-            peaks.
-4. main:    slice 1's path, full-width llama32-1b (synthetic q8_0 -> q8_row,
+3. kernels: each kernel (K1-K13) against its plain PyTorch version on the
+            card, at the main-path shapes of llama32-1b (K1-K9; K2 also at 8
+            and 32 rows, K5 at T = 8, K6 at 8 lanes, K8 at 8 lanes of a
+            shuffled block pool, K9 at 1, 8 and 32 rows) and of
+            Qwen1.5-MoE-A2.7B (K10-K13 on one layer's folded stacks, E = 64,
+            at 1, 8 and 512 tokens; K6 and K8 at hd 128, G 1; K2 at O =
+            6144; K5 on the 151936-row head), with the stated tolerances;
+            times from CUDA events and torch.profiler (kernel, plain
+            version, one-call library yardstick) beside the bound from the
+            published H100 SXM peaks.
+4. moe:     slice 4's path, full-depth, full-width Qwen1.5-MoE-A2.7B
+            (synthetic Q8_0, seed 0, the shared expert folded): Engine
+            prefill 512 then 128 greedy tokens (K10, K5, K6); the same with
+            rowq (K12, K1, K2, K4, K6); PagedBatchEngine with 8 lanes (K10,
+            K5, K8), a traced window and the distinct experts per layer.
+5. moe gguf: the model at full width and 4 layers (depth cut to keep the file
+            ~3 GB) as a qwen2moe Q8_0 GGUF with a 151936-id ChatML vocab:
+            `cli run`; `cli serve --batch-size 8 --paged` in-process over
+            HTTP (launch counts held to the engine's steps and chunks); a Q4_0
+            copy through `cli run --pack4` and Engine (K11, K7).
+6. moe cpu: full width, 2 layers, f32: the card against the CPU (plain
+            versions), Q8_0 experts (K10) and dense f32 experts served
+            unfolded (K13, driven and traced on the card).
+7. main:    slice 1's path, full-width llama32-1b (synthetic q8_0 -> q8_row,
             seed 0): prefill 512 then 128 greedy tokens through the port's
             Engine, with K1-K4's launch counts read over that run.
-5. gguf:    slice 2's path. The same synthetic model, written by the port's
+8. gguf:    slice 2's path. The same synthetic model, written by the port's
             GGUF writer as a full-width, full-depth Q8_0 Llama 3 GGUF (tied
             head, byte-level BPE vocab of 128256 ids with the Llama 3
             specials at their ids), then: `llamatpu_torch.cli run` on it
             in-process; Engine(rowq=False) prefill 512 + 128 greedy tokens
             with the launch counts of K5 and K6 (and K1-K4 at 0); a sampled
             generation (temperature 0.3, top-p 0.95, seed 42) run twice.
-6. serve:   slice 3's path, `cli serve --batch-size 8 --paged` in-process on
+9. serve:   slice 3's path, `cli serve --batch-size 8 --paged` in-process on
             that GGUF: PagedBatchEngine (8 lanes, block 16, max_len 2048,
             prefill chunk 128, window 16) behind BatchedInferenceService and
             make_server on 127.0.0.1; 8 concurrent greedy chat completions,
@@ -33,18 +52,19 @@ It runs every phase, needs one card, and exits non-zero
             prefill chunks (K5 and K8), no scheduler error; a traced 16-step
             window at 8 lanes; the serving-latency benchmark (16 requests,
             prompt 128, 64 new, a 1024-token adversary, prefix-cache repeat).
-7. serve --rowq: the same HTTP run with q8_row weights (K1, K2, K4, K8, K9).
-8. pack4:   the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
+10. serve --rowq: the same HTTP run with q8_row weights (K1, K2, K4, K8, K9).
+11. pack4:  the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
             32 decode steps through K7 (K5 at 0).
-9. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
+12. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
             generate_batch through K6 at each lane's position and K2 + K9.
-10. cpu:    the port on the card against the port on the CPU (plain
+13. cpu:    the port on the card against the port on the CPU (plain
             versions), full width, 2 layers: slice 1's q8_row model, the Q8_0
             GGUF through Engine and through PagedBatchEngine.generate_batch,
             f32 prefill logits held to 1e-4 of the largest, greedy agreement
             reported.
 
-Then one {"kernels": [...]} line, the nvidia-smi line, and last
+Every path's launch counts are set to 0 just before it is driven and read
+just after. Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 The GGUF files go to build/smoke/ in the checkout and are deleted at the end.
 """
@@ -64,8 +84,16 @@ HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
 INT8_OPS_S = 1979e12
 
+T0 = time.perf_counter()
+LOG_FILES = []  # the --log-dir copy of the progress lines
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One progress line, stamped with the seconds since the script began."""
+    line = f"[chip_smoke {time.perf_counter() - T0:6.1f}s] {msg}"
+    print(line, flush=True)
+    for f in LOG_FILES:
+        print(line, file=f, flush=True)
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -143,6 +171,7 @@ def rand_rowq(L, o, i, dev, gen):
     return QTensor(qs, s, "q8_row")
 
 
+MOE_KERNELS = ("grouped_gemv_kernel", "grouped_mma_kernel")  # K10-K13's two regimes
 GEMV = ("gemv_kernel",)  # kernel names (profiler keys) of K1 / K2 / K3's GEMV phases
 # llama32-1b main-path shapes: layers, dim, hidden, kv heads, groups, head dim,
 # physical cache length (cache_len 1024 + one 128-row granule), vocab, prefill rows
@@ -705,6 +734,12 @@ IN_PATH = {
     # K9's three phases (K2 at 8 rows is gemv_tiled_kernel<8, bf16, 1, 1>)
     "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", tuple(
         f"{dt}, {p}>" for dt in ("bfloat16", "float") for p in ("0, 2", "1, 4", "0, 3")), 1),
+    # K10-K13's rows are one MoE layer of a decode token: the gate+up and the
+    # down call (each path runs only its own grouped kernel)
+    "grouped_block_matmul": ("moe", "decode16_trace", MOE_KERNELS, 2),
+    "grouped_packed4_matmul": ("moe_pack4", "decode16_trace", MOE_KERNELS, 2),
+    "grouped_rowq_matmul": ("moe_rowq", "decode16_trace", MOE_KERNELS, 2),
+    "grouped_dense_matmul": ("moe_dense", "decode16_trace", MOE_KERNELS, 2),
 }
 
 
@@ -717,7 +752,7 @@ def in_path_ms(paths: dict, name: str) -> float:
 
 
 def counters():
-    from llamatpu_torch.ops import attention, gemm, layer_fused, quant_matmul
+    from llamatpu_torch.ops import attention, gemm, layer_fused, moe_grouped, quant_matmul
 
     return {"rowq_gemv": quant_matmul.rowq_gemv, "rowq_gemm": gemm.rowq_gemm,
             "qkv_norm_fused_rowq": layer_fused.qkv_norm_fused_rowq,
@@ -726,7 +761,11 @@ def counters():
             "decode_attention_fused_write": attention.decode_attention_fused_write,
             "packed4_matmul": quant_matmul.packed4_matmul,
             "decode_attention_paged": attention.decode_attention_paged,
-            "layer_tail_fused_rowq": layer_fused.layer_tail_fused_rowq}
+            "layer_tail_fused_rowq": layer_fused.layer_tail_fused_rowq,
+            "grouped_block_matmul": moe_grouped.grouped_block_matmul,
+            "grouped_packed4_matmul": moe_grouped.grouped_packed4_matmul,
+            "grouped_rowq_matmul": moe_grouped.grouped_rowq_matmul,
+            "grouped_dense_matmul": moe_grouped.grouped_dense_matmul}
 
 
 def drive_engine(engine, prompt: list[int], tg: int, want_fn, label: str,
@@ -1110,14 +1149,16 @@ def decode_window_trace(engine, prompt_len: int = 128, window: int = 16) -> dict
     return tr
 
 
-def run_serving_path(dev, path: Path, rowq: bool, latency: bool) -> dict:
+def run_serving_path(dev, path: Path, rowq: bool, latency: bool, label: str | None = None,
+                     want_fn=None) -> dict:
     """`llamatpu_torch.cli serve -m <gguf> --batch-size 8 --paged [--rowq]`
     in-process: the full-width, full-depth Q8_0 GGUF, PagedBatchEngine
     (8 lanes, block 16, max_len 2048, prefill chunk 128, window 16) behind
     BatchedInferenceService and make_server on 127.0.0.1. The HTTP run's
     launch counts are held to the engine's own counts of decode steps and
     prefill chunks; then a traced decode window, and (latency=True) the
-    serving-latency benchmark on the same engine."""
+    serving-latency benchmark on the same engine. want_fn(steps, chunks):
+    the path's launch counts (default: the Llama 3 GGUF's)."""
     import threading
 
     import torch
@@ -1128,13 +1169,13 @@ def run_serving_path(dev, path: Path, rowq: bool, latency: bool) -> dict:
     from llamatpu_torch.server.openai_server import make_server
     from llamatpu_torch.server.service import BatchedInferenceService
 
-    label = "serve_rowq" if rowq else "serve"
+    label = label or ("serve_rowq" if rowq else "serve")
     t0 = time.perf_counter()
     model = load_model(str(path), max_tokens=2048)
     engine = PagedBatchEngine(model, batch_size=8, block_size=16, max_len=2048,
                               prefill_chunk=128, decode_window=16, rowq=rowq, device=dev)
     svc = BatchedInferenceService(model, engine)
-    srv = make_server(svc, "127.0.0.1", 0, model_id="llama32-1b")
+    srv = make_server(svc, "127.0.0.1", 0, model_id=model.metadata.get("general.name", label))
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     log(f"{label}: {model.quant_label}{' -> q8_row' if rowq else ''} served on {url} in "
@@ -1161,7 +1202,9 @@ def run_serving_path(dev, path: Path, rowq: bool, latency: bool) -> dict:
         srv.server_close()
         svc.batcher.shutdown()
     want = {k: 0 for k in fns}
-    if rowq:  # K2 + K8 + K9 per layer and step; chunks of 128 rows take K4
+    if want_fn is not None:
+        want.update(want_fn(steps, chunks))
+    elif rowq:  # K2 + K8 + K9 per layer and step; chunks of 128 rows take K4
         want.update(rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
                     decode_attention_paged=L * steps, layer_tail_fused_rowq=L * steps,
                     rowq_gemm=4 * L * chunks)
@@ -1342,6 +1385,606 @@ def run_cpu_compare(dev, workdir: Path, overrides=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ MoE slice
+# Qwen1.5-MoE-A2.7B main-path shapes: layers, dim, experts of the folded
+# stacks (60 routed + the shared expert as 4 chunks), expert hidden, experts
+# per token (4 routed + 4 shared chunks), kv heads, groups, head dim,
+# physical cache length (cache_len 1024 + one 128-row granule), vocab,
+# prefill rows, and the shared expert's hidden size
+QWEN15 = dict(L=24, D=2048, E=64, MH=1408, K=8, KV=16, G=1, HD=128, S=1152, V=151936, T=512,
+              F=5632)
+
+
+def moe_top(n: int, k: int, e: int, seed: int, dev):
+    """[n, k] distinct expert ids per token (as top-k gives) over e experts,
+    never expert 5: a group of zero rows."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.rand((n, e - 1), generator=g).argsort(dim=1)[:, :k]
+    return torch.where(ids >= 5, ids + 1, ids).to(dev)
+
+
+def moe_stacks(kind: str, e: int, o: int, i: int, dev, gen):
+    """One projection's expert stack [E, O, I] for a kernel: (wrapper, plain,
+    weight arguments, the bf16 dequantized stack, bytes of one expert)."""
+    import torch
+
+    from llamatpu_torch.ops import moe_grouped as mg
+    from llamatpu_torch.ops.quant_matmul import dequant_blocks
+
+    bf = torch.bfloat16
+    if kind == "dense":
+        w = (torch.randn((e, o, i), device=dev, generator=gen) * i ** -0.5).to(bf)
+        return mg.grouped_dense_matmul, mg.grouped_dense_matmul_plain, (w,), w, o * i * 2
+    sc = torch.rand((e, o, i // 32), device=dev, generator=gen) * 0.001 + 0.0005
+    nb = o * (i // 32) * 4
+    if kind == "packed4":
+        q = torch.randint(-8, 8, (e, o, i), dtype=torch.int8, device=dev, generator=gen)
+        lo, hi = q[..., 0::2].to(torch.int32) & 0xF, q[..., 1::2].to(torch.int32) & 0xF
+        qp = (lo | (hi << 4)).to(torch.uint8).view(torch.int8).contiguous()
+        return (mg.grouped_packed4_matmul, mg.grouped_packed4_matmul_plain, (qp, sc * 16),
+                dequant_blocks(q, sc * 16, bf), o * i // 2 + nb)
+    q = torch.randint(-127, 128, (e, o, i), dtype=torch.int8, device=dev, generator=gen)
+    if kind == "rowq":
+        rs = (torch.rand((e, o, 1), device=dev, generator=gen) + 0.5) / (73.6 * i ** 0.5)
+        return (mg.grouped_rowq_matmul, mg.grouped_rowq_matmul_plain, (q, rs),
+                (q.float() * rs).to(bf), o * i + o * 4)
+    return (mg.grouped_block_matmul, mg.grouped_block_matmul_plain, (q, sc),
+            dequant_blocks(q, sc, bf), o * i + nb)
+
+
+def events_ms(fn, iters: int = 4) -> float:
+    """Time of one fn() call between CUDA events, host gaps included (for
+    functions that read the device on the host, which a CUDA graph cannot
+    capture)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grouped_yardstick(x, top, wbf):
+    """One PyTorch call over the same rows: torch._grouped_mm (bf16) on the
+    token rows sorted by expert with per-expert offsets, against the bf16
+    dequantized stack (not timed); where this torch has none, a loop of
+    bf16 torch.matmul over the used experts. Returns (fn, label)."""
+    import torch
+
+    n, k = top.shape
+    flat = top.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    xg = x[order // k].to(torch.bfloat16).contiguous()
+    counts = torch.bincount(flat, minlength=wbf.shape[0])
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    wt = wbf.transpose(-2, -1)
+    try:
+        torch._grouped_mm(xg, wt, offs=offs)
+        torch.cuda.synchronize()
+        return (lambda: torch._grouped_mm(xg, wt, offs=offs)), \
+            "torch._grouped_mm (bf16, rows sorted by expert, per-expert offsets)"
+    except (AttributeError, RuntimeError, TypeError):
+        bounds = [0] + offs.tolist()
+        used = [(e, bounds[e], bounds[e + 1]) for e in range(wbf.shape[0])
+                if bounds[e + 1] > bounds[e]]
+
+        def loop():
+            return [xg[a:b] @ wbf[e].T for e, a, b in used]
+        return loop, "loop of bf16 torch.matmul over the used experts"
+
+
+def check_moe_kernels(dev, dims=QWEN15) -> list[dict]:
+    """K10-K13 against their plain versions at full width: one layer's folded
+    stacks (E = 64), gate+up (O = 2816, I = 2048) and down (O = 2048, I =
+    1408), N in {1, 8, 512} tokens of 8 experts each at the JAX package's tile
+    rule (8, 8, 128), bf16 and f32 activations; expert 5 routed to by no
+    token, and the -1 tail tiles of the static row bound. Tolerance relative
+    to the largest plain |value|: f32 <= 1e-5, bf16 <= 1e-3 (sums in another
+    order). Timed in bf16; the table row is one decode token's MoE layer
+    (both calls at N = 1), with N = 8 and 512 beside it."""
+    import torch
+
+    from llamatpu_torch.ops import moe_grouped as mg
+
+    E, D, MH, K, T = (dims[k] for k in ("E", "D", "MH", "K", "T"))
+    shapes = {"gu": (2 * MH, D), "down": (D, MH)}
+    rows = []
+    for kind, source in (("block", "llamatpu/ops/moe_grouped.py:110"),
+                         ("packed4", "llamatpu/ops/moe_grouped.py:148"),
+                         ("rowq", "llamatpu/ops/moe_grouped.py:176"),
+                         ("dense", "llamatpu/ops/moe_grouped.py:202")):
+        gen = torch.Generator(device=dev).manual_seed(10 + len(rows))
+        worst = {"bf16": 0.0, "f32": 0.0}
+        abs_max = 0.0
+        per = {}
+        for proj, (o, i) in shapes.items():
+            kern, plain, w, wbf, ebytes = moe_stacks(kind, E, o, i, dev, gen)
+            for n in (1, 8, T):
+                top = moe_top(n, K, E, seed=n, dev=dev)
+                tm = mg.tile_rows(n, K)
+                rt, _, te = mg.sort_by_expert(top, E, tm)
+                used = te[te >= 0].unique().numel()
+                assert bool((te != 5).all()), "expert 5 has rows"
+                for dt in (torch.bfloat16, torch.float32):
+                    x = torch.randn((n, i), device=dev, generator=gen).to(dt)
+                    xs = torch.cat([x, x.new_zeros((1, i))])[rt.long()]
+                    got = kern(xs, *w, te, tm, row_token=rt, n_tokens=n)
+                    want = plain(xs, *w, te, tm)
+                    torch.cuda.synchronize()
+                    abs_e, rel_e = max_err(got, want)
+                    key = "f32" if dt == torch.float32 else "bf16"
+                    tol = 1e-5 if key == "f32" else 1e-3
+                    assert rel_e <= tol, \
+                        f"{kern.__name__} {proj} N={n} {key}: max abs {abs_e} rel {rel_e}"
+                    assert not bool(got[(te == -1).repeat_interleave(tm)].any())
+                    worst[key] = max(worst[key], rel_e)
+                    abs_max = max(abs_max, abs_e)
+                x = torch.randn((n, i), device=dev, generator=gen).to(torch.bfloat16)
+                xs = torch.cat([x, x.new_zeros((1, i))])[rt.long()]
+                # each used expert's weights once, the token rows and the out rows
+                nbytes = used * ebytes + n * K * i * 2 + xs.shape[0] * o * 4
+                b_ms, b_by = bound(nbytes, 2 * n * K * o * i, BF16_OPS_S)
+                lib, lib_name = grouped_yardstick(x, top, wbf)
+                wrapper = time_ms(lambda: kern(xs, *w, te, tm, row_token=rt, n_tokens=n))
+                own = kernel_ms(lambda: kern(xs, *w, te, tm, row_token=rt, n_tokens=n),
+                                MOE_KERNELS)
+                per[f"{proj} N={n}"] = dict(
+                    ms=own if own is not None else wrapper,
+                    ms_source="profiler" if own is not None else "cuda graph",
+                    wrapper_ms=wrapper, plain_ms=events_ms(lambda: plain(xs, *w, te, tm)),
+                    library_ms=time_ms(lib), library=lib_name, bound_ms=b_ms, bound_by=b_by,
+                    used_experts=used, tm=tm, rows=xs.shape[0], shape=f"N={n} O={o} I={i}")
+                log(f"{kern.__name__} {proj} N={n} tm={tm} ({used} experts): "
+                    f"{per[f'{proj} N={n}']['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
+                    f"{per[f'{proj} N={n}']['plain_ms']:.3f}, library "
+                    f"{per[f'{proj} N={n}']['library_ms']:.4f})")
+            del w, wbf
+            torch.cuda.empty_cache()
+        one = [per[f"{p} N=1"] for p in shapes]
+        rows.append(dict(
+            name=kern.__name__, route="cuda", source="llamatpu_torch/csrc/moe_grouped.cu",
+            replaces=source, max_abs_err=abs_max, max_rel_err=max(worst.values()),
+            max_rel_err_by_dtype=worst,
+            tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-3 (gu and down, N in 1, 8, "
+                      "512; an expert of zero rows, -1 tail tiles)",
+            **{k: sum(r[k] for r in one) for k in ("ms", "wrapper_ms", "plain_ms", "library_ms",
+                                                   "bound_ms")},
+            ms_source=one[0]["ms_source"], library=one[0]["library"], bound_by="bytes",
+            shape=f"one decode token's MoE layer: gu + down at N=1 (E={E}, {K} experts)",
+            per_shape=per))
+    return rows
+
+
+def check_qwen_geometry(dev, dims=QWEN15) -> dict:
+    """Earlier slices' kernels at the Qwen1.5-MoE geometry: K6 and K8 at
+    hd 128, G 1 (row width 256, their stated maximum), K2 at O = 6144 with 1
+    and 8 rows, K5 on the 151936-row head at T = 1 and 8; and the q8_row
+    conversion on the card bit-equal to the CPU's. Returns a sub-row per
+    kernel name."""
+    import torch
+
+    from llamatpu_torch.models.weights import QTensor, rowq_requant
+    from llamatpu_torch.ops import layer_fused
+    from llamatpu_torch.ops import quant_matmul as qm
+
+    out = {"decode_attention_fused_write": check_attention(dev, dims),
+           "decode_attention_paged": check_paged_attention(dev, dims)}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    D, V = dims["D"], dims["V"]
+    O = (dims["G"] * dims["KV"] + 2 * dims["KV"]) * dims["HD"]
+    wqkv = rand_rowq(2, O, D, dev, gen)
+    norm = torch.rand((2, D), device=dev, generator=gen) + 0.5
+    k2 = {}
+    for t in (1, 8):
+        x = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
+        got = layer_fused.qkv_norm_fused_rowq(wqkv, norm, x, 1, 1e-6)
+        want = layer_fused.qkv_norm_plain(wqkv, norm, x, 1, 1e-6)
+        torch.cuda.synchronize()
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-2, f"K2 at O={O}, {t} rows: max abs {abs_e} rel {rel_e}"
+        b_ms, b_by = bound(O * D + O * 4 + t * D * 2 + D * 4 + t * O * 2, 2 * t * O * D,
+                           BF16_OPS_S)
+        k2[t] = dict(max_abs_err=abs_e, max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
+                     **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, norm, x, 1, 1e-6),
+                               ("gemv_kernel", "gemv_tiled_kernel"),
+                               lambda: layer_fused.qkv_norm_plain(wqkv, norm, x, 1, 1e-6), None))
+        log(f"K2 at O={O}, {t} rows: {k2[t]['ms']:.4f} ms (bound {b_ms:.4f}), rel err {rel_e:.3g}")
+    out["qkv_norm_fused_rowq"] = dict(shape=f"O={O} D={D}", by_rows=k2)
+    del wqkv
+    q = torch.randint(-127, 128, (V, D), dtype=torch.int8, device=dev, generator=gen)
+    s = torch.rand((V, D // 32), device=dev, generator=gen) * 0.001 + 0.0005
+    w_bf = qm.dequant_blocks(q, s, torch.bfloat16)
+    k5 = {}
+    for t in (1, 8):
+        for dt, tol in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
+            x = torch.randn((t, D), device=dev, generator=gen).to(dt)
+            abs_e, rel_e = max_err(qm.block_matmul(x, q, s), qm.block_matmul_plain(x, q, s))
+            assert rel_e <= tol, f"K5 head O={V} T={t} {dt}: max abs {abs_e} rel {rel_e}"
+        xb = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        b_ms, b_by = bound(V * D + V * (D // 32) * 4 + t * D * 2 + t * V * 4, 2 * t * V * D,
+                           BF16_OPS_S)
+        k5[t] = dict(max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
+                     **timings(lambda: qm.block_matmul(xb, q, s), ("bq_gemv_kernel",),
+                               lambda: qm.block_matmul_plain(xb, q, s),
+                               lambda: torch.matmul(xb, w_bf.T), iters=4))
+        log(f"K5 head O={V} T={t}: {k5[t]['ms']:.4f} ms (bound {b_ms:.4f})")
+    out["block_matmul"] = dict(shape=f"head O={V} I={D}", by_rows=k5)
+    del q, s, w_bf
+    # the q8_row conversion on the card (an MoE model's expert stacks) is
+    # bit-equal to the CPU's
+    q = torch.randint(-127, 128, (2, 2 * dims["MH"], D), dtype=torch.int8)
+    s = torch.rand((2, 2 * dims["MH"], D // 32)) * 0.001 + 0.0005
+    card = rowq_requant(QTensor(q, s, "q8_0"), dev)
+    host = rowq_requant(QTensor(q.numpy(), s.numpy(), "q8_0"))
+    assert torch.equal(card.qs.cpu(), torch.from_numpy(host.qs)) and \
+        torch.equal(card.scales.cpu(), torch.from_numpy(host.scales)), \
+        "rowq_requant on the card differs from the CPU's"
+    log(f"rowq_requant of a [2, {2 * dims['MH']}, {D}] Q8_0 stack: card and CPU bit-equal")
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_rss_gb() -> float:
+    """Peak resident host memory of this process so far (GB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def experts_per_layer(engine, toks, pos) -> list[int]:
+    """Distinct experts each layer's grouped calls use in one 8-lane decode
+    step (the tile tables read on the host, outside every timed run)."""
+    import numpy as np
+
+    from llamatpu_torch.ops import moe_grouped as mg
+
+    seen = []
+    inner = mg.sort_by_expert
+
+    def spy(top_i, n_experts, tm):
+        out = inner(top_i, n_experts, tm)
+        seen.append(len(set(out[2].tolist()) - {-1}))
+        return out
+    mg.sort_by_expert = spy
+    try:
+        engine.decode_window_run(toks, pos, np.ones(len(toks), bool), limit=1)
+    finally:
+        mg.sort_by_expert = inner
+    return seen
+
+
+def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
+    """Full-depth, full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0, seed 0)
+    through Engine (cache 1024, prefill chunk 512, 128 greedy tokens: K10 +
+    K5 + K6), then with rowq (K12 + K1 + K2 + K4 + K6), then PagedBatchEngine
+    with 8 lanes (K10 + K5 + K8)."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.runtime.engine import Engine
+    from llamatpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    out = {}
+    t0 = time.perf_counter()
+    model = build_synthetic_model("qwen15-moe-a2.7b", quant="q8_0", seed=0, context_length=1024,
+                                  n_layers=n_layers, overrides=overrides)
+    build_s = time.perf_counter() - t0
+    L, V = model.cfg.n_layers, model.cfg.vocab_size
+    prompt = np.random.default_rng(42).integers(0, V, 512).tolist()
+    for label, rowq in (("moe", False), ("moe_rowq", True)):
+        t0 = time.perf_counter()
+        engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=rowq,
+                        device=dev)
+        load_s = time.perf_counter() - t0
+        kind = engine.weights["layers"]["gu_exps"].kind
+        assert kind == ("q8_row" if rowq else "q8_0") and "shared_g13" not in \
+            engine.weights["layers"], "the shared expert did not fold"
+        log(f"{label}: {model.cfg.n_layers} layers, experts {kind}, synthetic build "
+            f"{build_s:.1f} s, fold + fuse{' + rowq' if rowq else ''} + upload {load_s:.1f} s, "
+            f"device {torch.cuda.memory_allocated() / 1e9:.2f} GB, peak host RSS "
+            f"{host_rss_gb():.1f} GB")
+        if rowq:  # K2 + K1 (wo, head) per step, K4 for wqkv/wo in the 512-row chunk
+            want = lambda n: {  # noqa: E731
+                "grouped_rowq_matmul": 2 * L * (n + 1), "qkv_norm_fused_rowq": L * n,
+                "rowq_gemv": (L + 1) * n + 1, "rowq_gemm": 2 * L,
+                "decode_attention_fused_write": L * n}
+        else:  # K5 for wqkv, wo and the head
+            want = lambda n: {  # noqa: E731
+                "grouped_block_matmul": 2 * L * (n + 1), "block_matmul": (2 * L + 1) * (n + 1),
+                "decode_attention_fused_write": L * n}
+        out[label] = drive_engine(engine, prompt, 128, want, label)
+        out[label].update(build_s=build_s, load_s=load_s, host_rss_gb=host_rss_gb())
+        del engine
+        torch.cuda.empty_cache()
+    # batched decode: 8 lanes over the paged pool
+    t0 = time.perf_counter()
+    engine = PagedBatchEngine(model, batch_size=8, block_size=16, max_len=1024,
+                              prefill_chunk=128, decode_window=16, device=dev)
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, V, n).tolist() for n in (20, 57, 128, 129, 200, 31, 300, 90)]
+    engine.generate_batch(prompts[:2], 4)  # warm-up
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+    t0 = time.perf_counter()
+    outs = engine.generate_batch(prompts, 32)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    steps, chunks = engine.decode_steps - steps0, engine.prefill_chunks - chunks0
+    assert [len(o) for o in outs] == [32] * 8 and all(0 <= t < V for o in outs for t in o)
+    want = {k: 0 for k in fns}
+    want.update(grouped_block_matmul=2 * L * (steps + chunks),
+                block_matmul=(2 * L + 1) * (steps + chunks), decode_attention_paged=L * steps)
+    assert launches == want, f"moe paged: launch counts {launches} != {want}"
+    res = dict(wall_s=wall, decode_steps=steps, prefill_chunks=chunks, launches=launches,
+               load_s=load_s, tok_s=8 * 32 / wall)
+    res["decode16_trace"] = tr = decode_window_trace(engine)
+    toks = np.array([engine.prefill_lane(i, p) for i, p in enumerate(prompts)], np.int32)
+    res["experts_per_layer"] = experts_per_layer(engine, toks,
+                                                 np.array([len(p) for p in prompts], np.int32))
+    log(f"moe paged: 8 lanes x 32 tokens in {wall:.2f} s ({res['tok_s']:.1f} tok/s), {steps} "
+        f"steps, {chunks} chunks, launches {launches}; traced 16-step window: device busy "
+        f"{tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms (idle share {tr['idle_share']:.3f}), "
+        f"aggregate decode {tr['agg_decode_tok_s']:.1f} tok/s; distinct experts per layer at "
+        f"8 lanes {res['experts_per_layer']}")
+    out["moe_paged"] = res
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+# the ChatML specials at their ids in Qwen's published 151936-id vocab
+QWEN_SPECIALS = {151643: "<|endoftext|>", 151644: "<|im_start|>", 151645: "<|im_end|>"}
+
+
+def qwen_vocab(vocab_size: int) -> tuple[list[str], list[int], list[str]]:
+    """(tokens, token types, merges) of a byte-level BPE vocab padded to
+    `vocab_size`: the 256 byte tokens, a few merges, filler tokens up to
+    151643, then the ChatML specials and reserved control tokens."""
+    tokens, types, merges = llama3_vocab(151643)
+    for i in range(151643, vocab_size):
+        tokens.append(QWEN_SPECIALS.get(i, f"<|extra_{i - 151643}|>"))
+        types.append(3)
+    return tokens, types, merges
+
+
+def write_qwen_moe_gguf(model, path, quant: str = "q8_0") -> None:
+    """A synthetic q8_0 Qwen2-MoE model as a qwen2moe GGUF, through the
+    port's writer (the llama writer's conventions: Q8_0 values as they are,
+    Q4_0 the values >> 4 with scales x 16, the head tied to token_embd), with
+    the router, the shared expert's gate and the qkv biases in f32."""
+    import numpy as np
+
+    from llamatpu_torch.gguf import GGMLType, GGUFWriter, quants
+
+    cfg, w = model.cfg, model.weights
+    lw = w["layers"]
+    gw = GGUFWriter()
+    gw.add("general.architecture", "qwen2moe")
+    gw.add("general.name", "synthetic Qwen1.5-MoE-A2.7B")
+    for key, v in (("embedding_length", cfg.dim), ("feed_forward_length", cfg.hidden_dim),
+                   ("block_count", cfg.n_layers), ("attention.head_count", cfg.n_heads),
+                   ("attention.head_count_kv", cfg.n_kv_heads),
+                   ("context_length", cfg.context_length),
+                   ("attention.layer_norm_rms_epsilon", float(cfg.rms_norm_eps)),
+                   ("rope.freq_base", float(cfg.rope_theta)), ("vocab_size", cfg.vocab_size),
+                   ("expert_count", cfg.n_experts), ("expert_used_count", cfg.n_experts_used)):
+        gw.add("qwen2moe." + key, v)
+    tokens, types, merges = qwen_vocab(cfg.vocab_size)
+    gw.add("tokenizer.ggml.model", "gpt2")
+    gw.add("tokenizer.ggml.pre", "qwen2")
+    gw.add("tokenizer.ggml.tokens", tokens)
+    gw.add("tokenizer.ggml.merges", merges)
+    gw.add("tokenizer.ggml.token_type", np.array(types, dtype=np.int32))
+    gw.add("tokenizer.ggml.bos_token_id", 151643)
+    gw.add("tokenizer.ggml.eos_token_id", 151645)
+
+    def qt(name, t, li):
+        qs, scales = np.asarray(t.qs[li]), np.asarray(t.scales[li])
+        if quant == "q8_0":
+            gw.add_tensor_raw(name, qs.shape, GGMLType.Q8_0, quants.q8_0_blocks(qs, scales))
+        else:
+            gw.add_tensor_raw(name, qs.shape, GGMLType.Q4_0,
+                              quants.q4_0_blocks(qs >> 4, scales * 16.0))
+
+    def f32(name, a):
+        gw.add_tensor(name, np.ascontiguousarray(np.asarray(a, np.float32)))
+
+    qt("token_embd.weight", w["wcls"], slice(None))
+    f32("output_norm.weight", w["final_norm"])
+    names = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+             "gate_exps": "ffn_gate_exps", "up_exps": "ffn_up_exps",
+             "down_exps": "ffn_down_exps", "shared_gate": "ffn_gate_shexp",
+             "shared_up": "ffn_up_shexp", "shared_down": "ffn_down_shexp"}
+    for li in range(cfg.n_layers):
+        b = f"blk.{li}."
+        f32(b + "attn_norm.weight", lw["attn_norm"][li])
+        f32(b + "ffn_norm.weight", lw["ffn_norm"][li])
+        for k, n in names.items():
+            qt(b + n + ".weight", lw[k], li)
+        for k, n in (("q_bias", "attn_q.bias"), ("k_bias", "attn_k.bias"),
+                     ("v_bias", "attn_v.bias")):
+            f32(b + n, lw[k][li])
+        f32(b + "ffn_gate_inp.weight", lw["router"][li])
+        f32(b + "ffn_gate_inp_shexp.weight", lw["shared_gate_inp"][li])
+    gw.write(str(path))
+
+
+def count_forwards():
+    """Wrap the Engine's forward_tokens to count its calls: (restore, counts
+    {"chunks": prefill windows, "steps": one-token decode steps})."""
+    from llamatpu_torch.runtime import engine as engine_mod
+
+    inner = engine_mod.forward_tokens
+    counts = {"chunks": 0, "steps": 0}
+
+    def counted(cfg, weights, tokens, *a, **kw):
+        counts["steps" if tokens.shape[1] == 1 else "chunks"] += 1
+        return inner(cfg, weights, tokens, *a, **kw)
+    engine_mod.forward_tokens = counted
+    return (lambda: setattr(engine_mod, "forward_tokens", inner)), counts
+
+
+def cli_run(dev, path, extra=()) -> dict:
+    """`llamatpu_torch.cli run` in-process, greedy, with every launch and the
+    Engine's forwards counted over the run."""
+    import contextlib
+    import io
+
+    from llamatpu_torch import cli
+
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    restore, fw = count_forwards()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["run", "-m", str(path), "-p", "Why is the sky blue?", "-n", "256",
+                           "--temperature", "0", "--metrics-format", "none", "--device", str(dev),
+                           *extra])
+    finally:
+        restore()
+    text = buf.getvalue()
+    assert rc == 0 and text.strip(), f"cli run: rc {rc}, output {text[:200]!r}"
+    return dict(rc=rc, seconds=time.perf_counter() - t0, chars=len(text), text=text[:80],
+                launches={k: f.launches for k, f in fns.items()}, **fw)
+
+
+def run_moe_gguf_paths(dev, workdir: Path, overrides=None) -> dict:
+    """The synthetic model at full width and 4 layers (the depth cut keeps the
+    written file ~3 GB) as a qwen2moe Q8_0 GGUF: `cli run`; `cli serve
+    --batch-size 8 --paged` in-process (8 concurrent chats, 2 streamed, a
+    text completion, /health, /v1/models; K10 + K5 + K8 held to the engine's
+    steps and chunks); then a Q4_0 copy through `cli run --pack4` (K11 + K7
+    held to the Engine's forwards) and Engine with pack4 (the traced K11
+    path)."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.runtime.engine import Engine
+
+    out = {}
+    model = build_synthetic_model("qwen15-moe-a2.7b", quant="q8_0", seed=0, n_layers=4,
+                                  overrides=overrides)
+    L = model.cfg.n_layers
+    paths = {}
+    for quant in ("q8_0", "q4_0"):
+        t0 = time.perf_counter()
+        paths[quant] = workdir / f"qwen15-moe-{quant}-L{L}.gguf"
+        write_qwen_moe_gguf(model, paths[quant], quant)
+        log(f"moe gguf: wrote {paths[quant].name} ({paths[quant].stat().st_size / 1e9:.3f} GB) "
+            f"in {time.perf_counter() - t0:.1f} s")
+    del model
+    res = cli_run(dev, paths["q8_0"])
+    want = {k: 0 for k in res["launches"]}
+    fwd = res["chunks"] + res["steps"]
+    want.update(grouped_block_matmul=2 * L * fwd, block_matmul=(2 * L + 1) * fwd,
+                decode_attention_fused_write=L * res["steps"])
+    assert res["launches"] == want, f"moe cli run: {res['launches']} != {want}"
+    log(f"moe gguf: cli run rc 0 in {res['seconds']:.1f} s, {res['chunks']} chunks + "
+        f"{res['steps']} steps, {res['chars']} chars streamed: {res['text']!r}")
+    out["moe_cli"] = res
+    out["moe_serve"] = run_serving_path(
+        dev, paths["q8_0"], rowq=False, latency=False, label="moe_serve",
+        want_fn=lambda steps, chunks: dict(
+            grouped_block_matmul=2 * L * (steps + chunks),
+            block_matmul=(2 * L + 1) * (steps + chunks), decode_attention_paged=L * steps))
+    paths["q8_0"].unlink()
+    res = cli_run(dev, paths["q4_0"], ["--pack4"])
+    want = {k: 0 for k in res["launches"]}
+    fwd = res["chunks"] + res["steps"]
+    want.update(grouped_packed4_matmul=2 * L * fwd, packed4_matmul=(2 * L + 1) * fwd,
+                decode_attention_fused_write=L * res["steps"])
+    assert res["launches"] == want, f"moe cli run --pack4: {res['launches']} != {want}"
+    log(f"moe pack4: cli run --pack4 rc 0, {res['chunks']} chunks + {res['steps']} steps, "
+        f"launches {res['launches']}")
+    out["moe_cli_pack4"] = res
+    model = load_model(str(paths["q4_0"]), max_tokens=1024, pack4=True)
+    assert model.weights["layers"]["gate_exps"].layout == "packed4"
+    engine = Engine(model, cache_len=1024, prefill_chunk=128, decode_window=32, device=dev)
+    prompt = np.random.default_rng(7).integers(0, 151643, 128).tolist()
+    out["moe_pack4"] = drive_engine(engine, prompt, 32, lambda n: {
+        "grouped_packed4_matmul": 2 * L * (n + 1), "packed4_matmul": (2 * L + 1) * (n + 1),
+        "decode_attention_fused_write": L * n}, "moe_pack4", repeats=1)
+    del engine, model
+    paths["q4_0"].unlink()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_experts(model):
+    """The same model with its routed expert stacks dequantized to f32 dense
+    weights (as an F32 checkpoint loads): served unfolded, through K13."""
+    import numpy as np
+
+    lw = dict(model.weights["layers"])
+    for k in ("gate_exps", "up_exps", "down_exps"):
+        t = lw[k]
+        lw[k] = np.asarray(t.qs, np.float32) * np.repeat(np.asarray(t.scales), 32, axis=-1)
+    return type(model)(cfg=model.cfg, weights={**model.weights, "layers": lw},
+                       metadata=model.metadata, family=model.family)
+
+
+def run_moe_cpu_and_dense(dev, overrides=None) -> dict:
+    """Full width, 2 layers, f32: the synthetic Q8_0 MoE model on the card
+    (K10) against the CPU (plain versions), a 32-token prompt's prefill
+    logits within 1e-4 of the largest and 16 greedy tokens reported; then
+    the same model with dense f32 experts (unfolded, K13) driven on the card
+    (prefill 128 + 32 steps, counted and traced) and its 32-token prefill
+    logits held to the CPU's."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.runtime.engine import Engine
+
+    out = {}
+    model = build_synthetic_model("qwen15-moe-a2.7b", quant="q8_0", seed=0, n_layers=2,
+                                  dtype="f32", context_length=1024, overrides=overrides)
+    out["cpu_q8_0_f32"] = compare_engines(dev, model, 32, torch.float32, "moe q8_0 f32")
+    dense = dense_experts(model)
+    del model
+    L = dense.cfg.n_layers
+    engine = Engine(dense, cache_len=1024, prefill_chunk=128, decode_window=32,
+                    cache_dtype=torch.float32, device=dev)
+    assert "shared_g13" in engine.weights["layers"], "dense experts are served unfolded"
+    prompt = np.random.default_rng(9).integers(0, 151643, 128).tolist()
+    # K5: wqkv, wo and the shared expert's two projections per layer, the head
+    out["moe_dense"] = drive_engine(engine, prompt, 32, lambda n: {
+        "grouped_dense_matmul": 2 * L * (n + 1), "block_matmul": (4 * L + 1) * (n + 1),
+        "decode_attention_fused_write": L * n}, "moe_dense", repeats=1)
+    del engine
+    lg = {}
+    for where in (dev, "cpu"):
+        e = Engine(dense, cache_len=1024, prefill_chunk=32, cache_dtype=torch.float32,
+                   device=where)
+        lg[str(where)] = e.prefill(prompt[:32], 0)[1].float().cpu()
+        del e
+    d = (lg[str(dev)] - lg["cpu"]).abs().max().item()
+    out["cpu_dense_f32"] = dict(logits_max_abs=d, logits_rel=d / lg["cpu"].abs().max().item())
+    log(f"cpu moe dense f32: 32-token prefill logits card vs cpu max abs {d:.4g} "
+        f"(rel {out['cpu_dense_f32']['logits_rel']:.3g})")
+    for k in ("cpu_q8_0_f32", "cpu_dense_f32"):
+        assert out[k]["logits_rel"] <= 1e-4, f"card and CPU disagree ({k}): {out[k]}"
+    del dense
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-dir", default=None, help="write the ptxas report and results here")
@@ -1354,6 +1997,9 @@ def main() -> int:
         return 1
     from llamatpu_torch import _build
 
+    if args.log_dir:
+        os.makedirs(args.log_dir, exist_ok=True)
+        LOG_FILES.append(open(os.path.join(args.log_dir, "smoke.log"), "w"))
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1366,15 +2012,22 @@ def main() -> int:
     log(f"build: {len(logs)} of {len(_build.SOURCES)} sources compiled in "
         f"{summary['build_s']:.1f} s")
     if args.log_dir:
-        os.makedirs(args.log_dir, exist_ok=True)
         with open(os.path.join(args.log_dir, "ptxas.txt"), "w") as f:
             for name, text in logs.items():
                 f.write(f"==== {name}\n{text}\n")
     workdir = Path(__file__).resolve().parent / "build" / "smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
-        rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev)
-        paths = {"main": run_main_path(dev), "gguf": run_gguf_path(dev, workdir)}
+        rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev) \
+            + check_moe_kernels(dev)
+        for name, sub in check_qwen_geometry(dev).items():
+            next(r for r in rows if r["name"] == name)["qwen15"] = sub
+        paths = run_moe_paths(dev)
+        paths.update(run_moe_gguf_paths(dev, workdir))
+        cpu_moe = run_moe_cpu_and_dense(dev)
+        paths["moe_dense"] = cpu_moe.pop("moe_dense")
+        summary["cpu_moe"] = cpu_moe
+        paths.update(main=run_main_path(dev), gguf=run_gguf_path(dev, workdir))
         gguf = workdir / paths["gguf"]["gguf_file"]  # written by the gguf phase
         paths["serve"] = run_serving_path(dev, gguf, rowq=False, latency=True)
         paths["serve_rowq"] = run_serving_path(dev, gguf, rowq=True, latency=False)
@@ -1390,6 +2043,8 @@ def main() -> int:
         summary["cpu"] = run_cpu_compare(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+        while LOG_FILES:
+            LOG_FILES.pop().close()
     if args.log_dir:
         with open(os.path.join(args.log_dir, "chip_smoke.json"), "w") as f:
             json.dump({"kernels": rows, **summary}, f, indent=1)

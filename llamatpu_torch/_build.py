@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("quant_matmul", "layer_fused", "gemm", "block_matmul", "attention")
+SOURCES = ("quant_matmul", "layer_fused", "gemm", "block_matmul", "attention", "moe_grouped")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +56,9 @@ _SIGNATURES = {
                                 _P, _P, _P, _I, _P),
         "lt_paged_attention": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _P, _P, _P, _I, _P),
+    },
+    "moe_grouped": {
+        "lt_grouped_matmul": (_I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     },
 }
 

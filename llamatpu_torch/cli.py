@@ -6,10 +6,13 @@ llamatpu/cli.py), on the card by default:
     python -m llamatpu_torch.cli validate -m model.gguf --dtype f32
     python -m llamatpu_torch.cli serve -m model.gguf --batch-size 8 --paged
 
-A Llama 3 GGUF in Q8_0 or Q4_0 loads as block quants (`--pack4` packs Q4_0
-two values per byte; `--rowq` requantizes Q8_0 to per-row int8 and takes the
-q8_row kernels), the prompt goes through the Llama 3 chat template, and the
-answer is sampled at the family's defaults (temperature 0.3, top-p 0.95)
+A Llama 3, Qwen2 or Qwen2-MoE GGUF (Qwen1.5-MoE-A2.7B: routed experts
+through the grouped kernels) in Q8_0 or Q4_0 loads as block quants
+(`--pack4` packs Q4_0 two values per byte; `--rowq` requantizes Q8_0, the
+expert stacks included, to per-row int8 and takes the q8_row kernels),
+F32/F16/BF16 as dense weights; the prompt goes through the family's chat
+template (Llama 3 headers, Qwen's ChatML), and the answer is sampled at the
+family's defaults (Llama 3: temperature 0.3, top-p 0.95; Qwen: 0.8, 0.9)
 unless --temperature / --top-p say otherwise, and streamed to stdout.
 
 The JAX package's TPU-only flags (--impl, --dump-hlo, --profile-dir) have no
@@ -29,7 +32,8 @@ import sys
 
 # later slices of the port: (flag attribute, its default, the slice)
 _LATER_FLAGS = (("tp", 0, "parallelism"), ("dp", 1, "parallelism"), ("sp", 1, "parallelism"),
-                ("pipeline", 1, "parallelism"), ("ep", False, "MoE/parallelism"),
+                ("pipeline", 1, "parallelism"),
+                ("ep", False, "parallelism (expert parallelism of MoE models)"),
                 ("spec_decode", 0, "speculative-decode"))
 _LATER_COMMANDS = {"bench": "benchmark", "ppl": "benchmark", "convert": "quant-breadth"}
 
@@ -64,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--dp", type=int, default=1, help="(parallelism slice)")
         sp.add_argument("--sp", type=int, default=1, help="(parallelism slice)")
         sp.add_argument("--pipeline", type=int, default=1, help="(parallelism slice)")
-        sp.add_argument("--ep", action="store_true", help="(MoE/parallelism slice)")
+        sp.add_argument("--ep", action="store_true", help="(parallelism slice)")
         sp.add_argument("--spec-decode", type=int, default=0,
                         help="(speculative-decode slice)")
 
@@ -74,9 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--system-prompt", "-sp", default=None)
     run.add_argument("--interactive", "-i", action="store_true")
     run.add_argument("--temperature", "-temp", type=float, default=None,
-                     help="default: the family's (Llama 3: 0.3)")
+                     help="default: the family's (Llama 3: 0.3, Qwen: 0.8)")
     run.add_argument("--top-p", type=float, default=None,
-                     help="default: the family's (Llama 3: 0.95)")
+                     help="default: the family's (Llama 3: 0.95, Qwen: 0.9)")
     run.add_argument("--stream", action=argparse.BooleanOptionalAction, default=True)
     run.add_argument("--echo", action="store_true")
 
@@ -150,7 +154,7 @@ def load(args):
     if model.chat_format is None:
         raise NotImplementedError(
             f"{model.family.name} checkpoints: family-deltas slice of the port "
-            "(this slice runs Llama 3)")
+            "(the port runs Llama 3, Qwen2 and Qwen2-MoE)")
     return model, metrics
 
 

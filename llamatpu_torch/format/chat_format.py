@@ -1,8 +1,10 @@
 """Chat formats: prompt templates, stop tokens, default sampling
-parameters and tool-calling encodings. The port's copy of the Llama 3 part
-of llamatpu/format/chat_format.py (`Message`, `Role`, the `ChatFormat` base
-with its tool-calling defaults, `LlamaChatFormat`, `build_chat_format`). The
-other families' formats belong to the family-deltas slice of the port.
+parameters and tool-calling encodings. The port's copy of the Llama 3 and
+Qwen2 parts of llamatpu/format/chat_format.py (`Message`, `Role`, the
+`ChatFormat` base with its tool-calling defaults, `LlamaChatFormat`,
+`QwenChatFormat` for Qwen2 and Qwen2-MoE, `build_chat_format`). The other
+families' formats (Qwen3's thinking control, the DeepSeek distills, Mistral,
+Phi-3, Granite) belong to the family-deltas slice of the port.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ class Role:
     SYSTEM = "system"
     USER = "user"
     ASSISTANT = "assistant"
+    FIM_PREFIX = "fim_prefix"
+    FIM_SUFFIX = "fim_suffix"
+    FIM_MIDDLE = "fim_middle"
 
 
 class ChatFormat:
@@ -115,6 +120,9 @@ class ChatFormat:
     def _enc(self, text: str) -> list[int]:
         return self.tokenizer.encode(text, allowed_special="all")
 
+    def _enc_ord(self, text: str) -> list[int]:
+        return self.tokenizer.encode_ordinary(text)
+
     def _sp(self, name: str, default: int = -1) -> int:
         return self.tokenizer.special_tokens.get(name, default)
 
@@ -195,8 +203,93 @@ class LlamaChatFormat(ChatFormat):
         return s
 
 
+class QwenChatFormat(ChatFormat):
+    """ChatML (<|im_start|>role\n ... <|im_end|>\n) of Qwen2 and Qwen2-MoE,
+    with no begin-of-text token, stops at <|im_end|>, <|end_of_text|> and
+    <|endoftext|>, sampling defaults 0.8 / 0.9, the fill-in-the-middle roles
+    as their single tokens, and Hermes-style tool calls in <tool_call> tags
+    (the JAX package's `QwenChatFormat` without its DeepSeek and Qwen3
+    thinking variants)."""
+
+    add_begin_of_text = False
+
+    def __init__(self, tokenizer):
+        super().__init__(tokenizer)
+        self.bot = -1
+        self.im_start = self._sp("<|im_start|>")
+        self.im_end = self._sp("<|im_end|>")
+        self.eos = self._sp("<|end_of_text|>")
+        self.eot_fim = self._sp("<|endoftext|>")
+        self.fim = {Role.FIM_PREFIX: self._sp("<|fim_prefix|>"),
+                    Role.FIM_SUFFIX: self._sp("<|fim_suffix|>"),
+                    Role.FIM_MIDDLE: self._sp("<|fim_middle|>")}
+
+    def begin_of_text(self):
+        return self.im_start
+
+    def stop_tokens(self):
+        return {self.im_end, self.eos, self.eot_fim} - {-1}
+
+    def encode_header(self, m):
+        if m.role in self.fim:
+            return [self.fim[m.role]]
+        return [self.im_start, *self._enc_ord(m.role), *self._enc_ord("\n")]
+
+    def encode_message(self, m):
+        tokens = [*self.encode_header(m), *self._enc_ord(m.content.strip())]
+        if self.im_end != -1 and m.role not in self.fim:
+            tokens.append(self.im_end)
+            tokens.extend(self._enc_ord("\n"))
+        return tokens
+
+    def default_temperature(self):
+        return 0.8
+
+    def default_top_p(self):
+        return 0.9
+
+    def supports_tool_calling(self):
+        return True
+
+    def tool_system_prompt_suffix(self, tools_json):
+        return (
+            "\n\n# Tools\n\n"
+            "You may call one or more functions to assist with the user query.\n\n"
+            "You are provided with function signatures within <tools></tools> XML tags:\n"
+            "<tools>\n" + tools_json + "\n</tools>\n\n"
+            "For each function call, return a json object with function name and arguments "
+            "within <tool_call></tool_call> XML tags:\n"
+            "<tool_call>\n"
+            '{"name": <function-name>, "arguments": <args-json-object>}\n'
+            "</tool_call>"
+        )
+
+    def encode_tool_call_assistant_turn(self, tool_calls):
+        tokens = [self.im_start, *self._enc_ord("assistant\n")]
+        for tc in tool_calls:
+            json_s = '{"name":"%s","arguments":%s}' % (tc.name, tc.arguments_json)
+            tokens.extend(self._enc_ord("<tool_call>\n" + json_s + "\n</tool_call>"))
+        if self.im_end != -1:
+            tokens.append(self.im_end)
+        return tokens
+
+    def encode_tool_result_turn(self, call_id, tool_name, result):
+        tokens = [self.im_start,
+                  *self._enc_ord("user\n<tool_response>\n" + result + "\n</tool_response>")]
+        if self.im_end != -1:
+            tokens.append(self.im_end)
+        return tokens
+
+    def extract_tool_call(self, text):
+        return parse_tool_call_response(text)
+
+    def extract_all_tool_calls(self, text):
+        return parse_all_tool_calls(text)
+
+
 def build_chat_format(family: Family, tokenizer, md: dict | None = None) -> ChatFormat:
-    if family != Family.LLAMA_3:
-        raise NotImplementedError(
-            f"{family.name} chat format: family-deltas slice of the port")
-    return LlamaChatFormat(tokenizer)
+    if family == Family.LLAMA_3:
+        return LlamaChatFormat(tokenizer)
+    if family in (Family.QWEN_2, Family.QWEN_2_MOE):
+        return QwenChatFormat(tokenizer)
+    raise NotImplementedError(f"{family.name} chat format: family-deltas slice of the port")

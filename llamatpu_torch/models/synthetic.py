@@ -114,8 +114,10 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
                           dtype: str = "bf16", context_length: int | None = None,
                           n_layers: int | None = None,
                           overrides: dict | None = None) -> LoadedModel:
-    """Random weights at a preset's geometry. Dense Q8_0 Llama-family models
-    in this slice; other quants and MoE raise until their slices."""
+    """Random Q8_0 weights at a preset's geometry (other quants raise until
+    the quant-breadth slice). An MoE preset draws the dense FFN too, as the
+    JAX package does before it replaces it by the routed experts and the
+    shared expert, so the stream stays the same."""
     kw = dict(PRESETS[preset])
     if context_length:
         kw["context_length"] = context_length
@@ -124,8 +126,6 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
     if overrides:
         kw.update(overrides)
     cfg = ModelConfig(**kw)
-    if cfg.is_moe:
-        raise NotImplementedError("synthetic MoE: MoE slice of the port")
     rng = np.random.default_rng(seed)
 
     def mat(out_dim, in_dim):
@@ -149,6 +149,20 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
     if cfg.qk_norm:
         layers["q_norm"] = np.ones((cfg.n_layers, cfg.head_dim), np.float32)
         layers["k_norm"] = np.ones((cfg.n_layers, cfg.head_dim), np.float32)
+
+    if cfg.is_moe:
+        def emat(out_dim, in_dim):
+            return _rand_qtensor(rng, (cfg.n_layers, cfg.n_experts, out_dim, in_dim), quant)
+
+        del layers["w1"], layers["w2"], layers["w3"]
+        layers["router"] = _rand_dense(rng, (cfg.n_layers, cfg.n_experts, cfg.dim), "f32")
+        layers["gate_exps"] = emat(cfg.moe_hidden_dim, cfg.dim)
+        layers["up_exps"] = emat(cfg.moe_hidden_dim, cfg.dim)
+        layers["down_exps"] = emat(cfg.dim, cfg.moe_hidden_dim)
+        layers["shared_gate"] = mat(cfg.hidden_dim, cfg.dim)
+        layers["shared_up"] = mat(cfg.hidden_dim, cfg.dim)
+        layers["shared_down"] = mat(cfg.dim, cfg.hidden_dim)
+        layers["shared_gate_inp"] = _rand_dense(rng, (cfg.n_layers, cfg.dim), "f32")
 
     cos, sin = precompute_rope_tables(cfg)
     wcls = _rand_qtensor(rng, (cfg.vocab_size, cfg.dim), quant)

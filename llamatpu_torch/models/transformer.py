@@ -1,4 +1,5 @@
-"""The transformer forward of the port: dense Llama family, packed KV cache
+"""The transformer forward of the port: the Llama family and Qwen2 (qkv bias,
+NeoX RoPE) with a dense FFN or Qwen2-MoE's routed experts, packed KV cache
 (dense per lane, or a shared paged block pool), q8_row or block-quant (Q8_0 /
 Q4_0 / packed4) or dense weights.
 
@@ -15,13 +16,22 @@ Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
 - q8_row weights: rmsnorm + wqkv is K2 for R <= 32 (ops/layer_fused.py),
   else the plain rmsnorm and the matmul dispatch (K1 below 128 rows, K4 at
   128 and above);
+- the qkv bias (Qwen2) is added to the projection's output, rounded to its
+  dtype (`transformer.py:451-454`);
 - q8_row weights at B = T = 1 on a dense cache (no batch_offset, a host
-  int pos): K3, KV append + attention + the whole tail in one call;
-- otherwise attention (below), then for q8_row weights and R <= 32 K9 (wo +
-  residual + rmsnorm + w13 + silu * up + w2 + residual), else the unfused
-  tail with the JAX package's dtypes (`transformer.py:699-712`, `_dense_ffn`):
-  bf16 residual stream between ops, projections through ops/matmul.py (K5 /
-  K7 for block quants);
+  int pos), dense FFN only: K3, KV append + attention + the whole tail in
+  one call;
+- otherwise attention (below), then for q8_row weights, R <= 32 and a dense
+  FFN K9 (wo + residual + rmsnorm + w13 + silu * up + w2 + residual), else
+  the unfused tail with the JAX package's dtypes (`transformer.py:699-712`,
+  `_dense_ffn`): bf16 residual stream between ops, projections through
+  ops/matmul.py (K5 / K7 for block quants);
+- an MoE layer's FFN (`_moe_ffn`, `transformer.py:222-316`): the router as
+  an f32 matmul, softmax over all experts, top-k without renormalization,
+  the routed experts through the grouped matmuls (ops/moe_grouped.py,
+  K10-K13) at the JAX package's tile rule, and the shared expert either
+  folded into them (every token routed to its S chunks with the sigmoid
+  shared-gate weight) or as explicit matmuls (`_moe_shared`);
 - attention at T = 1: dense cache without batch_offset, K6 (KV append +
   attention, ops/attention.py) at each lane's pos; paged pool, the KV write
   (`runtime/paged_cache.paged_write_stacked`) then K8 through the tables;
@@ -32,8 +42,7 @@ The JAX package takes its fused q8_row kernels only where its TPU tiling
 accepts the widths (multiples of 128); the port takes them at every width,
 as K3 and K6 serve every cache length.
 
-Qkv bias, q/k norm, MoE, int8 KV and sharding raise until their slices of the
-port.
+Q/k norm, int8 KV and sharding raise until their slices of the port.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from llamatpu_torch.ops.attention import decode_attention_fused_write, decode_at
 from llamatpu_torch.ops.layer_fused import (MAX_T, layer_attn_tail_fused_rowq,
                                             layer_tail_fused_rowq, qkv_norm_fused_rowq)
 from llamatpu_torch.ops.matmul import matmul
+from llamatpu_torch.ops.moe_grouped import moe_ffn_grouped, tile_rows
 from llamatpu_torch.ops.rmsnorm import rmsnorm
 from llamatpu_torch.ops.rope import apply_rope
 from llamatpu_torch.runtime.paged_cache import PagedKVCache, paged_gather, paged_write_stacked
@@ -154,10 +164,58 @@ def _write_rows(kv: torch.Tensor, new: torch.Tensor, li: int, pos, row0: int) ->
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError("qkv bias / q-k norm: family-deltas slice of the port")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE: MoE slice of the port")
+    if cfg.qk_norm:
+        raise NotImplementedError("q-k norm: family-deltas slice of the port")
+
+
+def _expert_count(w) -> int:
+    """Experts in a stacked [L, E, O, I] expert weight."""
+    return w.qs.shape[1] if isinstance(w, QTensor) else w.shape[1]
+
+
+def _shared_weight(lw: dict, hf: torch.Tensor, li: int) -> torch.Tensor:
+    """sigmoid(shared_gate_inp . h) in f32, [N]."""
+    return torch.sigmoid(hf.float() @ lw["shared_gate_inp"][li].float())
+
+
+def _moe_ffn(cfg: ModelConfig, h: torch.Tensor, lw: dict, li: int) -> torch.Tensor:
+    """Qwen2-MoE FFN of layer li: softmax-over-all-experts router, top-k
+    WITHOUT renormalization, the routed experts through the grouped
+    matmuls, plus the always-on shared expert gated by sigmoid(shared_gate_inp
+    . h): folded (the stacks hold S more experts, routed to by every token)
+    or explicit. h [B, T, D] -> [B, T, D] in h's dtype."""
+    b, t, d = h.shape
+    hf = h.reshape(b * t, d)
+    probs = torch.softmax(matmul(lw["router"], hf, li).float(), dim=-1)
+    top_w, top_i = torch.topk(probs, cfg.n_experts_used, dim=-1)
+    e_have = _expert_count(lw["gu_exps"] if "gu_exps" in lw else lw["gate_exps"])
+    folded = e_have > cfg.n_experts and "shared_gate_inp" in lw
+    if folded:
+        s = e_have - cfg.n_experts
+        vir = torch.arange(cfg.n_experts, e_have, device=hf.device, dtype=top_i.dtype)
+        top_i = torch.cat([top_i, vir[None].expand(b * t, s)], dim=1)
+        top_w = torch.cat([top_w, _shared_weight(lw, hf, li)[:, None].expand(b * t, s)], dim=1)
+    tm = tile_rows(b * t, top_i.shape[1])
+    routed = moe_ffn_grouped(cfg, hf, top_w, top_i, lw, tm=tm, li=li,
+                             n_experts=e_have).to(h.dtype)
+    if folded:  # the shared expert is inside the routed combine
+        return routed.reshape(b, t, d)
+    return _moe_shared(h, hf, routed, lw, li)
+
+
+def _moe_shared(h, hf, routed, lw: dict, li: int) -> torch.Tensor:
+    """routed + sigmoid gate * shared expert (unfolded stacks), summed in f32."""
+    b, t, d = h.shape
+    if "shared_g13" in lw:  # fused shared gate+up
+        g13 = matmul(lw["shared_g13"], hf, li)
+        ff = g13.shape[-1] // 2
+        sg, su = g13[..., :ff], g13[..., ff:]
+    else:
+        sg, su = matmul(lw["shared_gate"], hf, li), matmul(lw["shared_up"], hf, li)
+    sact = F.silu(sg.float()).to(h.dtype) * su
+    sdown = matmul(lw["shared_down"], sact, li)
+    out = routed.float() + _shared_weight(lw, hf, li)[:, None] * sdown.float()
+    return out.to(h.dtype).reshape(b, t, d)
 
 
 def _is_rowq(w) -> bool:
@@ -169,7 +227,7 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
     b, t = x.shape[:2]
     nkv, g, hd = cfg.n_kv_heads, cfg.gqa_groups, cfg.head_dim
     eps, rs = cfg.rms_norm_eps, cfg.residual_scale
-    if "wqkv" not in lw or "w13" not in lw:
+    if "wqkv" not in lw or ("w13" not in lw and not cfg.is_moe):
         raise NotImplementedError("unfused projections: the port serves fused wqkv/w13")
     paged = isinstance(cache, PagedKVCache)
     rows = b * t
@@ -178,6 +236,9 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         qkv = qkv_norm_fused_rowq(lw["wqkv"], lw["attn_norm"], x, li, eps)
     else:
         qkv = matmul(lw["wqkv"], rmsnorm(x, lw["attn_norm"][li], eps), li)
+    if cfg.qkv_bias:
+        qkv = qkv + torch.cat([lw["q_bias"][li], lw["k_bias"][li],
+                               lw["v_bias"][li]]).to(qkv.dtype)
     qd, kd = cfg.q_dim, cfg.kv_dim
     # q and k heads rotate in one call (elementwise: the same values as two)
     qk = apply_rope(qkv[..., :qd + kd].reshape(b, t, cfg.n_heads + nkv, hd), cos, sin,
@@ -186,8 +247,8 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
     v = qkv[..., qd + kd:].reshape(b, t, nkv, cfg.v_head_dim)
     kvnew = torch.cat([k, v], dim=-1)                 # [B, T, KV, hd + vhd]
     stacked = t == 1 and batch_offset is None
-    if (stacked and not paged and b == 1 and isinstance(pos, int) and rowq and _is_rowq(lw["wo"])
-            and _is_rowq(lw["w13"]) and _is_rowq(lw["w2"])):
+    if (stacked and not paged and b == 1 and isinstance(pos, int) and rowq and not cfg.is_moe
+            and _is_rowq(lw["wo"]) and _is_rowq(lw["w13"]) and _is_rowq(lw["w2"])):
         x, _ = layer_attn_tail_fused_rowq(
             lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q.reshape(b, nkv, g, hd),
             kvnew[:, 0], cache.kv, x, pos, li, eps, cfg.attn_score_scale, hd, rs)
@@ -215,19 +276,23 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kvd[..., :hd], kvd[..., hd:],
                           pos_vec, t)
     attn = attn.reshape(b, t, -1).to(x.dtype)
-    new_x = layer_tail_fused_rowq(lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], attn, x, li,
-                                  eps, rs)
-    if new_x is not None:
-        return new_x
+    if not cfg.is_moe:
+        new_x = layer_tail_fused_rowq(lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], attn, x, li,
+                                      eps, rs)
+        if new_x is not None:
+            return new_x
     attn_out = matmul(lw["wo"], attn, li)
     if rs != 1.0:
         attn_out = (attn_out.float() * rs).to(x.dtype)
     x = x + attn_out
     h2 = rmsnorm(x, lw["ffn_norm"][li], eps)
-    g13 = matmul(lw["w13"], h2, li)
-    ff = g13.shape[-1] // 2
-    act = F.silu(g13[..., :ff].float()).to(h2.dtype) * g13[..., ff:]
-    ffn = matmul(lw["w2"], act, li)
+    if cfg.is_moe:
+        ffn = _moe_ffn(cfg, h2, lw, li)
+    else:
+        g13 = matmul(lw["w13"], h2, li)
+        ff = g13.shape[-1] // 2
+        act = F.silu(g13[..., :ff].float()).to(h2.dtype) * g13[..., ff:]
+        ffn = matmul(lw["w2"], act, li)
     if rs != 1.0:
         ffn = (ffn.float() * rs).to(x.dtype)
     return x + ffn

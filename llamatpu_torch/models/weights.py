@@ -27,6 +27,7 @@ so a 32-block stays inside 16 bytes) and rows unpadded, and
 """
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass, replace
 from typing import Any
@@ -104,41 +105,57 @@ def _unpack4_halves(qp: np.ndarray) -> np.ndarray:
     return np.concatenate([(p << 28) >> 28, p >> 4], axis=-1).astype(np.int8)
 
 
-def rowq_requant(w: QTensor) -> QTensor:
+def rowq_requant(w: QTensor, device: str | torch.device | None = None) -> QTensor:
     """Requantize a Q8_0 tensor to per-OUT-ROW int8 (`q8_row`): one f32 scale
     per output row instead of one per 32 inputs. Decode then streams 1.0
     byte/weight and the row scale multiplies the [T, O] output; prefill feeds
     the int8 values straight to an int8 GEMM (ops/gemm.py). Rounding: half
-    away from zero against the row max / 127. Layer by layer to bound the f32
-    working set. Output is canonical."""
+    away from zero against the row max / 127. Output is canonical.
+
+    Computed in torch one leading index at a time (a layer of a [L, O, I] or
+    [L, E, O, I] stack) to bound the f32 working set; every step is an IEEE
+    f32 operation, so the values are bit-equal to the JAX package's numpy on
+    any device. device None: on the CPU, returning numpy arrays; a device:
+    computed there, returning tensors on it (an MoE model's expert stacks are
+    ~12 G weights: the card converts them in seconds)."""
     assert w.kind == "q8_0", f"rowq_requant: want q8_0, got {w.kind}"
     assert w.offs is None
-    qs = _np(w.qs)
-    scales = _np(w.scales)
+    qs = w.qs
     if w.layout == "interleaved":
-        qs = deinterleave_columns(qs)
+        qs = deinterleave_columns(_np(qs))
     else:
         assert w.layout == "canonical", "rowq_requant: packed4 is Q4_0-only"
-    lead = qs.shape[:-2]
-    qs2 = qs.reshape(-1, *qs.shape[-2:])
-    sc2 = scales.reshape(-1, *scales.shape[-2:])
-    out_q = np.empty_like(qs2)
-    out_s = np.empty((qs2.shape[0], qs2.shape[1], 1), np.float32)
-    for l in range(qs2.shape[0]):
-        v = qs2[l].astype(np.float32) * np.repeat(sc2[l], BLOCK, axis=-1)
+    dev = torch.device("cpu" if device is None else device)
+    qs = torch.as_tensor(qs)
+    scales = torch.as_tensor(_np(w.scales)) if not isinstance(w.scales, torch.Tensor) else w.scales
+    out_q = torch.empty(qs.shape, dtype=torch.int8, device=dev)
+    out_s = torch.empty((*qs.shape[:-1], 1), dtype=torch.float32, device=dev)
+    chunks = range(qs.shape[0]) if qs.ndim > 2 else [slice(None)]
+    for l in chunks:
+        q, sc = qs[l].to(dev), scales[l].to(dev)
+        v = q.float() * sc.float().repeat_interleave(BLOCK, dim=-1)
         out_q[l], out_s[l] = _rowq_from_f32(v)
-    return QTensor(out_q.reshape(*lead, *qs.shape[-2:]),
-                   out_s.reshape(*lead, qs.shape[-2], 1),
-                   kind="q8_row", logical_out=w.logical_out, layout="canonical")
+    if device is None:
+        return QTensor(out_q.numpy(), out_s.numpy(), kind="q8_row", logical_out=w.logical_out,
+                       layout="canonical")
+    return QTensor(out_q, out_s, kind="q8_row", logical_out=w.logical_out, layout="canonical")
 
 
-def _rowq_from_f32(v: np.ndarray):
-    """[O, I] f32 -> (int8 [O, I], f32 [O, 1]) per-out-row symmetric quant."""
-    r = np.max(np.abs(v), axis=-1, keepdims=True) / 127.0
-    inv = np.where(r > 0, 1.0 / np.where(r > 0, r, 1.0), 0.0)
-    s = v * inv
-    q = np.trunc(s + np.copysign(0.5, s)).astype(np.int8)
-    return q, r.astype(np.float32)
+def _rowq_from_f32(v):
+    """[..., O, I] f32 -> (int8 [..., O, I], f32 [..., O, 1]) per-out-row
+    symmetric quant: r = max|v| / 127, q = trunc(v / r + copysign(0.5)) with
+    v / r taken as v * (1 / r). torch tensors, or numpy arrays (converted).
+    r and 1 / r are taken on the CPU from the (exact) row max: CUDA divides
+    by a scalar as a product with its rounded reciprocal, 1 ulp off."""
+    if isinstance(v, np.ndarray):
+        q, r = _rowq_from_f32(torch.from_numpy(v))
+        return q.numpy(), r.numpy()
+    r = v.abs().amax(dim=-1, keepdim=True).cpu() / 127.0
+    one = torch.ones_like(r)
+    inv = torch.where(r > 0, one / torch.where(r > 0, r, one), torch.zeros_like(r))
+    s = v * inv.to(v.device)
+    q = torch.trunc(s + torch.copysign(torch.full_like(s, 0.5), s)).to(torch.int8)
+    return q, r.to(v.device)
 
 
 def _col_eq_scale(v: np.ndarray, clip: float = 4.0) -> np.ndarray:
@@ -230,24 +247,30 @@ def equalize_rowq_layers(layers: dict) -> dict:
     return out
 
 
-def rowq_convert_weights(weights: dict) -> dict:
-    """Convert every Q8_0 QTensor of a (fused) dense weights tree to q8_row:
+_EXPERT_KEYS = ("gate_exps", "up_exps", "gu_exps", "down_exps")
+
+
+def rowq_convert_weights(weights: dict, experts: bool = True,
+                         device: str | torch.device | None = None) -> dict:
+    """Convert every Q8_0 QTensor of a (fused) weights tree to q8_row:
     equalized for wqkv/w13/w2, plain `rowq_requant` for the rest (wo, the
-    vocab head)."""
+    vocab head, an MoE model's shared expert and, with experts=True, its
+    routed expert stacks: K12 serves them). device: see `rowq_requant`."""
+    skip = () if experts else _EXPERT_KEYS
     eq_layers = equalize_rowq_layers(weights["layers"])
     converted = sum(1 for k in ("wqkv", "w13", "w2")
                     if isinstance(eq_layers.get(k), QTensor)
                     and eq_layers[k].kind == "q8_row")
     layers = {}
     for k, v in eq_layers.items():
-        if isinstance(v, QTensor) and v.kind == "q8_0":
-            v = rowq_requant(v)
+        if k not in skip and isinstance(v, QTensor) and v.kind == "q8_0":
+            v = rowq_requant(v, device)
             converted += 1
         layers[k] = v
     out = dict(weights)
     out["layers"] = layers
     if isinstance(out.get("wcls"), QTensor) and out["wcls"].kind == "q8_0":
-        out["wcls"] = rowq_requant(out["wcls"])
+        out["wcls"] = rowq_requant(out["wcls"], device)
         converted += 1
     if not converted:
         warnings.warn(
@@ -281,17 +304,134 @@ def _dense_fusable(ts) -> bool:
             and len({t.dtype for t in ts}) == 1 and len({t.shape[-1] for t in ts}) == 1)
 
 
+def _qt_parts(t: QTensor):
+    return _np(t.qs), _np(t.scales)
+
+
+def _filled(shape, dtype, pieces) -> np.ndarray:
+    """One array of `shape` filled from (index, part) pieces: a stack built
+    with a single copy of its parts."""
+    out = np.empty(shape, dtype)
+    for idx, part in pieces:
+        out[idx] = part
+    return out
+
+
+def _shared_chunks(layers: dict, s: int, mh: int) -> dict:
+    """The shared expert as S virtual experts of routed geometry: gate/up
+    rows [L, S*MH, D] -> [L, S, MH, D] and down columns [L, D, S*MH] ->
+    [L, S, D, MH], cut in canonical column space (a packed4 byte holds two
+    adjacent columns, so chunks of MH columns are MH/2 bytes), as
+    (qs, scales) views."""
+    out = {}
+    for k in ("shared_gate", "shared_up"):
+        qs, sc = _qt_parts(layers[k])
+        out[k] = (qs.reshape(qs.shape[0], s, mh, qs.shape[-1]),
+                  sc.reshape(sc.shape[0], s, mh, sc.shape[-1]))
+    qs, sc = _qt_parts(layers["shared_down"])
+    n, d = qs.shape[:2]
+    out["shared_down"] = (qs.reshape(n, d, s, qs.shape[-1] // s).transpose(0, 2, 1, 3),
+                          sc.reshape(n, d, s, sc.shape[-1] // s).transpose(0, 2, 1, 3))
+    return out
+
+
+def _foldable(cfg, layers: dict) -> int:
+    """S, the shared expert's chunks of routed geometry, or 0 where the stacks
+    do not fold: the LLAMATPU_NO_SHARED_FOLD escape hatch (read under the JAX
+    package's name), missing or dense stacks, mixed kinds or layouts, padded
+    rows, or a shared hidden size that is not a multiple of the routed one."""
+    need = ("gate_exps", "up_exps", "down_exps", "shared_gate", "shared_up", "shared_down")
+    if os.environ.get("LLAMATPU_NO_SHARED_FOLD") or not all(k in layers for k in need):
+        return 0
+    ts = [layers[k] for k in need]
+    if not all(isinstance(t, QTensor) and t.offs is None for t in ts):
+        return 0
+    if len({t.kind for t in ts}) != 1 or len({t.layout for t in ts}) != 1 \
+            or any(t.logical_out for t in ts):
+        return 0
+    mh, sh = ts[0].qs.shape[-2], ts[3].qs.shape[-2]
+    if mh == 0 or sh % mh or mh % BLOCK:
+        return 0
+    return sh // mh
+
+
+def fold_shared_expert(cfg, layers: dict) -> dict:
+    """Fold the always-on shared expert into the routed expert stacks as
+    S = hidden_dim / moe_hidden_dim VIRTUAL experts (Qwen1.5-MoE: 5632/1408 =
+    4), experts E..E+S-1, each routed to by every token with the sigmoid
+    shared-gate weight (models/transformer.py `_moe_ffn`). Exact: silu and
+    the product are elementwise, so gate/up rows partition, and the down
+    projection's partial sums over column chunks add up. Stacks that do not
+    fold come back unchanged (`_foldable`)."""
+    s = _foldable(cfg, layers)
+    if not s:
+        return layers
+    mh = layers["gate_exps"].qs.shape[-2]
+    chunks = _shared_chunks(layers, s, mh)
+    out = dict(layers)
+    for k, sk in (("gate_exps", "shared_gate"), ("up_exps", "shared_up"),
+                  ("down_exps", "shared_down")):
+        t = layers[k]
+        (qs, sc), (cq, cs) = _qt_parts(t), chunks[sk]
+        e = qs.shape[1]
+        out[k] = QTensor(
+            _filled((qs.shape[0], e + s, *qs.shape[2:]), qs.dtype,
+                    [(np.s_[:, :e], qs), (np.s_[:, e:], cq)]),
+            _filled((sc.shape[0], e + s, *sc.shape[2:]), sc.dtype,
+                    [(np.s_[:, :e], sc), (np.s_[:, e:], cs)]),
+            t.kind, layout=t.layout)
+        del out[sk]
+    return out
+
+
+def _fold_and_fuse_experts(cfg, layers: dict) -> dict:
+    """fold_shared_expert then the gate+up row concat, built as one gu_exps
+    stack [L, E+S, 2*MH, D] with a single copy of its parts (at Qwen1.5-MoE
+    width the stacks are ~12 G weights: no intermediate folded gate/up)."""
+    s = _foldable(cfg, layers)
+    if not s:
+        return layers
+    out = dict(layers)
+    g, u = layers["gate_exps"], layers["up_exps"]
+    (gq, gs), (uq, us) = _qt_parts(g), _qt_parts(u)
+    chunks = _shared_chunks(layers, s, gq.shape[-2])
+    (cgq, cgs), (cuq, cus) = chunks["shared_gate"], chunks["shared_up"]
+    n, e, mh = gq.shape[:3]
+
+    def fused(a, b, ca, cb):
+        return _filled((n, e + s, 2 * mh, a.shape[-1]), a.dtype,
+                       [(np.s_[:, :e, :mh], a), (np.s_[:, e:, :mh], ca),
+                        (np.s_[:, :e, mh:], b), (np.s_[:, e:, mh:], cb)])
+
+    out["gu_exps"] = QTensor(fused(gq, uq, cgq, cuq), fused(gs, us, cgs, cus), g.kind,
+                             layout=g.layout)
+    d = layers["down_exps"]
+    (dq, ds), (cdq, cds) = _qt_parts(d), chunks["shared_down"]
+    out["down_exps"] = QTensor(
+        _filled((n, e + s, *dq.shape[2:]), dq.dtype, [(np.s_[:, :e], dq), (np.s_[:, e:], cdq)]),
+        _filled((n, e + s, *ds.shape[2:]), ds.dtype, [(np.s_[:, :e], ds), (np.s_[:, e:], cds)]),
+        d.kind, layout=d.layout)
+    for k in ("gate_exps", "up_exps", "shared_gate", "shared_up", "shared_down"):
+        del out[k]
+    return out
+
+
 def fuse_layer_weights(cfg, weights: dict) -> dict:
     """Fuse projections sharing an input into one wider matmul: wq+wk+wv ->
-    wqkv and w1+w3 -> w13 (a row concat, bit-exact; the forward splits the
-    output columns; block-quant and packed4 rows are independent too). Dense
+    wqkv, w1+w3 -> w13 and, for MoE, the shared expert's gate+up ->
+    shared_g13 and the routed gate+up stacks -> gu_exps (row concats,
+    bit-exact; the forward splits the output columns; block-quant and
+    packed4 rows are independent too). An MoE model's shared expert is
+    folded into the routed stacks first where it folds
+    (`fold_shared_expert`), and its shared_* keys are then gone. Dense
     F32/F16/BF16 projections fuse the same way, where the JAX package leaves
-    them unfused (the same values either way). Dense (not MoE) models only
-    in this slice."""
-    if getattr(cfg, "is_moe", False):
-        raise NotImplementedError("MoE weights: MoE slice of the port")
+    them unfused (the same values either way)."""
     layers = dict(weights["layers"])
-    for fused, parts in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3"))):
+    if getattr(cfg, "is_moe", False):
+        layers = _fold_and_fuse_experts(cfg, layers)
+    for fused, parts in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3")),
+                         ("shared_g13", ("shared_gate", "shared_up")),
+                         ("gu_exps", ("gate_exps", "up_exps"))):
         ts = [layers.get(k) for k in parts]
         if any(t is None for t in ts):
             continue
@@ -332,14 +472,16 @@ def tree_to(tree, device):
 
 
 def serving_weights(cfg, weights: dict, rowq: bool = False,
-                    device: str | torch.device = "cuda") -> dict:
-    """Load-time weight prep: fuse per-layer projections, optionally
-    requantize Q8_0 to q8_row (numpy, bit-exact with the JAX package), then
-    move the tree to `device` as torch tensors. rowq=False serves the block
-    quants as loaded (q8_0 / q4_0 / packed4)."""
+                    device: str | torch.device = "cuda", rowq_experts: bool | None = None) -> dict:
+    """Load-time weight prep: fuse per-layer projections (folding an MoE
+    model's shared expert), optionally requantize Q8_0 to q8_row (on
+    `device`, bit-exact with the JAX package), then move the tree to
+    `device` as torch tensors. rowq=False serves the block quants as loaded
+    (q8_0 / q4_0 / packed4). rowq_experts: also convert the MoE routed
+    expert stacks (default: follow `rowq`)."""
     w = fuse_layer_weights(cfg, weights)
     if rowq:
-        w = rowq_convert_weights(w)
+        w = rowq_convert_weights(w, experts=rowq_experts is not False, device=device)
     return tree_to(w, device)
 
 

@@ -146,6 +146,7 @@ class BatchEngine:
         decode_window: int = 16,
         metrics: RunMetrics | None = None,
         rowq: bool = False,
+        rowq_experts: bool | None = None,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
@@ -160,7 +161,7 @@ class BatchEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         with Timer() as t:
             self.weights = serving_weights(self.cfg, model.weights, rowq=rowq,
-                                           device=self.device)
+                                           rowq_experts=rowq_experts, device=self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.metrics.weight_upload_s = t.elapsed

@@ -64,6 +64,7 @@ class Engine:
         seed: int = 42,
         decode_window: int = 16,
         rowq: bool = False,
+        rowq_experts: bool | None = None,
         device: str | torch.device | None = None,
         metrics: RunMetrics | None = None,
     ):
@@ -80,7 +81,7 @@ class Engine:
         self.metrics = metrics or RunMetrics()
         with Timer() as t:
             self.weights = serving_weights(self.cfg, model.weights, rowq=rowq,
-                                           device=self.device)
+                                           rowq_experts=rowq_experts, device=self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.metrics.weight_upload_s = t.elapsed

@@ -48,6 +48,7 @@ class PagedBatchEngine:
         metrics: RunMetrics | None = None,
         prefix_cache: bool = True,
         rowq: bool = False,
+        rowq_experts: bool | None = None,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
@@ -70,7 +71,7 @@ class PagedBatchEngine:
         self.alloc = BlockAllocator(self.n_blocks, batch_size, self.max_blocks_per_lane)
         with Timer() as t:
             self.weights = serving_weights(self.cfg, model.weights, rowq=rowq,
-                                           device=self.device)
+                                           rowq_experts=rowq_experts, device=self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.metrics.weight_upload_s = t.elapsed

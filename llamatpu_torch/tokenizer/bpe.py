@@ -1,7 +1,7 @@
-"""GPT-2-style byte-level BPE with an explicit merges list: the Llama 3
-tokenizer of the port (llamatpu/tokenizer/bpe.py).
+"""GPT-2-style byte-level BPE with an explicit merges list: the Llama 3 and
+Qwen tokenizers of the port (llamatpu/tokenizer/bpe.py).
 
-Text is split by the Llama 3 pretokenizer, each piece mapped
+Text is split by the family's pretokenizer, each piece mapped
 bytes -> printable unicode (bytes_to_unicode), then pairs are merged by
 merge-list priority; special tokens split the text first and encode as single
 ids. Token ids equal the JAX package's on every text
@@ -12,8 +12,11 @@ The JAX package splits with the third-party `regex` module's pattern
     (?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\\r\\n\\p{L}\\p{N}]?\\p{L}+|\\p{N}{1,3}
     | ?[^\\s\\p{L}\\p{N}]+[\\r\\n]*|\\s*[\\r\\n]+|\\s+(?!\\S)|\\s+
 
-which the port does not import. `llama3_pieces` is that pattern written out
-as a scanner (the standard library's `re` has no \\p{L} / \\p{N}): at each
+which the port does not import, and Qwen's QWEN_PATTERN, the same but for
+two alternatives: the contractions fold ASCII case only
+(`'[sS]|'[tT]|...`), and `\\p{N}` matches one digit, not 1-3.
+`llama3_pieces` and `qwen_pieces` are those patterns written out as a
+scanner (the standard library's `re` has no \\p{L} / \\p{N}): at each
 position the alternatives are tried in order, with the backtracking each
 implies resolved by hand. Letters and numbers are the Unicode categories L*
 and N* of `unicodedata`; whitespace is the Unicode White_Space set, as
@@ -51,6 +54,10 @@ def _fold(ch: str) -> str:
     return _FOLD.get(ch, ch.lower() if ch.isascii() else ch)
 
 
+def _fold_ascii(ch: str) -> str:
+    return ch.lower() if ch.isascii() else ch
+
+
 def _run(text: str, i: int, cls: str) -> int:
     """End of the run of class `cls` starting at i."""
     n = len(text)
@@ -59,26 +66,28 @@ def _run(text: str, i: int, cls: str) -> int:
     return i
 
 
-def _match_at(text: str, i: int) -> int:
-    """End of the pretokenizer match starting at i (always > i)."""
+def _match_at(text: str, i: int, fold=_fold, max_digits: int = 3) -> int:
+    """End of the pretokenizer match starting at i (always > i). fold maps a
+    contraction letter to the case it matches; max_digits is the number
+    alternative's longest run."""
     n = len(text)
     c0 = text[i]
     k0 = _cls(c0)
-    # (?i:'s|'t|'re|'ve|'m|'ll|'d)
+    # (?i:'s|'t|'re|'ve|'m|'ll|'d), or Qwen's '[sS]|'[tT]|...
     if c0 == "'":
         for con in _CONTRACTIONS:
             e = i + 1 + len(con)
-            if e <= n and all(_fold(text[i + 1 + j]) == con[j] for j in range(len(con))):
+            if e <= n and all(fold(text[i + 1 + j]) == con[j] for j in range(len(con))):
                 return e
     # [^\r\n\p{L}\p{N}]?\p{L}+
     if k0 == "L":
         return _run(text, i, "L")
     if c0 not in "\r\n" and k0 in "OS" and i + 1 < n and _cls(text[i + 1]) == "L":
         return _run(text, i + 1, "L")
-    # \p{N}{1,3}
+    # \p{N}{1,3}, or Qwen's \p{N}
     if k0 == "N":
         e = i + 1
-        while e < n and e < i + 3 and _cls(text[e]) == "N":
+        while e < n and e < i + max_digits and _cls(text[e]) == "N":
             e += 1
         return e
     #  ?[^\s\p{L}\p{N}]+[\r\n]*
@@ -105,10 +114,19 @@ def _match_at(text: str, i: int) -> int:
 
 def llama3_pieces(text: str) -> list[str]:
     """The Llama 3 pretokenizer's pieces of `text` (regex findall order)."""
+    return _pieces(text, _fold, 3)
+
+
+def qwen_pieces(text: str) -> list[str]:
+    """The Qwen pretokenizer's pieces of `text` (QWEN_PATTERN's findall)."""
+    return _pieces(text, _fold_ascii, 1)
+
+
+def _pieces(text: str, fold, max_digits: int) -> list[str]:
     out = []
     i = 0
     while i < len(text):
-        e = _match_at(text, i)
+        e = _match_at(text, i, fold, max_digits)
         out.append(text[i:e])
         i = e
     return out

@@ -1,15 +1,17 @@
-"""Tokenizer construction from GGUF metadata: the Llama 3 branch of
-llamatpu/tokenizer/builders.py.
+"""Tokenizer construction from GGUF metadata: the Llama 3 and Qwen2 /
+Qwen2-MoE branches of llamatpu/tokenizer/builders.py.
 
 GGML token types mark the specials (every type but NORMAL and BYTE); a vocab
 without types falls back to Llama 3's rule that ids >= 128000 are special.
-The other families' tokenizers (SPM for Mistral/Phi-3, the Qwen/Granite/
-Tekken BPE variants) belong to the family-deltas slice of the port.
+Qwen2 and Qwen2-MoE split with the Qwen pretokenizer. The other families'
+tokenizers (SPM for Mistral/Phi-3, Qwen3's and the DeepSeek distills' think
+tokens, the Granite/Tekken BPE variants) belong to the family-deltas slice of
+the port.
 """
 from __future__ import annotations
 
 from llamatpu_torch.models.config import Family
-from llamatpu_torch.tokenizer.bpe import BPETokenizer
+from llamatpu_torch.tokenizer.bpe import BPETokenizer, llama3_pieces, qwen_pieces
 from llamatpu_torch.tokenizer.vocabulary import Vocabulary
 
 
@@ -23,8 +25,12 @@ def _specials_from_types(vocab: Vocabulary) -> dict[str, int]:
     return out
 
 
+_PIECES = {Family.LLAMA_3: llama3_pieces, Family.QWEN_2: qwen_pieces,
+           Family.QWEN_2_MOE: qwen_pieces}
+
+
 def build_tokenizer(family: Family, md: dict) -> BPETokenizer:
-    if family != Family.LLAMA_3:
+    if family not in _PIECES:
         raise NotImplementedError(
             f"{family.name} tokenizer: family-deltas slice of the port")
     vocab = Vocabulary.from_metadata(md)
@@ -32,7 +38,7 @@ def build_tokenizer(family: Family, md: dict) -> BPETokenizer:
     merges = [str(m) for m in md.get("tokenizer.ggml.merges", [])]
     if not specials and len(vocab) > 128000:
         specials = {vocab.tokens[i]: i for i in range(128000, len(vocab))}
-    tok = BPETokenizer(vocab, merges, specials)
+    tok = BPETokenizer(vocab, merges, specials, pretokenize=_PIECES[family])
     tok.bos_id = int(md.get("tokenizer.ggml.bos_token_id", -1))
     tok.eos_id = int(md.get("tokenizer.ggml.eos_token_id", -1))
     tok.family = family

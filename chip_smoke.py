@@ -10,21 +10,26 @@ It runs every phase, needs one card, and exits non-zero
 
 1. device:  the card's name and power limit (nvidia-smi).
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
-3. kernels: each kernel (K1-K13) against its plain PyTorch version on the
-            card, at the main-path shapes of llama32-1b (K1-K9; K2 also at 8
-            and 32 rows, K5 at T = 8, K6 at 8 lanes, K8 at 8 lanes of a
-            shuffled block pool, K9 at 1, 8 and 32 rows) and of
+3. kernels: each kernel (K1-K15, with K6's and K8's int8 variants) against
+            its plain PyTorch version on the card, at the main-path shapes of
+            llama32-1b (K1-K9; K2 also at 8 and 32 rows, K5 at T = 8, K6 at 8
+            lanes, K8 at 8 lanes of a shuffled block pool, K9 at 1, 8 and 32
+            rows; K14 fused bf16/int8 on a 33792-row cache at pos 0 to 32767
+            and 8 mixed lanes, unfused, stats and f32; K15 over 4000 of 4128
+            rows in f32, bf16 and int8; K6-int8 and K8-int8 at pos 512 and 8
+            lanes; quantize_kv card against CPU bit for bit) and of
             Qwen1.5-MoE-A2.7B (K10-K13 on one layer's folded stacks, E = 64,
             at 1, 8 and 512 tokens; K6 and K8 at hd 128, G 1; K2 at O =
             6144; K5 on the 151936-row head), with the stated tolerances;
             times from CUDA events and torch.profiler (kernel, plain
             version, one-call library yardstick) beside the bound from the
             published H100 SXM peaks.
-4. moe:     slice 4's path, full-depth, full-width Qwen1.5-MoE-A2.7B
-            (synthetic Q8_0, seed 0, the shared expert folded): Engine
-            prefill 512 then 128 greedy tokens (K10, K5, K6); the same with
-            rowq (K12, K1, K2, K4, K6); PagedBatchEngine with 8 lanes (K10,
-            K5, K8), a traced window and the distinct experts per layer.
+4. moe:     slice 4's path, full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0,
+            seed 0, the shared expert folded): Engine at full depth, prefill
+            512 then 128 greedy tokens (K10, K5, K6); the same with rowq at
+            its first 8 layers (K12, K1, K2, K4, K6); PagedBatchEngine with 8
+            lanes at full depth (K10, K5, K8), a traced window and the
+            distinct experts per layer.
 5. moe gguf: the model at full width and 4 layers (depth cut to keep the file
             ~3 GB) as a qwen2moe Q8_0 GGUF with a 151936-id ChatML vocab:
             `cli run`; `cli serve --batch-size 8 --paged` in-process over
@@ -34,16 +39,26 @@ It runs every phase, needs one card, and exits non-zero
             versions), Q8_0 experts (K10) and dense f32 experts served
             unfolded (K13, driven and traced on the card).
 7. main:    slice 1's path, full-width llama32-1b (synthetic q8_0 -> q8_row,
-            seed 0): prefill 512 then 128 greedy tokens through the port's
-            Engine, with K1-K4's launch counts read over that run.
-8. gguf:    slice 2's path. The same synthetic model, written by the port's
+            seed 0, built with context_length 32768): prefill 512 then 128
+            greedy tokens through the port's Engine, with K1-K4's launch
+            counts read over that run.
+8. longctx: slice 5's path on the same weights: Engine at cache 32768,
+            prefill chunk 512, a 32000-token prompt then 128 greedy tokens,
+            with bf16 and with int8 KV (K14 fused = K2 = K9 = 16 and K1 = 1
+            per step, K3 = K6 = 0); prefill and decode tok/s, a traced
+            16-step window, peak device memory, the first token where the
+            two differ. Then the full-stripe path: f32 KV at cache 4000 with
+            a 3000-token prompt (K15); int8 KV there (K6-int8); and with
+            LLAMATPU_NO_FUSED_ATTN=1 int8 KV at 4000 (K15-int8) and 16384
+            (K14 unfused) rows.
+9. gguf:    slice 2's path. The same synthetic model, written by the port's
             GGUF writer as a full-width, full-depth Q8_0 Llama 3 GGUF (tied
             head, byte-level BPE vocab of 128256 ids with the Llama 3
             specials at their ids), then: `llamatpu_torch.cli run` on it
             in-process; Engine(rowq=False) prefill 512 + 128 greedy tokens
             with the launch counts of K5 and K6 (and K1-K4 at 0); a sampled
             generation (temperature 0.3, top-p 0.95, seed 42) run twice.
-9. serve:   slice 3's path, `cli serve --batch-size 8 --paged` in-process on
+10. serve:  slice 3's path, `cli serve --batch-size 8 --paged` in-process on
             that GGUF: PagedBatchEngine (8 lanes, block 16, max_len 2048,
             prefill chunk 128, window 16) behind BatchedInferenceService and
             make_server on 127.0.0.1; 8 concurrent greedy chat completions,
@@ -52,16 +67,21 @@ It runs every phase, needs one card, and exits non-zero
             prefill chunks (K5 and K8), no scheduler error; a traced 16-step
             window at 8 lanes; the serving-latency benchmark (16 requests,
             prompt 128, 64 new, a 1024-token adversary, prefix-cache repeat).
-10. serve --rowq: the same HTTP run with q8_row weights (K1, K2, K4, K8, K9).
-11. pack4:  the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
+11. serve --rowq: the same HTTP run with q8_row weights (K1, K2, K4, K8, K9).
+12. int8:   on that GGUF, `cli run --kv-dtype int8` (K5, K6-int8) and the
+            HTTP run of `serve --kv-dtype int8 --batch-size 8 --paged` (K5,
+            K8-int8 = 16 per step) with serve's gates.
+13. pack4:  the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
             32 decode steps through K7 (K5 at 0).
-12. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
+14. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
             generate_batch through K6 at each lane's position and K2 + K9.
-13. cpu:    the port on the card against the port on the CPU (plain
+15. cpu:    the port on the card against the port on the CPU (plain
             versions), full width, 2 layers: slice 1's q8_row model, the Q8_0
             GGUF through Engine and through PagedBatchEngine.generate_batch,
             f32 prefill logits held to 1e-4 of the largest, greedy agreement
-            reported.
+            reported; slice 5's int8 KV at cache 1024 (K6-int8) and 16384
+            (K14 int8) and f32 KV at 8192 (K14 f32), with all 16 greedy ids
+            equal.
 
 Every path's launch counts are set to 0 just before it is driven and read
 just after. Then one {"kernels": [...]} line, the nvidia-smi line, and last
@@ -172,6 +192,7 @@ def rand_rowq(L, o, i, dev, gen):
 
 
 MOE_KERNELS = ("grouped_gemv_kernel", "grouped_mma_kernel")  # K10-K13's two regimes
+WALK = ("attn_walk_kernel", "attn_walk_combine_kernel")  # K14, K15 and K6-int8's two passes
 GEMV = ("gemv_kernel",)  # kernel names (profiler keys) of K1 / K2 / K3's GEMV phases
 # llama32-1b main-path shapes: layers, dim, hidden, kv heads, groups, head dim,
 # physical cache length (cache_len 1024 + one 128-row granule), vocab, prefill rows
@@ -684,6 +705,380 @@ def check_tail(dev, dims=LLAMA32_1B) -> dict:
         by_rows=per)
 
 
+# ------------------------------------------------------------ slice 5 kernels
+LONG_S = 33792  # physical rows of a 32768-row cache (prefill chunk 512)
+
+
+def sdpa_yardstick(q, kd, vd, scale: float):
+    """(one scaled_dot_product_attention call over contiguous K/V prepared
+    beforehand, its name): q [B, KV, G, hd] as B x KV*G heads of one query,
+    kd/vd [B, KV, s, d] bf16, GQA; K/V expanded where torch has no
+    enable_gqa."""
+    import torch.nn.functional as F
+
+    b, kvh, g, hd = q.shape
+    qs = q.reshape(b, kvh * g, 1, hd).to(kd.dtype)
+    try:
+        F.scaled_dot_product_attention(qs, kd, vd, scale=scale, enable_gqa=True)
+        return (lambda: F.scaled_dot_product_attention(qs, kd, vd, scale=scale, enable_gqa=True),
+                "scaled_dot_product_attention (GQA), bf16 K/V prepared beforehand")
+    except TypeError:
+        ke, ve = kd.repeat_interleave(g, dim=1), vd.repeat_interleave(g, dim=1)
+        return (lambda: F.scaled_dot_product_attention(qs, ke, ve, scale=scale),
+                "scaled_dot_product_attention, bf16 K/V expanded beforehand")
+
+
+def int8_rows(x):
+    """Packed [..., S, 2 hd] float rows -> (int8 rows, scale rows [..., 2, S])
+    through ops/kv_quant.quantize_kv, K and V each."""
+    import torch
+
+    from llamatpu_torch.ops.kv_quant import quantize_kv
+
+    hd = x.shape[-1] // 2
+    (k, ks), (v, vs) = quantize_kv(x[..., :hd]), quantize_kv(x[..., hd:])
+    return torch.cat([k, v], dim=-1), torch.stack([ks, vs], dim=-2)
+
+
+def dense_kv(kvc, sc, li: int, n: int, hd: int):
+    """Layer li's first n rows as contiguous bf16 K and V [B, KV, n, hd]
+    (int8 rows dequantized with their scales)."""
+    import torch
+
+    kv = kvc[li, :, :, :n].float()
+    if sc is not None:
+        kv = torch.cat([kv[..., :hd] * sc[li, :, :, 0, :n, None],
+                        kv[..., hd:] * sc[li, :, :, 1, :n, None]], dim=-1)
+    kv = kv.to(torch.bfloat16)
+    return kv[..., :hd].contiguous(), kv[..., hd:].contiguous()
+
+
+def attn_bytes(b: int, kvh: int, g: int, hd: int, rows: int, row_bytes: int,
+               new_row_bytes: int = 0) -> int:
+    """Bytes a decode attention call must move: the live cache rows once, q
+    (bf16), the f32 output, and a fused call's new row read and written."""
+    return b * kvh * (rows * row_bytes + g * hd * 2 + g * hd * 4 + 2 * new_row_bytes)
+
+
+def check_fused(A, dev, gen, kvh, g, hd, s_len, positions, dt, rows: int | None = None):
+    """One fused call (K14 with rows=None, K6-int8 with rows=64) against its
+    plain version on a 2-layer stacked cache: the caches after both equal, and
+    nothing but row pos (and its scales) of the written layer changed. Returns
+    (got, want)."""
+    import torch
+
+    b, W = len(positions), 2 * hd
+    x = torch.randn((2, b, kvh, s_len, W), device=dev, generator=gen)
+    quant = dt == torch.int8
+    kvc, sc = int8_rows(x) if quant else (x.to(dt), None)
+    del x
+    pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+    q = torch.randn((b, kvh, g, hd), device=dev, generator=gen).to(
+        torch.bfloat16 if quant else dt)
+    new = torch.randn((b, kvh, W), device=dev, generator=gen)
+    c1, c2 = kvc.clone(), kvc.clone()
+    if quant:
+        kvn, sn = int8_rows(new[:, :, None])
+        kvn, sn = kvn[:, :, 0], sn[..., 0]                 # [B, KV, W], [B, KV, 2]
+        s1, s2 = sc.clone(), sc.clone()
+        kern = A.decode_attention_fused_write_q if rows == 64 else \
+            A.decode_attention_split_fused_write_q
+        plain = A.decode_attention_fused_write_q_plain if rows == 64 else \
+            A.decode_attention_split_fused_write_q_plain
+        got = kern(q, kvn, sn, c1, s1, pv, hd ** -0.5, 1, hd)[0]
+        want = plain(q, kvn, sn, c2, s2, pv, hd ** -0.5, 1, hd)[0]
+    else:
+        kvn = new.to(dt)
+        got = A.decode_attention_split_fused_write(q, kvn, c1, pv, hd ** -0.5, 1, hd)[0]
+        want = A.decode_attention_split_fused_write_plain(q, kvn, c2, pv, hd ** -0.5, 1, hd)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(c1, c2), f"fused write: cache differs from the plain version's ({dt})"
+    written = torch.zeros((2, b, kvh, s_len), dtype=torch.bool, device=dev)
+    written[1, torch.arange(b, device=dev), :, pv.long()] = True
+    assert not ((c1 != kvc).any(dim=-1) & ~written).any(), "fused write changed another row"
+    if quant:
+        assert torch.equal(s1, s2), "fused write: scale rows differ from the plain version's"
+        assert not ((s1 != sc).any(dim=-2) & ~written).any(), "fused write changed another scale"
+    return got, want
+
+
+def check_split_attention(dev, dims=LLAMA32_1B) -> dict:
+    """K14 against its plain versions at llama32-1b geometry on a stacked
+    2-layer cache of 33792 rows (the physical length of a 32768-row cache):
+    fused bf16 and int8 at pos 0, 1023, 1024, 20000 and 32767 and with 8
+    lanes at mixed positions (each fused call leaves the cache equal to the
+    plain version's and changes only row pos and its scales); unfused bf16
+    and int8, stats mode (o, m, l), fused f32. Outputs within 1e-5 of the
+    largest plain value. Timed at pos 32767: fused bf16 (the row) and int8."""
+    import torch
+
+    from llamatpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    KV, G, HD = dims["KV"], dims["G"], dims["HD"]
+    S, W, scale = LONG_S, 2 * HD, HD ** -0.5
+    worst = {"rel": 0.0, "abs": 0.0}
+
+    def hold(got, want, what):
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-5, f"K14 {what}: max abs {abs_e} rel {rel_e}"
+        worst["rel"], worst["abs"] = max(worst["rel"], rel_e), max(worst["abs"], abs_e)
+        log(f"K14 {what}: max abs {abs_e:.3g} rel {rel_e:.3g}")
+
+    mixed = [0, 1023, 1024, 5000, 20000, 31999, 32767, 777]
+    for dt in (torch.bfloat16, torch.int8):
+        for pos in (0, 1023, 1024, 20000, 32767):
+            hold(*check_fused(A, dev, gen, KV, G, HD, S, [pos], dt),
+                 f"fused {dt} pos {pos}, cache as the plain version's")
+        hold(*check_fused(A, dev, gen, KV, G, HD, S, mixed, dt), f"fused {dt} B=8 {mixed}")
+    hold(*check_fused(A, dev, gen, KV, G, HD, S, [20000, 32767], torch.float32),
+         "fused f32 B=2")
+    pv = torch.tensor([1024, 32767], dtype=torch.int32, device=dev)
+    x = torch.randn((2, 2, KV, S, W), device=dev, generator=gen)
+    q = torch.randn((2, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    kvb = x.to(torch.bfloat16)
+    hold(A.decode_attention_split(q, kvb, pv, scale, HD, 1024, 1),
+         A.decode_attention_split_plain(q, kvb, pv, scale, HD, 1024, 1), "unfused bf16 B=2")
+    got, want = A.decode_attention_split_stats(q, kvb[1], pv, scale, HD), \
+        A.decode_attention_split_stats_plain(q, kvb[1], pv, scale, HD)
+    for name, a, b in zip("oml", got, want):
+        hold(a, b, f"stats {name} B=2")
+    k8, s8 = int8_rows(x)
+    hold(A.decode_attention_split_q(q, k8, s8, pv, scale, HD, 1024, 1),
+         A.decode_attention_split_q_plain(q, k8, s8, pv, scale, HD, 1024, 1), "unfused int8 B=2")
+    del x, kvb, k8, s8
+
+    # timed at the end of a 32k cache, B = 1: fused bf16 (the row), fused int8
+    pos = 32767
+    pv = torch.tensor([pos], dtype=torch.int32, device=dev)
+    x = torch.randn((2, 1, KV, S, W), device=dev, generator=gen)
+    q = torch.randn((1, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    new = torch.randn((1, KV, W), device=dev, generator=gen)
+    per = {}
+    for key, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        if dt == torch.int8:
+            kvc, sc = int8_rows(x)
+            kvn, sn = int8_rows(new[:, :, None])
+            kvn, sn = kvn[:, :, 0], sn[..., 0]
+            fn = lambda: A.decode_attention_split_fused_write_q(  # noqa: E731
+                q, kvn, sn, kvc, sc, pv, scale, 1, HD)
+            plain = lambda: A.decode_attention_split_fused_write_q_plain(  # noqa: E731
+                q, kvn, sn, kvc, sc, pv, scale, 1, HD)
+            row_bytes, new_bytes = W + 8, W + 8
+        else:
+            kvc, sc, kvn = x.to(dt), None, new.to(dt)
+            fn = lambda: A.decode_attention_split_fused_write(  # noqa: E731
+                q, kvn, kvc, pv, scale, 1, HD)
+            plain = lambda: A.decode_attention_split_fused_write_plain(  # noqa: E731
+                q, kvn, kvc, pv, scale, 1, HD)
+            row_bytes, new_bytes = W * 2, W * 2
+        library, lib_name = sdpa_yardstick(q, *dense_kv(kvc, sc, 1, pos + 1, HD), scale)
+        b_ms, b_by = bound(attn_bytes(1, KV, G, HD, pos + 1, row_bytes, new_bytes),
+                           2 * KV * G * (pos + 1) * W, BF16_OPS_S)
+        per[key] = dict(bound_ms=b_ms, bound_by=b_by, **timings(fn, WALK, plain, library),
+                        library=lib_name, shape=f"B=1 pos={pos} S={S} KV={KV} G={G} hd={HD}")
+        log(f"K14 fused {key} at pos {pos}: {per[key]['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+            f"plain {per[key]['plain_ms']:.4f}, sdpa {per[key]['library_ms']:.4f})")
+        del kvc, sc
+    torch.cuda.empty_cache()
+    return dict(
+        name="decode_attention_split_fused_write", route="cuda",
+        source="llamatpu_torch/csrc/attention.cu",
+        replaces="llamatpu/ops/pallas_attention.py:230", max_abs_err=worst["abs"],
+        max_rel_err=worst["rel"],
+        tolerance="rel to max|plain| <= 1e-5; fused caches and scale rows equal the plain "
+                  "version's, only row pos changed",
+        **{k: per["bf16"][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "library", "shape")},
+        by_dtype=per)
+
+
+def check_full_attention(dev, dims=LLAMA32_1B) -> dict:
+    """K15 against its plain versions at llama32-1b geometry over the first
+    s_use = 4000 of 4128 physical rows (a 4000-row cache's, prefill chunk
+    512), f32 (the path's), bf16 and int8 caches: 3 lanes at 0, 1023, 3999
+    and 8 lanes with one parked at the last physical row; within 1e-5 of the
+    largest plain value. Timed at pos 3999 in f32 (the row), bf16 and int8."""
+    import torch
+
+    from llamatpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    KV, G, HD = dims["KV"], dims["G"], dims["HD"]
+    S, s_use, W, scale = 4128, 4000, 2 * HD, HD ** -0.5
+    worst = [0.0, 0.0]
+    per = {}
+    for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        x = torch.randn((2, 8, KV, S, W), device=dev, generator=gen)
+        kvc, sc = int8_rows(x) if dt == torch.int8 else (x.to(dt), None)
+        qdt = torch.float32 if dt == torch.float32 else torch.bfloat16
+        for positions in ([0, 1023, 3999], [0, 31, 500, 2047, 3998, 3999, 1234, S - 1]):
+            b = len(positions)
+            pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+            q = torch.randn((b, KV, G, HD), device=dev, generator=gen).to(qdt)
+            kv_b = kvc[:, :b].contiguous()
+            sc_b = None if sc is None else sc[:, :b].contiguous()
+            if sc is None:
+                got = A.decode_attention(q, kv_b, pv, scale, HD, s_use, 1)
+                want = A.decode_attention_plain(q, kv_b, pv, scale, HD, s_use, 1)
+            else:
+                got = A.decode_attention_q(q, kv_b, sc_b, pv, scale, HD, s_use, 1)
+                want = A.decode_attention_q_plain(q, kv_b, sc_b, pv, scale, HD, s_use, 1)
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= 1e-5, f"K15 {key} lanes {positions}: max abs {abs_e} rel {rel_e}"
+            worst = [max(worst[0], rel_e), max(worst[1], abs_e)]
+            log(f"K15 {key} lanes {positions}: max abs {abs_e:.3g} rel {rel_e:.3g}")
+        pos = 3999
+        pv = torch.tensor([pos], dtype=torch.int32, device=dev)
+        q = torch.randn((1, KV, G, HD), device=dev, generator=gen).to(qdt)
+        k1 = kvc[:, :1].contiguous()
+        s1 = None if sc is None else sc[:, :1].contiguous()
+        if sc is None:
+            fn = lambda: A.decode_attention(q, k1, pv, scale, HD, s_use, 1)  # noqa: E731
+            plain = lambda: A.decode_attention_plain(q, k1, pv, scale, HD, s_use, 1)  # noqa: E731
+        else:
+            fn = lambda: A.decode_attention_q(q, k1, s1, pv, scale, HD, s_use, 1)  # noqa: E731
+            plain = lambda: A.decode_attention_q_plain(  # noqa: E731
+                q, k1, s1, pv, scale, HD, s_use, 1)
+        row_bytes = W + 8 if sc is not None else W * k1.element_size()
+        library, lib_name = sdpa_yardstick(q, *dense_kv(k1, s1, 1, pos + 1, HD), scale)
+        b_ms, b_by = bound(attn_bytes(1, KV, G, HD, pos + 1, row_bytes),
+                           2 * KV * G * (pos + 1) * W, BF16_OPS_S)
+        per[key] = dict(bound_ms=b_ms, bound_by=b_by, **timings(fn, WALK, plain, library),
+                        library=lib_name, shape=f"B=1 pos={pos} s_use={s_use} S={S} KV={KV} "
+                                                f"G={G} hd={HD}")
+        log(f"K15 {key} at pos {pos}: {per[key]['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
+            f"{per[key]['plain_ms']:.4f}, sdpa {per[key]['library_ms']:.4f})")
+        del x, kvc, sc
+    torch.cuda.empty_cache()
+    return dict(
+        name="decode_attention", route="cuda", source="llamatpu_torch/csrc/attention.cu",
+        replaces="llamatpu/ops/pallas_attention.py:119", max_abs_err=worst[1],
+        max_rel_err=worst[0], tolerance="rel to max|plain| <= 1e-5 (f32, bf16, int8 caches)",
+        **{k: per["f32"][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "library", "shape")},
+        by_dtype=per)
+
+
+def check_int8_attention(dev, dims=LLAMA32_1B) -> list[dict]:
+    """K6's and K8's int8 variants against their plain versions at
+    llama32-1b geometry, and quantize_kv on the card against the CPU, bit for
+    bit (bf16 and f32 rows, zero rows included).
+    - K6-int8: cache 1152 rows, pos 0, 31, 32, 511, 1151 and 8 lanes at
+      mixed positions (one parked at the last row); caches and scale rows
+      equal the plain version's, only row pos changed; timed at pos 512,
+      B = 1 (the row) and 8.
+    - K8-int8: 8 lanes of a shuffled int8 pool (block 16, lanes up to 2048
+      rows) at pos 0, 15, 16, 100, 511, 1023, 2047 and one parked at the
+      trash block; the pool and scale pool only read; timed at 8 lanes at
+      pos 512.
+    Outputs within 1e-5 of the largest plain value."""
+    import torch
+
+    from llamatpu_torch.ops import attention as A
+    from llamatpu_torch.ops.kv_quant import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    KV, G, HD, S = dims["KV"], dims["G"], dims["HD"], dims["S"]
+    W, scale = 2 * HD, HD ** -0.5
+    # quantize_kv: the card's scales and values bit-equal to the CPU's
+    x = torch.randn((4096, KV, HD), device=dev, generator=gen) * 3.0
+    x[::97] = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        qc, sc_ = quantize_kv(x.to(dt))
+        qh, sh = quantize_kv(x.to(dt).cpu())
+        assert torch.equal(qc.cpu(), qh) and torch.equal(sc_.cpu(), sh), \
+            f"quantize_kv on the card differs from the CPU ({dt})"
+    log("quantize_kv: card and CPU bit-equal (bf16 and f32 rows, zero rows included)")
+    worst = [0.0, 0.0]
+    for positions in ([0], [31], [32], [511], [S - 1], [0, 31, 32, 100, 511, 700, S - 2, S - 1]):
+        got, want = check_fused(A, dev, gen, KV, G, HD, S, positions, torch.int8, rows=64)
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-5, f"K6-int8 lanes {positions}: max abs {abs_e} rel {rel_e}"
+        worst = [max(worst[0], rel_e), max(worst[1], abs_e)]
+        log(f"K6-int8 lanes {positions}: max abs {abs_e:.3g} rel {rel_e:.3g}, cache and scales "
+            "as the plain version's")
+    per = {}
+    for b in (1, 8):
+        pos = 512
+        pv = torch.full((b,), pos, dtype=torch.int32, device=dev)
+        kvc, sc = int8_rows(torch.randn((2, b, KV, S, W), device=dev, generator=gen))
+        q = torch.randn((b, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+        kvn, sn = int8_rows(torch.randn((b, KV, 1, W), device=dev, generator=gen))
+        kvn, sn = kvn[:, :, 0], sn[..., 0]
+        library, lib_name = sdpa_yardstick(q, *dense_kv(kvc, sc, 1, pos + 1, HD), scale)
+        b_ms, b_by = bound(attn_bytes(b, KV, G, HD, pos + 1, W + 8, W + 8),
+                           b * 2 * KV * G * (pos + 1) * W, BF16_OPS_S)
+        per[b] = dict(bound_ms=b_ms, bound_by=b_by, library=lib_name,
+                      shape=f"B={b} lanes at pos={pos} S={S} KV={KV} G={G} hd={HD}", **timings(
+                          lambda: A.decode_attention_fused_write_q(q, kvn, sn, kvc, sc, pv, scale,
+                                                                   1, HD),
+                          WALK, lambda: A.decode_attention_fused_write_q_plain(
+                              q, kvn, sn, kvc, sc, pv, scale, 1, HD), library))
+        log(f"K6-int8 B {b} at pos {pos}: {per[b]['ms']:.4f} ms (bound {b_ms:.5f}, plain "
+            f"{per[b]['plain_ms']:.4f}, sdpa {per[b]['library_ms']:.4f})")
+    k6q = dict(name="decode_attention_fused_write_q", route="cuda",
+               source="llamatpu_torch/csrc/attention.cu",
+               replaces="llamatpu/ops/pallas_attention.py:718", max_abs_err=worst[1],
+               max_rel_err=worst[0], quantize_kv_bit_equal=True,
+               tolerance="rel to max|plain| <= 1e-5; cache and scale rows equal the plain "
+                         "version's, only row pos changed; quantize_kv card == CPU bit for bit",
+               **{k: per[1][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "library", "shape")},
+               by_lanes=per)
+
+    B, BS, MAXLEN = 8, 16, 2048
+    maxblk = MAXLEN // BS
+    nblk = B * maxblk // 2
+    positions = [0, 15, 16, 100, 511, 1023, 2047, 700]
+    tables = paged_tables(positions, {7}, maxblk, nblk, BS, seed=18).to(dev)
+    pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+    pool, spool = int8_rows(torch.randn((2, nblk, KV, BS, W), device=dev, generator=gen))
+    q = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    before, sbefore = pool.clone(), spool.clone()
+    got = A.decode_attention_paged(q, pool, tables, pv, scale, HD, 1, scale_pool=spool)
+    want = A.decode_attention_paged_q_plain(q, pool, spool, tables, pv, scale, HD, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(pool, before) and torch.equal(spool, sbefore), "K8-int8 wrote the pool"
+    abs8, rel8 = max_err(got, want)
+    assert rel8 <= 1e-5 and bool(torch.isfinite(got).all()), f"K8-int8: {abs8} {rel8}"
+    log(f"K8-int8 lanes {positions} (lane 7 parked): max abs {abs8:.3g} rel {rel8:.3g}")
+    pos = 512
+    tables = paged_tables([pos] * B, set(), maxblk, nblk, BS, seed=19).to(dev)
+    pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    nb = pos // BS + 1
+    # the library yardstick attends a dense bf16 view gathered and dequantized
+    # beforehand (not timed)
+    gather = lambda t: t[1][tables[:, :nb].long()]  # noqa: E731
+    dk = gather(pool).permute(0, 2, 1, 3, 4).reshape(B, KV, nb * BS, W)
+    ds = gather(spool).permute(0, 2, 3, 1, 4).reshape(B, KV, 2, nb * BS)
+    library, lib_name = sdpa_yardstick(q, *dense_kv(dk[None], ds[None], 0, pos + 1, HD), scale)
+    b_ms, b_by = bound(attn_bytes(B, KV, G, HD, pos + 1, W + 8) + B * nb * 4 + B * 4,
+                       B * 2 * KV * G * (pos + 1) * W, BF16_OPS_S)
+    tm = timings(lambda: A.decode_attention_paged_q(q, pool, spool, tables, pv, scale, HD, 1),
+                 ("paged_split_kernel", "attn_combine_kernel"),
+                 lambda: A.decode_attention_paged_q_plain(q, pool, spool, tables, pv, scale, HD, 1),
+                 library)
+    log(f"K8-int8 B {B} at pos {pos}: {tm['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
+        f"{tm['plain_ms']:.4f}, sdpa on a gathered bf16 view {tm['library_ms']:.4f})")
+    torch.cuda.empty_cache()
+    k8q = dict(name="decode_attention_paged_q", route="cuda",
+               source="llamatpu_torch/csrc/attention.cu",
+               replaces="llamatpu/ops/pallas_attention.py:617", max_abs_err=abs8,
+               max_rel_err=rel8,
+               tolerance="rel to max|plain| <= 1e-5; the pool and scale pool are not written",
+               **tm, library=lib_name + " (gathered and dequantized beforehand)",
+               bound_ms=b_ms, bound_by=b_by,
+               shape=f"B={B} lanes at pos={pos} BS={BS} MAXBLK={maxblk} NBLK={nblk} KV={KV} "
+                     f"G={G} hd={HD}")
+    return [k6q, k8q]
+
+
+def check_long_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
+    return [check_split_attention(dev, dims), check_full_attention(dev, dims)] \
+        + check_int8_attention(dev, dims)
+
+
 def check_block_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
     return [check_block_matmul(dev, dims, False), check_attention(dev, dims),
             check_block_matmul(dev, dims, True)]
@@ -740,6 +1135,13 @@ IN_PATH = {
     "grouped_packed4_matmul": ("moe_pack4", "decode16_trace", MOE_KERNELS, 2),
     "grouped_rowq_matmul": ("moe_rowq", "decode16_trace", MOE_KERNELS, 2),
     "grouped_dense_matmul": ("moe_dense", "decode16_trace", MOE_KERNELS, 2),
+    # slice 5: K14 on the 32k bf16 path, K15 on the f32 4000-row path, K6's
+    # int8 variant at a 4000-row int8 cache, K8's in the int8 HTTP run
+    "decode_attention_split_fused_write": ("longctx", "decode16_trace", WALK, 1),
+    "decode_attention": ("k15", "decode16_trace", WALK, 1),
+    "decode_attention_fused_write_q": ("k6_int8", "decode16_trace", WALK, 1),
+    "decode_attention_paged_q": ("serve_int8", "decode16_trace",
+                                 ("paged_split_kernel", "attn_combine_kernel"), 1),
 }
 
 
@@ -751,6 +1153,15 @@ def in_path_ms(paths: dict, name: str) -> float:
                          if any(k in r["name"] for k in keys)) / tr["launches"][name]
 
 
+# K14's and K15's wrappers: one table row each, launches summed over them
+K14_WRAPPERS = ("decode_attention_split_fused_write", "decode_attention_split_fused_write_q",
+                "decode_attention_split", "decode_attention_split_q",
+                "decode_attention_split_stats")
+K15_WRAPPERS = ("decode_attention", "decode_attention_q")
+ROW_WRAPPERS = {"decode_attention_split_fused_write": K14_WRAPPERS,
+                "decode_attention": K15_WRAPPERS}
+
+
 def counters():
     from llamatpu_torch.ops import attention, gemm, layer_fused, moe_grouped, quant_matmul
 
@@ -759,13 +1170,16 @@ def counters():
             "layer_attn_tail_fused_rowq": layer_fused.layer_attn_tail_fused_rowq,
             "block_matmul": quant_matmul.block_matmul,
             "decode_attention_fused_write": attention.decode_attention_fused_write,
+            "decode_attention_fused_write_q": attention.decode_attention_fused_write_q,
             "packed4_matmul": quant_matmul.packed4_matmul,
             "decode_attention_paged": attention.decode_attention_paged,
+            "decode_attention_paged_q": attention.decode_attention_paged_q,
             "layer_tail_fused_rowq": layer_fused.layer_tail_fused_rowq,
             "grouped_block_matmul": moe_grouped.grouped_block_matmul,
             "grouped_packed4_matmul": moe_grouped.grouped_packed4_matmul,
             "grouped_rowq_matmul": moe_grouped.grouped_rowq_matmul,
-            "grouped_dense_matmul": moe_grouped.grouped_dense_matmul}
+            "grouped_dense_matmul": moe_grouped.grouped_dense_matmul,
+            **{n: getattr(attention, n) for n in K14_WRAPPERS + K15_WRAPPERS}}
 
 
 def drive_engine(engine, prompt: list[int], tg: int, want_fn, label: str,
@@ -841,8 +1255,90 @@ def drive_engine(engine, prompt: list[int], tg: int, want_fn, label: str,
     return res
 
 
-def run_main_path(dev, overrides=None) -> dict:
-    """Slice 1's path: synthetic q8_0 served as q8_row (K1-K4)."""
+def configure(engine, cache_len: int, cache_dtype, prefill_chunk: int, decode_window: int):
+    """Point an Engine at another cache, its weights staying on the card: the
+    fields its constructor sets from these arguments, then a fresh cache."""
+    engine.cache_len, engine.cache_dtype = cache_len, cache_dtype
+    engine.prefill_chunk, engine.decode_window = min(prefill_chunk, cache_len), decode_window
+    engine.reset()
+
+
+def drive_long(engine, prompt: list[int], tg: int, want_fn, label: str) -> dict:
+    """One counted run of an engine at its cache: every count set to 0,
+    prefill of the prompt, `tg` greedy decode steps, the counts read just
+    after and held to want_fn(prefill chunks, decode steps); peak device
+    memory over the run; then a traced 16-step decode window after it."""
+    import torch
+
+    cfg = engine.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    tok, logits = engine.prefill(prompt, 0)
+    first = int(tok[0])
+    pp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, tok_v, pos, remaining = [], first, len(prompt), tg
+    while remaining > 0:
+        window = engine.decode_window_run(tok_v, pos, remaining)
+        if not window:
+            break
+        out += window
+        tok_v, pos, remaining = window[-1], pos + len(window), remaining - len(window)
+    tg_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    chunks = -(-len(prompt) // engine.prefill_chunk)
+    want = {k: 0 for k in fns}
+    want.update(want_fn(chunks, len(out)))
+    assert len(out) == tg, f"{label}: decoded {len(out)} of {tg} tokens"
+    assert launches == want, f"{label}: launch counts {launches} != path {want}"
+    assert bool(torch.isfinite(logits).all()) and logits.shape == (1, cfg.vocab_size)
+    assert all(0 <= t < cfg.vocab_size for t in [first] + out)
+    res = dict(prefill_tok_s=len(prompt) / pp_s, decode_tok_s=len(out) / tg_s, prefill_s=pp_s,
+               decode_s=tg_s, pp=len(prompt), tg=len(out), chunks=chunks, launches=launches,
+               tokens=[first] + out, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               cache_gb=sum(t.numel() * t.element_size() for t in (engine.cache.kv,
+                                                                   engine.cache.scale)
+                            if t is not None) / 1e9)
+    for f in fns.values():
+        f.launches = 0
+    res["decode16_trace"] = tr = device_breakdown(
+        lambda: engine.decode_window_run(out[-1], pos, 16))
+    tr["launches"] = {k: f.launches for k, f in fns.items()}
+    # the prompt's last chunk again (the same rows rewritten with the same
+    # values): where a prefill chunk's time goes at the end of the cache
+    c = engine.prefill_chunk
+    last = (len(prompt) - 1) // c * c
+    res["prefill_chunk_trace"] = pt = device_breakdown(lambda: engine.prefill(prompt[last:], last))
+    log(f"{label}: cache {engine.cache_len} {str(engine.cache_dtype)[6:]} ({res['cache_gb']:.3f} "
+        f"GB), prefill {len(prompt)} tok in {pp_s:.3f} s ({res['prefill_tok_s']:.1f} tok/s), "
+        f"decode {len(out)} tok in {tg_s:.3f} s ({res['decode_tok_s']:.2f} tok/s), peak "
+        f"{res['peak_mem_gb']:.2f} GB, launches {({k: v for k, v in launches.items() if v})}; "
+        f"traced 16 steps at pos {pos}: busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms (idle "
+        f"share {tr['idle_share']:.3f}); top "
+        f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:5]]}; traced prefill "
+        f"chunk at pos {last}: busy {pt['busy_ms']:.3f} of {pt['wall_ms']:.3f} ms (idle share "
+        f"{pt['idle_share']:.3f}); top "
+        f"{[(t['name'][:40], round(t['ms'], 3)) for t in pt['kernels'][:5]]}")
+    return res
+
+
+def run_main_and_long_paths(dev, overrides=None) -> dict:
+    """Slice 1's path (synthetic q8_0 served as q8_row, K1-K4), then slice 5's
+    on the same Engine, the weights built once with context_length 32768 and
+    the cache swapped between runs:
+    - longctx / longctx_int8: cache 32768 in bf16 and int8, prefill chunk
+      512, a 32000-token seeded prompt, 128 greedy tokens (K14 fused, K2, K9
+      and K1 per step; K4 in the prefill);
+    - k15: f32 cache 4000 rows (4128 physical: a long cache whose tile is
+      32 rows, so the JAX package's full-stripe kernel), a 3000-token prompt,
+      32 tokens (K15);
+    - k6_int8: the same at an int8 cache (K6-int8);
+    - k15_int8 and k14_unfused_int8: LLAMATPU_NO_FUSED_ATTN=1 at int8 caches
+      of 4000 and 16384 rows (K15-int8; K14 unfused int8), unset after."""
     import numpy as np
     import torch
 
@@ -851,20 +1347,51 @@ def run_main_path(dev, overrides=None) -> dict:
 
     pp, tg = 512, 128
     t0 = time.perf_counter()
-    model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=1024,
+    model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=32768,
                                   overrides=overrides)
     engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=True,
                     device=dev)
     log(f"main: model built and served in {time.perf_counter() - t0:.1f} s "
         f"(weight prep + upload {engine.metrics.weight_upload_s:.1f} s)")
-    L = model.cfg.n_layers
-    prompt = np.random.default_rng(42).integers(0, model.cfg.vocab_size, pp).tolist()
-    res = drive_engine(engine, prompt, tg, lambda n: {
+    L, V = model.cfg.n_layers, model.cfg.vocab_size
+    prompt = np.random.default_rng(42).integers(0, V, pp).tolist()
+    out = {"main": drive_engine(engine, prompt, tg, lambda n: {
         "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "layer_attn_tail_fused_rowq": L * n,
-        "rowq_gemm": 4 * L}, "main")
+        "rowq_gemm": 4 * L}, "main")}
+
+    def want(kernel):  # per decode step K2 = K9 = K14 (or K15, K6-int8) = L, K1 = 1
+        return lambda chunks, n: {"rowq_gemv": chunks + n, "rowq_gemm": 4 * L * chunks,
+                                  "qkv_norm_fused_rowq": L * n, "layer_tail_fused_rowq": L * n,
+                                  kernel: L * n}
+
+    rng = np.random.default_rng(32)
+    long_prompt = rng.integers(0, V, 32000).tolist()
+    for label, cdt, kernel in (
+            ("longctx", torch.bfloat16, "decode_attention_split_fused_write"),
+            ("longctx_int8", torch.int8, "decode_attention_split_fused_write_q")):
+        configure(engine, 32768, cdt, 512, 128)
+        out[label] = drive_long(engine, long_prompt, 128, want(kernel), label)
+    a, b = out["longctx"]["tokens"], out["longctx_int8"]["tokens"]
+    out["longctx_int8"]["first_diff_vs_bf16"] = next(
+        (i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    log(f"longctx: bf16 and int8 greedy tokens first differ at index "
+        f"{out['longctx_int8']['first_diff_vs_bf16']} of {len(a)} (reported, not gated)")
+    prompt3k = rng.integers(0, V, 3000).tolist()
+    for label, cdt, clen, switch, kernel in (
+            ("k15", torch.float32, 4000, False, "decode_attention"),
+            ("k6_int8", torch.int8, 4000, False, "decode_attention_fused_write_q"),
+            ("k15_int8", torch.int8, 4000, True, "decode_attention_q"),
+            ("k14_unfused_int8", torch.int8, 16384, True, "decode_attention_split_q")):
+        configure(engine, clen, cdt, 512, 32)
+        if switch:
+            os.environ["LLAMATPU_NO_FUSED_ATTN"] = "1"
+        try:
+            out[label] = drive_long(engine, prompt3k, 32, want(kernel), label)
+        finally:
+            os.environ.pop("LLAMATPU_NO_FUSED_ATTN", None)
     del engine, model
     torch.cuda.empty_cache()
-    return res
+    return out
 
 
 # ---------------------------------------------------------------- GGUF path
@@ -1150,11 +1677,12 @@ def decode_window_trace(engine, prompt_len: int = 128, window: int = 16) -> dict
 
 
 def run_serving_path(dev, path: Path, rowq: bool, latency: bool, label: str | None = None,
-                     want_fn=None) -> dict:
-    """`llamatpu_torch.cli serve -m <gguf> --batch-size 8 --paged [--rowq]`
-    in-process: the full-width, full-depth Q8_0 GGUF, PagedBatchEngine
-    (8 lanes, block 16, max_len 2048, prefill chunk 128, window 16) behind
-    BatchedInferenceService and make_server on 127.0.0.1. The HTTP run's
+                     want_fn=None, extra=()) -> dict:
+    """`llamatpu_torch.cli serve -m <gguf> --batch-size 8 --paged -n 2048
+    --prefill-chunk 128 [--rowq] [extra flags]` in-process: the service that
+    command line builds (the full-width, full-depth Q8_0 GGUF, PagedBatchEngine
+    with 8 lanes, block 16, max_len 2048, window 16, behind
+    BatchedInferenceService) and make_server on 127.0.0.1. The HTTP run's
     launch counts are held to the engine's own counts of decode steps and
     prefill chunks; then a traced decode window, and (latency=True) the
     serving-latency benchmark on the same engine. want_fn(steps, chunks):
@@ -1163,24 +1691,27 @@ def run_serving_path(dev, path: Path, rowq: bool, latency: bool, label: str | No
 
     import torch
 
+    from llamatpu_torch import cli
     from llamatpu_torch.bench.serving_latency import run_latency_bench
     from llamatpu_torch.models.loader import load_model
-    from llamatpu_torch.runtime.paged_engine import PagedBatchEngine
-    from llamatpu_torch.server.openai_server import make_server
-    from llamatpu_torch.server.service import BatchedInferenceService
+    from llamatpu_torch.server.openai_server import build_service, make_server
 
     label = label or ("serve_rowq" if rowq else "serve")
     t0 = time.perf_counter()
-    model = load_model(str(path), max_tokens=2048)
-    engine = PagedBatchEngine(model, batch_size=8, block_size=16, max_len=2048,
-                              prefill_chunk=128, decode_window=16, rowq=rowq, device=dev)
-    svc = BatchedInferenceService(model, engine)
+    args = cli.build_parser().parse_args(
+        ["serve", "-m", str(path), "--batch-size", "8", "--paged", "-n", "2048",
+         "--prefill-chunk", "128", "--device", str(dev), *(["--rowq"] if rowq else []), *extra])
+    model = load_model(str(path), max_tokens=args.max_tokens)
+    svc = build_service(args, model)
+    engine = svc.engine
     srv = make_server(svc, "127.0.0.1", 0, model_id=model.metadata.get("general.name", label))
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
+    pool_mb = sum(t.numel() * t.element_size() for t in (engine.cache.kv_pool, engine.cache.scale)
+                  if t is not None) / 1e6
     log(f"{label}: {model.quant_label}{' -> q8_row' if rowq else ''} served on {url} in "
-        f"{time.perf_counter() - t0:.1f} s (pool {engine.n_blocks} blocks of 16, "
-        f"{engine.cache.kv_pool.numel() * 2 / 1e6:.0f} MB)")
+        f"{time.perf_counter() - t0:.1f} s (pool {engine.n_blocks} blocks of "
+        f"{engine.block_size}, {str(engine.cache_dtype)[6:]}, {pool_mb:.0f} MB)")
     L = model.cfg.n_layers
     try:
         # warm-up: the kernels' first launches and the allocator's first blocks
@@ -1234,6 +1765,33 @@ def run_serving_path(dev, path: Path, rowq: bool, latency: bool, label: str | No
     del engine, svc, model
     torch.cuda.empty_cache()
     return res
+
+
+def run_int8_serving_paths(dev, path: Path) -> dict:
+    """The int8 KV cache on the full-width, full-depth Q8_0 GGUF: `cli run
+    --kv-dtype int8` (K5 per projection, K6-int8 per layer and step, held to
+    the Engine's forwards), then `cli serve --kv-dtype int8 --batch-size 8
+    --paged` over HTTP (K5, and K8-int8 per layer and step)."""
+    import torch
+
+    from llamatpu_torch.gguf.reader import GGUFReader
+
+    with GGUFReader(path) as r:
+        L = int(r.metadata["llama.block_count"])
+    res = cli_run(dev, path, ["--kv-dtype", "int8"])
+    want = {k: 0 for k in res["launches"]}
+    want.update(block_matmul=(4 * L + 1) * (res["chunks"] + res["steps"]),
+                decode_attention_fused_write_q=L * res["steps"])
+    assert res["launches"] == want, f"cli run --kv-dtype int8: {res['launches']} != {want}"
+    log(f"int8: cli run --kv-dtype int8 rc 0 in {res['seconds']:.1f} s, {res['chunks']} chunks + "
+        f"{res['steps']} steps, {res['chars']} chars streamed: {res['text']!r}")
+    out = {"cli_int8": res}
+    out["serve_int8"] = run_serving_path(
+        dev, path, rowq=False, latency=False, label="serve_int8", extra=("--kv-dtype", "int8"),
+        want_fn=lambda steps, chunks: dict(block_matmul=(4 * L + 1) * (steps + chunks),
+                                           decode_attention_paged_q=L * steps))
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_dense_batch_path(dev, overrides=None) -> dict:
@@ -1325,30 +1883,45 @@ def compare_paged(dev, model) -> dict:
     return out
 
 
-def compare_engines(dev, model, n: int, cdt, label: str, **kw) -> dict:
+def compare_engines(dev, model, n: int, cdt, label: str, cache_len: int = 1024, **kw) -> dict:
     """Prefill logits and 16 greedy tokens of one model on the card and on
-    the CPU (plain versions)."""
+    the CPU (plain versions). With an int8 cache, also the prefill's cache
+    rows of the two: how many int8 values differ, by how many steps, and the
+    largest difference of their scales."""
     import numpy as np
+    import torch
 
     from llamatpu_torch.runtime.engine import Engine
 
     prompt = np.random.default_rng(7).integers(0, min(model.cfg.vocab_size, 128000), n).tolist()
     res = {}
     for where in (dev, "cpu"):
-        e = Engine(model, cache_len=1024, prefill_chunk=n, decode_window=16, cache_dtype=cdt,
+        e = Engine(model, cache_len=cache_len, prefill_chunk=n, decode_window=16, cache_dtype=cdt,
                    device=where, **kw)
         _, logits = e.prefill(prompt, 0)
+        rows = (e.cache.kv[:, :, :, :n].cpu(),
+                None if e.cache.scale is None else e.cache.scale[..., :n].cpu())
         e.reset()
-        res[str(where)] = (logits.float().cpu(), e.generate(prompt, 16).tokens)
+        res[str(where)] = (logits.float().cpu(), e.generate(prompt, 16).tokens, rows)
         del e
-    (lg, tg), (lc, tc) = res[str(dev)], res["cpu"]
+    (lg, tg, (kg, sg)), (lc, tc, (kc, sc)) = res[str(dev)], res["cpu"]
     d = (lg - lc).abs().max().item()
     agree = next((i for i, (a, b) in enumerate(zip(tg, tc)) if a != b), len(tc))
-    out = dict(prompt=n, logits_max_abs=d, logits_rel=d / lc.abs().max().item(),
-               greedy_agree=agree, greedy_n=len(tc))
+    out = dict(prompt=n, cache_len=cache_len, cache_dtype=str(cdt)[6:], logits_max_abs=d,
+               logits_rel=d / lc.abs().max().item(), greedy_agree=agree, greedy_n=len(tc))
+    flips = ""
+    if cdt == torch.int8:
+        step = (kg.to(torch.int32) - kc.to(torch.int32)).abs()
+        rel = [((sg[li] - sc[li]).abs().max() / sc[li].abs().max()).item()
+               for li in range(sc.shape[0])]
+        out.update(int8_differ=int((step > 0).sum()), int8_values=step.numel(),
+                   int8_max_step=int(step.max()), scale_rel_by_layer=rel)
+        flips = (f"; int8 rows: {out['int8_differ']} of {out['int8_values']} values differ, by "
+                 f"<= {out['int8_max_step']} step, scales per layer within "
+                 f"{[float(f'{r:.3g}') for r in rel]}")
     log(f"cpu {label}: {n}-token prefill logits card vs cpu max abs {d:.4g} "
         f"(rel {out['logits_rel']:.3g}); greedy tokens agree for the first {agree} "
-        f"of {len(tc)}")
+        f"of {len(tc)}{flips}")
     return out
 
 
@@ -1363,7 +1936,10 @@ def run_cpu_compare(dev, workdir: Path, overrides=None) -> dict:
     differences upstream flip int8 values and move these logits by percents
     even on one device. Slice 2 (the Q8_0 GGUF, block quants): f32, a
     64-token prompt (K5's tiled path) and 16 greedy tokens (K5 + K6), held to
-    the same tolerance."""
+    the same tolerance. Slice 5, on the f32 q8_row model: int8 KV at cache
+    1024 (K6-int8) and 16384 (K14 int8) and f32 KV at 8192 (K14 f32), all 16
+    greedy ids equal; f32 held to the same tolerance, int8 to its rounding
+    (below)."""
     import torch
 
     from llamatpu_torch.models.loader import load_model
@@ -1371,17 +1947,40 @@ def run_cpu_compare(dev, workdir: Path, overrides=None) -> dict:
 
     out = {}
     for dt, cdt, n in (("f32", torch.float32, 64), ("bf16", torch.bfloat16, 128)):
-        model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=1024,
+        model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=16384,
                                       n_layers=2, dtype=dt, overrides=overrides)
         out[dt] = compare_engines(dev, model, n, cdt, f"q8_row {dt}", rowq=True)
+        if dt != "f32":
+            continue
+        # slice 5 on the f32 model: int8 KV short (K6-int8) and long (K14
+        # int8), f32 KV long (K14 f32); the greedy ids must agree in full
+        for key, kv_dt, clen, kernel in (("int8_1024", torch.int8, 1024, "K6-int8"),
+                                         ("int8_16384", torch.int8, 16384, "K14 int8"),
+                                         ("f32_8192", torch.float32, 8192, "K14 f32")):
+            out[key] = compare_engines(dev, model, 64, kv_dt, f"q8_row f32, {key} KV ({kernel})",
+                                       cache_len=clen, rowq=True)
     path = make_gguf(workdir, "q8_0", n_layers=2, overrides=overrides)
     model = load_model(str(path), max_tokens=1024, param_dtype=torch.float32)
     out["gguf_f32"] = compare_engines(dev, model, 64, torch.float32, "gguf q8_0 f32")
     out["paged_f32"] = compare_paged(dev, model)
     path.unlink()
     # f32 sums in another order than the CPU's, over two layers and the head
-    for k in ("f32", "gguf_f32", "paged_f32"):
+    for k in ("f32", "gguf_f32", "paged_f32", "f32_8192"):
         assert out[k]["logits_rel"] <= 1e-4, f"card and CPU disagree ({k}): {out[k]}"
+    # int8 KV: layer 0's K and V differ by f32 rounding before quantize_kv
+    # (bit-equal on both), so its scales agree to ~1e-7 and a value at a
+    # rounding tie lands one step apart; a step is max|x| / 127 of a row,
+    # and the next layer's inputs, scales and values move with it. Held: layer
+    # 0's scales within 1e-5, no value more than one step apart, at most 1 %
+    # of them, the logits within 1e-2 of the largest (one step moves them by
+    # ~1e-3)
+    for k in ("int8_1024", "int8_16384"):
+        r = out[k]
+        assert r["int8_max_step"] <= 1 and r["int8_differ"] <= 1e-2 * r["int8_values"] \
+            and r["scale_rel_by_layer"][0] <= 1e-5 and r["logits_rel"] <= 1e-2, \
+            f"card and CPU disagree ({k}): {r}"
+    for k in ("int8_1024", "int8_16384", "f32_8192"):
+        assert out[k]["greedy_agree"] == out[k]["greedy_n"], f"greedy ids differ ({k}): {out[k]}"
     return out
 
 
@@ -1660,11 +2259,27 @@ def experts_per_layer(engine, toks, pos) -> list[int]:
     return seen
 
 
+def first_layers(model, n: int):
+    """The model cut to its first n layers: the layer stacks sliced and the
+    config's depth set."""
+    import dataclasses
+
+    from llamatpu_torch.models.weights import QTensor
+
+    def cut(v):
+        if isinstance(v, QTensor):
+            return dataclasses.replace(v, qs=v.qs[:n], scales=v.scales[:n])
+        return v[:n]
+    layers = {k: cut(v) for k, v in model.weights["layers"].items()}
+    return dataclasses.replace(model, cfg=dataclasses.replace(model.cfg, n_layers=n),
+                               weights={**model.weights, "layers": layers})
+
+
 def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
-    """Full-depth, full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0, seed 0)
-    through Engine (cache 1024, prefill chunk 512, 128 greedy tokens: K10 +
-    K5 + K6), then with rowq (K12 + K1 + K2 + K4 + K6), then PagedBatchEngine
-    with 8 lanes (K10 + K5 + K8)."""
+    """Full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0, seed 0) through Engine at
+    full depth (cache 1024, prefill chunk 512, 128 greedy tokens: K10 + K5 +
+    K6), then with rowq at its first 8 layers (K12 + K1 + K2 + K4 + K6), then
+    PagedBatchEngine with 8 lanes at full depth (K10 + K5 + K8)."""
     import numpy as np
     import torch
 
@@ -1677,17 +2292,21 @@ def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
     model = build_synthetic_model("qwen15-moe-a2.7b", quant="q8_0", seed=0, context_length=1024,
                                   n_layers=n_layers, overrides=overrides)
     build_s = time.perf_counter() - t0
-    L, V = model.cfg.n_layers, model.cfg.vocab_size
+    V = model.cfg.vocab_size
     prompt = np.random.default_rng(42).integers(0, V, 512).tolist()
     for label, rowq in (("moe", False), ("moe_rowq", True)):
         t0 = time.perf_counter()
-        engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=rowq,
+        # the rowq path at 8 layers: the depth cut that keeps the whole script
+        # inside its time limit (its decode is host-bound, ~10 s per 24 layers)
+        m = first_layers(model, min(8, model.cfg.n_layers)) if rowq else model
+        L = m.cfg.n_layers
+        engine = Engine(m, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=rowq,
                         device=dev)
         load_s = time.perf_counter() - t0
         kind = engine.weights["layers"]["gu_exps"].kind
         assert kind == ("q8_row" if rowq else "q8_0") and "shared_g13" not in \
             engine.weights["layers"], "the shared expert did not fold"
-        log(f"{label}: {model.cfg.n_layers} layers, experts {kind}, synthetic build "
+        log(f"{label}: {L} layers, experts {kind}, synthetic build "
             f"{build_s:.1f} s, fold + fuse{' + rowq' if rowq else ''} + upload {load_s:.1f} s, "
             f"device {torch.cuda.memory_allocated() / 1e9:.2f} GB, peak host RSS "
             f"{host_rss_gb():.1f} GB")
@@ -1701,9 +2320,10 @@ def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
                 "grouped_block_matmul": 2 * L * (n + 1), "block_matmul": (2 * L + 1) * (n + 1),
                 "decode_attention_fused_write": L * n}
         out[label] = drive_engine(engine, prompt, 128, want, label)
-        out[label].update(build_s=build_s, load_s=load_s, host_rss_gb=host_rss_gb())
-        del engine
+        out[label].update(build_s=build_s, load_s=load_s, host_rss_gb=host_rss_gb(), layers=L)
+        del engine, m
         torch.cuda.empty_cache()
+    L = model.cfg.n_layers
     # batched decode: 8 lanes over the paged pool
     t0 = time.perf_counter()
     engine = PagedBatchEngine(model, batch_size=8, block_size=16, max_len=1024,
@@ -2019,7 +2639,7 @@ def main() -> int:
     workdir.mkdir(parents=True, exist_ok=True)
     try:
         rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev) \
-            + check_moe_kernels(dev)
+            + check_moe_kernels(dev) + check_long_kernels(dev)
         for name, sub in check_qwen_geometry(dev).items():
             next(r for r in rows if r["name"] == name)["qwen15"] = sub
         paths = run_moe_paths(dev)
@@ -2027,16 +2647,22 @@ def main() -> int:
         cpu_moe = run_moe_cpu_and_dense(dev)
         paths["moe_dense"] = cpu_moe.pop("moe_dense")
         summary["cpu_moe"] = cpu_moe
-        paths.update(main=run_main_path(dev), gguf=run_gguf_path(dev, workdir))
+        paths.update(run_main_and_long_paths(dev))
+        paths["gguf"] = run_gguf_path(dev, workdir)
         gguf = workdir / paths["gguf"]["gguf_file"]  # written by the gguf phase
         paths["serve"] = run_serving_path(dev, gguf, rowq=False, latency=True)
         paths["serve_rowq"] = run_serving_path(dev, gguf, rowq=True, latency=False)
+        paths.update(run_int8_serving_paths(dev, gguf))
         gguf.unlink()
         paths["pack4"] = run_pack4_path(dev, workdir)
         paths["dense_batch"] = run_dense_batch_path(dev)
         summary.update(paths)
         for r in rows:
-            r["launches"] = paths[IN_PATH[r["name"]][0]]["launches"][r["name"]]
+            if r["name"] in ROW_WRAPPERS:  # every launch of the kernel's wrappers on the paths
+                r["launches"] = sum(p["launches"].get(n, 0) for p in paths.values()
+                                    if "launches" in p for n in ROW_WRAPPERS[r["name"]])
+            else:
+                r["launches"] = paths[IN_PATH[r["name"]][0]]["launches"][r["name"]]
             r["in_path_ms"] = in_path_ms(paths, r["name"])
             if r["name"] == "layer_tail_fused_rowq":  # K3's tail at T = 1, beside K9's
                 r["k3_in_path_ms"] = in_path_ms(paths, "layer_attn_tail_fused_rowq")

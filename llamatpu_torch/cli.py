@@ -15,10 +15,14 @@ template (Llama 3 headers, Qwen's ChatML), and the answer is sampled at the
 family's defaults (Llama 3: temperature 0.3, top-p 0.95; Qwen: 0.8, 0.9)
 unless --temperature / --top-p say otherwise, and streamed to stdout.
 
+--kv-dtype int8 keeps the KV cache (or the paged pool) in int8 with one f32
+scale per token and KV head, half the bytes of a bf16 cache; -n reaches up
+to the model's context, and a long cache takes the split attention kernel.
+
 The JAX package's TPU-only flags (--impl, --dump-hlo, --profile-dir) have no
 counterpart here. Flags and commands of later slices of the port are
 accepted and raise, naming the slice: --tp/--dp/--sp/--pipeline/--ep,
---spec-decode, --kv-dtype int8, and bench/ppl/convert.
+--spec-decode, and bench/ppl/convert.
 
 `serve` answers the OpenAI API (server/openai_server.py): --batch-size 1
 runs one Engine behind a lock with KV prefix reuse; --batch-size N runs N
@@ -53,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--dtype", choices=["bf16", "f32"], default="bf16",
                         help="activation/weight compute dtype")
         sp.add_argument("--kv-dtype", choices=["auto", "bf16", "f32", "int8"], default="auto",
-                        help="KV cache dtype (auto = the compute dtype; int8: later slice)")
+                        help="KV cache dtype (auto = the compute dtype; int8 = per-row "
+                             "quantized with f32 scales)")
         sp.add_argument("--pack4", action="store_true",
                         help="store Q4_0 weights two values per byte (packed4 kernel)")
         sp.add_argument("--rowq", action="store_true",
@@ -126,11 +131,9 @@ def cache_dtype(args):
     import torch
 
     kv = args.kv_dtype
-    if kv == "int8":
-        raise NotImplementedError("--kv-dtype int8: int8-KV slice of the port")
     if kv == "auto":
         return param_dtype(args)
-    return {"bf16": torch.bfloat16, "f32": torch.float32}[kv]
+    return {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}[kv]
 
 
 def _check_flags(args) -> None:
@@ -138,7 +141,6 @@ def _check_flags(args) -> None:
         if getattr(args, attr) != default:
             flag = "--" + attr.replace("_", "-")
             raise NotImplementedError(f"{flag}: {slice_name} slice of the port")
-    cache_dtype(args)
 
 
 def load(args):

@@ -16,8 +16,8 @@
 
 #define LT_EXPORT extern "C" __attribute__((visibility("default")))
 
-// dtype codes, mirrored by _build.DTYPE_CODES
-enum { LT_F32 = 0, LT_BF16 = 1 };
+// dtype codes, mirrored by _build.DTYPE_CODES (LT_I8: int8 KV caches only)
+enum { LT_F32 = 0, LT_BF16 = 1, LT_I8 = 2 };
 
 // Each library exports the error text for the codes its functions return.
 #define LT_DEFINE_ERROR_STRING                                         \

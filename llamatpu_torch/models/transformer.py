@@ -1,7 +1,8 @@
 """The transformer forward of the port: the Llama family and Qwen2 (qkv bias,
 NeoX RoPE) with a dense FFN or Qwen2-MoE's routed experts, packed KV cache
-(dense per lane, or a shared paged block pool), q8_row or block-quant (Q8_0 /
-Q4_0 / packed4) or dense weights.
+(dense per lane, or a shared paged block pool) in bf16, f32 or int8 with
+per-row scales, q8_row or block-quant (Q8_0 / Q4_0 / packed4) or dense
+weights.
 
 The port of llamatpu/models/transformer.py's main path. Prefill and decode
 are one function over a [B, T] token window at per-lane start positions
@@ -12,18 +13,35 @@ is updated IN PLACE (the JAX package carried it through its layer scan and
 donated it).
 
 Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
-429-437, 561-595, 684-695`):
+429-437, 485-633, 684-695`):
 - q8_row weights: rmsnorm + wqkv is K2 for R <= 32 (ops/layer_fused.py),
   else the plain rmsnorm and the matmul dispatch (K1 below 128 rows, K4 at
   128 and above);
 - the qkv bias (Qwen2) is added to the projection's output, rounded to its
   dtype (`transformer.py:451-454`);
-- q8_row weights at B = T = 1 on a dense cache (no batch_offset, a host
-  int pos), dense FFN only: K3, KV append + attention + the whole tail in
-  one call;
-- otherwise attention (below), then for q8_row weights, R <= 32 and a dense
-  FFN K9 (wo + residual + rmsnorm + w13 + silu * up + w2 + residual), else
-  the unfused tail with the JAX package's dtypes (`transformer.py:699-712`,
+- an int8 cache stores K and V quantized per (token, KV head)
+  (ops/kv_quant.py) with their scales in `KVCache.scale`;
+- decode (T = 1, no batch_offset) on a dense cache follows the JAX
+  package's dispatch. The cache is long when S_phys * itemsize >=
+  SPLIT_THRESHOLD_BYTES (bf16 from 8192 rows, f32 from 4096, int8 from
+  16384); the KV append fuses into the attention kernel when S_phys % 32 ==
+  0, LLAMATPU_NO_FUSED_ATTN is unset (read at call time) and, for a long
+  cache, its tile `pick_tile(S_phys)` is at least 128 rows. Then: q8_row
+  weights at B = 1 (a host int pos, dense FFN, a short bf16/f32 cache) take
+  K3, append + attention + the whole tail in one call; a long cache takes K14 fused (K14-int8 for int8), a short one
+  K6 (K6-int8). Unfused, the rows are written by index and
+  `decode_attention_auto` takes K14 unfused (long) or K15 over the logical
+  rows;
+- decode on the paged pool: the KV write (`runtime/paged_cache`) then K8
+  (its int8 variant with the scale pool) through the tables;
+- otherwise (prefill, lane prefill into a wider cache through
+  `batch_offset`): the KV rows written, then, at T = 1,
+  `decode_attention_auto` over the lane's rows, else the plain f32 masked
+  attention over them (int8 rows dequantized; a gathered dense view for the
+  paged pool);
+- after attention, q8_row weights with R <= 32 and a dense FFN take K9 (wo
+  + residual + rmsnorm + w13 + silu * up + w2 + residual), else the unfused
+  tail with the JAX package's dtypes (`transformer.py:699-712`,
   `_dense_ffn`): bf16 residual stream between ops, projections through
   ops/matmul.py (K5 / K7 for block quants);
 - an MoE layer's FFN (`_moe_ffn`, `transformer.py:222-316`): the router as
@@ -31,21 +49,15 @@ Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
   the routed experts through the grouped matmuls (ops/moe_grouped.py,
   K10-K13) at the JAX package's tile rule, and the shared expert either
   folded into them (every token routed to its S chunks with the sigmoid
-  shared-gate weight) or as explicit matmuls (`_moe_shared`);
-- attention at T = 1: dense cache without batch_offset, K6 (KV append +
-  attention, ops/attention.py) at each lane's pos; paged pool, the KV write
-  (`runtime/paged_cache.paged_write_stacked`) then K8 through the tables;
-- attention otherwise (prefill, lane prefill into a wider cache through
-  `batch_offset`): the KV rows written, then the plain f32 masked attention
-  over the lane's rows (a gathered dense view for the paged pool).
+  shared-gate weight) or as explicit matmuls (`_moe_shared`).
 The JAX package takes its fused q8_row kernels only where its TPU tiling
-accepts the widths (multiples of 128); the port takes them at every width,
-as K3 and K6 serve every cache length.
+accepts the widths (multiples of 128); the port takes them at every width.
 
-Q/k norm, int8 KV and sharding raise until their slices of the port.
+Q/k norm and sharding raise until their slices of the port.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -53,22 +65,31 @@ import torch.nn.functional as F
 
 from llamatpu_torch.models.config import ModelConfig
 from llamatpu_torch.models.weights import QTensor
-from llamatpu_torch.ops.attention import decode_attention_fused_write, decode_attention_paged
+from llamatpu_torch.ops import attention as att
+from llamatpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from llamatpu_torch.ops.layer_fused import (MAX_T, layer_attn_tail_fused_rowq,
                                             layer_tail_fused_rowq, qkv_norm_fused_rowq)
 from llamatpu_torch.ops.matmul import matmul
 from llamatpu_torch.ops.moe_grouped import moe_ffn_grouped, tile_rows
 from llamatpu_torch.ops.rmsnorm import rmsnorm
 from llamatpu_torch.ops.rope import apply_rope
-from llamatpu_torch.runtime.paged_cache import PagedKVCache, paged_gather, paged_write_stacked
+from llamatpu_torch.runtime.paged_cache import (PagedKVCache, paged_gather, paged_gather_scale,
+                                                paged_write_scale_stacked, paged_write_stacked)
 
 
 @dataclass
 class KVCache:
     """Preallocated packed KV cache [L, B, n_kv, S, hd + vhd]: K in the first
-    hd entries of a row, V in the rest. Updated in place by forward_tokens."""
+    hd entries of a row, V in the rest. With int8 entries, `scale` holds one
+    f32 per (token, KV head) for K and V, [L, B, n_kv, 2, S] (row 0 = K).
+    Updated in place by forward_tokens."""
 
     kv: torch.Tensor
+    scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale is not None
 
 
 PAD_GRANULE = 128  # final prefill chunks pad to a multiple of this
@@ -94,12 +115,15 @@ def pad_chunk_len(real: int, prefill_chunk: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, length: int | None = None,
                device: str | torch.device = "cuda") -> KVCache:
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"{dtype} KV cache: int8-KV slice of the port")
+    if dtype not in (torch.bfloat16, torch.float32, torch.int8):
+        raise NotImplementedError(f"{dtype} KV cache: the port keeps bf16, f32 or int8")
     s = length or cfg.context_length
     width = cfg.head_dim + cfg.v_head_dim
-    return KVCache(torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, s, width),
-                               dtype=dtype, device=device))
+    kv = torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, s, width), dtype=dtype, device=device)
+    if dtype == torch.int8:
+        return KVCache(kv, torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, 2, s),
+                                       dtype=torch.float32, device=device))
+    return KVCache(kv)
 
 
 def _attention(cfg: ModelConfig, q, kc, vc, pos_vec: torch.Tensor, t_len: int):
@@ -161,6 +185,48 @@ def _write_rows(kv: torch.Tensor, new: torch.Tensor, li: int, pos, row0: int) ->
     positions = pos.to(device=kv.device, dtype=torch.long)[:, None] \
         + torch.arange(t, device=kv.device)[None, :]
     kv[li][rows, :, positions] = new.to(kv.dtype)           # [B, T, KV, W]
+
+
+def _write_scale_rows(sc: torch.Tensor, s_new: torch.Tensor, li: int, pos, row0: int) -> None:
+    """Write s_new [B, T, KV, 2] (K and V scale per token and head) into the
+    stacked scale rows [L, Ball, KV, 2, S] at layer li, batch rows row0..,
+    positions pos.. of each lane (a host int, or a [B] vector), in place."""
+    b, t = s_new.shape[:2]
+    if isinstance(pos, int):
+        sc[li, row0:row0 + b, :, :, pos:pos + t] = s_new.permute(0, 2, 3, 1)
+        return
+    rows = torch.arange(row0, row0 + b, device=sc.device)[:, None]
+    positions = pos.to(device=sc.device, dtype=torch.long)[:, None] \
+        + torch.arange(t, device=sc.device)[None, :]
+    sc[li][rows, :, :, positions] = s_new                   # [B, T, KV, 2]
+
+
+def _write_kv(cache: KVCache, kvnew, kvq, s_new, li: int, pos, row0: int) -> None:
+    """The unfused cache write of a window's rows: the packed rows, or under
+    int8 the quantized rows and their scales."""
+    if cache.quantized:
+        _write_rows(cache.kv, kvq, li, pos, row0)
+        _write_scale_rows(cache.scale, s_new, li, pos, row0)
+    else:
+        _write_rows(cache.kv, kvnew, li, pos, row0)
+
+
+def _prefill_attention(cfg: ModelConfig, q, kvd, scd, pos_vec: torch.Tensor, t: int,
+                       s_limit: int | None):
+    """The plain masked attention of a window's T query rows over a lane view
+    kvd [B, KV, S, hd + vhd] (int8: dequantized with its scale rows scd
+    [B, KV, 2, S]); rows past the logical length s_limit are write slack,
+    never attended. Returns [B, T, KV, G, vhd] f32."""
+    hd = cfg.head_dim
+    if s_limit and s_limit < kvd.shape[2]:
+        lim = -(-s_limit // 8) * 8
+        kvd = kvd[:, :, :lim]
+        scd = None if scd is None else scd[..., :lim]
+    kd, vd = kvd[..., :hd], kvd[..., hd:]
+    if scd is not None:
+        kd, vd = dequantize_kv(kd, scd[:, :, 0:1]), dequantize_kv(vd, scd[:, :, 1:2])
+    return _attention(cfg, q.reshape(q.shape[0], t, cfg.n_kv_heads, cfg.gqa_groups, hd), kd, vd,
+                      pos_vec, t)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -246,35 +312,66 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
     q, k = qk[:, :, :cfg.n_heads], qk[:, :, cfg.n_heads:]
     v = qkv[..., qd + kd:].reshape(b, t, nkv, cfg.v_head_dim)
     kvnew = torch.cat([k, v], dim=-1)                 # [B, T, KV, hd + vhd]
+    kvq = s_new = None
+    if cache.quantized:  # per (token, KV head), outside the kernels as in the JAX package
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        kvq, s_new = torch.cat([kq, vq], dim=-1), torch.stack([ks, vs], dim=-1)  # [B, T, KV, 2]
     stacked = t == 1 and batch_offset is None
-    if (stacked and not paged and b == 1 and isinstance(pos, int) and rowq and not cfg.is_moe
-            and _is_rowq(lw["wo"]) and _is_rowq(lw["w13"]) and _is_rowq(lw["w2"])):
-        x, _ = layer_attn_tail_fused_rowq(
-            lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q.reshape(b, nkv, g, hd),
-            kvnew[:, 0], cache.kv, x, pos, li, eps, cfg.attn_score_scale, hd, rs)
-        return x
+    scale = cfg.attn_score_scale
+    q4 = q.reshape(b, nkv, g, hd) if t == 1 else None
     if paged:
-        pool = paged_write_stacked(cache.kv_pool, li, kvnew, tables, pos_vec,
-                                   cache.block_size)
+        pool = paged_write_stacked(cache.kv_pool, li, kvnew if kvq is None else kvq, tables,
+                                   pos_vec, cache.block_size)
+        if cache.quantized:
+            paged_write_scale_stacked(cache.scale, li, s_new, tables, pos_vec, cache.block_size)
         if stacked:
-            attn = decode_attention_paged(q.reshape(b, nkv, g, hd), pool, tables, pos_vec,
-                                          cfg.attn_score_scale, hd, li)
+            attn = att.decode_attention_paged(q4, pool, tables, pos_vec, scale, hd, li,
+                                              scale_pool=cache.scale)
         else:
-            kvd = paged_gather(pool[li], tables)
-            attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kvd[..., :hd], kvd[..., hd:],
-                              pos_vec, t)
+            scd = paged_gather_scale(cache.scale[li], tables) if cache.quantized else None
+            attn = _prefill_attention(cfg, q, paged_gather(pool[li], tables), scd, pos_vec, t,
+                                      None)
     elif stacked:
-        attn, _ = decode_attention_fused_write(q.reshape(b, nkv, g, hd), kvnew[:, 0], cache.kv,
-                                               pos_vec, cfg.attn_score_scale, li, hd)
+        s_phys = cache.kv.shape[3]
+        long_cache = s_phys * cache.kv.element_size() >= att.SPLIT_THRESHOLD_BYTES
+        fused = s_phys % 32 == 0 and not os.environ.get("LLAMATPU_NO_FUSED_ATTN")
+        if long_cache:
+            fused = fused and att.pick_tile(s_phys) >= 128
+        if (fused and not long_cache and not cache.quantized and b == 1 and isinstance(pos, int)
+                and rowq and not cfg.is_moe and _is_rowq(lw["wo"]) and _is_rowq(lw["w13"])
+                and _is_rowq(lw["w2"])):
+            x, _ = layer_attn_tail_fused_rowq(
+                lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q4, kvnew[:, 0], cache.kv, x, pos,
+                li, eps, scale, hd, rs)
+            return x
+        tile = att.pick_tile(s_phys)
+        if fused and cache.quantized and long_cache:
+            attn, _, _ = att.decode_attention_split_fused_write_q(
+                q4, kvq[:, 0], s_new[:, 0], cache.kv, cache.scale, pos_vec, scale, li, hd, tile)
+        elif fused and cache.quantized:
+            attn, _, _ = att.decode_attention_fused_write_q(
+                q4, kvq[:, 0], s_new[:, 0], cache.kv, cache.scale, pos_vec, scale, li, hd)
+        elif fused and long_cache:
+            attn, _ = att.decode_attention_split_fused_write(q4, kvnew[:, 0], cache.kv, pos_vec,
+                                                             scale, li, hd, tile)
+        elif fused:
+            attn, _ = att.decode_attention_fused_write(q4, kvnew[:, 0], cache.kv, pos_vec, scale,
+                                                       li, hd)
+        else:
+            _write_kv(cache, kvnew, kvq, s_new, li, pos, 0)
+            attn = att.decode_attention_auto(q4, cache.kv, pos_vec, scale, scale_rows=cache.scale,
+                                             s_limit=s_limit, layer_index=li, hd=hd)
     else:
         row0 = batch_offset or 0
-        _write_rows(cache.kv, kvnew, li, pos, row0)
+        _write_kv(cache, kvnew, kvq, s_new, li, pos, row0)
         kvd = cache.kv[li, row0:row0 + b]
-        if s_limit and s_limit < kvd.shape[2]:
-            # rows past the logical length are write slack, never attended
-            kvd = kvd[:, :, :-(-s_limit // 8) * 8]
-        attn = _attention(cfg, q.reshape(b, t, nkv, g, hd), kvd[..., :hd], kvd[..., hd:],
-                          pos_vec, t)
+        scd = cache.scale[li, row0:row0 + b] if cache.quantized else None
+        if t == 1:
+            attn = att.decode_attention_auto(q4, kvd, pos_vec, scale, scale_rows=scd,
+                                             s_limit=s_limit, hd=hd)
+        else:
+            attn = _prefill_attention(cfg, q, kvd, scd, pos_vec, t, s_limit)
     attn = attn.reshape(b, t, -1).to(x.dtype)
     if not cfg.is_moe:
         new_x = layer_tail_fused_rowq(lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], attn, x, li,

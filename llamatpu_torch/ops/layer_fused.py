@@ -78,7 +78,8 @@ def _check_attn_tail(q4, kvc, x, hd):
     if q4.shape[0] != 1 or x.shape[0] != 1 or x.numel() != x.shape[-1]:
         raise NotImplementedError("fused decode layer: B = 1, T = 1 only")
     if kvc.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"{kvc.dtype} KV cache: int8-KV slice of the port")
+        raise NotImplementedError(f"{kvc.dtype} KV cache: K3 takes bf16/f32 caches, as the "
+                                  "JAX megakernel does")
     if kvc.shape[-1] != 2 * hd:
         raise NotImplementedError("head_dim != v_head_dim: family-deltas slice of the port")
 

@@ -19,8 +19,9 @@ their verified full blocks at refcount 0 (evictable, least recently used
 first). The LAST pool block is the trash block: every unallocated table
 entry points at it, so padded prefill tails and parked lanes write there.
 
-Int8 pools (the JAX package's per-row scale variants) belong to the int8-KV
-slice of the port and raise.
+An int8 pool keeps one f32 scale per (position, KV head) for K and V in a
+scale pool [L, NBLK, KV, 2, BS] (row 0 = K), indexed by the same block ids:
+a shared prefix block and the trash block carry their scale rows with them.
 """
 from __future__ import annotations
 
@@ -51,25 +52,30 @@ def block_hashes(tokens, block_size: int) -> list[bytes]:
 class PagedKVCache:
     kv_pool: torch.Tensor  # [L, NBLK, KV, BS, hd + vhd], written in place
     block_size: int
+    scale: torch.Tensor | None = None  # int8 pools: [L, NBLK, KV, 2, BS] f32
 
     @property
     def n_blocks(self) -> int:
         return self.kv_pool.shape[1]
 
-
-def _check_dtype(dtype) -> None:
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"{dtype} paged KV pool: int8-KV slice of the port")
+    @property
+    def quantized(self) -> bool:
+        return self.scale is not None
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int = 16,
                      dtype=torch.bfloat16, device: str | torch.device = "cuda") -> PagedKVCache:
-    _check_dtype(dtype)
+    if dtype not in (torch.bfloat16, torch.float32, torch.int8):
+        raise NotImplementedError(f"{dtype} paged KV pool: the port keeps bf16, f32 or int8")
     if block_size & (block_size - 1):
         raise ValueError(f"block size {block_size} is not a power of two")
     kv = torch.zeros((cfg.n_layers, n_blocks, cfg.n_kv_heads, block_size,
                       cfg.head_dim + cfg.v_head_dim), dtype=dtype, device=device)
-    return PagedKVCache(kv, block_size)
+    scale = None
+    if dtype == torch.int8:
+        scale = torch.zeros((cfg.n_layers, n_blocks, cfg.n_kv_heads, 2, block_size),
+                            dtype=torch.float32, device=device)
+    return PagedKVCache(kv, block_size, scale)
 
 
 def _slots(pool: torch.Tensor, tables: torch.Tensor, pos_vec: torch.Tensor, t: int,
@@ -98,6 +104,26 @@ def paged_write_stacked(pool: torch.Tensor, li: int, new: torch.Tensor, tables: 
     blks, offs = _slots(pool, tables, pos_vec, t, block_size)
     pool[li][blks, :, offs] = new.reshape(b * t, kv, w).to(pool.dtype)
     return pool
+
+
+def paged_write_scale_stacked(spool: torch.Tensor, li: int, s_new: torch.Tensor,
+                              tables: torch.Tensor, pos_vec: torch.Tensor,
+                              block_size: int) -> torch.Tensor:
+    """Write s_new [B, T, KV, 2] (K and V scale per row and head) into the
+    STACKED scale pool [L, NBLK, KV, 2, BS] at layer li, at the slots
+    `paged_write_stacked` gives the rows, in place. Returns the scale pool."""
+    b, t, kv, _ = s_new.shape
+    blks, offs = _slots(spool, tables, pos_vec, t, block_size)
+    spool[li][blks, :, :, offs] = s_new.reshape(b * t, kv, 2).to(spool.dtype)
+    return spool
+
+
+def paged_gather_scale(spool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Dense scale-row lane view matching paged_gather: one layer's scale
+    pool [NBLK, KV, 2, BS] and tables [B, MAXBLK] -> [B, KV, 2, MAXBLK*BS]."""
+    g = spool[tables.to(device=spool.device, dtype=torch.long)]  # [B, MAXBLK, KV, 2, BS]
+    b, mb, kv, two, bs = g.shape
+    return g.permute(0, 2, 3, 1, 4).reshape(b, kv, two, mb * bs)
 
 
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:

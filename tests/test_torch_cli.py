@@ -123,7 +123,7 @@ def test_run_defaults_to_the_card(ggufs, monkeypatch):
 
 @pytest.mark.parametrize("argv,slice_name", [
     (["--tp", "2"], "parallelism"), (["--dp", "2"], "parallelism"),
-    (["--spec-decode", "4"], "speculative-decode"), (["--kv-dtype", "int8"], "int8-KV"),
+    (["--spec-decode", "4"], "speculative-decode"), (["--sp", "2"], "parallelism"),
     (["--ep"], "MoE"), (["--pipeline", "2"], "parallelism")])
 def test_flags_of_later_slices_raise(ggufs, argv, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -133,8 +133,8 @@ def test_flags_of_later_slices_raise(ggufs, argv, slice_name):
 @pytest.mark.parametrize("command", ["serve", "bench", "ppl", "convert"])
 def test_commands_of_later_slices_raise(command):
     """bench, ppl and convert raise naming their slice; `serve` runs since
-    slice 3, and its flags of later slices raise (here the int8 KV cache)."""
-    extra = ["--kv-dtype", "int8"] if command == "serve" else []
+    slice 3, and its flags of later slices raise (here tensor parallelism)."""
+    extra = ["--tp", "2"] if command == "serve" else []
     with pytest.raises(NotImplementedError, match="slice of the port"):
         cli.main([command, "-m", "x.gguf"] + extra)
 

@@ -103,8 +103,9 @@ def test_cache_geometry_matches_jax():
 def test_port_imports_no_jax_and_no_llamatpu():
     """Every module of the port (slice 2's GGUF, tokenizer, format, CLI,
     session and bench modules, slice 3's paged cache, batch engines,
-    scheduler, server and tool parser, and slice 4's grouped expert matmuls
-    included), imported in a fresh interpreter, loads no jax, no ml_dtypes,
+    scheduler, server and tool parser, slice 4's grouped expert matmuls and
+    slice 5's int8 KV quantization included), imported in a fresh
+    interpreter, loads no jax, no ml_dtypes,
     no regex and no module of the JAX package."""
     code = r"""
 import importlib, pkgutil, sys
@@ -122,7 +123,7 @@ need = ["llamatpu_torch." + m for m in (
     "ops.attention", "runtime.session", "bench.perplexity", "bench.validate",
     "runtime.paged_cache", "runtime.batch_engine", "runtime.paged_engine",
     "runtime.scheduler", "server.service", "server.openai_server", "server.stop_strings",
-    "format.tool_parser", "bench.serving_latency", "ops.moe_grouped")]
+    "format.tool_parser", "bench.serving_latency", "ops.moe_grouped", "ops.kv_quant")]
 print("MISSING", [m for m in need if m not in new])
 print("N", sum(n.startswith("llamatpu_torch") for n in new))
 """

@@ -209,8 +209,11 @@ def test_forward_paged_matches_jax_pallas(rowq):
     np.testing.assert_allclose(tcache.kv_pool.numpy()[:, keep], np.asarray(jcache.kv_pool)[:, keep],
                                rtol=5e-4, atol=5e-4)
     assert attention.decode_attention_paged.launches == 0
-    with pytest.raises(NotImplementedError, match="int8-KV"):
-        tpc.init_paged_cache(cfg, 4, 8, torch.int8, device="cpu")
+    # an int8 pool carries its zeroed scale pool; other dtypes raise
+    p8 = tpc.init_paged_cache(cfg, 4, 8, torch.int8, device="cpu")
+    assert p8.quantized and p8.scale.shape == (2, 4, cfg.n_kv_heads, 2, 8)
+    with pytest.raises(NotImplementedError, match="bf16, f32 or int8"):
+        tpc.init_paged_cache(cfg, 4, 8, torch.float16, device="cpu")
 
 
 def test_forward_paged_block_quant_gguf_matches_jax(tmp_path):

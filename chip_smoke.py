@@ -10,7 +10,7 @@ It runs every phase, needs one card, and exits non-zero
 
 1. device:  the card's name and power limit (nvidia-smi).
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
-3. kernels: each kernel (K1-K15, with K6's and K8's int8 variants) against
+3. kernels: each kernel (K1-K19, with K6's and K8's int8 variants) against
             its plain PyTorch version on the card, at the main-path shapes of
             llama32-1b (K1-K9; K2 also at 8 and 32 rows, K5 at T = 8, K6 at 8
             lanes, K8 at 8 lanes of a shuffled block pool, K9 at 1, 8 and 32
@@ -21,15 +21,19 @@ It runs every phase, needs one card, and exits non-zero
             Qwen1.5-MoE-A2.7B (K10-K13 on one layer's folded stacks, E = 64,
             at 1, 8 and 512 tokens; K6 and K8 at hd 128, G 1; K2 at O =
             6144; K5 on the 151936-row head), with the stated tolerances;
-            times from CUDA events and torch.profiler (kernel, plain
-            version, one-call library yardstick) beside the bound from the
-            published H100 SXM peaks.
+            slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K17 at the
+            four prefill projections at T = 512, K18a-j and K19a-c on the
+            probe scripts' [24, 4096, 4096] stacks at every configuration
+            of the scripts; times from CUDA events and torch.profiler
+            (kernel, plain version, one-call library yardstick) beside the
+            bound from the published H100 SXM peaks.
 4. moe:     slice 4's path, full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0,
-            seed 0, the shared expert folded): Engine at full depth, prefill
-            512 then 128 greedy tokens (K10, K5, K6); the same with rowq at
-            its first 8 layers (K12, K1, K2, K4, K6); PagedBatchEngine with 8
-            lanes at full depth (K10, K5, K8), a traced window and the
-            distinct experts per layer.
+            seed 0, the shared expert folded) at 12 of its 24 layers (a
+            depth cut for the script's time limit): Engine, prefill 512 then
+            128 greedy tokens (K10, K5, K6); the same with rowq at its first
+            8 layers (K12, K1, K2, K4, K6); PagedBatchEngine with 8 lanes
+            (K10, K5, K8), a traced window and the distinct experts per
+            layer.
 5. moe gguf: the model at full width and 4 layers (depth cut to keep the file
             ~3 GB) as a qwen2moe Q8_0 GGUF with a 151936-id ChatML vocab:
             `cli run`; `cli serve --batch-size 8 --paged` in-process over
@@ -41,7 +45,8 @@ It runs every phase, needs one card, and exits non-zero
 7. main:    slice 1's path, full-width llama32-1b (synthetic q8_0 -> q8_row,
             seed 0, built with context_length 32768): prefill 512 then 128
             greedy tokens through the port's Engine, with K1-K4's launch
-            counts read over that run.
+            counts read over that run; then 32 steps with
+            LLAMATPU_NO_ATTN_TAIL=1 (K3 = 0, K6 = K9 = 16 per step).
 8. longctx: slice 5's path on the same weights: Engine at cache 32768,
             prefill chunk 512, a 32000-token prompt then 128 greedy tokens,
             with bf16 and with int8 KV (K14 fused = K2 = K9 = 16 and K1 = 1
@@ -54,10 +59,16 @@ It runs every phase, needs one card, and exits non-zero
 9. gguf:    slice 2's path. The same synthetic model, written by the port's
             GGUF writer as a full-width, full-depth Q8_0 Llama 3 GGUF (tied
             head, byte-level BPE vocab of 128256 ids with the Llama 3
-            specials at their ids), then: `llamatpu_torch.cli run` on it
+            specials at their ids, context 8192), then: `llamatpu_torch.cli run` on it
             in-process; Engine(rowq=False) prefill 512 + 128 greedy tokens
             with the launch counts of K5 and K6 (and K1-K4 at 0); a sampled
             generation (temperature 0.3, top-p 0.95, seed 42) run twice.
+9b. tools:  slice 6's commands on that GGUF: `cli bench --rowq --pp 512
+            --tg 128 --pg 512+128 -d 0 4096 -r 2 -o jsonl --batch 8
+            --prefill-chunk 512` (its
+            six rows; K4, K1, K2, K3, K6 and K9 launched), `cli ppl` on a
+            short text, `cli run --rowq --profile-dir` (the trace names K1's
+            kernel).
 10. serve:  slice 3's path, `cli serve --batch-size 8 --paged` in-process on
             that GGUF: PagedBatchEngine (8 lanes, block 16, max_len 2048,
             prefill chunk 128, window 16) behind BatchedInferenceService and
@@ -72,9 +83,17 @@ It runs every phase, needs one card, and exits non-zero
             HTTP run of `serve --kv-dtype int8 --batch-size 8 --paged` (K5,
             K8-int8 = 16 per step) with serve's gates.
 13. pack4:  the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
-            32 decode steps through K7 (K5 at 0).
+            32 decode steps through K7 (K5 at 0); then `cli convert` of it to
+            Q8_0 and `cli validate` of the converted file on the card.
 14. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
             generate_batch through K6 at each lane's position and K2 + K9.
+14b. harnesses: slice 6's, each a path with its counts read over it:
+            bench/sweep_tail.py (K9 against K16 over the 16 layers, T = 1
+            and 8), bench/bench_gemm.py (torch._int_mm, K4, K17 at T = 512),
+            bench/roofline.py (K18 and the library rows) and
+            bench/dma_sweep.py (K19) on [24, 4096, 4096] stacks; each times
+            its launches as one CUDA-graph replay, asserts its counts and
+            prints its JSON rows.
 15. cpu:    the port on the card against the port on the CPU (plain
             versions), full width, 2 layers: slice 1's q8_row model, the Q8_0
             GGUF through Engine and through PagedBatchEngine.generate_batch,
@@ -1088,6 +1107,254 @@ def check_serving_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
     return [check_paged_attention(dev, dims), check_tail(dev, dims)]
 
 
+# ------------------------------------------------------------ slice 6 kernels
+PROBE_DIMS = dict(L=24, O=4096, I=4096)  # the TPU probe scripts' stack
+STREAM = ("probe_stream_kernel", "probe_stream_finish_kernel")
+
+
+def check_tail_kt(dev, dims=LLAMA32_1B) -> dict:
+    """K16 against its plain version at llama32-1b widths (F = 8192: 8
+    contraction tiles of 1024), T in {1, 8, 32}, bf16 and f32 activations, K9's
+    tolerances: f32 within 1e-5 of the largest plain output (sums in another
+    order), bf16 within 1e-2 (one bf16 ulp). Timed at each T, beside K9."""
+    import torch
+
+    from llamatpu_torch.ops import layer_fused
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    L, D, F, KV, G, HD = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD"))
+    H = KV * G * HD
+    wo, w13, w2 = rand_rowq(L, D, H, dev, gen), rand_rowq(L, 2 * F, D, dev, gen), \
+        rand_rowq(L, D, F, dev, gen)
+    nw = torch.rand((L, D), device=dev, generator=gen) + 0.5
+    kt = layer_fused.layer_tail_kt_fused_rowq
+    worst = {"bf16": 0.0, "f32": 0.0}
+    worst_abs, vs_k9 = 0.0, 0.0
+    for dt, key, tol in ((torch.float32, "f32", 1e-5), (torch.bfloat16, "bf16", 1e-2)):
+        for t, rs in ((1, 1.0), (8, 1.0), (32, 1.0), (8, 0.5)):
+            attn = torch.randn((t, H), device=dev, generator=gen).to(dt)
+            x = torch.randn((t, D), device=dev, generator=gen).to(dt)
+            got = kt(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
+            want = layer_fused.layer_tail_kt_plain(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
+            k9 = layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == x.shape
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= tol, f"K16 disagrees at T={t} rs={rs} ({key}): {abs_e} {rel_e}"
+            worst[key] = max(worst[key], rel_e)
+            worst_abs = max(worst_abs, abs_e)
+            vs_k9 = max(vs_k9, max_err(got, k9)[1])
+            log(f"K16 T={t} rs={rs} {key}: max abs {abs_e:.3g} rel {rel_e:.3g}")
+    li = iter(range(10**9))
+    per = {}
+    for t in (1, 8, 32):
+        attn = torch.randn((t, H), device=dev, generator=gen).to(torch.bfloat16)
+        x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        wbytes = D * H + 2 * F * D + D * F + (D + 2 * F + D) * 4 + D * 4
+        b_ms, b_by = bound(wbytes + t * (H + D + D) * 2, 2 * t * (D * H + 2 * F * D + D * F),
+                           BF16_OPS_S)
+        per[t] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
+            lambda: kt(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
+            ("gemv_tiled_kernel", "w2_ktile_kernel", "ktile_sum_kernel"),
+            lambda: layer_fused.layer_tail_kt_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
+            None))
+        log(f"K16 T={t}: {per[t]['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
+            f"{per[t]['plain_ms']:.4f})")
+    del wo, w13, w2
+    torch.cuda.empty_cache()
+    return dict(
+        name="layer_tail_kt_fused_rowq", route="cuda", source="llamatpu_torch/csrc/layer_fused.cu",
+        replaces="llamatpu/ops/layer_fused.py:110", max_abs_err=worst_abs,
+        max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst, max_rel_vs_k9=vs_k9,
+        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-2 (T in 1, 8, 32; rs 1 and 0.5)",
+        **{k: per[8][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")},
+        library=None, shape=f"T=8 rows D={D} H={H} F={F} tf=1024", by_rows=per)
+
+
+def check_gemm_bf16(dev, dims=LLAMA32_1B) -> dict:
+    """K17 against its plain version at the four prefill projections of a
+    llama32-1b layer at T = 512: the same exact products summed in f32 in
+    another order, within 1e-5 of the largest plain output."""
+    import torch
+
+    from llamatpu_torch.ops import gemm
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    D, F, KV, G, HD, T = (dims[k] for k in ("D", "F", "KV", "G", "HD", "T"))
+    O = (G * KV + 2 * KV) * HD
+    shapes = {"wqkv": (O, D), "wo": (D, KV * G * HD), "w13": (2 * F, D), "w2": (D, F)}
+    per, tot = {}, {"bytes": 0, "ops": 0}
+    worst = (0.0, 0.0)
+    for name, (o, i) in shapes.items():
+        w = rand_rowq(1, o, i, dev, gen)
+        qs, s = w.qs[0], w.scales[0]
+        xi8 = torch.randint(-127, 128, (T, i), dtype=torch.int8, device=dev, generator=gen)
+        ax = torch.rand((T, 1), device=dev, generator=gen) * 0.01
+        got = gemm.rowq_gemm(qs, s, xi8, ax, variant="bf16")
+        want = gemm.rowq_gemm_bf16_plain(qs, s, xi8, ax)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        assert e[1] <= 1e-5, f"K17 {name} disagrees: {e}"
+        worst = max(worst, e)
+        qt = qs.t()
+        tm = timings(lambda: gemm.rowq_gemm_bf16(qs, s, xi8, ax), ("gemm_bf16_kernel",),
+                     lambda: gemm.rowq_gemm_bf16_plain(qs, s, xi8, ax),
+                     lambda: torch._int_mm(xi8, qt))
+        nb, op = o * i + T * i + T * 4 + o * 4 + T * o * 4, 2 * T * o * i
+        per[name] = dict(**tm, bound_ms=bound(nb, op, BF16_OPS_S)[0], shape=f"T={T} O={o} I={i}",
+                         max_rel_err=e[1])
+        for k in ("ms", "wrapper_ms", "plain_ms", "library_ms"):
+            tot[k] = tot.get(k, 0.0) + tm[k]
+        tot["bytes"] += nb
+        tot["ops"] += op
+        log(f"K17 {name}: {tm['ms']:.4f} ms (bound {per[name]['bound_ms']:.4f}), rel err "
+            f"{e[1]:.3g}")
+        del w, qs, s, xi8
+    b_ms, b_by = bound(tot["bytes"], tot["ops"], BF16_OPS_S)
+    return dict(
+        name="rowq_gemm_bf16", route="cuda", source="llamatpu_torch/csrc/gemm.cu",
+        replaces="llamatpu/ops/pallas_gemm.py:65", max_abs_err=worst[0], max_rel_err=worst[1],
+        tolerance="rel <= 1e-5 of max|plain| (f32 sums of exact products, another order)",
+        ms=tot["ms"], ms_source=per["wo"]["ms_source"], wrapper_ms=tot["wrapper_ms"],
+        plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
+        library="torch._int_mm (int32 out, no epilogue)", bound_ms=b_ms, bound_by=b_by,
+        shape="one layer: wqkv+wo+w13+w2 at T=512", per_shape=per)
+
+
+def probe_weights(dev):
+    from llamatpu_torch.bench import roofline
+
+    return roofline.make_weights(PROBE_DIMS["L"], PROBE_DIMS["O"], PROBE_DIMS["I"], dev)
+
+
+def check_roofline_probes(dev, w) -> list[dict]:
+    """K18a-j against their plain versions on the script's [24, 4096, 4096]
+    stacks (x bf16 [8, 4096]): the integer dots and the stream probes exactly,
+    the f32 sums within 1e-5 of the largest plain output (the same products
+    in another order). The 2-D steps are timed on each layer in turn, so the
+    32 MB layer is not served from the 50 MB L2 cache."""
+    import torch
+
+    from llamatpu_torch.bench import roofline as rf
+
+    L, O, I = (PROBE_DIMS[k] for k in ("L", "O", "I"))
+    x, tt = w["x"], w["x"].shape[0]
+    nb = I // rf.BLOCK
+    bf, q8, qo = (w["bf16"],), (w["qs"], w["ss"]), (w["qs"],)
+    wflat = w["bf16"].reshape(-1, I)
+    li = iter(range(10**9))
+    GEMV, DOT = ("probe_gemv_kernel",), ("probe_int8dot_kernel",)
+    # name, its line in scripts/bench_roofline.py, weights, stacked, exact,
+    # profiler names, weight bytes per layer, library yardstick
+    spec = [("step_pallas_bf16", 99, bf, False, False, GEMV, 2 * O * I,
+             lambda lw: torch.matmul(x, lw[0].T)),
+            ("step_q8_current", 112, q8, False, False, GEMV, O * I + O * nb * 4, None),
+            ("step_q8_bf16mul", 125, q8, False, False, GEMV, O * I + O * nb * 4, None),
+            ("step_q8_int8dot", 139, q8, False, True, DOT, O * I, None),
+            ("step_q8_int8dot_blockscale", 158, q8, False, False, DOT, O * I + O * nb * 4, None),
+            ("step_dma_probe", 172, bf, False, True, STREAM, 2 * O * I, None),
+            ("call3_q8_current", 243, q8, True, False, GEMV, O * I + O * nb * 4, None),
+            ("call3_q8_int8dot", 256, qo, True, True, DOT, O * I, None),
+            ("call3_bf16", 267, bf, True, False, GEMV, 2 * O * I,
+             lambda lw: torch.matmul(x, wflat.T)),
+            ("call3_dma_probe", 278, bf, True, True, STREAM, 2 * O * I, None)]
+    rows = []
+    for name, line, ws, stacked, exact, names, wbytes, lib in spec:
+        fn, plain = getattr(rf, name), getattr(rf, name + "_plain")
+        # timed calls take the layers in turn; the check takes one
+        args = (lambda: ws) if stacked else (lambda: tuple(t[next(li) % L] for t in ws))
+        one = ws if stacked else tuple(t[3 % L] for t in ws)
+        got, want = fn(one, x), plain(one, x)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (tt, O)
+        abs_e, rel_e = max_err(got, want)
+        if exact:
+            assert torch.equal(got, want), f"{name} not exact: {abs_e}"
+        else:
+            assert rel_e <= 1e-5, f"{name} disagrees: max abs {abs_e} rel {rel_e}"
+        layers = L if stacked else 1
+        nbytes = layers * wbytes + x.numel() * 2 + tt * O * 4
+        ops = 0 if "dma" in name else 2 * tt * O * I * layers
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_S if "int8" not in name else INT8_OPS_S)
+        tm = timings(lambda: fn(args(), x), names, lambda: plain(args(), x),
+                     None if lib is None else (lambda: lib(args())), iters=4 if stacked else 16)
+        rows.append(dict(
+            name=name, route="cuda", source="llamatpu_torch/csrc/probes.cu",
+            replaces=f"scripts/bench_roofline.py:{line}", max_abs_err=abs_e, max_rel_err=rel_e,
+            tolerance="exact" if exact else "rel <= 1e-5 of max|plain|", **tm,
+            library=None if lib is None else "bf16 torch.matmul", bound_ms=b_ms, bound_by=b_by,
+            gbs=nbytes / tm["ms"] / 1e6,
+            shape=(f"[{L}, {O}, {I}] stack, x [{tt}, {I}]" if stacked
+                   else f"one [{O}, {I}] layer of {L} in turn, x [{tt}, {I}]")))
+        log(f"{name}: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}; {rows[-1]['gbs']:.1f} GB/s), "
+            f"plain {tm['plain_ms']:.4f}, err {abs_e:.3g}")
+    return rows
+
+
+def check_dma_probes(dev, w) -> list[dict]:
+    """K19a-c against their plain versions on the [24, 4096, 4096] stacks at
+    every (to) and (depth, ch) of the script, all exactly (values moved, or
+    integer and chunk-ordered f32 sums as the plain version takes them); the
+    row's times at to = 1024 and (depth, ch) = (4, 512)."""
+    import torch
+
+    from llamatpu_torch.bench import dma_sweep as ds
+
+    L, O, I = (PROBE_DIMS[k] for k in ("L", "O", "I"))
+    x, tt = w["x"], w["x"].shape[0]
+    configs = {"probe_blockspec": [((to,), "qs") for to in (256, 1024, 2048)],
+               "probe_manual_dma": [((d, c), "qs") for d, c in ((2, 512), (4, 512), (8, 256),
+                                                                (4, 1024), (8, 512), (16, 256))]
+               + [((4, 512), "bf16")],
+               "int8dot_manual_dma": [((d, c), "qs") for d, c in ((4, 512), (8, 256), (8, 512))]}
+    head = {"probe_blockspec": ((1024,), "qs"), "probe_manual_dma": ((4, 512), "qs"),
+            "int8dot_manual_dma": ((4, 512), "qs")}
+    line = {"probe_blockspec": 68, "probe_manual_dma": 120, "int8dot_manual_dma": 173}
+    rows = []
+    for name, cfgs in configs.items():
+        factory, plain = getattr(ds, name), getattr(ds, name + "_plain")
+        per = {}
+        for args, key in cfgs:
+            ws = (w[key],) if name != "int8dot_manual_dma" else (w[key], None)
+            call = factory(*args)
+            got, want = call(ws, x), plain(ws, x, *args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{name}{args} {key} not exact: {max_err(got, want)}"
+            esize = w[key].element_size()
+            nbytes = L * O * I * esize + x.numel() * 2 + tt * O * 4
+            ops = 2 * tt * L * O * I if name == "int8dot_manual_dma" else 0
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS_S)
+            ms = time_ms(lambda: call(ws, x), iters=4)
+            per[f"{args}-{key}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                         gbs=nbytes / ms / 1e6)
+            log(f"{name}{args} {key}: {ms:.4f} ms (bound {b_ms:.4f}; {nbytes / ms / 1e6:.1f} GB/s), "
+                "exact")
+            if (args, key) == head[name]:
+                tm = timings(lambda: call(ws, x), STREAM, lambda: plain(ws, x, *args), None,
+                             iters=4)
+                hb = (b_ms, b_by, nbytes)
+        rows.append(dict(
+            name=name, route="cuda", source="llamatpu_torch/csrc/probes.cu",
+            replaces=f"scripts/bench_dma_sweep.py:{line[name]}", max_abs_err=0.0, max_rel_err=0.0,
+            tolerance="exact", **tm, library=None, bound_ms=hb[0], bound_by=hb[1],
+            gbs=hb[2] / tm["ms"] / 1e6,
+            shape=f"{head[name][0]} over the {head[name][1]} [{L}, {O}, {I}] stack",
+            by_config=per))
+    return rows
+
+
+def check_slice6_kernels(dev) -> list[dict]:
+    import torch
+
+    rows = [check_tail_kt(dev), check_gemm_bf16(dev)]
+    w = probe_weights(dev)
+    rows += check_roofline_probes(dev, w) + check_dma_probes(dev, w)
+    del w
+    torch.cuda.empty_cache()
+    return rows
+
+
 def device_breakdown(fn) -> dict:
     """Run fn() once under torch.profiler (device activity only, so the host
     is barely slowed): device busy time, the traced window's host wall time,
@@ -1163,9 +1430,13 @@ ROW_WRAPPERS = {"decode_attention_split_fused_write": K14_WRAPPERS,
 
 
 def counters():
+    from llamatpu_torch.bench import dma_sweep, roofline
     from llamatpu_torch.ops import attention, gemm, layer_fused, moe_grouped, quant_matmul
 
     return {"rowq_gemv": quant_matmul.rowq_gemv, "rowq_gemm": gemm.rowq_gemm,
+            "rowq_gemm_bf16": gemm.rowq_gemm_bf16,
+            "layer_tail_kt_fused_rowq": layer_fused.layer_tail_kt_fused_rowq,
+            **{f.__name__: f for f in roofline.KERNELS + dma_sweep.FACTORIES},
             "qkv_norm_fused_rowq": layer_fused.qkv_norm_fused_rowq,
             "layer_attn_tail_fused_rowq": layer_fused.layer_attn_tail_fused_rowq,
             "block_matmul": quant_matmul.block_matmul,
@@ -1364,6 +1635,16 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
                                   "qkv_norm_fused_rowq": L * n, "layer_tail_fused_rowq": L * n,
                                   kernel: L * n}
 
+    # LLAMATPU_NO_ATTN_TAIL (read at each call): the main path's cache takes
+    # K6 + K9 per layer and step instead of K3, as the JAX package does
+    configure(engine, 1024, torch.bfloat16, 512, 32)
+    os.environ["LLAMATPU_NO_ATTN_TAIL"] = "1"
+    try:
+        out["no_attn_tail"] = drive_long(engine, prompt, 32, want("decode_attention_fused_write"),
+                                         "no_attn_tail")
+    finally:
+        os.environ.pop("LLAMATPU_NO_ATTN_TAIL", None)
+
     rng = np.random.default_rng(32)
     long_prompt = rng.integers(0, V, 32000).tolist()
     for label, cdt, kernel in (
@@ -1471,12 +1752,13 @@ def write_llama_gguf(model, path, quant: str = "q8_0") -> None:
     gw.write(str(path))
 
 
-def make_gguf(workdir: Path, quant: str, n_layers=None, overrides=None) -> Path:
+def make_gguf(workdir: Path, quant: str, n_layers=None, overrides=None,
+              context_length=None) -> Path:
     from llamatpu_torch.models.synthetic import build_synthetic_model
 
     t0 = time.perf_counter()
     model = build_synthetic_model("llama32-1b", quant="q8_0", seed=0, n_layers=n_layers,
-                                  overrides=overrides)
+                                  overrides=overrides, context_length=context_length)
     path = workdir / f"llama32-1b-{quant}-L{model.cfg.n_layers}.gguf"
     write_llama_gguf(model, path, quant)
     log(f"gguf: wrote {path.name} ({path.stat().st_size / 1e9:.3f} GB) in "
@@ -1499,7 +1781,8 @@ def run_gguf_path(dev, workdir: Path, overrides=None) -> dict:
     from llamatpu_torch.models.loader import load_model
     from llamatpu_torch.runtime.engine import Engine
 
-    path = make_gguf(workdir, "q8_0", overrides=overrides)
+    # context 8192: the tools phase benches at depth 4096 (+ 512) on this file
+    path = make_gguf(workdir, "q8_0", overrides=overrides, context_length=8192)
     res = {"gguf_file": path.name}
     # 1. the port's command line, in-process, greedy
     buf = io.StringIO()
@@ -1558,8 +1841,41 @@ def run_pack4_path(dev, workdir: Path, overrides=None) -> dict:
         "packed4_matmul": (4 * L + 1) * (1 + n), "decode_attention_fused_write": L * n},
         "pack4", repeats=1)
     del engine, model
-    path.unlink()
     torch.cuda.empty_cache()
+    res["convert"] = convert_and_validate(dev, path, workdir)
+    path.unlink()
+    return res
+
+
+def convert_and_validate(dev, path: Path, workdir: Path) -> dict:
+    """`cli convert` of a GGUF to Q8_0, then `cli validate` on the converted
+    file on the card (no golden fixture: tokenizer, chat format, a greedy
+    sample and a finite ppl)."""
+    import contextlib
+    import io
+
+    from llamatpu_torch import cli
+
+    dst = workdir / (path.stem + "-converted-q8_0.gguf")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["convert", "-m", str(path), "-o", str(dst)])
+    stats = json.loads(buf.getvalue())
+    assert rc == 0 and stats["requantized"] > 0, f"cli convert: rc {rc}, {stats}"
+    res = dict(convert_s=time.perf_counter() - t0, **stats)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["validate", "-m", str(dst), "--device", str(dev),
+                       "--golden", str(workdir / "no-golden.json")])
+    text = buf.getvalue()
+    assert rc == 0 and "validation: OK" in text, f"cli validate: rc {rc}\n{text}"
+    res["validate_s"] = time.perf_counter() - t0
+    log(f"convert: {path.name} -> {dst.name} in {res['convert_s']:.1f} s ({stats}); validate "
+        f"on the card rc 0 in {res['validate_s']:.1f} s: "
+        f"{[ln for ln in text.splitlines() if ln.startswith('[')]}")
+    dst.unlink()
     return res
 
 
@@ -2276,10 +2592,10 @@ def first_layers(model, n: int):
 
 
 def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
-    """Full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0, seed 0) through Engine at
-    full depth (cache 1024, prefill chunk 512, 128 greedy tokens: K10 + K5 +
-    K6), then with rowq at its first 8 layers (K12 + K1 + K2 + K4 + K6), then
-    PagedBatchEngine with 8 lanes at full depth (K10 + K5 + K8)."""
+    """Full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0, seed 0) at `n_layers`
+    (default all 24) through Engine (cache 1024, prefill chunk 512, 128 greedy
+    tokens: K10 + K5 + K6), then with rowq at its first 8 layers (K12 + K1 +
+    K2 + K4 + K6), then PagedBatchEngine with 8 lanes (K10 + K5 + K8)."""
     import numpy as np
     import torch
 
@@ -2605,6 +2921,164 @@ def run_moe_cpu_and_dense(dev, overrides=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------ slice 6 paths
+# slice 6's kernel rows: the harness whose run holds the row's launches, and
+# the harness row timed per call for it
+SLICE6 = {
+    "layer_tail_kt_fused_rowq": ("sweep_tail", "w2_ktile T=8"),
+    "rowq_gemm_bf16": ("bench_gemm", None),  # a layer: the four shapes' k17_ms
+    "step_pallas_bf16": ("roofline", "pallas_bf16"),
+    "step_q8_current": ("roofline", "q8_current"),
+    "step_q8_bf16mul": ("roofline", "q8_bf16mul"),
+    "step_q8_int8dot": ("roofline", "q8_int8dot"),
+    "step_q8_int8dot_blockscale": ("roofline", "q8_int8dot_blockscale"),
+    "step_dma_probe": ("roofline", "dma_probe_bf16"),
+    "call3_q8_current": ("roofline", "3d_q8_current"),
+    "call3_q8_int8dot": ("roofline", "3d_q8_int8dot"),
+    "call3_bf16": ("roofline", "3d_bf16"),
+    "call3_dma_probe": ("roofline", "3d_dma_probe_bf16"),
+    "probe_blockspec": ("dma_sweep", "blockspec_probe_int8 to=1024"),
+    "probe_manual_dma": ("dma_sweep", "manual_probe_int8 d=4 ch=512"),
+    "int8dot_manual_dma": ("dma_sweep", "manual_int8dot d=4 ch=512"),
+}
+
+
+def run_harness_paths(dev, dims=LLAMA32_1B) -> dict:
+    """Slice 6's harnesses at full size, each its own path: every count set to
+    0 just before and read just after; each harness times its repeated
+    launches as one CUDA-graph replay and asserts that each kernel's count
+    grew by the launches it issued; their JSON rows are printed here.
+    - sweep_tail: K9 against K16 over the 16 llama32-1b layers, T = 1 and 8;
+    - bench_gemm: torch._int_mm + epilogue, K4 and K17 at the four prefill
+      projections, T = 512;
+    - roofline: K18's rows (and the library rows) on [24, 4096, 4096] stacks;
+    - dma_sweep: K19's rows on the same stacks."""
+    import torch
+
+    from llamatpu_torch.bench import bench_gemm, dma_sweep, roofline, sweep_tail
+
+    fns = counters()
+    out = {}
+
+    def run(label, fn, key):
+        for f in fns.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        rows = fn()
+        launches = {k: f.launches for k, f in fns.items()}
+        for r in rows:
+            log(f"{label}: {json.dumps(r)}")
+        out[label] = dict(rows=rows, launches=launches, seconds=time.perf_counter() - t0,
+                          by_key={key(r): r for r in rows})
+
+    L, D, F, KV, G, HD = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD"))
+
+    def tails():
+        rows = []
+        for t in (1, 8):
+            st = sweep_tail.make_tail(L, D, KV * G * HD, F, t, dev)
+            rows += sweep_tail.sweep(st, 32, dev)
+            del st
+        return rows
+    run("sweep_tail", tails, lambda r: f"{r['variant']} T={r['T']}")
+    run("bench_gemm", lambda: bench_gemm.bench(dims["T"], 32, dev), lambda r: r["shape"])
+    w = probe_weights(dev)
+    run("roofline", lambda: roofline.bench(w, 24, dev), lambda r: r["variant"])
+    run("dma_sweep", lambda: dma_sweep.bench(w, 24, dev), lambda r: r["probe"])
+    del w
+    torch.cuda.empty_cache()
+    for label, res in out.items():
+        log(f"{label}: {res['seconds']:.1f} s, launches "
+            f"{({k: v for k, v in res['launches'].items() if v})}")
+    return out
+
+
+def slice6_in_path_ms(harness: dict, name: str) -> float:
+    """Device ms per call of a slice-6 kernel in its harness's graph replay."""
+    label, key = SLICE6[name]
+    h = harness[label]
+    if label == "sweep_tail":
+        return h["by_key"][key]["ms_per_layer"]
+    if label == "bench_gemm":  # one layer's four projections, as the row
+        return sum(r["k17_ms"] for r in h["rows"])
+    return h["by_key"][key]["ms_per_call"]
+
+
+PPL_TEXT = ("The capital of France is Paris. It lies on the Seine, and its museums hold "
+            "paintings from every century. ") * 6
+
+
+def run_tool_paths(dev, gguf: Path, workdir: Path) -> dict:
+    """The measuring tools on the full-width Q8_0 GGUF (context 8192), in
+    process, each with its counts set to 0 just before and read after:
+    - `cli bench --rowq --pp 512 --tg 128 --pg 512+128 -d 0 4096 -r 2 -o jsonl
+      --batch 8 --prefill-chunk 512`: the llama-bench rows (names and token counts held), q8_row
+      through K4 (prefill), K1, K2 and K3 (B = 1 decode), K2, K6 and K9 (8
+      lanes);
+    - `cli ppl` on a short text: finite ppl, the scored tokens;
+    - `cli run --rowq --profile-dir`: the Chrome trace names K1's kernel."""
+    import contextlib
+    import io
+
+    from llamatpu_torch import cli
+
+    fns = counters()
+    out = {}
+
+    def invoke(label, argv):
+        for f in fns.values():
+            f.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        res = dict(rc=rc, seconds=time.perf_counter() - t0,
+                   launches={k: f.launches for k, f in fns.items() if f.launches})
+        assert rc == 0, f"cli {label}: rc {rc}, output {buf.getvalue()[:400]!r}"
+        out[label] = res
+        return buf.getvalue()
+
+    # the main path's 512-row prefill chunk (the CLI's default is 128): the
+    # batched row ingests 8 prompts of 4096 tokens per repeat
+    text = invoke("bench", ["bench", "-m", str(gguf), "--device", str(dev), "--rowq",
+                            "--pp", "512", "--tg", "128", "--pg", "512+128", "-d", "0", "4096",
+                            "-r", "2", "-o", "jsonl", "--batch", "8", "--prefill-chunk", "512"])
+    rows = [json.loads(line) for line in text.splitlines()]
+    for r in rows:
+        log(f"cli bench: {json.dumps(r)}")
+    want = [("pp512", 512), ("tg128", 128), ("pp512@d4096", 512), ("tg128@d4096", 128),
+            ("pg512+128", 640), ("tg128@b8", 1024)]
+    assert [(r["test"], r["n"]) for r in rows] == want, rows
+    assert all(r["tok_s"] > 0 for r in rows)
+    got = out["bench"]["launches"]
+    for k in ("rowq_gemm", "rowq_gemv", "qkv_norm_fused_rowq", "layer_attn_tail_fused_rowq",
+              "layer_tail_fused_rowq", "decode_attention_fused_write"):
+        assert got.get(k, 0) > 0, f"cli bench: {k} never launched ({got})"
+    out["bench"]["rows"] = rows
+    log(f"cli bench: {out['bench']['seconds']:.1f} s, launches {got}")
+
+    res = json.loads(invoke("ppl", ["ppl", "-m", str(gguf), "--device", str(dev),
+                                    "--text", PPL_TEXT]))
+    assert res["tokens"] > 64 and 1.0 < res["ppl"] < float("inf"), res
+    assert out["ppl"]["launches"].get("block_matmul", 0) > 0, out["ppl"]
+    out["ppl"].update(res)
+    log(f"cli ppl: {res} in {out['ppl']['seconds']:.1f} s, launches {out['ppl']['launches']}")
+
+    prof = workdir / "profile"
+    invoke("profile", ["run", "-m", str(gguf), "--device", str(dev), "--rowq", "-p",
+                       "Why is the sky blue?", "-n", "64", "--temperature", "0",
+                       "--metrics-format", "none", "--profile-dir", str(prof)])
+    trace = json.loads((prof / "trace.json").read_text())
+    names = [e.get("name", "") for e in trace["traceEvents"]]
+    k1 = [n for n in names if "gemv_kernel<1, 0, 0>" in n]
+    assert k1, "cli run --profile-dir: K1's kernel (gemv_kernel<1, 0, 0>) not in the trace"
+    out["profile"].update(trace_events=len(names), k1_events=len(k1),
+                          trace_mb=(prof / "trace.json").stat().st_size / 1e6)
+    log(f"cli run --profile-dir: {len(names)} trace events, {len(k1)} of K1 ({k1[0][:60]!r})")
+    shutil.rmtree(prof, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-dir", default=None, help="write the ptxas report and results here")
@@ -2639,10 +3113,10 @@ def main() -> int:
     workdir.mkdir(parents=True, exist_ok=True)
     try:
         rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev) \
-            + check_moe_kernels(dev) + check_long_kernels(dev)
+            + check_moe_kernels(dev) + check_long_kernels(dev) + check_slice6_kernels(dev)
         for name, sub in check_qwen_geometry(dev).items():
             next(r for r in rows if r["name"] == name)["qwen15"] = sub
-        paths = run_moe_paths(dev)
+        paths = run_moe_paths(dev, n_layers=12)  # a depth cut for the time limit
         paths.update(run_moe_gguf_paths(dev, workdir))
         cpu_moe = run_moe_cpu_and_dense(dev)
         paths["moe_dense"] = cpu_moe.pop("moe_dense")
@@ -2650,14 +3124,22 @@ def main() -> int:
         paths.update(run_main_and_long_paths(dev))
         paths["gguf"] = run_gguf_path(dev, workdir)
         gguf = workdir / paths["gguf"]["gguf_file"]  # written by the gguf phase
+        summary["tools"] = run_tool_paths(dev, gguf, workdir)
         paths["serve"] = run_serving_path(dev, gguf, rowq=False, latency=True)
         paths["serve_rowq"] = run_serving_path(dev, gguf, rowq=True, latency=False)
         paths.update(run_int8_serving_paths(dev, gguf))
         gguf.unlink()
         paths["pack4"] = run_pack4_path(dev, workdir)
         paths["dense_batch"] = run_dense_batch_path(dev)
+        harness = run_harness_paths(dev)
+        summary["harness"] = harness
         summary.update(paths)
         for r in rows:
+            if r["name"] in SLICE6:  # the harness that drives the kernel
+                r["launches"] = harness[SLICE6[r["name"]][0]]["launches"][r["name"]]
+                r["in_path_ms"] = slice6_in_path_ms(harness, r["name"])
+                assert r["launches"] > 0, f"{r['name']}: no launch in its harness"
+                continue
             if r["name"] in ROW_WRAPPERS:  # every launch of the kernel's wrappers on the paths
                 r["launches"] = sum(p["launches"].get(n, 0) for p in paths.values()
                                     if "launches" in p for n in ROW_WRAPPERS[r["name"]])

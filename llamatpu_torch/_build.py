@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("quant_matmul", "layer_fused", "gemm", "block_matmul", "attention", "moe_grouped")
+SOURCES = ("quant_matmul", "layer_fused", "gemm", "block_matmul", "attention", "moe_grouped",
+           "probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,9 +45,11 @@ _SIGNATURES = {
                          _P, _I, _I, _I, _P),
         "lt_tail": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _P),
+        "lt_tail_kt": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _P),
     },
     "gemm": {
-        "lt_rowq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "lt_rowq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "block_matmul": {
         "lt_block_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -61,6 +64,11 @@ _SIGNATURES = {
     },
     "moe_grouped": {
         "lt_grouped_matmul": (_I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    },
+    "probes": {
+        "lt_probe_gemv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "lt_probe_int8dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "lt_probe_stream": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
     },
 }
 

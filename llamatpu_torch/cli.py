@@ -1,10 +1,14 @@
-"""The port's command line (the `run`, `validate` and `serve` commands of
-llamatpu/cli.py), on the card by default:
+"""The port's command line (the commands of llamatpu/cli.py), on the card by
+default:
 
     python -m llamatpu_torch.cli run -m model.gguf -p "Why is the sky blue?"
     python -m llamatpu_torch.cli run -m model.gguf -p "..." --device cpu
+    python -m llamatpu_torch.cli run -m model.gguf -p "..." --profile-dir traces/
     python -m llamatpu_torch.cli validate -m model.gguf --dtype f32
     python -m llamatpu_torch.cli serve -m model.gguf --batch-size 8 --paged
+    python -m llamatpu_torch.cli bench -m model.gguf --rowq --pp 512 --tg 128 -o jsonl
+    python -m llamatpu_torch.cli ppl -m model.gguf --text-file wiki.txt
+    python -m llamatpu_torch.cli convert -m model-q4_0.gguf -o model-q8_0.gguf
 
 A Llama 3, Qwen2 or Qwen2-MoE GGUF (Qwen1.5-MoE-A2.7B: routed experts
 through the grouped kernels) in Q8_0 or Q4_0 loads as block quants
@@ -19,10 +23,15 @@ unless --temperature / --top-p say otherwise, and streamed to stdout.
 scale per token and KV head, half the bytes of a bf16 cache; -n reaches up
 to the model's context, and a long cache takes the split attention kernel.
 
-The JAX package's TPU-only flags (--impl, --dump-hlo, --profile-dir) have no
-counterpart here. Flags and commands of later slices of the port are
-accepted and raise, naming the slice: --tp/--dp/--sp/--pipeline/--ep,
---spec-decode, and bench/ppl/convert.
+`bench` is llama-bench's matrix (bench/llama_bench.py: pp, tg, pg specs,
+-d depths, -r reps, md/csv/json/jsonl/sql, --batch lanes); `ppl` prints
+{"ppl", "tokens"} of a text; `convert` rewrites a GGUF with its matmul
+weights in Q8_0 (gguf/convert.py). --profile-dir on `run` writes a
+torch.profiler Chrome trace of the generation (utils/profiling.py).
+
+The JAX package's XLA-only flags (--impl, --dump-hlo) have no counterpart
+here. Flags of later slices of the port are accepted and raise, naming the
+slice: --tp/--dp/--sp/--pipeline/--ep, --spec-decode.
 
 `serve` answers the OpenAI API (server/openai_server.py): --batch-size 1
 runs one Engine behind a lock with KV prefix reuse; --batch-size N runs N
@@ -39,7 +48,6 @@ _LATER_FLAGS = (("tp", 0, "parallelism"), ("dp", 1, "parallelism"), ("sp", 1, "p
                 ("pipeline", 1, "parallelism"),
                 ("ep", False, "parallelism (expert parallelism of MoE models)"),
                 ("spec_decode", 0, "speculative-decode"))
-_LATER_COMMANDS = {"bench": "benchmark", "ppl": "benchmark", "convert": "quant-breadth"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,6 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="default: the family's (Llama 3: 0.95, Qwen: 0.9)")
     run.add_argument("--stream", action=argparse.BooleanOptionalAction, default=True)
     run.add_argument("--echo", action="store_true")
+    run.add_argument("--profile-dir", default=None,
+                     help="write a torch.profiler Chrome trace of the run into this directory")
 
     val = sub.add_parser("validate", help="one-command checkpoint validation: "
                          "tokenizer fidelity, finite forward, greedy sample, "
@@ -116,8 +126,28 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--interleave-decode-steps", type=int, default=4,
                      help="decode steps between prefill chunks while a prompt is ingested")
 
-    for name, slice_name in _LATER_COMMANDS.items():
-        sub.add_parser(name, help=f"({slice_name} slice of the port)", add_help=False)
+    ppl = sub.add_parser("ppl", help="perplexity evaluation")
+    common(ppl)
+    ppl.add_argument("--text-file", help="UTF-8 text file to evaluate")
+    ppl.add_argument("--text", help="inline text to evaluate")
+    ppl.add_argument("--chunk", type=int, default=128)
+
+    conv = sub.add_parser("convert", help="requantize a GGUF checkpoint to Q8_0")
+    conv.add_argument("--model", "-m", required=True)
+    conv.add_argument("--output", "-o", required=True)
+
+    bench = sub.add_parser("bench", help="llama-bench style pp/tg matrix")
+    common(bench)
+    bench.add_argument("--pp", type=int, nargs="*", default=[512], help="prompt lengths")
+    bench.add_argument("--tg", type=int, nargs="*", default=[128], help="generation lengths")
+    bench.add_argument("--pg", nargs="*", default=[],
+                       help="combined prompt+gen specs, e.g. 512+128")
+    bench.add_argument("--depth", "-d", type=int, nargs="*", default=[0],
+                       help="untimed KV prefill depth before the timed window")
+    bench.add_argument("--reps", "-r", type=int, default=3)
+    bench.add_argument("--output", "-o", choices=["md", "csv", "json", "jsonl", "sql"],
+                       default="md")
+    bench.add_argument("--batch", "-b", type=int, default=1)
     return p
 
 
@@ -163,6 +193,7 @@ def load(args):
 def cmd_run(args) -> int:
     from llamatpu_torch.runtime.engine import Engine
     from llamatpu_torch.runtime.session import run_instruct_once, run_interactive
+    from llamatpu_torch.utils.profiling import trace
 
     if not args.interactive and not args.prompt:
         print("error: --prompt required (or --interactive)", file=sys.stderr)
@@ -174,11 +205,13 @@ def cmd_run(args) -> int:
     engine = Engine(model, temperature=temp, top_p=top_p, seed=args.seed,
                     prefill_chunk=args.prefill_chunk, cache_dtype=cache_dtype(args),
                     rowq=args.rowq, device=args.device, metrics=metrics)
-    if args.interactive:
-        run_interactive(model, engine, args.system_prompt, args.max_tokens)
-    else:
-        run_instruct_once(model, engine, args.prompt, args.system_prompt,
-                          max_new_tokens=args.max_tokens, stream=args.stream, echo=args.echo)
+    with trace(args.profile_dir):
+        if args.interactive:
+            run_interactive(model, engine, args.system_prompt, args.max_tokens)
+        else:
+            run_instruct_once(model, engine, args.prompt, args.system_prompt,
+                              max_new_tokens=args.max_tokens, stream=args.stream,
+                              echo=args.echo)
     if args.metrics_format != "none":
         metrics.render(args.metrics_format)
     if args.metrics_file:
@@ -186,18 +219,48 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_ppl(args) -> int:
+    import json
+
+    from llamatpu_torch.bench.perplexity import perplexity_of_text
+
+    if not args.text and not args.text_file:
+        print("error: --text or --text-file required", file=sys.stderr)
+        return 2
+    if args.text:
+        text = args.text
+    else:
+        with open(args.text_file, encoding="utf-8") as f:
+            text = f.read()
+    model, _ = load(args)
+    res = perplexity_of_text(model, text, chunk=args.chunk, device=args.device)
+    print(json.dumps({"ppl": round(res["ppl"], 4), "tokens": res["tokens"]}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _LATER_COMMANDS:
-        raise NotImplementedError(f"{argv[0]}: {_LATER_COMMANDS[argv[0]]} slice of the port")
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
         return 1
+    if args.command == "convert":
+        import json
+
+        from llamatpu_torch.gguf.convert import requantize_gguf
+
+        print(json.dumps(requantize_gguf(args.model, args.output)))
+        return 0
     _check_flags(args)
     if args.command == "run":
         return cmd_run(args)
+    if args.command == "ppl":
+        return cmd_ppl(args)
+    if args.command == "bench":
+        from llamatpu_torch.bench.llama_bench import run_bench
+
+        run_bench(args)
+        return 0
     if args.command == "serve":
         from llamatpu_torch.server.openai_server import serve
 

@@ -51,6 +51,22 @@
 // On the TPU one sequential grid carried x2, h, g13 and act in VMEM scratch
 // from phase to phase; here rmsnorm needs all of x2 and w2 all of act, so the
 // phases are separate launches.
+//
+// K16 replaces llamatpu/ops/layer_fused.py `_tail_kernel_kt` (taken by
+// `layer_tail_fused_rowq` when `_W2_KTILE` is set; scripts/sweep_tail.py
+// times it against K9): K9's function with w2 streamed as contraction tiles
+// [D, tf] into an f32 accumulator, out = x2 + rs * (sum_j act[:, j] .
+// w2[:, j]^T) * s2 over the tiles j in order. Bound on the H100: K9's, the
+// 54.5 MB weight stream per llama32-1b layer (16.3 us). On the TPU one core
+// walked the tiles in order with the accumulator in VMEM; here the tiles run
+// in parallel. Design: K9's wo and w13 launches, then a split-K w2 phase, a
+// block per (16 rows of D, tile j): act's tile staged in shared memory in the
+// working dtype, a warp per row of w2 reading its tf bytes of the tile (16
+// per lane and load), writing f32 partial sums [n_tiles, T, D]; a last pass
+// sums each output's partials in tile order (deterministic; it differs from
+// K9 only in the f32 summation order) and applies s2, rs and the residual.
+// The partials cost 4 * n_tiles * T * D bytes of writes and reads (1 MB at T
+// = 32 on llama32-1b, against 16.8 MB of w2).
 #include "gemv.cuh"
 
 LT_DEFINE_ERROR_STRING
@@ -409,4 +425,140 @@ LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* 
     return T <= 8 ? tail_phases<8, float>(b, c, d, st) : tail_phases<32, float>(b, c, d, st);
   return T <= 8 ? tail_phases<8, __nv_bfloat16>(b, c, d, st)
                 : tail_phases<32, __nv_bfloat16>(b, c, d, st);
+}
+
+namespace {
+
+// K16's w2 phase: partial[j, t, o] = sum over k in tile j of act[t, k] * w2[o, k]
+// (act f32, already rounded to the working dtype XT), a warp per row o.
+template <int MAXT, typename XT>
+__global__ void __launch_bounds__(lt::kTileThreads) w2_ktile_kernel(const float* __restrict__ act,
+                                                                     const int8_t* __restrict__ w2,
+                                                                     float* __restrict__ partial,
+                                                                     int T, int D, int F, int tf) {
+  extern __shared__ float4 kt_smem4[];
+  XT* xs = reinterpret_cast<XT*>(kt_smem4);  // [MAXT, kTileK], first tf columns used
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int o = blockIdx.x * nwarps + warp, j = blockIdx.y, k0 = j * tf;
+  for (int k = threadIdx.x; k < tf; k += blockDim.x) {
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t)
+      if (t < T) xs[t * lt::kTileK + k] = lt::to_xt<XT>(act[static_cast<long>(t) * F + k0 + k]);
+  }
+  __syncthreads();
+  if (o >= D) return;
+  float acc[MAXT], unused[MAXT];
+#pragma unroll
+  for (int t = 0; t < MAXT; ++t) acc[t] = unused[t] = 0.f;
+  const int4* wt = reinterpret_cast<const int4*>(w2 + static_cast<long>(o) * F + k0);
+#pragma unroll 2
+  for (int c = lane; c < (tf >> 4); c += 32) {
+    const int4 wv = __ldg(wt + c);
+    lt::fma_word<MAXT, XT, lt::E_RESID>(wv.x, 0, xs, 16 * c, T, acc, unused);
+    lt::fma_word<MAXT, XT, lt::E_RESID>(wv.y, 0, xs, 16 * c + 4, T, acc, unused);
+    lt::fma_word<MAXT, XT, lt::E_RESID>(wv.z, 0, xs, 16 * c + 8, T, acc, unused);
+    lt::fma_word<MAXT, XT, lt::E_RESID>(wv.w, 0, xs, 16 * c + 12, T, acc, unused);
+  }
+#pragma unroll
+  for (int t = 0; t < MAXT; ++t) acc[t] = lt_warp_sum(acc[t]);
+  if (lane != 0) return;
+#pragma unroll
+  for (int t = 0; t < MAXT; ++t)
+    if (t < T) partial[(static_cast<long>(j) * T + t) * D + o] = acc[t];
+}
+
+// K16's last pass: out[t, o] = x2[t, o] + (sum_j partial[j, t, o]) * s2[o] * rs,
+// the partials summed in tile order (K9's epilogue, gemv_store).
+__global__ void ktile_sum_kernel(lt::GemvArgs a, const float* __restrict__ partial, int n_tiles) {
+  const long n = static_cast<long>(a.T) * a.O;
+  for (long idx = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; idx < n;
+       idx += static_cast<long>(gridDim.x) * blockDim.x) {
+    float v = 0.f;
+    for (int j = 0; j < n_tiles; ++j) v += partial[j * n + idx];
+    lt::gemv_store<lt::E_RESID_OUT>(a, idx, static_cast<int>(idx % a.O), a.O, v, 0.f);
+  }
+}
+
+template <int MAXT, typename XT>
+int tail_kt_phases(const lt::GemvArgs& b, const lt::GemvArgs& c, const lt::GemvArgs& d,
+                   float* partial, int tf, cudaStream_t st) {
+  int e = lt::gemv_tiled_launch<MAXT, XT, lt::P_COPY, lt::E_RESID>(b, st);
+  if (e) return e;
+  e = lt::gemv_tiled_launch<MAXT, XT, lt::P_RMSNORM, lt::E_SILU_PAIR>(c, st);
+  if (e) return e;
+  const size_t smem = static_cast<size_t>(MAXT) * lt::kTileK * sizeof(XT);
+  cudaError_t ce = lt_allow_smem(w2_ktile_kernel<MAXT, XT>, smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const int nwarps = lt::kTileThreads / 32;
+  const int n_tiles = d.I / tf;
+  dim3 grid((d.O + nwarps - 1) / nwarps, n_tiles);
+  w2_ktile_kernel<MAXT, XT><<<grid, lt::kTileThreads, smem, st>>>(
+      static_cast<const float*>(d.x), d.w, partial, d.T, d.O, d.I, tf);
+  LT_RETURN_IF_ERROR();
+  const long n = static_cast<long>(d.T) * d.O;
+  const int blocks = static_cast<int>((n + 255) / 256);
+  ktile_sum_kernel<<<blocks, 256, 0, st>>>(d, partial, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K16. lt_tail's arguments, plus partial [F / tf, T, D] f32 scratch and the
+// contraction tile tf (a multiple of 16, at most 1024, dividing F).
+LT_EXPORT int lt_tail_kt(const void* attn, int x_dtype, const void* x, const void* ffn_norm,
+                         float eps, float rs, const void* wo, const void* so, const void* w13,
+                         const void* s13, const void* w2, const void* s2, void* x2, void* act,
+                         void* partial, void* out, int T, int D, int H, int F, int tf,
+                         int dot_dtype, void* stream) {
+  if (T < 1 || T > 32 || D % 4 || H % 4 || tf % 16 || tf > lt::kTileK || tf < 16 || F % tf)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lt::GemvArgs b = {};
+  b.x = attn;
+  b.x_dtype = x_dtype;
+  b.dot_dtype = dot_dtype;
+  b.w = static_cast<const int8_t*>(wo);
+  b.s = static_cast<const float*>(so);
+  b.rs = rs;
+  b.res = x;
+  b.res_dtype = x_dtype;
+  b.y = x2;
+  b.y_dtype = LT_F32;
+  b.T = T;
+  b.O = D;
+  b.I = H;
+  lt::GemvArgs c = {};
+  c.x = x2;
+  c.x_dtype = LT_F32;
+  c.norm_w = static_cast<const float*>(ffn_norm);
+  c.eps = eps;
+  c.dot_dtype = dot_dtype;
+  c.w = static_cast<const int8_t*>(w13);
+  c.s = static_cast<const float*>(s13);
+  c.y = act;
+  c.y_dtype = LT_F32;
+  c.T = T;
+  c.O = 2 * F;
+  c.I = D;
+  lt::GemvArgs d = {};
+  d.x = act;
+  d.x_dtype = LT_F32;
+  d.dot_dtype = dot_dtype;
+  d.w = static_cast<const int8_t*>(w2);
+  d.s = static_cast<const float*>(s2);
+  d.rs = rs;
+  d.res = x2;
+  d.res_dtype = LT_F32;
+  d.y = out;
+  d.y_dtype = x_dtype;
+  d.T = T;
+  d.O = D;
+  d.I = F;
+  float* p = static_cast<float*>(partial);
+  if (dot_dtype == LT_F32)
+    return T <= 8 ? tail_kt_phases<8, float>(b, c, d, p, tf, st)
+                  : tail_kt_phases<32, float>(b, c, d, p, tf, st);
+  return T <= 8 ? tail_kt_phases<8, __nv_bfloat16>(b, c, d, p, tf, st)
+                : tail_kt_phases<32, __nv_bfloat16>(b, c, d, p, tf, st);
 }

@@ -1,0 +1,519 @@
+// K18 and K19: the rate probes of scripts/bench_roofline.py and
+// scripts/bench_dma_sweep.py, on three kernel templates.
+//
+// The TPU probes ask what byte rate a weight stream reaches under each way of
+// consuming it. Their port asks the same of the H100: every byte of the
+// weights really moves from device memory, and each probe consumes it as the
+// TPU body did.
+//
+// 1. probe_gemv_kernel (K18a step_pallas_bf16, K18b step_q8_current, K18c
+//    step_q8_bf16mul, and their stacked forms K18g call3_q8_current, K18i
+//    call3_bf16): y[l, t, o] = sum_k x[t, k] * wd[l, o, k], x bf16 [T <= 8, I],
+//    f32 sums, where wd is the bf16 weight (a), bf16(f32(q) * s[o, k % NB])
+//    (b) or bf16(bf16(q) * bf16(s[o, k % NB])) (c): the scripts' pltpu.repeat
+//    tiles the [O, NB] scales along the columns (NB = I / 32). A warp takes kRows weight rows, each
+//    lane 16 bytes of them per load; x sits in shared memory in f32, kTileK
+//    columns at a time. Bound: bytes (the weights; 10.0 us bf16, ~5.6 us q8
+//    per [4096, 4096] at 3.35 TB/s); the dequantizing forms are ~8 CUDA-core
+//    FMAs per weight byte at T = 8, near the card's FP32 rate.
+// 2. probe_int8dot_kernel (K18d step_q8_int8dot, K18e
+//    step_q8_int8dot_blockscale, K18h call3_q8_int8dot): f32((xq . q)_int32),
+//    times (s . xs^T)^T for the blockscale form, by dp4a; xq int8 staged in
+//    shared memory. Bound: bytes.
+// 3. probe_stream_kernel (K18f step_dma_probe, K18j call3_dma_probe, K19a
+//    probe_blockspec, K19b probe_manual_dma, K19c int8dot_manual_dma): the
+//    weight rows stream through a `depth`-deep ring of shared-memory stages,
+//    each stage one TMA bulk copy (cp.async.bulk) completing on its own
+//    mbarrier, a persistent grid of one block per SM taking the stages in
+//    turn. Only the rows the TPU body touched are read out of a stage (the
+//    first rows of each `ch`-row chunk), except in the int8-dot mode, which
+//    multiplies every row. A stage is consumed, and the block synchronised,
+//    before the next copy into its slot is issued (the TPU scripts issue it
+//    first: bench_dma_sweep.py:107-108, 157-158). Bound: bytes.
+//
+// How the TPU's (depth, ch) map onto Hopper: a TPU stage was a whole [ch, I]
+// chunk of 1-4 MB in VMEM; here a block has at most 227 KB. So `depth` stays
+// the number of copies in flight per block (per SM), `ch` stays the chunk
+// whose first rows are touched (and whose int8 dot is summed in int32 before
+// it becomes f32), and a stage holds the largest power-of-two number of rows
+// dividing `ch` such that `depth` stages fit in kRingBytes. The BlockSpec
+// forms (K18f/j, K19a) ran the TPU's double-buffered pipeline: depth 2.
+// Stage g goes to block g % grid. The touched rows (f32) or each chunk's
+// int32 dot sums (atomic adds, exact in any order) go to a scratch buffer,
+// and one pass then writes the
+// [T, O] output in the TPU order: the last chunk's rows (+ x[t, 0]), or the
+// per-chunk sums in chunk order. So the result is deterministic and, for the
+// sums, in the reference's summation order.
+#include "common.cuh"
+
+LT_DEFINE_ERROR_STRING
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxT = 8;           // activation rows (the TPU harness pads T = 1 to 8)
+constexpr int kRows = 2;           // GEMV: weight rows per warp
+constexpr int kTileK = 1024;       // GEMV: activation columns staged per pass
+constexpr int kRingBytes = 128 * 1024;
+constexpr int kMaxDepth = 16;
+constexpr int kMaxSlices = 2;      // int8-dot stream: 16-byte column slices per thread
+
+enum WKind { W_BF16 = 0, W_Q8_F32 = 1, W_Q8_BF16 = 2 };
+enum SMode { S_LAST = 0, S_SUM = 1, S_DOT = 2 };
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// ---------------------------------------------------------------- GEMV
+// wd of 16 weight bytes at column k of weight row `row` (8 bf16 or 16 int8
+// values) into w[], per the kind.
+template <int WK>
+__device__ __forceinline__ void load_weights(const void* wbase, const float* s, long row, int I,
+                                             int NB, int k, float (&w)[16]) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+      static_cast<const char*>(wbase) + (row * I + k) * (WK == W_BF16 ? 2 : 1)));
+  if (WK == W_BF16) {
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e] = __bfloat162float(v[e]);
+  } else {
+    // the scale of column k is s[o, k % NB] (pltpu.repeat tiles the [TO, NB]
+    // block: jnp.tile); NB % 16 == 0, so the 16 columns take 16 adjacent scales
+    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+    const float4* sp = reinterpret_cast<const float4*>(s + row * NB + k % NB);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 sv = __ldg(sp + j);
+      const float sc[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float qv = static_cast<float>(q[4 * j + e]);
+        w[4 * j + e] = WK == W_Q8_F32 ? bf16_round(__fmul_rn(qv, sc[e]))
+                                      : bf16_round(__fmul_rn(qv, bf16_round(sc[e])));
+      }
+    }
+  }
+}
+
+template <int WK>
+__global__ void __launch_bounds__(kThreads) probe_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                                                               const void* __restrict__ w,
+                                                               const float* __restrict__ s,
+                                                               float* __restrict__ y, int T, int O,
+                                                               int I, int NB) {
+  constexpr int E = WK == W_BF16 ? 8 : 16;  // weights per 16-byte load
+  __shared__ __align__(16) float xs[kMaxT][kTileK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const long layer = blockIdx.y;
+  const int o0 = (blockIdx.x * nwarps + warp) * kRows;
+  float acc[kRows][kMaxT];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0.f;
+  for (int k0 = 0; k0 < I; k0 += kTileK) {
+    const int kt = min(kTileK, I - k0);
+    for (int i = threadIdx.x; i < T * kt; i += blockDim.x) {
+      const int t = i / kt, k = i - t * kt;
+      xs[t][k] = __bfloat162float(x[static_cast<long>(t) * I + k0 + k]);
+    }
+    __syncthreads();
+    for (int c = lane; c < kt / E; c += 32) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int o = o0 + r;
+        if (o >= O) break;
+        float wv[16];
+        load_weights<WK>(w, s, layer * O + o, I, NB, k0 + c * E, wv);
+#pragma unroll
+        for (int t = 0; t < kMaxT; ++t) {
+          if (t < T) {
+#pragma unroll
+            for (int e = 0; e < E; e += 4) {
+              const float4 xv = *reinterpret_cast<const float4*>(&xs[t][c * E + e]);
+              acc[r][t] += xv.x * wv[e] + xv.y * wv[e + 1] + xv.z * wv[e + 2] + xv.w * wv[e + 3];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int o = o0 + r;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      const float v = lt_warp_sum(acc[r][t]);
+      if (lane == 0 && o < O && t < T) y[(layer * T + t) * O + o] = v;
+    }
+  }
+}
+
+// ------------------------------------------------------------ int8 dot
+__device__ __forceinline__ int warp_isum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) probe_int8dot_kernel(
+    const int8_t* __restrict__ xq, const int8_t* __restrict__ w, const float* __restrict__ s,
+    const float* __restrict__ xsc, float* __restrict__ y, int T, int O, int I, int NB,
+    int blockscale) {
+  __shared__ __align__(16) int8_t xs[kMaxT][kTileK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const long layer = blockIdx.y;
+  const int o0 = (blockIdx.x * nwarps + warp) * kRows;
+  int acc[kRows][kMaxT];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0;
+  for (int k0 = 0; k0 < I; k0 += kTileK) {
+    const int kt = min(kTileK, I - k0);
+    for (int i = threadIdx.x; i < T * kt; i += blockDim.x) {
+      const int t = i / kt, k = i - t * kt;
+      xs[t][k] = xq[static_cast<long>(t) * I + k0 + k];
+    }
+    __syncthreads();
+    for (int c = lane; c < kt / 16; c += 32) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int o = o0 + r;
+        if (o >= O) break;
+        const int4 wv = __ldg(reinterpret_cast<const int4*>(w + (layer * O + o) * I + k0) + c);
+#pragma unroll
+        for (int t = 0; t < kMaxT; ++t) {
+          if (t < T) {
+            const int4 xv = *reinterpret_cast<const int4*>(&xs[t][c * 16]);
+            int a = acc[r][t];
+            a = __dp4a(wv.x, xv.x, a);
+            a = __dp4a(wv.y, xv.y, a);
+            a = __dp4a(wv.z, xv.z, a);
+            acc[r][t] = __dp4a(wv.w, xv.w, a);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int o = o0 + r;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      const int v = warp_isum(acc[r][t]);
+      if (lane == 0 && o < O && t < T) {
+        float out = static_cast<float>(v);
+        if (blockscale) {  // corr[o, t] = sum_b s[o, b] * xs[t, b], f32 in b order
+          const float* so = s + (layer * O + o) * NB;
+          float corr = 0.f;
+          for (int b = 0; b < NB; ++b) corr = __fadd_rn(corr, __fmul_rn(so[b], xsc[t * NB + b]));
+          out = __fmul_rn(out, corr);
+        }
+        y[(layer * T + t) * O + o] = out;
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------- stream
+struct StreamArgs {
+  const char* w;      // the weight rows [n_rows, row_bytes], flattened over layers
+  long n_rows;
+  int row_bytes, esize;      // esize: 2 = bf16, 1 = int8
+  int ch, stage_rows, depth;
+  int nr, nc;                // touched rows of a chunk and their columns
+  const void* x;             // bf16 [T, I] (S_LAST, S_SUM) or int8 xq [T, I] (S_DOT)
+  int T, I;
+  float* rec;                // S_LAST: [nr, nc]; S_SUM: [n_chunks, nr, nc]
+  int* part;                 // S_DOT: [n_chunks, T] int32 sums of each chunk (zeroed first)
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA bulk copy global -> shared of `bytes` (a multiple of 16), completing
+// on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads) probe_stream_kernel(StreamArgs a) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kMaxDepth];
+  __shared__ int red[kThreads / 32][kMaxT];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned stage_bytes = static_cast<unsigned>(a.stage_rows) * a.row_bytes;
+  const long n_stages = a.n_rows / a.stage_rows;
+  const long n_chunks = a.n_rows / a.ch;
+  const long b = blockIdx.x, nb = gridDim.x;
+  const long mine = (n_stages - b + nb - 1) / nb;  // stages b, b + nb, ...
+  if (tid == 0) {
+    for (int d = 0; d < a.depth; ++d) mbar_init(&full[d]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // S_DOT: this thread's 16-byte column slices of xq, for every row t
+  int xr[kMaxSlices][kMaxT][4];
+  const int n_slices = a.I / 16;
+  if (MODE == S_DOT) {
+#pragma unroll
+    for (int sl = 0; sl < kMaxSlices; ++sl) {
+      const int c = tid + sl * kThreads;
+#pragma unroll
+      for (int t = 0; t < kMaxT; ++t) {
+        int4 v = make_int4(0, 0, 0, 0);
+        if (c < n_slices && t < a.T)
+          v = *reinterpret_cast<const int4*>(static_cast<const int8_t*>(a.x) +
+                                             static_cast<long>(t) * a.I + c * 16);
+        xr[sl][t][0] = v.x;
+        xr[sl][t][1] = v.y;
+        xr[sl][t][2] = v.z;
+        xr[sl][t][3] = v.w;
+      }
+    }
+  }
+
+  auto issue = [&](long n) {
+    const int slot = static_cast<int>(n % a.depth);
+    const long g = b + n * nb;
+    mbar_expect_tx(&full[slot], stage_bytes);
+    bulk_load(ring + static_cast<long>(slot) * stage_bytes, a.w + g * stage_bytes, stage_bytes,
+              &full[slot]);
+  };
+  if (tid == 0)
+    for (long n = 0; n < mine && n < a.depth; ++n) issue(n);
+
+  for (long n = 0; n < mine; ++n) {
+    const int slot = static_cast<int>(n % a.depth);
+    mbar_wait(&full[slot], static_cast<unsigned>((n / a.depth) & 1));
+    const unsigned char* st = ring + static_cast<long>(slot) * stage_bytes;
+    const long g = b + n * nb, row0 = g * a.stage_rows;
+    if (MODE == S_DOT) {
+      int acc[kMaxT];
+#pragma unroll
+      for (int t = 0; t < kMaxT; ++t) acc[t] = 0;
+      for (int rr = 0; rr < a.stage_rows; ++rr) {
+#pragma unroll
+        for (int sl = 0; sl < kMaxSlices; ++sl) {
+          const int c = tid + sl * kThreads;
+          if (c < n_slices) {
+            const int4 wv =
+                *reinterpret_cast<const int4*>(st + static_cast<long>(rr) * a.row_bytes + c * 16);
+#pragma unroll
+            for (int t = 0; t < kMaxT; ++t) {
+              int v = __dp4a(wv.x, xr[sl][t][0], acc[t]);
+              v = __dp4a(wv.y, xr[sl][t][1], v);
+              v = __dp4a(wv.z, xr[sl][t][2], v);
+              acc[t] = __dp4a(wv.w, xr[sl][t][3], v);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kMaxT; ++t) {
+        const int v = warp_isum(acc[t]);
+        if (lane == 0) red[warp][t] = v;
+      }
+      __syncthreads();
+      if (tid < a.T) {  // int32 sums wrap, so the chunk's sum is exact in any order
+        unsigned v = 0;
+        for (int w = 0; w < kThreads / 32; ++w) v += static_cast<unsigned>(red[w][tid]);
+        atomicAdd(reinterpret_cast<unsigned*>(a.part) + (row0 / a.ch) * a.T + tid, v);
+      }
+    } else {
+      for (int rr = 0; rr < a.stage_rows; ++rr) {
+        const long row = row0 + rr, c = row / a.ch;
+        const int r = static_cast<int>(row - c * a.ch);
+        if (r >= a.nr || (MODE == S_LAST && c != n_chunks - 1)) continue;
+        float* dst = a.rec + ((MODE == S_SUM ? c * a.nr : 0) + r) * a.nc;
+        const unsigned char* src = st + static_cast<long>(rr) * a.row_bytes;
+        for (int col = tid; col < a.nc; col += blockDim.x)
+          dst[col] = a.esize == 2
+                         ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(src)[col])
+                         : static_cast<float>(reinterpret_cast<const int8_t*>(src)[col]);
+      }
+    }
+    __syncthreads();  // the stage is consumed: its slot may be refilled
+    if (tid == 0 && n + a.depth < mine) issue(n + a.depth);
+  }
+}
+
+// The [T, O] output from the scratch, in the TPU order:
+//   S_LAST: out[t, c] = rec[t, c] + x[t, 0] for t < nr, c < nc;
+//   S_SUM:  out[t, c] = (sum over chunks in order of rec[chunk, t, c]) + x[t, 0];
+//   S_DOT:  out[t, 0] = sum over chunks in order of f32(part[chunk, t]), the
+//           chunk's int32 sum (block 0 stages part in shared memory first);
+// zero elsewhere.
+template <int MODE>
+__global__ void probe_stream_finish_kernel(StreamArgs a, float* __restrict__ out, int O) {
+  extern __shared__ int part_s[];  // S_DOT: [n_chunks, T]
+  const long n_chunks = a.n_rows / a.ch;
+  const int n_out = a.T * O;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_out; i += gridDim.x * blockDim.x) {
+    const int t = i / O, c = i - t * O;
+    if (MODE == S_DOT) {
+      if (c != 0) out[i] = 0.f;
+      continue;
+    }
+    float v = 0.f;
+    if (t < a.nr && c < a.nc) {
+      const float xv = __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[
+          static_cast<long>(t) * a.I]);
+      if (MODE == S_LAST) {
+        v = __fadd_rn(a.rec[t * a.nc + c], xv);
+      } else {
+        float acc = 0.f;
+#pragma unroll 8
+        for (long k = 0; k < n_chunks; ++k)
+          acc = __fadd_rn(acc, a.rec[(k * a.nr + t) * a.nc + c]);
+        v = __fadd_rn(acc, xv);
+      }
+    }
+    out[i] = v;
+  }
+  if (MODE == S_DOT && blockIdx.x == 0) {
+    for (long i = threadIdx.x; i < n_chunks * a.T; i += blockDim.x) part_s[i] = a.part[i];
+    __syncthreads();
+    if (threadIdx.x < a.T) {
+      float acc = 0.f;
+      for (long k = 0; k < n_chunks; ++k)
+        acc = __fadd_rn(acc, static_cast<float>(part_s[k * a.T + threadIdx.x]));
+      out[threadIdx.x * O] = acc;
+    }
+  }
+}
+
+template <int MODE>
+int stream_launch(StreamArgs a, float* out, int O, cudaStream_t st) {
+  const size_t ring = static_cast<size_t>(a.depth) * a.stage_rows * a.row_bytes;
+  cudaError_t e = lt_allow_smem(probe_stream_kernel<MODE>, ring);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long n_stages = a.n_rows / a.stage_rows;
+  const int grid = static_cast<int>(n_stages < lt_sm_count() ? n_stages : lt_sm_count());
+  if (MODE == S_DOT) {
+    e = cudaMemsetAsync(a.part, 0, sizeof(int) * (a.n_rows / a.ch) * a.T, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  probe_stream_kernel<MODE><<<grid, kThreads, ring, st>>>(a);
+  LT_RETURN_IF_ERROR();
+  const size_t fin = MODE == S_DOT ? sizeof(int) * (a.n_rows / a.ch) * a.T : 0;
+  e = lt_allow_smem(probe_stream_finish_kernel<MODE>, fin);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  probe_stream_finish_kernel<MODE><<<(a.T * O + 255) / 256, 256, fin, st>>>(a, out, O);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K18a-c, g, i. x bf16 [T, I]; w [L, O, I] (bf16 for W_BF16, else int8 with
+// f32 scales s [L, O, NB], column k scaled by s[., k % NB], NB % 16 == 0);
+// y [L, T, O] f32. T <= 8, I % 16 == 0.
+LT_EXPORT int lt_probe_gemv(const void* x, const void* w, const void* s, void* y, int T, int O,
+                            int I, int L, int NB, int wkind, void* stream) {
+  if (T < 1 || T > kMaxT || I % 16 || L < 1 || (wkind != W_BF16 && (NB % 16 || NB < 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = (kThreads / 32) * kRows;
+  dim3 grid((O + per_block - 1) / per_block, L);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* sf = static_cast<const float*>(s);
+  auto* yf = static_cast<float*>(y);
+  if (wkind == W_BF16)
+    probe_gemv_kernel<W_BF16><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);
+  else if (wkind == W_Q8_F32)
+    probe_gemv_kernel<W_Q8_F32><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);
+  else
+    probe_gemv_kernel<W_Q8_BF16><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18d, e, h. xq int8 [T, I]; w int8 [L, O, I]; blockscale: s [L, O, NB] and
+// xsc [T, NB] f32; y [L, T, O] f32.
+LT_EXPORT int lt_probe_int8dot(const void* xq, const void* w, const void* s, const void* xsc,
+                               void* y, int T, int O, int I, int L, int NB, int blockscale,
+                               void* stream) {
+  if (T < 1 || T > kMaxT || I % 16 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = (kThreads / 32) * kRows;
+  dim3 grid((O + per_block - 1) / per_block, L);
+  probe_int8dot_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w), static_cast<const float*>(s),
+      static_cast<const float*>(xsc), static_cast<float*>(y), T, O, I, NB, blockscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18f, j, K19a-c. w: n_rows rows of I elements (esize 2: bf16, 1: int8);
+// chunks of ch rows (n_rows % ch == 0), a ring `depth` deep; mode S_LAST /
+// S_SUM touch the first nr rows of the last / every chunk at nc columns;
+// S_DOT takes xq int8 [T, I]. Scratch: rec f32 (S_LAST [nr, nc], S_SUM
+// [n_rows / ch, nr, nc]), part int32 (S_DOT [n_rows / ch, T]). out [T, O] f32.
+LT_EXPORT int lt_probe_stream(const void* w, int n_rows, int I, int esize, int ch, int depth,
+                              int mode, int nr, int nc, const void* x, int T, void* rec,
+                              void* part, void* out, int O, void* stream) {
+  const int row_bytes = I * esize;
+  if (T < 1 || T > kMaxT || depth < 1 || depth > kMaxDepth || ch < 1 || n_rows % ch ||
+      row_bytes % 16 || nr > ch || nr > kMaxT || nc > I || nc > O ||
+      (mode == S_DOT && (esize != 1 || I > 16 * kMaxSlices * kThreads)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int stage_rows = 1;  // the largest power of two dividing ch with depth stages in the ring
+  while (ch % (2 * stage_rows) == 0 &&
+         static_cast<long>(depth) * 2 * stage_rows * row_bytes <= kRingBytes)
+    stage_rows *= 2;
+  if (static_cast<long>(depth) * stage_rows * row_bytes > 200 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StreamArgs a;
+  a.w = static_cast<const char*>(w);
+  a.n_rows = n_rows;
+  a.row_bytes = row_bytes;
+  a.esize = esize;
+  a.ch = ch;
+  a.stage_rows = stage_rows;
+  a.depth = depth;
+  a.nr = nr;
+  a.nc = nc;
+  a.x = x;
+  a.T = T;
+  a.I = I;
+  a.rec = static_cast<float*>(rec);
+  a.part = static_cast<int*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (mode == S_LAST) return stream_launch<S_LAST>(a, o, O, st);
+  if (mode == S_SUM) return stream_launch<S_SUM>(a, o, O, st);
+  return stream_launch<S_DOT>(a, o, O, st);
+}

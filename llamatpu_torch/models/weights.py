@@ -183,14 +183,15 @@ def equalize_rowq_layers(layers: dict) -> dict:
     wo and the vocab head keep plain `rowq_requant`. Input: a stacked layers
     dict, fused (wqkv/w13/w2) or unfused (wq/wk/wv/w1/w3/w2), with
     attn_norm/ffn_norm [L, D]. Returns a new dict with those matmuls as
-    q8_row QTensors and the norms scaled; a dict that does not qualify comes
-    back unchanged."""
+    q8_row QTensors and the norms scaled; a dict that does not qualify, or
+    any dict while LLAMATPU_NO_ROWQ_EQ is set (plain per-row requant, as in
+    the JAX package), comes back unchanged."""
     fused = all(k in layers for k in ("wqkv", "w13"))
     qkv_keys = ("wqkv",) if fused else ("wq", "wk", "wv")
     ffn_keys = ("w13",) if fused else ("w1", "w3")
     mm_keys = qkv_keys + ffn_keys + ("w2",)
     need = mm_keys + ("attn_norm", "ffn_norm")
-    if not all(k in layers for k in need):
+    if os.environ.get("LLAMATPU_NO_ROWQ_EQ") or not all(k in layers for k in need):
         return layers
     for k in mm_keys:
         t = layers[k]

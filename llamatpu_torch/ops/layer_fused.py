@@ -12,6 +12,11 @@
   attention (wo + residual with x2 in f32, rmsnorm, w13, silu * up, w2 +
   residual) for T <= 32 rows (`ffn_fused._MAX_T`), e.g. the B lanes of a
   batched decode step; above that it returns None, as the JAX function does.
+- K16 `layer_tail_kt_fused_rowq`, counterpart of `_tail_kernel_kt`: K9's
+  function with w2 streamed as contraction tiles [D, tf] summed in f32 in
+  tile order. `layer_tail_fused_rowq` takes it instead of K9 while the module
+  flag `_W2_KTILE` is set (read at each call), as the JAX function does;
+  bench/sweep_tail.py times the two.
 K2 takes any number of rows; the forward calls it for B * T <= 32 rows, the
 JAX package's rule.
 
@@ -188,14 +193,10 @@ def _tail_rows(attn, x, parts) -> int | None:
     return t
 
 
-def layer_tail_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, attn, x, li: int,
-                     eps: float, residual_scale: float = 1.0):
-    """Plain version of K9 (same arguments and results)."""
-    parts = _tail_weights(wo, w13, w2, li)
-    t = None if parts is None else _tail_rows(attn, x, parts)
-    if t is None:
-        return None
-    (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
+def _tail_front(parts, ffn_norm, attn, x, li: int, t: int, eps: float, residual_scale: float):
+    """The plain versions' phases before w2: (x2 f32 [T, D], act [T, F] rounded
+    to the working dtype)."""
+    (wo_q, so), (w13_q, s13), _ = parts
     dot = _dot_dtype(x)
     d = x.shape[-1]
     y = (attn.reshape(t, -1).to(dot).float() @ wo_q.float().T) * so
@@ -207,11 +208,26 @@ def layer_tail_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, attn, x, 
     g13 = (h.float() @ w13_q.float().T) * s13
     f = g13.shape[-1] // 2
     gate, up = g13[:, :f], g13[:, f:]
-    act = (gate * torch.sigmoid(gate) * up).to(dot)
-    y2 = (act.float() @ w2_q.float().T) * s2
+    return x2, (gate * torch.sigmoid(gate) * up).to(dot)
+
+
+def _tail_out(x2, acc, s2, x, residual_scale: float):
+    y2 = acc * s2
     if residual_scale != 1.0:
         y2 = y2 * residual_scale
     return (x2 + y2).to(x.dtype).reshape(x.shape)
+
+
+def layer_tail_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, attn, x, li: int,
+                     eps: float, residual_scale: float = 1.0):
+    """Plain version of K9 (same arguments and results)."""
+    parts = _tail_weights(wo, w13, w2, li)
+    t = None if parts is None else _tail_rows(attn, x, parts)
+    if t is None:
+        return None
+    x2, act = _tail_front(parts, ffn_norm, attn, x, li, t, eps, residual_scale)
+    w2_q, s2 = parts[2]
+    return _tail_out(x2, act.float() @ w2_q.float().T, s2, x, residual_scale)
 
 
 def layer_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torch.Tensor,
@@ -220,7 +236,10 @@ def layer_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torc
     """new x [..., D] (x's dtype) = x + rs * wo(attn), then + rs * FFN(rmsnorm(.)),
     with stacked q8_row wo [L, D, H], w13 [L, 2F, D], w2 [L, D, F] and
     ffn_norm [L, D]; attn [..., H]. None for more than 32 rows or weights
-    other than stacked q8_row (the caller takes the unfused chain)."""
+    other than stacked q8_row (the caller takes the unfused chain). While
+    `_W2_KTILE` is set, K16 (`layer_tail_kt_fused_rowq`) where F has a tile."""
+    if _W2_KTILE and isinstance(w2, QTensor) and ktile_width(w2.qs.shape[-1]):
+        return layer_tail_kt_fused_rowq(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
     if x.device.type == "cpu":
         return layer_tail_plain(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
     parts = _tail_weights(wo, w13, w2, li)
@@ -251,3 +270,74 @@ def layer_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torc
 
 
 layer_tail_fused_rowq.launches = 0
+
+
+# ----------------------------------------------------------------- K16
+# w2 phase layout, as llamatpu/ops/layer_fused.py `_W2_KTILE`: False = K9's
+# out-tiled rows; True = K16's contraction tiles [D, tf]
+_W2_KTILE = False
+
+
+def ktile_width(f: int) -> int:
+    """K16's contraction tile tf: the widest of 1024, 512, 256, 128 dividing F
+    (0: none, and the tail stays K9)."""
+    return next((c for c in (1024, 512, 256, 128) if f % c == 0), 0)
+
+
+def layer_tail_kt_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, attn, x, li: int,
+                        eps: float, residual_scale: float = 1.0):
+    """Plain version of K16: K9's, with the w2 products summed tile by tile."""
+    parts = _tail_weights(wo, w13, w2, li)
+    t = None if parts is None else _tail_rows(attn, x, parts)
+    if t is None:
+        return None
+    x2, act = _tail_front(parts, ffn_norm, attn, x, li, t, eps, residual_scale)
+    w2_q, s2 = parts[2]
+    tf = ktile_width(w2_q.shape[1])
+    acc = torch.zeros_like(x2)
+    for k0 in range(0, w2_q.shape[1], tf):
+        acc += act[:, k0:k0 + tf].float() @ w2_q[:, k0:k0 + tf].float().T
+    return _tail_out(x2, acc, s2, x, residual_scale)
+
+
+def layer_tail_kt_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torch.Tensor,
+                             attn: torch.Tensor, x: torch.Tensor, li: int, eps: float,
+                             residual_scale: float = 1.0):
+    """K16: `layer_tail_fused_rowq`'s function and arguments, w2 in contraction
+    tiles. None where K9 declines or F has no tile."""
+    if x.device.type == "cpu":
+        return layer_tail_kt_plain(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
+    parts = _tail_weights(wo, w13, w2, li)
+    t = None if parts is None else _tail_rows(attn, x, parts)
+    if t is None:
+        return None
+    (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
+    d, hdim = wo_q.shape
+    f = w2_q.shape[1]
+    tf = ktile_width(f)
+    if not tf:
+        return None
+    a2 = attn.reshape(t, hdim).to(x.dtype).contiguous()
+    x2in = x.reshape(t, d).contiguous()
+    _build.require(all(w.is_contiguous() for w in (wo_q, w13_q, w2_q, so, s13, s2))
+                   and min(d, hdim) % 4 == 0 and a2.device == x.device == wo_q.device
+                   and w2_q.data_ptr() % 16 == 0,
+                   "layer_tail_kt_fused_rowq: contiguous weights on x's device, widths % 4 == 0")
+    nw = ffn_norm[li].float().contiguous()
+    dev = x.device
+    x2 = torch.empty((t, d), dtype=torch.float32, device=dev)
+    act = torch.empty((t, f), dtype=torch.float32, device=dev)
+    partial = torch.empty((f // tf, t, d), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x2in)
+    lib = _build.load("layer_fused")
+    err = lib.lt_tail_kt(a2.data_ptr(), _build.dtype_code(x2in), x2in.data_ptr(), nw.data_ptr(),
+                         float(eps), float(residual_scale), wo_q.data_ptr(), so.data_ptr(),
+                         w13_q.data_ptr(), s13.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
+                         x2.data_ptr(), act.data_ptr(), partial.data_ptr(), out.data_ptr(), t, d,
+                         hdim, f, tf, _build.DTYPE_CODES[_dot_dtype(x)], _build.stream())
+    _build.check(lib, err, "layer_tail_kt_fused_rowq")
+    layer_tail_kt_fused_rowq.launches += 1
+    return out.reshape(x.shape)
+
+
+layer_tail_kt_fused_rowq.launches = 0

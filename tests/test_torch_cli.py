@@ -130,13 +130,12 @@ def test_flags_of_later_slices_raise(ggufs, argv, slice_name):
         cli.main(["run", "-m", str(ggufs["llama_q8_0"]), "-p", "hi", "--device", "cpu"] + argv)
 
 
-@pytest.mark.parametrize("command", ["serve", "bench", "ppl", "convert"])
+@pytest.mark.parametrize("command", ["serve"])
 def test_commands_of_later_slices_raise(command):
-    """bench, ppl and convert raise naming their slice; `serve` runs since
-    slice 3, and its flags of later slices raise (here tensor parallelism)."""
-    extra = ["--tp", "2"] if command == "serve" else []
+    """`serve` runs since slice 3, and its flags of later slices raise (here
+    tensor parallelism)."""
     with pytest.raises(NotImplementedError, match="slice of the port"):
-        cli.main([command, "-m", "x.gguf"] + extra)
+        cli.main([command, "-m", "x.gguf", "--tp", "2"])
 
 
 def test_other_families_raise_naming_the_slice(tmp_path):

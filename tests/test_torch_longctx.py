@@ -182,8 +182,11 @@ def test_forward_long_cache_matches_jax(dt, s_phys):
 
 
 # One decode step per row of the JAX package's kernel table: (cache dtype,
-# physical length, LLAMATPU_NO_FUSED_ATTN, paged) -> the JAX function called
-# and the port's plain version that the CPU wrapper takes.
+# physical length, switch, paged) -> the JAX function called and the port's
+# plain version that the CPU wrapper takes. switch: True sets
+# LLAMATPU_NO_FUSED_ATTN; NO_ATTN_TAIL sets LLAMATPU_NO_ATTN_TAIL, and then the
+# step takes K6 + K9 (the layer tail is recorded too) instead of K3.
+NO_ATTN_TAIL = "LLAMATPU_NO_ATTN_TAIL"
 DISPATCH = [
     ("bf16", 1152, False, False, "layer_attn_tail_fused_rowq", "layer_attn_tail_plain"),
     ("f32", 1152, False, False, "layer_attn_tail_fused_rowq", "layer_attn_tail_plain"),
@@ -201,6 +204,8 @@ DISPATCH = [
     ("bf16", 9216, True, False, "decode_attention_split", "decode_attention_split_plain"),
     ("int8", 17408, True, False, "decode_attention_split_q", "decode_attention_split_q_plain"),
     ("int8", 64, False, True, "decode_attention_paged", "decode_attention_paged_q_plain"),
+    ("bf16", 1152, NO_ATTN_TAIL, False, "decode_attention_fused_write+layer_tail_fused_rowq",
+     "decode_attention_fused_write_plain+layer_tail_plain"),
 ]
 JAX_NAMES = ("decode_attention", "decode_attention_q", "decode_attention_split",
              "decode_attention_split_q", "decode_attention_fused_write",
@@ -233,7 +238,13 @@ def test_decode_dispatch_follows_jax(monkeypatch, dt, s_phys, no_fused, paged, j
         monkeypatch.setattr(attention, name, rec("port", name, getattr(attention, name)))
     monkeypatch.setattr(layer_fused, "layer_attn_tail_plain",
                         rec("port", "layer_attn_tail_plain", layer_fused.layer_attn_tail_plain))
-    if no_fused:
+    if no_fused == NO_ATTN_TAIL:
+        monkeypatch.setenv(NO_ATTN_TAIL, "1")
+        monkeypatch.setattr(jlf, "layer_tail_fused_rowq",
+                            rec("jax", "layer_tail_fused_rowq", jlf.layer_tail_fused_rowq))
+        monkeypatch.setattr(layer_fused, "layer_tail_plain",
+                            rec("port", "layer_tail_plain", layer_fused.layer_tail_plain))
+    elif no_fused:
         monkeypatch.setenv("LLAMATPU_NO_FUSED_ATTN", "1")
     jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8}[dt]
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dt]
@@ -253,5 +264,5 @@ def test_decode_dispatch_follows_jax(monkeypatch, dt, s_phys, no_fused, paged, j
     jl, _ = jtr.forward_tokens(cfg, jw, jnp.asarray(step, jnp.int32), jc, pos, impl="pallas",
                                **jkw)
     tl, _ = ttr.forward_tokens(cfg, tw, _t(step), tc, pos, **tkw)
-    assert calls == {"jax": [jax_fn], "port": [port_fn]}
+    assert calls == {"jax": jax_fn.split("+"), "port": port_fn.split("+")}
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=5e-4, atol=5e-4)

@@ -84,6 +84,21 @@ def test_bridge_raw_dict_then_port_transforms():
     _assert_tree_equal(want, got)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rowq_convert_without_equalization_bit_exact(monkeypatch, dtype):
+    """LLAMATPU_NO_ROWQ_EQ=1 on both sides: rowq_convert_weights skips the
+    equalization (plain per-row requant, norms unscaled) and the port's
+    converted tensors equal the JAX package's bit for bit."""
+    monkeypatch.setenv("LLAMATPU_NO_ROWQ_EQ", "1")
+    port, ref = _build(tsyn, dtype), _build(jsyn, dtype)
+    got = tw.rowq_convert_weights(tw.fuse_layer_weights(port.cfg, port.weights))
+    want = tw.from_numpy_weights(jax.device_get(
+        jw.rowq_convert_weights(jw.fuse_layer_weights(ref.cfg, ref.weights))))
+    np.testing.assert_array_equal(_np(got["layers"]["ffn_norm"]),
+                                  _np(port.weights["layers"]["ffn_norm"]))
+    _assert_tree_equal(got, want)
+
+
 @pytest.mark.parametrize("layout", ["canonical", "interleaved"])
 def test_rowq_requant_bit_exact(layout):
     rng = np.random.default_rng(11)

@@ -10,7 +10,7 @@ It runs every phase, needs one card, and exits non-zero
 
 1. device:  the card's name and power limit (nvidia-smi).
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
-3. kernels: each kernel (K1-K19, with K6's and K8's int8 variants) against
+3. kernels: each kernel (K1-K20, with K6's and K8's int8 variants) against
             its plain PyTorch version on the card, at the main-path shapes of
             llama32-1b (K1-K9; K2 also at 8 and 32 rows, K5 at T = 8, K6 at 8
             lanes, K8 at 8 lanes of a shuffled block pool, K9 at 1, 8 and 32
@@ -24,14 +24,17 @@ It runs every phase, needs one card, and exits non-zero
             slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K17 at the
             four prefill projections at T = 512, K18a-j and K19a-c on the
             probe scripts' [24, 4096, 4096] stacks at every configuration
-            of the scripts; times from CUDA events and torch.profiler
-            (kernel, plain version, one-call library yardstick) beside the
-            bound from the published H100 SXM peaks.
+            of the scripts; slice 7's: K20 at Phi-3-medium widths, T = 17
+            and 24 in bf16, and at Qwen2.5-14B widths, T = 32 in f32, with
+            K9 (T = 1, 8, 16) and K2 (1, 8, 24 rows) at Phi-3-medium
+            widths; times from CUDA events and torch.profiler (kernel,
+            plain version, one-call library yardstick) beside the bound
+            from the published H100 SXM peaks.
 4. moe:     slice 4's path, full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0,
-            seed 0, the shared expert folded) at 12 of its 24 layers (a
+            seed 0, the shared expert folded) at 6 of its 24 layers (a
             depth cut for the script's time limit): Engine, prefill 512 then
-            128 greedy tokens (K10, K5, K6); the same with rowq at its first
-            8 layers (K12, K1, K2, K4, K6); PagedBatchEngine with 8 lanes
+            128 greedy tokens (K10, K5, K6); the same with rowq (K12, K1,
+            K2, K4, K6); PagedBatchEngine with 8 lanes
             (K10, K5, K8), a traced window and the distinct experts per
             layer.
 5. moe gguf: the model at full width and 4 layers (depth cut to keep the file
@@ -87,6 +90,16 @@ It runs every phase, needs one card, and exits non-zero
             Q8_0 and `cli validate` of the converted file on the card.
 14. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
             generate_batch through K6 at each lane's position and K2 + K9.
+14a. phi3:  slice 7's path, full-width, full-depth Phi-3-medium-4k
+            (synthetic Q8_0 served as q8_row, seed 0), where the JAX
+            package's VMEM fits decline K3 and, at 17-24 rows, K9: Engine
+            at one lane (K3 = 0, K6 = K9 = 40 per step), BatchEngine at 8
+            lanes (K9 = 40 per step), 24 lanes dense and paged (K20 = 40
+            per step, K9 = 0) and 32 lanes (the two-call FFN, K20 = 0); load
+            s, peak host RSS, tok/s and a traced window's idle share each;
+            then a 4-layer full-width phi3 Q8_0 GGUF with an SPM vocab
+            through `cli run` and `cli serve --batch-size 8 --paged` over
+            HTTP.
 14b. harnesses: slice 6's, each a path with its counts read over it:
             bench/sweep_tail.py (K9 against K16 over the 16 layers, T = 1
             and 8), bench/bench_gemm.py (torch._int_mm, K4, K17 at T = 512),
@@ -216,6 +229,14 @@ GEMV = ("gemv_kernel",)  # kernel names (profiler keys) of K1 / K2 / K3's GEMV p
 # llama32-1b main-path shapes: layers, dim, hidden, kv heads, groups, head dim,
 # physical cache length (cache_len 1024 + one 128-row granule), vocab, prefill rows
 LLAMA32_1B = dict(L=16, D=2048, F=8192, KV=8, G=4, HD=64, S=1152, V=128256, T=512)
+# Phi-3-medium-4k-instruct's published geometry (microsoft/Phi-3-medium-4k-instruct
+# config.json): dim 5120, FFN 17920, 40 layers, 40 heads of 128 over 10 KV heads,
+# vocab 32064, context 4096. L: the layers of the kernel checks' weight stacks.
+PHI3_MEDIUM = dict(L=3, D=5120, F=17920, KV=10, G=4, HD=128, V=32064)
+PHI3_OVERRIDES = dict(dim=5120, hidden_dim=17920, n_layers=40, n_heads=40, n_kv_heads=10,
+                      head_dim=128, vocab_size=32064, context_length=4096)
+QWEN25_14B = dict(L=2, D=5120, F=13824)  # Qwen2.5-14B's FFN widths (f32 rows take K20 there)
+K20_NAMES = ("ffn_mma_kernel", "ffn_finish_kernel")
 
 
 def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
@@ -1396,6 +1417,8 @@ IN_PATH = {
     # K9's three phases (K2 at 8 rows is gemv_tiled_kernel<8, bf16, 1, 1>)
     "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", tuple(
         f"{dt}, {p}>" for dt in ("bfloat16", "float") for p in ("0, 2", "1, 4", "0, 3")), 1),
+    # K20 at the 24 lanes of a Phi-3-medium BatchEngine step
+    "ffn_fused_rowq": ("phi3_b24", "decode16_trace", K20_NAMES, 1),
     # K10-K13's rows are one MoE layer of a decode token: the gate+up and the
     # down call (each path runs only its own grouped kernel)
     "grouped_block_matmul": ("moe", "decode16_trace", MOE_KERNELS, 2),
@@ -1431,7 +1454,8 @@ ROW_WRAPPERS = {"decode_attention_split_fused_write": K14_WRAPPERS,
 
 def counters():
     from llamatpu_torch.bench import dma_sweep, roofline
-    from llamatpu_torch.ops import attention, gemm, layer_fused, moe_grouped, quant_matmul
+    from llamatpu_torch.ops import (attention, ffn_fused, gemm, layer_fused, moe_grouped,
+                                    quant_matmul)
 
     return {"rowq_gemv": quant_matmul.rowq_gemv, "rowq_gemm": gemm.rowq_gemm,
             "rowq_gemm_bf16": gemm.rowq_gemm_bf16,
@@ -1446,6 +1470,7 @@ def counters():
             "decode_attention_paged": attention.decode_attention_paged,
             "decode_attention_paged_q": attention.decode_attention_paged_q,
             "layer_tail_fused_rowq": layer_fused.layer_tail_fused_rowq,
+            "ffn_fused_rowq": ffn_fused.ffn_fused_rowq,
             "grouped_block_matmul": moe_grouped.grouped_block_matmul,
             "grouped_packed4_matmul": moe_grouped.grouped_packed4_matmul,
             "grouped_rowq_matmul": moe_grouped.grouped_rowq_matmul,
@@ -1966,18 +1991,23 @@ def serve_requests(url: str, max_tokens: int) -> dict:
                 chat_completion_tokens=completion_tokens, chat_finish=finish)
 
 
-def decode_window_trace(engine, prompt_len: int = 128, window: int = 16) -> dict:
+def decode_window_trace(engine, prompt_len: int = 128, window: int = 16,
+                        agg_tokens: int = 65) -> dict:
     """Traced decode window of a batched engine with every lane active after
-    a `prompt_len`-token prefill, and generate_batch's aggregate decode tok/s
-    over 64 tokens per lane (host clock)."""
+    a `prompt_len`-token prefill, and the aggregate decode tok/s: of a
+    generate_batch run of `agg_tokens` per lane (host clock), or with
+    agg_tokens=0 of the traced window itself."""
     import numpy as np
 
     rng = np.random.default_rng(5)
     b = engine.batch_size
-    prompts = [rng.integers(0, 128000, prompt_len).tolist() for _ in range(b)]
-    engine.metrics.decode_s = engine.metrics.decode_tokens = 0
-    engine.generate_batch(prompts, 65)
-    agg = engine.metrics.decode_tokens / engine.metrics.decode_s
+    prompts = [rng.integers(0, min(128000, engine.cfg.vocab_size), prompt_len).tolist()
+               for _ in range(b)]
+    agg = None
+    if agg_tokens:
+        engine.metrics.decode_s = engine.metrics.decode_tokens = 0
+        engine.generate_batch(prompts, agg_tokens)
+        agg = engine.metrics.decode_tokens / engine.metrics.decode_s
     engine.reset()
     toks = np.array([engine.prefill_lane(i, p) for i, p in enumerate(prompts)], np.int32)
     pos = np.full(b, prompt_len, np.int32)
@@ -1987,7 +2017,7 @@ def decode_window_trace(engine, prompt_len: int = 128, window: int = 16) -> dict
     tr = device_breakdown(lambda: engine.decode_window_run(toks, pos, np.ones(b, bool),
                                                           limit=window))
     tr["launches"] = {k: f.launches for k, f in fns.items()}
-    tr["agg_decode_tok_s"] = agg
+    tr["agg_decode_tok_s"] = agg if agg is not None else b * window / (tr["wall_ms"] / 1e3)
     engine.reset()
     return tr
 
@@ -2114,7 +2144,7 @@ def run_dense_batch_path(dev, overrides=None) -> dict:
     """BatchEngine over the dense batched cache, q8_row, full width and 4
     layers, 8 lanes: generate_batch of 8 prompts of different lengths, 32
     tokens each; K6 at each lane's position and K2 + K9 at 8 rows per layer
-    and step."""
+    and step (`drive_batch`)."""
     import numpy as np
     import torch
 
@@ -2129,27 +2159,10 @@ def run_dense_batch_path(dev, overrides=None) -> dict:
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, model.cfg.vocab_size, n).tolist()
                for n in (20, 57, 128, 129, 200, 31, 300, 90)]
-    engine.generate_batch(prompts[:2], 4)  # warm-up
-    fns = counters()
-    for f in fns.values():
-        f.launches = 0
-    steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
-    t0 = time.perf_counter()
-    outs = engine.generate_batch(prompts, 32)
-    wall = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in fns.items()}
-    steps, chunks = engine.decode_steps - steps0, engine.prefill_chunks - chunks0
-    assert [len(o) for o in outs] == [32] * 8 and all(
-        0 <= t < model.cfg.vocab_size for o in outs for t in o), "dense batch: outputs"
-    want = {k: 0 for k in fns}
-    want.update(rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
-                decode_attention_fused_write=L * steps, layer_tail_fused_rowq=L * steps,
-                rowq_gemm=4 * L * chunks)
-    assert launches == want, f"dense batch: launch counts {launches} != {want}"
-    res = dict(wall_s=wall, decode_steps=steps, prefill_chunks=chunks, launches=launches,
-               decode_tok_s=engine.metrics.decode_tokens / max(engine.metrics.decode_s, 1e-9))
-    log(f"dense batch: 8 lanes x 32 tokens in {wall:.2f} s, {steps} steps, {chunks} chunks, "
-        f"launches {launches}")
+    res = drive_batch(engine, prompts, 32, lambda steps, chunks: dict(
+        rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
+        decode_attention_fused_write=L * steps, layer_tail_fused_rowq=L * steps,
+        rowq_gemm=4 * L * chunks), "dense batch")
     del engine, model
     torch.cuda.empty_cache()
     return res
@@ -3079,6 +3092,400 @@ def run_tool_paths(dev, gguf: Path, workdir: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ slice 7
+
+
+def check_ffn_fused(dev, dims=PHI3_MEDIUM, wide=QWEN25_14B) -> dict:
+    """K20 against its plain version: at Phi-3-medium widths with T = 17 and
+    24 bf16 rows (its path's rows), within 1e-2 of the largest plain output
+    (act rounds to bf16, so a sum taken in another order can move an act
+    value one bf16 ulp), and at Qwen2.5-14B widths with T = 32 f32 rows
+    within 1e-5 (f32 sums in another order); None at 25 bf16 rows (the fit
+    declines) and at 33. Timed at T = 24 bf16 over the stack's layers in
+    turn, beside its bound, the plain version and the library yardstick: two
+    bf16 torch.matmul on the dequantized layer with the silu glue."""
+    import torch
+    import torch.nn.functional as F_
+
+    from llamatpu_torch.ops import ffn_fused
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    L, D, F = dims["L"], dims["D"], dims["F"]
+    w13, w2 = rand_rowq(L, 2 * F, D, dev, gen), rand_rowq(L, D, F, dev, gen)
+    errs = {}
+    for t in (17, 24):
+        x = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
+        got = ffn_fused.ffn_fused_rowq(w13, w2, x, 1)
+        want = ffn_fused.ffn_fused_plain(w13, w2, x, 1)
+        torch.cuda.synchronize()
+        assert got.dtype == x.dtype and got.shape == x.shape
+        errs[f"bf16 T={t}"] = abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-2, f"K20 disagrees at T={t} bf16: max abs {abs_e} rel {rel_e}"
+        log(f"K20 Phi-3-medium T={t} bf16: max abs {abs_e:.3g} rel {rel_e:.3g}")
+    for t in (25, 33):
+        assert ffn_fused.ffn_fused_rowq(w13, w2, torch.zeros((t, D), device=dev,
+                                                             dtype=torch.bfloat16), 0) is None
+    t, li = 24, iter(range(10**9))
+    x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+    w13_bf = (w13.qs[0].float() * w13.scales[0]).to(torch.bfloat16)
+    w2_bf = (w2.qs[0].float() * w2.scales[0]).to(torch.bfloat16)
+
+    def library():
+        g13 = torch.matmul(x, w13_bf.T)
+        return torch.matmul(F_.silu(g13[:, :F]) * g13[:, F:], w2_bf.T)
+    b_ms, b_by = bound(3 * F * D + (2 * F + D) * 4 + 2 * t * D * 2, 2 * t * 3 * F * D,
+                       BF16_OPS_S)
+    tm = timings(lambda: ffn_fused.ffn_fused_rowq(w13, w2, x, next(li) % L), K20_NAMES,
+                 lambda: ffn_fused.ffn_fused_plain(w13, w2, x, next(li) % L), library)
+    log(f"K20 Phi-3-medium T={t} bf16: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
+        f"{tm['plain_ms']:.4f}, library {tm['library_ms']:.4f})")
+    del w13, w2, w13_bf, w2_bf
+    torch.cuda.empty_cache()
+    L, D, F = wide["L"], wide["D"], wide["F"]
+    w13, w2 = rand_rowq(L, 2 * F, D, dev, gen), rand_rowq(L, D, F, dev, gen)
+    x = torch.randn((32, D), device=dev, generator=gen)
+    got = ffn_fused.ffn_fused_rowq(w13, w2, x, 1)
+    want = ffn_fused.ffn_fused_plain(w13, w2, x, 1)
+    torch.cuda.synchronize()
+    assert got is not None and got.dtype == torch.float32
+    errs["f32 T=32 Qwen2.5-14B"] = abs_f, rel_f = max_err(got, want)
+    assert rel_f <= 1e-5, f"K20 disagrees at T=32 f32: max abs {abs_f} rel {rel_f}"
+    f32_ms = kernel_ms(lambda: ffn_fused.ffn_fused_rowq(w13, w2, x, 1), ("gemv_tiled_kernel",))
+    log(f"K20 Qwen2.5-14B T=32 f32: max abs {abs_f:.3g} rel {rel_f:.3g}, {f32_ms} ms")
+    del w13, w2
+    torch.cuda.empty_cache()
+    return dict(
+        name="ffn_fused_rowq", route="cuda", source="llamatpu_torch/csrc/ffn_fused.cu",
+        replaces="llamatpu/ops/ffn_fused.py:64", max_abs_err=max(e[0] for e in errs.values()),
+        max_rel_err=max(e[1] for e in errs.values()), errors=errs,
+        tolerance="rel to max|plain|: bf16 <= 1e-2 (T 17, 24), f32 <= 1e-5 (T 32)",
+        **tm, library="two bf16 torch.matmul on the dequantized layer + silu glue",
+        bound_ms=b_ms, bound_by=b_by, f32_t32_ms=f32_ms,
+        shape=f"T=24 bf16 D={dims['D']} F={dims['F']} (Phi-3-medium)")
+
+
+def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
+    """K9 and K2 at Phi-3-medium widths, their first use there: K9 at T = 1,
+    8 and 16 rows in bf16 (within 1e-2 of the largest plain output) and f32
+    (1e-5), None at 17 bf16 rows (its fit declines); K2 at O = 7680 with 1,
+    8 and 24 rows (1e-2). Timed at the rows of the 8- and 24-lane paths.
+    Then the equalized q8_row conversion of one layer on the card against
+    the CPU's, bit for bit. Returns a sub-row per kernel name."""
+    import torch
+
+    from llamatpu_torch.ops import layer_fused
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    L, D, F, KV, G, HD = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD"))
+    H, O = KV * G * HD, (KV * G + 2 * KV) * HD
+    wo, w13, w2 = rand_rowq(L, D, H, dev, gen), rand_rowq(L, 2 * F, D, dev, gen), \
+        rand_rowq(L, D, F, dev, gen)
+    nw = torch.rand((L, D), device=dev, generator=gen) + 0.5
+    k9 = {}
+    for dt, key, tol in ((torch.float32, "f32", 1e-5), (torch.bfloat16, "bf16", 1e-2)):
+        for t in (1, 8, 16):
+            attn = torch.randn((t, H), device=dev, generator=gen).to(dt)
+            x = torch.randn((t, D), device=dev, generator=gen).to(dt)
+            got = layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, 1, 1e-5)
+            want = layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, 1, 1e-5)
+            torch.cuda.synchronize()
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= tol, f"K9 at Phi-3-medium T={t} {key}: max abs {abs_e} rel {rel_e}"
+            k9[f"{key} T={t}"] = dict(max_abs_err=abs_e, max_rel_err=rel_e)
+    z = torch.zeros((17, D), device=dev, dtype=torch.bfloat16)
+    assert layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, z[:, :1].expand(17, H).contiguous(),
+                                             z, 0, 1e-5) is None
+    li = iter(range(10**9))
+    for t in (1, 8):
+        attn = torch.randn((t, H), device=dev, generator=gen).to(torch.bfloat16)
+        x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        b_ms, b_by = bound(D * H + 3 * F * D + (2 * D + 2 * F) * 4 + t * (H + 2 * D) * 2,
+                           2 * t * (D * H + 3 * F * D), BF16_OPS_S)
+        k9[f"timed T={t}"] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
+            lambda: layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, next(li) % L,
+                                                      1e-5), ("gemv_tiled_kernel",),
+            lambda: layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
+            None))
+        log(f"K9 Phi-3-medium T={t}: {k9[f'timed T={t}']['ms']:.4f} ms (bound {b_ms:.4f})")
+    del wo, w13, w2
+    wqkv = rand_rowq(L, O, D, dev, gen)
+    k2 = {}
+    for t in (1, 8, 24):
+        x = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
+        got = layer_fused.qkv_norm_fused_rowq(wqkv, nw, x, 1, 1e-5)
+        want = layer_fused.qkv_norm_plain(wqkv, nw, x, 1, 1e-5)
+        torch.cuda.synchronize()
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-2, f"K2 at O={O}, {t} rows: max abs {abs_e} rel {rel_e}"
+        b_ms, b_by = bound(O * D + O * 4 + t * D * 2 + D * 4 + t * O * 2, 2 * t * O * D,
+                           BF16_OPS_S)
+        k2[t] = dict(max_abs_err=abs_e, max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
+                     **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, nw, x,
+                                                                       next(li) % L, 1e-5),
+                               ("gemv_kernel", "gemv_tiled_kernel"),
+                               lambda: layer_fused.qkv_norm_plain(wqkv, nw, x, next(li) % L,
+                                                                  1e-5), None))
+        log(f"K2 at O={O}, {t} rows: {k2[t]['ms']:.4f} ms (bound {b_ms:.4f}), rel err "
+            f"{rel_e:.3g}")
+    del wqkv
+    torch.cuda.empty_cache()
+    # the equalized q8_row conversion of a Phi-3-medium layer on the card is
+    # bit-equal to the CPU's (the engines convert on their device)
+    import numpy as np
+
+    from llamatpu_torch.models.weights import QTensor, equalize_rowq_layers
+
+    rng = np.random.default_rng(29)
+
+    def q8(o, i):
+        qs = np.maximum(rng.integers(-128, 128, (1, o, i), dtype=np.int8), -127)
+        return QTensor(qs, rng.random((1, o, i // 32), dtype=np.float32) * 0.001 + 0.0005)
+    layers = {"wqkv": q8(O, D), "w13": q8(2 * F, D), "w2": q8(D, F),
+              "attn_norm": np.ones((1, D), np.float32), "ffn_norm": np.ones((1, D), np.float32)}
+    t0 = time.perf_counter()
+    host = equalize_rowq_layers(layers)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = equalize_rowq_layers(layers, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for k in ("wqkv", "w13", "w2"):
+        assert card[k].kind == host[k].kind == "q8_row", k
+        assert torch.equal(card[k].qs.cpu(), torch.from_numpy(host[k].qs)) and \
+            torch.equal(card[k].scales.cpu(), torch.from_numpy(host[k].scales)), k
+    for k in ("attn_norm", "ffn_norm"):
+        assert np.array_equal(card[k], host[k]), k
+    log(f"equalize_rowq_layers of a Phi-3-medium layer: card and CPU bit-equal ({card_s:.2f} s "
+        f"on the card, {host_s:.2f} s on the host)")
+    del card, host, layers
+    torch.cuda.empty_cache()
+    return {"layer_tail_fused_rowq": dict(shape=f"D={D} H={H} F={F}", by_rows=k9),
+            "qkv_norm_fused_rowq": dict(shape=f"O={O} D={D}", by_rows=k2)}
+
+
+def drive_batch(engine, prompts: list[list[int]], n: int, want_fn, label: str) -> dict:
+    """One counted generate_batch run of a batched engine: every count set to
+    0 just before, `n` greedy tokens per prompt, the counts read just after
+    and held to want_fn(decode steps, prefill chunks); then a traced 16-step
+    window with every lane active and its aggregate decode tok/s."""
+    import torch
+
+    V = engine.cfg.vocab_size
+    engine.generate_batch(prompts[:2], 4)  # warm-up
+    torch.cuda.synchronize()
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+    t0 = time.perf_counter()
+    outs = engine.generate_batch(prompts, n)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    steps, chunks = engine.decode_steps - steps0, engine.prefill_chunks - chunks0
+    assert [len(o) for o in outs] == [n] * len(prompts) and all(
+        0 <= t < V for o in outs for t in o), f"{label}: outputs"
+    want = {k: 0 for k in fns}
+    want.update(want_fn(steps, chunks))
+    assert launches == want, f"{label}: launch counts {launches} != {want}"
+    res = dict(lanes=len(prompts), wall_s=wall, decode_steps=steps, prefill_chunks=chunks,
+               launches=launches, tok_s=len(prompts) * n / wall)
+    res["decode16_trace"] = tr = decode_window_trace(engine, agg_tokens=0)
+    log(f"{label}: {len(prompts)} lanes x {n} tokens in {wall:.2f} s ({res['tok_s']:.1f} tok/s), "
+        f"{steps} steps, {chunks} chunks, launches {({k: v for k, v in launches.items() if v})}; "
+        f"traced 16-step window: busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms (idle share "
+        f"{tr['idle_share']:.3f}), aggregate decode {tr['agg_decode_tok_s']:.1f} tok/s; top "
+        f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:5]]}")
+    return res
+
+
+def run_phi3_paths(dev, n_layers=None) -> dict:
+    """Slice 7's path: Phi-3-medium-4k at full width (synthetic Q8_0, seed 0,
+    served as q8_row) at `n_layers` (default all 40), where the JAX package's
+    fits decline K3 at one lane and K9 at 17-24:
+    - phi3_b1: Engine, cache 1024, a 128-token prompt (one chunk, K4) then
+      32 greedy tokens: K2, K6 and K9 per layer and step, K3 = 0, K1 for
+      the head;
+    - phi3_b8 / phi3_b24 / phi3_b32: BatchEngine over 8, 24 and 32 lanes:
+      K2 and K6 per layer and step, then K9 (8 lanes), K20 with K1 for wo
+      (24 lanes, K9 = 0), or the two-call FFN, K1 for wo, w13 and w2 (32
+      lanes, K9 = K20 = 0);
+    - phi3_paged24: PagedBatchEngine over 24 lanes: K2, K8 and K20.
+    The Engine converts the weights once (fuse, equalize, requantize,
+    upload); the batch engines serve that tree. Load s and peak host RSS
+    are kept beside each path's tok/s and idle share."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.runtime.batch_engine import BatchEngine
+    from llamatpu_torch.runtime.engine import Engine
+    from llamatpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    out = {}
+    t0 = time.perf_counter()
+    model = build_synthetic_model("phi3-mini", quant="q8_0", seed=0, overrides=dict(
+        PHI3_OVERRIDES, n_layers=n_layers or PHI3_OVERRIDES["n_layers"]))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = Engine(model, cache_len=1024, prefill_chunk=128, decode_window=32, rowq=True,
+                    device=dev)
+    load_s = time.perf_counter() - t0
+    L, V = model.cfg.n_layers, model.cfg.vocab_size
+    log(f"phi3: {L} layers, synthetic build {build_s:.1f} s, fuse + rowq + upload {load_s:.1f} s, "
+        f"device {torch.cuda.memory_allocated() / 1e9:.2f} GB, peak host RSS "
+        f"{host_rss_gb():.1f} GB")
+    prompt = np.random.default_rng(42).integers(0, V, 128).tolist()
+    out["phi3_b1"] = drive_engine(engine, prompt, 32, lambda n: {
+        "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "decode_attention_fused_write": L * n,
+        "layer_tail_fused_rowq": L * n, "rowq_gemm": 4 * L}, "phi3_b1", repeats=1)
+    out["phi3_b1"].update(build_s=build_s, load_s=load_s, host_rss_gb=host_rss_gb(), layers=L)
+    served = dataclasses.replace(model, weights=engine.weights)  # fused q8_row, on the card
+    del engine, model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(3)
+
+    def common(steps, chunks):  # K2 per layer and step; K4 per layer in each 128-row chunk
+        return dict(qkv_norm_fused_rowq=L * steps, rowq_gemm=4 * L * chunks)
+    for label, lanes, paged, ffn in (("phi3_b8", 8, False, "k9"), ("phi3_b24", 24, False, "k20"),
+                                     ("phi3_paged24", 24, True, "k20"),
+                                     ("phi3_b32", 32, False, "two calls")):
+        kw = dict(batch_size=lanes, prefill_chunk=128, decode_window=16, device=dev)
+        engine = (PagedBatchEngine(served, block_size=16, max_len=1024, **kw) if paged
+                  else BatchEngine(served, cache_len=1024, **kw))
+        attn = "decode_attention_paged" if paged else "decode_attention_fused_write"
+
+        def want(steps, chunks, ffn=ffn, attn=attn):
+            w = dict(common(steps, chunks), **{attn: L * steps})
+            if ffn == "k9":
+                w.update(layer_tail_fused_rowq=L * steps, rowq_gemv=steps + chunks)
+            elif ffn == "k20":  # wo through K1, then the FFN as one K20 call
+                w.update(ffn_fused_rowq=L * steps, rowq_gemv=(L + 1) * steps + chunks)
+            else:  # wo, w13 and w2 through K1
+                w.update(rowq_gemv=(3 * L + 1) * steps + chunks)
+            return w
+        prompts = [rng.integers(0, V, int(n)).tolist() for n in rng.integers(33, 128, lanes)]
+        out[label] = drive_batch(engine, prompts, 16, want, label)
+        del engine
+        torch.cuda.empty_cache()
+    del served
+    torch.cuda.empty_cache()
+    return out
+
+
+PHI3_SPECIALS = {32000: "<|endoftext|>", 32001: "<|assistant|>", 32006: "<|system|>",
+                 32007: "<|end|>", 32010: "<|user|>"}
+
+
+def phi3_vocab(vocab_size: int) -> tuple[list[str], list[float], list[int]]:
+    """(tokens, scores, token types) of a SentencePiece vocab padded to
+    `vocab_size` as Phi-3's is laid out: <unk>, <s>, </s>, the 256 <0xNN>
+    byte-fallback pieces, single characters and a few scored merges, filler
+    pieces up to 32000, then the chat specials at their published ids and
+    placeholders."""
+    import string
+
+    tokens, scores, types = ["<unk>", "<s>", "</s>"], [0.0, 0.0, 0.0], [2, 3, 3]
+    tokens += [f"<0x{b:02X}>" for b in range(256)]
+    scores += [0.0] * 256
+    types += [6] * 256
+    chars = ["▁"] + list(string.ascii_letters + string.digits + string.punctuation)
+    pieces = ["▁the", "▁a", "▁is", "he", "in", "er", "an", "on", "▁t",
+              "▁s", "▁w", "re", "at", "en"]
+    tokens += chars + pieces
+    scores += [-1.0] * len(chars) + [-2.0 - 0.1 * i for i in range(len(pieces))]
+    types += [1] * (len(chars) + len(pieces))
+    for i in range(len(tokens), 32000):
+        tokens.append(f"▁filler{i}")
+        scores.append(-1000.0)
+        types.append(1)
+    for i in range(32000, vocab_size):
+        tokens.append(PHI3_SPECIALS.get(i, f"<|placeholder{i - 32000}|>"))
+        scores.append(0.0)
+        types.append(3)
+    return tokens, scores, types
+
+
+def write_phi3_gguf(model, path) -> None:
+    """A synthetic q8_0 Phi-3 model as a phi3 Q8_0 GGUF through the port's
+    writer: fused attn_qkv (q, k, v rows) and ffn_up (gate rows, then up
+    rows), f32 norms, the head tied to token_embd, the SPM vocab above."""
+    import numpy as np
+
+    from llamatpu_torch.gguf import GGMLType, GGUFWriter, quants
+
+    cfg, w = model.cfg, model.weights
+    lw = w["layers"]
+    gw = GGUFWriter()
+    gw.add("general.architecture", "phi3")
+    gw.add("general.name", "synthetic Phi-3-medium-4k")
+    for key, v in (("embedding_length", cfg.dim), ("feed_forward_length", cfg.hidden_dim),
+                   ("block_count", cfg.n_layers), ("attention.head_count", cfg.n_heads),
+                   ("attention.head_count_kv", cfg.n_kv_heads),
+                   ("context_length", cfg.context_length),
+                   ("attention.layer_norm_rms_epsilon", float(cfg.rms_norm_eps)),
+                   ("rope.freq_base", float(cfg.rope_theta)), ("vocab_size", cfg.vocab_size)):
+        gw.add("phi3." + key, v)
+    tokens, scores, types = phi3_vocab(cfg.vocab_size)
+    gw.add("tokenizer.ggml.model", "llama")
+    gw.add("tokenizer.ggml.tokens", tokens)
+    gw.add("tokenizer.ggml.scores", np.array(scores, dtype=np.float32))
+    gw.add("tokenizer.ggml.token_type", np.array(types, dtype=np.int32))
+    gw.add("tokenizer.ggml.bos_token_id", 1)
+    gw.add("tokenizer.ggml.eos_token_id", 32000)
+
+    def qt(name, parts, li):
+        qs = np.concatenate([np.asarray(lw[k].qs[li]) for k in parts])
+        sc = np.concatenate([np.asarray(lw[k].scales[li]) for k in parts])
+        gw.add_tensor_raw(name, qs.shape, GGMLType.Q8_0, quants.q8_0_blocks(qs, sc))
+
+    gw.add_tensor_raw("token_embd.weight", w["wcls"].qs.shape, GGMLType.Q8_0,
+                      quants.q8_0_blocks(np.asarray(w["wcls"].qs), np.asarray(w["wcls"].scales)))
+    gw.add_tensor("output_norm.weight", np.asarray(w["final_norm"], np.float32))
+    for li in range(cfg.n_layers):
+        b = f"blk.{li}."
+        gw.add_tensor(b + "attn_norm.weight", np.asarray(lw["attn_norm"][li], np.float32))
+        gw.add_tensor(b + "ffn_norm.weight", np.asarray(lw["ffn_norm"][li], np.float32))
+        qt(b + "attn_qkv.weight", ("wq", "wk", "wv"), li)
+        qt(b + "attn_output.weight", ("wo",), li)
+        qt(b + "ffn_up.weight", ("w1", "w3"), li)
+        qt(b + "ffn_down.weight", ("w2",), li)
+    gw.write(str(path))
+
+
+def run_phi3_gguf_paths(dev, workdir: Path, n_layers: int = 4) -> dict:
+    """Phi-3-medium at full width and `n_layers` layers (a depth cut: the
+    file stays ~1.8 GB) as a phi3 Q8_0 GGUF with an SPM vocab: `cli run`
+    (K5 for the projections and the head, K6 per layer and step, held to
+    the Engine's forwards), then `cli serve --batch-size 8 --paged` over
+    HTTP (K5 and K8 held to the engine's steps and chunks)."""
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+
+    model = build_synthetic_model("phi3-mini", quant="q8_0", seed=1,
+                                  overrides=dict(PHI3_OVERRIDES, n_layers=n_layers))
+    L = model.cfg.n_layers
+    path = workdir / f"phi3-medium-q8_0-L{L}.gguf"
+    t0 = time.perf_counter()
+    write_phi3_gguf(model, path)
+    del model
+    log(f"phi3 gguf: wrote {path.name} ({path.stat().st_size / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    res = cli_run(dev, path)
+    want = {k: 0 for k in res["launches"]}
+    fwd = res["chunks"] + res["steps"]
+    want.update(block_matmul=(4 * L + 1) * fwd, decode_attention_fused_write=L * res["steps"])
+    assert res["launches"] == want, f"phi3 cli run: {res['launches']} != {want}"
+    log(f"phi3 gguf: cli run rc 0 in {res['seconds']:.1f} s, {res['chunks']} chunks + "
+        f"{res['steps']} steps, {res['chars']} chars streamed: {res['text']!r}")
+    out["phi3_cli"] = res
+    out["phi3_serve"] = run_serving_path(dev, path, rowq=False, latency=False,
+                                         label="phi3_serve")
+    path.unlink()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-dir", default=None, help="write the ptxas report and results here")
@@ -3113,10 +3520,12 @@ def main() -> int:
     workdir.mkdir(parents=True, exist_ok=True)
     try:
         rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev) \
-            + check_moe_kernels(dev) + check_long_kernels(dev) + check_slice6_kernels(dev)
-        for name, sub in check_qwen_geometry(dev).items():
-            next(r for r in rows if r["name"] == name)["qwen15"] = sub
-        paths = run_moe_paths(dev, n_layers=12)  # a depth cut for the time limit
+            + check_moe_kernels(dev) + check_long_kernels(dev) + check_slice6_kernels(dev) \
+            + [check_ffn_fused(dev)]
+        for key, check in (("qwen15", check_qwen_geometry), ("phi3_medium", check_phi3_geometry)):
+            for name, sub in check(dev).items():
+                next(r for r in rows if r["name"] == name)[key] = sub
+        paths = run_moe_paths(dev, n_layers=6)  # a depth cut for the time limit
         paths.update(run_moe_gguf_paths(dev, workdir))
         cpu_moe = run_moe_cpu_and_dense(dev)
         paths["moe_dense"] = cpu_moe.pop("moe_dense")
@@ -3131,6 +3540,8 @@ def main() -> int:
         gguf.unlink()
         paths["pack4"] = run_pack4_path(dev, workdir)
         paths["dense_batch"] = run_dense_batch_path(dev)
+        paths.update(run_phi3_paths(dev))
+        paths.update(run_phi3_gguf_paths(dev, workdir))
         harness = run_harness_paths(dev)
         summary["harness"] = harness
         summary.update(paths)

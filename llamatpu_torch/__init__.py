@@ -13,9 +13,11 @@ Layout follows the JAX package's module names (minus the `pallas_` prefix):
 - models/  config, family detection, the GGUF loader, weights (QTensor +
            load transforms + the weights bridge), synthetic presets, the
            transformer forward
-- tokenizer/, format/  the Llama 3 byte-level BPE and chat format
+- tokenizer/, format/  the byte-level BPE (Llama 3, Qwen), Phi-3's
+           SentencePiece BPE, and their chat formats
 - ops/     rmsnorm, rope, sampling, the matmul dispatch and the kernel
-           modules (quant_matmul, gemm, layer_fused, attention) with their
+           modules (quant_matmul, gemm, layer_fused, ffn_fused, attention,
+           moe_grouped, probes) with their
            CUDA sources under csrc/, built by _build.py at first use
 - runtime/ Engine (chunked prefill, windowed greedy or sampled decode) and
            the instruct / interactive sessions

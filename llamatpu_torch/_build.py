@@ -24,8 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("quant_matmul", "layer_fused", "gemm", "block_matmul", "attention", "moe_grouped",
-           "probes")
+SOURCES = ("quant_matmul", "layer_fused", "ffn_fused", "gemm", "block_matmul", "attention",
+           "moe_grouped", "probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,6 +47,9 @@ _SIGNATURES = {
                     _I, _I, _P),
         "lt_tail_kt": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _I, _I, _I, _P),
+    },
+    "ffn_fused": {
+        "lt_ffn_fused": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "gemm": {
         "lt_rowq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

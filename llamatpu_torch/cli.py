@@ -10,14 +10,15 @@ default:
     python -m llamatpu_torch.cli ppl -m model.gguf --text-file wiki.txt
     python -m llamatpu_torch.cli convert -m model-q4_0.gguf -o model-q8_0.gguf
 
-A Llama 3, Qwen2 or Qwen2-MoE GGUF (Qwen1.5-MoE-A2.7B: routed experts
-through the grouped kernels) in Q8_0 or Q4_0 loads as block quants
+A Llama 3, Qwen2, Qwen2-MoE or Phi-3 GGUF (Qwen1.5-MoE-A2.7B: routed
+experts through the grouped kernels) in Q8_0 or Q4_0 loads as block quants
 (`--pack4` packs Q4_0 two values per byte; `--rowq` requantizes Q8_0, the
 expert stacks included, to per-row int8 and takes the q8_row kernels),
 F32/F16/BF16 as dense weights; the prompt goes through the family's chat
-template (Llama 3 headers, Qwen's ChatML), and the answer is sampled at the
-family's defaults (Llama 3: temperature 0.3, top-p 0.95; Qwen: 0.8, 0.9)
-unless --temperature / --top-p say otherwise, and streamed to stdout.
+template (Llama 3 headers, Qwen's ChatML, Phi-3's <|user|> ... <|end|>),
+and the answer is sampled at the family's defaults (Llama 3: temperature
+0.3, top-p 0.95; Qwen: 0.8, 0.9; Phi-3: 0.7, 0.9) unless --temperature /
+--top-p say otherwise, and streamed to stdout.
 
 --kv-dtype int8 keeps the KV cache (or the paged pool) in int8 with one f32
 scale per token and KV head, half the bytes of a bf16 cache; -n reaches up
@@ -186,7 +187,7 @@ def load(args):
     if model.chat_format is None:
         raise NotImplementedError(
             f"{model.family.name} checkpoints: family-deltas slice of the port "
-            "(the port runs Llama 3, Qwen2 and Qwen2-MoE)")
+            "(the port runs Llama 3, Qwen2, Qwen2-MoE and Phi-3)")
     return model, metrics
 
 

@@ -1,10 +1,11 @@
 """Chat formats: prompt templates, stop tokens, default sampling
-parameters and tool-calling encodings. The port's copy of the Llama 3 and
-Qwen2 parts of llamatpu/format/chat_format.py (`Message`, `Role`, the
-`ChatFormat` base with its tool-calling defaults, `LlamaChatFormat`,
-`QwenChatFormat` for Qwen2 and Qwen2-MoE, `build_chat_format`). The other
-families' formats (Qwen3's thinking control, the DeepSeek distills, Mistral,
-Phi-3, Granite) belong to the family-deltas slice of the port.
+parameters and tool-calling encodings. The port's copy of the Llama 3,
+Qwen2 and Phi-3 parts of llamatpu/format/chat_format.py (`Message`, `Role`,
+the `ChatFormat` base with its tool-calling defaults, `LlamaChatFormat`,
+`QwenChatFormat` for Qwen2 and Qwen2-MoE, `Phi3ChatFormat`,
+`build_chat_format`). The other families' formats (Qwen3's thinking
+control, the DeepSeek distills, Mistral, Granite) belong to the
+family-deltas slice of the port.
 """
 from __future__ import annotations
 
@@ -287,9 +288,41 @@ class QwenChatFormat(ChatFormat):
         return parse_all_tool_calls(text)
 
 
+class Phi3ChatFormat(ChatFormat):
+    """<|system|> / <|user|> / <|assistant|> headers, each message closed by
+    <|end|>; no begin-of-text token in the prompt; stops at <|end|> or
+    <|endoftext|>."""
+
+    add_begin_of_text = False
+
+    def __init__(self, tokenizer):
+        super().__init__(tokenizer)
+        self.end = self._sp("<|end|>")
+        self.eos = self._sp("<|endoftext|>")
+        self.bos = self._sp("<s>", getattr(tokenizer, "bos_id", -1))
+
+    def begin_of_text(self):
+        return self.bos
+
+    def stop_tokens(self):
+        return {t for t in (self.end, self.eos) if t != -1}
+
+    def encode_header(self, m):
+        tid = self.tokenizer.special_tokens.get(f"<|{m.role}|>")
+        tokens = [tid] if tid is not None else self._enc(f"<|{m.role}|>")
+        tokens.extend(self._enc_ord("\n"))
+        return tokens
+
+    def encode_message(self, m):
+        return [*self.encode_header(m), *self._enc_ord(m.content.strip()), self.end,
+                *self._enc_ord("\n")]
+
+
 def build_chat_format(family: Family, tokenizer, md: dict | None = None) -> ChatFormat:
     if family == Family.LLAMA_3:
         return LlamaChatFormat(tokenizer)
     if family in (Family.QWEN_2, Family.QWEN_2_MOE):
         return QwenChatFormat(tokenizer)
+    if family == Family.PHI_3:
+        return Phi3ChatFormat(tokenizer)
     raise NotImplementedError(f"{family.name} chat format: family-deltas slice of the port")

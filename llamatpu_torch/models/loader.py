@@ -14,9 +14,9 @@ llamatpu/models/loader.py.
 
 The tree stays on the host (numpy, with torch CPU tensors where the dtype is
 bf16) unless `device` is given; `Engine` moves it to its device. Every
-family's config and tensors load, but only Llama 3, Qwen2 and Qwen2-MoE have
-a tokenizer and chat format in the port so far (the others keep None
-there), and `forward_tokens` raises on what it does not run yet.
+family's config and tensors load, but only Llama 3, Qwen2, Qwen2-MoE and
+Phi-3 have a tokenizer and chat format in the port so far (the others keep
+None there), and `forward_tokens` raises on what it does not run yet.
 """
 from __future__ import annotations
 
@@ -261,7 +261,8 @@ def load_model(path: str, max_tokens: int = 0, param_dtype: torch.dtype = torch.
 
     model = LoadedModel(cfg=cfg, weights=weights, metadata=md, family=family,
                         quant_label=quant_label)
-    if load_tokenizer and family in (Family.LLAMA_3, Family.QWEN_2, Family.QWEN_2_MOE):
+    if load_tokenizer and family in (Family.LLAMA_3, Family.QWEN_2, Family.QWEN_2_MOE,
+                                     Family.PHI_3):
         from llamatpu_torch.format import build_chat_format
         from llamatpu_torch.tokenizer import build_tokenizer
 

@@ -14,9 +14,10 @@ donated it).
 
 Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
 429-437, 485-633, 684-695`):
-- q8_row weights: rmsnorm + wqkv is K2 for R <= 32 (ops/layer_fused.py),
-  else the plain rmsnorm and the matmul dispatch (K1 below 128 rows, K4 at
-  128 and above);
+- q8_row weights: rmsnorm + wqkv is K2 for R <= 32 where the JAX
+  package's fit accepts (`layer_fused.qkv_fits`; every fused kernel below
+  follows its JAX fit the same way), else the plain rmsnorm and the matmul
+  dispatch (K1 below 128 rows, K4 at 128 and above);
 - the qkv bias (Qwen2) is added to the projection's output, rounded to its
   dtype (`transformer.py:451-454`);
 - an int8 cache stores K and V quantized per (token, KV head)
@@ -28,7 +29,8 @@ Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
   0, LLAMATPU_NO_FUSED_ATTN is unset (read at call time) and, for a long
   cache, its tile `pick_tile(S_phys)` is at least 128 rows. Then: q8_row
   weights at B = 1 (a host int pos, dense FFN, a short bf16/f32 cache,
-  LLAMATPU_NO_ATTN_TAIL unset, read at call time) take K3, append +
+  LLAMATPU_NO_ATTN_TAIL unset, read at call time, a power-of-two value
+  head and `layer_fused.attn_tail_fits`) take K3, append +
   attention + the whole tail in one call; a long cache takes K14 fused
   (K14-int8 for int8), a short one K6 (K6-int8). Unfused, the rows are written by index and
   `decode_attention_auto` takes K14 unfused (long) or K15 over the logical
@@ -41,10 +43,13 @@ Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
   attention over them (int8 rows dequantized; a gathered dense view for the
   paged pool);
 - after attention, q8_row weights with R <= 32 and a dense FFN take K9 (wo
-  + residual + rmsnorm + w13 + silu * up + w2 + residual), else the unfused
-  tail with the JAX package's dtypes (`transformer.py:699-712`,
-  `_dense_ffn`): bf16 residual stream between ops, projections through
-  ops/matmul.py (K5 / K7 for block quants);
+  + residual + rmsnorm + w13 + silu * up + w2 + residual) where it fits
+  (`layer_fused.tail_fits`), else the unfused tail with the JAX package's
+  dtypes (`transformer.py:699-712`): bf16 residual stream between ops,
+  projections through ops/matmul.py (K5 / K7 for block quants), and the
+  FFN as `_dense_ffn` (`transformer.py:186-200`): K20
+  (ops/ffn_fused.py) for q8_row weights where its fit accepts, else w13,
+  silu * up and w2 as two projections;
 - an MoE layer's FFN (`_moe_ffn`, `transformer.py:222-316`): the router as
   an f32 matmul, softmax over all experts, top-k without renormalization,
   the routed experts through the grouped matmuls (ops/moe_grouped.py,
@@ -52,7 +57,9 @@ Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
   folded into them (every token routed to its S chunks with the sigmoid
   shared-gate weight) or as explicit matmuls (`_moe_shared`).
 The JAX package takes its fused q8_row kernels only where its TPU tiling
-accepts the widths (multiples of 128); the port takes them at every width.
+accepts the widths (multiples of 128); the port takes K2, K3 and K9 at every
+width, and at multiples of 128 exactly where the JAX package's VMEM fits
+accept (a Phi-3-medium layer at 17-24 rows declines K9 and takes K20).
 
 Q/k norm and sharding raise until their slices of the port.
 """
@@ -68,8 +75,10 @@ from llamatpu_torch.models.config import ModelConfig
 from llamatpu_torch.models.weights import QTensor
 from llamatpu_torch.ops import attention as att
 from llamatpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
-from llamatpu_torch.ops.layer_fused import (MAX_T, layer_attn_tail_fused_rowq,
-                                            layer_tail_fused_rowq, qkv_norm_fused_rowq)
+from llamatpu_torch.ops.ffn_fused import ffn_fused_rowq
+from llamatpu_torch.ops.layer_fused import (attn_tail_fits, layer_attn_tail_fused_rowq,
+                                            layer_tail_fused_rowq, qkv_fits,
+                                            qkv_norm_fused_rowq)
 from llamatpu_torch.ops.matmul import matmul
 from llamatpu_torch.ops.moe_grouped import moe_ffn_grouped, tile_rows
 from llamatpu_torch.ops.rmsnorm import rmsnorm
@@ -285,6 +294,18 @@ def _moe_shared(h, hf, routed, lw: dict, li: int) -> torch.Tensor:
     return out.to(h.dtype).reshape(b, t, d)
 
 
+def _dense_ffn(h: torch.Tensor, lw: dict, li: int) -> torch.Tensor:
+    """The dense FFN of layer li (`transformer.py:186-200`): K20 in one call
+    where `ffn_fused_rowq` takes it, else w13, silu * up in h's dtype, w2."""
+    y = ffn_fused_rowq(lw["w13"], lw["w2"], h, li)
+    if y is not None:
+        return y
+    g13 = matmul(lw["w13"], h, li)
+    ff = g13.shape[-1] // 2
+    act = F.silu(g13[..., :ff].float()).to(h.dtype) * g13[..., ff:]
+    return matmul(lw["w2"], act, li)
+
+
 def _is_rowq(w) -> bool:
     return isinstance(w, QTensor) and w.kind == "q8_row"
 
@@ -299,7 +320,8 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
     paged = isinstance(cache, PagedKVCache)
     rows = b * t
     rowq = _is_rowq(lw["wqkv"])
-    if rowq and rows <= MAX_T:
+    xbytes = x.element_size()
+    if rowq and qkv_fits(rows, lw["wqkv"].qs.shape[-2], cfg.dim, xbytes):
         qkv = qkv_norm_fused_rowq(lw["wqkv"], lw["attn_norm"], x, li, eps)
     else:
         qkv = matmul(lw["wqkv"], rmsnorm(x, lw["attn_norm"][li], eps), li)
@@ -341,7 +363,9 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
             fused = fused and att.pick_tile(s_phys) >= 128
         if (fused and not long_cache and not cache.quantized and b == 1 and isinstance(pos, int)
                 and rowq and not cfg.is_moe and _is_rowq(lw["wo"]) and _is_rowq(lw["w13"])
-                and _is_rowq(lw["w2"]) and not os.environ.get("LLAMATPU_NO_ATTN_TAIL")):
+                and _is_rowq(lw["w2"]) and not os.environ.get("LLAMATPU_NO_ATTN_TAIL")
+                and attn_tail_fits(cfg.dim, lw["wo"].qs.shape[-1], lw["w2"].qs.shape[-1], nkv, g,
+                                   cfg.v_head_dim, s_phys, cache.kv.element_size(), xbytes)):
             x, _ = layer_attn_tail_fused_rowq(
                 lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q4, kvnew[:, 0], cache.kv, x, pos,
                 li, eps, scale, hd, rs)
@@ -384,13 +408,7 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         attn_out = (attn_out.float() * rs).to(x.dtype)
     x = x + attn_out
     h2 = rmsnorm(x, lw["ffn_norm"][li], eps)
-    if cfg.is_moe:
-        ffn = _moe_ffn(cfg, h2, lw, li)
-    else:
-        g13 = matmul(lw["w13"], h2, li)
-        ff = g13.shape[-1] // 2
-        act = F.silu(g13[..., :ff].float()).to(h2.dtype) * g13[..., ff:]
-        ffn = matmul(lw["w2"], act, li)
+    ffn = _moe_ffn(cfg, h2, lw, li) if cfg.is_moe else _dense_ffn(h2, lw, li)
     if rs != 1.0:
         ffn = (ffn.float() * rs).to(x.dtype)
     return x + ffn

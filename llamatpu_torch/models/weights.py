@@ -12,8 +12,10 @@ A QTensor of logical shape [out, in] stores
             f32  [..., out, 1]         for "q8_row" (one scale per out row)
 
 Leading dims stack layers ([L, ...]). At load time the fields are numpy
-arrays and every transform here is numpy, so the port's served weights equal
-the JAX package's bit for bit (tests/test_torch_weights.py,
+arrays and every transform here is numpy, or torch where a step is an
+elementwise IEEE f32 operation or a max (the q8_row requant and
+equalization, on the CPU or the serving device), so the port's served
+weights equal the JAX package's bit for bit (tests/test_torch_weights.py,
 tests/test_torch_gguf.py). `serving_weights` then moves the tree to the
 device as torch tensors; a layer's weights are the view `qs[li]`, so no
 kernel needs a stacked variant.
@@ -158,20 +160,22 @@ def _rowq_from_f32(v):
     return q, r.to(v.device)
 
 
-def _col_eq_scale(v: np.ndarray, clip: float = 4.0) -> np.ndarray:
+def _col_eq_scale(v: torch.Tensor, clip: float = 4.0) -> torch.Tensor:
     """Per-input-column equalization scale: s_j = sqrt(colamax_j / gmean),
     clipped. Dividing W's columns by s flattens outlier input channels so the
-    per-ROW amax no longer coarsens every other weight in the row."""
-    a = np.max(np.abs(v), axis=0)
+    per-ROW amax no longer coarsens every other weight in the row. v: f32
+    [rows, cols] on any device (the column amax is exact everywhere); the
+    rest is numpy on the [cols] vector, returned on v's device."""
+    a = v.abs().amax(dim=0).cpu().numpy()
     pos = a[a > 0]
     if pos.size == 0:
         return np.ones_like(a)
     g = np.exp(np.mean(np.log(pos)))
     s = np.sqrt(np.where(a > 0, a, g) / g)
-    return np.clip(s, 1.0 / clip, clip).astype(np.float32)
+    return torch.from_numpy(np.clip(s, 1.0 / clip, clip).astype(np.float32)).to(v.device)
 
 
-def equalize_rowq_layers(layers: dict) -> dict:
+def equalize_rowq_layers(layers: dict, device: str | torch.device | None = None) -> dict:
     """Equalized q8_row (exact algebra, no runtime cost): before the per-row
     requant, divide each matmul's input columns by an equalization scale and
     fold the inverse into the op that produces its input —
@@ -185,7 +189,13 @@ def equalize_rowq_layers(layers: dict) -> dict:
     attn_norm/ffn_norm [L, D]. Returns a new dict with those matmuls as
     q8_row QTensors and the norms scaled; a dict that does not qualify, or
     any dict while LLAMATPU_NO_ROWQ_EQ is set (plain per-row requant, as in
-    the JAX package), comes back unchanged."""
+    the JAX package), comes back unchanged.
+
+    The matrices are computed one layer at a time in torch on `device`
+    (None: the CPU, returning numpy arrays; a device: tensors on it): every
+    step is an elementwise IEEE f32 product or quotient of tensors, or a
+    max, so the values equal the JAX package's numpy on any device; the
+    scale vectors' log/exp arithmetic stays in numpy (`_col_eq_scale`)."""
     fused = all(k in layers for k in ("wqkv", "w13"))
     qkv_keys = ("wqkv",) if fused else ("wq", "wk", "wv")
     ffn_keys = ("w13",) if fused else ("w1", "w3")
@@ -198,50 +208,54 @@ def equalize_rowq_layers(layers: dict) -> dict:
         if not (isinstance(t, QTensor) and t.kind == "q8_0" and t.offs is None
                 and t.layout in ("canonical", "interleaved")):
             return layers
+    L = layers["w2"].qs.shape[0]
+    f = layers["w2"].qs.shape[-1]
+    if fused and layers["w13"].qs.shape[-2] != 2 * f:
+        return layers  # padded fused stack: fold mapping ambiguous
+    dev = torch.device("cpu" if device is None else device)
     out = dict(layers)
 
-    def deq(t: QTensor, l: int) -> np.ndarray:
+    def deq(t: QTensor, l: int) -> torch.Tensor:
         qs = _np(t.qs)[l]
         if t.layout == "interleaved":
             qs = deinterleave_columns(qs)
-        return qs.astype(np.float32) * np.repeat(_np(t.scales)[l], BLOCK, axis=-1)
+        o, i = qs.shape
+        scales = torch.from_numpy(np.ascontiguousarray(_np(t.scales)[l])).to(dev)
+        q = torch.from_numpy(np.ascontiguousarray(qs)).to(dev).float().view(o, i // BLOCK, BLOCK)
+        return (q * scales[..., None]).view(o, i)
 
-    L = layers["w2"].qs.shape[0]
-    f = layers["w2"].qs.shape[-1]
     an = np.array(_np(layers["attn_norm"]), np.float32, copy=True)
     fn = np.array(_np(layers["ffn_norm"]), np.float32, copy=True)
-    parts = {k: ([], []) for k in mm_keys}
+    res = {k: (torch.empty(tuple(layers[k].shape), dtype=torch.int8, device=dev),
+               torch.empty((*layers[k].shape[:-1], 1), dtype=torch.float32, device=dev))
+           for k in mm_keys}
 
-    def push(k, v):
-        q, r = _rowq_from_f32(v)
-        parts[k][0].append(q)
-        parts[k][1].append(r)
+    def push(k, l, v):
+        res[k][0][l], res[k][1][l] = _rowq_from_f32(v)
 
     for l in range(L):
         v2 = deq(layers["w2"], l)            # [D, F]
         s_f = _col_eq_scale(v2)
-        v2 = v2 / s_f[None, :]
-        push("w2", v2)
+        push("w2", l, v2 / s_f[None, :])
         ffn = {k: deq(layers[k], l) for k in ffn_keys}
         # up rows absorb w2's fold; only the logical rows (padded rows are 0)
         if fused:
-            if ffn["w13"].shape[0] != 2 * f:
-                return layers  # padded fused stack: fold mapping ambiguous
             ffn["w13"][f:] *= s_f[:, None]
         else:
             ffn["w3"][:f] *= s_f[:, None]
-        s_d2 = _col_eq_scale(np.concatenate(list(ffn.values()), axis=0))
-        fn[l] *= s_d2
+        s_d2 = _col_eq_scale(torch.cat(list(ffn.values())))
+        fn[l] *= s_d2.cpu().numpy()
         for k in ffn_keys:
-            push(k, ffn[k] / s_d2[None, :])
+            push(k, l, ffn[k] / s_d2[None, :])
         qkv = {k: deq(layers[k], l) for k in qkv_keys}
-        s_d = _col_eq_scale(np.concatenate(list(qkv.values()), axis=0))
-        an[l] *= s_d
+        s_d = _col_eq_scale(torch.cat(list(qkv.values())))
+        an[l] *= s_d.cpu().numpy()
         for k in qkv_keys:
-            push(k, qkv[k] / s_d[None, :])
-    for k in mm_keys:
-        out[k] = QTensor(np.stack(parts[k][0]), np.stack(parts[k][1]),
-                         kind="q8_row", logical_out=layers[k].logical_out,
+            push(k, l, qkv[k] / s_d[None, :])
+    for k, (q, r) in res.items():
+        if device is None:
+            q, r = q.numpy(), r.numpy()
+        out[k] = QTensor(q, r, kind="q8_row", logical_out=layers[k].logical_out,
                          layout="canonical")
     out["attn_norm"] = an.astype(_np(layers["attn_norm"]).dtype)
     out["ffn_norm"] = fn.astype(_np(layers["ffn_norm"]).dtype)
@@ -256,9 +270,10 @@ def rowq_convert_weights(weights: dict, experts: bool = True,
     """Convert every Q8_0 QTensor of a (fused) weights tree to q8_row:
     equalized for wqkv/w13/w2, plain `rowq_requant` for the rest (wo, the
     vocab head, an MoE model's shared expert and, with experts=True, its
-    routed expert stacks: K12 serves them). device: see `rowq_requant`."""
+    routed expert stacks: K12 serves them). device: where the conversion is
+    computed and its results live (see `rowq_requant`)."""
     skip = () if experts else _EXPERT_KEYS
-    eq_layers = equalize_rowq_layers(weights["layers"])
+    eq_layers = equalize_rowq_layers(weights["layers"], device)
     converted = sum(1 for k in ("wqkv", "w13", "w2")
                     if isinstance(eq_layers.get(k), QTensor)
                     and eq_layers[k].kind == "q8_row")

@@ -11,14 +11,16 @@
 - K9 `layer_tail_fused_rowq`, counterpart of `_tail_kernel`: everything after
   attention (wo + residual with x2 in f32, rmsnorm, w13, silu * up, w2 +
   residual) for T <= 32 rows (`ffn_fused._MAX_T`), e.g. the B lanes of a
-  batched decode step; above that it returns None, as the JAX function does.
+  batched decode step; above that, or where the JAX function's VMEM fit
+  declines (`tail_fits`), it returns None, as the JAX function does.
 - K16 `layer_tail_kt_fused_rowq`, counterpart of `_tail_kernel_kt`: K9's
   function with w2 streamed as contraction tiles [D, tf] summed in f32 in
   tile order. `layer_tail_fused_rowq` takes it instead of K9 while the module
   flag `_W2_KTILE` is set (read at each call), as the JAX function does;
   bench/sweep_tail.py times the two.
-K2 takes any number of rows; the forward calls it for B * T <= 32 rows, the
-JAX package's rule.
+K2 takes any number of rows; the forward calls it for B * T <= 32 rows where
+`qkv_fits` accepts, and K3 where `attn_tail_fits` does: the JAX package's
+rules, its VMEM fits included (the fits section below).
 
 The working ("dot") dtype is f32 for f32 activations, else bf16. CUDA source:
 csrc/layer_fused.cu (design and bound in its header note). Each entry point
@@ -31,6 +33,8 @@ import torch
 
 from llamatpu_torch import _build
 from llamatpu_torch.models.weights import QTensor
+from llamatpu_torch.ops import ffn_fused
+from llamatpu_torch.ops.ffn_fused import _MAX_T, _pick_to
 from llamatpu_torch.ops.rmsnorm import rmsnorm
 
 
@@ -43,6 +47,143 @@ def _rowq_layer(w: QTensor, li: int) -> tuple[torch.Tensor, torch.Tensor]:
             and not w.logical_out):
         raise NotImplementedError("fused decode kernels take stacked q8_row weights")
     return w.qs[li], w.scales[li][:, 0]
+
+
+# ------------------------------------------------ the JAX package's fits
+# The JAX kernels decline a shape whose blocks and scratch would not fit a
+# TPU core's VMEM (llamatpu/ops/layer_fused.py:300-364, 681-764, 834-860).
+# The port keeps that arithmetic so that its forward takes the kernel the
+# JAX package takes at every shape. One known difference stays: at a width
+# that is not a multiple of 128 the JAX package finds no tile (`_pick_to`)
+# and takes none of these kernels, where the port still takes K2, K3 and K9
+# (ROADMAP.md, Queue 3). `ffn_fused._VMEM_BUDGET` is read at each call.
+_V3_LIMIT = 16 * 1024 * 1024        # K3's scoped-VMEM limit on the TPU
+_V3_STACK = int(3.5 * 1024 * 1024)  # and its measured kernel-stack margin
+
+
+def _lane_pad(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _aligned(*widths: int) -> bool:
+    return all(w % 128 == 0 for w in widths)
+
+
+def _shrink(need, cur: dict, limit: int) -> bool:
+    """Halve the tiles (wo first, then w2, then w13, each while it stays a
+    multiple of 128) until need(cur) <= limit; False if they cannot."""
+    while need(cur) > limit:
+        for name in ("wo", "w2", "w13"):
+            if cur[name] > 128 and (cur[name] // 2) % 128 == 0:
+                cur[name] //= 2
+                break
+        else:
+            return False
+    return True
+
+
+def _tail_vmem(tp, d, hdim, o13, f, towo, to13, to2, xbytes, act_bytes):
+    return (tp * hdim * xbytes + tp * d * xbytes
+            + tp * d * 4 + tp * d * act_bytes
+            + tp * o13 * 4 + tp * f * act_bytes
+            + 2 * tp * to2 * 4
+            + 2 * (towo * hdim + towo * 4)
+            + 2 * (to13 * d + to13 * 4)
+            + 2 * (to2 * f + to2 * 4))
+
+
+def _fit_tail_tiles(t, d, hdim, o13, f, xbytes):
+    """(towo, to13, to2) of the JAX `_tail_kernel` within the budget, or None."""
+    cur = {"wo": _pick_to(d, hdim), "w13": _pick_to(o13, d), "w2": _pick_to(d, f)}
+    if not all(cur.values()):
+        return None
+    tp = -(-t // 8) * 8
+    if not _shrink(lambda c: _tail_vmem(tp, d, hdim, o13, f, c["wo"], c["w13"], c["w2"],
+                                        xbytes, xbytes), cur, ffn_fused._VMEM_BUDGET):
+        return None
+    return cur["wo"], cur["w13"], cur["w2"]
+
+
+def _fit_tail_tiles_kt(t, d, hdim, o13, f, xbytes):
+    """(towo, to13, tf) of the JAX `_tail_kernel_kt` within the budget, or None."""
+    tf = next((c for c in (1024, 512, 256, 128)
+               if f % c == 0 and d * c <= ffn_fused._BLOCK_BYTES), 0)
+    cur = {"wo": _pick_to(d, hdim), "w13": _pick_to(o13, d), "w2": tf}
+    if not all(cur.values()):
+        return None
+    tp = -(-t // 8) * 8
+
+    def need(c):
+        return (_tail_vmem(tp, d, hdim, o13, f, c["wo"], c["w13"], 128, xbytes, xbytes)
+                - 2 * (128 * f + 128 * 4) + 2 * (d * c["w2"] + d * 4) + tp * d * 4)
+    if not _shrink(need, cur, ffn_fused._VMEM_BUDGET):
+        return None
+    return cur["wo"], cur["w13"], cur["w2"]
+
+
+def _fit_attn_tail(t, d, hdim, o13, f, kvh, g, width, S, kv_itemsize, xbytes):
+    """(towo, to13, to2, s_tile) of the JAX `_attn_tail_kernel` within its
+    16 MiB limit, lane padding and stack margin included, or None."""
+    tiles = {"wo": _pick_to(d, hdim), "w13": _pick_to(o13, d), "w2": _pick_to(d, f)}
+    if not all(tiles.values()):
+        return None
+    tp = -(-t // 8) * 8
+    vhd = width // 2
+    kv_padw = _lane_pad(width)
+
+    def need(c, s_tile):
+        est = _tail_vmem(tp, d, hdim, o13, f, c["wo"], c["w13"], c["w2"], xbytes, xbytes)
+        est += 2 * kvh * s_tile * kv_padw * kv_itemsize
+        est += 2 * kvh * 32 * kv_padw * kv_itemsize
+        est += 3 * kvh * g * 128 * 4 + kvh * g * kv_padw * 4 + tp * hdim * xbytes
+        est += 2 * kvh * (kv_padw + _lane_pad(vhd)) * xbytes
+        est += (kv_padw * hdim + 2 * kvh * g * hdim) * 4
+        return est + _V3_STACK
+
+    for s_tile in (512, 256, 128, 64, 32):
+        if S % s_tile:
+            continue
+        cur = dict(tiles)
+        if _shrink(lambda c: need(c, s_tile), cur, _V3_LIMIT):
+            return cur["wo"], cur["w13"], cur["w2"], s_tile
+    return None
+
+
+def _qkv_need(t, o, d, xbytes) -> int | None:
+    """VMEM estimate of the JAX `_qkv_kernel`, or None where it has no tile."""
+    to = _pick_to(o, d)
+    if not to:
+        return None
+    tp = -(-t // 8) * 8
+    return tp * d * xbytes + tp * d * xbytes + 2 * tp * to * 4 + 2 * (to * d + to * 4)
+
+
+def qkv_fits(t: int, o: int, d: int, xbytes: int) -> bool:
+    """K2 for t rows of x [t, d] and wqkv [o, d], as the JAX package's
+    `qkv_norm_fused_rowq` takes its kernel."""
+    if t > _MAX_T:
+        return False
+    if not _aligned(o):
+        return True
+    need = _qkv_need(t, o, d, xbytes)
+    return need is not None and need <= ffn_fused._VMEM_BUDGET
+
+
+def tail_fits(t: int, d: int, hdim: int, f: int, xbytes: int) -> bool:
+    """K9 for t rows, as the JAX package's `layer_tail_fused_rowq` fits."""
+    return t <= _MAX_T and (not _aligned(d, 2 * f)
+                           or _fit_tail_tiles(t, d, hdim, 2 * f, f, xbytes) is not None)
+
+
+def attn_tail_fits(d: int, hdim: int, f: int, kvh: int, g: int, vhd: int, s_len: int,
+                   kv_itemsize: int, xbytes: int) -> bool:
+    """K3 at one token, as the JAX package's `layer_attn_tail_fused_rowq`
+    accepts: a power-of-two value head (its flatten shifts and masks) and
+    the fit of its tiles, KV stream and scratch."""
+    if vhd & (vhd - 1):
+        return False
+    return not _aligned(d, 2 * f) or _fit_attn_tail(
+        1, d, hdim, 2 * f, f, kvh, g, 2 * vhd, s_len, kv_itemsize, xbytes) is not None
 
 
 # ----------------------------------------------------------------- K2
@@ -172,8 +313,6 @@ layer_attn_tail_fused_rowq.launches = 0
 
 
 # ----------------------------------------------------------------- K9
-MAX_T = 32  # rows the fused tail takes (llamatpu/ops/ffn_fused.py _MAX_T)
-
 
 def _tail_weights(wo, w13, w2, li):
     for w in (wo, w13, w2):
@@ -183,14 +322,16 @@ def _tail_weights(wo, w13, w2, li):
     return _rowq_layer(wo, li), _rowq_layer(w13, li), _rowq_layer(w2, li)
 
 
-def _tail_rows(attn, x, parts) -> int | None:
+def _tail_rows(attn, x, parts, fit=tail_fits) -> int | None:
+    """T when the weights' and inputs' shapes match and `fit` accepts them."""
     (wo_q, _), (w13_q, _), (w2_q, _) = parts
     d, hdim = wo_q.shape
+    f = w2_q.shape[1]
     t = x.numel() // x.shape[-1]
-    if (t > MAX_T or w13_q.shape != (2 * w2_q.shape[1], d) or w2_q.shape[0] != d
+    if (t > _MAX_T or w13_q.shape != (2 * f, d) or w2_q.shape[0] != d
             or x.shape[-1] != d or attn.shape[-1] != hdim or attn.numel() != t * hdim):
         return None
-    return t
+    return t if fit(t, d, hdim, f, 4 if x.dtype == torch.float32 else 2) else None
 
 
 def _tail_front(parts, ffn_norm, attn, x, li: int, t: int, eps: float, residual_scale: float):
@@ -235,11 +376,14 @@ def layer_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torc
                           residual_scale: float = 1.0):
     """new x [..., D] (x's dtype) = x + rs * wo(attn), then + rs * FFN(rmsnorm(.)),
     with stacked q8_row wo [L, D, H], w13 [L, 2F, D], w2 [L, D, F] and
-    ffn_norm [L, D]; attn [..., H]. None for more than 32 rows or weights
-    other than stacked q8_row (the caller takes the unfused chain). While
-    `_W2_KTILE` is set, K16 (`layer_tail_kt_fused_rowq`) where F has a tile."""
-    if _W2_KTILE and isinstance(w2, QTensor) and ktile_width(w2.qs.shape[-1]):
-        return layer_tail_kt_fused_rowq(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
+    ffn_norm [L, D]; attn [..., H]. None for more than 32 rows, weights
+    other than stacked q8_row, or where the JAX function's VMEM fit declines
+    (the caller takes the unfused chain). While `_W2_KTILE` is set, K16
+    (`layer_tail_kt_fused_rowq`) where it fits, as in the JAX package."""
+    if _W2_KTILE:
+        y = layer_tail_kt_fused_rowq(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
+        if y is not None:
+            return y
     if x.device.type == "cpu":
         return layer_tail_plain(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
     parts = _tail_weights(wo, w13, w2, li)
@@ -284,11 +428,17 @@ def ktile_width(f: int) -> int:
     return next((c for c in (1024, 512, 256, 128) if f % c == 0), 0)
 
 
+def tail_kt_fits(t: int, d: int, hdim: int, f: int, xbytes: int) -> bool:
+    """K16 for t rows, as the JAX package's `_fit_tail_tiles_kt` fits."""
+    return bool(ktile_width(f)) and (
+        not _aligned(d, 2 * f) or _fit_tail_tiles_kt(t, d, hdim, 2 * f, f, xbytes) is not None)
+
+
 def layer_tail_kt_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, attn, x, li: int,
                         eps: float, residual_scale: float = 1.0):
     """Plain version of K16: K9's, with the w2 products summed tile by tile."""
     parts = _tail_weights(wo, w13, w2, li)
-    t = None if parts is None else _tail_rows(attn, x, parts)
+    t = None if parts is None else _tail_rows(attn, x, parts, tail_kt_fits)
     if t is None:
         return None
     x2, act = _tail_front(parts, ffn_norm, attn, x, li, t, eps, residual_scale)
@@ -304,19 +454,17 @@ def layer_tail_kt_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: t
                              attn: torch.Tensor, x: torch.Tensor, li: int, eps: float,
                              residual_scale: float = 1.0):
     """K16: `layer_tail_fused_rowq`'s function and arguments, w2 in contraction
-    tiles. None where K9 declines or F has no tile."""
+    tiles. None where its shapes or its fit decline (`tail_kt_fits`)."""
     if x.device.type == "cpu":
         return layer_tail_kt_plain(wo, w13, w2, ffn_norm, attn, x, li, eps, residual_scale)
     parts = _tail_weights(wo, w13, w2, li)
-    t = None if parts is None else _tail_rows(attn, x, parts)
+    t = None if parts is None else _tail_rows(attn, x, parts, tail_kt_fits)
     if t is None:
         return None
     (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
     d, hdim = wo_q.shape
     f = w2_q.shape[1]
     tf = ktile_width(f)
-    if not tf:
-        return None
     a2 = attn.reshape(t, hdim).to(x.dtype).contiguous()
     x2in = x.reshape(t, d).contiguous()
     _build.require(all(w.is_contiguous() for w in (wo_q, w13_q, w2_q, so, s13, s2))

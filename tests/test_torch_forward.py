@@ -104,8 +104,8 @@ def test_port_imports_no_jax_and_no_llamatpu():
     """Every module of the port (slice 2's GGUF, tokenizer, format, CLI,
     session and bench modules, slice 3's paged cache, batch engines,
     scheduler, server and tool parser, slice 4's grouped expert matmuls,
-    slice 5's int8 KV quantization and slice 6's measuring tools and probes
-    included), imported in a fresh
+    slice 5's int8 KV quantization, slice 6's measuring tools and probes,
+    slice 7's fused FFN and SPM tokenizer included), imported in a fresh
     interpreter, loads no jax, no ml_dtypes,
     no regex and no module of the JAX package."""
     code = r"""
@@ -126,7 +126,7 @@ need = ["llamatpu_torch." + m for m in (
     "runtime.scheduler", "server.service", "server.openai_server", "server.stop_strings",
     "format.tool_parser", "bench.serving_latency", "ops.moe_grouped", "ops.kv_quant",
     "ops.probes", "bench.roofline", "bench.dma_sweep", "bench.sweep_tail", "bench.bench_gemm",
-    "bench.llama_bench", "gguf.convert", "utils.profiling")]
+    "bench.llama_bench", "gguf.convert", "utils.profiling", "ops.ffn_fused", "tokenizer.spm")]
 print("MISSING", [m for m in need if m not in new])
 print("N", sum(n.startswith("llamatpu_torch") for n in new))
 """

@@ -12,7 +12,11 @@ It runs every phase, needs one card, and exits non-zero
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
 3. kernels: each kernel (K1-K20, with K6's and K8's int8 variants) against
             its plain PyTorch version on the card, at the main-path shapes of
-            llama32-1b (K1-K9; K2 also at 8 and 32 rows, K5 at T = 8, K6 at 8
+            llama32-1b (K1-K9; K4 and K17 at every prefill projection the
+            paths give them: llama32-1b's four at T = 512 and 128,
+            Phi-3-medium's four at T = 128 and a ragged T = 200, O = 2560, I =
+            2064, each logged with its CTAs and shared tiles; K2 also at 8
+            and 32 rows, K5 at T = 8, K6 at 8
             lanes, K8 at 8 lanes of a shuffled block pool, K9 at 1, 8 and 32
             rows; K14 fused bf16/int8 on a 33792-row cache at pos 0 to 32767
             and 8 mixed lanes, unfused, stats and f32; K15 over 4000 of 4128
@@ -21,8 +25,8 @@ It runs every phase, needs one card, and exits non-zero
             Qwen1.5-MoE-A2.7B (K10-K13 on one layer's folded stacks, E = 64,
             at 1, 8 and 512 tokens; K6 and K8 at hd 128, G 1; K2 at O =
             6144; K5 on the 151936-row head), with the stated tolerances;
-            slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K17 at the
-            four prefill projections at T = 512, K18a-j and K19a-c on the
+            slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K18a-j and
+            K19a-c on the
             probe scripts' [24, 4096, 4096] stacks at every configuration
             of the scripts; slice 7's: K20 at Phi-3-medium widths, T = 17
             and 24 in bf16, and at Qwen2.5-14B widths, T = 32 in f32, with
@@ -102,7 +106,8 @@ It runs every phase, needs one card, and exits non-zero
             HTTP.
 14b. harnesses: slice 6's, each a path with its counts read over it:
             bench/sweep_tail.py (K9 against K16 over the 16 layers, T = 1
-            and 8), bench/bench_gemm.py (torch._int_mm, K4, K17 at T = 512),
+            and 8), bench/bench_gemm.py (torch._int_mm, K4, K17 and bf16
+            torch.matmul at T = 512 and 128),
             bench/roofline.py (K18 and the library rows) and
             bench/dma_sweep.py (K19) on [24, 4096, 4096] stacks; each times
             its launches as one CUDA-graph replay, asserts its counts and
@@ -365,41 +370,8 @@ def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
         shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD} D={D} F={F}"))
     del wo, w13, w2, kvc
 
-    # ---- K4: the four prefill projections of a layer at T = 512
-    shapes = {"wqkv": (O, D), "wo": (D, hdim), "w13": (2 * F, D), "w2": (D, F)}
-    per = {}
-    abs_max = 0.0
-    tot = {"bytes": 0, "ops": 0}
-    for name, (o, i) in shapes.items():
-        w = rand_rowq(1, o, i, dev, gen)
-        qs, s = w.qs[0], w.scales[0]
-        xi8 = torch.randint(-127, 128, (T, i), dtype=torch.int8, device=dev, generator=gen)
-        ax = torch.rand((T, 1), device=dev, generator=gen) * 0.01
-        got = gemm.rowq_gemm(qs, s, xi8, ax)
-        want = gemm.rowq_gemm_plain(qs, s, xi8, ax)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), f"K4 {name} not bit-identical: {max_err(got, want)}"
-        abs_max = max(abs_max, (got - want).abs().max().item())
-        qt = qs.t()
-        tm = timings(lambda: gemm.rowq_gemm(qs, s, xi8, ax), ("gemm_s8_kernel",),
-                     lambda: gemm.rowq_gemm_plain(qs, s, xi8, ax),
-                     lambda: torch._int_mm(xi8, qt))
-        nb, op = o * i + T * i + T * 4 + o * 4 + T * o * 4, 2 * T * o * i
-        per[name] = dict(**tm, bound_ms=bound(nb, op, INT8_OPS_S)[0], shape=f"T={T} O={o} I={i}")
-        for k in ("ms", "wrapper_ms", "plain_ms", "library_ms"):
-            tot[k] = tot.get(k, 0.0) + tm[k]
-        tot["bytes"] += nb
-        tot["ops"] += op
-        del w, qs, s, xi8
-    b_ms, b_by = bound(tot["bytes"], tot["ops"], INT8_OPS_S)
-    rows.append(dict(
-        name="rowq_gemm", route="cuda", source="llamatpu_torch/csrc/gemm.cu",
-        replaces="llamatpu/ops/pallas_gemm.py:56", max_abs_err=abs_max, max_rel_err=0.0,
-        tolerance="bit-identical", ms=tot["ms"], ms_source=per["wo"]["ms_source"],
-        wrapper_ms=tot["wrapper_ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
-        library="torch._int_mm (int32 out, no epilogue)",
-        bound_ms=b_ms, bound_by=b_by, shape="one layer: wqkv+wo+w13+w2 at T=512",
-        per_shape=per))
+    # ---- K4: every prefill projection shape of the paths (one layer at T = 512 is the row)
+    rows.append(check_rowq_gemm(dev, bf16=False, dims=dims))
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"plain {r['plain_ms']:.4f}, library {r['library_ms']}) err {r['max_abs_err']:.3g}")
@@ -1193,54 +1165,127 @@ def check_tail_kt(dev, dims=LLAMA32_1B) -> dict:
         library=None, shape=f"T=8 rows D={D} H={H} F={F} tf=1024", by_rows=per)
 
 
-def check_gemm_bf16(dev, dims=LLAMA32_1B) -> dict:
-    """K17 against its plain version at the four prefill projections of a
-    llama32-1b layer at T = 512: the same exact products summed in f32 in
-    another order, within 1e-5 of the largest plain output."""
+K4_NAMES = ("gemm_s8_kernel", "gemm_s8_reduce_kernel")  # K4's main kernel and second pass
+K17_NAMES = ("gemm_bf16_kernel", "gemm_bf16_reduce_kernel")
+
+
+def gemm_shapes(dims=LLAMA32_1B, phi3=PHI3_MEDIUM) -> dict:
+    """{layer: {projection: (T, O, I)}} of every K4 call on the paths:
+    llama32-1b's four projections at the 512-row prefill chunk and at the
+    128-row serving chunks, Phi-3-medium's at its 128-token prompt, and a
+    ragged last chunk."""
+    def layer(d):
+        qkv = (d["G"] * d["KV"] + 2 * d["KV"]) * d["HD"]
+        return {"wqkv": (qkv, d["D"]), "wo": (d["D"], d["KV"] * d["G"] * d["HD"]),
+                "w13": (2 * d["F"], d["D"]), "w2": (d["D"], d["F"])}
+
+    llama, phi = layer(dims), layer(phi3)
+    return {f"llama32-1b T={dims['T']}": {k: (dims["T"], o, i) for k, (o, i) in llama.items()},
+            "llama32-1b T=128": {k: (128, o, i) for k, (o, i) in llama.items()},
+            "phi3-medium T=128": {k: (128, o, i) for k, (o, i) in phi.items()},
+            "ragged": {"T=200": (200, 2560, 2064)}}
+
+
+def check_rowq_gemm(dev, bf16: bool, dims=LLAMA32_1B) -> dict:
+    """K4 (bf16=False) or K17 against its plain version at every shape of
+    `gemm_shapes`: K4 bit-identical, K17 within 1e-5 of the largest plain
+    output (the same exact products summed in f32 in another order). Each
+    shape's times, bound, CTAs and shared tiles are logged; the table row
+    is one llama32-1b layer at the prefill chunk, with every layer's sums
+    and every shape beside it. Library: `torch._int_mm` (int32 out, no
+    epilogue); for K17 also bf16 `torch.matmul` of the cast operands (its
+    output is bf16). Where the other kernel's plan differs (whole tiles
+    against stream-K, `ops/gemm.py plan_gemm`), the shape is checked and
+    timed under it too, the planner swapped for that call: the evidence for
+    the planner's rule."""
     import torch
 
     from llamatpu_torch.ops import gemm
 
-    gen = torch.Generator(device=dev).manual_seed(17)
-    D, F, KV, G, HD, T = (dims[k] for k in ("D", "F", "KV", "G", "HD", "T"))
-    O = (G * KV + 2 * KV) * HD
-    shapes = {"wqkv": (O, D), "wo": (D, KV * G * HD), "w13": (2 * F, D), "w2": (D, F)}
-    per, tot = {}, {"bytes": 0, "ops": 0}
-    worst = (0.0, 0.0)
-    for name, (o, i) in shapes.items():
-        w = rand_rowq(1, o, i, dev, gen)
-        qs, s = w.qs[0], w.scales[0]
-        xi8 = torch.randint(-127, 128, (T, i), dtype=torch.int8, device=dev, generator=gen)
-        ax = torch.rand((T, 1), device=dev, generator=gen) * 0.01
-        got = gemm.rowq_gemm(qs, s, xi8, ax, variant="bf16")
-        want = gemm.rowq_gemm_bf16_plain(qs, s, xi8, ax)
-        torch.cuda.synchronize()
-        e = max_err(got, want)
-        assert e[1] <= 1e-5, f"K17 {name} disagrees: {e}"
-        worst = max(worst, e)
-        qt = qs.t()
-        tm = timings(lambda: gemm.rowq_gemm_bf16(qs, s, xi8, ax), ("gemm_bf16_kernel",),
-                     lambda: gemm.rowq_gemm_bf16_plain(qs, s, xi8, ax),
-                     lambda: torch._int_mm(xi8, qt))
-        nb, op = o * i + T * i + T * 4 + o * 4 + T * o * 4, 2 * T * o * i
-        per[name] = dict(**tm, bound_ms=bound(nb, op, BF16_OPS_S)[0], shape=f"T={T} O={o} I={i}",
-                         max_rel_err=e[1])
-        for k in ("ms", "wrapper_ms", "plain_ms", "library_ms"):
-            tot[k] = tot.get(k, 0.0) + tm[k]
-        tot["bytes"] += nb
-        tot["ops"] += op
-        log(f"K17 {name}: {tm['ms']:.4f} ms (bound {per[name]['bound_ms']:.4f}), rel err "
-            f"{e[1]:.3g}")
-        del w, qs, s, xi8
-    b_ms, b_by = bound(tot["bytes"], tot["ops"], BF16_OPS_S)
+    gen = torch.Generator(device=dev).manual_seed(17 if bf16 else 4)
+    tag, names = ("K17", K17_NAMES) if bf16 else ("K4", K4_NAMES)
+    peak = BF16_OPS_S if bf16 else INT8_OPS_S
+    fn = gemm.rowq_gemm_bf16 if bf16 else gemm.rowq_gemm
+    plain = gemm.rowq_gemm_bf16_plain if bf16 else gemm.rowq_gemm_plain
+    per, layers, worst = {}, {}, (0.0, 0.0)
+    for label, shapes in gemm_shapes(dims).items():
+        tot = {"bytes": 0, "ops": 0}
+        for name, (t, o, i) in shapes.items():
+            w = rand_rowq(1, o, i, dev, gen)
+            qs, s = w.qs[0], w.scales[0]
+            xi8 = torch.randint(-127, 128, (t, i), dtype=torch.int8, device=dev, generator=gen)
+            ax = torch.rand((t, 1), device=dev, generator=gen) * 0.01
+            got, want = fn(qs, s, xi8, ax), plain(qs, s, xi8, ax)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            if bf16:
+                assert e[1] <= 1e-5, f"K17 {label} {name} disagrees: {e}"
+            else:
+                assert torch.equal(got, want), f"K4 {label} {name} not bit-identical: {e}"
+            worst = max(worst, e)
+            qt = qs.t()
+            tm = timings(lambda: fn(qs, s, xi8, ax), names, lambda: plain(qs, s, xi8, ax),
+                         lambda: torch._int_mm(xi8, qt))
+            if bf16:
+                xb, wb = xi8.to(torch.bfloat16), qs.to(torch.bfloat16)
+                tm["library_bf16_ms"] = time_ms(lambda: torch.matmul(xb, wb.T))
+                del xb, wb
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan, alt = gemm.plan_gemm(t, o, i, sms, bf16), gemm.plan_gemm(t, o, i, sms, not bf16)
+            if alt != plan:
+                planner = gemm.plan_gemm
+                gemm.plan_gemm = lambda *args, **kw: alt
+                try:
+                    got = fn(qs, s, xi8, ax)
+                    torch.cuda.synchronize()
+                    ea = max_err(got, want)
+                    assert (ea[1] <= 1e-5) if bf16 else torch.equal(got, want), \
+                        f"{tag} {label} {name} under the other plan: {ea}"
+                    tm["other_plan_ms"] = kernel_ms(lambda: fn(qs, s, xi8, ax), names)
+                finally:
+                    gemm.plan_gemm = planner
+                tm["other_plan"] = ("whole tiles" if alt.tiles_dp == alt.tiles else
+                                    f"{alt.ctas} CTAs, stream-K")
+            nb, op = o * i + t * i + t * 4 + o * 4 + t * o * 4, 2 * t * o * i
+            b_ms = bound(nb, op, peak)[0]
+            shared = sum(1 for tile in range(plan.tiles) if plan.pieces(tile))
+            per[f"{label} {name}"] = dict(
+                **tm, bound_ms=b_ms, shape=f"T={t} O={o} I={i}", max_rel_err=e[1],
+                ctas=plan.ctas, whole_tile_rounds=-(-plan.tiles_dp // plan.ctas),
+                tiles=plan.tiles, shared_tiles=shared, k_stages=plan.nk)
+            for k in ("ms", "wrapper_ms", "plain_ms", "library_ms", "library_bf16_ms"):
+                if k in tm:
+                    tot[k] = tot.get(k, 0.0) + tm[k]
+            tot["bytes"] += nb
+            tot["ops"] += op
+            log(f"{tag} {label} {name} (T={t} O={o} I={i}): {tm['ms']:.4f} ms, bound "
+                f"{b_ms:.4f}, _int_mm {tm['library_ms']:.4f}, {plan.ctas} CTAs, "
+                f"{-(-plan.tiles_dp // plan.ctas)} whole-tile rounds, {shared} of {plan.tiles} "
+                f"tiles shared over {plan.nk} K stages; rel err {e[1]:.3g}"
+                + (f"; under the other plan ({tm['other_plan']}) {tm['other_plan_ms']:.4f} ms"
+                   if "other_plan" in tm else ""))
+            del w, qs, s, xi8, got, want
+        b_ms, b_by = bound(tot.pop("bytes"), tot.pop("ops"), peak)
+        layers[label] = dict(**tot, bound_ms=b_ms, bound_by=b_by)
+        if label != "ragged":
+            log(f"{tag} {label}, a layer: {tot['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                f"_int_mm {tot['library_ms']:.4f})")
+    torch.cuda.empty_cache()
+    row = layers[f"llama32-1b T={dims['T']}"]
     return dict(
-        name="rowq_gemm_bf16", route="cuda", source="llamatpu_torch/csrc/gemm.cu",
-        replaces="llamatpu/ops/pallas_gemm.py:65", max_abs_err=worst[0], max_rel_err=worst[1],
-        tolerance="rel <= 1e-5 of max|plain| (f32 sums of exact products, another order)",
-        ms=tot["ms"], ms_source=per["wo"]["ms_source"], wrapper_ms=tot["wrapper_ms"],
-        plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
-        library="torch._int_mm (int32 out, no epilogue)", bound_ms=b_ms, bound_by=b_by,
-        shape="one layer: wqkv+wo+w13+w2 at T=512", per_shape=per)
+        name="rowq_gemm_bf16" if bf16 else "rowq_gemm", route="cuda",
+        source="llamatpu_torch/csrc/gemm.cu",
+        replaces="llamatpu/ops/pallas_gemm.py:" + ("65" if bf16 else "56"),
+        max_abs_err=worst[0], max_rel_err=worst[1],
+        tolerance=("rel <= 1e-5 of max|plain| (f32 sums of exact products, another order)"
+                   if bf16 else "bit-identical"),
+        ms=row["ms"], ms_source=per[f"llama32-1b T={dims['T']} wo"]["ms_source"],
+        wrapper_ms=row["wrapper_ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+        library="torch._int_mm (int32 out, no epilogue)", bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], shape=f"one layer: wqkv+wo+w13+w2 at T={dims['T']}",
+        **({"library_bf16_ms": row["library_bf16_ms"],
+            "library_bf16": "bf16 torch.matmul of the cast operands (bf16 out)"} if bf16 else {}),
+        per_layer=layers, per_shape=per)
 
 
 def probe_weights(dev):
@@ -1368,7 +1413,7 @@ def check_dma_probes(dev, w) -> list[dict]:
 def check_slice6_kernels(dev) -> list[dict]:
     import torch
 
-    rows = [check_tail_kt(dev), check_gemm_bf16(dev)]
+    rows = [check_tail_kt(dev), check_rowq_gemm(dev, bf16=True)]
     w = probe_weights(dev)
     rows += check_roofline_probes(dev, w) + check_dma_probes(dev, w)
     del w
@@ -1407,7 +1452,7 @@ IN_PATH = {
     "layer_attn_tail_fused_rowq": ("main", "decode16_trace", (
         "attn_append_kernel", "gemv_kernel<1, 0, 2>", "gemv_kernel<1, 1, 4>",
         "gemv_kernel<1, 0, 3>"), 1),
-    "rowq_gemm": ("main", "prefill_trace", ("gemm_s8_kernel",), 4),
+    "rowq_gemm": ("main", "prefill_trace", K4_NAMES, 4),
     "block_matmul": ("gguf", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 65),
     "decode_attention_fused_write": ("gguf", "decode16_trace",
                                      ("attn_split_kernel", "attn_combine_kernel"), 1),
@@ -1435,10 +1480,11 @@ IN_PATH = {
 }
 
 
-def in_path_ms(paths: dict, name: str) -> float:
-    """Device ms per table row of a kernel inside its traced main path."""
-    path, trace, keys, per_row = IN_PATH[name]
-    tr = paths[path][trace]
+def in_path_ms(paths: dict, name: str, path: str | None = None) -> float:
+    """Device ms per table row of a kernel inside its traced main path (or
+    inside `path`'s trace of the same name)."""
+    main, trace, keys, per_row = IN_PATH[name]
+    tr = paths[path or main][trace]
     return per_row * sum(r["ms"] for r in tr["kernels"]
                          if any(k in r["name"] for k in keys)) / tr["launches"][name]
 
@@ -2962,8 +3008,8 @@ def run_harness_paths(dev, dims=LLAMA32_1B) -> dict:
     launches as one CUDA-graph replay and asserts that each kernel's count
     grew by the launches it issued; their JSON rows are printed here.
     - sweep_tail: K9 against K16 over the 16 llama32-1b layers, T = 1 and 8;
-    - bench_gemm: torch._int_mm + epilogue, K4 and K17 at the four prefill
-      projections, T = 512;
+    - bench_gemm: torch._int_mm + epilogue, K4, K17 and bf16 torch.matmul at
+      the four prefill projections, T = 512 and 128;
     - roofline: K18's rows (and the library rows) on [24, 4096, 4096] stacks;
     - dma_sweep: K19's rows on the same stacks."""
     import torch
@@ -2994,7 +3040,8 @@ def run_harness_paths(dev, dims=LLAMA32_1B) -> dict:
             del st
         return rows
     run("sweep_tail", tails, lambda r: f"{r['variant']} T={r['T']}")
-    run("bench_gemm", lambda: bench_gemm.bench(dims["T"], 32, dev), lambda r: r["shape"])
+    run("bench_gemm", lambda: bench_gemm.bench(dims["T"], 32, dev) + bench_gemm.bench(128, 32, dev),
+        lambda r: f"{r['shape']} T={r['T']}")
     w = probe_weights(dev)
     run("roofline", lambda: roofline.bench(w, 24, dev), lambda r: r["variant"])
     run("dma_sweep", lambda: dma_sweep.bench(w, 24, dev), lambda r: r["probe"])
@@ -3012,8 +3059,8 @@ def slice6_in_path_ms(harness: dict, name: str) -> float:
     h = harness[label]
     if label == "sweep_tail":
         return h["by_key"][key]["ms_per_layer"]
-    if label == "bench_gemm":  # one layer's four projections, as the row
-        return sum(r["k17_ms"] for r in h["rows"])
+    if label == "bench_gemm":  # one layer's four projections at the prefill chunk, as the row
+        return sum(r["k17_ms"] for r in h["rows"] if r["T"] == LLAMA32_1B["T"])
     return h["by_key"][key]["ms_per_call"]
 
 
@@ -3557,6 +3604,11 @@ def main() -> int:
             else:
                 r["launches"] = paths[IN_PATH[r["name"]][0]]["launches"][r["name"]]
             r["in_path_ms"] = in_path_ms(paths, r["name"])
+            if r["name"] == "rowq_gemm":  # K4 a layer in Phi-3-medium's 128-token prefill
+                r["phi3_in_path_ms"] = in_path_ms(paths, "rowq_gemm", "phi3_b1")
+                log(f"K4 in path, a layer: {r['in_path_ms']:.4f} ms in the main path's "
+                    f"{LLAMA32_1B['T']}-row chunk, {r['phi3_in_path_ms']:.4f} ms in "
+                    "Phi-3-medium's 128-token prefill")
             if r["name"] == "layer_tail_fused_rowq":  # K3's tail at T = 1, beside K9's
                 r["k3_in_path_ms"] = in_path_ms(paths, "layer_attn_tail_fused_rowq")
         summary["cpu"] = run_cpu_compare(dev, workdir)

@@ -52,7 +52,7 @@ _SIGNATURES = {
         "lt_ffn_fused": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "gemm": {
-        "lt_rowq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "lt_rowq_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "block_matmul": {
         "lt_block_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -1,19 +1,23 @@
 """Prefill GEMM A/B on the card: the port of scripts/bench_gemm.py.
 
-At llama32-1b's four prefill projections (T = 512 rows by default), three
-ways to compute y[T, O] = (xi8 . qs^T) * ax * s from the same int8 operands
-(qs, row scales and x from a numpy seed, x quantized per row as the prefill
-path does): the library (`torch._int_mm`, then the epilogue as torch ops),
-K4 (`ops.gemm.rowq_gemm`, int8 tensor cores, int32 sums) and K17
-(`rowq_gemm(variant="bf16")`, bf16 tensor cores, f32 sums). Each is timed as
-`rep` calls captured in one CUDA graph and replayed between CUDA events.
-One JSON row per shape: ms per call, TFLOP/s of each and its share of the
-card's dense int8 peak (1979 TOP/s, H100 SXM data sheet), and each result's
-max difference from the exact plain version. It asserts that K4's and K17's
-counts grew by the launches it issued (the check calls after the timing are
-not counted in the row).
+At llama32-1b's four prefill projections (T = 512 rows by default; 128 is
+the serving chunk), three ways to compute y[T, O] = (xi8 . qs^T) * ax * s
+from the same int8 operands (qs, row scales and x from a numpy seed, x
+quantized per row as the prefill path does): the library (`torch._int_mm`,
+then the epilogue as torch ops), K4 (`ops.gemm.rowq_gemm`, int8 tensor
+cores, int32 sums) and K17 (`rowq_gemm(variant="bf16")`, bf16 tensor cores,
+f32 sums), and beside them K17's own yardstick, bf16 `torch.matmul` of the
+operands cast once outside the timing (bf16 out, no epilogue). Each is timed
+as `rep` calls captured in one CUDA graph and replayed between CUDA events.
+One JSON row per shape: ms per call (`library_ms`, `k4_ms`, `k17_ms`,
+`library_bf16_ms`), TFLOP/s of each and its share of the card's dense int8
+peak (1979 TOP/s, H100 SXM data sheet), and each result's max difference from
+the exact plain version. It asserts that K4's and K17's counts grew by the
+launches it issued (the check calls after the timing are not counted in the
+row).
 
     python -m llamatpu_torch.bench.bench_gemm [T]
+    python -m llamatpu_torch.bench.bench_gemm 128
     python -m llamatpu_torch.bench.bench_gemm 64 --device cpu
 """
 from __future__ import annotations
@@ -57,11 +61,13 @@ def bench(t: int, rep: int, device, shapes=SHAPES) -> list[dict]:
         qs, sc, xi8, ax = operands(o, i, t, device, rng)
         flops = 2.0 * t * o * i * rep
         row = {"bench": "gemm-ab", "shape": name, "device": str(device), "T": t, "O": o, "I": i}
+        xb, wb = xi8.to(torch.bfloat16), qs.to(torch.bfloat16)
         fns = {"library": lambda: library_gemm(qs, sc, xi8, ax),
                "k4": lambda: gemm.rowq_gemm(qs, sc, xi8, ax),
-               "k17": lambda: gemm.rowq_gemm(qs, sc, xi8, ax, variant="bf16")}
-        if device.type == "cpu":
-            del fns["library"]  # torch._int_mm is a CUDA operator
+               "k17": lambda: gemm.rowq_gemm(qs, sc, xi8, ax, variant="bf16"),
+               "library_bf16": lambda: torch.matmul(xb, wb.T)}
+        if device.type == "cpu":  # torch._int_mm is a CUDA operator; the CPU times the plain versions
+            del fns["library"], fns["library_bf16"]
         before = (gemm.rowq_gemm.launches, gemm.rowq_gemm_bf16.launches)
         for tag, fn in fns.items():
             secs = time_run(lambda fn=fn: [fn() for _ in range(rep)], device)
@@ -75,7 +81,8 @@ def bench(t: int, rep: int, device, shapes=SHAPES) -> list[dict]:
         # correctness: each against the exact plain version
         want = gemm.rowq_gemm_plain(qs, sc, xi8, ax)
         for tag, fn in fns.items():
-            row[f"{tag}_maxdiff"] = float((fn() - want).abs().max())
+            if tag != "library_bf16":  # bf16 out: a yardstick of time only
+                row[f"{tag}_maxdiff"] = float((fn() - want).abs().max())
         row["max_abs"] = float(want.abs().max())
         out.append(row)
     return out

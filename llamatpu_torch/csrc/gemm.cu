@@ -1,6 +1,6 @@
-// K4: the w8a8 prefill projection (T >= 128).
+// K4 and K17: the w8a8 GEMMs of the q8_row prefill projections (T >= 128).
 //
-// Replaces llamatpu/ops/pallas_gemm.py `_gemm_kernel` (and its stacked
+// K4 replaces llamatpu/ops/pallas_gemm.py `_gemm_kernel` (and its stacked
 // `_gemm_kernel_li` twin: a layer is the view qs[li] here), which the JAX
 // package keeps bit-identical to its XLA int8 dot
 // `int8_prefill.rowq_matmul_mxu`:
@@ -8,34 +8,74 @@
 //   y[t, o] = float(sum_k xi8[t, k] * qs[o, k]) * ax[t] * s[o]
 //
 // int8 x int8 products, an exact int32 sum (the caller asserts I <=
-// _INT8_ACC_MAX_I), then the f32 epilogue in that order — so the result is
-// bit-identical to the plain version whatever the summation order.
+// _INT8_ACC_MAX_I), then the f32 epilogue in that order, each product
+// rounded: the result is bit-identical to the plain version whatever the
+// summation order or the split of K.
 //
-// Bound on the H100: about equally operations and bytes. A llama32-1b layer
-// at T = 512 is ~62.3 G int8 operations (~31.5 us at 1979 TOP/s dense int8)
-// and, with its f32 [T, O] outputs, ~116 MB (~34.8 us at 3.35 TB/s). This first
-// version: 128 x 128 output tiles per 256-thread block, K in steps of 64
-// copied by cp.async into two shared-memory stages (the next step's tiles
-// land while this one multiplies; row stride 80 bytes, so the fragment reads
-// are bank-conflict free), eight warps each owning a 64 x 32 sub-tile as
-// 4 x 4 `mma.sync.m16n8k32` int8 tensor-core products with int32
-// accumulators in registers. No TMA, no wgmma, no deeper pipeline yet: those
-// are later work.
-//
-// K17: the bf16 variant, replacing llamatpu/ops/pallas_gemm.py
-// `_gemm_kernel_bf16` (`rowq_gemm_pallas(variant="bf16")`, a diagnostic the
-// JAX package's scripts/bench_gemm.py times against the int8 path):
+// K17 replaces `_gemm_kernel_bf16` (`rowq_gemm_pallas(variant="bf16")`, the
+// diagnostic scripts/bench_gemm.py times against the int8 path):
 //
 //   y[t, o] = (sum_k bf16(xi8[t, k]) * bf16(qs[o, k]))_f32 * ax[t] * s[o]
 //
 // int8 values are exact in bf16 and their products exact in f32, so it
-// differs from K4 only in the f32 summation's rounding. Bound on the H100:
-// operations, at half K4's rate (989 TFLOP/s bf16 against 1979 TOP/s int8),
-// ~5.4, 4.3, 34.7 and 17.4 us for llama32-1b's wqkv, wo, w13 and w2 at T =
-// 512. Design: K4's kernel with another inner step: the same cp.async int8
-// tiles, each 16-deep fragment converted to bf16 pairs in registers as it is
-// read from shared memory, and `mma.sync.m16n8k16` bf16 products into f32
-// accumulators; the epilogue is K4's.
+// differs from K4 only in the rounding of the f32 sums.
+//
+// Bounds on the H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16): a
+// llama32-1b layer at T = 512 (wqkv, wo, w13, w2) is 62.3 G operations and
+// ~116 MB (the weights once, the f32 outputs once): K4 34.8 us by bytes
+// (31.5 by operations), K17 63.0 us by operations. Phi-3-medium at T = 128 is
+// 341 MB of weights and 28 MB of outputs a layer: 110 us by bytes for both.
+// At prefill widths T is 128-512, so many shapes have fewer 128 x 128
+// output tiles than the card has SMs (llama wo at T = 128: 16 tiles on 132
+// SMs) and a long K behind each (w2 at Phi-3-medium: 140 stages of 128).
+//
+// Design (the same kernel for both, one template flag for the inner step):
+// - Operands by TMA. One producer thread issues cp.async.bulk.tensor loads
+//   of a [128 rows, 128 bytes of K] tile of xi8 and of qs per stage into a
+//   ring of shared-memory stages (6 for K4, 4 for K17), each with a `full`
+//   mbarrier (TMA's byte count) and an `empty` one (both consumer
+//   warpgroups' release). Both operands are int8 and K-major, the only
+//   major-ness wgmma takes for 8-bit types, so nothing is transposed; 128
+//   bytes of K is exactly the 128-byte swizzle, whose layout wgmma reads
+//   without bank conflicts. Rows past T or O and the K tail (I % 128 != 0)
+//   are zero-filled by TMA, so every T >= 1, O >= 1 and I % 16 == 0 works.
+// - K4's step: two consumer warpgroups, each 64 rows of the tile, issue
+//   wgmma m64n128k32 s32.s8.s8 straight from the swizzled stage (4 per
+//   stage) with int32 accumulators in registers, one stage in flight while
+//   the previous one is released.
+// - K17's step: wgmma reads B only from shared memory, so each stage's int8 B
+//   tile is widened once, by all 256 consumer threads, into a bf16 tile in
+//   the same swizzled layout (16-byte shared loads, byte permutes into the
+//   mantissa of 2^23 and one f32 subtraction a value, the bf16 half taken by
+//   a permute: exact, no int->float conversion); fence.proxy.async makes the
+//   threads' writes visible to wgmma. A is widened the same way into
+//   registers, as the register operand of wgmma m64n128k16 f32.bf16.bf16 (8
+//   per stage): each row's fragment is one 32-bit load, because the k order
+//   inside each 16-deep step is permuted alike in A and B. Two bf16 B tiles
+//   alternate, so a stage widens while the previous stage's products run,
+//   and the int8 stage is released once it is widened.
+// - The walk: persistent CTAs over (tile, K stage) iterations, planned by
+//   ops/gemm.py `plan_gemm` (checked by the CPU tests). K4 with whole tiles
+//   on at least 0.4 of the SMs is bound by the card's L2-to-SM traffic (a
+//   16 KB tile of each operand a stage), so there it takes whole tiles, one
+//   a CTA in rounds: at every path shape with 60 or more tiles that beat
+//   any split of K, whose partial sums only add traffic. Below that, and for
+//   K17 (twice K4's cost a product, plus the widening) always, the card is
+//   filled: as many CTAs as SMs, whole tiles in rounds where rounds alone
+//   keep the SMs >= 90 % busy, else the tiles of the last one to two rounds
+//   (all of them below one round) walked stream-K: their iterations cut into
+//   equal contiguous ranges, one a CTA. A tile done by one CTA gets the
+//   epilogue at once; a tile shared by CTAs gets each CTA's raw partial sums
+//   in a workspace slot (at most two a CTA: the tile its range starts in,
+//   the tile it ends in), and a second pass, one block per (tile, 16-byte
+//   vector), sums the pieces in K order and applies the epilogue once: int32
+//   for K4 (exact, so still bit-identical), f32 in a fixed order for K17
+//   (deterministic). No atomics. The wrapper allocates the workspace.
+// - Epilogue: (float(acc) * ax[t]) * s[o], each product rounded (no FMA),
+//   stored as float2 of adjacent columns straight from the accumulator
+//   fragments.
+#include <cuda.h>
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -44,201 +84,541 @@ LT_DEFINE_ERROR_STRING
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64, PADK = BK + 16;
+constexpr int BM = 128, BN = 128, BK = 128;  // output tile rows (T) x cols (O); K stage (bytes)
+constexpr int kConsumers = 256;              // two warpgroups, 64 tile rows each
+constexpr int kThreads = kConsumers + 32;    // + the producer warp
+constexpr int kTileBytes = BM * BK;          // one operand's stage (BM == BN): 16 KB
+constexpr int kStageBytes = 2 * kTileBytes;  // A, then B
+constexpr int kAcc = BN / 2;                 // a thread's share of its warpgroup's 64 x BN
+constexpr int kVecs = kAcc / 4;              // 16-byte accumulator vectors a thread
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two adjacent int8 values in shared memory as a bf16 pair (exact), the
-// lower k in the low half, as the mma fragments take them.
-__device__ __forceinline__ uint32_t i8x2_bf16x2(const int8_t* p) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(p[0]),
-                                                 static_cast<float>(p[1]));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying a [BM, BK] int8 tile of a row-major [n_rows, K] matrix
-// (K % 16 == 0, rows 16-byte aligned) into shared memory; out-of-range
-// chunks are zero-filled.
-__device__ __forceinline__ void load_tile_async(int8_t (*dst)[PADK], const int8_t* src, int row0,
-                                                int n_rows, int k0, int K) {
-  constexpr int chunks = BM * BK / 16;  // BM == BN
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-    const int r = c / (BK / 16), kc = c - r * (BK / 16);
-    const int gr = row0 + r, gk = k0 + kc * 16;
-    const bool valid = gr < n_rows && gk < K;
-    cp_async16(&dst[r][kc * 16], valid ? src + static_cast<long>(gr) * K + gk : src, valid);
-  }
-}
-
-// The GEMM of both kernels: kBf16 selects K17's inner step (bf16 fragments,
-// f32 sums) over K4's (int8 fragments, int32 sums).
 template <bool kBf16>
-__device__ __forceinline__ void gemm_body(const int8_t* __restrict__ x,
+struct Cfg {
+  static constexpr int kStages = kBf16 ? 4 : 6;
+  static constexpr int kWide = kStages * kStageBytes;  // K17's two bf16 B tiles
+  static constexpr int kSmem = kWide + (kBf16 ? 2 * kStageBytes : 0) + 1024;  // + alignment
+};
+
+// The walk over (tile, K stage) iterations; tile t is rows (t % tiles_m) * BM
+// and columns (t / tiles_m) * BN. ops/gemm.py GemmPlan mirrors it.
+struct Walk {
+  int T, O, K, tiles_m, nk, tiles_dp, ctas;
+  long long total_sk;  // iterations of the tiles after the whole-tile rounds
+  __device__ long long begin(int c) const { return c * total_sk / ctas; }
+  __device__ int owner(long long i) const {
+    return static_cast<int>(((i + 1) * ctas - 1) / total_sk);
+  }
+};
+
+// f(tile, k0, k1, slot) for each segment of CTA blockIdx.x, in order: K
+// stages [k0, k1) of the tile; slot -1 when the segment is the whole tile,
+// else the CTA's workspace slot (0: the tile its range starts in, 1: the
+// tile it ends in).
+template <typename F>
+__device__ __forceinline__ void for_each_segment(const Walk& w, F&& f) {
+  const int c = blockIdx.x;
+  for (int t = c; t < w.tiles_dp; t += w.ctas) f(t, 0, w.nk, -1);
+  long long i = w.begin(c);
+  const long long e = w.begin(c + 1);
+  for (int slot = 0; i < e; slot = 1) {
+    const int t = w.tiles_dp + static_cast<int>(i / w.nk);
+    const int k0 = static_cast<int>(i % w.nk);
+    const int k1 = static_cast<int>(min(static_cast<long long>(w.nk), k0 + (e - i)));
+    f(t, k0, k1, k0 == 0 && k1 == w.nk ? -1 : slot);
+    i += k1 - k0;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the [BM rows, BK bytes] box at (column k, row r) of `map` into
+// shared memory at dst, completing on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int r,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(r), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile in the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart (the base 1024-byte aligned; a K step
+// inside the row advances the start address).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// After wg_wait: the accumulators are read only from here on.
+__device__ __forceinline__ void fence_reg(int& v) { asm volatile("" : "+r"(v)::"memory"); }
+__device__ __forceinline__ void fence_reg(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+template <typename Acc, int N>
+__device__ __forceinline__ void fence_regs(Acc (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(d[i]);
+}
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 32] . B[128 x 32]^T, int8, int32 sums
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16, f32 sums; A from this
+// thread's registers (a[0..3]: rows g, g + 8 at k 2t.., then at k 2t + 8..;
+// g = lane / 4, t = lane % 4, in the warp's 16 rows), B from shared memory
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// Four int8 values (the lowest k in the low byte) as two bf16 pairs, exactly:
+// each byte biased by 128 goes into the low mantissa byte of 2^23, one f32
+// subtraction removes 2^23 + 128, and the bf16 is the upper half (|v| <= 128
+// needs 8 significant bits, which bf16 has).
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// K17's order of the contraction index inside each 16-deep step: the int8
+// bytes 4t .. 4t + 3 of a step are its k = 2t, 2t + 1, 2t + 8, 2t + 9, so a
+// thread's A fragment of a row is one 32-bit shared load (widen4's lo, hi).
+// B is widened in the same order; the products are the same, summed in
+// another order.
+
+// The int8 B tile of a stage (128 rows x 128 bytes, 128-byte swizzle) widened
+// into bf16 at dst: two 64-column halves of [128 rows][128 bytes] in the same
+// swizzle, as wgmma reads them. 1024 16-byte chunks, 4 a consumer thread.
+__device__ __forceinline__ void widen_b(uint32_t src, uint32_t dst) {
+#pragma unroll
+  for (int n = 0; n < BN * 8 / kConsumers; ++n) {
+    const int j = threadIdx.x + n * kConsumers, r = j >> 3, c = j & 7;  // row, 16-deep step
+    uint32_t v[4], lo[4], hi[4];
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "r"(src + r * 128 + ((c ^ (r & 7)) << 4)));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) widen4(v[q], lo[q], hi[q]);
+    // step c is bf16 half c / 4, chunks 2 (c % 4) (k 0..7) and 2 (c % 4) + 1
+    const uint32_t row = dst + (c >> 2) * kTileBytes + r * 128;
+    const int c2 = (c & 3) * 2;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(row + ((c2 ^ (r & 7)) << 4)),
+                 "r"(lo[0]), "r"(lo[1]), "r"(lo[2]), "r"(lo[3])
+                 : "memory");
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     row + (((c2 + 1) ^ (r & 7)) << 4)),
+                 "r"(hi[0]), "r"(hi[1]), "r"(hi[2]), "r"(hi[3])
+                 : "memory");
+  }
+}
+
+// This thread's bf16 A fragments of the 8 steps of a stage, from the int8 A
+// tile (128-byte swizzle): rows wg * 64 + warp * 16 + g and + 8.
+__device__ __forceinline__ void load_a(uint32_t src, int wg, uint32_t (&af)[8][4]) {
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+  const uint32_t r0 = src + (wg * 64 + ((threadIdx.x & 127) >> 5) * 16 + g) * 128 + 4 * t;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {  // rows r0, r0 + 8 are both g modulo 8
+    uint32_t x0, x1;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(x0) : "r"(r0 + ((k ^ g) << 4)));
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(x1) : "r"(r0 + 8 * 128 + ((k ^ g) << 4)));
+    widen4(x0, af[k][0], af[k][2]);
+    widen4(x1, af[k][1], af[k][3]);
+  }
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ float to_f32(int v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ uint32_t bits(int v) { return static_cast<uint32_t>(v); }
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ void add_bits(int& d, uint32_t v) { d += static_cast<int>(v); }
+__device__ __forceinline__ void add_bits(float& d, uint32_t v) { d += __uint_as_float(v); }
+__device__ __forceinline__ void set_bits(int& d, uint32_t v) { d = static_cast<int>(v); }
+__device__ __forceinline__ void set_bits(float& d, uint32_t v) { d = __uint_as_float(v); }
+
+// The epilogue of accumulator vector j (d[4 j .. 4 j + 3]) of consumer
+// thread ct of a finished tile. In the wgmma accumulator layout ct holds rows
+// (ct / 32) * 16 + (ct % 32) / 4 + {0, 8} and columns 8 j + 2 (ct % 4) + {0, 1}:
+// d[4 j + 2 h + q] is row + 8 h, column + q.
+template <typename Acc>
+__device__ __forceinline__ void store_vec(const Acc* v, int j, int tile, const Walk& w,
                                           const float* __restrict__ ax,
-                                          const int8_t* __restrict__ w,
-                                          const float* __restrict__ s,
-                                          float* __restrict__ y, int T, int O, int K) {
-  using Acc = std::conditional_t<kBf16, float, int>;
-  __shared__ __align__(16) int8_t As[2][BM][PADK];
-  __shared__ __align__(16) int8_t Bs[2][BN][PADK];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps: 64 rows x 32 cols each
-  const int g = lane >> 2, tg = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  Acc acc[4][4][4];
+                                          const float* __restrict__ s, float* __restrict__ y) {
+  const int ct = threadIdx.x;
+  const int row0 = (tile % w.tiles_m) * BM + (ct >> 5) * 16 + ((ct & 31) >> 2);
+  const int c = (tile / w.tiles_m) * BN + 2 * (ct & 3) + 8 * j;
+  const bool pair = (w.O & 1) == 0 && c + 1 < w.O;  // float2 stores stay 8-byte aligned
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  // two-stage pipeline: the next K step's tiles copy while this one multiplies
-  const int nk = (K + BK - 1) / BK;
-  load_tile_async(As[0], x, m0, T, 0, K);
-  load_tile_async(Bs[0], w, n0, O, 0, K);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile_async(As[st ^ 1], x, m0, T, (kt + 1) * BK, K);
-      load_tile_async(Bs[st ^ 1], w, n0, O, (kt + 1) * BK, K);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's tiles have landed
-    __syncthreads();
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t a[4][4], b[4][2];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int r = wm * 64 + mt * 16 + g;
-          a[mt][0] = i8x2_bf16x2(&As[st][r][kk + tg * 2]);
-          a[mt][1] = i8x2_bf16x2(&As[st][r + 8][kk + tg * 2]);
-          a[mt][2] = i8x2_bf16x2(&As[st][r][kk + 8 + tg * 2]);
-          a[mt][3] = i8x2_bf16x2(&As[st][r + 8][kk + 8 + tg * 2]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int c = wn * 32 + nt * 8 + g;
-          b[nt][0] = i8x2_bf16x2(&Bs[st][c][kk + tg * 2]);
-          b[nt][1] = i8x2_bf16x2(&Bs[st][c][kk + 8 + tg * 2]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
-      }
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= w.T) continue;
+    const float a = ax[r];
+    float* yr = y + static_cast<long long>(r) * w.O;
+    if (pair) {
+      *reinterpret_cast<float2*>(yr + c) =
+          make_float2(__fmul_rn(__fmul_rn(to_f32(v[2 * h]), a), s[c]),
+                      __fmul_rn(__fmul_rn(to_f32(v[2 * h + 1]), a), s[c + 1]));
     } else {
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + g;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(&As[st][r][kk + tg * 4]);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(&As[st][r + 8][kk + tg * 4]);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(&As[st][r][kk + 16 + tg * 4]);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(&As[st][r + 8][kk + 16 + tg * 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + g;
-        b[nt][0] = *reinterpret_cast<const uint32_t*>(&Bs[st][c][kk + tg * 4]);
-        b[nt][1] = *reinterpret_cast<const uint32_t*>(&Bs[st][c][kk + 16 + tg * 4]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
+      if (c < w.O) yr[c] = __fmul_rn(__fmul_rn(to_f32(v[2 * h]), a), s[c]);
+      if (c + 1 < w.O) yr[c + 1] = __fmul_rn(__fmul_rn(to_f32(v[2 * h + 1]), a), s[c + 1]);
     }
-    }
-    __syncthreads();  // the stage is overwritten by the copy issued next step
   }
+}
 
-  // epilogue: (float(acc) * ax[t]) * s[o], each product rounded (no FMA)
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int r0 = m0 + wm * 64 + mt * 16 + g;
-      const int c0 = n0 + wn * 32 + nt * 8 + tg * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + h * 8;
-        if (r >= T) continue;
-        const float axr = ax[r];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int c = c0 + q;
-          if (c < O)
-            y[static_cast<long>(r) * O + c] =
-                __fmul_rn(__fmul_rn(static_cast<float>(acc[mt][nt][h * 2 + q]), axr), s[c]);
+// A shared tile's raw partial sums: workspace slot (cta, slot) holds vector j
+// of consumer thread ct at [j][ct] (coalesced 16-byte stores).
+__device__ __forceinline__ uint4* slot_ptr(uint4* ws, int cta, int slot) {
+  return ws + static_cast<size_t>(cta * 2 + slot) * kVecs * kConsumers + threadIdx.x;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void gemm_body(const CUtensorMap* mx, const CUtensorMap* mw,
+                                          const float* __restrict__ ax,
+                                          const float* __restrict__ s, float* __restrict__ y,
+                                          uint4* __restrict__ ws, const Walk& w) {
+  using C = Cfg<kBf16>;
+  using Acc = std::conditional_t<kBf16, float, int>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[C::kStages], empty[C::kStages];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;  // 128-byte swizzle: 1024-aligned
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::kStages; ++i) {
+      mbar_init(&full[i], 1);          // the producer's expect_tx, then TMA's bytes
+      mbar_init(&empty[i], 2);         // one thread of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for_each_segment(w, [&](int t, int k0, int k1, int) {
+        const int m0 = (t % w.tiles_m) * BM, n0 = (t / w.tiles_m) * BN;
+        for (int k = k0; k < k1; ++k) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          const uint32_t a = ring + stage * kStageBytes;
+          mbar_expect_tx(&full[stage], kStageBytes);  // OOB-filled bytes count too
+          tma_load(a, mx, k * BK, m0, &full[stage]);
+          tma_load(a + kTileBytes, mw, k * BK, n0, &full[stage]);
+          if (++stage == C::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
+      });
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;  // consumer warpgroup: tile rows wg * 64 ..
+  const bool leader = (threadIdx.x & 127) == 0;
+  int stage = 0, widx = 0;  // widx: K17's stages so far (its bf16 buffer)
+  uint32_t phase = 0;
+  for_each_segment(w, [&](int t, int k0, int k1, int slot) {
+    Acc d[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) d[i] = 0;
+    int prev = -1;
+    for (int k = k0; k < k1; ++k) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t a = ring + stage * kStageBytes;
+      if constexpr (kBf16) {
+        // B widens into one of two bf16 buffers while the previous stage's
+        // products still run; A is widened into registers once they are done
+        const uint32_t wide = ring + C::kWide + (widx & 1) * 2 * kTileBytes;
+        widen_b(a + kTileBytes, wide);
+        wg_wait<0>();
+        uint32_t af[8][4];
+        load_a(a, wg, af);
+        fence_frags(af);  // widened before the fence, not moved past it
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+        consumer_sync();  // B is widened; every warpgroup's previous products are done
+        fence_regs(d);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)  // 16 bf16 = 32 bytes a step
+          wgmma_bf16(d, af[kk], smem_desc(wide + (kk >> 2) * kTileBytes) + 2 * (kk & 3), 1);
+        wg_commit();
+        if (leader) mbar_arrive(&empty[stage]);
+        ++widx;
+      } else {
+        const uint64_t da = smem_desc(a + wg * 64 * 128), db = smem_desc(a + kTileBytes);
+        fence_regs(d);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // 32 int8 = 32 bytes a step
+          wgmma_s8(d, da + 2 * kk, db + 2 * kk, 1);
+        wg_commit();
+        wg_wait<1>();  // the previous stage's products are done: release it
+        if (prev >= 0 && leader) mbar_arrive(&empty[prev]);
+        prev = stage;
+      }
+      if (++stage == C::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wg_wait<0>();
+    if constexpr (!kBf16) {
+      if (leader) mbar_arrive(&empty[prev]);
+    }
+    fence_regs(d);
+    if (slot < 0) {
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) store_vec(d + 4 * j, j, t, w, ax, s, y);
+    } else {
+      uint4* p = slot_ptr(ws, blockIdx.x, slot);
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j)
+        p[j * kConsumers] =
+            make_uint4(bits(d[4 * j]), bits(d[4 * j + 1]), bits(d[4 * j + 2]), bits(d[4 * j + 3]));
+    }
+  });
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_s8_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                   const float* __restrict__ ax, const float* __restrict__ s,
+                   float* __restrict__ y, uint4* __restrict__ ws, Walk w) {
+  gemm_body<false>(&mx, &mw, ax, s, y, ws, w);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_bf16_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                     const float* __restrict__ ax, const float* __restrict__ s,
+                     float* __restrict__ y, uint4* __restrict__ ws, Walk w) {
+  gemm_body<true>(&mx, &mw, ax, s, y, ws, w);
+}
+
+// The second pass over the stream-K tiles, one block per (tile, vector j):
+// a tile shared by CTAs c0..c1 is the sum of their partials in that order
+// (their K order), then the epilogue. Loads go eight pieces at a time.
+template <typename Acc>
+__device__ __forceinline__ void reduce_body(const uint4* __restrict__ ws,
+                                            const float* __restrict__ ax,
+                                            const float* __restrict__ s, float* __restrict__ y,
+                                            const Walk& w) {
+  constexpr int kBatch = 8;
+  const long long i0 = static_cast<long long>(blockIdx.x) * w.nk;
+  const int c0 = w.owner(i0), c1 = w.owner(i0 + w.nk - 1);
+  if (c0 == c1) return;  // one CTA did the whole tile and stored it
+  const int j = blockIdx.y;
+  Acc v[4];
+  for (int c = c0; c <= c1; c += kBatch) {
+    uint4 q[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (c + u <= c1)
+        q[u] = slot_ptr(const_cast<uint4*>(ws), c + u, w.begin(c + u) >= i0 ? 0 : 1)[j * kConsumers];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (c + u > c1) break;
+      if (c + u == c0) {
+        set_bits(v[0], q[u].x), set_bits(v[1], q[u].y), set_bits(v[2], q[u].z), set_bits(v[3], q[u].w);
+      } else {
+        add_bits(v[0], q[u].x), add_bits(v[1], q[u].y), add_bits(v[2], q[u].z), add_bits(v[3], q[u].w);
       }
     }
   }
+  store_vec(v, j, w.tiles_dp + blockIdx.x, w, ax, s, y);
 }
 
-__global__ void __launch_bounds__(256) gemm_s8_kernel(const int8_t* __restrict__ x,
-                                                      const float* __restrict__ ax,
-                                                      const int8_t* __restrict__ w,
-                                                      const float* __restrict__ s,
-                                                      float* __restrict__ y, int T, int O, int K) {
-  gemm_body<false>(x, ax, w, s, y, T, O, K);
+__global__ void __launch_bounds__(kConsumers)
+    gemm_s8_reduce_kernel(const uint4* __restrict__ ws, const float* __restrict__ ax,
+                          const float* __restrict__ s, float* __restrict__ y, Walk w) {
+  reduce_body<int>(ws, ax, s, y, w);
 }
 
-__global__ void __launch_bounds__(256) gemm_bf16_kernel(const int8_t* __restrict__ x,
-                                                        const float* __restrict__ ax,
-                                                        const int8_t* __restrict__ w,
-                                                        const float* __restrict__ s,
-                                                        float* __restrict__ y, int T, int O,
-                                                        int K) {
-  gemm_body<true>(x, ax, w, s, y, T, O, K);
+__global__ void __launch_bounds__(kConsumers)
+    gemm_bf16_reduce_kernel(const uint4* __restrict__ ws, const float* __restrict__ ax,
+                            const float* __restrict__ s, float* __restrict__ y, Walk w) {
+  reduce_body<float>(ws, ax, s, y, w);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime (the library is
+// not linked against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// An int8 row-major [rows, K] matrix as [128 rows, 128 bytes] boxes in the
+// 128-byte swizzle, zero-filled outside.
+int make_map(CUtensorMap* map, const void* p, int K, int rows) {
+  const EncodeTiled f = encode_tiled();
+  if (f == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {BK, BM};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = f(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides,
+                       box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The main kernel, then the second pass when a tile is shared (ws != null).
+template <bool kBf16, typename Kernel, typename Reduce>
+int launch(Kernel kernel, Reduce reduce, const void* xi8, const void* qs, const float* ax,
+           const float* s, float* y, uint4* ws, const Walk& w, int tiles_sk, cudaStream_t st) {
+  using C = Cfg<kBf16>;
+  CUtensorMap mx, mw;
+  int e = make_map(&mx, xi8, w.K, w.T);
+  if (e != 0) return e;
+  e = make_map(&mw, qs, w.K, w.O);
+  if (e != 0) return e;
+  const cudaError_t err = lt_allow_smem(kernel, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<w.ctas, kThreads, C::kSmem, st>>>(mx, mw, ax, s, y, ws, w);
+  LT_RETURN_IF_ERROR();
+  if (ws != nullptr) reduce<<<dim3(tiles_sk, kVecs), kConsumers, 0, st>>>(ws, ax, s, y, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // xi8 [T, K] int8, ax [T] f32, qs [O, K] int8, s [O] f32 -> y [T, O] f32.
-// K % 16 == 0 and 16-byte aligned rows (the wrapper checks).
-// bf16 != 0 launches K17, else K4.
+// K % 16 == 0 and 16-byte aligned rows (the wrapper checks). The plan of
+// ops/gemm.py plan_gemm: `ctas` persistent CTAs, `tiles_dp` tiles done whole
+// before the stream-K walk, ws [2 ctas, 128 * 128] 4-byte words when a tile
+// is shared (else null). bf16 != 0 launches K17, else K4.
 LT_EXPORT int lt_rowq_gemm(const void* xi8, const void* ax, const void* qs, const void* s, void* y,
-                           int T, int O, int K, int bf16, void* stream) {
-  dim3 grid((O + BN - 1) / BN, (T + BM - 1) / BM);
-  auto kernel = bf16 ? gemm_bf16_kernel : gemm_s8_kernel;
-  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xi8), static_cast<const float*>(ax),
-      static_cast<const int8_t*>(qs), static_cast<const float*>(s), static_cast<float*>(y), T, O,
-      K);
-  return static_cast<int>(cudaGetLastError());
+                           void* ws, int T, int O, int K, int bf16, int ctas, int tiles_dp,
+                           void* stream) {
+  Walk w;
+  w.T = T;
+  w.O = O;
+  w.K = K;
+  w.tiles_m = (T + BM - 1) / BM;
+  w.nk = (K + BK - 1) / BK;
+  w.tiles_dp = tiles_dp;
+  w.ctas = ctas;
+  const int tiles_sk = w.tiles_m * ((O + BN - 1) / BN) - tiles_dp;
+  w.total_sk = static_cast<long long>(tiles_sk) * w.nk;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(ax);
+  const auto* sc = static_cast<const float*>(s);
+  auto* out = static_cast<float*>(y);
+  auto* part = static_cast<uint4*>(ws);
+  return bf16 ? launch<true>(gemm_bf16_kernel, gemm_bf16_reduce_kernel, xi8, qs, a, sc, out, part,
+                             w, tiles_sk, st)
+              : launch<false>(gemm_s8_kernel, gemm_s8_reduce_kernel, xi8, qs, a, sc, out, part, w,
+                              tiles_sk, st);
 }

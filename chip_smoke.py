@@ -28,10 +28,13 @@ It runs every phase, needs one card, and exits non-zero
             slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K18a-j and
             K19a-c on the
             probe scripts' [24, 4096, 4096] stacks at every configuration
-            of the scripts; slice 7's: K20 at Phi-3-medium widths, T = 17
-            and 24 in bf16, and at Qwen2.5-14B widths, T = 32 in f32, with
-            K9 (T = 1, 8, 16) and K2 (1, 8, 24 rows) at Phi-3-medium
-            widths; times from CUDA events and torch.profiler (kernel,
+            of the scripts, K18a / K18i's tensor-core GEMV also at ragged
+            shapes (GEMV_TC_EDGES: T = 1, 3, 8; O = 300, 1000; K slices
+            and their second pass; I = 9232); slice 7's: K20 at
+            Phi-3-medium widths, T = 17 and 24 in bf16, and at Qwen2.5-14B
+            widths, T = 32 in f32, with K9 (T = 1, 8, 16) and K2 (1, 8, 24
+            rows) at Phi-3-medium widths; times from CUDA events and
+            torch.profiler (kernel,
             plain version, one-call library yardstick) beside the bound
             from the published H100 SXM peaks.
 4. moe:     slice 4's path, full-width Qwen1.5-MoE-A2.7B (synthetic Q8_0,
@@ -184,8 +187,13 @@ def time_ms(fn, iters: int = 16, reps: int = 5) -> float:
 
 
 def kernel_ms(fn, names, iters: int = 16):
-    """Device time of the named kernels per fn() call, summed from a
-    torch.profiler trace (None if the trace holds no device time)."""
+    """Device time of the named kernels per fn() call, from a torch.profiler
+    trace (None if the trace holds no device time): each named kernel's mean
+    time a launch, times its launches a call. A trace can miss launches
+    (seen on the H100: 1 of 4 long kernels recorded, 15 of 16 short ones),
+    which summing the trace and dividing by the calls would count as time not
+    spent; a kernel seen n times in `iters` calls is taken to launch
+    ceil(n / iters) times a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,9 +203,11 @@ def kernel_ms(fn, names, iters: int = 16):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    tot = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
-              if any(n in e.key for n in names))
-    return tot / iters / 1e3 if tot > 0 else None
+    hits = [e for e in prof.key_averages() if any(n in e.key for n in names) and e.count]
+    if any(e.count % iters for e in hits):
+        log(f"profiler missed launches of {names}: {[e.count for e in hits]} for {iters} calls")
+    tot = sum(getattr(e, "device_time_total", 0.0) / e.count * -(-e.count // iters) for e in hits)
+    return tot / 1e3 if tot > 0 else None
 
 
 def timings(fn, names, plain, library, iters: int = 16) -> dict:
@@ -1103,6 +1113,11 @@ def check_serving_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
 # ------------------------------------------------------------ slice 6 kernels
 PROBE_DIMS = dict(L=24, O=4096, I=4096)  # the TPU probe scripts' stack
 STREAM = ("probe_stream_kernel", "probe_stream_finish_kernel")
+GEMV_TC = ("probe_gemv_tc_kernel", "probe_gemv_sum_kernel")  # K18a / K18i and the K-slice sum
+# the bf16 GEMV's edges (T, L, O, I): a ragged O over a 2-layer stack in one
+# short stage; a ragged O split into ten K slices (the second pass); I over
+# the 4096 columns a CTA stages (three slices, each a stage and a short one)
+GEMV_TC_EDGES = ((1, 2, 300, 528), (3, 1, 300, 4096), (8, 1, 1000, 9232))
 
 
 def check_tail_kt(dev, dims=LLAMA32_1B) -> dict:
@@ -1313,7 +1328,7 @@ def check_roofline_probes(dev, w) -> list[dict]:
     GEMV, DOT = ("probe_gemv_kernel",), ("probe_int8dot_kernel",)
     # name, its line in scripts/bench_roofline.py, weights, stacked, exact,
     # profiler names, weight bytes per layer, library yardstick
-    spec = [("step_pallas_bf16", 99, bf, False, False, GEMV, 2 * O * I,
+    spec = [("step_pallas_bf16", 99, bf, False, False, GEMV_TC, 2 * O * I,
              lambda lw: torch.matmul(x, lw[0].T)),
             ("step_q8_current", 112, q8, False, False, GEMV, O * I + O * nb * 4, None),
             ("step_q8_bf16mul", 125, q8, False, False, GEMV, O * I + O * nb * 4, None),
@@ -1322,7 +1337,7 @@ def check_roofline_probes(dev, w) -> list[dict]:
             ("step_dma_probe", 172, bf, False, True, STREAM, 2 * O * I, None),
             ("call3_q8_current", 243, q8, True, False, GEMV, O * I + O * nb * 4, None),
             ("call3_q8_int8dot", 256, qo, True, True, DOT, O * I, None),
-            ("call3_bf16", 267, bf, True, False, GEMV, 2 * O * I,
+            ("call3_bf16", 267, bf, True, False, GEMV_TC, 2 * O * I,
              lambda lw: torch.matmul(x, wflat.T)),
             ("call3_dma_probe", 278, bf, True, True, STREAM, 2 * O * I, None)]
     rows = []
@@ -1355,7 +1370,38 @@ def check_roofline_probes(dev, w) -> list[dict]:
                    else f"one [{O}, {I}] layer of {L} in turn, x [{tt}, {I}]")))
         log(f"{name}: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}; {rows[-1]['gbs']:.1f} GB/s), "
             f"plain {tm['plain_ms']:.4f}, err {abs_e:.3g}")
+    edges = check_gemv_tc_edges(dev)
+    for r in rows:
+        if r["name"] in ("step_pallas_bf16", "call3_bf16"):
+            r["edges"] = edges
+            r["max_rel_err"] = max(r["max_rel_err"], *(e["max_rel_err"] for e in edges.values()))
     return rows
+
+
+def check_gemv_tc_edges(dev) -> dict:
+    """K18a / K18i's kernel (ops/probes.py gemv_bf16) on every layer of the
+    GEMV_TC_EDGES stacks against the plain product, within 1e-5 of the
+    largest plain output; each with its plan (K slices, CTAs)."""
+    import torch
+
+    from llamatpu_torch.ops import probes
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for t, lay, o, i in GEMV_TC_EDGES:
+        w = torch.randn((lay, o, i), generator=gen, device=dev).to(torch.bfloat16)
+        x = (torch.randn((t, i), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        got, want = probes.gemv_bf16(x, w), x.float() @ w.float().transpose(-1, -2)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (lay, t, o)
+        abs_e, rel_e = max_err(got, want)
+        plan = probes.plan_gemv(o, i, lay, sms)
+        assert rel_e <= 1e-5, f"gemv_bf16 T={t} L={lay} O={o} I={i} disagrees: {abs_e} {rel_e}"
+        key = f"T={t} L={lay} O={o} I={i}"
+        out[key] = dict(max_abs_err=abs_e, max_rel_err=rel_e, k_slices=plan.nks, ctas=plan.ctas)
+        log(f"gemv_bf16 {key}: {plan.nks} K slices on {plan.ctas} CTAs, rel err {rel_e:.3g}")
+    return out
 
 
 def check_dma_probes(dev, w) -> list[dict]:

@@ -89,10 +89,10 @@ def step_pallas_bf16_plain(w, x):
 
 
 def step_pallas_bf16(w, x):
-    """K18a: y = x . W^T, bf16 weights, f32 sums."""
+    """K18a: y = x . W^T, bf16 weights, f32 sums (the tensor-core GEMV)."""
     if _cpu(x):
         return step_pallas_bf16_plain(w, x)
-    y = probes.gemv(x, w[0], None, probes.W_BF16)[0]
+    y = probes.gemv_bf16(x, w[0])[0]
     step_pallas_bf16.launches += 1
     return y
 
@@ -214,7 +214,7 @@ def call3_bf16(ws, x):
     """K18i: K18a over every layer of the stack in one call; layer 0's result."""
     if _cpu(x):
         return call3_bf16_plain(ws, x)
-    y = probes.gemv(x, ws[0], None, probes.W_BF16)[0]
+    y = probes.gemv_bf16(x, ws[0])[0]
     call3_bf16.launches += 1
     return y
 

@@ -1,26 +1,74 @@
 // K18 and K19: the rate probes of scripts/bench_roofline.py and
-// scripts/bench_dma_sweep.py, on three kernel templates.
+// scripts/bench_dma_sweep.py, on four kernel templates.
 //
 // The TPU probes ask what byte rate a weight stream reaches under each way of
 // consuming it. Their port asks the same of the H100: every byte of the
 // weights really moves from device memory, and each probe consumes it as the
 // TPU body did.
 //
-// 1. probe_gemv_kernel (K18a step_pallas_bf16, K18b step_q8_current, K18c
-//    step_q8_bf16mul, and their stacked forms K18g call3_q8_current, K18i
-//    call3_bf16): y[l, t, o] = sum_k x[t, k] * wd[l, o, k], x bf16 [T <= 8, I],
-//    f32 sums, where wd is the bf16 weight (a), bf16(f32(q) * s[o, k % NB])
-//    (b) or bf16(bf16(q) * bf16(s[o, k % NB])) (c): the scripts' pltpu.repeat
-//    tiles the [O, NB] scales along the columns (NB = I / 32). A warp takes kRows weight rows, each
-//    lane 16 bytes of them per load; x sits in shared memory in f32, kTileK
-//    columns at a time. Bound: bytes (the weights; 10.0 us bf16, ~5.6 us q8
-//    per [4096, 4096] at 3.35 TB/s); the dequantizing forms are ~8 CUDA-core
-//    FMAs per weight byte at T = 8, near the card's FP32 rate.
-// 2. probe_int8dot_kernel (K18d step_q8_int8dot, K18e
+// 1. probe_gemv_tc_kernel (K18a step_pallas_bf16, K18i call3_bf16):
+//    y[l, t, o] = sum_k x[t, k] * w[l, o, k], x bf16 [T <= 8, I], w bf16
+//    [L, O, I], f32 sums. Bound: the weight bytes, 33.6 MB a [4096, 4096]
+//    layer (10.0 us at 3.35 TB/s) and 805 MB the [24, 4096, 4096] stack
+//    (240.5 us); 8 operations a weight byte at T = 8, ~37x under the bf16
+//    ridge. The first design (probe_gemv_kernel's bf16 form, now gone) reached
+//    0.42 TB/s a layer and 0.61 TB/s on the stack, a fifth of bf16
+//    torch.matmul: each 16-byte weight load fed 64 CUDA-core FMAs and 256
+//    bytes of f32 x reads from shared memory, a lane kept at most two loads
+//    in flight at 25 % occupancy, and x was restaged every 1024 columns
+//    between two block barriers with no weight load in flight. This design
+//    keeps HBM busy and the products off the CUDA cores:
+//    - persistent CTAs, one per SM, walk work units of (layer, stripe of
+//      kStripe = 8 weight rows, K slice), unit u = c, c + ctas, ... of CTA
+//      c; the planner (ops/probes.py plan_gemv, checked by the CPU tests)
+//      takes the whole K as one slice unless stripes alone leave the SMs
+//      under 90 % busy (then the slices' f32 partial sums go to a workspace
+//      and a second pass adds them in K order: deterministic, no atomics) or
+//      I exceeds kMaxSlice. ctas is a multiple of the slice count, so a CTA
+//      keeps one slice for its whole walk. 8-row units keep the last round
+//      short: 94 rounds of 132 on the stack, where 32-row ones left a 24th
+//      round 27 % full;
+//    - x's columns of that slice come first, by TMA into the ring's first
+//      two slots (rows 0-3 and 4-7); each consumer warp copies its fragments
+//      into registers for the whole walk (64 a lane at I = 4096; zero for
+//      rows t >= T) and the slots go back to the ring: no x traffic in the
+//      ring's loop. Plain loads of x from L2 beside the weight stream (132
+//      SMs reading one 64 KB) cost a layer about twice what this copy ahead
+//      of it costs (bench/gemv_ablation.py times the copy);
+//    - the producer warp streams each unit's weights through a kDepth = 6
+//      deep ring of [8 rows, kStageK = 2048 columns] stages (32 KB), one 4
+//      KB cp.async.bulk a row into a row pitch 32 bytes over a multiple of
+//      128 (conflict-free 8-byte loads), completing on the stage's `full`
+//      mbarrier; the consumer warps release a stage on its `empty` mbarrier,
+//      so the next copy into it is issued while the products run. The TMA
+//      unit's cost is per copy: row copies of 0.5-1 KB (tried) streamed the
+//      stack slower than these;
+//    - the products on tensor cores: mma.sync m16n8k16 bf16 -> f32 with x as
+//      the A operand (rows t < 8 from registers; rows 8-15 zero registers,
+//      their sums dropped) and the stage as the B operand (n = the 8 weight
+//      rows): each weight element is read once from HBM and once from
+//      shared memory for all rows. The k order inside each 16-column step
+//      is permuted alike in A and B (as in ffn_fused.cu), so a lane's
+//      fragment of a row is 4 adjacent columns: one 8-byte load. Consumer
+//      warp w takes the steps j = w (mod 8) of each stage, four steps' loads
+//      ahead of their products; at the unit's end the eight parts are added
+//      in order through shared memory.
+//    Rows past O are not copied and their sums not stored; K tails are whole
+//    16-column steps (I % 16 == 0).
+// 2. probe_gemv_kernel (K18b step_q8_current, K18c step_q8_bf16mul, and the
+//    stacked K18g call3_q8_current): y[l, t, o] = sum_k x[t, k] * wd[l, o, k],
+//    x bf16 [T <= 8, I], f32 sums, where wd is bf16(f32(q) * s[o, k % NB])
+//    (b) or bf16(bf16(q) * bf16(s[o, k % NB])) (c): the scripts'
+//    pltpu.repeat tiles the [O, NB] scales along the columns (NB = I / 32). A
+//    warp takes kRows weight rows, each lane 16 bytes of them per load; x
+//    sits in shared memory in f32, kTileK columns at a time. Bound: bytes
+//    (~5.6 us per [4096, 4096] at 3.35 TB/s); ~8 CUDA-core FMAs per weight
+//    byte at T = 8, near the card's FP32 rate.
+// 3. probe_int8dot_kernel (K18d step_q8_int8dot, K18e
 //    step_q8_int8dot_blockscale, K18h call3_q8_int8dot): f32((xq . q)_int32),
 //    times (s . xs^T)^T for the blockscale form, by dp4a; xq int8 staged in
 //    shared memory. Bound: bytes.
-// 3. probe_stream_kernel (K18f step_dma_probe, K18j call3_dma_probe, K19a
+// 4. probe_stream_kernel (K18f step_dma_probe, K18j call3_dma_probe, K19a
 //    probe_blockspec, K19b probe_manual_dma, K19c int8dot_manual_dma): the
 //    weight rows stream through a `depth`-deep ring of shared-memory stages,
 //    each stage one TMA bulk copy (cp.async.bulk) completing on its own
@@ -58,40 +106,269 @@ constexpr int kRingBytes = 128 * 1024;
 constexpr int kMaxDepth = 16;
 constexpr int kMaxSlices = 2;      // int8-dot stream: 16-byte column slices per thread
 
-enum WKind { W_BF16 = 0, W_Q8_F32 = 1, W_Q8_BF16 = 2 };
+enum WKind { W_Q8_F32 = 1, W_Q8_BF16 = 2 };  // ops/probes.py mirrors the codes
 enum SMode { S_LAST = 0, S_SUM = 1, S_DOT = 2 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// ---------------------------------------------------------------- GEMV
-// wd of 16 weight bytes at column k of weight row `row` (8 bf16 or 16 int8
-// values) into w[], per the kind.
+// ------------------------------------------------------ TMA and mbarriers
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA bulk copy global -> shared of `bytes` (a multiple of 16), completing
+// on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ------------------------------------------------- bf16 tensor-core GEMV
+constexpr int kStripe = 8;                         // weight rows of a work unit (the mma's n)
+constexpr int kStageK = 2048;                      // weight columns of a ring stage
+constexpr int kDepth = 6;                          // ring stages
+constexpr int kMaxSlice = 4096;                    // x columns a CTA holds
+constexpr int kParts = 8;                          // consumer warps: column parts of a stage
+constexpr int kSteps = kStageK / 16 / kParts;      // a warp's 16-column steps of a stage
+constexpr int kXFrags = kMaxSlice / kStageK * kSteps;  // a lane's x fragments
+constexpr int kConsumers = 32 * kParts;
+constexpr int kTcThreads = kConsumers + 32;        // + the producer warp
+constexpr int kStagePitch = 2 * kStageK + 32;      // bytes a staged weight row (32 over 128 k)
+constexpr int kStageBytes = kStripe * kStagePitch;
+constexpr int kXPitch = 2 * kMaxSlice + 32;        // bytes a staged x row (4 rows a slot)
+constexpr int kRedPitch = kStripe + 1;             // floats a row t of a part's sums
+static_assert(4 * kXPitch <= kStageBytes, "x rows 0-3 and 4-7 each fit a ring slot");
+
+// The walk: unit u is stripe u / nks (layer s / ns, rows (s % ns) * kStripe
+// ..) over K slice u % nks; CTA c takes u = c, c + ctas, ... (ctas % nks ==
+// 0: one slice a CTA). ops/probes.py GemvPlan mirrors it.
+struct TcWalk {
+  const __nv_bfloat16* x;  // [T, I]
+  const __nv_bfloat16* w;  // [L, O, I]
+  float* out;              // y [L, T, O] (nks == 1) or the partial sums [nks, L, T, O]
+  int T, O, I, L, ns, nks, ctas;
+  __device__ int units() const { return L * ns * nks; }
+  // first column of slice ks (whole 16-column steps)
+  __device__ int slice_k(int ks) const {
+    return static_cast<int>(static_cast<long long>(ks) * (I / 16) / nks) * 16;
+  }
+};
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void lds64(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 sums; a's rows 8-15 are
+// zero (a1 = a3 = 0), so c2 = c3 = 0: c0, c1 are row g, columns 2q, 2q + 1
+// (g = lane / 4, q = lane % 4). The contraction index of each 16-column step
+// is permuted alike in a and b: the mma's k = 2q, 2q + 1 and 2q + 8, 2q + 9
+// are the step's columns 4q .. 4q + 3, so each lane's a (x row g) and b
+// (weight row g) fragments are one 8-byte load each.
+__device__ __forceinline__ void mma_rows8(float (&c)[4], const uint32_t (&a)[2],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %6, %5, %6}, {%7, %8}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(0u), "r"(b[0]), "r"(b[1]));
+}
+
+// Dynamic shared memory: the ring [kDepth][kStripe rows of kStagePitch], then
+// two buffers of the parts' sums [kParts][kMaxT][kRedPitch] f32.
+__global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kDepth], empty[kDepth];
+  float* red = reinterpret_cast<float*>(smem + kDepth * kStageBytes);
+  const int c = blockIdx.x, ks = c % a.nks;
+  const int kbeg = a.slice_k(ks), kend = a.slice_k(ks + 1);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < kDepth; ++d) {
+      mbar_init(&full[d]);              // the producer's expect_tx, then the bytes
+      mbar_init(&empty[d], kParts);     // one arrive a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kParts) {  // the producer warp: lane r copies row r of each stage
+    // x's slice first, rows 0-3 into slot 0 and rows 4-7 into slot 1 (rows t < T)
+    for (int h = 0; h < 2; ++h) {
+      const int rows = max(0, min(4, a.T - 4 * h));
+      if (lane == 0) mbar_expect_tx(&full[h], static_cast<unsigned>(rows * (kend - kbeg) * 2));
+      __syncwarp();
+      if (lane < rows)
+        bulk_load(smem + h * kStageBytes + lane * kXPitch,
+                  a.x + static_cast<long long>(4 * h + lane) * a.I + kbeg, (kend - kbeg) * 2,
+                  &full[h]);
+    }
+    int slot = 2;
+    unsigned phase = 0;
+    for (int u = c; u < a.units(); u += a.ctas) {
+      const int s = u / a.nks, l = s / a.ns, o0 = (s % a.ns) * kStripe;
+      const int rows = min(kStripe, a.O - o0);
+      const __nv_bfloat16* src = a.w + (static_cast<long long>(l) * a.O + o0 + lane) * a.I;
+      for (int k = kbeg; k < kend; k += kStageK) {
+        const int kc = min(kStageK, kend - k);
+        mbar_wait(&empty[slot], phase ^ 1);
+        if (lane == 0) mbar_expect_tx(&full[slot], static_cast<unsigned>(rows * kc * 2));
+        __syncwarp();
+        if (lane < rows)
+          bulk_load(smem + slot * kStageBytes + lane * kStagePitch, src + k, kc * 2, &full[slot]);
+        if (++slot == kDepth) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // This warp's x fragments of the slice, from the ring's first two slots
+  // into registers for the whole walk (the mma's A operand, rows t < 8):
+  // step j = warp + kParts * i of stage st is xf[st * kSteps + i] = x[g][col
+  // + 4q .. + 3] for the step's first column col; zero for t >= T and past
+  // the slice. Then both slots go back to the ring.
+  const int g = lane >> 2, q = lane & 3;
+  mbar_wait(&full[0], 0);
+  mbar_wait(&full[1], 0);
+  const uint32_t x_lane = smem_u32(smem) + (g >> 2) * kStageBytes + (g & 3) * kXPitch + 8 * q;
+  uint32_t xf[kXFrags][2];
+#pragma unroll
+  for (int f = 0; f < kXFrags; ++f) {
+    const int col = (f / kSteps) * kStageK + (warp + kParts * (f % kSteps)) * 16;
+    xf[f][0] = xf[f][1] = 0u;
+    if (g < a.T && kbeg + col < kend) lds64(xf[f], x_lane + col * 2);
+  }
+#pragma unroll
+  for (int f = 0; f < kXFrags; ++f) asm volatile("" : "+r"(xf[f][0]), "+r"(xf[f][1]));
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive(&empty[0]);
+    mbar_arrive(&empty[1]);
+  }
+
+  // this lane's B fragments (weight row g, columns 4q .. + 3 of a step)
+  const uint32_t b_lane = smem_u32(smem) + g * kStagePitch + 8 * q;
+  int slot = 2, buf = 0;
+  unsigned phase = 0;
+  for (int u = c; u < a.units(); u += a.ctas) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int st = 0; st < kMaxSlice / kStageK; ++st) {
+      const int k = kbeg + st * kStageK;
+      if (k >= kend) break;
+      const int steps = min(kStageK, kend - k) / 16;  // this warp's: j = warp (mod kParts)
+      mbar_wait(&full[slot], phase);
+      const uint32_t wb = b_lane + slot * kStageBytes;
+#pragma unroll
+      for (int i0 = 0; i0 < kSteps; i0 += 4) {  // four steps' loads, then their products
+        uint32_t bf[4][2];
+#pragma unroll
+        for (int i = i0; i < i0 + 4; ++i)
+          if (warp + kParts * i < steps) lds64(bf[i - i0], wb + (warp + kParts * i) * 32);
+#pragma unroll
+        for (int i = i0; i < i0 + 4; ++i)
+          if (warp + kParts * i < steps) mma_rows8(acc, xf[st * kSteps + i], bf[i - i0]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      if (++slot == kDepth) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    // this warp's part: t = g, rows 2q and 2q + 1 of the stripe
+    float* r = red + (buf * kParts + warp) * kMaxT * kRedPitch + g * kRedPitch + 2 * q;
+    r[0] = acc[0];
+    r[1] = acc[1];
+    consumer_sync();
+    // thread (t, row): the parts in order
+    if (threadIdx.x < kMaxT * kStripe) {
+      const int t = threadIdx.x / kStripe, row = threadIdx.x % kStripe;
+      const int s = u / a.nks, l = s / a.ns, o = (s % a.ns) * kStripe + row;
+      if (t < a.T && o < a.O) {
+        const float* p = red + buf * kParts * kMaxT * kRedPitch + t * kRedPitch + row;
+        float v = p[0];
+#pragma unroll
+        for (int w = 1; w < kParts; ++w) v += p[w * kMaxT * kRedPitch];
+        a.out[((static_cast<long long>(ks) * a.L + l) * a.T + t) * a.O + o] = v;
+      }
+    }
+    buf ^= 1;  // the next unit writes the other buffer; the one after waits on its barrier
+  }
+}
+
+// y[i] = sum over the K slices, in order, of part[ks][i] (n = L * T * O).
+__global__ void probe_gemv_sum_kernel(const float* __restrict__ part, int nks, long long n,
+                                      float* __restrict__ y) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float v = part[i];
+    for (int ks = 1; ks < nks; ++ks) v += part[ks * n + i];
+    y[i] = v;
+  }
+}
+
+// ------------------------------------------------------------ q8 GEMV
+// wd of the 16 int8 weights at column k of weight row `row` into w[], per the
+// kind.
 template <int WK>
 __device__ __forceinline__ void load_weights(const void* wbase, const float* s, long row, int I,
                                              int NB, int k, float (&w)[16]) {
   const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-      static_cast<const char*>(wbase) + (row * I + k) * (WK == W_BF16 ? 2 : 1)));
-  if (WK == W_BF16) {
-    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      static_cast<const char*>(wbase) + row * I + k));
+  // the scale of column k is s[o, k % NB] (pltpu.repeat tiles the [TO, NB]
+  // block: jnp.tile); NB % 16 == 0, so the 16 columns take 16 adjacent scales
+  const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+  const float4* sp = reinterpret_cast<const float4*>(s + row * NB + k % NB);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = __bfloat162float(v[e]);
-  } else {
-    // the scale of column k is s[o, k % NB] (pltpu.repeat tiles the [TO, NB]
-    // block: jnp.tile); NB % 16 == 0, so the 16 columns take 16 adjacent scales
-    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-    const float4* sp = reinterpret_cast<const float4*>(s + row * NB + k % NB);
+  for (int j = 0; j < 4; ++j) {
+    const float4 sv = __ldg(sp + j);
+    const float sc[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 sv = __ldg(sp + j);
-      const float sc[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float qv = static_cast<float>(q[4 * j + e]);
-        w[4 * j + e] = WK == W_Q8_F32 ? bf16_round(__fmul_rn(qv, sc[e]))
-                                      : bf16_round(__fmul_rn(qv, bf16_round(sc[e])));
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float qv = static_cast<float>(q[4 * j + e]);
+      w[4 * j + e] = WK == W_Q8_F32 ? bf16_round(__fmul_rn(qv, sc[e]))
+                                    : bf16_round(__fmul_rn(qv, bf16_round(sc[e])));
     }
   }
 }
@@ -102,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) probe_gemv_kernel(const __nv_bfloat1
                                                                const float* __restrict__ s,
                                                                float* __restrict__ y, int T, int O,
                                                                int I, int NB) {
-  constexpr int E = WK == W_BF16 ? 8 : 16;  // weights per 16-byte load
+  constexpr int E = 16;  // weights per 16-byte load
   __shared__ __align__(16) float xs[kMaxT][kTileK];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const long layer = blockIdx.y;
@@ -231,45 +508,6 @@ struct StreamArgs {
   float* rec;                // S_LAST: [nr, nc]; S_SUM: [n_chunks, nr, nc]
   int* part;                 // S_DOT: [n_chunks, T] int32 sums of each chunk (zeroed first)
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA bulk copy global -> shared of `bytes` (a multiple of 16), completing
-// on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads) probe_stream_kernel(StreamArgs a) {
@@ -441,12 +679,52 @@ int stream_launch(StreamArgs a, float* out, int O, cudaStream_t st) {
 
 }  // namespace
 
-// K18a-c, g, i. x bf16 [T, I]; w [L, O, I] (bf16 for W_BF16, else int8 with
-// f32 scales s [L, O, NB], column k scaled by s[., k % NB], NB % 16 == 0);
-// y [L, T, O] f32. T <= 8, I % 16 == 0.
+// K18a, i. x bf16 [T, I]; w bf16 [L, O, I]; y [L, T, O] f32. The plan
+// (ops/probes.py plan_gemv): nks K slices, ctas CTAs (a multiple of nks);
+// part: f32 [nks, L, T, O] when nks > 1. 1 <= T <= 8, I % 16 == 0, every
+// slice at most kMaxSlice columns, x and w 16-byte aligned.
+LT_EXPORT int lt_probe_gemv_bf16(const void* x, const void* w, void* y, void* part, int T, int O,
+                                 int I, int L, int nks, int ctas, void* stream) {
+  const int n16 = I / 16;
+  if (T < 1 || T > kMaxT || I < 16 || I % 16 || O < 1 || L < 1 || nks < 1 || nks > n16 ||
+      ctas < nks || ctas % nks || (n16 + nks - 1) / nks * 16 > kMaxSlice ||
+      (nks > 1 && part == nullptr) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(kDepth) * kStageBytes +
+                      sizeof(float) * 2 * kParts * kMaxT * kRedPitch;
+  cudaError_t e = lt_allow_smem(probe_gemv_tc_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  TcWalk a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.out = static_cast<float*>(nks > 1 ? part : y);
+  a.T = T;
+  a.O = O;
+  a.I = I;
+  a.L = L;
+  a.ns = (O + kStripe - 1) / kStripe;
+  a.nks = nks;
+  a.ctas = ctas;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  probe_gemv_tc_kernel<<<ctas, kTcThreads, smem, st>>>(a);
+  LT_RETURN_IF_ERROR();
+  if (nks > 1) {
+    const long long n = static_cast<long long>(L) * T * O, cap = 4LL * lt_sm_count();
+    const int blocks = static_cast<int>((n + 255) / 256 < cap ? (n + 255) / 256 : cap);
+    probe_gemv_sum_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(part), nks, n,
+                                                  static_cast<float*>(y));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18b, c, g. x bf16 [T, I]; w int8 [L, O, I] with f32 scales s [L, O, NB],
+// column k scaled by s[., k % NB], NB % 16 == 0; y [L, T, O] f32. T <= 8,
+// I % 16 == 0.
 LT_EXPORT int lt_probe_gemv(const void* x, const void* w, const void* s, void* y, int T, int O,
                             int I, int L, int NB, int wkind, void* stream) {
-  if (T < 1 || T > kMaxT || I % 16 || L < 1 || (wkind != W_BF16 && (NB % 16 || NB < 16)))
+  if (T < 1 || T > kMaxT || I % 16 || L < 1 || NB % 16 || NB < 16 ||
+      (wkind != W_Q8_F32 && wkind != W_Q8_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int per_block = (kThreads / 32) * kRows;
   dim3 grid((O + per_block - 1) / per_block, L);
@@ -454,9 +732,7 @@ LT_EXPORT int lt_probe_gemv(const void* x, const void* w, const void* s, void* y
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* sf = static_cast<const float*>(s);
   auto* yf = static_cast<float*>(y);
-  if (wkind == W_BF16)
-    probe_gemv_kernel<W_BF16><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);
-  else if (wkind == W_Q8_F32)
+  if (wkind == W_Q8_F32)
     probe_gemv_kernel<W_Q8_F32><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);
   else
     probe_gemv_kernel<W_Q8_BF16><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);

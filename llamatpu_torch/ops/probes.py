@@ -1,21 +1,104 @@
-"""Launchers of the three probe kernels in csrc/probes.cu (design and bounds
+"""Launchers of the four probe kernels in csrc/probes.cu (design and bounds
 in its header note). bench/roofline.py (K18) and bench/dma_sweep.py (K19)
 build the TPU scripts' probe functions on them; those functions hold the
 plain versions and the launch counts, and take the plain version for a CPU
 tensor. These launchers take CUDA tensors only.
+
+The bf16 GEMV (K18a, K18i: `gemv_bf16`) is one TMA-fed tensor-core kernel:
+persistent CTAs, one per SM, walk units of (layer, stripe of STRIPE weight
+rows, K slice); a CTA's x slice arrives first through its ring and stays in
+registers, then each stripe streams through the mbarrier ring of [STRIPE,
+STAGE_K] stages into `mma.sync` products; PARTS consumer warps share each
+stage's 16-column steps and add their parts in order at the unit's end.
+`plan_gemv` lays the walk out (`GemvPlan.units`, mirrored by the kernel):
+the whole K as one slice unless stripes alone leave the SMs under 90 %
+busy, then K slices whose partial sums a second pass adds in K order.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from llamatpu_torch import _build
+from llamatpu_torch.ops.gemm import _sm_count
 
-# weight kinds of the GEMV probe (csrc/probes.cu WKind)
-W_BF16, W_Q8_F32, W_Q8_BF16 = 0, 1, 2
+# weight kinds of the q8 GEMV probe (csrc/probes.cu WKind)
+W_Q8_F32, W_Q8_BF16 = 1, 2
 # stream modes (csrc/probes.cu SMode): the last chunk's first rows, the sum
 # over chunks of their first rows, the int8 dot of every row summed per chunk
 S_LAST, S_SUM, S_DOT = 0, 1, 2
 MAX_T = 8
+# the bf16 GEMV's walk (csrc/probes.cu): weight rows of a unit, columns of a
+# ring stage, consumer warps (each the 16-column steps j = warp mod PARTS of
+# a stage), the most x columns a CTA stages; the planner cuts no K slice
+# narrower than MIN_SLICE columns
+STRIPE, STAGE_K, PARTS, MAX_SLICE, MIN_SLICE = 8, 2048, 8, 4096, 256
+BUSY_SHARE = 0.9
+
+
+@dataclass(frozen=True)
+class GemvPlan:
+    """The bf16 GEMV's walk over L layers of [O, I] weights: unit u is stripe
+    u // nks (layer s // stripes, rows (s % stripes) * STRIPE ..) over K
+    slice u % nks; CTA c takes units c, c + ctas, ...; ctas % nks == 0, so a
+    CTA keeps one slice (and stages x's columns of it once)."""
+    o: int
+    i: int
+    layers: int
+    nks: int   # K slices of whole 16-column steps (`slice`)
+    ctas: int
+
+    @property
+    def stripes(self) -> int:
+        return -(-self.o // STRIPE)
+
+    @property
+    def n_units(self) -> int:
+        return self.layers * self.stripes * self.nks
+
+    def slice(self, ks: int) -> tuple[int, int]:
+        """Columns [k0, k1) of K slice ks."""
+        n16 = self.i // 16
+        return ks * n16 // self.nks * 16, (ks + 1) * n16 // self.nks * 16
+
+    def units(self, c: int) -> list[tuple[int, int, int, int, int]]:
+        """CTA c's units in order: (layer, row0, row1, k0, k1)."""
+        out = []
+        for u in range(c, self.n_units, self.ctas):
+            s, ks = divmod(u, self.nks)
+            layer, j = divmod(s, self.stripes)
+            out.append((layer, j * STRIPE, min(self.o, (j + 1) * STRIPE), *self.slice(ks)))
+        return out
+
+
+def _busy(stripes: int, nks: int, sm_count: int) -> tuple[float, int]:
+    """(share of the SMs busy over the call, CTAs) with nks K slices: each
+    slice's stripes go to sm_count // nks CTAs in rounds."""
+    per = max(1, min(stripes, sm_count // nks))
+    rounds = -(-stripes // per)
+    return stripes * nks / (max(sm_count, nks * per) * rounds), nks * per
+
+
+@functools.lru_cache(maxsize=256)
+def plan_gemv(o: int, i: int, layers: int, sm_count: int = 132) -> GemvPlan:
+    """Whole-K stripes in rounds over min(stripes, SMs) CTAs where that keeps
+    the SMs >= 90 % busy; else the fewest K slices (no narrower than
+    MIN_SLICE columns) that do, or the busiest. Slices also keep x's staged
+    columns within MAX_SLICE."""
+    n16 = i // 16
+    stripes = layers * -(-o // STRIPE)
+    lo = -(-n16 // (MAX_SLICE // 16))
+    hi = max(lo, min(n16 // (MIN_SLICE // 16), sm_count))
+    best = None
+    for nks in range(lo, hi + 1):
+        busy, ctas = _busy(stripes, nks, sm_count)
+        if busy >= BUSY_SHARE:
+            return GemvPlan(o, i, layers, nks, ctas)
+        if best is None or busy > best[0]:
+            best = (busy, nks, ctas)
+    return GemvPlan(o, i, layers, best[1], best[2])
 
 
 def _stacked(w: torch.Tensor) -> torch.Tensor:
@@ -30,26 +113,54 @@ def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
                    and w.shape[-1] % 16 == 0, f"{what}: contiguous x [T <= 8, I], I % 16 == 0")
 
 
-def gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None, wkind: int) -> torch.Tensor:
-    """y [L, T, O] f32 = x [T, I] bf16 . wd[l]^T for w [L, O, I] (or [O, I]):
-    bf16 weights (W_BF16) or int8 with f32 scales s [L, O, NB], column k
-    scaled by s[l, o, k % NB] (the TPU scripts' tiled scales), dequantized in
-    f32 (W_Q8_F32) or by a bf16 multiply (W_Q8_BF16)."""
+def gemv_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y [L, T, O] f32 = x [T, I] bf16 . w[l]^T for bf16 w [L, O, I] (or [O,
+    I]), f32 sums, on the tensor-core GEMV. The shape checks come first, so
+    they raise (ValueError) before the device is asked for."""
+    w3 = _stacked(w)
+    _build.require(x.dim() == 2 and 1 <= x.shape[0] <= MAX_T and x.shape[1] == w3.shape[-1],
+                   "probe gemv bf16: x [T <= 8, I] against w [L, O, I]")
+    lay, o, i = w3.shape
+    _build.require(i > 0 and i % 16 == 0 and o > 0 and lay > 0,
+                   "probe gemv bf16: I % 16 == 0, nothing empty")
+    _build.require(x.dtype == torch.bfloat16 and w3.dtype == torch.bfloat16,
+                   "probe gemv bf16: bf16 x and w")
+    _build.require(x.is_contiguous() and w3.is_contiguous()
+                   and x.data_ptr() % 16 == 0 and w3.data_ptr() % 16 == 0,
+                   "probe gemv bf16: contiguous, 16-byte aligned x and w")
+    _build.require(x.device.type == "cuda" and w3.device == x.device,
+                   "probe gemv bf16: CUDA tensors on one device (the plain versions take the CPU)")
+    plan = plan_gemv(o, i, lay, _sm_count(x.device.index or 0))
+    t = x.shape[0]
+    y = torch.empty((lay, t, o), dtype=torch.float32, device=x.device)
+    part = (torch.empty((plan.nks, lay, t, o), dtype=torch.float32, device=x.device)
+            if plan.nks > 1 else None)
+    lib = _build.load("probes")
+    err = lib.lt_probe_gemv_bf16(x.data_ptr(), w3.data_ptr(), y.data_ptr(),
+                                 0 if part is None else part.data_ptr(), t, o, i, lay, plan.nks,
+                                 plan.ctas, _build.stream())
+    _build.check(lib, err, "probe gemv bf16")
+    return y
+
+
+def gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, wkind: int) -> torch.Tensor:
+    """y [L, T, O] f32 = x [T, I] bf16 . wd[l]^T for int8 w [L, O, I] (or
+    [O, I]) with f32 scales s [L, O, NB], column k scaled by s[l, o, k % NB]
+    (the TPU scripts' tiled scales), dequantized in f32 (W_Q8_F32) or by a
+    bf16 multiply (W_Q8_BF16)."""
     w3 = _stacked(w)
     _check(x, w3, "probe gemv")
     lay, o, i = w3.shape
-    want = torch.bfloat16 if wkind == W_BF16 else torch.int8
-    _build.require(x.dtype == torch.bfloat16 and w3.dtype == want, "probe gemv: dtypes")
-    nb = 0
-    if wkind != W_BF16:
-        s3 = _stacked(s)
-        nb = s3.shape[-1]
-        _build.require(s3.dtype == torch.float32 and s3.is_contiguous() and nb % 16 == 0
-                       and tuple(s3.shape[:2]) == (lay, o), "probe gemv: scales [L, O, NB]")
+    _build.require(wkind in (W_Q8_F32, W_Q8_BF16), "probe gemv: a q8 weight kind")
+    _build.require(x.dtype == torch.bfloat16 and w3.dtype == torch.int8, "probe gemv: dtypes")
+    s3 = _stacked(s)
+    nb = s3.shape[-1]
+    _build.require(s3.dtype == torch.float32 and s3.is_contiguous() and nb % 16 == 0
+                   and tuple(s3.shape[:2]) == (lay, o), "probe gemv: scales [L, O, NB]")
     y = torch.empty((lay, x.shape[0], o), dtype=torch.float32, device=x.device)
     lib = _build.load("probes")
-    err = lib.lt_probe_gemv(x.data_ptr(), w3.data_ptr(), 0 if wkind == W_BF16 else s.data_ptr(),
-                            y.data_ptr(), x.shape[0], o, i, lay, nb, wkind, _build.stream())
+    err = lib.lt_probe_gemv(x.data_ptr(), w3.data_ptr(), s.data_ptr(), y.data_ptr(), x.shape[0],
+                            o, i, lay, nb, wkind, _build.stream())
     _build.check(lib, err, "probe gemv")
     return y
 

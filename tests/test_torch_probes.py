@@ -4,8 +4,9 @@ interpret mode; K17's against `rowq_gemm_pallas(variant="bf16")`; and the
 plain versions of the rate probes K18 (bench/roofline.py) and K19
 (bench/dma_sweep.py) against the functions of scripts/bench_roofline.py and
 scripts/bench_dma_sweep.py, loaded from scripts/ with their module globals
-shrunk and every pallas_call run in TPU interpret mode. On the CPU no kernel
-launch is counted."""
+shrunk and every pallas_call run in TPU interpret mode; and the summation
+order of K18a / K18i's tensor-core GEMV against the same script. On the CPU
+no kernel launch is counted."""
 import functools
 import importlib.util
 from pathlib import Path
@@ -24,7 +25,7 @@ from llamatpu.models.weights import prepare_qtensor, rowq_requant
 from llamatpu.ops.pallas_gemm import rowq_gemm_pallas
 from llamatpu_torch.bench import dma_sweep, roofline
 from llamatpu_torch.models.weights import from_numpy_weights
-from llamatpu_torch.ops import gemm, layer_fused
+from llamatpu_torch.ops import gemm, layer_fused, probes
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 EPS = 1e-5
@@ -241,6 +242,56 @@ def test_k18_dma_probe_int8_and_library_rows(stacks, monkeypatch):
     want = np.asarray(mod.call_big_xla_bf16((_jax(stacks["bf16"]),), _jax(x)))
     got = roofline.call_big_xla_bf16((_torch(stacks["bf16"]),), _torch(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def _gemv_tc_walk_plain(x, w, plan):
+    """K18a / K18i's kernel (csrc/probes.cu probe_gemv_tc_kernel) in its
+    summation order, in f32: each unit (layer, rows, K slice) of each CTA's
+    walk sums PARTS column parts, part p taking the 16-column steps j = p
+    (mod PARTS) of each STAGE_K-column ring stage in order, then adds the
+    parts in order; the K slices' partial sums are added in slice order."""
+    xf, wf = x.float(), w.float()
+    lay, o, _ = wf.shape
+    part = torch.zeros((plan.nks, lay, xf.shape[0], o))
+    starts = [plan.slice(k)[0] for k in range(plan.nks)]
+    for c in range(plan.ctas):
+        for layer, r0, r1, k0, k1 in plan.units(c):
+            parts = [torch.zeros((xf.shape[0], r1 - r0)) for _ in range(probes.PARTS)]
+            for k in range(k0, k1, probes.STAGE_K):
+                for j in range(min(probes.STAGE_K, k1 - k) // 16):
+                    cols = slice(k + 16 * j, k + 16 * j + 16)
+                    p = j % probes.PARTS
+                    parts[p] = parts[p] + xf[:, cols] @ wf[layer, r0:r1, cols].T
+            acc = parts[0]
+            for p in parts[1:]:
+                acc = acc + p
+            part[starts.index(k0), layer, :, r0:r1] = acc
+    y = part[0]
+    for ks in range(1, plan.nks):
+        y = y + part[ks]
+    return y
+
+
+@pytest.mark.parametrize("plan_of", ["card", "7 sms", "split"])
+@pytest.mark.parametrize("name", ["step_pallas_bf16", "call3_bf16"])
+def test_k18_tc_walk_order_matches_roofline_script(stacks, monkeypatch, name, plan_of):
+    """The tensor-core GEMV's summation order, run in plain torch under its
+    plan on the H100 (132 SMs), on 7 SMs, and with two K slices and their
+    second pass, against the script's function at the K18 tolerance (rtol
+    1e-5, atol 1e-5 of the largest output), and against the plain version."""
+    mod = _load_script("bench_roofline", monkeypatch)
+    stacked = name == "call3_bf16"
+    w = stacks["bf16"] if stacked else stacks["bf16"][:1]
+    plan = (probes.GemvPlan(SO, SI, w.shape[0], 2, 64) if plan_of == "split" else
+            probes.plan_gemv(SO, SI, w.shape[0], 132 if plan_of == "card" else 7))
+    got = _gemv_tc_walk_plain(_torch(stacks["x"]), _torch(w), plan)[0].numpy()
+    ws = (_jax(stacks["bf16"]),) if stacked else (_jax(stacks["bf16"][0]),)
+    want = np.asarray(getattr(mod, name)(ws, _jax(stacks["x"])))
+    assert got.shape == want.shape == (8, SO)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    plain = getattr(roofline, name + "_plain")((_torch(w if stacked else w[0]),),
+                                               _torch(stacks["x"])).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max())
 
 
 K19 = [("probe_blockspec", (256,), "qs"), ("probe_blockspec", (1024,), "qs"),

@@ -597,14 +597,128 @@ def paged_tables(positions, parked, maxblk: int, nblk: int, bs: int, seed: int):
     return tables
 
 
+PAGED = ("paged_cluster_kernel",)  # K8 and K8-int8: one launch, clusters of CTAs
+PAGED_CLUSTERS = (1, 2, 4, 8)  # every cluster size ops/attention.plan_paged can pick
+
+
+def forced_cluster(attention, c: int):
+    """A context in which K8's planner keeps its stages but takes cluster c."""
+    import contextlib
+    import dataclasses
+
+    @contextlib.contextmanager
+    def ctx():
+        planner = attention.plan_paged
+        attention.plan_paged = lambda *a, **kw: dataclasses.replace(planner(*a, **kw), cluster=c)
+        try:
+            yield
+        finally:
+            attention.plan_paged = planner
+    return ctx()
+
+
+def paged_pool(dev, gen, layers: int, nblk: int, kvh: int, bs: int, width: int, dt):
+    """A random stacked pool [L, NBLK, KV, BS, W] (f32, bf16, or int8 with its
+    scale pool [L, NBLK, KV, 2, BS] through quantize_kv), scale pool or None."""
+    import torch
+
+    x = torch.randn((layers, nblk, kvh, bs, width), device=dev, generator=gen)
+    if dt == torch.int8:
+        return int8_rows(x)
+    return x.to(dt), None
+
+
+def time_paged(dev, dims, quant: bool, seed: int) -> dict:
+    """K8 (or K8-int8) at B = 8 lanes of a shuffled pool at pos 512 (block
+    16, lanes up to 2048 rows, 512 blocks): the kernel warm (the same layer
+    replayed: its live rows stay in L2) and cold (a stacked pool cycled
+    through layers whose live rows pass 50 MB between two reads of one
+    layer, as in a serving step), under every cluster size, beside its plain
+    version, GQA SDPA over a dense (dequantized) view prepared beforehand,
+    and the same with the gather inside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from llamatpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    KV, G, HD = dims["KV"], dims["G"], dims["HD"]
+    B, BS, MAXLEN, pos = 8, 16, 2048, 512
+    W, scale = 2 * HD, HD ** -0.5
+    maxblk = MAXLEN // BS
+    nblk = B * maxblk // 2
+    nb = pos // BS + 1
+    tables = paged_tables([pos] * B, set(), maxblk, nblk, BS, seed=seed).to(dev)
+    pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    q = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    row_bytes = W + 8 if quant else 2 * W
+    live = B * KV * (pos + 1) * row_bytes
+    layers = -(-64_000_000 // live) + 1  # > 50 MB of other layers' rows between two reads
+    pool, spool = paged_pool(dev, gen, layers, nblk, KV, BS, W,
+                             torch.int8 if quant else torch.bfloat16)
+    fn = A.decode_attention_paged_q if quant else A.decode_attention_paged
+    plain = A.decode_attention_paged_q_plain if quant else A.decode_attention_paged_plain
+    args = lambda li: (q, pool, spool, tables, pv, scale, HD, li) if quant \
+        else (q, pool, tables, pv, scale, HD, li)  # noqa: E731
+    tl = tables[:, :nb].long()
+
+    def gathered(li):  # the lane's rows as contiguous bf16 K and V [B, KV, pos + 1, hd]
+        kv = pool[li][tl].permute(0, 2, 1, 3, 4).reshape(B, KV, nb * BS, W)[:, :, : pos + 1]
+        if quant:
+            sc = spool[li][tl].permute(0, 2, 3, 1, 4).reshape(B, KV, 2, nb * BS)[..., : pos + 1]
+            kv = torch.cat([kv[..., :HD] * sc[:, :, 0, :, None],
+                            kv[..., HD:] * sc[:, :, 1, :, None]], dim=-1).to(torch.bfloat16)
+        return kv[..., :HD], kv[..., HD:]
+
+    library, lib_name = sdpa_yardstick(q, *(t.contiguous() for t in gathered(1)), scale)
+    gqa = "GQA" in lib_name
+    qs = q.reshape(B, KV * G, 1, HD)
+
+    def library_gather():
+        k, v = gathered(1)
+        if not gqa:
+            k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+        return F.scaled_dot_product_attention(qs, k, v, scale=scale, enable_gqa=True) if gqa \
+            else F.scaled_dot_product_attention(qs, k, v, scale=scale)
+
+    nbytes = B * KV * (pos + 1) * row_bytes + B * KV * G * HD * 2 + B * nb * 4 + B * 4 \
+        + B * KV * G * HD * 4
+    b_ms, b_by = bound(nbytes, B * 2 * KV * G * (pos + 1) * W, BF16_OPS_S)
+    tm = timings(lambda: fn(*args(1)), PAGED, lambda: plain(*args(1)), library)
+    tm["library_gather_ms"] = time_ms(library_gather)
+    cycle = iter(range(10**9))
+    tm["ms_cold"] = kernel_ms(lambda: fn(*args(next(cycle) % layers)), PAGED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = A.plan_paged(B, KV, maxblk, W, pool.element_size(), sms)
+    by_cluster = {}
+    for c in PAGED_CLUSTERS:
+        with forced_cluster(A, c):
+            by_cluster[c] = dict(ms=kernel_ms(lambda: fn(*args(1)), PAGED),
+                                 ms_cold=kernel_ms(lambda: fn(*args(next(cycle) % layers)), PAGED))
+    tag = "K8-int8" if quant else "K8"
+    log(f"{tag} B {B} at pos {pos}: {tm['ms']:.5f} ms warm, {tm['ms_cold']:.5f} cold over "
+        f"{layers} layers (bound {b_ms:.5f} by {b_by}, plain {tm['plain_ms']:.4f}, sdpa "
+        f"{tm['library_ms']:.5f}, with the gather {tm['library_gather_ms']:.5f}); cluster "
+        f"{plan.cluster} of {plan.rows}-row stages; by cluster " + ", ".join(
+            f"{c}: {v['ms']:.5f} / {v['ms_cold']:.5f}" for c, v in by_cluster.items()))
+    del pool, spool
+    torch.cuda.empty_cache()
+    return dict(**tm, library=lib_name + (" (gathered and dequantized beforehand)" if quant
+                                          else " (gathered beforehand)"),
+                library_gather="the same with the gather (and dequantization) in the call",
+                bound_ms=b_ms, bound_by=b_by, cluster=plan.cluster, stage_rows=plan.rows,
+                cold_layers=layers, by_cluster=by_cluster,
+                shape=f"B={B} lanes at pos={pos} BS={BS} MAXBLK={maxblk} NBLK={nblk} KV={KV} "
+                      f"G={G} hd={HD}")
+
+
 def check_paged_attention(dev, dims=LLAMA32_1B) -> dict:
-    """K8 against its plain version at llama32-1b shapes, B = 8 lanes of a
+    """K8 against its plain version at the geometry `dims`, B = 8 lanes of a
     shuffled pool (block size 16, lanes up to 2048 rows, the engine's default
     pool of 512 blocks), bf16 and f32 pools: lanes at pos 0, 15, 16, 100,
     511, 1023 and 2047 and one parked at the trash block; output within 1e-5
-    of the largest plain |value|. Timed with the 8 lanes at pos 512."""
+    of the largest plain |value|, the pool unchanged. Timed by time_paged."""
     import torch
-    import torch.nn.functional as F
 
     from llamatpu_torch.ops import attention
 
@@ -631,37 +745,76 @@ def check_paged_attention(dev, dims=LLAMA32_1B) -> dict:
         assert bool(torch.isfinite(got).all())
         worst, worst_abs = max(worst, rel_e), max(worst_abs, abs_e)
         log(f"K8 {dt} lanes {positions} (lane 7 parked): max abs {abs_e:.3g} rel {rel_e:.3g}")
-    del pool
-    pos = 512
-    tables = paged_tables([pos] * B, set(), maxblk, nblk, BS, seed=9).to(dev)
-    pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
-    pool = torch.randn((2, nblk, KV, BS, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
-    q = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
-    nb = pos // BS + 1
-    # the library yardstick attends a dense view gathered beforehand (the
-    # gather is not timed)
-    dense = pool[1][tables[:, :nb].long()].permute(0, 2, 1, 3, 4).reshape(B, KV, nb * BS, 2 * HD)
-    ks = dense[:, :, : pos + 1, :HD].repeat_interleave(G, dim=1).contiguous()
-    vs = dense[:, :, : pos + 1, HD:].repeat_interleave(G, dim=1).contiguous()
-    qs = q.reshape(B, KV * G, 1, HD)
-    nbytes = B * KV * (pos + 1) * 2 * HD * 2 + B * KV * G * HD * 2 + B * nb * 4 + B * 4 \
-        + B * KV * G * HD * 4
-    b_ms, b_by = bound(nbytes, B * 2 * KV * G * (pos + 1) * 2 * HD, BF16_OPS_S)
-    tm = timings(lambda: attention.decode_attention_paged(q, pool, tables, pv, scale, HD, 1),
-                 ("paged_split_kernel", "attn_combine_kernel"),
-                 lambda: attention.decode_attention_paged_plain(q, pool, tables, pv, scale, HD, 1),
-                 lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale))
-    log(f"K8 B {B} at pos {pos}: {tm['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
-        f"{tm['plain_ms']:.4f}, sdpa on a gathered view {tm['library_ms']:.4f})")
+    del pool, before
     return dict(
         name="decode_attention_paged", route="cuda", source="llamatpu_torch/csrc/attention.cu",
         replaces="llamatpu/ops/pallas_attention.py:617", max_abs_err=worst_abs, max_rel_err=worst,
         tolerance="rel to max|plain| <= 1e-5 (bf16 and f32 pools); the pool is not written",
-        **tm, library="scaled_dot_product_attention over a dense view gathered beforehand "
-                      "(gather not timed)",
-        bound_ms=b_ms, bound_by=b_by,
-        shape=f"B={B} lanes at pos={pos} BS={BS} MAXBLK={maxblk} NBLK={nblk} KV={KV} G={G} "
-              f"hd={HD}")
+        **time_paged(dev, dims, quant=False, seed=9))
+
+
+# K8's edge geometries: (label, lanes, KV heads, G, head dim, MAXLEN)
+PAGED_EDGE_GEOMETRIES = (("llama32-1b", 8, 8, 4, 64, 2304), ("qwen15-moe", 8, 16, 1, 128, 256),
+                         ("phi3-medium", 24, 10, 4, 128, 256))
+
+
+def check_paged_edges(dev) -> dict:
+    """K8 and K8-int8 against their plain versions at block sizes 8 and 16,
+    f32, bf16 and int8 pools, the geometries of PAGED_EDGE_GEOMETRIES (hd 64
+    G 4; hd 128 G 1; hd 128 G 4 with 24 lanes of 10 KV heads) and every
+    cluster size: lanes at pos 0, BS - 1, BS, a block boundary in the
+    middle and MAXLEN - 1 (llama32-1b's 2304 rows at BS 8 give a one-CTA
+    cluster more table entries than it holds in shared memory), one parked
+    at the trash block, one at pos -1 (NaN in every output), the others
+    random; rel <= 1e-5 of max|plain| over the other lanes, finite, the pool
+    and scale pool unchanged."""
+    import torch
+
+    from llamatpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    cases, worst = 0, {}
+    for label, B, KV, G, HD, MAXLEN in PAGED_EDGE_GEOMETRIES:
+        for BS in (8, 16):
+            maxblk = MAXLEN // BS
+            nblk = B * maxblk + 1
+            rnd = torch.randint(0, MAXLEN, (B,), generator=torch.Generator().manual_seed(BS))
+            positions = [0, BS - 1, BS, (maxblk // 2) * BS, MAXLEN - 1, MAXLEN // 3 + 1, -1] + \
+                rnd.tolist()[7:]
+            parked, nan_lane = 5, 6
+            tables = paged_tables([max(p, 0) for p in positions], {parked, nan_lane}, maxblk,
+                                  nblk, BS, seed=BS).to(dev)
+            pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+            keep = torch.arange(B, device=dev) != nan_lane
+            for dt in (torch.float32, torch.bfloat16, torch.int8):
+                pool, spool = paged_pool(dev, gen, 2, nblk, KV, BS, 2 * HD, dt)
+                q = torch.randn((B, KV, G, HD), device=dev, generator=gen)
+                q = q.to(torch.bfloat16 if dt == torch.bfloat16 else torch.float32)
+                before = (pool.clone(), None if spool is None else spool.clone())
+                want = A.decode_attention_paged_plain(q, pool, tables, pv, HD ** -0.5, HD, 1,
+                                                      scale_pool=spool)
+                for c in PAGED_CLUSTERS:
+                    with forced_cluster(A, c):
+                        got = A.decode_attention_paged(q, pool, tables, pv, HD ** -0.5, HD, 1,
+                                                       scale_pool=spool)
+                    torch.cuda.synchronize()
+                    what = f"K8 edges {label} BS {BS} {dt} cluster {c}"
+                    assert torch.equal(pool, before[0]) and (
+                        spool is None or torch.equal(spool, before[1])), f"{what}: pool written"
+                    assert bool(torch.isnan(got[nan_lane]).all()), f"{what}: pos -1 not NaN"
+                    assert bool(torch.isfinite(got[keep]).all()), f"{what}: not finite"
+                    abs_e, rel_e = max_err(got[keep], want[keep])
+                    assert rel_e <= 1e-5, f"{what}: max abs {abs_e} rel {rel_e}"
+                    key = f"{label} {dt}".replace("torch.", "")
+                    worst[key] = max(worst.get(key, 0.0), rel_e)
+                    cases += 1
+                del pool, spool, before
+    torch.cuda.empty_cache()
+    log(f"K8 edges: {cases} cases (BS 8 and 16, f32/bf16/int8, clusters {PAGED_CLUSTERS}) "
+        f"within rel 1e-5: worst {worst}")
+    return dict(cases=cases, worst_rel_err=worst,
+                tolerance="rel to max|plain| <= 1e-5 over the lanes with pos >= 0; pos -1 NaN; "
+                          "pool and scale pool unchanged")
 
 
 def check_tail(dev, dims=LLAMA32_1B) -> dict:
@@ -1065,34 +1218,14 @@ def check_int8_attention(dev, dims=LLAMA32_1B) -> list[dict]:
     abs8, rel8 = max_err(got, want)
     assert rel8 <= 1e-5 and bool(torch.isfinite(got).all()), f"K8-int8: {abs8} {rel8}"
     log(f"K8-int8 lanes {positions} (lane 7 parked): max abs {abs8:.3g} rel {rel8:.3g}")
-    pos = 512
-    tables = paged_tables([pos] * B, set(), maxblk, nblk, BS, seed=19).to(dev)
-    pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
-    nb = pos // BS + 1
-    # the library yardstick attends a dense bf16 view gathered and dequantized
-    # beforehand (not timed)
-    gather = lambda t: t[1][tables[:, :nb].long()]  # noqa: E731
-    dk = gather(pool).permute(0, 2, 1, 3, 4).reshape(B, KV, nb * BS, W)
-    ds = gather(spool).permute(0, 2, 3, 1, 4).reshape(B, KV, 2, nb * BS)
-    library, lib_name = sdpa_yardstick(q, *dense_kv(dk[None], ds[None], 0, pos + 1, HD), scale)
-    b_ms, b_by = bound(attn_bytes(B, KV, G, HD, pos + 1, W + 8) + B * nb * 4 + B * 4,
-                       B * 2 * KV * G * (pos + 1) * W, BF16_OPS_S)
-    tm = timings(lambda: A.decode_attention_paged_q(q, pool, spool, tables, pv, scale, HD, 1),
-                 ("paged_split_kernel", "attn_combine_kernel"),
-                 lambda: A.decode_attention_paged_q_plain(q, pool, spool, tables, pv, scale, HD, 1),
-                 library)
-    log(f"K8-int8 B {B} at pos {pos}: {tm['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
-        f"{tm['plain_ms']:.4f}, sdpa on a gathered bf16 view {tm['library_ms']:.4f})")
+    del pool, spool, before, sbefore
     torch.cuda.empty_cache()
     k8q = dict(name="decode_attention_paged_q", route="cuda",
                source="llamatpu_torch/csrc/attention.cu",
                replaces="llamatpu/ops/pallas_attention.py:617", max_abs_err=abs8,
                max_rel_err=rel8,
                tolerance="rel to max|plain| <= 1e-5; the pool and scale pool are not written",
-               **tm, library=lib_name + " (gathered and dequantized beforehand)",
-               bound_ms=b_ms, bound_by=b_by,
-               shape=f"B={B} lanes at pos={pos} BS={BS} MAXBLK={maxblk} NBLK={nblk} KV={KV} "
-                     f"G={G} hd={HD}")
+               **time_paged(dev, dims, quant=True, seed=19))
     return [k6q, k8q]
 
 
@@ -1107,7 +1240,8 @@ def check_block_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
 
 
 def check_serving_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
-    return [check_paged_attention(dev, dims), check_tail(dev, dims)]
+    return [dict(check_paged_attention(dev, dims), edges=check_paged_edges(dev)),
+            check_tail(dev, dims)]
 
 
 # ------------------------------------------------------------ slice 6 kernels
@@ -1503,8 +1637,7 @@ IN_PATH = {
     "decode_attention_fused_write": ("gguf", "decode16_trace",
                                      ("attn_split_kernel", "attn_combine_kernel"), 1),
     "packed4_matmul": ("pack4", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 17),
-    "decode_attention_paged": ("serve", "decode16_trace",
-                               ("paged_split_kernel", "attn_combine_kernel"), 1),
+    "decode_attention_paged": ("serve", "decode16_trace", PAGED, 1),
     # K9's three phases (K2 at 8 rows is gemv_tiled_kernel<8, bf16, 1, 1>)
     "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", tuple(
         f"{dt}, {p}>" for dt in ("bfloat16", "float") for p in ("0, 2", "1, 4", "0, 3")), 1),
@@ -1521,8 +1654,7 @@ IN_PATH = {
     "decode_attention_split_fused_write": ("longctx", "decode16_trace", WALK, 1),
     "decode_attention": ("k15", "decode16_trace", WALK, 1),
     "decode_attention_fused_write_q": ("k6_int8", "decode16_trace", WALK, 1),
-    "decode_attention_paged_q": ("serve_int8", "decode16_trace",
-                                 ("paged_split_kernel", "attn_combine_kernel"), 1),
+    "decode_attention_paged_q": ("serve_int8", "decode16_trace", PAGED, 1),
 }
 
 

@@ -61,7 +61,7 @@ _SIGNATURES = {
         "lt_decode_attention": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
                                 _P, _P, _P, _I, _P),
         "lt_paged_attention": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                               _P, _P, _P, _I, _P),
+                               _P, _I, _I, _P),
         "lt_attention_walk": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     },

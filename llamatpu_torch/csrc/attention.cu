@@ -43,21 +43,56 @@
 // Bound on the H100: bytes, the live rows of every lane, (pos_b + 1) rows of
 // (hd + vhd) * 2 bytes per KV head (llama32-1b, B = 8 lanes at pos 512:
 // 8 x 8 x 513 x 256 B = 8.4 MB, 2.5 us; int8: (128 + 8) B per row, 4.5 MB,
-// 1.3 us). On the TPU the grid walked the lane's table block by block in
-// order, with the table in scalar prefetch and tiles past pos revisiting the
-// last block so no DMA was issued. Here the design is K6's, not the TPU's
-// block walk:
-//   1. grid (ceil(MAXBLK * BS / 64), KV, B): a block takes 64 logical rows of
-//      one lane and KV head and exits at once if its first row lies past
-//      pos; it reads its own table entries into shared memory (a row pointer
-//      per row) -- there is no scalar prefetch. Scores: four threads per row,
-//      each reading a quarter of the K row in 16-byte vectors (8 bf16 or 16
-//      int8 values) and dotting it with all G query heads (one read of each
-//      K row serves the G heads), the quarters added by warp shuffles. Local
-//      max, sum and unnormalized partial output per head as in K6.
-//   2. K6's combine pass, with S = MAXBLK * BS.
-// Trash-table entries past the lane's allocation lie past pos and are never
-// read; a parked lane (every entry the trash block) reads the trash block.
+// 1.4 us): 4-8 operations a byte, far under the tensor cores' ridge, so the
+// arithmetic stays f32 on CUDA cores (bf16 products of exp(score - m) would
+// round the weights to 8 bits). On the TPU the grid walked the lane's
+// table block by block in order, with the table in scalar prefetch.
+//
+// The first design took 0.019 ms there (7.5x the bound; int8 14x, slower
+// than bf16 at half the bytes): a grid of ceil(MAXBLK * BS / 64) x KV x B
+// blocks of 64 rows, most of them exiting at once past pos; in each a table
+// read, then dependent 16-byte K loads with nothing prefetched, then 64
+// serial 2-byte V loads a thread; partial outputs through device memory to a
+// second launch whose threads combined up to 33 partials each. Its time
+// followed the table's width and latency chains, not the bytes. This design,
+// paged_cluster_kernel, is one launch whose work follows the length:
+//   - grid (C * KV, B) in clusters of C CTAs (1, 2, 4 or 8; ops/attention.py
+//     plan_paged picks C from B * KV, MAXBLK and the SM count). The lane's
+//     rows s <= pos fall in units of a stage's rows (whole pool blocks, or a
+//     piece of one); rank r of the cluster of (lane b, KV head h) takes units
+//     r, r + C, ... (ops/attention.py paged_shares): the ranks' loads differ
+//     by a unit at most, and a rank's table entries follow from r alone, so
+//     they load beside pos instead of after it.
+//   - a producer warp (its table entries cached in shared memory) streams
+//     the rank's rows through a ring of 8 stages of 16 rows
+//     (fewer where 16 pass 8 KB): one cp.async.bulk per pool block (a
+//     block's rows of one KV head are contiguous; a block longer than a
+//     stage goes in stage-sized pieces), under int8 one more for the block's
+//     [2, BS] scales (plain loads at BS = 1, under the 16 bytes a bulk copy
+//     needs), all completing on the stage's `full` mbarrier; the stage's
+//     consumer frees it on its `empty` one.
+//   - 8 consumer warps, warp w taking stages w, w + 8, ... (the ring holds 8,
+//     so no warp waits on a stage two rounds ahead) with its own online
+//     softmax: lanes r and r + 16 score row r, each half of its 16-byte K
+//     vectors, row r starting at vector r (a bulk copy cannot pad rows and
+//     every row starts on a multiple of 128 bytes; rotated, a quarter-warp
+//     never hits one bank twice), against q in f32 in shared memory (loaded
+//     once, laid out so the rotated reads sit side by side); scores in log2
+//     units, weights by ex2; then P.V with every lane on two V elements of
+//     each row in turn (NP pairs a lane, a template constant), its [G, 2 NP]
+//     sums in registers. No block barrier a stage. At the end the 8 warps'
+//     (m, l, sums) combine in warp order.
+//   - the combine through distributed shared memory: every rank but 0
+//     stores its m, l and [G, vhd] sums into rank 0's shared memory
+//     (st.shared::cluster) after a cluster barrier that every CTA arrived at
+//     on starting (so rank 0 runs and its barriers exist), arrives on an
+//     mbarrier there (release at cluster scope) and exits; rank 0 waits on
+//     it (acquire), skips empty ranks
+//     (m = -inf, l = 0) and writes sum_r w_r acc_r / sum_r w_r l_r, w_r =
+//     2^(m_r - max m). No scratch, no atomics: the same bits on every run.
+// A lane with pos < 0 or pos >= MAXBLK * BS gets NaN. Table entries past pos
+// are never read; a parked lane (every entry the trash block) reads the trash
+// block. Offsets are 64-bit (a stacked pool passes 2 GB).
 //
 // ---- The walk kernel: K14, K15 and K6's int8 variant.
 //
@@ -106,7 +141,7 @@ LT_DEFINE_ERROR_STRING
 
 namespace {
 
-constexpr int kChunk = 64;     // cache rows per block of K6/K8 pass 1; rows per chunk of the walk
+constexpr int kChunk = 64;     // cache rows per block of K6's pass 1; rows per chunk of the walk
 constexpr int kThreads = 256;  // four threads per row of a chunk
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;       // query heads per KV head
@@ -278,109 +313,545 @@ __device__ __forceinline__ void combine(const Args& a) {
 
 __global__ void __launch_bounds__(kThreads) attn_combine_kernel(Args a) { combine(a); }
 
-// the walk's combine, under its own name so a trace tells K14/K15 from K6/K8
+// the walk's combine, under its own name so a trace tells K14/K15 from K6
 __global__ void __launch_bounds__(kThreads) attn_walk_combine_kernel(Args a) { combine(a); }
 
-// K8 pass 1 (the combine is attn_combine_kernel with S = MAXBLK * BS).
+// ------------------------------------------------------------------ K8
+// TMA bulk copies, mbarriers and cluster operations of paged_cluster_kernel.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `parity` to complete. A wait of over ~2^32 cycles
+// (seconds) traps: a fault in the ring fails the launch instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+// One bulk copy global -> shared of `bytes` (a multiple of 16, both ends
+// 16-byte aligned), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier, in two halves: every thread of every CTA of the
+// cluster arrives (its writes before it released), and waits for the other
+// non-exited threads' arrivals (their writes acquired).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrive on the mbarrier at the offset of `bar` in the cluster's CTA `rank`,
+// releasing this thread's (and, through a CTA barrier before it, its CTA's)
+// writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_rank(uint64_t* bar, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+
+// Wait for the phase of `parity` of a local mbarrier that other CTAs of the
+// cluster arrive on, acquiring their writes (traps after ~2^32 cycles, as
+// mbar_wait).
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+// Store v at the offset of `p` in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ void st_rank(float* p, unsigned rank, float v) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+constexpr int kPagedConsumers = 256;                      // 8 consumer warps
+constexpr int kPagedWarps = kPagedConsumers / 32;
+constexpr int kPagedThreads = kPagedConsumers + 32;       // + the producer warp
+constexpr int kPagedDepth = 8;  // ring stages: one a consumer warp, so no warp waits two rounds ahead
+constexpr int kMaxCluster = 8;
+constexpr int kTblCache = 256;  // table entries of a rank held in shared memory
+
+__device__ __forceinline__ void paged_consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kPagedConsumers) : "memory");
+}
+
 struct PagedArgs {
-  Args base;          // q, in_dtype, pos, B, KV, G, S = MAXBLK * BS, hd, vhd, scale, scratch
-  const void* pool;   // this layer's pool [NBLK, KV, BS, hd + vhd] (CT)
-  const float* spool; // int8: this layer's scale pool [NBLK, KV, 2, BS], else null
-  const int* tables;  // [B, MAXBLK]
-  int nblk, bs_shift, maxblk;
+  const void* q;       // [B, KV, G, hd] (in_dtype)
+  int in_dtype;
+  const void* pool;    // this layer's pool [NBLK, KV, BS, hd + vhd] (CT)
+  const float* spool;  // int8: this layer's scale pool [NBLK, KV, 2, BS], else null
+  const int* tables;   // [B, MAXBLK]
+  const int* pos;      // [B]
+  float* out;          // [B, KV, G, vhd]
+  int KV, G, hd, vhd, bs_shift, maxblk, cluster;
+  int rows;           // rows of a ring stage (a power of two <= 16)
+  float scale;
 };
 
-template <typename CT, bool QUANT>
-__global__ void __launch_bounds__(kThreads) paged_split_kernel(PagedArgs pa) {
-  const Args& a = pa.base;
-  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int pos = a.pos[b];
-  const int s0 = sp * kChunk;
-  if (pos < 0 || pos >= a.S || s0 > pos) return;
-  const int G = a.G, hd = a.hd, vhd = a.vhd, W = hd + vhd;
-  const int n = min(kChunk, pos + 1 - s0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int bs = 1 << pa.bs_shift;
-  __shared__ float qf[kMaxG * kMaxW];
-  __shared__ float p[kMaxG][kChunk];
-  __shared__ const CT* rows[kChunk];
-  __shared__ const float* srows[kChunk];  // int8: the row's K scale (its V scale at + BS)
-  const long bh = static_cast<long>(b) * a.KV + h;
-  const CT* pool = static_cast<const CT*>(pa.pool);
+// Two adjacent elements (the first at an even index of a 16-byte aligned row) as f32.
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+}
+__device__ __forceinline__ float2 ld_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 ld_pair(const int8_t* p) {
+  const char2 x = *reinterpret_cast<const char2*>(p);
+  return make_float2(static_cast<float>(x.x), static_cast<float>(x.y));
+}
 
-  for (int j = tid; j < n; j += blockDim.x) {
-    const int s = s0 + j;
-    const long blk = pa.tables[static_cast<long>(b) * pa.maxblk + (s >> pa.bs_shift)];
-    rows[j] = pool + ((blk * a.KV + h) * bs + (s & (bs - 1))) * W;
-    if (QUANT) srows[j] = pa.spool + (blk * a.KV + h) * 2 * bs + (s & (bs - 1));
-  }
-  for (int i = tid; i < G * hd; i += blockDim.x) qf[i] = lt_load(a.q, a.in_dtype, bh * G * hd + i);
-  __syncthreads();
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 0 for -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  // scores: four threads per row (kThreads == 4 * kChunk), each a quarter of
-  // the K row in 16-byte vectors against all G heads; quarters summed by shuffles
-  constexpr int N = 16 / sizeof(CT);
-  const int j = tid >> 2, quarter = tid & 3;
-  float d[kMaxG];
+// P.V of a stage for one consumer warp: acc[g][2 u + i] += w[j][g] *
+// V[j][2 (lane + 32 u) + i] over the stage's rows j < n, NP pairs a lane.
+template <typename CT, int GM, int NP>
+__device__ __forceinline__ void pv_rows(float (&acc)[GM][2 * NP], const unsigned char* st, int row_bytes,
+                                        int hd, int vhd, int n, const float* pw, int lane) {
+  const CT* v0 = reinterpret_cast<const CT*>(st) + hd + 2 * lane;
+  const int pitch = row_bytes / static_cast<int>(sizeof(CT));
+  bool in[NP];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) d[g] = 0.f;
-  if (j < n) {
-    const CT* kr = rows[j];
-    for (int e0 = quarter * N; e0 < hd; e0 += 4 * N) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kr + e0);
-      const CT* kv8 = reinterpret_cast<const CT*>(&raw);
+  for (int u = 0; u < NP; ++u) in[u] = 2 * (lane + 32 * u) < vhd;
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const CT* vr = v0 + j * pitch;
+    float w[GM];
+    if constexpr (GM % 4 == 0) {
 #pragma unroll
-      for (int u = 0; u < N; ++u) {
-        const float k = c2f<CT>(kv8[u]);
+      for (int g = 0; g < GM; g += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(pw + j * GM + g);
+        w[g] = w4.x;
+        w[g + 1] = w4.y;
+        w[g + 2] = w4.z;
+        w[g + 3] = w4.w;
+      }
+    } else {
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) d[g] += qf[g * hd + e0 + u] * k;
+      for (int g = 0; g < GM; ++g) w[g] = pw[j * GM + g];
+    }
+#pragma unroll
+    for (int u = 0; u < NP; ++u) {
+      const float2 vv = in[u] ? ld_pair(vr + 64 * u) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        acc[g][2 * u] += w[g] * vv.x;
+        acc[g][2 * u + 1] += w[g] * vv.y;
       }
     }
   }
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    d[g] += __shfl_xor_sync(0xffffffffu, d[g], 1);
-    d[g] += __shfl_xor_sync(0xffffffffu, d[g], 2);
-  }
-  if (j < n && quarter == 0) {
-    const float ks = QUANT ? *srows[j] : 1.f;
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) p[g][j] = QUANT ? d[g] * a.scale * ks : d[g] * a.scale;
-  }
-  __syncthreads();
+}
 
-  // local softmax statistics, a warp per query head; under int8 the V scale
-  // joins the weights of the partial output, not the sum
-  float* ml = a.part_ml + (bh * a.nsplit + sp) * G * 2;
-  for (int g = warp; g < G; g += nwarps) {
-    float mx = kNegInf;
-    for (int jj = lane; jj < n; jj += 32) mx = fmaxf(mx, p[g][jj]);
-    mx = lt_warp_max(mx);
-    float sum = 0.f;
-    for (int jj = lane; jj < n; jj += 32) {
-      const float e = expf(p[g][jj] - mx);
-      p[g][jj] = QUANT ? e * srows[jj][bs] : e;
-      sum += e;
+// Dynamic shared memory: the ring [kPagedDepth][rows x (hd + vhd)] (each stage on
+// a 128-byte boundary; at the end the consumer warps' sums [8][G][vhd] f32
+// reuse it), q f32 [GM][N / 4][kMaxW / N][4], this rank's sums [G][vhd] f32,
+// in a cluster rank 0's copy of the others' [C][G][vhd] f32, and under int8
+// the stages' scales [kPagedDepth][2 * rows] f32.
+template <typename CT, bool QUANT, int GM>
+size_t paged_smem(int G, int hd, int vhd, int rows, int cluster) {
+  const size_t pitch = (static_cast<size_t>(rows) * (hd + vhd) * sizeof(CT) + 127) / 128 * 128;
+  size_t ring = kPagedDepth * pitch;
+  const size_t red = static_cast<size_t>(kPagedWarps) * G * vhd * sizeof(float);
+  ring = ((ring > red ? ring : red) + 127) / 128 * 128;
+  return ring +
+         (static_cast<size_t>(GM) * kMaxW +
+          static_cast<size_t>(G) * vhd * (cluster > 1 ? cluster + 1 : 1)) * sizeof(float) +
+         (QUANT ? static_cast<size_t>(kPagedDepth) * 2 * rows * sizeof(float) : 0);
+}
+
+// GM: G rounded up to 1, 4 or 8; NP: V element pairs a lane (vhd <= 64,
+// 128 or 256). Together the size of the P.V sums in registers.
+template <typename CT, bool QUANT, int GM, int NP>
+__global__ void __launch_bounds__(kPagedThreads, GM * NP <= 8 ? 3 : GM * NP <= 16 ? 2 : 1)
+    paged_cluster_kernel(PagedArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kPagedDepth], empty[kPagedDepth];
+  __shared__ __align__(8) uint64_t pushed;  // rank 0: the other ranks' states have arrived
+  __shared__ __align__(16) float pbuf[kPagedWarps][32 * GM];    // each warp's stage weights
+  __shared__ float mw[kPagedWarps][GM], lw[kPagedWarps][GM];  // the consumer warps' m, l
+  __shared__ float m_s[GM], l_s[GM];                            // this rank's
+  __shared__ float cm[kMaxCluster][GM], cl[kMaxCluster][GM];    // rank 0: the others'
+  __shared__ int tbl[kTblCache];
+  const int C = a.cluster, G = a.G, hd = a.hd, vhd = a.vhd, W = hd + vhd;
+  const unsigned rank = cluster_rank();
+  const int h = blockIdx.x / C, b = blockIdx.y;
+  const int shift = a.bs_shift, bs = 1 << shift;
+  const int R = a.rows;
+  constexpr int D = kPagedDepth;
+  const int row_bytes = W * static_cast<int>(sizeof(CT));
+  const int pitch = (R * row_bytes + 127) & ~127;
+  const int SB = bs < R ? bs : R;  // rows of a stage's scale piece [2][SB]
+  size_t ring = static_cast<size_t>(D) * pitch;
+  const size_t red_bytes = static_cast<size_t>(kPagedWarps) * G * vhd * sizeof(float);
+  ring = ((ring > red_bytes ? ring : red_bytes) + 127) / 128 * 128;
+  float* red = reinterpret_cast<float*>(smem);  // [8][G][vhd], after the last stage
+  constexpr int N = 16 / sizeof(CT);  // elements of a 16-byte K vector
+  const int nvec = hd / N;             // 16-byte K vectors a row
+  constexpr int kQVecs = kMaxW / N;     // q's stride between (head, float4) rows, in vectors
+  float* qf = reinterpret_cast<float*>(smem + ring);  // [GM][N / 4][kQVecs][4]
+  float* accs = qf + GM * kMaxW;
+  float* cacc = accs + G * vhd;  // rank 0: the others' sums [C][G][vhd] (C > 1)
+  float* scr = cacc + (C > 1 ? C * G * vhd : 0);  // int8: [kPagedDepth][2 * rows]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long bh = static_cast<long>(b) * a.KV + h;
+
+  // this rank's stages: stage k is the lane's R-row unit u = rank + C k,
+  // rows [u R, min(u R + R, pos + 1)) (whole pool blocks, or a piece of one)
+  const int pos = a.pos[b];
+  const bool valid = pos >= 0 && pos < (a.maxblk << shift);
+  const int nu = valid ? pos / R + 1 : 0;
+  const int nstages = nu > static_cast<int>(rank) ? (nu - static_cast<int>(rank) + C - 1) / C : 0;
+  const int gpu = R > bs ? R >> shift : 1;  // table entries a unit
+
+  // the rank's table entries, entry p of stage k at k gpu + p: they follow
+  // from the rank alone, so they load beside pos and q; then the producer's
+  // lane 0 initialises the barriers while the loads are in flight
+  const int* trow = a.tables + static_cast<long>(b) * a.maxblk;
+  if (warp == kPagedWarps) {
+    int tv[kTblCache / 32];
+#pragma unroll
+    for (int u = 0; u < kTblCache / 32; ++u) {
+      const int t = lane + 32 * u, k = t / gpu;
+      const int j = (((static_cast<int>(rank) + C * k) * R) >> shift) + t - k * gpu;
+      tv[u] = j < a.maxblk ? trow[j] : 0;
     }
-    sum = lt_warp_sum(sum);
     if (lane == 0) {
-      ml[g * 2] = mx;
-      ml[g * 2 + 1] = sum;
+      for (int d = 0; d < D; ++d) {
+        mbar_init(&full[d], 1);   // the producer's expect_tx, then the bytes
+        mbar_init(&empty[d], 1);  // the consumer warp of the stage
+      }
+      mbar_init(&pushed, C > 1 ? C - 1 : 1);  // one arrive from each other rank
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+#pragma unroll
+    for (int u = 0; u < kTblCache / 32; ++u) tbl[lane + 32 * u] = tv[u];
+  }
+  if (C > 1) cluster_arrive_relaxed();  // waited for before the combine's stores
+  // q in f32 [GM][N / 4][kQVecs][4] (zero past G): the float4 f of K vector
+  // v of head g at (g N / 4 + f) kQVecs + v, so the lanes' rotated vectors
+  // sit side by side and every head's offset is a constant
+  for (int i = tid; i < GM * hd; i += kPagedThreads) {
+    const int g = i / hd, e = i - g * hd, vec = e / N, u = e - vec * N;
+    qf[((g * (N / 4) + u / 4) * kQVecs + vec) * 4 + (u & 3)] =
+        g < G ? lt_load(a.q, a.in_dtype, bh * G * hd + i) : 0.f;
   }
   __syncthreads();
 
-  // partial outputs: a thread per (query head, V element), V rows coalesced
-  float* po = a.part_o + (bh * a.nsplit + sp) * G * vhd;
-  for (int idx = tid; idx < G * vhd; idx += blockDim.x) {
-    const int g = idx / vhd, e = idx - g * vhd;
-    float acc = 0.f;
-    for (int jj = 0; jj < n; ++jj) acc += p[g][jj] * c2f<CT>(rows[jj][hd + e]);
-    po[idx] = acc;
+  if (warp == kPagedWarps) {
+    // the producer warp: a stage's copies (lane i the pool blocks i, i + 32,
+    // ... of the stage)
+    const unsigned char* pool = static_cast<const unsigned char*>(a.pool);
+    for (int k = 0; k < nstages; ++k) {
+      const int slot = k % D;
+      const unsigned phase = (k / D) & 1;
+      const int s0 = (static_cast<int>(rank) + C * k) * R, n = min(R, pos + 1 - s0);
+      const int first = s0 >> shift, pieces = ((s0 + n - 1) >> shift) - first + 1;
+      unsigned char* dst = smem + slot * pitch;
+      float* sdst = scr + slot * 2 * R;
+      mbar_wait(&empty[slot], phase ^ 1);
+      if (QUANT && bs == 1) {  // 8 bytes a block: plain loads, stored before the arrive
+        for (int i = lane; i < pieces; i += 32) {
+          const int t = k * gpu + i;
+          const long blk = t < kTblCache ? tbl[t] : trow[first + i];
+          const float2 sv = *reinterpret_cast<const float2*>(a.spool + (blk * a.KV + h) * 2);
+          sdst[2 * i] = sv.x;
+          sdst[2 * i + 1] = sv.y;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        unsigned tx = static_cast<unsigned>(n * row_bytes);
+        if (QUANT && bs > 1) tx += static_cast<unsigned>(bs <= R ? pieces * 2 * bs * 4 : 2 * R * 4);
+        mbar_expect_tx(&full[slot], tx);
+      }
+      __syncwarp();
+      for (int i = lane; i < pieces; i += 32) {
+        const int j = first + i, t = k * gpu + i;
+        const long blk = t < kTblCache ? tbl[t] : trow[j];
+        const int rs = max(s0, j << shift), re = min(s0 + n, (j + 1) << shift);
+        const int off = rs & (bs - 1);
+        const long row0 = ((blk * a.KV + h) << shift) + off;
+        bulk_load(dst + (rs - s0) * row_bytes, pool + row0 * row_bytes,
+                  static_cast<unsigned>((re - rs) * row_bytes), &full[slot]);
+        if (QUANT && bs > 1) {
+          const float* sb = a.spool + ((blk * a.KV + h) << (shift + 1));
+          if (bs <= R) {
+            bulk_load(sdst + (rs - s0) * 2, sb, static_cast<unsigned>(2 * bs * 4), &full[slot]);
+          } else {
+            bulk_load(sdst, sb + off, static_cast<unsigned>(R * 4), &full[slot]);
+            bulk_load(sdst + R, sb + bs + off, static_cast<unsigned>(R * 4), &full[slot]);
+          }
+        }
+      }
+    }
+  } else {
+    // the consumer warps: warp w takes stages w, w + 8, ... (the ring holds
+    // 8, so a warp never waits on a stage two rounds ahead), lanes r and r +
+    // 16 row r of it, each half of its K vectors. Scores in log2 units:
+    // x * scale * log2(e), weights by ex2.
+    const float sl2 = a.scale * 1.4426950408889634f;
+    const int r = lane & 15, half = lane >> 4;
+    const int rot = r % nvec;  // row r reads K vector (v + r) % nvec at step v: no bank twice
+    const float4* q4 = reinterpret_cast<const float4*>(qf);
+    float* pw = pbuf[warp];    // the stage's weights [16 rows][GM]
+    float m[GM], l[GM], acc[GM][2 * NP];  // acc[g][2 u + i]: V element 2 (lane + 32 u) + i
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2 * NP; ++u) acc[g][u] = 0.f;
+    }
+    for (int k = warp; k < nstages; k += kPagedWarps) {
+      const int slot = k % D;
+      const unsigned phase = (k / D) & 1;
+      const int n = min(R, pos + 1 - (static_cast<int>(rank) + C * k) * R);
+      const unsigned char* st = smem + slot * pitch;
+      const float* ssc = scr + slot * 2 * R;  // int8: row j's K scale at (j / SB) * 2 SB + j % SB
+      const bool live = r < n;
+      mbar_wait(&full[slot], phase);
+
+      // row r: q . k for every head, the K vectors rotated by r, the two
+      // halves' sums added by a shuffle
+      float d[GM];
+#pragma unroll
+      for (int g = 0; g < GM; ++g) d[g] = 0.f;
+      if (live) {
+        const unsigned char* row = st + r * row_bytes;
+#pragma unroll 4
+        for (int v0 = half; v0 < nvec; v0 += 2) {
+          int vec = v0 + rot;
+          if (vec >= nvec) vec -= nvec;
+          const uint4 raw = *reinterpret_cast<const uint4*>(row + vec * 16);
+          const CT* kv = reinterpret_cast<const CT*>(&raw);
+          float kf[N];
+#pragma unroll
+          for (int u = 0; u < N; ++u) kf[u] = c2f<CT>(kv[u]);
+#pragma unroll
+          for (int g = 0; g < GM; ++g) {
+#pragma unroll
+            for (int f = 0; f < N / 4; ++f) {
+              const float4 qq = q4[(g * (N / 4) + f) * kQVecs + vec];
+              d[g] += qq.x * kf[4 * f];
+              d[g] += qq.y * kf[4 * f + 1];
+              d[g] += qq.z * kf[4 * f + 2];
+              d[g] += qq.w * kf[4 * f + 3];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) d[g] += __shfl_xor_sync(0xffffffffu, d[g], 16);
+      const int sj = (r / SB) * 2 * SB + (r & (SB - 1));
+      const float ks = QUANT && live ? ssc[sj] : 1.f;
+      const float vs = QUANT && live ? ssc[sj + SB] : 1.f;
+
+      // the online softmax over the stage's rows, every head at once
+      float sc[GM], mx[GM];
+#pragma unroll
+      for (int g = 0; g < GM; ++g) mx[g] = sc[g] = live ? d[g] * sl2 * ks : kNegInf;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)  // lanes r and r + 16 hold the same row
+#pragma unroll
+        for (int g = 0; g < GM; ++g) mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
+      float al[GM];
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float m_new = fmaxf(m[g], mx[g]);
+        al[g] = ex2(m[g] - m_new);
+        const float e = half ? 0.f : ex2(sc[g] - m_new);  // 0 for a row past n
+        l[g] = l[g] * al[g] + e;
+        if (!half) pw[r * GM + g] = e * vs;
+        m[g] = m_new;
+      }
+      __syncwarp();
+
+      // P.V: every lane its V elements 2 (lane + 32 u), + 1 of each row in turn
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int u = 0; u < 2 * NP; ++u) acc[g][u] *= al[g];
+      pv_rows<CT, GM, NP>(acc, st, row_bytes, hd, vhd, n, pw, lane);
+      __syncwarp();  // the stage and pw are read: both free for the next
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+
+    // this warp's state (l summed over its lanes), then the warps' states
+    // combined in order through shared memory (the ring, every stage read
+    // by now)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+    paged_consumer_sync();
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      float* rd = red + (warp * G + g) * vhd;
+#pragma unroll
+      for (int u = 0; u < NP; ++u) {
+        const int e = 2 * (lane + 32 * u);
+        if (e < vhd) {
+          rd[e] = acc[g][2 * u];
+          rd[e + 1] = acc[g][2 * u + 1];
+        }
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        mw[warp][g] = m[g];
+        lw[warp][g] = l[g];
+      }
+    }
+    paged_consumer_sync();
+    for (int i = tid; i < G * vhd; i += kPagedConsumers) {
+      const int g = i / vhd;
+      float mx = kNegInf;
+      for (int w = 0; w < kPagedWarps; ++w) mx = fmaxf(mx, mw[w][g]);
+      float num = 0.f, den = 0.f;
+      for (int w = 0; w < kPagedWarps; ++w) {
+        if (mw[w][g] == kNegInf) continue;  // a warp with no rows
+        const float wt = ex2(mw[w][g] - mx);
+        num += wt * red[w * G * vhd + i];
+        den += wt * lw[w][g];
+      }
+      accs[i] = num;
+      if (i == g * vhd) {
+        m_s[g] = mx;
+        l_s[g] = den;
+      }
+    }
   }
+
+  // the combine: every rank but 0 stores its m, l and sums into rank 0's
+  // shared memory (cm, cl, cacc at its rank) and exits; rank 0 adds them up
+  // in rank order
+  __syncthreads();
+  if (C > 1) {
+    cluster_wait();  // every CTA of the cluster has started, its barriers initialised
+    if (rank != 0) {
+      for (int i = tid; i < G * vhd; i += kPagedThreads) st_rank(cacc + rank * G * vhd + i, 0, accs[i]);
+      if (tid < G) {
+        st_rank(&cm[rank][tid], 0, m_s[tid]);
+        st_rank(&cl[rank][tid], 0, l_s[tid]);
+      }
+      __syncthreads();
+      if (tid == 0) mbar_arrive_rank(&pushed, 0);
+      return;
+    }
+    mbar_wait_cluster(&pushed, 0);
+  }
+  float* out = a.out + bh * G * vhd;
+  for (int i = tid; i < G * vhd; i += kPagedThreads) {
+    const int g = i / vhd;
+    float mx = m_s[g];
+    for (int r = 1; r < C; ++r) mx = fmaxf(mx, cm[r][g]);
+    float num = 0.f, den = 0.f;
+    for (int r = 0; r < C; ++r) {
+      const float mr = r == 0 ? m_s[g] : cm[r][g];
+      if (mr == kNegInf) continue;  // a rank with no rows
+      const float w = ex2(mr - mx);
+      den += w * (r == 0 ? l_s[g] : cl[r][g]);
+      num += w * (r == 0 ? accs[i] : cacc[r * G * vhd + i]);
+    }
+    out[i] = valid ? __fdividef(num, den) : __int_as_float(0x7fc00000);  // no row attended: NaN
+  }
+}
+
+template <typename CT, bool QUANT, int GM, int NP>
+int launch_paged(const PagedArgs& a, int B, cudaStream_t st) {
+  const size_t smem = paged_smem<CT, QUANT, GM>(a.G, a.hd, a.vhd, a.rows, a.cluster);
+  const cudaError_t e = cudaFuncSetAttribute(paged_cluster_kernel<CT, QUANT, GM, NP>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster * a.KV, B, 1);
+  cfg.blockDim = dim3(kPagedThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, paged_cluster_kernel<CT, QUANT, GM, NP>, a));
+}
+
+template <typename CT, bool QUANT, int GM>
+int launch_paged_v(const PagedArgs& a, int B, cudaStream_t st) {
+  return a.vhd <= 64 ? launch_paged<CT, QUANT, GM, 1>(a, B, st)
+         : a.vhd <= 128 ? launch_paged<CT, QUANT, GM, 2>(a, B, st)
+                        : launch_paged<CT, QUANT, GM, 4>(a, B, st);
+}
+
+template <typename CT, bool QUANT>
+int launch_paged_g(const PagedArgs& a, int B, cudaStream_t st) {
+  return a.G == 1 ? launch_paged_v<CT, QUANT, 1>(a, B, st)
+         : a.G <= 4 ? launch_paged_v<CT, QUANT, 4>(a, B, st)
+                    : launch_paged_v<CT, QUANT, 8>(a, B, st);
 }
 
 // The walk kernel's pass 1 (K14, K15, K6's int8 variant).
@@ -605,38 +1076,36 @@ LT_EXPORT int lt_decode_attention(const void* q, const void* kvn, int in_dtype, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8 and its int8 variant. q [B, KV, G, hd] (in_dtype); pool: this layer's
-// pool [NBLK, KV, BS, hd + vhd] (pool_dtype), BS = 1 << bs_shift; spool:
-// int8 only, this layer's scale pool [NBLK, KV, 2, BS] f32 (else null);
-// tables int32 [B, MAXBLK]; pos int32 [B]; scratch part_o [B, KV, nsplit, G,
-// vhd], part_ml [B, KV, nsplit, G, 2] f32; out [B, KV, G, vhd] f32.
-// nsplit = ceil(MAXBLK * BS / 64).
+// K8 and its int8 variant: one launch of paged_cluster_kernel. q [B, KV, G,
+// hd] (in_dtype); pool: this layer's pool [NBLK, KV, BS, hd + vhd]
+// (pool_dtype), BS = 1 << bs_shift; spool: int8 only, this layer's scale
+// pool [NBLK, KV, 2, BS] f32 (else null); tables int32 [B, MAXBLK]; pos int32
+// [B]; out [B, KV, G, vhd] f32. cluster: CTAs a (lane, KV head), 1, 2, 4 or
+// 8; rows: rows of a ring stage, a power of two <= 16 (>= 4 under int8 where
+// BS > rows). Pool and scale pool 16-byte aligned.
 LT_EXPORT int lt_paged_attention(const void* q, int in_dtype, const void* pool, int pool_dtype,
                                  const void* spool, const void* tables, const void* pos, int B,
                                  int KV, int G, int nblk, int bs_shift, int maxblk, int hd,
-                                 int vhd, float scale, void* part_o, void* part_ml, void* out,
-                                 int nsplit, void* stream) {
-  const int S = maxblk << bs_shift;
-  const int vec = pool_dtype == LT_I8 ? 16 : 8;
-  if (G < 1 || G > kMaxG || hd + vhd > kMaxW || hd % vec || vhd % vec || nsplit * kChunk < S ||
-      B < 1 || KV < 1 || nblk < 1 || bs_shift < 0 || (pool_dtype == LT_I8) != (spool != nullptr))
+                                 int vhd, float scale, void* out, int cluster, int rows,
+                                 void* stream) {
+  const bool quant = pool_dtype == LT_I8;
+  const int vec = quant ? 16 : 8;
+  if (G < 1 || G > kMaxG || hd + vhd > kMaxW || hd < vec || vhd < 8 || hd % vec || vhd % vec ||
+      B < 1 || KV < 1 || nblk < 1 || maxblk < 1 || bs_shift < 0 || bs_shift > 20 ||
+      static_cast<long>(maxblk) << bs_shift > (1L << 30) || quant != (spool != nullptr) ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || rows < 1 ||
+      rows > 16 || (rows & (rows - 1)) || (quant && (1 << bs_shift) > rows && rows < 4) ||
+      reinterpret_cast<uintptr_t>(pool) % 16 ||
+      reinterpret_cast<uintptr_t>(spool) % 16 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = {q, nullptr, in_dtype, nullptr, static_cast<const int*>(pos), B, KV, G, S, hd, vhd,
-            scale, static_cast<float*>(part_o), static_cast<float*>(part_ml),
-            static_cast<float*>(out), nsplit, kChunk, S, nullptr, nullptr};
-  PagedArgs pa = {a, pool, static_cast<const float*>(spool), static_cast<const int*>(tables),
-                  nblk, bs_shift, maxblk};
-  dim3 grid1(nsplit, KV, B);
-  if (pool_dtype == LT_I8)
-    paged_split_kernel<int8_t, true><<<grid1, kThreads, 0, st>>>(pa);
-  else if (pool_dtype == LT_F32)
-    paged_split_kernel<float, false><<<grid1, kThreads, 0, st>>>(pa);
-  else
-    paged_split_kernel<__nv_bfloat16, false><<<grid1, kThreads, 0, st>>>(pa);
-  LT_RETURN_IF_ERROR();
-  attn_combine_kernel<<<dim3(KV, B), kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const PagedArgs a = {q, in_dtype, pool, static_cast<const float*>(spool),
+                       static_cast<const int*>(tables), static_cast<const int*>(pos),
+                       static_cast<float*>(out), KV, G, hd, vhd, bs_shift, maxblk, cluster,
+                       rows, scale};
+  if (quant) return launch_paged_g<int8_t, true>(a, B, st);
+  if (pool_dtype == LT_F32) return launch_paged_g<float, false>(a, B, st);
+  return launch_paged_g<__nv_bfloat16, false>(a, B, st);
 }
 
 // The walk kernel: K14 (unfused, fused, stats), K15 (s_use < S), K6's int8

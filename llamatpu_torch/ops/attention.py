@@ -37,15 +37,21 @@ before the call by `runtime/paged_cache.paged_write_stacked` (a plain index
 write, as the JAX package leaves it to XLA); unallocated table entries point
 at the trash block and lie past pos, so they are masked.
 
+K8 is one launch of clusters of CTAs per (lane, KV head), each rank reading
+its share of the lane's live rows (`plan_paged`, `paged_shares`).
+
 CUDA source: csrc/attention.cu (designs and bounds in its header note). A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in `.launches`.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from llamatpu_torch import _build
+from llamatpu_torch.ops.gemm import _sm_count
 
 NEG_INF = -1e30
 CHUNK = 64  # cache rows per block of K6's first pass (csrc/attention.cu kChunk)
@@ -564,38 +570,87 @@ def decode_attention_paged_plain(q, kv_pool, tables, pos_vec, scale: float,
     return _paged_plain(q, kv_pool, tables, pos_vec, scale, hd, layer_index)
 
 
+# K8's launch: a cluster of `cluster` CTAs per (lane, KV head), each
+# streaming its share of the lane's live rows through a ring of 8 stages of
+# `rows` rows, one stage a consumer warp and one row two lanes
+# (csrc/attention.cu paged_cluster_kernel).
+PAGED_STAGE_BYTES = 8192   # K|V bytes of a ring stage (at most 16 rows)
+PAGED_WARPS = 8            # consumer warps of a CTA: warp w takes stages w, w + 8, ...
+PAGED_MIN_CTAS_PER_SM = 1.5  # the cluster doubles while B * KV * C is under this
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    cluster: int  # CTAs a (lane, KV head): 1, 2, 4 or 8
+    rows: int     # rows of a ring stage, a power of two <= 16
+
+
+def plan_paged(b: int, kvh: int, maxblk: int, width: int, itemsize: int,
+               sm_count: int = SMS) -> PagedPlan:
+    """K8's launch: the smallest cluster (1, 2, 4, 8, at most MAXBLK) whose
+    B * KV * C CTAs give about two CTAs an SM (at least
+    PAGED_MIN_CTAS_PER_SM); stages of the most rows (<= 16, half a warp's
+    lanes) that fit PAGED_STAGE_BYTES."""
+    c = 1
+    while c < 8 and 2 * c <= maxblk and b * kvh * c < PAGED_MIN_CTAS_PER_SM * sm_count:
+        c *= 2
+    rows = 16
+    while rows > 1 and rows * width * itemsize > PAGED_STAGE_BYTES:
+        rows //= 2
+    return PagedPlan(c, rows)
+
+
+def paged_shares(pos: int, bs: int, maxblk: int,
+                 plan: PagedPlan) -> list[list[tuple[int, int]]]:
+    """The rows [s0, s1) each rank of a lane's cluster reads, stage by stage,
+    in rank order: the lane's rows s <= pos in units of plan.rows (whole
+    pool blocks, or a piece of one), rank r taking units r, r + C, ... (none
+    for a pos outside [0, MAXBLK * BS), which gives NaN)."""
+    r_n = plan.rows
+    nu = pos // r_n + 1 if 0 <= pos < maxblk * bs else 0
+    return [[(u * r_n, min(u * r_n + r_n, pos + 1)) for u in range(r, nu, plan.cluster)]
+            for r in range(plan.cluster)]
+
+
 def _paged_launch(q, kv_pool, tables, pos_vec, scale, hd, layer_index, scale_pool=None):
+    """One launch of K8 (or its int8 variant). Every check comes before the
+    library is built or the kernel launched; a CPU tensor raises here."""
     hd = hd or q.shape[-1]
     _check_paged(q, kv_pool, tables, hd, layer_index, scale_pool)
     b, kvh, g, _ = q.shape
     bs, width = kv_pool.shape[-2], kv_pool.shape[-1]
     vhd = width - hd
     vec = 16 if kv_pool.dtype == torch.int8 else 8
-    if g > 8 or hd % vec or vhd % vec or width > 256:
+    if g > 8 or hd % vec or vhd % vec or vhd < vec or width > 256:
         raise NotImplementedError(f"K8 takes G <= 8, hd and vhd multiples of {vec}, "
-                                  "hd + vhd <= 256")
+                                  f"hd + vhd <= 256 (got G {g}, hd {hd}, vhd {vhd})")
     pool, spool = _layer(kv_pool, layer_index), _layer(scale_pool, layer_index)
+    _build.require(q.dtype in (torch.float32, torch.bfloat16)
+                   and (spool is None or spool.dtype == torch.float32),
+                   "decode_attention_paged: f32 or bf16 q, f32 scale pool")
+    _build.require(pool.is_contiguous() and (spool is None or spool.is_contiguous()),
+                   "decode_attention_paged: contiguous pool and scale pool")
+    maxblk = tables.shape[1]
+    _build.require(tuple(pos_vec.shape) == (b,) and b <= 65535 and maxblk * bs <= 2 ** 30,
+                   "decode_attention_paged: pos_vec [B], B <= 65535, MAXBLK * BS <= 2^30")
+    ins = [q, pool, tables, pos_vec] + ([] if spool is None else [spool])
+    _build.require(all(t.device.type == "cuda" and t.device == pool.device for t in ins),
+                   "decode_attention_paged: every input on the pool's CUDA device")
+    _build.require(pool.data_ptr() % 16 == 0 and (spool is None or spool.data_ptr() % 16 == 0),
+                   "decode_attention_paged: 16-byte aligned pool and scale pool")
     qc = q.contiguous()
     tb = tables.to(dtype=torch.int32).contiguous()
     pv = pos_vec.to(dtype=torch.int32).contiguous()
-    _build.require(pool.is_contiguous() and (spool is None or spool.is_contiguous())
-                   and qc.device == pool.device == tb.device == pv.device
-                   and (spool is None or spool.device == pool.device)
-                   and tuple(pv.shape) == (b,),
-                   "decode_attention_paged: contiguous pool, inputs on its device, pos_vec [B]")
-    maxblk = tb.shape[1]
-    s_len = maxblk * bs
-    nsplit = -(-s_len // CHUNK)
-    part_o = torch.empty((b, kvh, nsplit, g, vhd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, kvh, nsplit, g, 2), dtype=torch.float32, device=q.device)
+    plan = plan_paged(b, kvh, maxblk, width, pool.element_size(),
+                      _sm_count(pool.device.index or 0))
     out = torch.empty((b, kvh, g, vhd), dtype=torch.float32, device=q.device)
     lib = _build.load("attention")
     err = lib.lt_paged_attention(qc.data_ptr(), _build.dtype_code(qc), pool.data_ptr(),
                                  CACHE_CODES[pool.dtype],
                                  None if spool is None else spool.data_ptr(), tb.data_ptr(),
                                  pv.data_ptr(), b, kvh, g, pool.shape[0], bs.bit_length() - 1,
-                                 maxblk, hd, vhd, float(scale), part_o.data_ptr(),
-                                 part_ml.data_ptr(), out.data_ptr(), nsplit, _build.stream())
+                                 maxblk, hd, vhd, float(scale), out.data_ptr(), plan.cluster,
+                                 plan.rows, _build.stream())
     _build.check(lib, err, "decode_attention_paged")
     return out
 

@@ -18,10 +18,14 @@ It runs every phase, needs one card, and exits non-zero
             2064, each logged with its CTAs and shared tiles; K2 also at 8
             and 32 rows, K5 at T = 8, K6 at 8
             lanes, K8 at 8 lanes of a shuffled block pool, K9 at 1, 8 and 32
-            rows; K14 fused bf16/int8 on a 33792-row cache at pos 0 to 32767
+            rows; K6 and K6-int8's edges (check_dense_edges: f32, bf16 and
+            int8 at the Llama, Qwen1.5-MoE and Phi-3-medium geometries,
+            every cluster size, 1152 rows and the largest short cache, pos
+            0 to S - 1 and -1) and times at B = 1 and 8 lanes, pos 512, warm
+            and cold, every cluster size; K14 fused bf16/int8 on a 33792-row cache at pos 0 to 32767
             and 8 mixed lanes, unfused, stats and f32; K15 over 4000 of 4128
-            rows in f32, bf16 and int8; K6-int8 and K8-int8 at pos 512 and 8
-            lanes; quantize_kv card against CPU bit for bit) and of
+            rows in f32, bf16 and int8; K6-int8 at pos 0 to 1151 and 8
+            lanes, K8-int8 at 8 lanes; quantize_kv card against CPU bit for bit) and of
             Qwen1.5-MoE-A2.7B (K10-K13 on one layer's folded stacks, E = 64,
             at 1, 8 and 512 tokens; K6 and K8 at hd 128, G 1; K2 at O =
             6144; K5 on the 151936-row head), with the stated tolerances;
@@ -193,21 +197,33 @@ def kernel_ms(fn, names, iters: int = 16):
     (seen on the H100: 1 of 4 long kernels recorded, 15 of 16 short ones),
     which summing the trace and dividing by the calls would count as time not
     spent; a kernel seen n times in `iters` calls is taken to launch
-    ceil(n / iters) times a call."""
+    ceil(n / iters) times a call. A trace that holds none of them at all
+    (seen on the H100 after some hundred traces in one process) is taken
+    again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if any(n in e.key for n in names) and e.count]
-    if any(e.count % iters for e in hits):
-        log(f"profiler missed launches of {names}: {[e.count for e in hits]} for {iters} calls")
-    tot = sum(getattr(e, "device_time_total", 0.0) / e.count * -(-e.count // iters) for e in hits)
-    return tot / 1e3 if tot > 0 else None
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if any(n in e.key for n in names) and e.count]
+        if any(e.count % iters for e in hits):
+            log(f"profiler missed launches of {names}: {[e.count for e in hits]} for {iters} calls")
+        tot = sum(getattr(e, "device_time_total", 0.0) / e.count * -(-e.count // iters)
+                  for e in hits)
+        if tot > 0:
+            return tot / 1e3
+        log(f"profiler saw no device time of {names} (trace {attempt + 1} of 3)")
+    return None
+
+
+def fmt_ms(ms) -> str:
+    """A time for a progress line: "not measured" where the profiler saw none."""
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def timings(fn, names, plain, library, iters: int = 16) -> dict:
@@ -239,7 +255,7 @@ def rand_rowq(L, o, i, dev, gen):
 
 
 MOE_KERNELS = ("grouped_gemv_kernel", "grouped_mma_kernel")  # K10-K13's two regimes
-WALK = ("attn_walk_kernel", "attn_walk_combine_kernel")  # K14, K15 and K6-int8's two passes
+WALK = ("attn_walk_kernel", "attn_walk_combine_kernel")  # K14's and K15's two passes
 GEMV = ("gemv_kernel",)  # kernel names (profiler keys) of K1 / K2 / K3's GEMV phases
 # llama32-1b main-path shapes: layers, dim, hidden, kv heads, groups, head dim,
 # physical cache length (cache_len 1024 + one 128-row granule), vocab, prefill rows
@@ -472,13 +488,14 @@ def check_block_matmul(dev, dims, packed: bool) -> dict:
         shape=f"one decode token at T=1: {L} x (wqkv+wo+w13+w2) + head", per_shape=per)
 
 
-def check_attention(dev, dims) -> dict:
+def check_attention(dev, dims, sweep: bool = True) -> dict:
     """K6 against its plain version: cache bit-equal everywhere, output
     within 1e-5 in f32 (bf16 cache: 1e-5 too, the cast rows are the same),
     at pos 0, 31, 32, 511, S-1 on S = dims["S"] and at pos 8191 on S = 9216
-    (the physical length of an 8192-row cache); timed at pos 512."""
+    (the physical length of an 8192-row cache), and 8 lanes at distinct
+    positions with one parked at S - 1. Timed by time_dense (sweep: every
+    cluster size, warm and cold, at two cache lengths; else the plan's)."""
     import torch
-    import torch.nn.functional as F
 
     from llamatpu_torch.models.transformer import physical_cache_len
     from llamatpu_torch.ops import attention
@@ -505,42 +522,6 @@ def check_attention(dev, dims) -> dict:
         assert rel_e <= 1e-5, f"K6 disagrees at pos {pos} S {s_len} ({dt}): {abs_e} {rel_e}"
         worst, worst_abs = max(worst, rel_e), max(worst_abs, abs_e)
         log(f"K6 pos {pos} S {s_len} {dt}: max abs {abs_e:.3g} rel {rel_e:.3g}, cache bit-equal")
-    pos = 512 % S
-    kvc = torch.randn((2, 1, KV, S, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
-    q = torch.randn((1, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
-    kvn = torch.randn((1, KV, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
-    pv = torch.tensor([pos], dtype=torch.int32, device=dev)
-    qs = q.reshape(1, KV * G, 1, HD)
-    ks = kvc[1, :, :, : pos + 1, :HD].contiguous()
-    vs = kvc[1, :, :, : pos + 1, HD:].contiguous()
-    try:
-        F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)
-
-        def library():
-            return F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)
-        lib_name = "scaled_dot_product_attention (GQA) over rows <= pos"
-    except TypeError:  # a torch without enable_gqa: K/V expanded to the query heads
-        ke, ve = ks.repeat_interleave(G, dim=1), vs.repeat_interleave(G, dim=1)
-
-        def library():
-            return F.scaled_dot_product_attention(qs, ke, ve, scale=scale)
-        lib_name = "scaled_dot_product_attention over rows <= pos (K/V expanded)"
-    nbytes = KV * (pos + 1) * 2 * HD * 2 + KV * G * HD * 2 + 2 * KV * 2 * HD * 2 \
-        + KV * G * HD * 4
-    b_ms, b_by = bound(nbytes, 2 * KV * G * (pos + 1) * 2 * HD, BF16_OPS_S)
-    tm = timings(lambda: attention.decode_attention_fused_write(q, kvn, kvc, pv, scale, 1, HD),
-                 ("attn_split_kernel", "attn_combine_kernel"),
-                 lambda: attention.decode_attention_fused_write_plain(q, kvn, kvc, pv, scale,
-                                                                      1, HD),
-                 library)
-    row = dict(
-        name="decode_attention_fused_write", route="cuda", source="llamatpu_torch/csrc/attention.cu",
-        replaces="llamatpu/ops/pallas_attention.py:718", max_abs_err=worst_abs, max_rel_err=worst,
-        tolerance="cache bit-equal; rel to max|plain| <= 1e-5 (bf16 and f32 caches)",
-        **tm, library=lib_name, bound_ms=b_ms, bound_by=b_by,
-        shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD}")
-    log(f"K6 pos {pos}: {tm['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
-        f"{tm['plain_ms']:.4f}, sdpa {tm['library_ms']:.4f})")
 
     # the dense batched cache: 8 lanes at distinct positions, lane 7 parked at
     # the last physical row as BatchEngine parks an inactive lane
@@ -558,28 +539,201 @@ def check_attention(dev, dims) -> dict:
         assert torch.equal(c1, c2), f"K6 cache differs at B = {B} ({dt})"
         abs_e, rel_e = max_err(got, want)
         assert rel_e <= 1e-5, f"K6 disagrees at B = {B} ({dt}): {abs_e} {rel_e}"
-        row["max_rel_err"] = max(row["max_rel_err"], rel_e)
-        row["max_abs_err"] = max(row["max_abs_err"], abs_e)
+        worst, worst_abs = max(worst, rel_e), max(worst_abs, abs_e)
         log(f"K6 B {B} lanes {lanes.tolist()} {dt}: max abs {abs_e:.3g} rel {rel_e:.3g}, "
             "cache bit-equal")
-    kvc = torch.randn((2, B, KV, S, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
-    qb = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
-    kvnb = torch.randn((B, KV, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
-    pvb = torch.full((B,), pos, dtype=torch.int32, device=dev)
-    qsb = qb.reshape(B, KV * G, 1, HD)
-    ksb = kvc[1, :, :, : pos + 1, :HD].repeat_interleave(G, dim=1).contiguous()
-    vsb = kvc[1, :, :, : pos + 1, HD:].repeat_interleave(G, dim=1).contiguous()
-    b_ms8, _ = bound(B * nbytes, B * 2 * KV * G * (pos + 1) * 2 * HD, BF16_OPS_S)
-    row["by_lanes"] = {B: dict(
-        bound_ms=b_ms8, shape=f"B={B} lanes at pos={pos}",
-        **timings(lambda: attention.decode_attention_fused_write(qb, kvnb, kvc, pvb, scale, 1, HD),
-                  ("attn_split_kernel", "attn_combine_kernel"),
-                  lambda: attention.decode_attention_fused_write_plain(qb, kvnb, kvc, pvb, scale,
-                                                                       1, HD),
-                  lambda: F.scaled_dot_product_attention(qsb, ksb, vsb, scale=scale)),
-        library="scaled_dot_product_attention over rows <= pos (K/V expanded)")}
-    log(f"K6 B {B} at pos {pos}: {row['by_lanes'][B]['ms']:.4f} ms (bound {b_ms8:.5f})")
-    return row
+    del kvc, c1, c2
+    return dict(
+        name="decode_attention_fused_write", route="cuda", source="llamatpu_torch/csrc/attention.cu",
+        replaces="llamatpu/ops/pallas_attention.py:718", max_abs_err=worst_abs, max_rel_err=worst,
+        tolerance="cache bit-equal; rel to max|plain| <= 1e-5 (bf16 and f32 caches)",
+        **time_dense(dev, dims, quant=False, seed=4, sweep=sweep))
+
+
+DENSE = ("dense_cluster_kernel",)  # K6 and K6-int8: one launch, clusters of CTAs
+
+
+def dense_case(dev, gen, layers: int, b: int, kvh: int, g: int, hd: int, s_len: int, dt):
+    """A random stacked dense cache [L, B, KV, S, 2 hd] (f32, bf16, or int8
+    with its scale rows [L, B, KV, 2, S] through quantize_kv), q (bf16; f32
+    for an f32 cache) and this token's rows (int8 with scales [B, KV, 2]
+    under int8): (q, kvn, sn, kvc, sc), sn and sc None but under int8."""
+    import torch
+
+    x = torch.randn((layers, b, kvh, s_len, 2 * hd), device=dev, generator=gen)
+    new = torch.randn((b, kvh, 1, 2 * hd), device=dev, generator=gen)
+    q = torch.randn((b, kvh, g, hd), device=dev, generator=gen)
+    q = q.to(torch.float32 if dt == torch.float32 else torch.bfloat16)
+    if dt == torch.int8:
+        kvc, sc = int8_rows(x)
+        kvn, sn = int8_rows(new)
+        return q, kvn[:, :, 0], sn[..., 0], kvc, sc
+    return q, new[:, :, 0].to(dt), None, x.to(dt), None
+
+
+def fused_dense(attention, plain: bool, q, kvn, sn, kvc, sc, pv, scale, li, hd):
+    """One K6 call (or its int8 variant, or either plain version): the output."""
+    if sc is None:
+        fn = attention.decode_attention_fused_write_plain if plain \
+            else attention.decode_attention_fused_write
+        return fn(q, kvn, kvc, pv, scale, li, hd)[0]
+    fn = attention.decode_attention_fused_write_q_plain if plain \
+        else attention.decode_attention_fused_write_q
+    return fn(q, kvn, sn, kvc, sc, pv, scale, li, hd)[0]
+
+
+def short_caches(dt) -> tuple[int, int]:
+    """Cache lengths K6 is timed and checked at: the main path's 1152 rows
+    and the largest short cache the engine allocates in that dtype (bf16:
+    8160 rows under 16 KB a stripe; int8: 15360, physical_cache_len rounding
+    to 1024 past 8192; f32: 4064)."""
+    import torch
+
+    return 1152, {torch.float32: 4064, torch.bfloat16: 8160, torch.int8: 15360}[dt]
+
+
+def time_dense(dev, dims, quant: bool, seed: int, sweep: bool = True) -> dict:
+    """K6 (or K6-int8) at pos 512 of the Llama-3.2-1B geometry `dims`: B = 1
+    and 8 lanes, the main path's 1152-row cache and the largest short cache
+    (8160 bf16, 15360 int8), warm (one layer replayed: its live rows stay in
+    L2) and cold (a stacked cache cycled through layers whose live rows pass
+    50 MB between two reads of one layer, as in a decode step), under the
+    plan and every cluster size at 16- and 32-row stages, beside the plain
+    version and GQA SDPA over contiguous (dequantized) bf16 K and V prepared
+    beforehand. The row's own numbers are B = 1 at 1152 rows under the plan;
+    sweep=False times only that."""
+    import torch
+
+    from llamatpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    KV, G, HD = dims["KV"], dims["G"], dims["HD"]
+    W, scale, pos = 2 * HD, HD ** -0.5, 512
+    dt = torch.int8 if quant else torch.bfloat16
+    row_bytes = W + 8 if quant else 2 * W
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tag = "K6-int8" if quant else "K6"
+    per = {}
+    for b in ((1, 8) if sweep else (1,)):
+        for s_len in (short_caches(dt) if sweep else (dims["S"],)):
+            live = b * KV * (pos + 1) * row_bytes
+            layers = -(-64_000_000 // live) + 1 if sweep else 2
+            q, kvn, sn, kvc, sc = dense_case(dev, gen, layers, b, KV, G, HD, s_len, dt)
+            pv = torch.full((b,), pos, dtype=torch.int32, device=dev)
+            library, lib_name = sdpa_yardstick(q, *dense_kv(kvc, sc, 1, pos + 1, HD), scale)
+            b_ms, b_by = bound(attn_bytes(b, KV, G, HD, pos + 1, row_bytes, row_bytes),
+                               b * 2 * KV * G * (pos + 1) * W, BF16_OPS_S)
+            plan = A.plan_dense(b, KV, s_len, W, kvc.element_size(), sms)
+            tm = timings(lambda: fused_dense(A, False, q, kvn, sn, kvc, sc, pv, scale, 1, HD),
+                         DENSE,
+                         lambda: fused_dense(A, True, q, kvn, sn, kvc, sc, pv, scale, 1, HD),
+                         library)
+            row = dict(**tm, library=lib_name, bound_ms=b_ms, bound_by=b_by,
+                       cluster=plan.cluster, stage_rows=plan.rows,
+                       shape=f"B={b} lanes at pos={pos} S={s_len} KV={KV} G={G} hd={HD}")
+            if sweep:
+                cycle = iter(range(10**9))
+                row["ms_cold"] = kernel_ms(lambda: fused_dense(
+                    A, False, q, kvn, sn, kvc, sc, pv, scale, next(cycle) % layers, HD), DENSE)
+                row["cold_layers"] = layers
+                row["by_plan"] = {}  # every cluster size at 16- and 32-row stages
+                for c in (1, 2, 4, 8):
+                    for r in (16, 32):
+                        with forced_cluster(A, c, "plan_dense", rows=r):
+                            row["by_plan"][f"C{c} R{r}"] = dict(
+                                ms=kernel_ms(lambda: fused_dense(A, False, q, kvn, sn, kvc, sc,
+                                                                 pv, scale, 1, HD), DENSE),
+                                ms_cold=kernel_ms(lambda: fused_dense(
+                                    A, False, q, kvn, sn, kvc, sc, pv, scale,
+                                    next(cycle) % layers, HD), DENSE))
+            per.setdefault(b, {})[s_len] = row
+            log(f"{tag} B {b} at pos {pos} S {s_len}: {row['ms']:.5f} ms warm"
+                + (f", {fmt_ms(row['ms_cold'])} cold over {layers} layers" if sweep else "")
+                + f" (bound {b_ms:.5f} by {b_by}, plain {row['plain_ms']:.4f}, sdpa "
+                f"{row['library_ms']:.5f}); cluster {plan.cluster} of {plan.rows}-row stages"
+                + ("; warm / cold by plan " + ", ".join(
+                    f"{k}: {fmt_ms(v['ms'])} / {fmt_ms(v['ms_cold'])}"
+                    for k, v in row["by_plan"].items())
+                   if sweep else ""))
+            del q, kvn, sn, kvc, sc
+            torch.cuda.empty_cache()
+    top = per[1][short_caches(dt)[0] if sweep else dims["S"]]
+    return dict({k: top[k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
+                                     "library", "bound_ms", "bound_by", "shape", "cluster",
+                                     "stage_rows")},
+                **({"ms_cold": top["ms_cold"]} if sweep else {}), by_lanes=per)
+
+
+# K6's edge geometries: (label, KV heads, G, head dim), each at 8 lanes
+DENSE_EDGE_GEOMETRIES = (("llama32-1b", 8, 4, 64), ("qwen15-moe", 16, 1, 128),
+                         ("phi3-medium", 10, 4, 128))
+
+
+def check_dense_edges(dev) -> dict:
+    """K6 and K6-int8 against their plain versions at f32, bf16 and int8
+    caches, the geometries of DENSE_EDGE_GEOMETRIES (hd 64 G 4; hd 128 G 1;
+    hd 128 G 4 on 10 KV heads) and every cluster size, at 1152 rows and the
+    largest short cache of the dtype (short_caches): 8 lanes at pos 0, R - 1,
+    R, 4 R, 8 R (rank boundaries; R the stage rows), one random, one parked
+    at S - 1 and one at pos -1 (NaN in every output, nothing written). Over
+    the other lanes: rel <= 1e-5 of max|plain|, finite, the cache and scale
+    rows equal to the plain version's with only row pos changed; two runs
+    give the same bits."""
+    import torch
+
+    from llamatpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    cases, worst = 0, {}
+    B, nan_lane = 8, 7
+    keep = torch.arange(B, device=dev) != nan_lane
+    for label, KV, G, HD in DENSE_EDGE_GEOMETRIES:
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            for s_len in short_caches(dt):
+                q, kvn, sn, kvc, sc = dense_case(dev, gen, 2, B, KV, G, HD, s_len, dt)
+                R = A.plan_dense(B, KV, s_len, 2 * HD, kvc.element_size()).rows
+                rnd = int(torch.randint(0, s_len, (1,), generator=torch.Generator().manual_seed(s_len)))
+                positions = [min(p, s_len - 1) for p in (0, R - 1, R, 4 * R, 8 * R)] + \
+                    [rnd, s_len - 1, -1]
+                pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+                c2 = kvc.clone()
+                s2 = None if sc is None else sc.clone()
+                want = fused_dense(A, True, q, kvn, sn, c2, s2, pv, HD ** -0.5, 1, HD)
+                written = torch.zeros(kvc.shape[:-1], dtype=torch.bool, device=dev)
+                written[1, torch.arange(B - 1, device=dev), :, pv[:-1].long()] = True
+                for c in (1, 2, 4, 8):
+                    what = f"K6 edges {label} {dt} S {s_len} cluster {c}"
+                    outs = []
+                    for _ in range(2):
+                        c1 = kvc.clone()
+                        s1 = None if sc is None else sc.clone()
+                        with forced_cluster(A, c, "plan_dense"):
+                            got = fused_dense(A, False, q, kvn, sn, c1, s1, pv, HD ** -0.5, 1, HD)
+                        torch.cuda.synchronize()
+                        outs.append(got)
+                        assert torch.equal(c1[:, :-1], c2[:, :-1]), f"{what}: cache differs"
+                        assert not ((c1 != kvc).any(dim=-1) & ~written).any(), \
+                            f"{what}: another row written"
+                        if sc is not None:
+                            assert torch.equal(s1[:, :-1], s2[:, :-1]), f"{what}: scales differ"
+                            assert not ((s1 != sc).any(dim=-2) & ~written).any(), \
+                                f"{what}: another scale written"
+                    assert bool(torch.isnan(outs[0][nan_lane]).all()), f"{what}: pos -1 not NaN"
+                    assert bool(torch.isfinite(outs[0][keep]).all()), f"{what}: not finite"
+                    assert torch.equal(outs[0][keep], outs[1][keep]), f"{what}: runs differ"
+                    abs_e, rel_e = max_err(outs[0][keep], want[keep])
+                    assert rel_e <= 1e-5, f"{what}: max abs {abs_e} rel {rel_e}"
+                    key = f"{label} {dt}".replace("torch.", "")
+                    worst[key] = max(worst.get(key, 0.0), rel_e)
+                    cases += 1
+                del q, kvn, sn, kvc, sc, c1, s1, c2, s2
+    torch.cuda.empty_cache()
+    log(f"K6 edges: {cases} cases (f32/bf16/int8, 1152 rows and the largest short caches, "
+        f"clusters 1/2/4/8, two runs each bit-equal) within rel 1e-5: worst {worst}")
+    return dict(cases=cases, worst_rel_err=worst,
+                tolerance="rel to max|plain| <= 1e-5 over the lanes with pos >= 0; pos -1 NaN "
+                          "and nothing written; cache and scale rows as the plain version's, "
+                          "only row pos changed; two runs bit-equal")
 
 
 def paged_tables(positions, parked, maxblk: int, nblk: int, bs: int, seed: int):
@@ -601,19 +755,22 @@ PAGED = ("paged_cluster_kernel",)  # K8 and K8-int8: one launch, clusters of CTA
 PAGED_CLUSTERS = (1, 2, 4, 8)  # every cluster size ops/attention.plan_paged can pick
 
 
-def forced_cluster(attention, c: int):
-    """A context in which K8's planner keeps its stages but takes cluster c."""
+def forced_cluster(attention, c: int, planner_name: str = "plan_paged", rows: int | None = None):
+    """A context in which K8's planner (or K6's, "plan_dense") keeps its
+    stages (or takes `rows`) but takes cluster c."""
     import contextlib
     import dataclasses
 
     @contextlib.contextmanager
     def ctx():
-        planner = attention.plan_paged
-        attention.plan_paged = lambda *a, **kw: dataclasses.replace(planner(*a, **kw), cluster=c)
+        planner = getattr(attention, planner_name)
+        forced = dict(cluster=c) if rows is None else dict(cluster=c, rows=rows)
+        setattr(attention, planner_name,
+                lambda *a, **kw: dataclasses.replace(planner(*a, **kw), **forced))
         try:
             yield
         finally:
-            attention.plan_paged = planner
+            setattr(attention, planner_name, planner)
     return ctx()
 
 
@@ -696,11 +853,11 @@ def time_paged(dev, dims, quant: bool, seed: int) -> dict:
             by_cluster[c] = dict(ms=kernel_ms(lambda: fn(*args(1)), PAGED),
                                  ms_cold=kernel_ms(lambda: fn(*args(next(cycle) % layers)), PAGED))
     tag = "K8-int8" if quant else "K8"
-    log(f"{tag} B {B} at pos {pos}: {tm['ms']:.5f} ms warm, {tm['ms_cold']:.5f} cold over "
+    log(f"{tag} B {B} at pos {pos}: {tm['ms']:.5f} ms warm, {fmt_ms(tm['ms_cold'])} cold over "
         f"{layers} layers (bound {b_ms:.5f} by {b_by}, plain {tm['plain_ms']:.4f}, sdpa "
         f"{tm['library_ms']:.5f}, with the gather {tm['library_gather_ms']:.5f}); cluster "
         f"{plan.cluster} of {plan.rows}-row stages; by cluster " + ", ".join(
-            f"{c}: {v['ms']:.5f} / {v['ms_cold']:.5f}" for c, v in by_cluster.items()))
+            f"{c}: {fmt_ms(v['ms'])} / {fmt_ms(v['ms_cold'])}" for c, v in by_cluster.items()))
     del pool, spool
     torch.cuda.empty_cache()
     return dict(**tm, library=lib_name + (" (gathered and dequantized beforehand)" if quant
@@ -935,8 +1092,8 @@ def attn_bytes(b: int, kvh: int, g: int, hd: int, rows: int, row_bytes: int,
     return b * kvh * (rows * row_bytes + g * hd * 2 + g * hd * 4 + 2 * new_row_bytes)
 
 
-def check_fused(A, dev, gen, kvh, g, hd, s_len, positions, dt, rows: int | None = None):
-    """One fused call (K14 with rows=None, K6-int8 with rows=64) against its
+def check_fused(A, dev, gen, kvh, g, hd, s_len, positions, dt, k6: bool = False):
+    """One fused call (K14, or K6-int8 with k6=True) against its
     plain version on a 2-layer stacked cache: the caches after both equal, and
     nothing but row pos (and its scales) of the written layer changed. Returns
     (got, want)."""
@@ -956,9 +1113,8 @@ def check_fused(A, dev, gen, kvh, g, hd, s_len, positions, dt, rows: int | None 
         kvn, sn = int8_rows(new[:, :, None])
         kvn, sn = kvn[:, :, 0], sn[..., 0]                 # [B, KV, W], [B, KV, 2]
         s1, s2 = sc.clone(), sc.clone()
-        kern = A.decode_attention_fused_write_q if rows == 64 else \
-            A.decode_attention_split_fused_write_q
-        plain = A.decode_attention_fused_write_q_plain if rows == 64 else \
+        kern = A.decode_attention_fused_write_q if k6 else A.decode_attention_split_fused_write_q
+        plain = A.decode_attention_fused_write_q_plain if k6 else \
             A.decode_attention_split_fused_write_q_plain
         got = kern(q, kvn, sn, c1, s1, pv, hd ** -0.5, 1, hd)[0]
         want = plain(q, kvn, sn, c2, s2, pv, hd ** -0.5, 1, hd)[0]
@@ -1141,8 +1297,9 @@ def check_int8_attention(dev, dims=LLAMA32_1B) -> list[dict]:
     bit (bf16 and f32 rows, zero rows included).
     - K6-int8: cache 1152 rows, pos 0, 31, 32, 511, 1151 and 8 lanes at
       mixed positions (one parked at the last row); caches and scale rows
-      equal the plain version's, only row pos changed; timed at pos 512,
-      B = 1 (the row) and 8.
+      equal the plain version's, only row pos changed; timed by
+      time_dense (B = 1, the row, and 8; 1152 and 15360 rows; warm, cold,
+      every cluster size).
     - K8-int8: 8 lanes of a shuffled int8 pool (block 16, lanes up to 2048
       rows) at pos 0, 15, 16, 100, 511, 1023, 2047 and one parked at the
       trash block; the pool and scale pool only read; timed at 8 lanes at
@@ -1167,40 +1324,19 @@ def check_int8_attention(dev, dims=LLAMA32_1B) -> list[dict]:
     log("quantize_kv: card and CPU bit-equal (bf16 and f32 rows, zero rows included)")
     worst = [0.0, 0.0]
     for positions in ([0], [31], [32], [511], [S - 1], [0, 31, 32, 100, 511, 700, S - 2, S - 1]):
-        got, want = check_fused(A, dev, gen, KV, G, HD, S, positions, torch.int8, rows=64)
+        got, want = check_fused(A, dev, gen, KV, G, HD, S, positions, torch.int8, k6=True)
         abs_e, rel_e = max_err(got, want)
         assert rel_e <= 1e-5, f"K6-int8 lanes {positions}: max abs {abs_e} rel {rel_e}"
         worst = [max(worst[0], rel_e), max(worst[1], abs_e)]
         log(f"K6-int8 lanes {positions}: max abs {abs_e:.3g} rel {rel_e:.3g}, cache and scales "
             "as the plain version's")
-    per = {}
-    for b in (1, 8):
-        pos = 512
-        pv = torch.full((b,), pos, dtype=torch.int32, device=dev)
-        kvc, sc = int8_rows(torch.randn((2, b, KV, S, W), device=dev, generator=gen))
-        q = torch.randn((b, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
-        kvn, sn = int8_rows(torch.randn((b, KV, 1, W), device=dev, generator=gen))
-        kvn, sn = kvn[:, :, 0], sn[..., 0]
-        library, lib_name = sdpa_yardstick(q, *dense_kv(kvc, sc, 1, pos + 1, HD), scale)
-        b_ms, b_by = bound(attn_bytes(b, KV, G, HD, pos + 1, W + 8, W + 8),
-                           b * 2 * KV * G * (pos + 1) * W, BF16_OPS_S)
-        per[b] = dict(bound_ms=b_ms, bound_by=b_by, library=lib_name,
-                      shape=f"B={b} lanes at pos={pos} S={S} KV={KV} G={G} hd={HD}", **timings(
-                          lambda: A.decode_attention_fused_write_q(q, kvn, sn, kvc, sc, pv, scale,
-                                                                   1, HD),
-                          WALK, lambda: A.decode_attention_fused_write_q_plain(
-                              q, kvn, sn, kvc, sc, pv, scale, 1, HD), library))
-        log(f"K6-int8 B {b} at pos {pos}: {per[b]['ms']:.4f} ms (bound {b_ms:.5f}, plain "
-            f"{per[b]['plain_ms']:.4f}, sdpa {per[b]['library_ms']:.4f})")
     k6q = dict(name="decode_attention_fused_write_q", route="cuda",
                source="llamatpu_torch/csrc/attention.cu",
                replaces="llamatpu/ops/pallas_attention.py:718", max_abs_err=worst[1],
                max_rel_err=worst[0], quantize_kv_bit_equal=True,
                tolerance="rel to max|plain| <= 1e-5; cache and scale rows equal the plain "
                          "version's, only row pos changed; quantize_kv card == CPU bit for bit",
-               **{k: per[1][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by", "library", "shape")},
-               by_lanes=per)
+               **time_dense(dev, dims, quant=True, seed=17))
 
     B, BS, MAXLEN = 8, 16, 2048
     maxblk = MAXLEN // BS
@@ -1235,7 +1371,8 @@ def check_long_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
 
 
 def check_block_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
-    return [check_block_matmul(dev, dims, False), check_attention(dev, dims),
+    return [check_block_matmul(dev, dims, False),
+            dict(check_attention(dev, dims), edges=check_dense_edges(dev)),
             check_block_matmul(dev, dims, True)]
 
 
@@ -1411,7 +1548,7 @@ def check_rowq_gemm(dev, bf16: bool, dims=LLAMA32_1B) -> dict:
                 f"{b_ms:.4f}, _int_mm {tm['library_ms']:.4f}, {plan.ctas} CTAs, "
                 f"{-(-plan.tiles_dp // plan.ctas)} whole-tile rounds, {shared} of {plan.tiles} "
                 f"tiles shared over {plan.nk} K stages; rel err {e[1]:.3g}"
-                + (f"; under the other plan ({tm['other_plan']}) {tm['other_plan_ms']:.4f} ms"
+                + (f"; under the other plan ({tm['other_plan']}) {fmt_ms(tm['other_plan_ms'])} ms"
                    if "other_plan" in tm else ""))
             del w, qs, s, xi8, got, want
         b_ms, b_by = bound(tot.pop("bytes"), tot.pop("ops"), peak)
@@ -1458,18 +1595,25 @@ def check_roofline_probes(dev, w) -> list[dict]:
     nb = I // rf.BLOCK
     bf, q8, qo = (w["bf16"],), (w["qs"], w["ss"]), (w["qs"],)
     wflat = w["bf16"].reshape(-1, I)
-    li = iter(range(10**9))
+    li, lj = iter(range(10**9)), iter(range(10**9))
+    # the q8 GEMVs' library call: bf16 torch.matmul on the dequantized weight
+    # (prepared beforehand, as for K1 and K5), a layer in turn or the stack
+    wdq = torch.stack([rf.deq_q8_current(w["qs"][i], w["ss"][i]) for i in range(L)])
+    dq_flat = wdq.reshape(-1, I)
     GEMV, DOT = ("probe_gemv_kernel",), ("probe_int8dot_kernel",)
     # name, its line in scripts/bench_roofline.py, weights, stacked, exact,
     # profiler names, weight bytes per layer, library yardstick
     spec = [("step_pallas_bf16", 99, bf, False, False, GEMV_TC, 2 * O * I,
              lambda lw: torch.matmul(x, lw[0].T)),
-            ("step_q8_current", 112, q8, False, False, GEMV, O * I + O * nb * 4, None),
-            ("step_q8_bf16mul", 125, q8, False, False, GEMV, O * I + O * nb * 4, None),
+            ("step_q8_current", 112, q8, False, False, GEMV, O * I + O * nb * 4,
+             lambda lw: torch.matmul(x, wdq[next(lj) % L].T)),
+            ("step_q8_bf16mul", 125, q8, False, False, GEMV, O * I + O * nb * 4,
+             lambda lw: torch.matmul(x, wdq[next(lj) % L].T)),
             ("step_q8_int8dot", 139, q8, False, True, DOT, O * I, None),
             ("step_q8_int8dot_blockscale", 158, q8, False, False, DOT, O * I + O * nb * 4, None),
             ("step_dma_probe", 172, bf, False, True, STREAM, 2 * O * I, None),
-            ("call3_q8_current", 243, q8, True, False, GEMV, O * I + O * nb * 4, None),
+            ("call3_q8_current", 243, q8, True, False, GEMV, O * I + O * nb * 4,
+             lambda lw: torch.matmul(x, dq_flat.T)),
             ("call3_q8_int8dot", 256, qo, True, True, DOT, O * I, None),
             ("call3_bf16", 267, bf, True, False, GEMV_TC, 2 * O * I,
              lambda lw: torch.matmul(x, wflat.T)),
@@ -1498,7 +1642,9 @@ def check_roofline_probes(dev, w) -> list[dict]:
             name=name, route="cuda", source="llamatpu_torch/csrc/probes.cu",
             replaces=f"scripts/bench_roofline.py:{line}", max_abs_err=abs_e, max_rel_err=rel_e,
             tolerance="exact" if exact else "rel <= 1e-5 of max|plain|", **tm,
-            library=None if lib is None else "bf16 torch.matmul", bound_ms=b_ms, bound_by=b_by,
+            library=None if lib is None else "bf16 torch.matmul" + (
+                " (dequantized weight, prepared beforehand)" if "q8" in name else ""),
+            bound_ms=b_ms, bound_by=b_by,
             gbs=nbytes / tm["ms"] / 1e6,
             shape=(f"[{L}, {O}, {I}] stack, x [{tt}, {I}]" if stacked
                    else f"one [{O}, {I}] layer of {L} in turn, x [{tt}, {I}]")))
@@ -1634,8 +1780,7 @@ IN_PATH = {
         "gemv_kernel<1, 0, 3>"), 1),
     "rowq_gemm": ("main", "prefill_trace", K4_NAMES, 4),
     "block_matmul": ("gguf", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 65),
-    "decode_attention_fused_write": ("gguf", "decode16_trace",
-                                     ("attn_split_kernel", "attn_combine_kernel"), 1),
+    "decode_attention_fused_write": ("gguf", "decode16_trace", DENSE, 1),
     "packed4_matmul": ("pack4", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 17),
     "decode_attention_paged": ("serve", "decode16_trace", PAGED, 1),
     # K9's three phases (K2 at 8 rows is gemv_tiled_kernel<8, bf16, 1, 1>)
@@ -1653,7 +1798,7 @@ IN_PATH = {
     # int8 variant at a 4000-row int8 cache, K8's in the int8 HTTP run
     "decode_attention_split_fused_write": ("longctx", "decode16_trace", WALK, 1),
     "decode_attention": ("k15", "decode16_trace", WALK, 1),
-    "decode_attention_fused_write_q": ("k6_int8", "decode16_trace", WALK, 1),
+    "decode_attention_fused_write_q": ("k6_int8", "decode16_trace", DENSE, 1),
     "decode_attention_paged_q": ("serve_int8", "decode16_trace", PAGED, 1),
 }
 
@@ -2726,7 +2871,7 @@ def check_qwen_geometry(dev, dims=QWEN15) -> dict:
     from llamatpu_torch.ops import layer_fused
     from llamatpu_torch.ops import quant_matmul as qm
 
-    out = {"decode_attention_fused_write": check_attention(dev, dims),
+    out = {"decode_attention_fused_write": check_attention(dev, dims, sweep=False),
            "decode_attention_paged": check_paged_attention(dev, dims)}
     gen = torch.Generator(device=dev).manual_seed(21)
     D, V = dims["D"], dims["V"]
@@ -3787,6 +3932,10 @@ def main() -> int:
                 log(f"K4 in path, a layer: {r['in_path_ms']:.4f} ms in the main path's "
                     f"{LLAMA32_1B['T']}-row chunk, {r['phi3_in_path_ms']:.4f} ms in "
                     "Phi-3-medium's 128-token prefill")
+            if r["name"] == "decode_attention_fused_write":  # K6 in Phi-3-medium at one lane
+                r["phi3_in_path_ms"] = in_path_ms(paths, r["name"], "phi3_b1")
+                log(f"K6 in path, a layer and step: {r['in_path_ms']:.5f} ms in the Q8_0 GGUF "
+                    f"window, {r['phi3_in_path_ms']:.5f} ms in Phi-3-medium's at one lane")
             if r["name"] == "layer_tail_fused_rowq":  # K3's tail at T = 1, beside K9's
                 r["k3_in_path_ms"] = in_path_ms(paths, "layer_attn_tail_fused_rowq")
         summary["cpu"] = run_cpu_compare(dev, workdir)

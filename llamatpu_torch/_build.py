@@ -58,8 +58,8 @@ _SIGNATURES = {
         "lt_block_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "attention": {
-        "lt_decode_attention": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
-                                _P, _P, _P, _I, _P),
+        "lt_dense_attention": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _P, _I, _I, _P),
         "lt_paged_attention": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _P, _I, _I, _P),
         "lt_attention_walk": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -37,8 +37,9 @@ before the call by `runtime/paged_cache.paged_write_stacked` (a plain index
 write, as the JAX package leaves it to XLA); unallocated table entries point
 at the trash block and lie past pos, so they are masked.
 
-K8 is one launch of clusters of CTAs per (lane, KV head), each rank reading
-its share of the lane's live rows (`plan_paged`, `paged_shares`).
+K6 and K8 are one launch each of clusters of CTAs per (lane, KV head), each
+rank reading its share of the lane's live rows (`plan_dense`, `dense_shares`;
+`plan_paged`, `paged_shares`).
 
 CUDA source: csrc/attention.cu (designs and bounds in its header note). A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
@@ -54,7 +55,7 @@ from llamatpu_torch import _build
 from llamatpu_torch.ops.gemm import _sm_count
 
 NEG_INF = -1e30
-CHUNK = 64  # cache rows per block of K6's first pass (csrc/attention.cu kChunk)
+CHUNK = 64  # rows per chunk of the walk kernel (csrc/attention.cu kChunk)
 # a cache of S_phys rows is long when S_phys * itemsize reaches this: the JAX
 # package's full-stripe kernel stops fitting its VMEM there and it takes the
 # split kernel instead (pallas_attention.py:888); the port keeps its rule
@@ -155,8 +156,8 @@ def _check_new(q, kv_new, kvc, s_new, scale_rows) -> None:
 
 
 def _walk(q, kvc, pos_vec, scale: float, hd: int, layer_index, scale_rows=None, kv_new=None,
-          s_new=None, s_use: int | None = None, stats: bool = False, rows: int | None = None):
-    """Launch the walk kernel (K14, K15, K6's int8 variant) on one layer:
+          s_new=None, s_use: int | None = None, stats: bool = False):
+    """Launch the walk kernel (K14, K15) on one layer:
     (out [B, KV, G, vhd], m, l [B, KV, G, 1] or None) f32."""
     kv, sc = _layer(kvc, layer_index), _layer(scale_rows, layer_index)
     b, kvh, g, _ = q.shape
@@ -167,7 +168,7 @@ def _walk(q, kvc, pos_vec, scale: float, hd: int, layer_index, scale_rows=None, 
         raise NotImplementedError(f"decode attention takes G <= 8, hd and vhd multiples of {vec} "
                                   "(the 16-byte loads), hd + vhd <= 256")
     s_use = s_use or s_len
-    rows = rows or split_rows(s_use, kvh, b)
+    rows = split_rows(s_use, kvh, b)
     nsplit = -(-s_use // rows)
     qc = q.contiguous()
     pv = pos_vec.to(dtype=torch.int32).contiguous()
@@ -244,28 +245,7 @@ def decode_attention_fused_write(q: torch.Tensor, kv_new: torch.Tensor, kvc: tor
                                                   layer_index, hd)
     hd = hd or q.shape[-1]
     _check(q, kv_new, kvc, hd)
-    b, kvh, g, _ = q.shape
-    s_len, width = kvc.shape[-2], kvc.shape[-1]
-    vhd = width - hd
-    if g > 8 or hd % 8 or vhd % 8 or width > 256:
-        raise NotImplementedError("K6 takes G <= 8, hd and vhd multiples of 8, hd + vhd <= 256")
-    qc, kvn = q.contiguous(), kv_new.contiguous()
-    pv = pos_vec.to(dtype=torch.int32).contiguous()
-    _build.require(kvc.is_contiguous() and qc.device == kvn.device == kvc.device == pv.device
-                   and qc.dtype == kvn.dtype and tuple(pv.shape) == (b,),
-                   "decode_attention_fused_write: contiguous cache, inputs on its device, "
-                   "q and kv_new of one dtype, pos_vec [B]")
-    nsplit = -(-s_len // CHUNK)
-    part_o = torch.empty((b, kvh, nsplit, g, vhd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, kvh, nsplit, g, 2), dtype=torch.float32, device=q.device)
-    out = torch.empty((b, kvh, g, vhd), dtype=torch.float32, device=q.device)
-    lib = _build.load("attention")
-    err = lib.lt_decode_attention(qc.data_ptr(), kvn.data_ptr(), _build.dtype_code(qc),
-                                  kvc[layer_index].data_ptr(), _build.dtype_code(kvc),
-                                  pv.data_ptr(), b, kvh, g, s_len, hd, vhd, float(scale),
-                                  part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                                  nsplit, _build.stream())
-    _build.check(lib, err, "decode_attention_fused_write")
+    out = _dense_launch(q, kv_new, None, kvc, None, pos_vec, scale, hd, layer_index)
     decode_attention_fused_write.launches += 1
     return out, kvc
 
@@ -290,19 +270,112 @@ def decode_attention_fused_write_q(q, kv_new, s_new, kvc, scale_rows, pos_vec, s
     ops/kv_quant.quantize_kv of K and V (quantized outside the kernel, as the
     JAX package does); kvc int8 [L, B, KV, S, hd + vhd]; scale_rows f32
     [L, B, KV, 2, S]. Returns (attn, kvc, scale_rows), both written in place
-    at row pos_vec[b] of layer layer_index only. K6's split: 64 rows a block."""
+    at row pos_vec[b] of layer layer_index only."""
     if kvc.device.type == "cpu":
         return decode_attention_fused_write_q_plain(q, kv_new, s_new, kvc, scale_rows, pos_vec,
                                                     scale, layer_index, hd)
     hd = _check_dense(q, kvc, hd, layer_index, scale_rows, "decode_attention_fused_write_q")
     _check_new(q, kv_new, kvc, s_new, scale_rows)
-    out, _, _ = _walk(q, kvc, pos_vec, scale, hd, layer_index, scale_rows, kv_new, s_new,
-                      rows=CHUNK)
+    out = _dense_launch(q, kv_new, s_new, kvc, scale_rows, pos_vec, scale, hd, layer_index)
     decode_attention_fused_write_q.launches += 1
     return out, kvc, scale_rows
 
 
 decode_attention_fused_write_q.launches = 0
+
+
+# K6's launch: a cluster of `cluster` CTAs per (lane, KV head), each
+# streaming its share of the stripe's rows s <= pos through a ring of 8
+# stages of `rows` rows, one bulk copy a stage (csrc/attention.cu
+# dense_cluster_kernel).
+DENSE_STAGE_BYTES = 8192  # K|V bytes of a ring stage at most (fewer rows past it)
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    cluster: int  # CTAs a (lane, KV head): 1, 2, 4 or 8
+    rows: int     # rows of a ring stage: a power of two dividing 32
+
+
+def plan_dense(b: int, kvh: int, s: int, width: int, itemsize: int,
+               sm_count: int = SMS) -> DensePlan:
+    """K6's launch, from the shapes alone (never pos: reading it would sync
+    the host). The cluster: the largest of 1, 2, 4, 8 whose B * KV * C CTAs
+    fit the SMs one each. The stage: 16 rows where the cluster is 4 or 8 (a
+    small grid: a rank's share is short, and a consumer warp's pass over its
+    stage is the chain to cut, so more warps get a stage), else 32 (fewer
+    copies and waits a warp); halved while a stage passes DENSE_STAGE_BYTES.
+    Both choices are the fastest measured on an H100 at pos 512 (PERF.md).
+    C * rows <= S."""
+    c = 1
+    while c < 8 and b * kvh * 2 * c <= sm_count:
+        c *= 2
+    rows = 16 if c >= 4 else 32
+    while rows > 1 and rows * width * itemsize > DENSE_STAGE_BYTES:
+        rows //= 2
+    while c > 1 and c * rows > s:
+        c //= 2
+    return DensePlan(c, rows)
+
+
+def dense_shares(pos: int, s: int, plan: DensePlan) -> list[list[tuple[int, int]]]:
+    """The rows [s0, s1) each rank of a lane's cluster reads, stage by stage,
+    in rank order: the stripe's rows s <= pos in units of plan.rows, rank r
+    taking units r, r + C, ... (none for a pos outside [0, S), which gives
+    NaN)."""
+    r_n = plan.rows
+    nu = pos // r_n + 1 if 0 <= pos < s else 0
+    return [[(u * r_n, min(u * r_n + r_n, pos + 1)) for u in range(r, nu, plan.cluster)]
+            for r in range(plan.cluster)]
+
+
+def _dense_launch(q, kv_new, s_new, kvc, scale_rows, pos_vec, scale, hd, layer_index):
+    """One launch of K6 (or its int8 variant) on layer layer_index of the
+    stacked cache, after the wrapper's shape checks. Every check comes
+    before the library is built or the kernel launched; a CPU tensor raises
+    here."""
+    b, kvh, g, _ = q.shape
+    s_len, width = kvc.shape[-2], kvc.shape[-1]
+    vhd = width - hd
+    quant = scale_rows is not None
+    vec = 16 if quant else 8
+    if g > 8 or hd % vec or vhd % vec or vhd < vec or width > 256:
+        raise NotImplementedError(f"K6 takes G <= 8, hd and vhd multiples of {vec}, "
+                                  f"hd + vhd <= 256 (got G {g}, hd {hd}, vhd {vhd})")
+    kv, sc = kvc[layer_index], None if scale_rows is None else scale_rows[layer_index]
+    plan = plan_dense(b, kvh, s_len, width, kv.element_size(),
+                      _sm_count(kv.device.index or 0) if kv.device.type == "cuda" else SMS)
+    if s_len % plan.rows:
+        raise ValueError(f"decode_attention_fused_write: S {s_len} is not a multiple of the "
+                         f"stage's {plan.rows} rows")
+    _build.require(q.dtype in (torch.float32, torch.bfloat16)
+                   and kv_new.dtype == (torch.int8 if quant else q.dtype)
+                   and (s_new is None or s_new.dtype == torch.float32)
+                   and (sc is None or sc.dtype == torch.float32),
+                   "decode_attention_fused_write: f32 or bf16 q, kv_new of q's dtype (int8 "
+                   "under int8), f32 scales")
+    _build.require(kvc.is_contiguous() and (scale_rows is None or scale_rows.is_contiguous()),
+                   "decode_attention_fused_write: contiguous cache and scale rows")
+    _build.require(tuple(pos_vec.shape) == (b,) and b <= 65535 and s_len <= 2 ** 30,
+                   "decode_attention_fused_write: pos_vec [B], B <= 65535, S <= 2^30")
+    _build.require(kv.data_ptr() % 16 == 0 and (sc is None or sc.data_ptr() % 16 == 0),
+                   "decode_attention_fused_write: 16-byte aligned cache and scale rows")
+    ins = [q, kv_new, kv, pos_vec] + ([] if sc is None else [s_new, sc])
+    _build.require(all(t.device.type == "cuda" and t.device == kv.device for t in ins),
+                   "decode_attention_fused_write: every input on the cache's CUDA device")
+    qc, kvn = q.contiguous(), kv_new.contiguous()
+    sn = None if s_new is None else s_new.contiguous()
+    pv = pos_vec.to(dtype=torch.int32).contiguous()
+    out = torch.empty((b, kvh, g, vhd), dtype=torch.float32, device=q.device)
+    lib = _build.load("attention")
+    err = lib.lt_dense_attention(qc.data_ptr(), _build.dtype_code(qc), kvn.data_ptr(),
+                                 CACHE_CODES[kvn.dtype], None if sn is None else sn.data_ptr(),
+                                 kv.data_ptr(), CACHE_CODES[kv.dtype],
+                                 None if sc is None else sc.data_ptr(), pv.data_ptr(), b, kvh, g,
+                                 s_len, hd, vhd, float(scale), out.data_ptr(), plan.cluster,
+                                 plan.rows, _build.stream())
+    _build.check(lib, err, "decode_attention_fused_write")
+    return out
 
 
 # ----------------------------------------------------------------- K14

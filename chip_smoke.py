@@ -32,9 +32,11 @@ It runs every phase, needs one card, and exits non-zero
             slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K18a-j and
             K19a-c on the
             probe scripts' [24, 4096, 4096] stacks at every configuration
-            of the scripts, K18a / K18i's tensor-core GEMV also at ragged
-            shapes (GEMV_TC_EDGES: T = 1, 3, 8; O = 300, 1000; K slices
-            and their second pass; I = 9232); slice 7's: K20 at
+            of the scripts, the tensor-core GEMV also at ragged
+            shapes (K18a / K18i: GEMV_TC_EDGES, T = 1, 3, 8; O = 300, 1000;
+            K slices and their second pass; I = 9232; K18b / K18c / K18g in
+            both weight kinds: GEMV_Q8_EDGES, also NB = 16 to I and two
+            runs bit-equal); slice 7's: K20 at
             Phi-3-medium widths, T = 17 and 24 in bf16, and at Qwen2.5-14B
             widths, T = 32 in f32, with K9 (T = 1, 8, 16) and K2 (1, 8, 24
             rows) at Phi-3-medium widths; times from CUDA events and
@@ -1389,6 +1391,12 @@ GEMV_TC = ("probe_gemv_tc_kernel", "probe_gemv_sum_kernel")  # K18a / K18i and t
 # short stage; a ragged O split into ten K slices (the second pass); I over
 # the 4096 columns a CTA stages (three slices, each a stage and a short one)
 GEMV_TC_EDGES = ((1, 2, 300, 528), (3, 1, 300, 4096), (8, 1, 1000, 9232))
+# the q8 GEMV's edges (T, L, O, I, NB), both weight kinds: NB = 16 over a
+# 3-layer stack at I = 16 * 33; NB = 128 (a lane's scales fixed) and NB =
+# 256 = I / 16 (scales a step) over ten K slices starting off multiples of
+# 128; three slices of I = 16 * 577; NB = I = 528; NB = 64 in one whole stage
+GEMV_Q8_EDGES = ((1, 3, 300, 528, 16), (3, 1, 300, 4096, 128), (8, 3, 300, 4096, 256),
+                 (8, 1, 1000, 9232, 16), (3, 1, 1000, 528, 528), (8, 2, 1000, 2048, 64))
 
 
 def check_tail_kt(dev, dims=LLAMA32_1B) -> dict:
@@ -1600,19 +1608,19 @@ def check_roofline_probes(dev, w) -> list[dict]:
     # (prepared beforehand, as for K1 and K5), a layer in turn or the stack
     wdq = torch.stack([rf.deq_q8_current(w["qs"][i], w["ss"][i]) for i in range(L)])
     dq_flat = wdq.reshape(-1, I)
-    GEMV, DOT = ("probe_gemv_kernel",), ("probe_int8dot_kernel",)
+    DOT = ("probe_int8dot_kernel",)
     # name, its line in scripts/bench_roofline.py, weights, stacked, exact,
     # profiler names, weight bytes per layer, library yardstick
     spec = [("step_pallas_bf16", 99, bf, False, False, GEMV_TC, 2 * O * I,
              lambda lw: torch.matmul(x, lw[0].T)),
-            ("step_q8_current", 112, q8, False, False, GEMV, O * I + O * nb * 4,
+            ("step_q8_current", 112, q8, False, False, GEMV_TC, O * I + O * nb * 4,
              lambda lw: torch.matmul(x, wdq[next(lj) % L].T)),
-            ("step_q8_bf16mul", 125, q8, False, False, GEMV, O * I + O * nb * 4,
+            ("step_q8_bf16mul", 125, q8, False, False, GEMV_TC, O * I + O * nb * 4,
              lambda lw: torch.matmul(x, wdq[next(lj) % L].T)),
             ("step_q8_int8dot", 139, q8, False, True, DOT, O * I, None),
             ("step_q8_int8dot_blockscale", 158, q8, False, False, DOT, O * I + O * nb * 4, None),
             ("step_dma_probe", 172, bf, False, True, STREAM, 2 * O * I, None),
-            ("call3_q8_current", 243, q8, True, False, GEMV, O * I + O * nb * 4,
+            ("call3_q8_current", 243, q8, True, False, GEMV_TC, O * I + O * nb * 4,
              lambda lw: torch.matmul(x, dq_flat.T)),
             ("call3_q8_int8dot", 256, qo, True, True, DOT, O * I, None),
             ("call3_bf16", 267, bf, True, False, GEMV_TC, 2 * O * I,
@@ -1650,11 +1658,14 @@ def check_roofline_probes(dev, w) -> list[dict]:
                    else f"one [{O}, {I}] layer of {L} in turn, x [{tt}, {I}]")))
         log(f"{name}: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}; {rows[-1]['gbs']:.1f} GB/s), "
             f"plain {tm['plain_ms']:.4f}, err {abs_e:.3g}")
-    edges = check_gemv_tc_edges(dev)
+    edges, q8_edges = check_gemv_tc_edges(dev), check_gemv_q8_edges(dev)
     for r in rows:
-        if r["name"] in ("step_pallas_bf16", "call3_bf16"):
-            r["edges"] = edges
-            r["max_rel_err"] = max(r["max_rel_err"], *(e["max_rel_err"] for e in edges.values()))
+        e = edges if r["name"] in ("step_pallas_bf16", "call3_bf16") else (
+            q8_edges if r["name"] in ("step_q8_current", "step_q8_bf16mul", "call3_q8_current")
+            else None)
+        if e is not None:
+            r["edges"] = e
+            r["max_rel_err"] = max(r["max_rel_err"], *(v["max_rel_err"] for v in e.values()))
     return rows
 
 
@@ -1681,6 +1692,42 @@ def check_gemv_tc_edges(dev) -> dict:
         key = f"T={t} L={lay} O={o} I={i}"
         out[key] = dict(max_abs_err=abs_e, max_rel_err=rel_e, k_slices=plan.nks, ctas=plan.ctas)
         log(f"gemv_bf16 {key}: {plan.nks} K slices on {plan.ctas} CTAs, rel err {rel_e:.3g}")
+    return out
+
+
+def check_gemv_q8_edges(dev) -> dict:
+    """K18b / K18c / K18g's kernel (ops/probes.py gemv) in both weight kinds on
+    every layer of the GEMV_Q8_EDGES stacks against the plain product on
+    bench/roofline.py's dequantization, within 1e-5 of the largest plain
+    output, and two runs bit-equal; each with its plan (K slices, CTAs) and
+    whether a lane's scales are fixed for a unit (NB divides 16 * PARTS)."""
+    import torch
+
+    from llamatpu_torch.bench import roofline as rf
+    from llamatpu_torch.ops import probes
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for t, lay, o, i, nb in GEMV_Q8_EDGES:
+        qs = torch.randint(-127, 128, (lay, o, i), dtype=torch.int8, generator=gen, device=dev)
+        ss = torch.randn((lay, o, nb), generator=gen, device=dev).abs() * 0.01
+        x = (torch.randn((t, i), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        plan = probes.plan_gemv(o, i, lay, sms)
+        for kind, deq in ((probes.W_Q8_F32, rf.deq_q8_current),
+                          (probes.W_Q8_BF16, rf.deq_q8_bf16mul)):
+            got, again = probes.gemv(x, qs, ss, kind), probes.gemv(x, qs, ss, kind)
+            want = x.float() @ deq(qs, ss).float().transpose(-1, -2)
+            torch.cuda.synchronize()
+            key = f"{'f32' if kind == probes.W_Q8_F32 else 'bf16'} T={t} L={lay} O={o} I={i} NB={nb}"
+            assert got.shape == want.shape == (lay, t, o)
+            assert torch.equal(got, again), f"gemv {key}: two runs differ"
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= 1e-5, f"gemv {key} disagrees: {abs_e} {rel_e}"
+            out[key] = dict(max_abs_err=abs_e, max_rel_err=rel_e, k_slices=plan.nks,
+                            ctas=plan.ctas, scales_fixed=probes.scales_fixed(nb))
+            log(f"gemv {key}: {plan.nks} K slices on {plan.ctas} CTAs, rel err {rel_e:.3g}, "
+                "two runs bit-equal")
     return out
 
 

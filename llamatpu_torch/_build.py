@@ -69,8 +69,7 @@ _SIGNATURES = {
         "lt_grouped_matmul": (_I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     },
     "probes": {
-        "lt_probe_gemv_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        "lt_probe_gemv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "lt_probe_gemv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "lt_probe_int8dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "lt_probe_stream": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
     },

@@ -6,18 +6,18 @@
 // weights really moves from device memory, and each probe consumes it as the
 // TPU body did.
 //
-// 1. probe_gemv_tc_kernel (K18a step_pallas_bf16, K18i call3_bf16):
+// 1. probe_gemv_tc_kernel<W_BF16> (K18a step_pallas_bf16, K18i call3_bf16):
 //    y[l, t, o] = sum_k x[t, k] * w[l, o, k], x bf16 [T <= 8, I], w bf16
 //    [L, O, I], f32 sums. Bound: the weight bytes, 33.6 MB a [4096, 4096]
 //    layer (10.0 us at 3.35 TB/s) and 805 MB the [24, 4096, 4096] stack
 //    (240.5 us); 8 operations a weight byte at T = 8, ~37x under the bf16
-//    ridge. The first design (probe_gemv_kernel's bf16 form, now gone) reached
-//    0.42 TB/s a layer and 0.61 TB/s on the stack, a fifth of bf16
-//    torch.matmul: each 16-byte weight load fed 64 CUDA-core FMAs and 256
-//    bytes of f32 x reads from shared memory, a lane kept at most two loads
-//    in flight at 25 % occupancy, and x was restaged every 1024 columns
-//    between two block barriers with no weight load in flight. This design
-//    keeps HBM busy and the products off the CUDA cores:
+//    ridge. The first design (a CUDA-core GEMV, now gone) reached 0.42 TB/s
+//    a layer and 0.61 TB/s on the stack, a fifth of bf16 torch.matmul: each
+//    16-byte weight load fed 64 CUDA-core FMAs and 256 bytes of f32 x reads
+//    from shared memory, a lane kept at most two loads in flight at 25 %
+//    occupancy, and x was restaged every 1024 columns between two block
+//    barriers with no weight load in flight. This design keeps HBM busy and
+//    the products off the CUDA cores:
 //    - persistent CTAs, one per SM, walk work units of (layer, stripe of
 //      kStripe = 8 weight rows, K slice), unit u = c, c + ctas, ... of CTA
 //      c; the planner (ops/probes.py plan_gemv, checked by the CPU tests)
@@ -29,41 +29,80 @@
 //      short: 94 rounds of 132 on the stack, where 32-row ones left a 24th
 //      round 27 % full;
 //    - x's columns of that slice come first, by TMA into the ring's first
-//      two slots (rows 0-3 and 4-7); each consumer warp copies its fragments
-//      into registers for the whole walk (64 a lane at I = 4096; zero for
-//      rows t >= T) and the slots go back to the ring: no x traffic in the
-//      ring's loop. Plain loads of x from L2 beside the weight stream (132
-//      SMs reading one 64 KB) cost a layer about twice what this copy ahead
-//      of it costs (bench/gemv_ablation.py times the copy);
+//      slots (Stage::xrows rows a slot: 4 at 4 KB rows, so rows 0-3 and
+//      4-7); each consumer warp copies its fragments into registers for the
+//      whole walk (64 a lane at I = 4096; zero for rows t >= T) and the
+//      slots go back to the ring: no x traffic in the ring's loop. Plain
+//      loads of x from L2 beside the weight stream (132 SMs reading one 64
+//      KB) cost a layer about twice what this copy ahead of it costs
+//      (bench/gemv_ablation.py times the copy);
 //    - the producer warp streams each unit's weights through a kDepth = 6
-//      deep ring of [8 rows, kStageK = 2048 columns] stages (32 KB), one 4
-//      KB cp.async.bulk a row into a row pitch 32 bytes over a multiple of
-//      128 (conflict-free 8-byte loads), completing on the stage's `full`
-//      mbarrier; the consumer warps release a stage on its `empty` mbarrier,
-//      so the next copy into it is issued while the products run. The TMA
-//      unit's cost is per copy: row copies of 0.5-1 KB (tried) streamed the
-//      stack slower than these;
+//      deep ring of [8 rows, kStageK = 2048 columns] stages (32 KB), one
+//      cp.async.bulk a row into a row pitch 32 bytes over a
+//      multiple of 128 (conflict-free 8-byte loads), completing on the
+//      stage's `full` mbarrier; the consumer warps release a stage on its
+//      `empty` mbarrier, so the next copy into it is issued while the
+//      products run. The TMA unit's cost is per copy: row copies of 0.5-1 KB
+//      (tried) streamed the stack slower than these;
 //    - the products on tensor cores: mma.sync m16n8k16 bf16 -> f32 with x as
-//      the A operand (rows t < 8 from registers; rows 8-15 zero registers,
-//      their sums dropped) and the stage as the B operand (n = the 8 weight
-//      rows): each weight element is read once from HBM and once from
-//      shared memory for all rows. The k order inside each 16-column step
-//      is permuted alike in A and B (as in ffn_fused.cu), so a lane's
-//      fragment of a row is 4 adjacent columns: one 8-byte load. Consumer
-//      warp w takes the steps j = w (mod 8) of each stage, four steps' loads
-//      ahead of their products; at the unit's end the eight parts are added
-//      in order through shared memory.
+//      the A operand and the stage as the B operand (n = the 8 weight rows):
+//      each weight element is read once from HBM and once from shared memory
+//      for all rows. The k order inside each 16-column step is permuted
+//      alike in A and B (as in ffn_fused.cu), so a lane's fragment of a row
+//      is 4 adjacent columns: one 8-byte load. Consumer warp w takes the
+//      steps j = w + 8i of each stage, kGroup = 4 steps' loads ahead of their
+//      products. x of step i fills the A rows 0-7 (even i) or 8-15 (odd i)
+//      of one register quad per step pair, so no register is copied or
+//      zeroed for an mma, and the even and odd steps sum into two
+//      accumulators (two chains of dependent mma, not one); a whole stage
+//      runs without the guards of a short one (no branches between its
+//      steps). At the unit's end each warp's part (its even sum plus its odd
+//      one) and the eight parts are added in order through shared memory.
 //    Rows past O are not copied and their sums not stored; K tails are whole
 //    16-column steps (I % 16 == 0).
-// 2. probe_gemv_kernel (K18b step_q8_current, K18c step_q8_bf16mul, and the
-//    stacked K18g call3_q8_current): y[l, t, o] = sum_k x[t, k] * wd[l, o, k],
-//    x bf16 [T <= 8, I], f32 sums, where wd is bf16(f32(q) * s[o, k % NB])
-//    (b) or bf16(bf16(q) * bf16(s[o, k % NB])) (c): the scripts'
-//    pltpu.repeat tiles the [O, NB] scales along the columns (NB = I / 32). A
-//    warp takes kRows weight rows, each lane 16 bytes of them per load; x
-//    sits in shared memory in f32, kTileK columns at a time. Bound: bytes
-//    (~5.6 us per [4096, 4096] at 3.35 TB/s); ~8 CUDA-core FMAs per weight
-//    byte at T = 8, near the card's FP32 rate.
+// 2. probe_gemv_tc_kernel<W_Q8_F32 | W_Q8_BF16, TILED> (K18b step_q8_current,
+//    K18c step_q8_bf16mul, the stacked K18g call3_q8_current): the same walk
+//    over int8 weights w [L, O, I] with f32 scales s [L, O, NB]: wd[l, o, k]
+//    = bf16(f32(q) * s[o, k % NB]) (W_Q8_F32) or bf16(bf16(q) * bf16(s[o, k
+//    % NB])) (W_Q8_BF16), as the scripts' pltpu.repeat tiles the [O, NB]
+//    scales along the columns (NB = I / 32 there). Bound: bytes, the int8
+//    weights and the scales (18.9 MB a [4096, 4096] layer: 5.7 us; 453 MB
+//    the stack: 135 us). The first design (a CUDA-core GEMV, now gone) read
+//    the stack at 0.16 TB/s: 16 f32 scale loads a 16-byte weight load, an
+//    I2F conversion a weight on the 16-a-clock conversion pipe, the
+//    products as CUDA-core FMAs. Here:
+//    - a stage is [8 rows, 2048 int8 columns] (16 KB) at a row pitch 16 bytes
+//      over a multiple of 128, so a lane group's 4-byte fragment loads are
+//      free of bank conflicts; the ring holds 12 (the same 192 KB), x rows
+//      0-7 its first four. Stages of 4096 columns, 6 deep, stream the stack
+//      as fast but a single layer 8 % slower (the first bytes wait for a
+//      32 KB stage);
+//    - the B fragment of a step is one 4-byte load (columns 4q .. 4q + 3 of
+//      row g), dequantized in registers: byte e of raw ^ 0x80808080 is q +
+//      128; a byte permute puts it under the exponent of 2^23, and one f32
+//      subtraction of 2^23 + 128 leaves q exactly (all 256 values). Then
+//      W_Q8_F32: __fmul_rn by the scale and cvt.rn.bf16x2.f32; W_Q8_BF16:
+//      the high halves of two such f32 (bf16(q), exact) times the rounded
+//      scales by mul.rn.bf16x2 (the exact product of two bf16 values has
+//      at most 16 significant bits, so one rounding equals the f32
+//      product's). Per weight element a lane issues 1 permute, 1 FADD, 1
+//      FMUL and half a cvt (W_Q8_F32) or 1.5 permutes, 1 FADD and half an
+//      HMUL2 (W_Q8_BF16), plus a quarter XOR, shared load and mma. On the
+//      H100 the I2F conversion and an integer bf16 rounding in their place
+//      both stream the stack slower (bench/gemv_ablation.py);
+//    - TILED (16 * kParts % NB == 0, NB = 128 on the probes): warp w's
+//      columns of a step j = w + 8i are kbeg + 16j + 4q + e, so modulo NB
+//      they are (kbeg + 16w) % NB + 4q + e for the whole walk; each lane
+//      holds its four scales of row o0 + g for a unit (one 16-byte __ldg,
+//      issued a unit ahead: a load from HBM under the stream waited for at
+//      the unit's start cost the stack a fifth of its time). Any other NB (a
+//      multiple of 16 dividing I) loads the four scales of each step beside
+//      its fragment.
+//    The scale bytes still come from HBM once, and count in the bound. On
+//    the stack the conversions keep the kernel ~15 % over the int8 stream
+//    probe (K18j); on one layer a call's fixed cost (launch, x copy, the
+//    ring's fill) weighs about twice what the conversions add
+//    (bench/gemv_ablation.py's "no dequantization" variant).
 // 3. probe_int8dot_kernel (K18d step_q8_int8dot, K18e
 //    step_q8_int8dot_blockscale, K18h call3_q8_int8dot): f32((xq . q)_int32),
 //    times (s . xs^T)^T for the blockscale form, by dp4a; xq int8 staged in
@@ -100,18 +139,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxT = 8;           // activation rows (the TPU harness pads T = 1 to 8)
-constexpr int kRows = 2;           // GEMV: weight rows per warp
-constexpr int kTileK = 1024;       // GEMV: activation columns staged per pass
+constexpr int kRows = 2;           // int8 dot: weight rows per warp
+constexpr int kTileK = 1024;       // int8 dot: activation columns staged per pass
 constexpr int kRingBytes = 128 * 1024;
 constexpr int kMaxDepth = 16;
 constexpr int kMaxSlices = 2;      // int8-dot stream: 16-byte column slices per thread
 
-enum WKind { W_Q8_F32 = 1, W_Q8_BF16 = 2 };  // ops/probes.py mirrors the codes
+enum WKind { W_BF16 = 0, W_Q8_F32 = 1, W_Q8_BF16 = 2 };  // ops/probes.py mirrors the codes
 enum SMode { S_LAST = 0, S_SUM = 1, S_DOT = 2 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // ------------------------------------------------------ TMA and mbarriers
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -157,30 +192,47 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       : "memory");
 }
 
-// ------------------------------------------------- bf16 tensor-core GEMV
+// ------------------------------------------------------ tensor-core GEMV
 constexpr int kStripe = 8;                         // weight rows of a work unit (the mma's n)
 constexpr int kStageK = 2048;                      // weight columns of a ring stage
-constexpr int kDepth = 6;                          // ring stages
+constexpr int kDepth = 6;                          // ring stages of bf16 weights (32 KB each)
 constexpr int kMaxSlice = 4096;                    // x columns a CTA holds
 constexpr int kParts = 8;                          // consumer warps: column parts of a stage
-constexpr int kSteps = kStageK / 16 / kParts;      // a warp's 16-column steps of a stage
-constexpr int kXFrags = kMaxSlice / kStageK * kSteps;  // a lane's x fragments
+constexpr int kGroup = 4;                          // a warp's steps loaded, converted, multiplied together
+constexpr int kXFrags = kMaxSlice / 16 / kParts;   // a lane's x fragments
 constexpr int kConsumers = 32 * kParts;
 constexpr int kTcThreads = kConsumers + 32;        // + the producer warp
-constexpr int kStagePitch = 2 * kStageK + 32;      // bytes a staged weight row (32 over 128 k)
-constexpr int kStageBytes = kStripe * kStagePitch;
-constexpr int kXPitch = 2 * kMaxSlice + 32;        // bytes a staged x row (4 rows a slot)
+constexpr int kXPitch = 2 * kMaxSlice + 32;        // bytes a staged x row
 constexpr int kRedPitch = kStripe + 1;             // floats a row t of a part's sums
-static_assert(4 * kXPitch <= kStageBytes, "x rows 0-3 and 4-7 each fit a ring slot");
+
+// A ring stage of weight kind WK: K columns of 8 rows; int8 stages hold half
+// the bytes, and the ring twice as many of them (the same ring bytes). A
+// lane's fragment of a step is 4 adjacent columns (8 bytes bf16, 4 bytes
+// int8), and the row pitch (32 / 16 bytes over a multiple of 128) keeps a lane
+// group's fragment loads free of bank conflicts. x rows take the first
+// xslots slots, xrows a slot.
+template <int WK>
+struct Stage {
+  static constexpr int esize = WK == W_BF16 ? 2 : 1;
+  static constexpr int K = kStageK;
+  static constexpr int depth = kDepth * 2 / esize;
+  static constexpr int steps = K / 16 / kParts;  // a warp's 16-column steps of a stage
+  static constexpr int pitch = K * esize + (WK == W_BF16 ? 32 : 16);
+  static constexpr int bytes = kStripe * pitch;
+  static constexpr int xrows = bytes / kXPitch;
+  static constexpr int xslots = (kMaxT + xrows - 1) / xrows;
+  static_assert(xrows >= 1 && xslots < depth, "x fits the ring's first slots");
+};
 
 // The walk: unit u is stripe u / nks (layer s / ns, rows (s % ns) * kStripe
 // ..) over K slice u % nks; CTA c takes u = c, c + ctas, ... (ctas % nks ==
 // 0: one slice a CTA). ops/probes.py GemvPlan mirrors it.
 struct TcWalk {
   const __nv_bfloat16* x;  // [T, I]
-  const __nv_bfloat16* w;  // [L, O, I]
+  const void* w;           // [L, O, I] bf16 or int8
+  const float* s;          // int8 w: the scales [L, O, NB]
   float* out;              // y [L, T, O] (nks == 1) or the partial sums [nks, L, T, O]
-  int T, O, I, L, ns, nks, ctas;
+  int T, O, I, L, NB, ns, nks, ctas;
   __device__ int units() const { return L * ns * nks; }
   // first column of slice ks (whole 16-column steps)
   __device__ int slice_k(int ks) const {
@@ -196,32 +248,98 @@ __device__ __forceinline__ void lds64(uint32_t (&r)[2], uint32_t addr) {
   asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
 }
 
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 sums; a's rows 8-15 are
-// zero (a1 = a3 = 0), so c2 = c3 = 0: c0, c1 are row g, columns 2q, 2q + 1
-// (g = lane / 4, q = lane % 4). The contraction index of each 16-column step
-// is permuted alike in a and b: the mma's k = 2q, 2q + 1 and 2q + 8, 2q + 9
-// are the step's columns 4q .. 4q + 3, so each lane's a (x row g) and b
-// (weight row g) fragments are one 8-byte load each.
-__device__ __forceinline__ void mma_rows8(float (&c)[4], const uint32_t (&a)[2],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %6, %5, %6}, {%7, %8}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(0u), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t r;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(r) : "r"(addr));
+  return r;
 }
 
-// Dynamic shared memory: the ring [kDepth][kStripe rows of kStagePitch], then
-// two buffers of the parts' sums [kParts][kMaxT][kRedPitch] f32.
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 sums, n = the 8 weight
+// rows of a stripe; lane (g = lane / 4, q = lane % 4) holds a's rows g (a0,
+// a2) and g + 8 (a1, a3), and c0, c1 (row g) and c2, c3 (row g + 8) at
+// columns 2q, 2q + 1. The contraction index of each 16-column step is
+// permuted alike in a and b: the mma's k = 2q, 2q + 1 and 2q + 8, 2q + 9 are
+// the step's columns 4q .. 4q + 3, so each lane's x and weight fragments of
+// a row are 4 adjacent columns. x takes rows 0-7 of one step and rows 8-15
+// of the next (a quad of registers holds both), so an even step's sums are
+// c0, c1 of one accumulator and an odd step's c2, c3 of another; the other
+// half of each is dropped.
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// The lane's four scales s[c .. c + 3] (v) as the kind multiplies by them:
+// f32 bits (W_Q8_F32), or two bf16x2 of the scales rounded to bf16 (W_Q8_BF16).
+template <int WK>
+__device__ __forceinline__ void to_scales(const float4& v, uint32_t (&sv)[4]) {
+  if constexpr (WK == W_Q8_F32) {
+    sv[0] = __float_as_uint(v.x);
+    sv[1] = __float_as_uint(v.y);
+    sv[2] = __float_as_uint(v.z);
+    sv[3] = __float_as_uint(v.w);
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    sv[0] = *reinterpret_cast<const uint32_t*>(&lo);
+    sv[1] = *reinterpret_cast<const uint32_t*>(&hi);
+  }
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {  // cvt.rn.bf16x2.f32
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The B fragment (two bf16x2) of the 4 int8 weights in raw (columns 4q .. 4q
+// + 3, the lowest byte first), dequantized by the kind with the lane's scales.
+// int8 -> f32 without the conversion pipe: byte e of raw ^ 0x80808080 is q +
+// 128, permuted under the exponent of 2^23 it reads 2^23 + q + 128, and one
+// subtraction leaves q exactly.
+template <int WK>
+__device__ __forceinline__ void dequant4(uint32_t raw, const uint32_t (&sv)[4], uint32_t (&b)[2]) {
+  const uint32_t u = raw ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + e)) - 8388736.f;
+  if constexpr (WK == W_Q8_F32) {
+    b[0] = pack_bf16x2(__fmul_rn(f[0], __uint_as_float(sv[0])), __fmul_rn(f[1], __uint_as_float(sv[1])));
+    b[1] = pack_bf16x2(__fmul_rn(f[2], __uint_as_float(sv[2])), __fmul_rn(f[3], __uint_as_float(sv[3])));
+  } else {  // bf16(q) is the high half of f (|q| <= 128: the low half is zero)
+    const uint32_t q01 = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    const uint32_t q23 = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(b[0]) : "r"(q01), "r"(sv[0]));
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(b[1]) : "r"(q23), "r"(sv[1]));
+  }
+}
+
+// Dynamic shared memory: the ring [S::depth][kStripe rows of S::pitch], then
+// two buffers of the parts' sums [kParts][kMaxT][kRedPitch] f32. TILED (int8
+// kinds): 16 * kParts % NB == 0, so a lane's scales are fixed for a unit.
+template <int WK, bool TILED>
 __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
+  using S = Stage<WK>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[kDepth], empty[kDepth];
-  float* red = reinterpret_cast<float*>(smem + kDepth * kStageBytes);
+  __shared__ __align__(8) uint64_t full[S::depth], empty[S::depth];
+  float* red = reinterpret_cast<float*>(smem + S::depth * S::bytes);
   const int c = blockIdx.x, ks = c % a.nks;
   const int kbeg = a.slice_k(ks), kend = a.slice_k(ks + 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    for (int d = 0; d < kDepth; ++d) {
+    for (int d = 0; d < S::depth; ++d) {
       mbar_init(&full[d]);              // the producer's expect_tx, then the bytes
       mbar_init(&empty[d], kParts);     // one arrive a consumer warp
     }
@@ -230,30 +348,32 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
   __syncthreads();
 
   if (warp == kParts) {  // the producer warp: lane r copies row r of each stage
-    // x's slice first, rows 0-3 into slot 0 and rows 4-7 into slot 1 (rows t < T)
-    for (int h = 0; h < 2; ++h) {
-      const int rows = max(0, min(4, a.T - 4 * h));
+    // x's slice first, S::xrows rows a slot (rows t < T)
+    for (int h = 0; h < S::xslots; ++h) {
+      const int rows = max(0, min(S::xrows, a.T - S::xrows * h));
       if (lane == 0) mbar_expect_tx(&full[h], static_cast<unsigned>(rows * (kend - kbeg) * 2));
       __syncwarp();
       if (lane < rows)
-        bulk_load(smem + h * kStageBytes + lane * kXPitch,
-                  a.x + static_cast<long long>(4 * h + lane) * a.I + kbeg, (kend - kbeg) * 2,
-                  &full[h]);
+        bulk_load(smem + h * S::bytes + lane * kXPitch,
+                  a.x + static_cast<long long>(S::xrows * h + lane) * a.I + kbeg,
+                  (kend - kbeg) * 2, &full[h]);
     }
-    int slot = 2;
+    int slot = S::xslots;
     unsigned phase = 0;
     for (int u = c; u < a.units(); u += a.ctas) {
       const int s = u / a.nks, l = s / a.ns, o0 = (s % a.ns) * kStripe;
       const int rows = min(kStripe, a.O - o0);
-      const __nv_bfloat16* src = a.w + (static_cast<long long>(l) * a.O + o0 + lane) * a.I;
-      for (int k = kbeg; k < kend; k += kStageK) {
-        const int kc = min(kStageK, kend - k);
+      const char* src = static_cast<const char*>(a.w) +
+                        (static_cast<long long>(l) * a.O + o0 + lane) * a.I * S::esize;
+      for (int k = kbeg; k < kend; k += S::K) {
+        const int kc = min(S::K, kend - k);
         mbar_wait(&empty[slot], phase ^ 1);
-        if (lane == 0) mbar_expect_tx(&full[slot], static_cast<unsigned>(rows * kc * 2));
+        if (lane == 0) mbar_expect_tx(&full[slot], static_cast<unsigned>(rows * kc * S::esize));
         __syncwarp();
         if (lane < rows)
-          bulk_load(smem + slot * kStageBytes + lane * kStagePitch, src + k, kc * 2, &full[slot]);
-        if (++slot == kDepth) {
+          bulk_load(smem + slot * S::bytes + lane * S::pitch, src + k * S::esize, kc * S::esize,
+                    &full[slot]);
+        if (++slot == S::depth) {
           slot = 0;
           phase ^= 1;
         }
@@ -262,69 +382,126 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
     return;
   }
 
-  // This warp's x fragments of the slice, from the ring's first two slots
-  // into registers for the whole walk (the mma's A operand, rows t < 8):
-  // step j = warp + kParts * i of stage st is xf[st * kSteps + i] = x[g][col
-  // + 4q .. + 3] for the step's first column col; zero for t >= T and past
-  // the slice. Then both slots go back to the ring.
   const int g = lane >> 2, q = lane & 3;
-  mbar_wait(&full[0], 0);
-  mbar_wait(&full[1], 0);
-  const uint32_t x_lane = smem_u32(smem) + (g >> 2) * kStageBytes + (g & 3) * kXPitch + 8 * q;
-  uint32_t xf[kXFrags][2];
+  // int8 kinds: the lane's scales of row o0 + g of unit u (rows past O read
+  // row O - 1; their sums are dropped). TILED: the four a unit are loaded one
+  // unit ahead (a load from HBM under the stream takes 1-2 us), the first
+  // before x is read.
+  auto scale_row = [&](int u) {
+    const int s = u / a.nks, o = min((s % a.ns) * kStripe + g, a.O - 1);
+    return a.s + (static_cast<long long>(s / a.ns) * a.O + o) * a.NB + 4 * q;
+  };
+  float4 snext = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (TILED)
+    if (c < a.units()) snext = ldg4(scale_row(c) + (kbeg + 16 * warp) % a.NB);
+  // This warp's x fragments of the slice, from the ring's first slots into
+  // registers for the whole walk (the mma's A operand): step j = warp +
+  // kParts * i of stage st is f = st * S::steps + i, x[g][col + 4q .. + 3]
+  // for the step's first column col, in quad f / 2 (rows g for even f, g + 8
+  // for odd f); zero for t >= T and past the slice. Then the slots go back to
+  // the ring.
+  for (int h = 0; h < S::xslots; ++h) mbar_wait(&full[h], 0);
+  const uint32_t x_lane =
+      smem_u32(smem) + (g / S::xrows) * S::bytes + (g % S::xrows) * kXPitch + 8 * q;
+  uint32_t xq[kXFrags / 2][4];
 #pragma unroll
   for (int f = 0; f < kXFrags; ++f) {
-    const int col = (f / kSteps) * kStageK + (warp + kParts * (f % kSteps)) * 16;
-    xf[f][0] = xf[f][1] = 0u;
-    if (g < a.T && kbeg + col < kend) lds64(xf[f], x_lane + col * 2);
+    const int col = (f / S::steps) * S::K + (warp + kParts * (f % S::steps)) * 16;
+    uint32_t v[2] = {0u, 0u};
+    if (g < a.T && kbeg + col < kend) lds64(v, x_lane + col * 2);
+    xq[f / 2][f % 2] = v[0];
+    xq[f / 2][2 + f % 2] = v[1];
   }
 #pragma unroll
-  for (int f = 0; f < kXFrags; ++f) asm volatile("" : "+r"(xf[f][0]), "+r"(xf[f][1]));
+  for (int m = 0; m < kXFrags / 2; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(xq[m][e]));
   __syncwarp();
-  if (lane == 0) {
-    mbar_arrive(&empty[0]);
-    mbar_arrive(&empty[1]);
-  }
+  if (lane == 0)
+    for (int h = 0; h < S::xslots; ++h) mbar_arrive(&empty[h]);
 
-  // this lane's B fragments (weight row g, columns 4q .. + 3 of a step)
-  const uint32_t b_lane = smem_u32(smem) + g * kStagePitch + 8 * q;
-  int slot = 2, buf = 0;
+  // this lane's B fragments: weight row g, columns 4q .. + 3 of a step
+  const uint32_t b_lane = smem_u32(smem) + g * S::pitch + 4 * S::esize * q;
+  int slot = S::xslots, buf = 0;
   unsigned phase = 0;
   for (int u = c; u < a.units(); u += a.ctas) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const int s = u / a.nks, l = s / a.ns, o0 = (s % a.ns) * kStripe;
+    const float* srow = nullptr;  // int8, not TILED: the unit's scale row
+    uint32_t su[4] = {0u, 0u, 0u, 0u};  // TILED: the lane's four for the unit
+    if constexpr (TILED) {  // this unit's scales; the next unit's go out now
+      to_scales<WK>(snext, su);
+      if (u + a.ctas < a.units()) snext = ldg4(scale_row(u + a.ctas) + (kbeg + 16 * warp) % a.NB);
+    } else if constexpr (WK != W_BF16) {
+      srow = scale_row(u);
+    }
+    float acc[2][4] = {};  // even and odd steps
 #pragma unroll
-    for (int st = 0; st < kMaxSlice / kStageK; ++st) {
-      const int k = kbeg + st * kStageK;
+    for (int st = 0; st < kMaxSlice / S::K; ++st) {
+      const int k = kbeg + st * S::K;
       if (k >= kend) break;
-      const int steps = min(kStageK, kend - k) / 16;  // this warp's: j = warp (mod kParts)
+      const int steps = min(S::K, kend - k) / 16;  // this warp's: j = warp (mod kParts)
       mbar_wait(&full[slot], phase);
-      const uint32_t wb = b_lane + slot * kStageBytes;
+      const uint32_t wb = b_lane + slot * S::bytes;
+      // kGroup steps a group: their fragments are loaded (bf16, or the raw
+      // int8 in [.][0]), converted, then multiplied. A whole stage runs
+      // without the guards j < steps: no branches between its steps, so
+      // their loads and conversions interleave.
+      auto products = [&](auto guard) {
+        constexpr bool G = decltype(guard)::value;
 #pragma unroll
-      for (int i0 = 0; i0 < kSteps; i0 += 4) {  // four steps' loads, then their products
-        uint32_t bf[4][2];
+        for (int i0 = 0; i0 < S::steps; i0 += kGroup) {
+          uint32_t ld[kGroup][2], bf[kGroup][2];
 #pragma unroll
-        for (int i = i0; i < i0 + 4; ++i)
-          if (warp + kParts * i < steps) lds64(bf[i - i0], wb + (warp + kParts * i) * 32);
+          for (int i = 0; i < kGroup; ++i) {
+            const int j = warp + kParts * (i0 + i);
+            if (!G || j < steps) {
+              if constexpr (WK == W_BF16)
+                lds64(ld[i], wb + j * 32);
+              else
+                ld[i][0] = lds32(wb + j * 16);
+            }
+          }
 #pragma unroll
-        for (int i = i0; i < i0 + 4; ++i)
-          if (warp + kParts * i < steps) mma_rows8(acc, xf[st * kSteps + i], bf[i - i0]);
-      }
+          for (int i = 0; i < kGroup; ++i) {
+            const int j = warp + kParts * (i0 + i);
+            if (G && j >= steps) continue;
+            if constexpr (WK == W_BF16) {
+              bf[i][0] = ld[i][0];
+              bf[i][1] = ld[i][1];
+            } else if constexpr (TILED) {
+              dequant4<WK>(ld[i][0], su, bf[i]);
+            } else {
+              uint32_t sv[4];
+              to_scales<WK>(ldg4(srow + (k + 16 * j) % a.NB), sv);
+              dequant4<WK>(ld[i][0], sv, bf[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i)
+            if (!G || warp + kParts * (i0 + i) < steps)
+              mma16(acc[(i0 + i) & 1], xq[(st * S::steps + i0 + i) / 2], bf[i]);
+        }
+      };
+      if (steps == S::K / 16)
+        products(Flag<false>());
+      else
+        products(Flag<true>());
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[slot]);
-      if (++slot == kDepth) {
+      if (++slot == S::depth) {
         slot = 0;
         phase ^= 1;
       }
     }
     // this warp's part: t = g, rows 2q and 2q + 1 of the stripe
     float* r = red + (buf * kParts + warp) * kMaxT * kRedPitch + g * kRedPitch + 2 * q;
-    r[0] = acc[0];
-    r[1] = acc[1];
+    r[0] = acc[0][0] + acc[1][2];
+    r[1] = acc[0][1] + acc[1][3];
     consumer_sync();
     // thread (t, row): the parts in order
     if (threadIdx.x < kMaxT * kStripe) {
       const int t = threadIdx.x / kStripe, row = threadIdx.x % kStripe;
-      const int s = u / a.nks, l = s / a.ns, o = (s % a.ns) * kStripe + row;
+      const int o = o0 + row;
       if (t < a.T && o < a.O) {
         const float* p = red + buf * kParts * kMaxT * kRedPitch + t * kRedPitch + row;
         float v = p[0];
@@ -348,84 +525,14 @@ __global__ void probe_gemv_sum_kernel(const float* __restrict__ part, int nks, l
   }
 }
 
-// ------------------------------------------------------------ q8 GEMV
-// wd of the 16 int8 weights at column k of weight row `row` into w[], per the
-// kind.
-template <int WK>
-__device__ __forceinline__ void load_weights(const void* wbase, const float* s, long row, int I,
-                                             int NB, int k, float (&w)[16]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-      static_cast<const char*>(wbase) + row * I + k));
-  // the scale of column k is s[o, k % NB] (pltpu.repeat tiles the [TO, NB]
-  // block: jnp.tile); NB % 16 == 0, so the 16 columns take 16 adjacent scales
-  const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-  const float4* sp = reinterpret_cast<const float4*>(s + row * NB + k % NB);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 sv = __ldg(sp + j);
-    const float sc[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float qv = static_cast<float>(q[4 * j + e]);
-      w[4 * j + e] = WK == W_Q8_F32 ? bf16_round(__fmul_rn(qv, sc[e]))
-                                    : bf16_round(__fmul_rn(qv, bf16_round(sc[e])));
-    }
-  }
-}
-
-template <int WK>
-__global__ void __launch_bounds__(kThreads) probe_gemv_kernel(const __nv_bfloat16* __restrict__ x,
-                                                               const void* __restrict__ w,
-                                                               const float* __restrict__ s,
-                                                               float* __restrict__ y, int T, int O,
-                                                               int I, int NB) {
-  constexpr int E = 16;  // weights per 16-byte load
-  __shared__ __align__(16) float xs[kMaxT][kTileK];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const long layer = blockIdx.y;
-  const int o0 = (blockIdx.x * nwarps + warp) * kRows;
-  float acc[kRows][kMaxT];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0.f;
-  for (int k0 = 0; k0 < I; k0 += kTileK) {
-    const int kt = min(kTileK, I - k0);
-    for (int i = threadIdx.x; i < T * kt; i += blockDim.x) {
-      const int t = i / kt, k = i - t * kt;
-      xs[t][k] = __bfloat162float(x[static_cast<long>(t) * I + k0 + k]);
-    }
-    __syncthreads();
-    for (int c = lane; c < kt / E; c += 32) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int o = o0 + r;
-        if (o >= O) break;
-        float wv[16];
-        load_weights<WK>(w, s, layer * O + o, I, NB, k0 + c * E, wv);
-#pragma unroll
-        for (int t = 0; t < kMaxT; ++t) {
-          if (t < T) {
-#pragma unroll
-            for (int e = 0; e < E; e += 4) {
-              const float4 xv = *reinterpret_cast<const float4*>(&xs[t][c * E + e]);
-              acc[r][t] += xv.x * wv[e] + xv.y * wv[e + 1] + xv.z * wv[e + 2] + xv.w * wv[e + 3];
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int o = o0 + r;
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) {
-      const float v = lt_warp_sum(acc[r][t]);
-      if (lane == 0 && o < O && t < T) y[(layer * T + t) * O + o] = v;
-    }
-  }
+template <int WK, bool TILED>
+cudaError_t gemv_launch(const TcWalk& a, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(Stage<WK>::depth) * Stage<WK>::bytes +
+                      sizeof(float) * 2 * kParts * kMaxT * kRedPitch;
+  const cudaError_t e = lt_allow_smem(probe_gemv_tc_kernel<WK, TILED>, smem);
+  if (e != cudaSuccess) return e;
+  probe_gemv_tc_kernel<WK, TILED><<<a.ctas, kTcThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ int8 dot
@@ -679,63 +786,53 @@ int stream_launch(StreamArgs a, float* out, int O, cudaStream_t st) {
 
 }  // namespace
 
-// K18a, i. x bf16 [T, I]; w bf16 [L, O, I]; y [L, T, O] f32. The plan
-// (ops/probes.py plan_gemv): nks K slices, ctas CTAs (a multiple of nks);
-// part: f32 [nks, L, T, O] when nks > 1. 1 <= T <= 8, I % 16 == 0, every
-// slice at most kMaxSlice columns, x and w 16-byte aligned.
-LT_EXPORT int lt_probe_gemv_bf16(const void* x, const void* w, void* y, void* part, int T, int O,
-                                 int I, int L, int nks, int ctas, void* stream) {
+// K18a, b, c, g, i. x bf16 [T, I]; w [L, O, I], bf16 (wkind W_BF16) or int8
+// with f32 scales s [L, O, NB] (W_Q8_F32, W_Q8_BF16: column k scaled by s[.,
+// k % NB]); y [L, T, O] f32. The plan (ops/probes.py plan_gemv): nks K
+// slices, ctas CTAs (a multiple of nks); part: f32 [nks, L, T, O] when nks >
+// 1. 1 <= T <= 8, I % 16 == 0, every slice at most kMaxSlice columns; int8:
+// NB % 16 == 0 and I % NB == 0; x, w and s 16-byte aligned.
+LT_EXPORT int lt_probe_gemv(const void* x, const void* w, const void* s, void* y, void* part,
+                            int T, int O, int I, int L, int NB, int wkind, int nks, int ctas,
+                            void* stream) {
   const int n16 = I / 16;
+  const bool q8 = wkind == W_Q8_F32 || wkind == W_Q8_BF16;
   if (T < 1 || T > kMaxT || I < 16 || I % 16 || O < 1 || L < 1 || nks < 1 || nks > n16 ||
       ctas < nks || ctas % nks || (n16 + nks - 1) / nks * 16 > kMaxSlice ||
-      (nks > 1 && part == nullptr) ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
+      (nks > 1 && part == nullptr) || (!q8 && wkind != W_BF16) ||
+      (q8 && (s == nullptr || NB < 16 || NB % 16 || I % NB)) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(s)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(kDepth) * kStageBytes +
-                      sizeof(float) * 2 * kParts * kMaxT * kRedPitch;
-  cudaError_t e = lt_allow_smem(probe_gemv_tc_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   TcWalk a;
   a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.w = w;
+  a.s = static_cast<const float*>(s);
   a.out = static_cast<float*>(nks > 1 ? part : y);
   a.T = T;
   a.O = O;
   a.I = I;
   a.L = L;
+  a.NB = NB;
   a.ns = (O + kStripe - 1) / kStripe;
   a.nks = nks;
   a.ctas = ctas;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  probe_gemv_tc_kernel<<<ctas, kTcThreads, smem, st>>>(a);
-  LT_RETURN_IF_ERROR();
+  const bool tiled = q8 && (16 * kParts) % NB == 0;
+  cudaError_t e;
+  if (wkind == W_BF16)
+    e = gemv_launch<W_BF16, false>(a, st);
+  else if (wkind == W_Q8_F32)
+    e = tiled ? gemv_launch<W_Q8_F32, true>(a, st) : gemv_launch<W_Q8_F32, false>(a, st);
+  else
+    e = tiled ? gemv_launch<W_Q8_BF16, true>(a, st) : gemv_launch<W_Q8_BF16, false>(a, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (nks > 1) {
     const long long n = static_cast<long long>(L) * T * O, cap = 4LL * lt_sm_count();
     const int blocks = static_cast<int>((n + 255) / 256 < cap ? (n + 255) / 256 : cap);
     probe_gemv_sum_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(part), nks, n,
                                                   static_cast<float*>(y));
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K18b, c, g. x bf16 [T, I]; w int8 [L, O, I] with f32 scales s [L, O, NB],
-// column k scaled by s[., k % NB], NB % 16 == 0; y [L, T, O] f32. T <= 8,
-// I % 16 == 0.
-LT_EXPORT int lt_probe_gemv(const void* x, const void* w, const void* s, void* y, int T, int O,
-                            int I, int L, int NB, int wkind, void* stream) {
-  if (T < 1 || T > kMaxT || I % 16 || L < 1 || NB % 16 || NB < 16 ||
-      (wkind != W_Q8_F32 && wkind != W_Q8_BF16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = (kThreads / 32) * kRows;
-  dim3 grid((O + per_block - 1) / per_block, L);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* sf = static_cast<const float*>(s);
-  auto* yf = static_cast<float*>(y);
-  if (wkind == W_Q8_F32)
-    probe_gemv_kernel<W_Q8_F32><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);
-  else
-    probe_gemv_kernel<W_Q8_BF16><<<grid, kThreads, 0, st>>>(xb, w, sf, yf, T, O, I, NB);
   return static_cast<int>(cudaGetLastError());
 }
 

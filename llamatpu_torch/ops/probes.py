@@ -4,15 +4,17 @@ build the TPU scripts' probe functions on them; those functions hold the
 plain versions and the launch counts, and take the plain version for a CPU
 tensor. These launchers take CUDA tensors only.
 
-The bf16 GEMV (K18a, K18i: `gemv_bf16`) is one TMA-fed tensor-core kernel:
-persistent CTAs, one per SM, walk units of (layer, stripe of STRIPE weight
-rows, K slice); a CTA's x slice arrives first through its ring and stays in
-registers, then each stripe streams through the mbarrier ring of [STRIPE,
-STAGE_K] stages into `mma.sync` products; PARTS consumer warps share each
-stage's 16-column steps and add their parts in order at the unit's end.
-`plan_gemv` lays the walk out (`GemvPlan.units`, mirrored by the kernel):
-the whole K as one slice unless stripes alone leave the SMs under 90 %
-busy, then K slices whose partial sums a second pass adds in K order.
+The GEMV (K18a, K18i: `gemv_bf16`; K18b, K18c, K18g: `gemv`, int8 weights
+with tiled f32 scales) is one TMA-fed tensor-core kernel: persistent CTAs,
+one per SM, walk units of (layer, stripe of STRIPE weight rows, K slice); a
+CTA's x slice arrives first through its ring and stays in registers, then
+each stripe streams through the mbarrier ring of [STRIPE, STAGE_K] stages
+(6 of bf16 weights, 12 of int8) into `mma.sync` products, the int8 weights
+dequantized in the B fragments; PARTS consumer warps share
+each stage's 16-column steps and add their parts in order at the unit's
+end. `plan_gemv` lays the walk out (`GemvPlan.units`, mirrored by the
+kernel): the whole K as one slice unless stripes alone leave the SMs under
+90 % busy, then K slices whose partial sums a second pass adds in K order.
 """
 from __future__ import annotations
 
@@ -24,15 +26,16 @@ import torch
 from llamatpu_torch import _build
 from llamatpu_torch.ops.gemm import _sm_count
 
-# weight kinds of the q8 GEMV probe (csrc/probes.cu WKind)
-W_Q8_F32, W_Q8_BF16 = 1, 2
+# weight kinds of the GEMV (csrc/probes.cu WKind): bf16; int8 dequantized in
+# f32 or by a bf16 multiply
+W_BF16, W_Q8_F32, W_Q8_BF16 = 0, 1, 2
 # stream modes (csrc/probes.cu SMode): the last chunk's first rows, the sum
 # over chunks of their first rows, the int8 dot of every row summed per chunk
 S_LAST, S_SUM, S_DOT = 0, 1, 2
 MAX_T = 8
-# the bf16 GEMV's walk (csrc/probes.cu): weight rows of a unit, columns of a
-# ring stage, consumer warps (each the 16-column steps j = warp mod PARTS of
-# a stage), the most x columns a CTA stages; the planner cuts no K slice
+# the GEMV's walk (csrc/probes.cu): weight rows of a unit, columns of a ring
+# stage, consumer warps (each the 16-column steps j = warp mod PARTS of a
+# stage), the most x columns a CTA stages; the planner cuts no K slice
 # narrower than MIN_SLICE columns
 STRIPE, STAGE_K, PARTS, MAX_SLICE, MIN_SLICE = 8, 2048, 8, 4096, 256
 BUSY_SHARE = 0.9
@@ -40,7 +43,7 @@ BUSY_SHARE = 0.9
 
 @dataclass(frozen=True)
 class GemvPlan:
-    """The bf16 GEMV's walk over L layers of [O, I] weights: unit u is stripe
+    """The GEMV's walk over L layers of [O, I] weights: unit u is stripe
     u // nks (layer s // stripes, rows (s % stripes) * STRIPE ..) over K
     slice u % nks; CTA c takes units c, c + ctas, ...; ctas % nks == 0, so a
     CTA keeps one slice (and stages x's columns of it once)."""
@@ -101,6 +104,14 @@ def plan_gemv(o: int, i: int, layers: int, sm_count: int = 132) -> GemvPlan:
     return GemvPlan(o, i, layers, best[1], best[2])
 
 
+def scales_fixed(nb: int) -> bool:
+    """Whether an int8 GEMV lane's four scales stay fixed for a unit (the
+    kernel's TILED form): warp w's columns of step j = w + PARTS * i are
+    kbeg + 16 j + 4q + e, so modulo NB they do not depend on i (or the
+    stage) when NB divides 16 * PARTS. Other NB load the scales a step."""
+    return (16 * PARTS) % nb == 0
+
+
 def _stacked(w: torch.Tensor) -> torch.Tensor:
     return w if w.dim() == 3 else w[None]
 
@@ -113,56 +124,61 @@ def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
                    and w.shape[-1] % 16 == 0, f"{what}: contiguous x [T <= 8, I], I % 16 == 0")
 
 
-def gemv_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y [L, T, O] f32 = x [T, I] bf16 . w[l]^T for bf16 w [L, O, I] (or [O,
-    I]), f32 sums, on the tensor-core GEMV. The shape checks come first, so
-    they raise (ValueError) before the device is asked for."""
+def _gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None, wkind: int,
+          what: str) -> torch.Tensor:
+    """The checks, then one launch (and the K-slice sum where the plan splits
+    K). Shapes, dtypes, contiguity and alignment raise (ValueError) before
+    the device is asked for."""
     w3 = _stacked(w)
     _build.require(x.dim() == 2 and 1 <= x.shape[0] <= MAX_T and x.shape[1] == w3.shape[-1],
-                   "probe gemv bf16: x [T <= 8, I] against w [L, O, I]")
+                   f"{what}: x [T <= 8, I] against w [L, O, I]")
     lay, o, i = w3.shape
     _build.require(i > 0 and i % 16 == 0 and o > 0 and lay > 0,
-                   "probe gemv bf16: I % 16 == 0, nothing empty")
-    _build.require(x.dtype == torch.bfloat16 and w3.dtype == torch.bfloat16,
-                   "probe gemv bf16: bf16 x and w")
-    _build.require(x.is_contiguous() and w3.is_contiguous()
-                   and x.data_ptr() % 16 == 0 and w3.data_ptr() % 16 == 0,
-                   "probe gemv bf16: contiguous, 16-byte aligned x and w")
-    _build.require(x.device.type == "cuda" and w3.device == x.device,
-                   "probe gemv bf16: CUDA tensors on one device (the plain versions take the CPU)")
+                   f"{what}: I % 16 == 0, nothing empty")
+    wdt = torch.bfloat16 if wkind == W_BF16 else torch.int8
+    _build.require(x.dtype == torch.bfloat16 and w3.dtype == wdt,
+                   f"{what}: bf16 x and w ({'bf16' if wkind == W_BF16 else 'int8'} w)")
+    ts = [x, w3]
+    nb = 0
+    if s is not None:
+        s3 = _stacked(s)
+        nb = s3.shape[-1]
+        _build.require(s3.dim() == 3 and tuple(s3.shape[:2]) == (lay, o),
+                       f"{what}: scales [L, O, NB]")
+        _build.require(nb > 0 and nb % 16 == 0 and i % nb == 0,
+                       f"{what}: NB % 16 == 0 and I % NB == 0")
+        _build.require(s3.dtype == torch.float32, f"{what}: f32 scales")
+        ts.append(s3)
+    _build.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts),
+                   f"{what}: contiguous, 16-byte aligned x, w and scales")
+    _build.require(all(t.device.type == "cuda" and t.device == x.device for t in ts),
+                   f"{what}: CUDA tensors on one device (the plain versions take the CPU)")
     plan = plan_gemv(o, i, lay, _sm_count(x.device.index or 0))
     t = x.shape[0]
     y = torch.empty((lay, t, o), dtype=torch.float32, device=x.device)
     part = (torch.empty((plan.nks, lay, t, o), dtype=torch.float32, device=x.device)
             if plan.nks > 1 else None)
     lib = _build.load("probes")
-    err = lib.lt_probe_gemv_bf16(x.data_ptr(), w3.data_ptr(), y.data_ptr(),
-                                 0 if part is None else part.data_ptr(), t, o, i, lay, plan.nks,
-                                 plan.ctas, _build.stream())
-    _build.check(lib, err, "probe gemv bf16")
+    err = lib.lt_probe_gemv(x.data_ptr(), w3.data_ptr(), 0 if s is None else ts[2].data_ptr(),
+                            y.data_ptr(), 0 if part is None else part.data_ptr(), t, o, i, lay,
+                            nb, wkind, plan.nks, plan.ctas, _build.stream())
+    _build.check(lib, err, what)
     return y
+
+
+def gemv_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y [L, T, O] f32 = x [T, I] bf16 . w[l]^T for bf16 w [L, O, I] (or [O,
+    I]), f32 sums, on the tensor-core GEMV."""
+    return _gemv(x, w, None, W_BF16, "probe gemv bf16")
 
 
 def gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, wkind: int) -> torch.Tensor:
     """y [L, T, O] f32 = x [T, I] bf16 . wd[l]^T for int8 w [L, O, I] (or
-    [O, I]) with f32 scales s [L, O, NB], column k scaled by s[l, o, k % NB]
-    (the TPU scripts' tiled scales), dequantized in f32 (W_Q8_F32) or by a
-    bf16 multiply (W_Q8_BF16)."""
-    w3 = _stacked(w)
-    _check(x, w3, "probe gemv")
-    lay, o, i = w3.shape
+    [O, I]) with f32 scales s [L, O, NB] (or [O, NB]), column k scaled by
+    s[l, o, k % NB] (the TPU scripts' tiled scales), dequantized in f32
+    (W_Q8_F32) or by a bf16 multiply (W_Q8_BF16), on the tensor-core GEMV."""
     _build.require(wkind in (W_Q8_F32, W_Q8_BF16), "probe gemv: a q8 weight kind")
-    _build.require(x.dtype == torch.bfloat16 and w3.dtype == torch.int8, "probe gemv: dtypes")
-    s3 = _stacked(s)
-    nb = s3.shape[-1]
-    _build.require(s3.dtype == torch.float32 and s3.is_contiguous() and nb % 16 == 0
-                   and tuple(s3.shape[:2]) == (lay, o), "probe gemv: scales [L, O, NB]")
-    y = torch.empty((lay, x.shape[0], o), dtype=torch.float32, device=x.device)
-    lib = _build.load("probes")
-    err = lib.lt_probe_gemv(x.data_ptr(), w3.data_ptr(), s.data_ptr(), y.data_ptr(), x.shape[0],
-                            o, i, lay, nb, wkind, _build.stream())
-    _build.check(lib, err, "probe gemv")
-    return y
+    return _gemv(x, w, s, wkind, "probe gemv")
 
 
 def int8dot(xq: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None,

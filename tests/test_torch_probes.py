@@ -244,27 +244,30 @@ def test_k18_dma_probe_int8_and_library_rows(stacks, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
-def _gemv_tc_walk_plain(x, w, plan):
-    """K18a / K18i's kernel (csrc/probes.cu probe_gemv_tc_kernel) in its
-    summation order, in f32: each unit (layer, rows, K slice) of each CTA's
-    walk sums PARTS column parts, part p taking the 16-column steps j = p
-    (mod PARTS) of each STAGE_K-column ring stage in order, then adds the
-    parts in order; the K slices' partial sums are added in slice order."""
+def _gemv_tc_walk_plain(x, w, plan, stage_k=probes.STAGE_K):
+    """The tensor-core GEMV (csrc/probes.cu probe_gemv_tc_kernel; K18a / K18i
+    on bf16 w, K18b / c / g on the dequantized int8 w) in its summation order, in f32: each unit (layer,
+    rows, K slice) of each CTA's walk sums PARTS column parts, part p taking
+    the 16-column steps j = p + PARTS * i (i = 0, 1, ...) of each
+    stage_k-column ring stage in order, into two sums, of the even i and of
+    the odd i; a part is the even sum plus the odd one, the parts are added
+    in order, and the K slices' partial sums in slice order."""
     xf, wf = x.float(), w.float()
     lay, o, _ = wf.shape
     part = torch.zeros((plan.nks, lay, xf.shape[0], o))
     starts = [plan.slice(k)[0] for k in range(plan.nks)]
     for c in range(plan.ctas):
         for layer, r0, r1, k0, k1 in plan.units(c):
-            parts = [torch.zeros((xf.shape[0], r1 - r0)) for _ in range(probes.PARTS)]
-            for k in range(k0, k1, probes.STAGE_K):
-                for j in range(min(probes.STAGE_K, k1 - k) // 16):
+            sums = [[torch.zeros((xf.shape[0], r1 - r0)) for _ in range(2)]
+                    for _ in range(probes.PARTS)]
+            for k in range(k0, k1, stage_k):
+                for j in range(min(stage_k, k1 - k) // 16):
                     cols = slice(k + 16 * j, k + 16 * j + 16)
-                    p = j % probes.PARTS
-                    parts[p] = parts[p] + xf[:, cols] @ wf[layer, r0:r1, cols].T
-            acc = parts[0]
-            for p in parts[1:]:
-                acc = acc + p
+                    p, i = j % probes.PARTS, j // probes.PARTS
+                    sums[p][i % 2] = sums[p][i % 2] + xf[:, cols] @ wf[layer, r0:r1, cols].T
+            acc = sums[0][0] + sums[0][1]
+            for even, odd in sums[1:]:
+                acc = acc + (even + odd)
             part[starts.index(k0), layer, :, r0:r1] = acc
     y = part[0]
     for ks in range(1, plan.nks):

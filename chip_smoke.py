@@ -27,8 +27,12 @@ It runs every phase, needs one card, and exits non-zero
             rows in f32, bf16 and int8; K6-int8 at pos 0 to 1151 and 8
             lanes, K8-int8 at 8 lanes; quantize_kv card against CPU bit for bit) and of
             Qwen1.5-MoE-A2.7B (K10-K13 on one layer's folded stacks, E = 64,
-            at 1, 8 and 512 tokens; K6 and K8 at hd 128, G 1; K2 at O =
-            6144; K5 on the 151936-row head), with the stated tolerances;
+            at 1, 8 and 512 tokens; their one kernel's edges,
+            check_moe_edges: every front end with bf16 and f32 x, tm 8, 32
+            and 128, groups of 1-128 real rows, an expert of no rows, -1
+            tail tiles, I 1408, 2048 and 4608, ragged O, two runs
+            bit-equal; K6 and K8 at hd 128, G 1; K2 at O = 6144; K5 on the
+            151936-row head), with the stated tolerances;
             slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K18a-j and
             K19a-c on the
             probe scripts' [24, 4096, 4096] stacks at every configuration
@@ -256,7 +260,7 @@ def rand_rowq(L, o, i, dev, gen):
     return QTensor(qs, s, "q8_row")
 
 
-MOE_KERNELS = ("grouped_gemv_kernel", "grouped_mma_kernel")  # K10-K13's two regimes
+MOE_KERNELS = ("grouped_tc_kernel",)  # K10-K13: one template, both tile regimes
 WALK = ("attn_walk_kernel", "attn_walk_combine_kernel")  # K14's and K15's two passes
 GEMV = ("gemv_kernel",)  # kernel names (profiler keys) of K1 / K2 / K3's GEMV phases
 # llama32-1b main-path shapes: layers, dim, hidden, kv heads, groups, head dim,
@@ -2906,6 +2910,81 @@ def check_moe_kernels(dev, dims=QWEN15) -> list[dict]:
     return rows
 
 
+# check_moe_edges: (O, I) of the stacks (Qwen1.5-MoE's gate/up and down,
+# ragged O, and I past the GEMV form's 4096 columns) and the real rows of each
+# group at each tile size (groups of more than tm rows span tiles)
+MOE_EDGE_SHAPES = ((2816, 2048), (2048, 1408), (200, 1408), (136, 2048), (64, 4608))
+MOE_EDGE_ROWS = {8: (1, 7, 8, 9, 3), 32: (1, 7, 8, 9, 16, 17, 32, 33),
+                 128: (1, 7, 8, 9, 16, 17, 65, 127, 128)}
+
+
+def moe_edge_tables(tm: int, counts, n_experts: int, dev):
+    """Expert-sorted routing tables as sort_by_expert lays them out: a group
+    of counts[g] real rows for each expert in order (expert 5 gets none),
+    each padded to whole tiles, then two -1 tail tiles. Returns (row_token,
+    tile_expert, n_tokens, real-row mask)."""
+    import torch
+
+    experts = [e for e in range(n_experts) if e != 5][:len(counts)]
+    te, rt, n = [], [], 0
+    for e, c in zip(experts, counts):
+        nt = -(-c // tm)
+        te += [e] * nt
+        rt += list(range(n, n + c)) + [-1] * (nt * tm - c)
+        n += c
+    te += [-1, -1]
+    rt += [-1] * (2 * tm)
+    rt = torch.tensor([n if r < 0 else r for r in rt], dtype=torch.int32, device=dev)
+    return rt, torch.tensor(te, dtype=torch.int32, device=dev), n, rt < n
+
+
+def check_moe_edges(dev) -> dict:
+    """K10-K13's kernel against the plain versions on the card: every front
+    end (Q8_0, packed4, q8_row, dense bf16 and f32 weights) with bf16 and f32
+    x, tm 8, 32 and 128, groups of 1-128 real rows (MOE_EDGE_ROWS), an
+    expert of no rows and -1 tail tiles, the MOE_EDGE_SHAPES stacks (I 1408,
+    2048 and 4608, O ragged); the pad rows of x hold noise. Real rows within
+    1e-3 (bf16) / 1e-5 (f32) of the largest plain value; pad rows and tail
+    tiles exactly zero; two runs bit-equal."""
+    import torch
+
+    from llamatpu_torch.ops import moe_grouped as mg
+
+    E = 12
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out, cases = {}, 0
+    for kind in ("block", "packed4", "rowq", "dense", "dense_f32"):
+        worst = {"bf16": 0.0, "f32": 0.0}
+        for o, i in MOE_EDGE_SHAPES:
+            kern, plain, w, _, _ = moe_stacks(kind.split("_")[0], E, o, i, dev, gen)
+            if kind == "dense_f32":
+                w = (w[0].float(),)
+            for tm, counts in MOE_EDGE_ROWS.items():
+                rt, te, n, real = moe_edge_tables(tm, counts, E, dev)
+                for dt in (torch.bfloat16, torch.float32):
+                    x = torch.randn((rt.shape[0], i), device=dev, generator=gen).to(dt)
+                    got = kern(x, *w, te, tm, row_token=rt, n_tokens=n)
+                    again = kern(x, *w, te, tm, row_token=rt, n_tokens=n)
+                    want = plain(torch.where(real[:, None], x, 0), *w, te, tm)
+                    torch.cuda.synchronize()
+                    plan = mg.plan_grouped(x.shape[0], tm, o, i, dt == torch.float32)
+                    key = f"{kind} O={o} I={i} tm={tm} {'f32' if dt == torch.float32 else 'bf16'}"
+                    assert torch.equal(got, again), f"{key}: two runs differ"
+                    assert not bool(got[~real].any()), f"{key}: a pad row or tail tile is not zero"
+                    abs_e, rel_e = max_err(got[real], want[real])
+                    tol = 1e-5 if dt == torch.float32 else 1e-3
+                    assert rel_e <= tol, f"{key}: max abs {abs_e} rel {rel_e} ({plan})"
+                    worst[key.split()[-1]] = max(worst[key.split()[-1]], rel_e)
+                    cases += 1
+            del w
+        out[kind] = worst
+        log(f"moe edges {kind}: rel err bf16 {worst['bf16']:.3g}, f32 {worst['f32']:.3g}, "
+            "pad rows and tail tiles zero, two runs bit-equal")
+    torch.cuda.empty_cache()
+    out["cases"] = cases
+    return out
+
+
 def check_qwen_geometry(dev, dims=QWEN15) -> dict:
     """Earlier slices' kernels at the Qwen1.5-MoE geometry: K6 and K8 at
     hd 128, G 1 (row width 256, their stated maximum), K2 at O = 6144 with 1
@@ -3939,6 +4018,10 @@ def main() -> int:
         rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev) \
             + check_moe_kernels(dev) + check_long_kernels(dev) + check_slice6_kernels(dev) \
             + [check_ffn_fused(dev)]
+        edges = check_moe_edges(dev)
+        for r in rows:
+            if r["name"].startswith("grouped_"):
+                r["edges"] = edges
         for key, check in (("qwen15", check_qwen_geometry), ("phi3_medium", check_phi3_geometry)):
             for name, sub in check(dev).items():
                 next(r for r in rows if r["name"] == name)[key] = sub

@@ -66,7 +66,8 @@ _SIGNATURES = {
                               _F, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     },
     "moe_grouped": {
-        "lt_grouped_matmul": (_I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+        "lt_grouped_matmul": (_I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P),
     },
     "probes": {
         "lt_probe_gemv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -7,7 +7,8 @@ CUDA-core design of the q8 forms, rebuilt as a variant, at T = 1 and 8.
 
     python -m llamatpu_torch.bench.gemv_ablation     # the card; one JSON row a variant
 
-Each variant is csrc/probes.cu with a constant or a few statements replaced
+Each variant is csrc/probes.cu (its shared header tc_gemv.cuh written in)
+with a constant or a few statements replaced
 (VARIANTS, timed on the bf16 stack; Q8_VARIANTS, timed on the int8 stack in
 the W_Q8_F32 kind), built by nvcc into build/ablation/ and called through its
 own `lt_probe_gemv` under `ops/probes.py plan_gemv`. Every variant that still
@@ -218,9 +219,17 @@ Q8_VARIANTS = {
 }
 
 
+def source() -> str:
+    """csrc/probes.cu with its shared header csrc/tc_gemv.cuh written in place
+    of the #include, so that a variant can edit the helpers it shares with
+    moe_grouped.cu (dequant4, pack_bf16x2) in its own copy only."""
+    header = (_build.CSRC / "tc_gemv.cuh").read_text().replace("#pragma once\n", "")
+    return (_build.CSRC / "probes.cu").read_text().replace('#include "tc_gemv.cuh"\n', header, 1)
+
+
 def build(out_dir) -> dict:
     """{variant: ctypes library}, the variants of both tables compiled in parallel."""
-    src = (_build.CSRC / "probes.cu").read_text()
+    src = source()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for n, (name, (edit, _)) in enumerate({**VARIANTS, **Q8_VARIANTS}.items()):

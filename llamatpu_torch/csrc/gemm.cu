@@ -78,7 +78,7 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "tc_gemv.cuh"
 
 LT_DEFINE_ERROR_STRING
 
@@ -127,49 +127,6 @@ __device__ __forceinline__ void for_each_segment(const Walk& w, F&& f) {
     f(t, k0, k1, k0 == 0 && k1 == w.nk ? -1 : slot);
     i += k1 - k0;
   }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA: the [BM rows, BK bytes] box at (column k, row r) of `map` into
-// shared memory at dst, completing on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int r,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(r), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // wgmma descriptor of a K-major tile in the 128-byte swizzle: rows of 128
@@ -399,8 +356,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* mx, const CUtensorM
           mbar_wait(&empty[stage], phase ^ 1);
           const uint32_t a = ring + stage * kStageBytes;
           mbar_expect_tx(&full[stage], kStageBytes);  // OOB-filled bytes count too
-          tma_load(a, mx, k * BK, m0, &full[stage]);
-          tma_load(a + kTileBytes, mw, k * BK, n0, &full[stage]);
+          tma_load_2d(a, mx, k * BK, m0, &full[stage]);
+          tma_load_2d(a + kTileBytes, mw, k * BK, n0, &full[stage]);
           if (++stage == C::kStages) {
             stage = 0;
             phase ^= 1;
@@ -534,29 +491,6 @@ __global__ void __launch_bounds__(kConsumers)
     gemm_bf16_reduce_kernel(const uint4* __restrict__ ws, const float* __restrict__ ax,
                             const float* __restrict__ s, float* __restrict__ y, Walk w) {
   reduce_body<float>(ws, ax, s, y, w);
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime (the library is
-// not linked against libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // An int8 row-major [rows, K] matrix as [128 rows, 128 bytes] boxes in the

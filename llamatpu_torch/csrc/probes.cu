@@ -131,7 +131,7 @@
 // [T, O] output in the TPU order: the last chunk's rows (+ x[t, 0]), or the
 // per-chunk sums in chunk order. So the result is deterministic and, for the
 // sums, in the reference's summation order.
-#include "common.cuh"
+#include "tc_gemv.cuh"
 
 LT_DEFINE_ERROR_STRING
 
@@ -145,52 +145,7 @@ constexpr int kRingBytes = 128 * 1024;
 constexpr int kMaxDepth = 16;
 constexpr int kMaxSlices = 2;      // int8-dot stream: 16-byte column slices per thread
 
-enum WKind { W_BF16 = 0, W_Q8_F32 = 1, W_Q8_BF16 = 2 };  // ops/probes.py mirrors the codes
 enum SMode { S_LAST = 0, S_SUM = 1, S_DOT = 2 };
-
-// ------------------------------------------------------ TMA and mbarriers
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA bulk copy global -> shared of `bytes` (a multiple of 16), completing
-// on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // ------------------------------------------------------ tensor-core GEMV
 constexpr int kStripe = 8;                         // weight rows of a work unit (the mma's n)
@@ -244,16 +199,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-__device__ __forceinline__ void lds64(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t r;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(r) : "r"(addr));
-  return r;
-}
-
 // c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 sums, n = the 8 weight
 // rows of a stripe; lane (g = lane / 4, q = lane % 4) holds a's rows g (a0,
 // a2) and g + 8 (a1, a3), and c0, c1 (row g) and c2, c3 (row g + 8) at
@@ -263,20 +208,7 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
 // a row are 4 adjacent columns. x takes rows 0-7 of one step and rows 8-15
 // of the next (a quad of registers holds both), so an even step's sums are
 // c0, c1 of one accumulator and an odd step's c2, c3 of another; the other
-// half of each is dropped.
-__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
-                                      const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
+// half of each is dropped (mma16, tc_gemv.cuh).
 
 // The lane's four scales s[c .. c + 3] (v) as the kind multiplies by them:
 // f32 bits (W_Q8_F32), or two bf16x2 of the scales rounded to bf16 (W_Q8_BF16).
@@ -296,34 +228,6 @@ __device__ __forceinline__ void to_scales(const float4& v, uint32_t (&sv)[4]) {
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {  // cvt.rn.bf16x2.f32
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The B fragment (two bf16x2) of the 4 int8 weights in raw (columns 4q .. 4q
-// + 3, the lowest byte first), dequantized by the kind with the lane's scales.
-// int8 -> f32 without the conversion pipe: byte e of raw ^ 0x80808080 is q +
-// 128, permuted under the exponent of 2^23 it reads 2^23 + q + 128, and one
-// subtraction leaves q exactly.
-template <int WK>
-__device__ __forceinline__ void dequant4(uint32_t raw, const uint32_t (&sv)[4], uint32_t (&b)[2]) {
-  const uint32_t u = raw ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    f[e] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + e)) - 8388736.f;
-  if constexpr (WK == W_Q8_F32) {
-    b[0] = pack_bf16x2(__fmul_rn(f[0], __uint_as_float(sv[0])), __fmul_rn(f[1], __uint_as_float(sv[1])));
-    b[1] = pack_bf16x2(__fmul_rn(f[2], __uint_as_float(sv[2])), __fmul_rn(f[3], __uint_as_float(sv[3])));
-  } else {  // bf16(q) is the high half of f (|q| <= 128: the low half is zero)
-    const uint32_t q01 = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-    const uint32_t q23 = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(b[0]) : "r"(q01), "r"(sv[0]));
-    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(b[1]) : "r"(q23), "r"(sv[1]));
-  }
 }
 
 // Dynamic shared memory: the ring [S::depth][kStripe rows of S::pitch], then

@@ -23,10 +23,15 @@ by a gather and a reduction, with no atomics (the JAX package's one-hot
 matmul sums in another order: f32 rounding apart).
 
 Each kernel has its plain PyTorch version here; a CPU tensor takes it, a CUDA
-tensor launches the kernel (csrc/moe_grouped.cu) or raises. The plain
-versions take the tiles expert by expert, reading the tile table on the host.
+tensor launches the kernel (csrc/moe_grouped.cu `grouped_tc_kernel`, one
+template for the four weight kinds, its walk planned by `plan_grouped`) or
+raises. The plain versions take the tiles expert by expert, reading the tile
+table on the host.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +42,10 @@ from llamatpu_torch.models.weights import QTensor, unpack4_pairs
 BLOCK = 32
 # front ends of csrc/moe_grouped.cu
 _K_BLOCK, _K_PACKED, _K_ROWQ, _K_DENSE = 0, 1, 2, 3
+# csrc/moe_grouped.cu's walk: weight rows of a unit in the GEMV form (bf16 x,
+# tm <= GEMV_TM, I <= MAX_SLICE: x held in registers) and in the tiled form
+GEMV_ROWS, TILE_ROWS = 16, 128
+GEMV_TM, MAX_SLICE = 8, 4096
 
 
 # ----------------------------------------------------------------- routing
@@ -144,8 +153,60 @@ def grouped_dense_matmul_plain(x, w, tile_expert, tm):
     return _grouped_plain(_K_DENSE, x, w, None, tile_expert, tm)
 
 
+@dataclass(frozen=True)
+class GroupedPlan:
+    """The walk of csrc/moe_grouped.cu `grouped_tc_kernel`: unit u is tile u //
+    nob against weight rows [o0, o0 + rows) (o0 = (u % nob) * rows, cut at O)
+    of that tile's expert; CTA c takes units c, c + ctas, ... Tile-major
+    order with a stride of the CTA count spreads the -1 tail tiles (a suffix
+    of the tiles) over all CTAs. Nothing here depends on the routing."""
+    tiles: int
+    tm: int
+    o: int
+    gemv: bool
+    ctas: int
+
+    @property
+    def rows(self) -> int:
+        return GEMV_ROWS if self.gemv else TILE_ROWS
+
+    @property
+    def nob(self) -> int:
+        return -(-self.o // self.rows)
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.nob
+
+    def unit(self, u: int) -> tuple[int, int, int]:
+        """(tile, first weight row, end weight row) of unit u."""
+        tile, ob = divmod(u, self.nob)
+        return tile, ob * self.rows, min(self.o, (ob + 1) * self.rows)
+
+    def units_of(self, c: int) -> range:
+        return range(c, self.units, self.ctas)
+
+
+def plan_grouped(mp: int, tm: int, o: int, i: int, x_f32: bool,
+                 sm_count: int = 132) -> GroupedPlan:
+    """The GEMV form (16-row units, x in registers) for bf16 x at tm <= 8 and
+    I <= MAX_SLICE, else the tiled form (128-row units); one CTA an SM, or
+    one a unit where there are fewer."""
+    gemv = not x_f32 and tm <= GEMV_TM and i <= MAX_SLICE
+    rows = GEMV_ROWS if gemv else TILE_ROWS
+    units = (mp // tm) * -(-o // rows)
+    return GroupedPlan(mp // tm, tm, o, gemv, min(units, sm_count))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(kind: int, x, w, s, tile_expert, tm: int, row_token, n_tokens: int,
-            what: str) -> torch.Tensor:
+            what: str, lib=None) -> torch.Tensor:
+    """The checks, then one launch of csrc/moe_grouped.cu (or of `lib`, a
+    library with the same entry point: bench/moe_ablation.py's variants)."""
     mp, i = x.shape
     e, o = w.shape[0], w.shape[1]
     wcols = {_K_PACKED: i // 2}.get(kind, i)
@@ -163,20 +224,22 @@ def _launch(kind: int, x, w, s, tile_expert, tm: int, row_token, n_tokens: int,
     _build.require(w.device == x.device == tile_expert.device and tile_expert.dtype == torch.int32
                    and tuple(tile_expert.shape) == (mp // tm,),
                    f"{what}: tile_expert int32 [Mp / tm] and weights on x's device")
-    _build.require(i % BLOCK == 0 and mp % tm == 0 and (tm <= 8 or tm % 32 == 0)
+    _build.require(i % BLOCK == 0 and mp % tm == 0 and (tm <= 8 or (tm % 32 == 0 and tm <= 128))
                    and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-                   f"{what}: I % 32 == 0, tm <= 8 or a multiple of 32, 16-byte aligned rows")
+                   f"{what}: I % 32 == 0, tm <= 8 or 32 or 128, 16-byte aligned rows")
     if row_token is not None:
         _build.require(row_token.dtype == torch.int32 and tuple(row_token.shape) == (mp,)
                        and row_token.is_contiguous() and row_token.device == x.device,
                        f"{what}: row_token int32 [Mp]")
+    x_code = _build.dtype_code(x)
+    plan = plan_grouped(mp, tm, o, i, x.dtype == torch.float32, _sm_count(x.device.index or 0))
     y = torch.empty((mp, o), dtype=torch.float32, device=x.device)
-    lib = _build.load("moe_grouped")
+    lib = lib or _build.load("moe_grouped")
     err = lib.lt_grouped_matmul(
-        kind, x.data_ptr(), _build.dtype_code(x), w.data_ptr(),
+        kind, x.data_ptr(), x_code, w.data_ptr(),
         _build.dtype_code(w) if kind == _K_DENSE else 0, 0 if s is None else s.data_ptr(),
         tile_expert.data_ptr(), 0 if row_token is None else row_token.data_ptr(), n_tokens,
-        y.data_ptr(), mp, o, i, tm, _build.stream())
+        y.data_ptr(), mp, o, i, tm, e, int(plan.gemv), plan.ctas, _build.stream())
     _build.check(lib, err, what)
     return y
 

@@ -240,8 +240,10 @@ def test_q8_launch_checks_raise_before_launching(bad, match):
 @pytest.mark.parametrize("name", list(gemv_ablation.Q8_VARIANTS))
 def test_q8_ablation_variants_edit_the_kernel_source(name):
     """Each q8 variant of bench/gemv_ablation.py still finds the statements it
-    replaces in csrc/probes.cu (the card builds and times them)."""
-    src = (probes._build.CSRC / "probes.cu").read_text()
+    replaces in csrc/probes.cu with its header tc_gemv.cuh written in (the
+    card builds and times them)."""
+    src = gemv_ablation.source()
+    assert '#include "tc_gemv.cuh"' not in src and "void dequant4(" in src
     edit, computes = gemv_ablation.Q8_VARIANTS[name]
     text = edit(src)
     assert text != src

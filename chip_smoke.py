@@ -232,14 +232,18 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.5f}"
 
 
-def timings(fn, names, plain, library, iters: int = 16) -> dict:
+def timings(fn, names, plain, library, iters: int = 16, graph: bool = False) -> dict:
     """ms: the kernels' own device time (profiler; the wrapper's graph time if
-    the profiler saw none); wrapper_ms: the wrapper call in a CUDA graph;
-    plain_ms / library_ms: the plain version and the library yardstick."""
+    the profiler saw none, or with graph=True: for kernels launched with
+    programmatic dependent launch, whose launches overlap, so the profiler's
+    per-kernel times count the overlap twice); kernel_ms: the profiler's sum;
+    wrapper_ms: the wrapper call in a CUDA graph; plain_ms / library_ms: the
+    plain version and the library yardstick."""
     wrapper = time_ms(fn, iters=iters)
     own = kernel_ms(fn, names, iters=iters)
-    return dict(ms=own if own is not None else wrapper,
-                ms_source="profiler" if own is not None else "cuda graph",
+    graph = graph or own is None
+    return dict(ms=wrapper if graph else own, ms_source="cuda graph" if graph else "profiler",
+                kernel_ms=own,
                 wrapper_ms=wrapper, plain_ms=time_ms(plain, iters=min(iters, 4)),
                 library_ms=None if library is None else time_ms(library, iters=iters))
 
@@ -273,7 +277,7 @@ PHI3_MEDIUM = dict(L=3, D=5120, F=17920, KV=10, G=4, HD=128, V=32064)
 PHI3_OVERRIDES = dict(dim=5120, hidden_dim=17920, n_layers=40, n_heads=40, n_kv_heads=10,
                       head_dim=128, vocab_size=32064, context_length=4096)
 QWEN25_14B = dict(L=2, D=5120, F=13824)  # Qwen2.5-14B's FFN widths (f32 rows take K20 there)
-K20_NAMES = ("ffn_mma_kernel", "ffn_finish_kernel")
+TAIL_TC = ("rowq_tc_kernel",)  # K9's and K20's bf16 phases: csrc/rowq_tc.cuh's template
 
 
 def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
@@ -980,11 +984,20 @@ def check_paged_edges(dev) -> dict:
                           "pool and scale pool unchanged")
 
 
+TAIL_EDGE_ROWS = (1, 2, 7, 8, 9, 16, 17, 31, 32)
+TAIL_UNALIGNED = (200, 196, 324)  # (D, H, F): multiples of 4, not of 16 (gemv.cuh in bf16)
+TAIL_UNALIGNED_ROWS = (1, 8, 9, 32)  # both of gemv.cuh's row templates (8 and 32)
+
+
 def check_tail(dev, dims=LLAMA32_1B) -> dict:
-    """K9 against its plain version at llama32-1b widths, T in {1, 8, 32},
-    bf16 and f32 activations: f32 within 1e-5 of the largest plain output
-    (sums in another order), bf16 within 1e-2 (h and act round to bf16, so a
-    sum that rounds the other way moves one bf16 ulp). Timed at each T."""
+    """K9 against its plain version at llama32-1b widths: T in 1, 2, 7, 8,
+    9, 16, 17, 31 and 32 rows (every x-fragment count and its edges), rs 1
+    and 0.5, bf16 (rowq_tc.cuh) and f32 (gemv.cuh) activations: f32 within
+    1e-5 of the largest plain output (sums in another order), bf16 within
+    1e-2 (h and act round to bf16, so a sum that rounds the other way moves
+    one bf16 ulp); two runs bit-equal; None at 33 rows. Then bf16 at widths
+    that are not multiples of 16 (`TAIL_UNALIGNED`: gemv.cuh's route) within
+    1e-2, two runs bit-equal. Timed at T = 1, 8 and 32 (bf16)."""
     import torch
 
     from llamatpu_torch.ops import layer_fused
@@ -992,28 +1005,52 @@ def check_tail(dev, dims=LLAMA32_1B) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     L, D, F, KV, G, HD = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD"))
     H = KV * G * HD
-    wo, w13, w2 = rand_rowq(L, D, H, dev, gen), rand_rowq(L, 2 * F, D, dev, gen), \
-        rand_rowq(L, D, F, dev, gen)
-    nw = torch.rand((L, D), device=dev, generator=gen) + 0.5
-    worst = {"bf16": 0.0, "f32": 0.0}
+
+    def tail_weights(n, d, h, f):
+        return (rand_rowq(n, d, h, dev, gen), rand_rowq(n, 2 * f, d, dev, gen),
+                rand_rowq(n, d, f, dev, gen), torch.rand((n, d), device=dev, generator=gen) + 0.5)
+
+    def case(ws, t, rs, dt, key, tol):
+        """One K9 call checked: (abs err, rel err)."""
+        d, h = ws[0].qs.shape[1:]
+        li = 5 % ws[0].qs.shape[0]
+        attn = torch.randn((t, h), device=dev, generator=gen).to(dt)
+        x = torch.randn((t, d), device=dev, generator=gen).to(dt)
+        got = layer_fused.layer_tail_fused_rowq(*ws, attn, x, li, 1e-5, rs)
+        again = layer_fused.layer_tail_fused_rowq(*ws, attn, x, li, 1e-5, rs)
+        want = layer_fused.layer_tail_plain(*ws, attn, x, li, 1e-5, rs)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == x.shape
+        assert torch.equal(got, again), f"K9 T={t} rs={rs} ({key}, D={d}): two runs differ"
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= tol, f"K9 disagrees at T={t} rs={rs} ({key}, D={d}): {abs_e} {rel_e}"
+        return abs_e, rel_e
+
+    ws = tail_weights(L, D, H, F)
+    wo, w13, w2, nw = ws
+    worst = {"bf16": 0.0, "f32": 0.0, "bf16_unaligned": 0.0}
     worst_abs = 0.0
     for dt, key, tol in ((torch.float32, "f32", 1e-5), (torch.bfloat16, "bf16", 1e-2)):
-        for t, rs in ((1, 1.0), (8, 1.0), (32, 1.0), (8, 0.5)):
-            attn = torch.randn((t, H), device=dev, generator=gen).to(dt)
-            x = torch.randn((t, D), device=dev, generator=gen).to(dt)
-            got = layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
-            want = layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
-            torch.cuda.synchronize()
-            assert got.dtype == dt and got.shape == x.shape
-            abs_e, rel_e = max_err(got, want)
-            assert rel_e <= tol, f"K9 disagrees at T={t} rs={rs} ({key}): {abs_e} {rel_e}"
-            worst[key] = max(worst[key], rel_e)
-            worst_abs = max(worst_abs, abs_e)
-            log(f"K9 T={t} rs={rs} {key}: max abs {abs_e:.3g} rel {rel_e:.3g}")
+        for t in TAIL_EDGE_ROWS:
+            for rs in (1.0, 0.5):
+                abs_e, rel_e = case(ws, t, rs, dt, key, tol)
+                worst[key] = max(worst[key], rel_e)
+                worst_abs = max(worst_abs, abs_e)
+        log(f"K9 {key}, T in {TAIL_EDGE_ROWS}, rs 1 and 0.5: worst rel {worst[key]:.3g}, "
+            "two runs bit-equal")
         x33 = torch.zeros((33, D), device=dev, dtype=dt)
         assert layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, torch.zeros((33, H), device=dev,
                                                                               dtype=dt),
                                                  x33, 0, 1e-5) is None
+    uws = tail_weights(2, *TAIL_UNALIGNED)
+    for t in TAIL_UNALIGNED_ROWS:
+        for rs in (1.0, 0.5):
+            abs_e, rel_e = case(uws, t, rs, torch.bfloat16, "bf16", 1e-2)
+            worst["bf16_unaligned"] = max(worst["bf16_unaligned"], rel_e)
+            worst_abs = max(worst_abs, abs_e)
+    del uws
+    log(f"K9 bf16 at (D, H, F) = {TAIL_UNALIGNED} (gemv.cuh), T in {TAIL_UNALIGNED_ROWS}, rs 1 "
+        f"and 0.5: worst rel {worst['bf16_unaligned']:.3g}, two runs bit-equal")
     li = iter(range(10**9))
     per = {}
     for t in (1, 8, 32):
@@ -1025,18 +1062,20 @@ def check_tail(dev, dims=LLAMA32_1B) -> dict:
         per[t] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
             lambda: layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, next(li) % L,
                                                       1e-5),
-            ("gemv_tiled_kernel",),
+            TAIL_TC,
             lambda: layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
-            None))
+            None, graph=True))
         log(f"K9 T={t}: {per[t]['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
             f"{per[t]['plain_ms']:.4f})")
-    del wo, w13, w2
+    del ws, wo, w13, w2
     torch.cuda.empty_cache()
     return dict(
-        name="layer_tail_fused_rowq", route="cuda", source="llamatpu_torch/csrc/layer_fused.cu",
+        name="layer_tail_fused_rowq", route="cuda", source="llamatpu_torch/csrc/rowq_tc.cuh",
         replaces="llamatpu/ops/layer_fused.py:50", max_abs_err=worst_abs,
         max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst,
-        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-2 (T in 1, 8, 32; rs 1 and 0.5)",
+        tolerance=f"rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-2 (T in {TAIL_EDGE_ROWS}; "
+                  f"rs 1 and 0.5; bf16 also at (D, H, F) = {TAIL_UNALIGNED}, T in "
+                  f"{TAIL_UNALIGNED_ROWS}); two runs bit-equal",
         **{k: per[8][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")},
         library=None, shape=f"T=8 rows (the B lanes of a decode step) D={D} H={H} F={F}",
@@ -1801,8 +1840,15 @@ def check_slice6_kernels(dev) -> list[dict]:
 def device_breakdown(fn) -> dict:
     """Run fn() once under torch.profiler (device activity only, so the host
     is barely slowed): device busy time, the traced window's host wall time,
-    the idle share between them, and the kernels that take most of the time."""
+    the idle share between them, and the kernels that take most of the time.
+    Busy time is the union of the device activities' intervals, and each
+    moment of it goes to the activity that started first: a kernel launched
+    with programmatic dependent launch (rowq_tc.cuh's phases) starts while
+    the one before it runs and waits for it, and that wait is the earlier
+    kernel's time, counted once. `overlap_ms` is what a sum of the
+    activities' own times would count twice."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1811,12 +1857,19 @@ def device_breakdown(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    own, count, reach = {}, {}, float("-inf")
+    for start, end, name in spans:  # microseconds
+        own[name] = own.get(name, 0.0) + max(0.0, end - max(start, reach)) / 1e3
+        count[name] = count.get(name, 0) + 1
+        reach = max(reach, end)
+    assert spans, "the trace holds no device activity"
+    busy = sum(own.values())
+    rows = sorted(own.items(), key=lambda r: -r[1])
     return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
-            "kernels": [{"name": k[:120], "ms": ms, "count": n} for k, ms, n in rows]}
+            "overlap_ms": sum(e - s for s, e, _ in spans) / 1e3 - busy,
+            "kernels": [{"name": k[:120], "ms": ms, "count": count[k]} for k, ms in rows]}
 
 
 # each kernel's launches as the profiler names them, and where they are read:
@@ -1834,11 +1887,11 @@ IN_PATH = {
     "decode_attention_fused_write": ("gguf", "decode16_trace", DENSE, 1),
     "packed4_matmul": ("pack4", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 17),
     "decode_attention_paged": ("serve", "decode16_trace", PAGED, 1),
-    # K9's three phases (K2 at 8 rows is gemv_tiled_kernel<8, bf16, 1, 1>)
-    "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", tuple(
-        f"{dt}, {p}>" for dt in ("bfloat16", "float") for p in ("0, 2", "1, 4", "0, 3")), 1),
+    # K9's three phases: rowq_tc.cuh in bf16, gemv.cuh's tiled GEMV in f32
+    "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", TAIL_TC + tuple(
+        f"float, {p}>" for p in ("0, 2", "1, 4", "0, 3")), 1),
     # K20 at the 24 lanes of a Phi-3-medium BatchEngine step
-    "ffn_fused_rowq": ("phi3_b24", "decode16_trace", K20_NAMES, 1),
+    "ffn_fused_rowq": ("phi3_b24", "decode16_trace", TAIL_TC, 1),
     # K10-K13's rows are one MoE layer of a decode token: the gate+up and the
     # down call (each path runs only its own grouped kernel)
     "grouped_block_matmul": ("moe", "decode16_trace", MOE_KERNELS, 2),
@@ -3593,13 +3646,14 @@ def run_tool_paths(dev, gguf: Path, workdir: Path) -> dict:
 
 def check_ffn_fused(dev, dims=PHI3_MEDIUM, wide=QWEN25_14B) -> dict:
     """K20 against its plain version: at Phi-3-medium widths with T = 17 and
-    24 bf16 rows (its path's rows), within 1e-2 of the largest plain output
-    (act rounds to bf16, so a sum taken in another order can move an act
-    value one bf16 ulp), and at Qwen2.5-14B widths with T = 32 f32 rows
-    within 1e-5 (f32 sums in another order); None at 25 bf16 rows (the fit
-    declines) and at 33. Timed at T = 24 bf16 over the stack's layers in
-    turn, beside its bound, the plain version and the library yardstick: two
-    bf16 torch.matmul on the dequantized layer with the silu glue."""
+    24 bf16 rows (its path's rows; rowq_tc.cuh), within 1e-2 of the largest
+    plain output (act rounds to bf16, so a sum taken in another order can
+    move an act value one bf16 ulp), two runs bit-equal, and at Qwen2.5-14B
+    widths with T = 32 f32 rows (gemv.cuh) within 1e-5 (f32 sums in another
+    order); None at 25 bf16 rows (the fit declines) and at 33. Timed at T =
+    17 and 24 bf16 over the stack's layers in turn, beside its bound, the
+    plain version and the library yardstick: two bf16 torch.matmul on the
+    dequantized layer with the silu glue. The row's numbers are T = 24's."""
     import torch
     import torch.nn.functional as F_
 
@@ -3612,29 +3666,37 @@ def check_ffn_fused(dev, dims=PHI3_MEDIUM, wide=QWEN25_14B) -> dict:
     for t in (17, 24):
         x = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
         got = ffn_fused.ffn_fused_rowq(w13, w2, x, 1)
+        again = ffn_fused.ffn_fused_rowq(w13, w2, x, 1)
         want = ffn_fused.ffn_fused_plain(w13, w2, x, 1)
         torch.cuda.synchronize()
         assert got.dtype == x.dtype and got.shape == x.shape
+        assert torch.equal(got, again), f"K20 T={t} bf16: two runs differ"
         errs[f"bf16 T={t}"] = abs_e, rel_e = max_err(got, want)
         assert rel_e <= 1e-2, f"K20 disagrees at T={t} bf16: max abs {abs_e} rel {rel_e}"
-        log(f"K20 Phi-3-medium T={t} bf16: max abs {abs_e:.3g} rel {rel_e:.3g}")
+        log(f"K20 Phi-3-medium T={t} bf16: max abs {abs_e:.3g} rel {rel_e:.3g}, two runs "
+            "bit-equal")
     for t in (25, 33):
         assert ffn_fused.ffn_fused_rowq(w13, w2, torch.zeros((t, D), device=dev,
                                                              dtype=torch.bfloat16), 0) is None
-    t, li = 24, iter(range(10**9))
-    x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+    li = iter(range(10**9))
     w13_bf = (w13.qs[0].float() * w13.scales[0]).to(torch.bfloat16)
     w2_bf = (w2.qs[0].float() * w2.scales[0]).to(torch.bfloat16)
+    by_rows = {}
+    for t in (17, 24):
+        x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
 
-    def library():
-        g13 = torch.matmul(x, w13_bf.T)
-        return torch.matmul(F_.silu(g13[:, :F]) * g13[:, F:], w2_bf.T)
-    b_ms, b_by = bound(3 * F * D + (2 * F + D) * 4 + 2 * t * D * 2, 2 * t * 3 * F * D,
-                       BF16_OPS_S)
-    tm = timings(lambda: ffn_fused.ffn_fused_rowq(w13, w2, x, next(li) % L), K20_NAMES,
-                 lambda: ffn_fused.ffn_fused_plain(w13, w2, x, next(li) % L), library)
-    log(f"K20 Phi-3-medium T={t} bf16: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
-        f"{tm['plain_ms']:.4f}, library {tm['library_ms']:.4f})")
+        def library(x=x):
+            g13 = torch.matmul(x, w13_bf.T)
+            return torch.matmul(F_.silu(g13[:, :F]) * g13[:, F:], w2_bf.T)
+        b_ms, b_by = bound(3 * F * D + (2 * F + D) * 4 + 2 * t * D * 2, 2 * t * 3 * F * D,
+                           BF16_OPS_S)
+        by_rows[t] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
+            lambda x=x: ffn_fused.ffn_fused_rowq(w13, w2, x, next(li) % L), TAIL_TC,
+            lambda x=x: ffn_fused.ffn_fused_plain(w13, w2, x, next(li) % L), library,
+            graph=True))
+        tm = by_rows[t]
+        log(f"K20 Phi-3-medium T={t} bf16: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
+            f"{tm['plain_ms']:.4f}, library {tm['library_ms']:.4f})")
     del w13, w2, w13_bf, w2_bf
     torch.cuda.empty_cache()
     L, D, F = wide["L"], wide["D"], wide["F"]
@@ -3651,20 +3713,23 @@ def check_ffn_fused(dev, dims=PHI3_MEDIUM, wide=QWEN25_14B) -> dict:
     del w13, w2
     torch.cuda.empty_cache()
     return dict(
-        name="ffn_fused_rowq", route="cuda", source="llamatpu_torch/csrc/ffn_fused.cu",
+        name="ffn_fused_rowq", route="cuda", source="llamatpu_torch/csrc/rowq_tc.cuh",
         replaces="llamatpu/ops/ffn_fused.py:64", max_abs_err=max(e[0] for e in errs.values()),
         max_rel_err=max(e[1] for e in errs.values()), errors=errs,
-        tolerance="rel to max|plain|: bf16 <= 1e-2 (T 17, 24), f32 <= 1e-5 (T 32)",
-        **tm, library="two bf16 torch.matmul on the dequantized layer + silu glue",
-        bound_ms=b_ms, bound_by=b_by, f32_t32_ms=f32_ms,
+        tolerance="rel to max|plain|: bf16 <= 1e-2 (T 17, 24; two runs bit-equal), "
+                  "f32 <= 1e-5 (T 32)",
+        **by_rows[24], library="two bf16 torch.matmul on the dequantized layer + silu glue",
+        f32_t32_ms=f32_ms, by_rows=by_rows,
         shape=f"T=24 bf16 D={dims['D']} F={dims['F']} (Phi-3-medium)")
 
 
 def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
     """K9 and K2 at Phi-3-medium widths, their first use there: K9 at T = 1,
     8 and 16 rows in bf16 (within 1e-2 of the largest plain output) and f32
-    (1e-5), None at 17 bf16 rows (its fit declines); K2 at O = 7680 with 1,
-    8 and 24 rows (1e-2). Timed at the rows of the 8- and 24-lane paths.
+    (1e-5), None at 17 bf16 rows (its fit declines); K9 timed at T = 1, 8 and
+    16 bf16 (checked again at rs 0.5, two runs bit-equal); K2 at O = 7680
+    with 1, 8 and 24 rows (1e-2), timed beside bf16 torch.matmul on the
+    dequantized weight.
     Then the equalized q8_row conversion of one layer on the card against
     the CPU's, bit for bit. Returns a sub-row per kernel name."""
     import torch
@@ -3692,19 +3757,28 @@ def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
     assert layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, z[:, :1].expand(17, H).contiguous(),
                                              z, 0, 1e-5) is None
     li = iter(range(10**9))
-    for t in (1, 8):
+    for t in (1, 8, 16):
         attn = torch.randn((t, H), device=dev, generator=gen).to(torch.bfloat16)
         x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        got = layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, L - 1, 1e-5, 0.5)
+        again = layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, L - 1, 1e-5, 0.5)
+        want = layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, L - 1, 1e-5, 0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"K9 at Phi-3-medium T={t}: two runs differ"
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-2, f"K9 at Phi-3-medium T={t} rs 0.5: max abs {abs_e} rel {rel_e}"
         b_ms, b_by = bound(D * H + 3 * F * D + (2 * D + 2 * F) * 4 + t * (H + 2 * D) * 2,
                            2 * t * (D * H + 3 * F * D), BF16_OPS_S)
-        k9[f"timed T={t}"] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
+        k9[f"timed T={t}"] = dict(bound_ms=b_ms, bound_by=b_by, max_rel_err=rel_e, **timings(
             lambda: layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, next(li) % L,
-                                                      1e-5), ("gemv_tiled_kernel",),
+                                                      1e-5), TAIL_TC,
             lambda: layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
-            None))
-        log(f"K9 Phi-3-medium T={t}: {k9[f'timed T={t}']['ms']:.4f} ms (bound {b_ms:.4f})")
+            None, graph=True))
+        log(f"K9 Phi-3-medium T={t}: {k9[f'timed T={t}']['ms']:.4f} ms (bound {b_ms:.4f}), "
+            f"rs 0.5 rel err {rel_e:.3g}, two runs bit-equal")
     del wo, w13, w2
     wqkv = rand_rowq(L, O, D, dev, gen)
+    wqkv_bf = (wqkv.qs[0].float() * wqkv.scales[0]).to(torch.bfloat16)
     k2 = {}
     for t in (1, 8, 24):
         x = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
@@ -3715,15 +3789,18 @@ def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
         assert rel_e <= 1e-2, f"K2 at O={O}, {t} rows: max abs {abs_e} rel {rel_e}"
         b_ms, b_by = bound(O * D + O * 4 + t * D * 2 + D * 4 + t * O * 2, 2 * t * O * D,
                            BF16_OPS_S)
+        xb = x.reshape(t, D)
         k2[t] = dict(max_abs_err=abs_e, max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
+                     library="bf16 torch.matmul on the dequantized weight (no norm)",
                      **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, nw, x,
                                                                        next(li) % L, 1e-5),
                                ("gemv_kernel", "gemv_tiled_kernel"),
                                lambda: layer_fused.qkv_norm_plain(wqkv, nw, x, next(li) % L,
-                                                                  1e-5), None))
-        log(f"K2 at O={O}, {t} rows: {k2[t]['ms']:.4f} ms (bound {b_ms:.4f}), rel err "
-            f"{rel_e:.3g}")
-    del wqkv
+                                                                  1e-5),
+                               lambda xb=xb: torch.matmul(xb, wqkv_bf.T)))
+        log(f"K2 at O={O}, {t} rows: {k2[t]['ms']:.4f} ms (bound {b_ms:.4f}, library "
+            f"{k2[t]['library_ms']:.4f}), rel err {rel_e:.3g}")
+    del wqkv, wqkv_bf
     torch.cuda.empty_cache()
     # the equalized q8_row conversion of a Phi-3-medium layer on the card is
     # bit-equal to the CPU's (the engines convert on their device)
@@ -3794,6 +3871,20 @@ def drive_batch(engine, prompts: list[list[int]], n: int, want_fn, label: str) -
     return res
 
 
+def tail_share(res: dict, label: str) -> None:
+    """K9's or K20's share (rowq_tc.cuh: each Phi-3 window runs one of the
+    two) of a traced decode window's device busy time, beside its idle
+    share. Both are read from `device_breakdown`'s union of intervals, so a
+    phase's wait for the phase before it is not counted twice."""
+    tr = res["decode16_trace"]
+    ms = sum(k["ms"] for k in tr["kernels"] if any(n in k["name"] for n in TAIL_TC))
+    res["tail_tc_ms"], res["tail_tc_share"] = ms, ms / tr["busy_ms"]
+    which = "K20" if tr["launches"].get("ffn_fused_rowq") else "K9"
+    log(f"{label}: {which} (rowq_tc_kernel) {ms:.3f} of {tr['busy_ms']:.3f} ms busy "
+        f"({res['tail_tc_share']:.3f}); idle share {tr['idle_share']:.3f}; overlap counted "
+        f"once {tr['overlap_ms']:.3f} ms")
+
+
 def run_phi3_paths(dev, n_layers=None) -> dict:
     """Slice 7's path: Phi-3-medium-4k at full width (synthetic Q8_0, seed 0,
     served as q8_row) at `n_layers` (default all 40), where the JAX package's
@@ -3837,6 +3928,7 @@ def run_phi3_paths(dev, n_layers=None) -> dict:
         "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "decode_attention_fused_write": L * n,
         "layer_tail_fused_rowq": L * n, "rowq_gemm": 4 * L}, "phi3_b1", repeats=1)
     out["phi3_b1"].update(build_s=build_s, load_s=load_s, host_rss_gb=host_rss_gb(), layers=L)
+    tail_share(out["phi3_b1"], "phi3_b1")
     served = dataclasses.replace(model, weights=engine.weights)  # fused q8_row, on the card
     del engine, model
     torch.cuda.empty_cache()
@@ -3863,6 +3955,8 @@ def run_phi3_paths(dev, n_layers=None) -> dict:
             return w
         prompts = [rng.integers(0, V, int(n)).tolist() for n in rng.integers(33, 128, lanes)]
         out[label] = drive_batch(engine, prompts, 16, want, label)
+        if ffn != "two calls":
+            tail_share(out[label], label)
         del engine
         torch.cuda.empty_cache()
     del served

@@ -43,13 +43,13 @@ _SIGNATURES = {
         "lt_attn_tail": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P),
-        "lt_tail": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                    _I, _I, _P),
+        "lt_tail": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    *(_I,) * 17, _P),
         "lt_tail_kt": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _I, _I, _I, _P),
     },
     "ffn_fused": {
-        "lt_ffn_fused": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "lt_ffn_fused": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, *(_I,) * 11, _P),
     },
     "gemm": {
         "lt_rowq_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

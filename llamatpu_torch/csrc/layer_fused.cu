@@ -39,19 +39,24 @@
 // and up; out = x2 + rs * (act . w2^T) * s2, cast to x's dtype ("round" = to
 // the working dtype: f32 for f32 x, else bf16). Bound on the H100: the weight
 // stream, wo 4.19 + w13 33.55 + w2 16.78 = 54.5 MB per llama32-1b layer
-// (16.3 us) at every T <= 32. Design: K3's three tail phases generalized to T
-// rows, one C entry point issuing three launches in stream order (the scratch
-// x2 and act in device buffers from the wrapper), each the tiled GEMV of
-// gemv.cuh: a warp per output row reads that row once for all T rows, 16
-// bytes per lane and load, the activations staged in shared memory in the
-// working dtype, 1024 columns at a time (at T = 32, f32 and F = 8192 a whole
-// row set would not fit in 227 KB). Every row's activations are read from
-// shared memory once per weight row, so the shared-memory traffic grows with
-// T; a tensor-core tile would read them once per 16 rows (later work).
-// On the TPU one sequential grid carried x2, h, g13 and act in VMEM scratch
-// from phase to phase; here rmsnorm needs all of x2 and w2 all of act, so the
-// phases are separate launches.
-//
+// (16.3 us) at every T <= 32. On the TPU one sequential grid carried x2, h,
+// g13 and act in VMEM scratch from phase to phase; here rmsnorm needs all of
+// x2 and w2 all of act, so the phases are three launches in stream order,
+// the scratch (x2 f32, act, the per-16-row sums of squares of x2) in device
+// buffers from the wrapper. bf16 design: rowq_tc.cuh's tensor-core template
+// (TMA ring of weight boxes, mma.sync with the int8 weights made exact bf16
+// as A and the activations as B, persistent CTAs over ops/ffn_fused.py
+// plan_tc's units, split-K slices added in order by the row block's last
+// CTA): wo with the residual (E_RESID, which also writes each 16-row block's
+// sum of x2^2); w13 on h staged once a CTA and slice from x2 and those sums
+// (X_F32_NORM), each unit 16 gate rows and their up rows (E_SILU_PAIR, act in
+// bf16); w2 with the residual out (E_RESID_OUT). Each launch's producer fills
+// its ring with weights while the phase before finishes (programmatic
+// dependent launch). f32 activations (no f32 tensor-core
+// products), and widths that are not multiples of 16 (no TMA), take the
+// tiled GEMV of gemv.cuh: a warp per output row reads that row once for all
+// T rows, the activations staged in shared memory 1024 columns at a time.
+
 // K16 replaces llamatpu/ops/layer_fused.py `_tail_kernel_kt` (taken by
 // `layer_tail_fused_rowq` when `_W2_KTILE` is set; scripts/sweep_tail.py
 // times it against K9): K9's function with w2 streamed as contraction tiles
@@ -67,7 +72,7 @@
 // K9 only in the f32 summation order) and applies s2, rs and the residual.
 // The partials cost 4 * n_tiles * T * D bytes of writes and reads (1 MB at T
 // = 32 on llama32-1b, against 16.8 MB of w2).
-#include "gemv.cuh"
+#include "rowq_tc.cuh"
 
 LT_DEFINE_ERROR_STRING
 
@@ -369,14 +374,86 @@ int tail_phases(const lt::GemvArgs& b, const lt::GemvArgs& c, const lt::GemvArgs
 }  // namespace
 
 // K9. attn [T, H], x [T, D] (x_dtype); ffn_norm [D] f32; wo [D, H], w13
-// [2F, D], w2 [D, F] int8 with f32 row scales so, s13, s2; scratch x2 [T, D],
-// act [T, F] f32; out [T, D] (x_dtype). T <= 32.
+// [2F, D], w2 [D, F] int8 with f32 row scales so, s13, s2; scratch x2 [T, D]
+// f32; out [T, D] (x_dtype). T <= 32. The plan of ops/ffn_fused.py plan_tc for
+// each phase (g, splits, ksl, ctas; splits_o = 0: gemv.cuh's route).
+// Tensor-core route: bf16 x, D, H and F multiples of 16, act [T, F] bf16, ssp
+// [T, D / 16] f32, partial f32 scratch of the largest phase's units (plan_tc),
+// counters [32 a row block] int32 at zero. gemv.cuh's route: act [T, F] f32.
 LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* ffn_norm,
                       float eps, float rs, const void* wo, const void* so, const void* w13,
                       const void* s13, const void* w2, const void* s2, void* x2, void* act,
-                      void* out, int T, int D, int H, int F, int dot_dtype, void* stream) {
+                      void* ssp, void* partial, void* counters, void* out, int T, int D, int H,
+                      int F, int dot_dtype, int g_o, int splits_o, int ksl_o, int ctas_o,
+                      int g13, int splits13, int ksl13, int ctas13, int g2, int splits2,
+                      int ksl2, int ctas2, void* stream) {
   if (T < 1 || T > 32 || D % 4 || H % 4 || F % 4) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits_o > 0) {
+    if (x_dtype != LT_BF16 || dot_dtype != LT_BF16 || D % 16 || H % 16 || F % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // 1. x2 = x + rs * (attn . wo^T) * so, f32, and each 16-row block's sum of x2^2
+    rtc::Phase b = {};
+    b.x = attn;
+    b.xkind = rtc::X_BF16;
+    b.s = static_cast<const float*>(so);
+    b.rs = rs;
+    b.res = x;
+    b.res_dtype = x_dtype;
+    b.y = x2;
+    b.epi = lt::E_RESID;
+    b.ssp_out = static_cast<float*>(ssp);
+    b.partial = static_cast<float*>(partial);
+    b.counters = static_cast<int*>(counters);
+    b.T = T;
+    b.O = D;
+    b.I = H;
+    b.g = g_o;
+    b.splits = splits_o;
+    b.ksl = ksl_o;
+    b.ctas = ctas_o;
+    int e = rtc::launch<false>(b, wo, D, st);
+    if (e) return e;
+    // 2. h = round(rmsnorm(x2) * ffn_norm); act = round(silu(gate) * up), bf16
+    rtc::Phase c = b;
+    c.x = x2;
+    c.xkind = rtc::X_F32_NORM;
+    c.norm_w = static_cast<const float*>(ffn_norm);
+    c.ssp_in = static_cast<const float*>(ssp);
+    c.ssp_blocks = (D + rtc::kRows - 1) / rtc::kRows;
+    c.eps = eps;
+    c.s = static_cast<const float*>(s13);
+    c.res = nullptr;
+    c.y = act;
+    c.epi = lt::E_SILU_PAIR;
+    c.ssp_out = nullptr;
+    c.O = F;
+    c.I = D;
+    c.up = F;
+    c.g = g13;
+    c.splits = splits13;
+    c.ksl = ksl13;
+    c.ctas = ctas13;
+    e = rtc::launch<true>(c, w13, 2L * F, st);
+    if (e) return e;
+    // 3. out = x2 + rs * (act . w2^T) * s2, cast to x's dtype
+    rtc::Phase d = b;
+    d.x = act;
+    d.s = static_cast<const float*>(s2);
+    d.res = x2;
+    d.res_dtype = LT_F32;
+    d.y = out;
+    d.y_dtype = x_dtype;
+    d.epi = lt::E_RESID_OUT;
+    d.ssp_out = nullptr;
+    d.I = F;
+    d.g = g2;
+    d.splits = splits2;
+    d.ksl = ksl2;
+    d.ctas = ctas2;
+    return rtc::launch<false>(d, w2, D, st);
+  }
+  // gemv.cuh's route
   // 1. x2 = x + rs * (attn . wo^T) * so, f32
   lt::GemvArgs b = {};
   b.x = attn;

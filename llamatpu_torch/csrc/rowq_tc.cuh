@@ -1,0 +1,641 @@
+// The batched q8_row GEMV phases of K9 (layer_fused.cu `lt_tail`) and K20
+// (ffn_fused.cu `lt_ffn_fused`) on the tensor cores: one template,
+// `rowq_tc_kernel<NF, PAIR>`, run once per phase in stream order.
+//
+// A phase computes, for T <= 32 bf16 activation rows x [T, I] and q8_row
+// weights w [rows, I] (int8, one f32 scale per row),
+//   sum[t, o] = sum_i x[t, i] . w[o, i]        (f32, exact products)
+// and one epilogue of gemv.cuh on the f32 sums, in the JAX order with
+// explicit _rn intrinsics (gemv.cuh `gemv_store`):
+//   E_RESID      x2  = res + (sum . s) . rs                      f32
+//   E_SILU_PAIR  act = round(gate . sigmoid(gate) . up),  gate = sum . s[o],
+//                up = sum_up . s[o + up]: the gate row o and the up row o + up
+//                of w13 are one unit, so act is written once
+//   E_RESID_OUT  out = x2 + (sum . s) . rs, cast to out's dtype
+//   E_SCALE      out = sum . s                                   f32
+// The activations are staged as bf16 from x (X_BF16) or as the rmsnorm
+// h = round(x2 . rsqrt(mean(x2^2) + eps) . nw) of f32 x2 rows (X_F32_NORM),
+// mean(x2^2) from the per-16-row sums of squares the E_RESID phase wrote.
+//
+// Bound on the H100: the weight stream. K9 at Llama-3.2-1B reads 54.5 MB of
+// int8 a layer (16.3 us at 3.35 TB/s) at every T <= 32; K20 at Phi-3-medium
+// 275.3 MB (82 us); the products (2 T flops a weight byte) take under a fifth
+// of that at the bf16 tensor-core peak.
+//
+// Design (PR 9-13's TMA-fed tensor-core GEMV, tc_gemv.cuh's pieces):
+// - Units: a row block of g groups of 16 output rows (PAIR: each group's 16
+//   gate rows with their 16 up rows) times a contraction slice of `ksl`
+//   columns (a multiple of 128). The plan (ops/ffn_fused.py `plan_tc`,
+//   checked by the CPU tests) picks g and the slices: a CTA's bf16 slice of
+//   x fits its shared memory, the units fill the SMs, and few units keep
+//   their fixed cost down; units are slice-major, CTA c takes the
+//   contiguous range [c U / ctas, (c + 1) U / ctas), so its x slice changes
+//   at most once or twice a phase.
+// - Persistent CTAs of 13 warps, one an SM. Warp 8 is the producer,
+//   filling a ring of stages by TMA boxes [16 rows, 128 bytes] (the 128-byte
+//   swizzle) of the weights: a stage is one box for each consumer warp (PAIR:
+//   a gate and an up box), 8 / g warps to a group, each taking the next 128
+//   columns. The weights do not depend on the previous phase, so under
+//   programmatic dependent launch the producer fills the ring while that
+//   phase finishes.
+// - The 8 consumer warps stage the CTA's x slice (after griddepcontrol.wait;
+//   bf16 x by one bulk copy a row, the rmsnorm of f32 x2 by their loads)
+//   as bf16 rows of pitch 2 ksl + 32 bytes (the 8 rows of a fragment in
+//   distinct banks), zeros past T and past I. Each takes its box of a stage:
+//   8 steps of mma.sync m16n8k16 with the weights as A (16 rows, q8_row int8
+//   made exact bf16 by the byte permute, tc_gemv.cuh's k order) and x as B
+//   (8 rows a fragment, NF = ceil(T / 8) fragments), and hands its part of
+//   the unit to the finishers through shared memory.
+// - Warps 9-12 (the finishers) add a group's parts in warp order. Where the
+//   block has one slice they apply the epilogue; otherwise they store the
+//   slice's sums to f32 scratch and count them (a counter a row block, at
+//   GPU scope), and the CTA that completes a block adds its slices' sums in
+//   order 0, 1, ... and applies the epilogue, resetting the counter. Two runs
+//   are bit-equal, and the launch allocates nothing and syncs nothing, so a
+//   CUDA graph captures it. The consumers never wait for a global load or a
+//   store after their products: under a full weight stream each takes ~1 us,
+//   and on the consumers' path the units' ends cost more than their stream.
+// Where it does not apply (gemv.cuh's tiled GEMV stays): f32 activations
+// (the tensor cores give no f32 products), and K9's contraction widths that
+// are not multiples of 16 (TMA row strides are 16-byte multiples); K20 in
+// bf16 raises for them, as no shape the JAX fit admits has one.
+#pragma once
+
+#include "gemv.cuh"
+#include "tc_gemv.cuh"
+
+namespace rtc {
+
+constexpr int kWarps = 8;                         // consumer warps
+constexpr int kConsumers = 32 * kWarps;
+constexpr int kFinishers = 128;                   // warps 9-12: the epilogues
+constexpr int kThreads = kConsumers + 32 + kFinishers;  // + the producer warp
+constexpr int kRows = 16;                         // output rows of a group
+constexpr int kBoxCols = 128;                     // columns (bytes) of a box: a warp's share
+constexpr int kBoxBytes = kRows * kBoxCols;
+constexpr int kMaxDepth = 8;
+constexpr int kMaxGroups = 4;                     // 16-row groups a unit
+constexpr int kCounterStride = 32;                // a row block's counter a 128-byte line
+constexpr int kDynSmem = 232448 - 1024;           // 227 KB less the static barriers' room
+
+enum XKind { X_BF16 = 0, X_F32_NORM = 1 };
+
+struct Phase {
+  const void* x;          // [T, I]: bf16 (X_BF16) or f32 x2 (X_F32_NORM)
+  int xkind;
+  const float* norm_w;    // [I] (X_F32_NORM)
+  const float* ssp_in;    // [T, ssp_blocks] sums of squares of x2 (X_F32_NORM)
+  int ssp_blocks;
+  float eps;
+  const float* s;         // row scales [rows]
+  float rs;               // residual scale
+  const void* res;        // [T, O] residual (E_RESID, E_RESID_OUT)
+  int res_dtype;
+  void* y;                // [T, O]: f32 (E_RESID, E_SCALE), bf16 (E_SILU_PAIR), y_dtype
+  int y_dtype, epi;
+  float* ssp_out;         // [T, O / 16] (E_RESID)
+  float* partial;         // [units, 16 g Tp (x 2 PAIR)] f32 slice sums (splits > 1)
+  int* counters;          // [nrb x kCounterStride], zero at entry and at exit
+  int T, O, I, up;        // up: the up rows' offset in w (PAIR)
+  int g, splits, ksl, ctas;  // the plan: 16-row groups a unit, slices, CTAs
+  int wpg, rows, nrb, units, depth, stage, xpitch, xoff, redoff;  // warps a group, rows a unit
+};
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// q8_row int8 fragment (4 columns of one row, lowest byte first) as two
+// exact bf16x2: byte ^ 0x80 under the exponent of 2^23 reads 2^23 + q + 128,
+// one subtraction leaves q, and bf16(q) is the high half (|q| <= 128).
+__device__ __forceinline__ void rowq_bf16(uint32_t raw, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = raw ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + e)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// ------------------------------------------------------------- producer
+template <bool PAIR>
+__device__ void produce(const Phase& p, const CUtensorMap* mw, uint32_t ring, uint64_t* full,
+                        uint64_t* empty, int lane, int u0, int u1) {
+  int slot = 0;
+  unsigned phase = 0;
+  for (int u = u0; u < u1; ++u) {
+    const int s = u / p.nrb, rb = u - s * p.nrb;
+    const int k0 = s * p.ksl, k1 = min(p.I, k0 + p.ksl);
+    for (int k = k0; k < k1; k += kBoxCols * p.wpg) {
+      // warp w's box: group w / wpg's rows, columns k + 128 (w % wpg); those
+      // past the slice are not loaded (nb a group)
+      const int nb = min(p.wpg, (k1 - k + kBoxCols - 1) / kBoxCols);
+      const int nbox = (PAIR ? 2 : 1) * p.g * nb;
+      mbar_wait(&empty[slot], phase ^ 1);
+      __syncwarp();
+      if (lane == 0) mbar_expect_tx(&full[slot], static_cast<unsigned>(nbox * kBoxBytes));
+      __syncwarp();
+      if (lane < nbox) {  // box (w, h) of warp w = gi wpg + b (PAIR: h 0 gate, 1 up)
+        const int h = PAIR ? lane & 1 : 0, j = PAIR ? lane >> 1 : lane;
+        const int gi = j / nb, b = j - gi * nb, w = gi * p.wpg + b;
+        tma_load_2d(ring + slot * p.stage + ((PAIR ? 2 : 1) * w + h) * kBoxBytes, mw,
+                    k + b * kBoxCols, rb * p.rows + gi * kRows + h * p.up, &full[slot]);
+      }
+      if (++slot == p.depth) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- finishers
+// The consumers hand each unit's parts (in `red`) to the finishers: `full`
+// when the 8 consumer warps have written them, `free` when the finishers
+// have read them; `done` tells the finishers whether the unit they resolve
+// completed its row block.
+struct Hand {
+  uint64_t full, free;
+  int done;
+};
+
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void finisher_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kFinishers) : "memory");
+}
+
+// ------------------------------------------------------------- consumers
+// The CTA's x slice [k0, k1) into shared memory as bf16 rows of xpitch
+// bytes: Tp rows, ksl columns, zeros past T and I (rows past T are zeroed
+// once, at the start). X_BF16: one bulk copy a row, issued by thread 0 and
+// completing on xbar (the columns past I zeroed by the threads first);
+// X_F32_NORM: the threads' loads, a batch issued before its stores.
+template <int NF>
+__device__ void stage_x(const Phase& p, unsigned char* xs, const float* rstd, int k0, int k1,
+                        int ct, uint64_t* xbar, unsigned& xphase) {
+  if (p.xkind == X_BF16) {
+    const int bytes = 2 * (k1 - k0), tail = 2 * p.ksl - bytes;
+    for (int i = ct; i < p.T * (tail / 16); i += kConsumers) {
+      const int t = i / (tail / 16);
+      *reinterpret_cast<uint4*>(xs + t * p.xpitch + bytes + 16 * (i - t * (tail / 16))) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (ct == 0) {
+      mbar_expect_tx(xbar, static_cast<unsigned>(p.T * bytes));
+      for (int t = 0; t < p.T; ++t)
+        bulk_load(xs + t * p.xpitch,
+                  static_cast<const __nv_bfloat16*>(p.x) + static_cast<long>(t) * p.I + k0,
+                  static_cast<unsigned>(bytes), xbar);
+    }
+    mbar_wait(xbar, xphase);
+    xphase ^= 1;
+    return;
+  }
+  constexpr int kBatch = 8;
+  const int vpr = p.ksl / 8;  // 16-byte vectors (8 bf16) a row
+  const int n = p.T * vpr;
+  for (int i0 = ct; i0 < n; i0 += kBatch * kConsumers) {
+    uint4 v[kBatch];
+    float4 a[kBatch], b[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * kConsumers, t = i / vpr, k = k0 + 8 * (i - t * vpr);
+      v[j] = make_uint4(0u, 0u, 0u, 0u);
+      a[j] = b[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < n && k < k1) {
+        const float4* r = reinterpret_cast<const float4*>(static_cast<const float*>(p.x) +
+                                                          static_cast<long>(t) * p.I + k);
+        a[j] = __ldcg(r);
+        b[j] = __ldcg(r + 1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * kConsumers, t = i / vpr, c = 8 * (i - t * vpr), k = k0 + c;
+      if (i >= n) break;
+      if (k < k1) {
+        // h = round(x2 * rstd * nw): f32 products in the JAX order
+        const float r = rstd[t];
+        const float4 na = __ldg(reinterpret_cast<const float4*>(p.norm_w + k));
+        const float4 nb = __ldg(reinterpret_cast<const float4*>(p.norm_w + k) + 1);
+        v[j].x = pack_bf16x2(__fmul_rn(__fmul_rn(a[j].x, r), na.x), __fmul_rn(__fmul_rn(a[j].y, r), na.y));
+        v[j].y = pack_bf16x2(__fmul_rn(__fmul_rn(a[j].z, r), na.z), __fmul_rn(__fmul_rn(a[j].w, r), na.w));
+        v[j].z = pack_bf16x2(__fmul_rn(__fmul_rn(b[j].x, r), nb.x), __fmul_rn(__fmul_rn(b[j].y, r), nb.y));
+        v[j].w = pack_bf16x2(__fmul_rn(__fmul_rn(b[j].z, r), nb.z), __fmul_rn(__fmul_rn(b[j].w, r), nb.w));
+      }
+      *reinterpret_cast<uint4*>(xs + t * p.xpitch + 2 * c) = v[j];
+    }
+  }
+}
+
+// Warp w's products on box w of a stage: 8 steps of 16 columns. Lane (g, q)
+// reads rows g and g + 8 of the box (128-byte rows, chunk j ^ g under the
+// swizzle) and x rows 8 n + g at the step's columns 4q .. 4q + 3.
+template <int NF, bool PAIR>
+__device__ __forceinline__ void products(uint32_t wb, uint32_t xb, int xpitch, int g,
+                                         float (&acc)[NF][4], float (&accu)[NF][4]) {
+  const int q4 = 4 * (threadIdx.x & 3);
+  const uint32_t r0 = wb + g * kBoxCols + q4, r8 = r0 + 8 * kBoxCols;
+  uint32_t wg[8][2], wu[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t off = static_cast<uint32_t>((j ^ g) << 4);
+    wg[j][0] = lds32(r0 + off);
+    wg[j][1] = lds32(r8 + off);
+    if (PAIR) {
+      wu[j][0] = lds32(r0 + kBoxBytes + off);
+      wu[j][1] = lds32(r8 + kBoxBytes + off);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t bx[NF][2];
+#pragma unroll
+    for (int n = 0; n < NF; ++n) lds64(bx[n], xb + n * 8 * xpitch + 32 * j);
+    uint32_t a[4];
+    rowq_bf16(wg[j][0], a[0], a[2]);
+    rowq_bf16(wg[j][1], a[1], a[3]);
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      mma16(acc[n], a, bx[n]);
+    }
+    if (PAIR) {
+      rowq_bf16(wu[j][0], a[0], a[2]);
+      rowq_bf16(wu[j][1], a[1], a[3]);
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        mma16(accu[n], a, bx[n]);
+      }
+    }
+  }
+}
+
+// The epilogue of 4 outputs of a unit: one x row t, weight rows o .. o + 3
+// of one 16-row group (`row` of the first within it), from their full sums v
+// (and the up rows' u), with their row scales and residuals loaded
+// beforehand. Every lane of a warp takes part: E_RESID also writes each
+// group's sum of squares of x2 for each t, which 4 neighbouring lanes hold.
+struct Quad {
+  int o, t, row;
+};
+
+struct Quad4 {
+  float s[4], su[4], res[4];
+};
+
+__device__ __forceinline__ Quad quad_at(const Phase& p, int rb, int qd, int tp) {
+  const int i = 4 * qd, gi = i / (kRows * tp), r = i - gi * kRows * tp;
+  return {rb * p.rows + gi * kRows + r % kRows, r / kRows, r % kRows};
+}
+
+__device__ __forceinline__ Quad4 quad_load(const Phase& p, const Quad& q, bool live) {
+  Quad4 r = {};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int o = q.o + e;
+    if (live && q.t < p.T && o < p.O) {
+      r.s[e] = __ldg(p.s + o);
+      if (p.epi == lt::E_SILU_PAIR) r.su[e] = __ldg(p.s + o + p.up);
+      if (p.epi == lt::E_RESID || p.epi == lt::E_RESID_OUT)
+        r.res[e] = lt_load(p.res, p.res_dtype, static_cast<long>(q.t) * p.O + o);
+    }
+  }
+  return r;
+}
+
+__device__ __forceinline__ void epilogue(const Phase& p, const Quad& q, const float4& v4,
+                                         const float4& u4, const Quad4& in, bool live) {
+  const float v[4] = {v4.x, v4.y, v4.z, v4.w}, u[4] = {u4.x, u4.y, u4.z, u4.w};
+  float sq = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int o = q.o + e;
+    if (!live || q.t >= p.T || o >= p.O) continue;
+    const long idx = static_cast<long>(q.t) * p.O + o;
+    if (p.epi == lt::E_SCALE) {
+      static_cast<float*>(p.y)[idx] = __fmul_rn(v[e], in.s[e]);
+    } else if (p.epi == lt::E_SILU_PAIR) {
+      const float gt = __fmul_rn(v[e], in.s[e]), up = __fmul_rn(u[e], in.su[e]);
+      static_cast<__nv_bfloat16*>(p.y)[idx] =
+          __float2bfloat16(__fmul_rn(__fmul_rn(gt, 1.0f / (1.0f + expf(-gt))), up));
+    } else {
+      const float r = __fadd_rn(in.res[e], __fmul_rn(__fmul_rn(v[e], in.s[e]), p.rs));
+      if (p.epi == lt::E_RESID) {
+        static_cast<float*>(p.y)[idx] = r;
+        sq = __fadd_rn(sq, __fmul_rn(r, r));
+      } else {
+        lt_store(p.y, p.y_dtype, idx, r);
+      }
+    }
+  }
+  if (p.epi == lt::E_RESID) {
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 1));
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
+    if (live && q.row == 0 && q.t < p.T && q.o < p.O)
+      p.ssp_out[static_cast<long>(q.t) * ((p.O + kRows - 1) / kRows) + q.o / kRows] = sq;
+  }
+}
+
+// Row block rb, all its slices stored: their sums added in order 0, 1, ...,
+// then the epilogue, by the finisher threads, 4 outputs a thread (float4
+// loads), kMc quads at a time: their scales and residuals loaded first, then
+// each 4 slices' sums of all of them together.
+template <int NF, bool PAIR>
+__device__ void complete_block(const Phase& p, int rb, int ft) {
+  constexpr int TP = 8 * NF, NH = PAIR ? 2 : 1, kMc = 1;
+  const int nout = p.g * kRows * TP, nq = nout / 4;
+  const float* ps = p.partial + static_cast<long>(rb) * NH * nout;
+  const long stride = static_cast<long>(p.nrb) * NH * nout;  // slice to slice
+  for (int m0 = 0; m0 * kFinishers < nq; m0 += kMc) {
+    Quad at[kMc];
+    Quad4 in[kMc];
+    float4 v[kMc], w[kMc];
+#pragma unroll
+    for (int m = 0; m < kMc; ++m) {
+      at[m] = quad_at(p, rb, ft + (m0 + m) * kFinishers, TP);
+      in[m] = quad_load(p, at[m], ft + (m0 + m) * kFinishers < nq);
+      v[m] = w[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int sl = 0; sl < p.splits; sl += 4) {
+      float4 a[4][kMc], b[4][kMc];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int m = 0; m < kMc; ++m) {
+          const int qd = ft + (m0 + m) * kFinishers;
+          a[j][m] = b[j][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (sl + j < p.splits && qd < nq) {
+            const float* at4 = ps + (sl + j) * stride + 4 * qd;
+            a[j][m] = __ldcg(reinterpret_cast<const float4*>(at4));
+            if (PAIR) b[j][m] = __ldcg(reinterpret_cast<const float4*>(at4 + nout));
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int m = 0; m < kMc; ++m)
+          if (sl + j < p.splits) {
+            v[m].x += a[j][m].x, v[m].y += a[j][m].y, v[m].z += a[j][m].z, v[m].w += a[j][m].w;
+            w[m].x += b[j][m].x, w[m].y += b[j][m].y, w[m].z += b[j][m].z, w[m].w += b[j][m].w;
+          }
+    }
+#pragma unroll
+    for (int m = 0; m < kMc; ++m)
+      if ((m0 + m) * kFinishers < nq)  // every thread: the shuffles
+        epilogue(p, at[m], v[m], w[m], in[m], ft + (m0 + m) * kFinishers < nq);
+  }
+}
+
+// Warps 9-12: for each unit of the CTA in turn, its sums from the
+// consumers' parts (a group's parts in warp order), read before the
+// consumers write the next unit's. With one slice, the epilogue. Otherwise
+// the sums go to scratch and thread 0 counts them towards the row block (at
+// GPU scope: release, so the stores go first; acquire, so the other slices'
+// sums are visible when this one completes the block); the CTA that
+// completes a block adds its slices' sums in order and applies the epilogue,
+// resetting the counter for the next launch. A unit's count is asked for
+// before the unit before is resolved, so its round trip hides behind that
+// work. The consumers wait for none of it.
+template <int NF, bool PAIR>
+__device__ void finish(const Phase& p, Hand& hd, const float* red, int ft, int u0, int u1) {
+  constexpr int NOUT = kRows * 8 * NF, NH = PAIR ? 2 : 1;
+  const int nout = p.g * NOUT, nq = nout / 4;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  int prev = 0, cur = 0;  // thread 0: the previous and this unit's counts before their own
+  for (int u = u0; u <= u1; ++u) {
+    const int n = u - u0;
+    if (u < u1) {
+      mbar_wait(&hd.full, n & 1);
+      float* part = p.partial + static_cast<long>(u) * NH * nout;
+      // quad qd: outputs 4 qd .. 4 qd + 3, the sums of its group's parts; a
+      // one-slice unit's epilogue right away, else its sums to scratch
+      for (int m0 = 0; m0 < nq; m0 += kFinishers) {
+        const int qd = m0 + ft;
+        const bool live = qd < nq;
+        const Quad at = quad_at(p, u, qd, 8 * NF);
+        Quad4 in = {};
+        if (p.splits == 1) in = quad_load(p, at, live);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
+        if (live) {
+          const int gi = 4 * qd / NOUT, r = 4 * qd - gi * NOUT;
+          for (int j = 0; j < p.wpg; ++j) {
+            const int o = (gi * p.wpg + j) * NOUT + r;
+            const float4 a = *reinterpret_cast<const float4*>(red + o);
+            v.x += a.x, v.y += a.y, v.z += a.z, v.w += a.w;
+            if (PAIR) {
+              const float4 b = *reinterpret_cast<const float4*>(red + kWarps * NOUT + o);
+              w.x += b.x, w.y += b.y, w.z += b.z, w.w += b.w;
+            }
+          }
+        }
+        if (p.splits == 1) {
+          epilogue(p, at, v, w, in, live);  // every thread: the shuffles
+        } else if (live) {
+          *reinterpret_cast<float4*>(part + 4 * qd) = v;
+          if (PAIR) *reinterpret_cast<float4*>(part + nout + 4 * qd) = w;
+        }
+      }
+      finisher_sync();  // every finisher has read the parts (and stored the sums)
+      if (ft == 0) mbar_arrive(&hd.free);
+      if (p.splits == 1) continue;
+      if (ft == 0) cur = atom_add_acq_rel(p.counters + kCounterStride * (u % p.nrb), 1);
+    }
+    if (p.splits > 1 && n > 0) {  // resolve unit u - 1
+      const int rb = (u - 1) % p.nrb;
+      if (ft == 0) {
+        const bool last = prev == p.splits - 1;
+        if (last) p.counters[kCounterStride * rb] = 0;
+        hd.done = last;
+      }
+      finisher_sync();
+      const bool last = hd.done;
+      finisher_sync();  // everyone read it before thread 0 writes the next
+      if (last) complete_block<NF, PAIR>(p, rb, ft);
+    }
+    prev = cur;
+  }
+}
+
+template <int NF, bool PAIR>
+__device__ void consume(const Phase& p, uint32_t ring, unsigned char* base, float* rstd,
+                        Hand& hd, uint64_t* full, uint64_t* empty, uint64_t* xbar, int warp,
+                        int lane, int u0, int u1) {
+  constexpr int TP = 8 * NF, NOUT = kRows * TP;  // x rows staged; outputs a unit
+  constexpr int NH = PAIR ? 2 : 1;
+  const int g = lane >> 2, q = lane & 3, ct = threadIdx.x;
+  unsigned char* xs = base + p.xoff;
+  float* red = reinterpret_cast<float*>(base + p.redoff);  // [NH][warp][t][row]
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");     // the previous phase's outputs
+  if (p.xkind == X_F32_NORM) {  // rsqrt(mean(x2^2) + eps) a row, the blocks' sums in order
+    for (int t = warp; t < p.T; t += kWarps) {
+      float ss = 0.f;
+      for (int b = lane; b < p.ssp_blocks; b += 32)
+        ss += __ldcg(p.ssp_in + static_cast<long>(t) * p.ssp_blocks + b);
+      ss = lt_warp_sum(ss);
+      if (lane == 0) rstd[t] = 1.0f / sqrtf(ss / static_cast<float>(p.I) + p.eps);
+    }
+    consumer_sync();
+  }
+  for (int i = ct; i < (TP - p.T) * (p.xpitch / 16); i += kConsumers)  // rows past T
+    reinterpret_cast<uint4*>(xs + p.T * p.xpitch)[i] = make_uint4(0u, 0u, 0u, 0u);
+  int slot = 0, cur = -1;
+  unsigned phase = 0, xphase = 0;
+  for (int u = u0; u < u1; ++u) {
+    const int s = u / p.nrb, rb = u - s * p.nrb;
+    const int k0 = s * p.ksl, k1 = min(p.I, k0 + p.ksl);
+    if (s != cur) {  // a new slice of x: every warp is done with the old one
+      consumer_sync();
+      stage_x<NF>(p, xs, rstd, k0, k1, ct, xbar, xphase);
+      consumer_sync();
+      cur = s;
+    }
+    float acc[NF][4], accu[NF][4];
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = accu[n][i] = 0.f;
+    const int wb = warp % p.wpg;  // the warp's box within its group's share of a stage
+    for (int k = k0; k < k1; k += kBoxCols * p.wpg) {
+      const int nb = min(p.wpg, (k1 - k + kBoxCols - 1) / kBoxCols);
+      mbar_wait(&full[slot], phase);
+      if (wb < nb)
+        products<NF, PAIR>(ring + slot * p.stage + (PAIR ? 2 : 1) * warp * kBoxBytes,
+                           smem_u32(xs) + g * p.xpitch + 8 * q + 2 * (k - k0 + wb * kBoxCols),
+                           p.xpitch, g, acc, accu);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      if (++slot == p.depth) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    // the warp's part to the finishers: acc[n][2h + c] is row g + 8h, x row
+    // 8n + 2q + c, once they have read the previous unit's
+    if (u > u0) mbar_wait(&hd.free, (u - u0 - 1) & 1);
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int at = ((warp * TP) + 8 * n + 2 * q + (i & 1)) * kRows + g + 8 * (i >> 1);
+        red[at] = acc[n][i];
+        if (PAIR) red[kWarps * NOUT + at] = accu[n][i];
+      }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&hd.full);
+  }
+}
+
+template <int NF, bool PAIR>
+__global__ void __launch_bounds__(kThreads, 1)
+    rowq_tc_kernel(const __grid_constant__ CUtensorMap mw, const Phase p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxDepth], empty[kMaxDepth], xbar;
+  __shared__ __align__(8) Hand hd;
+  __shared__ float rstd[32];
+  const uint32_t raw = smem_u32(smem_raw), ring = (raw + 1023) & ~1023u;
+  unsigned char* base = smem_raw + (ring - raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < p.depth; ++d) {
+      mbar_init(&full[d]);            // the producer's expect_tx
+      mbar_init(&empty[d], kWarps);   // one arrive a consumer warp
+    }
+    mbar_init(&xbar);  // a staged x slice's bulk copies
+    mbar_init(&hd.full, kWarps);  // a unit's parts written by every consumer warp
+    mbar_init(&hd.free);          // and read by the finishers
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int u0 = static_cast<int>(static_cast<long>(blockIdx.x) * p.units / p.ctas);
+  const int u1 = static_cast<int>(static_cast<long>(blockIdx.x + 1) * p.units / p.ctas);
+  if (warp == kWarps) {
+    produce<PAIR>(p, &mw, ring, full, empty, lane, u0, u1);
+    return;
+  }
+  if (warp > kWarps) {
+    finish<NF, PAIR>(p, hd, reinterpret_cast<const float*>(base + p.redoff),
+                     threadIdx.x - kConsumers - 32, u0, u1);
+    return;
+  }
+  consume<NF, PAIR>(p, ring, base, rstd, hd, full, empty, &xbar, warp, lane, u0, u1);
+}
+
+// int8 weights [rows, cols] as [16 rows, 128 bytes] boxes, the 128-byte
+// swizzle, zeros outside.
+inline int make_map(CUtensorMap* map, const void* w, long rows, int cols) {
+  const EncodeTiled f = encode_tiled();
+  if (f == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {kBoxCols, kRows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = f(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides,
+                       box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int NF, bool PAIR>
+int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st) {
+  constexpr int TP = 8 * NF;
+  p.stage = (PAIR ? 2 : 1) * kWarps * kBoxBytes;
+  p.xpitch = 2 * p.ksl + 32;  // 32 or 96 mod 128 bytes: a fragment's 8 rows in distinct banks
+  const int xbytes = TP * p.xpitch, red = (PAIR ? 2 : 1) * kWarps * kRows * TP * 4;
+  p.depth = min(kMaxDepth, (kDynSmem - 1024 - xbytes - red) / p.stage);
+  if (p.depth < 2) return static_cast<int>(cudaErrorInvalidValue);
+  p.xoff = p.depth * p.stage;
+  p.redoff = p.xoff + xbytes;
+  const size_t smem = 1024 + static_cast<size_t>(p.redoff) + red;
+  CUtensorMap mw;
+  int e = make_map(&mw, w, wrows, p.I);
+  if (e) return e;
+  // set at every launch: a function-local static here would be one symbol
+  // for every library that includes this header
+  const cudaError_t ce = lt_allow_smem(rowq_tc_kernel<NF, PAIR>, smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, rowq_tc_kernel<NF, PAIR>, mw, p));
+}
+
+// One phase: its plan (splits, ksl, ctas) from ops/ffn_fused.py plan_tc,
+// checked here too; w [wrows, I] int8, 16-byte aligned; x 16-byte aligned.
+template <bool PAIR>
+int launch(Phase p, const void* w, long wrows, cudaStream_t st) {
+  if (p.g < 1 || p.g > kMaxGroups || kWarps % p.g) return static_cast<int>(cudaErrorInvalidValue);
+  p.wpg = kWarps / p.g;
+  p.rows = p.g * kRows;
+  p.nrb = (p.O + p.rows - 1) / p.rows;
+  p.units = p.nrb * p.splits;
+  if (p.T < 1 || p.T > 32 || p.I % 16 || p.ksl < kBoxCols || p.ksl % kBoxCols || p.splits < 1 ||
+      static_cast<long>(p.splits) * p.ksl < p.I || (p.splits - 1) * p.ksl >= p.I ||
+      p.ctas < 1 || p.ctas > p.units ||
+      (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(p.x)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((p.T + 7) / 8) {
+    case 1: return launch_nf<1, PAIR>(p, w, wrows, st);
+    case 2: return launch_nf<2, PAIR>(p, w, wrows, st);
+    case 3: return launch_nf<3, PAIR>(p, w, wrows, st);
+    default: return launch_nf<4, PAIR>(p, w, wrows, st);
+  }
+}
+
+}  // namespace rtc

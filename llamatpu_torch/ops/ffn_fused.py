@@ -19,21 +19,30 @@ a TPU core's VMEM. The port has no VMEM; it keeps the rules so that it
 takes the same kernel as the JAX package at every shape (ops/layer_fused.py
 reads `_VMEM_BUDGET` from here at each call, so a test can lower it).
 
+It also holds the plan of csrc/rowq_tc.cuh, the tensor-core template that
+runs K20's and K9's bf16 phases (`plan_tc`, `TcPlan`: 16-row output blocks
+times contraction slices, spread over persistent CTAs, the slices' sums
+added in order), and the rule that routes a K9 call there or to gemv.cuh
+(`tc_route`; K20 takes bf16 only at widths the rule admits).
+
 CUDA source: csrc/ffn_fused.cu (design and bound in its header note). A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from llamatpu_torch import _build
 from llamatpu_torch.models.weights import QTensor
+from llamatpu_torch.ops.gemm import _sm_count
 from llamatpu_torch.ops.quant_matmul import _dot_dtype
 
 _MAX_T = 32          # decode / small-batch rows; prefill takes the int8 GEMM
 _BLOCK_BYTES = 2.4 * 1024 * 1024
 _VMEM_BUDGET = 12 * 1024 * 1024
-W2_SPLITS = (4, 2, 1)  # K20's w2 phase: contraction splits tried, widest first
 
 
 def _pick_to(o: int, i: int) -> int:
@@ -102,10 +111,189 @@ def ffn_fused_plain(w13: QTensor, w2: QTensor, x: torch.Tensor, li: int):
     return y.reshape(x.shape).to(x.dtype)
 
 
-def w2_split(f: int) -> int:
-    """K20's bf16 w2 phase splits its contraction F into this many slices of
-    a multiple of 64 columns (more blocks on the card at D = 5120)."""
-    return next(s for s in W2_SPLITS if f % (64 * s) == 0)
+# ------------------------------------------- csrc/rowq_tc.cuh's plan and route
+TC_ROWS = 16             # rows of a group (w13: 16 gate rows and their 16 up rows)
+TC_BOX = 128             # contraction columns of a TMA box
+TC_GROUPS = (1, 2, 4)    # 16-row groups a unit: 8, 4 or 2 consumer warps a group split K
+TC_DYN_SMEM = 232448 - 1024 - 1024  # a CTA's dynamic shared memory, less the ring's alignment
+TC_RING_MIN = 3          # ring stages kept beside the x slice
+TC_UNIT_BYTES = 32 * 1024  # a unit's fixed cost (parts, sums, scratch), in weight bytes
+TC_SPLITS_TRIED = 8      # slice counts tried past the fewest that fit
+
+
+def tc_route(dtype: torch.dtype, *widths: int) -> bool:
+    """Whether a call may run on csrc/rowq_tc.cuh: bf16 activations (the
+    tensor cores give no f32 products) and every contraction width a
+    multiple of 16 (TMA needs row strides of 16-byte multiples). Otherwise
+    K9 takes gemv.cuh's tiled GEMV; K20 takes it for f32 and raises for
+    bf16."""
+    return dtype == torch.bfloat16 and all(w % 16 == 0 for w in widths)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tc_x_bytes(tp: int, pair: bool) -> int:
+    """Shared memory for a CTA's bf16 x slice: what csrc/rowq_tc.cuh's
+    `launch_nf` leaves beside the warps' parts and TC_RING_MIN ring stages."""
+    nh = 2 if pair else 1
+    return TC_DYN_SMEM - nh * 8 * TC_ROWS * tp * 4 - TC_RING_MIN * nh * 8 * TC_ROWS * TC_BOX
+
+
+@dataclass(frozen=True)
+class TcPlan:
+    """The walk of one rowq_tc.cuh phase: t activation rows against o output
+    rows (pair: o gate rows, each with its up row) over a contraction of i
+    columns. Unit u is row block u % nrb (16 g rows: g groups of 16, each
+    taken by 8 / g consumer warps splitting the columns) over contraction
+    slice u // nrb (ksl columns, the last one shorter); CTA c takes the
+    contiguous units [c U / ctas, (c + 1) U / ctas). With more than one slice,
+    each unit's sums go to scratch and a block's slices are added in slice
+    order 0, 1, ... by the CTA that stores its last one."""
+    t: int
+    o: int
+    i: int
+    pair: bool
+    g: int
+    splits: int
+    ksl: int
+    ctas: int
+
+    @property
+    def tp(self) -> int:  # activation rows as the mma's B fragments (8 a fragment)
+        return _ceil(self.t, 8) * 8
+
+    @property
+    def rows(self) -> int:
+        return self.g * TC_ROWS
+
+    @property
+    def nrb(self) -> int:
+        return _ceil(self.o, self.rows)
+
+    @property
+    def units(self) -> int:
+        return self.nrb * self.splits
+
+    def unit(self, u: int) -> tuple[int, int, int, int]:
+        """(first output row, end output row, first column, end column) of unit u."""
+        s, rb = divmod(u, self.nrb)
+        return (rb * self.rows, min(self.o, (rb + 1) * self.rows), s * self.ksl,
+                min(self.i, (s + 1) * self.ksl))
+
+    def units_of(self, c: int) -> range:
+        return range(c * self.units // self.ctas, (c + 1) * self.units // self.ctas)
+
+    @property
+    def order(self) -> range:
+        """The slices, in the order their sums are added."""
+        return range(self.splits)
+
+    @property
+    def partial_floats(self) -> int:
+        """f32 scratch for the slices' sums (none with one slice)."""
+        return 0 if self.splits == 1 else self.units * self.rows * self.tp * (2 if self.pair else 1)
+
+    @property
+    def args(self) -> tuple[int, int, int, int]:
+        """(g, splits, ksl, ctas), as the C entry points take them."""
+        return self.g, self.splits, self.ksl, self.ctas
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132) -> TcPlan:
+    """The row groups, slices and CTAs of one phase. For each g of TC_GROUPS
+    and each slice count from the fewest whose bf16 x slice (tp rows of 2 ksl
+    + 32 bytes) fits `tc_x_bytes` to TC_SPLITS_TRIED more, the busiest CTA's
+    cost: ceil(units / SMs) units of their weight bytes plus TC_UNIT_BYTES.
+    The cheapest wins, the fewest units on a tie; one CTA an SM, or one a
+    unit. Cached: a decode step asks for the same few plans every layer."""
+    tp = _ceil(t, 8) * 8
+    budget = tc_x_bytes(tp, pair)
+
+    def ksl_of(s):
+        return _ceil(_ceil(i, s), TC_BOX) * TC_BOX
+    s0 = 1
+    while tp * (2 * ksl_of(s0) + 32) > budget:
+        s0 += 1
+    best = None
+    for g in TC_GROUPS:
+        nrb = _ceil(o, g * TC_ROWS)
+        for s in range(s0, s0 + TC_SPLITS_TRIED + 1):
+            ksl = ksl_of(s)
+            splits = _ceil(i, ksl)
+            units = nrb * splits
+            unit_bytes = g * TC_ROWS * ksl * (2 if pair else 1)
+            key = (_ceil(units, sm_count) * (unit_bytes + TC_UNIT_BYTES), units)
+            if best is None or key < best[0]:
+                best = (key, TcPlan(t, o, i, pair, g, splits, ksl, min(units, sm_count)))
+    return best[1]
+
+
+TC_COUNTER_STRIDE = 32   # ints between two row blocks' counters: one 128-byte line each
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def tc_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The slice counters of n row blocks of rowq_tc.cuh on dev, one a 128-byte
+    line: zero before a launch and after it (the CTA that completes a block
+    resets its counter), so one buffer serves every call on the device's
+    stream in turn."""
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n * TC_COUNTER_STRIDE:
+        c = _COUNTERS[dev] = torch.zeros(max(n, 2048) * TC_COUNTER_STRIDE, dtype=torch.int32,
+                                         device=dev)
+    return c
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it whose first element is 16-byte aligned (TMA and
+    16-byte vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ffn_launch(x2, qs13, s13, qs2, s2, lib=None, sms=None):
+    """The checks, then one call of csrc/ffn_fused.cu `lt_ffn_fused` (or of
+    `lib`, a library with the same entry point) on x2 [t, d]: bf16 x on
+    rowq_tc.cuh with the plan of both phases, f32 x on gemv.cuh. Returns out
+    [t, d] f32."""
+    t, d = x2.shape
+    f = qs2.shape[1]
+    _build.require(1 <= t <= _MAX_T and tuple(qs13.shape) == (2 * f, d)
+                   and tuple(qs2.shape) == (d, f) and tuple(s13.shape) == (2 * f,)
+                   and tuple(s2.shape) == (d,) and d % 4 == 0 and f % 4 == 0,
+                   "ffn_fused_rowq: x [T <= 32, D], w13 [2F, D], w2 [D, F], D and F % 4 == 0")
+    # every shape `ffn_fits` admits has D and F multiples of 128 (`_pick_to`)
+    _build.require(x2.dtype == torch.float32 or tc_route(x2.dtype, d, f),
+                   "ffn_fused_rowq: x f32, or bf16 with D and F % 16 == 0")
+    _build.require(all(a.is_contiguous() for a in (qs13, s13, qs2, s2))
+                   and qs13.device == qs2.device == x2.device
+                   and qs13.data_ptr() % 16 == 0 and qs2.data_ptr() % 16 == 0,
+                   "ffn_fused_rowq: contiguous, 16-byte aligned weights on x's device")
+    x2 = aligned16(x2)
+    dev = x2.device
+    out = torch.empty((t, d), dtype=torch.float32, device=dev)
+    if x2.dtype == torch.bfloat16:
+        sms = sms or _sm_count(dev.index or 0)
+        p13, p2 = plan_tc(t, f, d, True, sms), plan_tc(t, d, f, False, sms)
+        act = torch.empty((t, f), dtype=torch.bfloat16, device=dev)
+        partial = torch.empty(max(1, p13.partial_floats, p2.partial_floats),
+                              dtype=torch.float32, device=dev)
+        counters = tc_counters(dev, max(p13.nrb, p2.nrb))
+        plan = (*p13.args, *p2.args)
+    else:
+        act = torch.empty((t, f), dtype=torch.float32, device=dev)
+        partial = counters = None
+        plan = (0,) * 8
+    lib = lib or _build.load("ffn_fused")
+    err = lib.lt_ffn_fused(x2.data_ptr(), _build.dtype_code(x2), qs13.data_ptr(),
+                           s13.data_ptr(), qs2.data_ptr(), s2.data_ptr(), act.data_ptr(),
+                           None if partial is None else partial.data_ptr(),
+                           None if counters is None else counters.data_ptr(), out.data_ptr(),
+                           t, d, f, *plan, _build.stream())
+    _build.check(lib, err, "ffn_fused_rowq")
+    return out
 
 
 def ffn_fused_rowq(w13: QTensor, w2: QTensor, x: torch.Tensor, li: int):
@@ -119,27 +307,7 @@ def ffn_fused_rowq(w13: QTensor, w2: QTensor, x: torch.Tensor, li: int):
         return None
     qs13, s13 = w13.qs[li], w13.scales[li][:, 0]
     qs2, s2 = w2.qs[li], w2.scales[li][:, 0]
-    d, f = x.shape[-1], qs2.shape[1]
-    x2 = x.reshape(t, d).contiguous()
-    dot = _dot_dtype(x)
-    _build.require(all(a.is_contiguous() for a in (qs13, s13, qs2, s2))
-                   and qs13.device == qs2.device == x.device
-                   and qs13.data_ptr() % 16 == 0 and qs2.data_ptr() % 16 == 0
-                   and x2.data_ptr() % 16 == 0,
-                   "ffn_fused_rowq: contiguous, 16-byte aligned weights on x's device")
-    tp = -(-t // 8) * 8
-    dev = x.device
-    split = w2_split(f)
-    act = torch.empty((tp, f), dtype=dot, device=dev)
-    partial = (torch.empty((split, tp, d), dtype=torch.float32, device=dev)
-               if dot == torch.bfloat16 else None)
-    out = torch.empty((t, d), dtype=torch.float32, device=dev)
-    lib = _build.load("ffn_fused")
-    err = lib.lt_ffn_fused(x2.data_ptr(), _build.dtype_code(x2), qs13.data_ptr(),
-                           s13.data_ptr(), qs2.data_ptr(), s2.data_ptr(), act.data_ptr(),
-                           None if partial is None else partial.data_ptr(), out.data_ptr(),
-                           t, d, f, split, _build.stream())
-    _build.check(lib, err, "ffn_fused_rowq")
+    out = _ffn_launch(x.reshape(t, x.shape[-1]).contiguous(), qs13, s13, qs2, s2)
     ffn_fused_rowq.launches += 1
     return out.reshape(x.shape).to(x.dtype)
 

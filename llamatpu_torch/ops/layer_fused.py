@@ -23,9 +23,11 @@ K2 takes any number of rows; the forward calls it for B * T <= 32 rows where
 rules, its VMEM fits included (the fits section below).
 
 The working ("dot") dtype is f32 for f32 activations, else bf16. CUDA source:
-csrc/layer_fused.cu (design and bound in its header note). Each entry point
-has its plain torch version here; a CPU tensor takes it, a CUDA tensor
-launches the kernel or raises.
+csrc/layer_fused.cu (design and bound in its header note); K9's bf16 phases
+run csrc/rowq_tc.cuh's tensor-core template on ops/ffn_fused.py `plan_tc`'s
+plans where `ffn_fused.tc_route` takes the call. Each entry point has its
+plain torch version here; a CPU tensor takes it, a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from llamatpu_torch import _build
 from llamatpu_torch.models.weights import QTensor
 from llamatpu_torch.ops import ffn_fused
 from llamatpu_torch.ops.ffn_fused import _MAX_T, _pick_to
+from llamatpu_torch.ops.gemm import _sm_count
 from llamatpu_torch.ops.rmsnorm import rmsnorm
 
 
@@ -390,27 +393,69 @@ def layer_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torc
     t = None if parts is None else _tail_rows(attn, x, parts)
     if t is None:
         return None
+    d = x.shape[-1]
+    out = _tail_launch(parts, ffn_norm[li], attn.reshape(t, -1).to(x.dtype).contiguous(),
+                       x.reshape(t, d).contiguous(), eps, residual_scale)
+    layer_tail_fused_rowq.launches += 1
+    return out.reshape(x.shape)
+
+
+def _tail_scratch(t: int, d: int, f: int, plans, dev):
+    """rowq_tc.cuh's scratch for K9's three phases: act [t, F] bf16, the sums
+    of squares of x2 a 16-row block [t, D / 16], every split phase's slice
+    sums, and the row blocks' counters."""
+    act = torch.empty((t, f), dtype=torch.bfloat16, device=dev)
+    ssp = torch.empty((t, -(-d // ffn_fused.TC_ROWS)), dtype=torch.float32, device=dev)
+    partial = torch.empty(max(1, *(p.partial_floats for p in plans)), dtype=torch.float32,
+                          device=dev)
+    return act, ssp, partial, ffn_fused.tc_counters(dev, max(p.nrb for p in plans))
+
+
+def _tail_launch(parts, nw, a2, x2in, eps: float, residual_scale: float, lib=None, sms=None):
+    """The checks, then one call of csrc/layer_fused.cu `lt_tail` (or of
+    `lib`, a library with the same entry point) for a2 [t, H] and x2in [t, D]
+    in x's dtype: rowq_tc.cuh's three phases with their plans where
+    `ffn_fused.tc_route` takes the call, gemv.cuh's otherwise. Returns the
+    new x [t, D]."""
     (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
     d, hdim = wo_q.shape
     f = w2_q.shape[1]
-    a2 = attn.reshape(t, hdim).to(x.dtype).contiguous()
-    x2in = x.reshape(t, d).contiguous()
+    t = x2in.shape[0]
+    _build.require(1 <= t <= _MAX_T and tuple(x2in.shape) == (t, d)
+                   and tuple(a2.shape) == (t, hdim) and tuple(w13_q.shape) == (2 * f, d)
+                   and tuple(w2_q.shape) == (d, f) and so.numel() == d
+                   and s13.numel() == 2 * f and s2.numel() == d,
+                   "layer_tail_fused_rowq: attn [T <= 32, H], x [T, D], wo [D, H], "
+                   "w13 [2F, D], w2 [D, F]")
     _build.require(all(w.is_contiguous() for w in (wo_q, w13_q, w2_q, so, s13, s2))
-                   and min(d, hdim, f) % 4 == 0 and a2.device == x.device == wo_q.device,
-                   "layer_tail_fused_rowq: contiguous weights on x's device, widths % 4 == 0")
-    nw = ffn_norm[li].float().contiguous()
-    x2 = torch.empty((t, d), dtype=torch.float32, device=x.device)
-    act = torch.empty((t, f), dtype=torch.float32, device=x.device)
+                   and min(d, hdim, f) % 4 == 0 and a2.device == x2in.device == wo_q.device
+                   and all(w.data_ptr() % 16 == 0 for w in (wo_q, w13_q, w2_q)),
+                   "layer_tail_fused_rowq: contiguous, 16-byte aligned weights on x's device, "
+                   "widths % 4 == 0")
+    dev = x2in.device
+    a2, x2in = ffn_fused.aligned16(a2), ffn_fused.aligned16(x2in)
+    nw = ffn_fused.aligned16(nw.float().contiguous())
+    x2 = torch.empty((t, d), dtype=torch.float32, device=dev)
     out = torch.empty_like(x2in)
-    lib = _build.load("layer_fused")
+    if ffn_fused.tc_route(x2in.dtype, d, hdim, f):
+        sms = sms or _sm_count(dev.index or 0)
+        plans = (ffn_fused.plan_tc(t, d, hdim, False, sms), ffn_fused.plan_tc(t, f, d, True, sms),
+                 ffn_fused.plan_tc(t, d, f, False, sms))
+        act, ssp, partial, counters = _tail_scratch(t, d, f, plans, dev)
+        plan = tuple(v for p in plans for v in p.args)
+    else:
+        act = torch.empty((t, f), dtype=torch.float32, device=dev)
+        ssp = partial = counters = None
+        plan = (0,) * 12
+    lib = lib or _build.load("layer_fused")
+    ptr = [None if a is None else a.data_ptr() for a in (ssp, partial, counters)]
     err = lib.lt_tail(a2.data_ptr(), _build.dtype_code(x2in), x2in.data_ptr(), nw.data_ptr(),
                       float(eps), float(residual_scale), wo_q.data_ptr(), so.data_ptr(),
                       w13_q.data_ptr(), s13.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
-                      x2.data_ptr(), act.data_ptr(), out.data_ptr(), t, d, hdim, f,
-                      _build.DTYPE_CODES[_dot_dtype(x)], _build.stream())
+                      x2.data_ptr(), act.data_ptr(), *ptr, out.data_ptr(), t, d, hdim, f,
+                      _build.DTYPE_CODES[_dot_dtype(x2in)], *plan, _build.stream())
     _build.check(lib, err, "layer_tail_fused_rowq")
-    layer_tail_fused_rowq.launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 layer_tail_fused_rowq.launches = 0

@@ -15,8 +15,11 @@ It runs every phase, needs one card, and exits non-zero
             llama32-1b (K1-K9; K4 and K17 at every prefill projection the
             paths give them: llama32-1b's four at T = 512 and 128,
             Phi-3-medium's four at T = 128 and a ragged T = 200, O = 2560, I =
-            2064, each logged with its CTAs and shared tiles; K2 also at 8
-            and 32 rows, K5 at T = 8, K6 at 8
+            2064, each logged with its CTAs and shared tiles; K1 on the
+            head also at 8 and 32 rows (T = 1 also on gemv.cuh's
+            gemv_kernel<1>), K1 and K2's edges (check_rowq_edges: bf16 and
+            f32, O = 1000 and 300, I = 2048 and 200, T = 1-127, two runs
+            bit-equal); K2 also at 8 and 32 rows, K5 at T = 8, K6 at 8
             lanes, K8 at 8 lanes of a shuffled block pool, K9 at 1, 8 and 32
             rows; K6 and K6-int8's edges (check_dense_edges: f32, bf16 and
             int8 at the Llama, Qwen1.5-MoE and Phi-3-medium geometries,
@@ -42,8 +45,9 @@ It runs every phase, needs one card, and exits non-zero
             both weight kinds: GEMV_Q8_EDGES, also NB = 16 to I and two
             runs bit-equal); slice 7's: K20 at
             Phi-3-medium widths, T = 17 and 24 in bf16, and at Qwen2.5-14B
-            widths, T = 32 in f32, with K9 (T = 1, 8, 16) and K2 (1, 8, 24
-            rows) at Phi-3-medium widths; times from CUDA events and
+            widths, T = 32 in f32, with K9 (T = 1, 8, 16), K2 (1, 8, 24, 32
+            rows) and K1 (wo, w13, w2 at 24 and 32 rows) at Phi-3-medium
+            widths; times from CUDA events and
             torch.profiler (kernel,
             plain version, one-call library yardstick) beside the bound
             from the published H100 SXM peaks.
@@ -277,82 +281,136 @@ PHI3_MEDIUM = dict(L=3, D=5120, F=17920, KV=10, G=4, HD=128, V=32064)
 PHI3_OVERRIDES = dict(dim=5120, hidden_dim=17920, n_layers=40, n_heads=40, n_kv_heads=10,
                       head_dim=128, vocab_size=32064, context_length=4096)
 QWEN25_14B = dict(L=2, D=5120, F=13824)  # Qwen2.5-14B's FFN widths (f32 rows take K20 there)
-TAIL_TC = ("rowq_tc_kernel",)  # K9's and K20's bf16 phases: csrc/rowq_tc.cuh's template
+# csrc/rowq_tc.cuh's template runs the bf16 GEMV phases of K1, K2, K9 and K20;
+# its last template argument names the caller in the symbol
+# (`rtc::rowq_tc_kernel<NF, PAIR, rtc::K9>`), so a trace tells them apart
+# (the GEMV `rowq_tc_kernel` and a split contraction's `rowq_tc_reduce`)
+K1_NAMES = ("rtc::K1>",)  # K1's passes (bf16)
+K2_TC = ("qkv_rmsnorm_kernel", "rtc::K2>")  # K2's norm phase and GEMV phases (bf16)
+K9_TC = ("rtc::K9>",)
+K20_TC = ("rtc::K20>",)
 
 
-def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
+def check_k1(dev, gen, dims=LLAMA32_1B) -> dict:
+    """K1 on the vocab head at T = 1, 8 and 32 bf16 rows against its plain
+    version (within 1e-5 of the largest output, two runs bit-equal), timed
+    beside its bound and bf16 torch.matmul, T = 1 also on gemv.cuh's
+    gemv_kernel<1> (the route kept there if the template is more than 5 %
+    slower); then its edges (`check_rowq_edges`)."""
     import torch
 
-    from llamatpu_torch.ops import gemm, layer_fused, quant_matmul
+    from llamatpu_torch.ops import quant_matmul
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    L, D, F, KV, G, HD, S, V, T = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD", "S", "V", "T"))
-    rows = []
-
-    # ---- K1: vocab head, T = 1
-    x = torch.randn((1, D), device=dev, generator=gen).to(torch.bfloat16)
+    D, V = dims["D"], dims["V"]
     qs = torch.randint(-127, 128, (V, D), dtype=torch.int8, device=dev, generator=gen)
-    got, want = quant_matmul.rowq_gemv(x, qs), quant_matmul.rowq_gemv_plain(x, qs)
-    torch.cuda.synchronize()
-    abs_e, rel_e = max_err(got, want)
-    assert rel_e <= 1e-5, f"K1 disagrees: max abs {abs_e} rel {rel_e}"  # f32 sums, other order
     w_bf = qs.to(torch.bfloat16)
-    b_ms, b_by = bound(V * D + D * 2 + V * 4, 2 * V * D, BF16_OPS_S)
-    rows.append(dict(
+    per = {}
+    for t in (1, 8, 32):
+        x = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        got, want = quant_matmul.rowq_gemv(x, qs), quant_matmul.rowq_gemv_plain(x, qs)
+        again = quant_matmul.rowq_gemv(x, qs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"K1 head T={t}: two runs differ"
+        abs_e, rel_e = max_err(got, want)
+        assert rel_e <= 1e-5, f"K1 disagrees at T={t}: max abs {abs_e} rel {rel_e}"  # f32 sums
+        b_ms, b_by = bound(V * D + t * D * 2 + t * V * 4, 2 * t * V * D, BF16_OPS_S)
+        per[t] = dict(max_abs_err=abs_e, max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
+                      **timings(lambda x=x: quant_matmul.rowq_gemv(x, qs), K1_NAMES,
+                                lambda x=x: quant_matmul.rowq_gemv_plain(x, qs),
+                                lambda x=x: torch.matmul(x, w_bf.T), iters=8, graph=True))
+        log(f"K1 head T={t}: {per[t]['ms']:.4f} ms (bound {b_ms:.4f}, library "
+            f"{per[t]['library_ms']:.4f}), rel err {rel_e:.3g}, two runs bit-equal")
+    # the 5 % rule of T = 1: gemv.cuh's gemv_kernel<1> on the same call
+    x1 = torch.randn((1, D), device=dev, generator=gen).to(torch.bfloat16)
+    per[1]["gemv_kernel_ms"] = time_ms(
+        lambda: quant_matmul._rowq_launch(x1, qs, route=("gemv", 1)), iters=8)
+    log(f"K1 head T=1 on gemv_kernel<1>: {per[1]['gemv_kernel_ms']:.4f} ms")
+    return dict(
         name="rowq_gemv", route="cuda", source="llamatpu_torch/csrc/quant_matmul.cu",
-        replaces="llamatpu/ops/pallas_matmul.py:113", max_abs_err=abs_e, max_rel_err=rel_e,
-        tolerance="rel <= 1e-5 of max|plain|",
-        **timings(lambda: quant_matmul.rowq_gemv(x, qs), GEMV,
-                  lambda: quant_matmul.rowq_gemv_plain(x, qs),
-                  lambda: torch.matmul(x, w_bf.T)),
-        library="bf16 torch.matmul", bound_ms=b_ms, bound_by=b_by, shape=f"T=1 O={V} I={D}"))
-    del w_bf, qs
+        replaces="llamatpu/ops/pallas_matmul.py:113",
+        max_abs_err=max(r["max_abs_err"] for r in per.values()),
+        max_rel_err=max(r["max_rel_err"] for r in per.values()),
+        tolerance="rel <= 1e-5 of max|plain| (f32 sums in another order); two runs bit-equal",
+        **{k: per[1][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")},
+        library="bf16 torch.matmul", shape=f"T=1 O={V} I={D}",
+        by_rows={t: per[t] for t in (8, 32)}, t1_gemv_kernel_ms=per[1]["gemv_kernel_ms"],
+        edges=check_rowq_edges(dev))
 
-    # ---- K2: rmsnorm + wqkv, T = 1, every layer in turn (L2 stays cold)
+
+def check_k2(dev, gen, dims=LLAMA32_1B) -> dict:
+    """K2 at llama32-1b widths with 1, 8 and 32 bf16 rows against its plain
+    version (within 1e-2 of the largest output: bf16 output), two runs
+    bit-equal, every layer of a stack in turn (L2 stays cold), timed beside
+    its bound and bf16 torch.matmul."""
+    import torch
+
+    from llamatpu_torch.ops import layer_fused
+
+    L, D, KV, G, HD = (dims[k] for k in ("L", "D", "KV", "G", "HD"))
     O = (G * KV + 2 * KV) * HD
     wqkv = rand_rowq(L, O, D, dev, gen)
     norm = torch.rand((L, D), device=dev, generator=gen) + 0.5
     x = torch.randn((1, 1, D), device=dev, generator=gen).to(torch.bfloat16)
     got = layer_fused.qkv_norm_fused_rowq(wqkv, norm, x, 3 % L, 1e-5)
+    again = layer_fused.qkv_norm_fused_rowq(wqkv, norm, x, 3 % L, 1e-5)
     want = layer_fused.qkv_norm_plain(wqkv, norm, x, 3 % L, 1e-5)
     torch.cuda.synchronize()
+    assert torch.equal(got, again), "K2: two runs differ"
     abs_e, rel_e = max_err(got, want)
     assert rel_e <= 1e-2, f"K2 disagrees: max abs {abs_e} rel {rel_e}"  # bf16 output, 1-2 ulp
     li = iter(range(10**9))
     w_bf = wqkv.qs.to(torch.bfloat16)
     h = torch.randn((1, D), device=dev, generator=gen).to(torch.bfloat16)
     b_ms, b_by = bound(O * D + O * 4 + D * 2 + D * 4 + O * 2, 2 * O * D, BF16_OPS_S)
-    rows.append(dict(
+    row = dict(
         name="qkv_norm_fused_rowq", route="cuda", source="llamatpu_torch/csrc/layer_fused.cu",
         replaces="llamatpu/ops/layer_fused.py:779", max_abs_err=abs_e, max_rel_err=rel_e,
         tolerance="rel <= 1e-2 of max|plain| (bf16 output)",
         **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, norm, x, next(li) % L, 1e-5),
-                  GEMV, lambda: layer_fused.qkv_norm_plain(wqkv, norm, x, next(li) % L, 1e-5),
-                  lambda: torch.matmul(h, w_bf[next(li) % L].T)),
-        library="bf16 torch.matmul", bound_ms=b_ms, bound_by=b_by, shape=f"T=1 O={O} D={D}"))
+                  K2_TC, lambda: layer_fused.qkv_norm_plain(wqkv, norm, x, next(li) % L, 1e-5),
+                  lambda: torch.matmul(h, w_bf[next(li) % L].T), graph=True),
+        library="bf16 torch.matmul", bound_ms=b_ms, bound_by=b_by, shape=f"T=1 O={O} D={D}")
     # the B lanes of a batched decode step: 8 and 32 rows
-    rows[-1]["by_rows"] = {}
+    row["by_rows"] = {}
     for t in (8, 32):
         xt = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
         got = layer_fused.qkv_norm_fused_rowq(wqkv, norm, xt, 3 % L, 1e-5)
+        again = layer_fused.qkv_norm_fused_rowq(wqkv, norm, xt, 3 % L, 1e-5)
         want = layer_fused.qkv_norm_plain(wqkv, norm, xt, 3 % L, 1e-5)
         torch.cuda.synchronize()
+        assert torch.equal(got, again), f"K2 at {t} rows: two runs differ"
         abs_t, rel_t = max_err(got, want)
         assert rel_t <= 1e-2, f"K2 disagrees at {t} rows: max abs {abs_t} rel {rel_t}"
         ht = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
         tb_ms, _ = bound(O * D + O * 4 + t * D * 2 + D * 4 + t * O * 2, 2 * t * O * D,
                          BF16_OPS_S)
-        rows[-1]["by_rows"][t] = dict(
+        row["by_rows"][t] = dict(
             max_abs_err=abs_t, max_rel_err=rel_t, bound_ms=tb_ms,
             **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, norm, xt, next(li) % L, 1e-5),
-                      ("gemv_tiled_kernel",), lambda: layer_fused.qkv_norm_plain(wqkv, norm, xt, next(li) % L,
-                                                               1e-5),
-                      lambda: torch.matmul(ht, w_bf[next(li) % L].T)))
-        log(f"K2 at {t} rows: {rows[-1]['by_rows'][t]['ms']:.4f} ms (bound {tb_ms:.4f}), "
-            f"rel err {rel_t:.3g}")
-    del w_bf, wqkv
+                      K2_TC, lambda: layer_fused.qkv_norm_plain(wqkv, norm, xt, next(li) % L,
+                                                                1e-5),
+                      lambda: torch.matmul(ht, w_bf[next(li) % L].T), graph=True))
+        log(f"K2 at {t} rows: {row['by_rows'][t]['ms']:.4f} ms (bound {tb_ms:.4f}, library "
+            f"{row['by_rows'][t]['library_ms']:.4f}), rel err {rel_t:.3g}, two runs "
+            "bit-equal")
+    return row
 
-    # ---- K3: append + attention + wo + FFN, T = 1
+
+def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
+    import torch
+
+    from llamatpu_torch.ops import layer_fused
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    L, D, F, KV, G, HD, S, V, T = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD", "S", "V", "T"))
+    rows = []
+
+    rows.append(check_k1(dev, gen, dims))
+    rows.append(check_k2(dev, gen, dims))
+    li = iter(range(10**9))  # every layer of a stack in turn (L2 stays cold)
+
+    # ---- K3: append + attention + wo + FFN, T = 1 (gemv.cuh's gemv_kernel phases)
     hdim = KV * G * HD
     wo, w13, w2 = rand_rowq(L, D, hdim, dev, gen), rand_rowq(L, 2 * F, D, dev, gen), \
         rand_rowq(L, D, F, dev, gen)
@@ -412,6 +470,59 @@ def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
         log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"plain {r['plain_ms']:.4f}, library {r['library_ms']}) err {r['max_abs_err']:.3g}")
     return rows
+
+
+# K1's and K2's edges: (T, O, I) with O not a multiple of any row block, a
+# split contraction, T at every fragment edge and, for K1, the passes of a
+# short prefill chunk; a width that is not a multiple of 16 (gemv.cuh's route)
+ROWQ_EDGES = {"K1": [(t, 1000, 2048) for t in (1, 9, 31, 32, 33, 127)]
+              + [(t, 300, 200) for t in (1, 9, 31, 33)],
+              "K2": [(t, 1000, 2048) for t in (1, 9, 31, 32)] + [(t, 300, 200) for t in (1, 9, 31)]}
+
+
+def check_rowq_edges(dev) -> dict:
+    """K1 and K2 at ROWQ_EDGES against their plain versions: K1 in bf16 and
+    f32 within 1e-5 of the largest plain output (exact products, f32 sums
+    in another order), K2 in bf16 within 1e-2 (bf16 output) and f32 within
+    1e-5; two runs bit-equal. Returns the worst relative error per kernel,
+    dtype and route."""
+    import torch
+
+    from llamatpu_torch.ops import ffn_fused, layer_fused, quant_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    worst = {}
+    for t, o, i in ROWQ_EDGES["K1"]:
+        qs = torch.randint(-127, 128, (2, o, i), dtype=torch.int8, device=dev, generator=gen)
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((t, i), device=dev, generator=gen).to(dt)
+            got, again = quant_matmul.rowq_gemv(x, qs[1]), quant_matmul.rowq_gemv(x, qs[1])
+            want = quant_matmul.rowq_gemv_plain(x, qs[1])
+            torch.cuda.synchronize()
+            route = quant_matmul.rowq_route(t, i, dt)[0]
+            assert torch.equal(got, again), f"K1 T={t} O={o} I={i} {dt}: two runs differ"
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= 1e-5, f"K1 T={t} O={o} I={i} {dt} ({route}): {abs_e} {rel_e}"
+            key = f"K1 {str(dt)[6:]} {route}"
+            worst[key] = max(worst.get(key, 0.0), rel_e)
+    for t, o, d in ROWQ_EDGES["K2"]:
+        wqkv = rand_rowq(2, o, d, dev, gen)
+        nw = torch.rand((2, d), device=dev, generator=gen) + 0.5
+        for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            x = torch.randn((t, 1, d), device=dev, generator=gen).to(dt)
+            got = layer_fused.qkv_norm_fused_rowq(wqkv, nw, x, 1, 1e-5)
+            again = layer_fused.qkv_norm_fused_rowq(wqkv, nw, x, 1, 1e-5)
+            want = layer_fused.qkv_norm_plain(wqkv, nw, x, 1, 1e-5)
+            torch.cuda.synchronize()
+            route = "tc" if ffn_fused.tc_route(dt, d) else "tiled"
+            assert got.dtype == dt and got.shape == (t, 1, o)
+            assert torch.equal(got, again), f"K2 T={t} O={o} D={d} {dt}: two runs differ"
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= tol, f"K2 T={t} O={o} D={d} {dt} ({route}): {abs_e} {rel_e}"
+            key = f"K2 {str(dt)[6:]} {route}"
+            worst[key] = max(worst.get(key, 0.0), rel_e)
+    log(f"K1 and K2 edges {ROWQ_EDGES}: worst rel {worst}, two runs bit-equal")
+    return worst
 
 
 # K5 / K7 per decode token at llama32-1b: 16 layers x (wqkv, wo, w13, w2) + the head
@@ -1062,7 +1173,7 @@ def check_tail(dev, dims=LLAMA32_1B) -> dict:
         per[t] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
             lambda: layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, next(li) % L,
                                                       1e-5),
-            TAIL_TC,
+            K9_TC,
             lambda: layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
             None, graph=True))
         log(f"K9 T={t}: {per[t]['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
@@ -1877,8 +1988,8 @@ def device_breakdown(fn) -> dict:
 # layer's four projections; K5's and K7's rows are one decode token (16 layers
 # x 4 projections + the head: 65 calls; K7's path has 4 layers, 17 calls).
 IN_PATH = {
-    "rowq_gemv": ("main", "decode16_trace", ("gemv_kernel<1, 0, 0>",), 1),
-    "qkv_norm_fused_rowq": ("main", "decode16_trace", ("gemv_kernel<1, 1, 1>",), 1),
+    "rowq_gemv": ("main", "decode16_trace", K1_NAMES, 1),
+    "qkv_norm_fused_rowq": ("main", "decode16_trace", K2_TC, 1),
     "layer_attn_tail_fused_rowq": ("main", "decode16_trace", (
         "attn_append_kernel", "gemv_kernel<1, 0, 2>", "gemv_kernel<1, 1, 4>",
         "gemv_kernel<1, 0, 3>"), 1),
@@ -1888,10 +1999,10 @@ IN_PATH = {
     "packed4_matmul": ("pack4", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 17),
     "decode_attention_paged": ("serve", "decode16_trace", PAGED, 1),
     # K9's three phases: rowq_tc.cuh in bf16, gemv.cuh's tiled GEMV in f32
-    "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", TAIL_TC + tuple(
+    "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", K9_TC + tuple(
         f"float, {p}>" for p in ("0, 2", "1, 4", "0, 3")), 1),
     # K20 at the 24 lanes of a Phi-3-medium BatchEngine step
-    "ffn_fused_rowq": ("phi3_b24", "decode16_trace", TAIL_TC, 1),
+    "ffn_fused_rowq": ("phi3_b24", "decode16_trace", K20_TC, 1),
     # K10-K13's rows are one MoE layer of a decode token: the gate+up and the
     # down call (each path runs only its own grouped kernel)
     "grouped_block_matmul": ("moe", "decode16_trace", MOE_KERNELS, 2),
@@ -3069,8 +3180,9 @@ def check_qwen_geometry(dev, dims=QWEN15) -> dict:
                            BF16_OPS_S)
         k2[t] = dict(max_abs_err=abs_e, max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
                      **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, norm, x, 1, 1e-6),
-                               ("gemv_kernel", "gemv_tiled_kernel"),
-                               lambda: layer_fused.qkv_norm_plain(wqkv, norm, x, 1, 1e-6), None))
+                               K2_TC,
+                               lambda: layer_fused.qkv_norm_plain(wqkv, norm, x, 1, 1e-6), None,
+                               graph=True))
         log(f"K2 at O={O}, {t} rows: {k2[t]['ms']:.4f} ms (bound {b_ms:.4f}), rel err {rel_e:.3g}")
     out["qkv_norm_fused_rowq"] = dict(shape=f"O={O} D={D}", by_rows=k2)
     del wqkv
@@ -3632,8 +3744,8 @@ def run_tool_paths(dev, gguf: Path, workdir: Path) -> dict:
                        "--metrics-format", "none", "--profile-dir", str(prof)])
     trace = json.loads((prof / "trace.json").read_text())
     names = [e.get("name", "") for e in trace["traceEvents"]]
-    k1 = [n for n in names if "gemv_kernel<1, 0, 0>" in n]
-    assert k1, "cli run --profile-dir: K1's kernel (gemv_kernel<1, 0, 0>) not in the trace"
+    k1 = [n for n in names if any(k in n for k in K1_NAMES)]
+    assert k1, f"cli run --profile-dir: K1's kernel ({K1_NAMES}) not in the trace"
     out["profile"].update(trace_events=len(names), k1_events=len(k1),
                           trace_mb=(prof / "trace.json").stat().st_size / 1e6)
     log(f"cli run --profile-dir: {len(names)} trace events, {len(k1)} of K1 ({k1[0][:60]!r})")
@@ -3691,7 +3803,7 @@ def check_ffn_fused(dev, dims=PHI3_MEDIUM, wide=QWEN25_14B) -> dict:
         b_ms, b_by = bound(3 * F * D + (2 * F + D) * 4 + 2 * t * D * 2, 2 * t * 3 * F * D,
                            BF16_OPS_S)
         by_rows[t] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
-            lambda x=x: ffn_fused.ffn_fused_rowq(w13, w2, x, next(li) % L), TAIL_TC,
+            lambda x=x: ffn_fused.ffn_fused_rowq(w13, w2, x, next(li) % L), K20_TC,
             lambda x=x: ffn_fused.ffn_fused_plain(w13, w2, x, next(li) % L), library,
             graph=True))
         tm = by_rows[t]
@@ -3771,7 +3883,7 @@ def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
                            2 * t * (D * H + 3 * F * D), BF16_OPS_S)
         k9[f"timed T={t}"] = dict(bound_ms=b_ms, bound_by=b_by, max_rel_err=rel_e, **timings(
             lambda: layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, next(li) % L,
-                                                      1e-5), TAIL_TC,
+                                                      1e-5), K9_TC,
             lambda: layer_fused.layer_tail_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
             None, graph=True))
         log(f"K9 Phi-3-medium T={t}: {k9[f'timed T={t}']['ms']:.4f} ms (bound {b_ms:.4f}), "
@@ -3780,11 +3892,13 @@ def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
     wqkv = rand_rowq(L, O, D, dev, gen)
     wqkv_bf = (wqkv.qs[0].float() * wqkv.scales[0]).to(torch.bfloat16)
     k2 = {}
-    for t in (1, 8, 24):
+    for t in (1, 8, 24, 32):
         x = torch.randn((t, 1, D), device=dev, generator=gen).to(torch.bfloat16)
         got = layer_fused.qkv_norm_fused_rowq(wqkv, nw, x, 1, 1e-5)
+        again = layer_fused.qkv_norm_fused_rowq(wqkv, nw, x, 1, 1e-5)
         want = layer_fused.qkv_norm_plain(wqkv, nw, x, 1, 1e-5)
         torch.cuda.synchronize()
+        assert torch.equal(got, again), f"K2 at O={O}, {t} rows: two runs differ"
         abs_e, rel_e = max_err(got, want)
         assert rel_e <= 1e-2, f"K2 at O={O}, {t} rows: max abs {abs_e} rel {rel_e}"
         b_ms, b_by = bound(O * D + O * 4 + t * D * 2 + D * 4 + t * O * 2, 2 * t * O * D,
@@ -3794,14 +3908,15 @@ def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
                      library="bf16 torch.matmul on the dequantized weight (no norm)",
                      **timings(lambda: layer_fused.qkv_norm_fused_rowq(wqkv, nw, x,
                                                                        next(li) % L, 1e-5),
-                               ("gemv_kernel", "gemv_tiled_kernel"),
+                               K2_TC,
                                lambda: layer_fused.qkv_norm_plain(wqkv, nw, x, next(li) % L,
                                                                   1e-5),
-                               lambda xb=xb: torch.matmul(xb, wqkv_bf.T)))
+                               lambda xb=xb: torch.matmul(xb, wqkv_bf.T), graph=True))
         log(f"K2 at O={O}, {t} rows: {k2[t]['ms']:.4f} ms (bound {b_ms:.4f}, library "
             f"{k2[t]['library_ms']:.4f}), rel err {rel_e:.3g}")
     del wqkv, wqkv_bf
     torch.cuda.empty_cache()
+    k1 = check_phi3_k1(dev, gen, D, H, F)
     # the equalized q8_row conversion of a Phi-3-medium layer on the card is
     # bit-equal to the CPU's (the engines convert on their device)
     import numpy as np
@@ -3833,7 +3948,46 @@ def check_phi3_geometry(dev, dims=PHI3_MEDIUM) -> dict:
     del card, host, layers
     torch.cuda.empty_cache()
     return {"layer_tail_fused_rowq": dict(shape=f"D={D} H={H} F={F}", by_rows=k9),
-            "qkv_norm_fused_rowq": dict(shape=f"O={O} D={D}", by_rows=k2)}
+            "qkv_norm_fused_rowq": dict(shape=f"O={O} D={D}", by_rows=k2),
+            "rowq_gemv": dict(shape=f"wo [{D}, {H}], w13 [{2 * F}, {D}], w2 [{D}, {F}]",
+                              by_rows=k1)}
+
+
+def check_phi3_k1(dev, gen, D, H, F) -> dict:
+    """K1 on Phi-3-medium's wo, w13 and w2 at 24 and 32 bf16 rows (the
+    batched step's projections where the fused tails decline): within 1e-5
+    of the largest plain output, two runs bit-equal, timed over a stack's
+    layers in turn beside its bound and bf16 torch.matmul on the weight as
+    bf16 (the same raw sums)."""
+    import torch
+
+    from llamatpu_torch.ops import quant_matmul
+
+    out = {}
+    for name, (o, i, n) in (("wo", (D, H, 3)), ("w13", (2 * F, D, 2)), ("w2", (D, F, 2))):
+        qs = torch.randint(-127, 128, (n, o, i), dtype=torch.int8, device=dev, generator=gen)
+        w_bf = qs[0].to(torch.bfloat16)
+        li = iter(range(10**9))
+        for t in (24, 32):
+            x = torch.randn((t, i), device=dev, generator=gen).to(torch.bfloat16)
+            got, want = quant_matmul.rowq_gemv(x, qs[1]), quant_matmul.rowq_gemv_plain(x, qs[1])
+            again = quant_matmul.rowq_gemv(x, qs[1])
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), f"K1 {name} T={t}: two runs differ"
+            abs_e, rel_e = max_err(got, want)
+            assert rel_e <= 1e-5, f"K1 {name} [{o}, {i}] T={t}: max abs {abs_e} rel {rel_e}"
+            b_ms, b_by = bound(o * i + t * i * 2 + t * o * 4, 2 * t * o * i, BF16_OPS_S)
+            r = out[f"{name} T={t}"] = dict(
+                shape=f"[{o}, {i}]", max_abs_err=abs_e, max_rel_err=rel_e, bound_ms=b_ms,
+                bound_by=b_by, library="bf16 torch.matmul on the weight as bf16", **timings(
+                    lambda x=x: quant_matmul.rowq_gemv(x, qs[next(li) % n]), K1_NAMES,
+                    lambda x=x: quant_matmul.rowq_gemv_plain(x, qs[next(li) % n]),
+                    lambda x=x: torch.matmul(x, w_bf.T), iters=8, graph=True))
+            log(f"K1 Phi-3-medium {name} [{o}, {i}] T={t}: {r['ms']:.4f} ms (bound {b_ms:.4f}, "
+                f"library {r['library_ms']:.4f}), rel err {rel_e:.3g}, two runs bit-equal")
+        del qs, w_bf
+        torch.cuda.empty_cache()
+    return out
 
 
 def drive_batch(engine, prompts: list[list[int]], n: int, want_fn, label: str) -> dict:
@@ -3872,17 +4026,25 @@ def drive_batch(engine, prompts: list[list[int]], n: int, want_fn, label: str) -
 
 
 def tail_share(res: dict, label: str) -> None:
-    """K9's or K20's share (rowq_tc.cuh: each Phi-3 window runs one of the
-    two) of a traced decode window's device busy time, beside its idle
-    share. Both are read from `device_breakdown`'s union of intervals, so a
-    phase's wait for the phase before it is not counted twice."""
+    """The shares of a traced decode window's device busy time taken by K1,
+    K2 and K9 or K20 (each Phi-3 window runs at most one of the two), beside
+    its idle share. All are read from `device_breakdown`'s union of
+    intervals, so a phase's wait for the phase before it is not counted
+    twice."""
     tr = res["decode16_trace"]
-    ms = sum(k["ms"] for k in tr["kernels"] if any(n in k["name"] for n in TAIL_TC))
-    res["tail_tc_ms"], res["tail_tc_share"] = ms, ms / tr["busy_ms"]
-    which = "K20" if tr["launches"].get("ffn_fused_rowq") else "K9"
-    log(f"{label}: {which} (rowq_tc_kernel) {ms:.3f} of {tr['busy_ms']:.3f} ms busy "
-        f"({res['tail_tc_share']:.3f}); idle share {tr['idle_share']:.3f}; overlap counted "
-        f"once {tr['overlap_ms']:.3f} ms")
+
+    def share(names):
+        ms = sum(k["ms"] for k in tr["kernels"] if any(n in k["name"] for n in names))
+        return ms, ms / tr["busy_ms"]
+    res["tail_tc_ms"], res["tail_tc_share"] = share(K9_TC + K20_TC)
+    res["k1_ms"], res["k1_share"] = share(K1_NAMES)
+    res["k2_ms"], res["k2_share"] = share(K2_TC)
+    which = ("K20" if tr["launches"].get("ffn_fused_rowq") else
+             "K9" if tr["launches"].get("layer_tail_fused_rowq") else "no tail")
+    log(f"{label}: {which} {res['tail_tc_ms']:.3f}, K1 {res['k1_ms']:.3f}, K2 {res['k2_ms']:.3f} "
+        f"of {tr['busy_ms']:.3f} ms busy (shares {res['tail_tc_share']:.3f}, "
+        f"{res['k1_share']:.3f}, {res['k2_share']:.3f}); idle share {tr['idle_share']:.3f}; "
+        f"overlap counted once {tr['overlap_ms']:.3f} ms")
 
 
 def run_phi3_paths(dev, n_layers=None) -> dict:
@@ -3955,8 +4117,7 @@ def run_phi3_paths(dev, n_layers=None) -> dict:
             return w
         prompts = [rng.integers(0, V, int(n)).tolist() for n in rng.integers(33, 128, lanes)]
         out[label] = drive_batch(engine, prompts, 16, want, label)
-        if ffn != "two calls":
-            tail_share(out[label], label)
+        tail_share(out[label], label)
         del engine
         torch.cuda.empty_cache()
     del served

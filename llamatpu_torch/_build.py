@@ -36,20 +36,19 @@ _F = ctypes.c_float
 # argtypes of every exported function, by library
 _SIGNATURES = {
     "quant_matmul": {
-        "lt_rowq_gemv": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+        "lt_rowq_gemv": (_P, _I, _P, _P, _P, *(_I,) * 9, _P),
     },
     "layer_fused": {
-        "lt_qkv_norm": (_P, _I, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P),
+        "lt_qkv_norm": (_P, _I, _P, _F, _P, _P, _P, _P, _P, *(_I,) * 8, _P),
         "lt_attn_tail": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P),
-        "lt_tail": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    *(_I,) * 17, _P),
+        "lt_tail": (_P, _I, _P, _P, _F, _F, *(_P,) * 11, *(_I,) * 17, _P),
         "lt_tail_kt": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _I, _I, _I, _P),
     },
     "ffn_fused": {
-        "lt_ffn_fused": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, *(_I,) * 11, _P),
+        "lt_ffn_fused": (_P, _I, *(_P,) * 7, *(_I,) * 11, _P),
     },
     "gemm": {
         "lt_rowq_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -15,9 +15,9 @@ time of every kernel of the calls (torch.profiler) a call. On a tree with
 csrc/rowq_tc.cuh also the kernel's ablation variants (VARIANTS: copies of
 rowq_tc.cuh with a few statements replaced: no products, the mma replaced by
 an add; the weight stream alone, no x staging and no products, the units'
-ends kept; no unit ends: no parts, sums, epilogues, counts or block
-completions; no block completions, split blocks left unfinished; no
-programmatic dependent launch between the phases), built by nvcc into
+ends kept; no unit ends: no parts, sums, epilogues or slice sums; no
+reduce launch, the slices of a split phase left unsummed; no programmatic
+dependent launch between the phases), built by nvcc into
 build/tail_ablation/ beside copies of csrc/layer_fused.cu and ffn_fused.cu
 and called through the same launchers. One JSON row a measurement, each
 with the card's name and power limit. Needs the card.
@@ -44,7 +44,7 @@ STAGE_X = "      stage_x<NF>(p, xs, rstd, k0, k1, ct, xbar, xphase);\n"
 PRODUCTS_CALL = "      if (wb < nb)\n        products<NF, PAIR>("
 UNIT_END = "    // the warp's part to the finishers:"
 FINISH = "    finish<NF, PAIR>(p, hd,"
-COMPLETE = "if (last) complete_block<NF, PAIR>"
+REDUCE = "if (e || p.splits == 1) return e;"
 PDL = "cfg.numAttrs = 1;"
 
 
@@ -64,8 +64,7 @@ VARIANTS = {
         (STAGE_X, ""), (PRODUCTS_CALL, PRODUCTS_CALL.replace("wb < nb", "false"))]),
     "no unit ends": lambda s: _replace_all(s, [
         (UNIT_END, "    continue;\n" + UNIT_END), (FINISH, "    if (false)" + FINISH[3:])]),
-    "no block completions": lambda s: _replace_all(s, [
-        (COMPLETE, COMPLETE.replace("last", "false"))]),
+    "no reduce launch": lambda s: _replace_all(s, [(REDUCE, "return e;")]),
     "no PDL": lambda s: _replace_all(s, [(PDL, "cfg.numAttrs = 0;")]),
 }
 
@@ -144,6 +143,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the rows here (JSON lines)")
     ap.add_argument("--label", default="tree", help="the rows' `tree` field")
+    ap.add_argument("--no-variants", action="store_true", help="time the kernels as built only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tail_ab: no CUDA device")
@@ -154,7 +154,7 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
-    tc = hasattr(ffn_fused, "plan_tc")
+    tc = hasattr(ffn_fused, "plan_tc") and not args.no_variants
     libs = build_ablations() if tc else {}
     rows = []
 

@@ -15,11 +15,11 @@
 //
 // bf16 design: two phases of rowq_tc.cuh's template (TMA ring of weight
 // boxes, mma.sync with the int8 weights made exact bf16 as A and x as B,
-// persistent CTAs over the plan's units, split-K slices added in order by
-// the row block's last CTA): w13 with each unit's 16 gate rows and their 16
-// up rows (E_SILU_PAIR writes act in bf16), then w2 with the scale
-// (E_SCALE); the second launch's producer fills its ring while the first
-// finishes (programmatic dependent launch).
+// persistent CTAs over the plan's units, a split contraction's slices added
+// in order by a small second launch): w13 with each unit's 16 gate rows and
+// their 16 up rows (E_SILU_PAIR writes act in bf16), then w2 with the scale
+// (E_SCALE); each launch's producers fill their rings while the launch
+// before finishes (programmatic dependent launch).
 // bf16 needs D and F to be multiples of 16 (TMA row strides); every shape
 // the JAX fit admits is (its tiles are multiples of 128 rows).
 // f32 design (an f32 dot needs f32 products, which the tensor cores do not
@@ -45,11 +45,11 @@ int ffn_f32(const lt::GemvArgs& c, const lt::GemvArgs& d, cudaStream_t st) {
 // int8 with f32 row scales s13 [2F], s2 [D]; out [T, D] f32. The plan of
 // ops/ffn_fused.py plan_tc for each phase (g, splits, ksl, ctas). bf16 x:
 // D and F multiples of 16, act [T, F] bf16, partial f32 scratch of the larger
-// phase's units (plan_tc), counters [32 a row block] int32 at zero. f32 x
+// split phase's units' sums (plan_tc). f32 x
 // (gemv.cuh, plans unused): act [T, F] f32.
 LT_EXPORT int lt_ffn_fused(const void* x, int x_dtype, const void* w13, const void* s13,
                            const void* w2, const void* s2, void* act, void* partial,
-                           void* counters, void* out, int T, int D, int F, int g13,
+                           void* out, int T, int D, int F, int g13,
                            int splits13, int ksl13, int ctas13, int g2, int splits2, int ksl2,
                            int ctas2, void* stream) {
   if (T < 1 || T > 32 || D % 4 || F % 4) return static_cast<int>(cudaErrorInvalidValue);
@@ -64,7 +64,6 @@ LT_EXPORT int lt_ffn_fused(const void* x, int x_dtype, const void* w13, const vo
     c.y = act;
     c.epi = lt::E_SILU_PAIR;
     c.partial = static_cast<float*>(partial);
-    c.counters = static_cast<int*>(counters);
     c.T = T;
     c.O = F;
     c.I = D;
@@ -73,7 +72,7 @@ LT_EXPORT int lt_ffn_fused(const void* x, int x_dtype, const void* w13, const vo
     c.splits = splits13;
     c.ksl = ksl13;
     c.ctas = ctas13;
-    int e = rtc::launch<true>(c, w13, 2L * F, st);
+    int e = rtc::launch<true, rtc::K20>(c, w13, 2L * F, st);
     if (e) return e;
     rtc::Phase d = c;
     d.x = act;
@@ -87,7 +86,7 @@ LT_EXPORT int lt_ffn_fused(const void* x, int x_dtype, const void* w13, const vo
     d.splits = splits2;
     d.ksl = ksl2;
     d.ctas = ctas2;
-    return rtc::launch<false>(d, w2, D, st);
+    return rtc::launch<false, rtc::K20>(d, w2, D, st);
   }
   if (x_dtype != LT_F32) return static_cast<int>(cudaErrorInvalidValue);
   // f32: act = round(silu(gate) * up) in f32 (a no-op rounding), then w2

@@ -1,13 +1,23 @@
 // K2, K3 and K9: the fused calls of a q8_row decode layer.
 //
 // K2 replaces llamatpu/ops/layer_fused.py `_qkv_kernel`: h = rmsnorm(x) *
-// attn_norm[li], rounded to the working dtype, then y = (h . wqkv[li]^T) * s.
-// Bound on the H100: bytes (3072 x 2048 int8 = 6.3 MB per llama32-1b layer,
-// ~1.9 us). Design: gemv.cuh with the norm as its prologue; every block
-// recomputes the norm of x (2048 values) instead of a second launch. At T
-// rows (the lanes of a batched decode step) the grid has a row per token, so
-// the weights are read T times; K9's tiled GEMV, which reads them once,
-// measured no faster at 8 and 32 rows.
+// attn_norm[li], rounded to the working dtype, then y = (h . wqkv[li]^T) * s,
+// for T <= 32 rows (the lanes of a batched decode step). Bound on the H100:
+// bytes (3072 x 2048 int8 = 6.3 MB per llama32-1b layer, ~1.9 us; 7680 x 5120
+// = 39.3 MB at Phi-3-medium, ~11.7 us) at every T <= 32. rmsnorm needs whole
+// rows of x before any product, and at Phi-3-medium width 24 rows of x (240
+// KB in bf16) do not fit one CTA's shared memory, so the contraction is
+// split across CTAs. bf16 design: two launches in stream order. A small
+// phase writes h [T, D] in bf16 (a block a row: f32 sum of squares, eps
+// after the mean, (x . rstd) . nw rounded once), then rowq_tc.cuh's
+// tensor-core template stages slices of h by bulk copies and applies the
+// row scales (E_SCALE), each weight byte read once; under programmatic
+// dependent launch its producers fill their rings with weights while the
+// norm phase runs. (Norming whole rows in the GEMV's shared memory, where
+// one CTA holds them, measured slower: PERF.md.) f32 x (no f32 tensor-core
+// products), and widths that are not multiples of 16 (no TMA): gemv.cuh's
+// tiled GEMV with the norm as its prologue, a warp per output row reading it
+// once for all T rows.
 //
 // K3 replaces llamatpu/ops/layer_fused.py `_attn_tail_kernel` (megakernel
 // v3): append this token's post-RoPE K|V row at `pos`; masked f32 GQA
@@ -46,8 +56,8 @@
 // buffers from the wrapper. bf16 design: rowq_tc.cuh's tensor-core template
 // (TMA ring of weight boxes, mma.sync with the int8 weights made exact bf16
 // as A and the activations as B, persistent CTAs over ops/ffn_fused.py
-// plan_tc's units, split-K slices added in order by the row block's last
-// CTA): wo with the residual (E_RESID, which also writes each 16-row block's
+// plan_tc's units, a split contraction's slices added in order by a small
+// second launch): wo with the residual (E_RESID, which also writes each 16-row block's
 // sum of x2^2); w13 on h staged once a CTA and slice from x2 and those sums
 // (X_F32_NORM), each unit 16 gate rows and their up rows (E_SILU_PAIR, act in
 // bf16); w2 with the residual out (E_RESID_OUT). Each launch's producer fills
@@ -253,11 +263,97 @@ __global__ void __launch_bounds__(kAttnThreads) attn_append_kernel(AttnArgs a) {
 
 }  // namespace
 
+namespace {
+
+constexpr int kNormThreads = 256;
+
+// K2's first phase: h[t] = round((x[t] . rsqrt(mean(x[t]^2) + eps)) . nw) in
+// bf16, a block a row, 8 bf16 a thread and load (D % 16 == 0).
+__global__ void __launch_bounds__(kNormThreads)
+    qkv_rmsnorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ nw,
+                       float eps, __nv_bfloat16* __restrict__ h, int D) {
+  __shared__ float red[32];
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // x from the kernel before
+  const long base = static_cast<long>(blockIdx.x) * D;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + base);
+  const int nv = D / 8;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < nv; i += kNormThreads) {
+    const uint4 v = xr[i];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      ss += f.x * f.x + f.y * f.y;
+    }
+  }
+  ss = lt_block_sum(ss, red);
+  const float r = 1.0f / sqrtf(ss / static_cast<float>(D) + eps);
+  uint4* hr = reinterpret_cast<uint4*>(h + base);
+  for (int i = threadIdx.x; i < nv; i += kNormThreads) {
+    const uint4 v = xr[i];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const float4 na = __ldg(reinterpret_cast<const float4*>(nw) + 2 * i);
+    const float4 nb = __ldg(reinterpret_cast<const float4*>(nw) + 2 * i + 1);
+    const float n[8] = {na.x, na.y, na.z, na.w, nb.x, nb.y, nb.z, nb.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      o[j] = pack_bf16x2(__fmul_rn(__fmul_rn(f.x, r), n[2 * j]),
+                         __fmul_rn(__fmul_rn(f.y, r), n[2 * j + 1]));
+    }
+    hr[i] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+}  // namespace
+
 // K2. x [T, D] (x_dtype), norm_w [D] f32, qs [O, D] int8, s [O] f32 ->
-// y [T, O] f32 (the wrapper casts it to x's dtype).
+// y [T, O] f32 (the wrapper casts it to x's dtype), T <= 32. The plan of
+// ops/ffn_fused.py plan_tc (g, splits, ksl, ctas; splits = 0: gemv.cuh's
+// route). Tensor-core route: bf16 x, D % 16 == 0, h [T, D] bf16 scratch,
+// partial f32 scratch of the plan's units' sums where splits > 1; x, norm_w
+// and qs 16-byte aligned.
 LT_EXPORT int lt_qkv_norm(const void* x, int x_dtype, const void* norm_w, float eps,
-                          const void* qs, const void* s, void* y, int T, int O, int D,
-                          int dot_dtype, void* stream) {
+                          const void* qs, const void* s, void* y, void* h, void* partial, int T,
+                          int O, int D, int dot_dtype, int g, int splits, int ksl, int ctas,
+                          void* stream) {
+  if (T < 1 || T > 32 || D % 4) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits > 0) {
+    if (x_dtype != LT_BF16 || dot_dtype != LT_BF16 || D % 16 || h == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(T);
+    cfg.blockDim = dim3(kNormThreads);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t ce = cudaLaunchKernelEx(
+        &cfg, qkv_rmsnorm_kernel, static_cast<const __nv_bfloat16*>(x),
+        static_cast<const float*>(norm_w), eps, static_cast<__nv_bfloat16*>(h), D);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+    rtc::Phase p = {};
+    p.x = h;
+    p.xkind = rtc::X_BF16;
+    p.s = static_cast<const float*>(s);
+    p.y = y;
+    p.epi = lt::E_SCALE;
+    p.partial = static_cast<float*>(partial);
+    p.T = T;
+    p.O = O;
+    p.I = D;
+    p.g = g;
+    p.splits = splits;
+    p.ksl = ksl;
+    p.ctas = ctas;
+    return rtc::launch<false, rtc::K2>(p, qs, O, st);
+  }
   lt::GemvArgs a = {};
   a.x = x;
   a.x_dtype = x_dtype;
@@ -271,7 +367,9 @@ LT_EXPORT int lt_qkv_norm(const void* x, int x_dtype, const void* norm_w, float 
   a.T = T;
   a.O = O;
   a.I = D;
-  return lt::gemv_launch<1, lt::P_RMSNORM, lt::E_SCALE>(a, static_cast<cudaStream_t>(stream));
+  return dot_dtype == LT_F32
+             ? lt::gemv_tiled_launch<32, float, lt::P_RMSNORM, lt::E_SCALE>(a, st)
+             : lt::gemv_tiled_launch<32, __nv_bfloat16, lt::P_RMSNORM, lt::E_SCALE>(a, st);
 }
 
 // K3. One decode layer after the qkv projection (B = 1, T = 1):
@@ -378,12 +476,12 @@ int tail_phases(const lt::GemvArgs& b, const lt::GemvArgs& c, const lt::GemvArgs
 // f32; out [T, D] (x_dtype). T <= 32. The plan of ops/ffn_fused.py plan_tc for
 // each phase (g, splits, ksl, ctas; splits_o = 0: gemv.cuh's route).
 // Tensor-core route: bf16 x, D, H and F multiples of 16, act [T, F] bf16, ssp
-// [T, D / 16] f32, partial f32 scratch of the largest phase's units (plan_tc),
-// counters [32 a row block] int32 at zero. gemv.cuh's route: act [T, F] f32.
+// [T, D / 16] f32, partial f32 scratch of the largest split phase's units'
+// sums (plan_tc). gemv.cuh's route: act [T, F] f32.
 LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* ffn_norm,
                       float eps, float rs, const void* wo, const void* so, const void* w13,
                       const void* s13, const void* w2, const void* s2, void* x2, void* act,
-                      void* ssp, void* partial, void* counters, void* out, int T, int D, int H,
+                      void* ssp, void* partial, void* out, int T, int D, int H,
                       int F, int dot_dtype, int g_o, int splits_o, int ksl_o, int ctas_o,
                       int g13, int splits13, int ksl13, int ctas13, int g2, int splits2,
                       int ksl2, int ctas2, void* stream) {
@@ -404,7 +502,6 @@ LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* 
     b.epi = lt::E_RESID;
     b.ssp_out = static_cast<float*>(ssp);
     b.partial = static_cast<float*>(partial);
-    b.counters = static_cast<int*>(counters);
     b.T = T;
     b.O = D;
     b.I = H;
@@ -412,7 +509,7 @@ LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* 
     b.splits = splits_o;
     b.ksl = ksl_o;
     b.ctas = ctas_o;
-    int e = rtc::launch<false>(b, wo, D, st);
+    int e = rtc::launch<false, rtc::K9>(b, wo, D, st);
     if (e) return e;
     // 2. h = round(rmsnorm(x2) * ffn_norm); act = round(silu(gate) * up), bf16
     rtc::Phase c = b;
@@ -434,7 +531,7 @@ LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* 
     c.splits = splits13;
     c.ksl = ksl13;
     c.ctas = ctas13;
-    e = rtc::launch<true>(c, w13, 2L * F, st);
+    e = rtc::launch<true, rtc::K9>(c, w13, 2L * F, st);
     if (e) return e;
     // 3. out = x2 + rs * (act . w2^T) * s2, cast to x's dtype
     rtc::Phase d = b;
@@ -451,7 +548,7 @@ LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* 
     d.splits = splits2;
     d.ksl = ksl2;
     d.ctas = ctas2;
-    return rtc::launch<false>(d, w2, D, st);
+    return rtc::launch<false, rtc::K9>(d, w2, D, st);
   }
   // gemv.cuh's route
   // 1. x2 = x + rs * (attn . wo^T) * so, f32

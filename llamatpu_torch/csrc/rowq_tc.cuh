@@ -1,6 +1,9 @@
-// The batched q8_row GEMV phases of K9 (layer_fused.cu `lt_tail`) and K20
+// The batched q8_row GEMV phases of K1 (quant_matmul.cu `lt_rowq_gemv`), K2
+// (layer_fused.cu `lt_qkv_norm`), K9 (layer_fused.cu `lt_tail`) and K20
 // (ffn_fused.cu `lt_ffn_fused`) on the tensor cores: one template,
-// `rowq_tc_kernel<NF, PAIR>`, run once per phase in stream order.
+// `rowq_tc_kernel<NF, PAIR, Tag>`, run once per phase in stream order. Tag
+// (K1, K2, K9, K20) names the caller in the kernel's symbol, so a profiler
+// trace tells their launches apart.
 //
 // A phase computes, for T <= 32 bf16 activation rows x [T, I] and q8_row
 // weights w [rows, I] (int8, one f32 scale per row),
@@ -13,14 +16,18 @@
 //                of w13 are one unit, so act is written once
 //   E_RESID_OUT  out = x2 + (sum . s) . rs, cast to out's dtype
 //   E_SCALE      out = sum . s                                   f32
+//   E_RAW        out = sum (K1: the row scale stays outside)    f32
 // The activations are staged as bf16 from x (X_BF16) or as the rmsnorm
 // h = round(x2 . rsqrt(mean(x2^2) + eps) . nw) of f32 x2 rows (X_F32_NORM),
 // mean(x2^2) from the per-16-row sums of squares the E_RESID phase wrote.
+// K2's rmsnorm of bf16 x is a small phase of its own (layer_fused.cu), whose
+// bf16 h this template stages as X_BF16.
 //
 // Bound on the H100: the weight stream. K9 at Llama-3.2-1B reads 54.5 MB of
 // int8 a layer (16.3 us at 3.35 TB/s) at every T <= 32; K20 at Phi-3-medium
-// 275.3 MB (82 us); the products (2 T flops a weight byte) take under a fifth
-// of that at the bf16 tensor-core peak.
+// 275.3 MB (82 us); K1 on Llama-3.2-1B's vocab head 262.7 MB (78 us); K2 at
+// Phi-3-medium 39.3 MB (11.7 us); the products (2 T flops a weight byte) take
+// under a fifth of that at the bf16 tensor-core peak.
 //
 // Design (PR 9-13's TMA-fed tensor-core GEMV, tc_gemv.cuh's pieces):
 // - Units: a row block of g groups of 16 output rows (PAIR: each group's 16
@@ -46,19 +53,25 @@
 //   made exact bf16 by the byte permute, tc_gemv.cuh's k order) and x as B
 //   (8 rows a fragment, NF = ceil(T / 8) fragments), and hands its part of
 //   the unit to the finishers through shared memory.
-// - Warps 9-12 (the finishers) add a group's parts in warp order. Where the
-//   block has one slice they apply the epilogue; otherwise they store the
-//   slice's sums to f32 scratch and count them (a counter a row block, at
-//   GPU scope), and the CTA that completes a block adds its slices' sums in
-//   order 0, 1, ... and applies the epilogue, resetting the counter. Two runs
-//   are bit-equal, and the launch allocates nothing and syncs nothing, so a
-//   CUDA graph captures it. The consumers never wait for a global load or a
-//   store after their products: under a full weight stream each takes ~1 us,
-//   and on the consumers' path the units' ends cost more than their stream.
+// - Warps 9-12 (the finishers) add a group's parts in warp order and free
+//   them for the consumers' next unit. With one slice they keep the sums in
+//   `fin` (each thread its own outputs) and apply the epilogue; otherwise
+//   they store the slice's sums to f32 scratch, and a second, small launch
+//   (`rowq_tc_reduce`, a thread per 4 outputs, after the first has
+//   finished) adds each output's slices in order 0, 1, ... and applies the
+//   epilogue. No CTA waits on another (no atomics): the
+//   consumers never wait for a global load or a store after their products
+//   (under a full weight stream each takes ~1 us, and on the consumers'
+//   path the units' ends cost more than their stream), and the finishers
+//   never wait for one either. Two runs are bit-equal, and the launches
+//   allocate nothing and sync nothing, so a CUDA graph captures them.
+// - The epilogue reads and writes 4 outputs of one x row as one 16-byte
+//   (f32) or 8-byte (bf16) access where O is a multiple of 4.
 // Where it does not apply (gemv.cuh's tiled GEMV stays): f32 activations
-// (the tensor cores give no f32 products), and K9's contraction widths that
-// are not multiples of 16 (TMA row strides are 16-byte multiples); K20 in
-// bf16 raises for them, as no shape the JAX fit admits has one.
+// (the tensor cores give no f32 products), and K1's, K2's and K9's
+// contraction widths that are not multiples of 16 (TMA row strides are
+// 16-byte multiples); K20 in bf16 raises for them, as no shape the JAX fit
+// admits has one.
 #pragma once
 
 #include "gemv.cuh"
@@ -75,8 +88,14 @@ constexpr int kBoxCols = 128;                     // columns (bytes) of a box: a
 constexpr int kBoxBytes = kRows * kBoxCols;
 constexpr int kMaxDepth = 8;
 constexpr int kMaxGroups = 4;                     // 16-row groups a unit
-constexpr int kCounterStride = 32;                // a row block's counter a 128-byte line
+constexpr int kReduceThreads = 256;               // the split phases' second launch
 constexpr int kDynSmem = 232448 - 1024;           // 227 KB less the static barriers' room
+
+// The callers, as the kernel's last template argument (its symbol names them)
+struct K1 {};
+struct K2 {};
+struct K9 {};
+struct K20 {};
 
 enum XKind { X_BF16 = 0, X_F32_NORM = 1 };
 
@@ -87,18 +106,18 @@ struct Phase {
   const float* ssp_in;    // [T, ssp_blocks] sums of squares of x2 (X_F32_NORM)
   int ssp_blocks;
   float eps;
-  const float* s;         // row scales [rows]
+  const float* s;         // row scales [rows] (not read by E_RAW)
   float rs;               // residual scale
   const void* res;        // [T, O] residual (E_RESID, E_RESID_OUT)
   int res_dtype;
-  void* y;                // [T, O]: f32 (E_RESID, E_SCALE), bf16 (E_SILU_PAIR), y_dtype
+  void* y;                // [T, O]: f32 (E_RESID, E_SCALE, E_RAW), bf16 (E_SILU_PAIR), y_dtype
   int y_dtype, epi;
   float* ssp_out;         // [T, O / 16] (E_RESID)
   float* partial;         // [units, 16 g Tp (x 2 PAIR)] f32 slice sums (splits > 1)
-  int* counters;          // [nrb x kCounterStride], zero at entry and at exit
   int T, O, I, up;        // up: the up rows' offset in w (PAIR)
   int g, splits, ksl, ctas;  // the plan: 16-row groups a unit, slices, CTAs
-  int wpg, rows, nrb, units, depth, stage, xpitch, xoff, redoff;  // warps a group, rows a unit
+  int wpg, rows, nrb, units, depth, stage, xpitch, xoff, redoff, finoff;  // warps a group, rows a unit
+  int vec;                // O % 4 == 0 and y, s, res 16-byte aligned: 4 outputs an access
 };
 
 __device__ __forceinline__ void consumer_sync() {
@@ -153,24 +172,17 @@ __device__ void produce(const Phase& p, const CUtensorMap* mw, uint32_t ring, ui
 // ------------------------------------------------------------- finishers
 // The consumers hand each unit's parts (in `red`) to the finishers: `full`
 // when the 8 consumer warps have written them, `free` when the finishers
-// have read them; `done` tells the finishers whether the unit they resolve
-// completed its row block.
+// have read them.
 struct Hand {
   uint64_t full, free;
-  int done;
 };
-
-__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
-  int old;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
-               : "=r"(old)
-               : "l"(p), "r"(v)
-               : "memory");
-  return old;
-}
 
 __device__ __forceinline__ void finisher_sync() {
   asm volatile("bar.sync 2, %0;\n" ::"n"(kFinishers) : "memory");
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
 }
 
 // ------------------------------------------------------------- consumers
@@ -284,6 +296,12 @@ __device__ __forceinline__ void products(uint32_t wb, uint32_t xb, int xpitch, i
 // (and the up rows' u), with their row scales and residuals loaded
 // beforehand. Every lane of a warp takes part: E_RESID also writes each
 // group's sum of squares of x2 for each t, which 4 neighbouring lanes hold.
+// The epilogue of 4 outputs of a unit: one x row t, weight rows o .. o + 3
+// of one 16-row group (`row` of the first within it), from their full sums v
+// (and the up rows' u), with their row scales and residuals loaded
+// beforehand. Every lane of a warp takes part: E_RESID also writes each
+// group's sum of squares of x2 for each t, which 4 neighbouring lanes hold.
+// With p.vec the 4 outputs are one access (all or none of them < O).
 struct Quad {
   int o, t, row;
 };
@@ -297,16 +315,43 @@ __device__ __forceinline__ Quad quad_at(const Phase& p, int rb, int qd, int tp) 
   return {rb * p.rows + gi * kRows + r % kRows, r / kRows, r % kRows};
 }
 
+__device__ __forceinline__ void load4(const void* a, int dtype, long idx, float (&v)[4]) {
+  if (dtype == LT_F32) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(a) + idx));
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(a) + idx));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  }
+}
+
+__device__ __forceinline__ void store4(void* a, int dtype, long idx, const float (&v)[4]) {
+  if (dtype == LT_F32)
+    *reinterpret_cast<float4*>(static_cast<float*>(a) + idx) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a) + idx) =
+        make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+}
+
 __device__ __forceinline__ Quad4 quad_load(const Phase& p, const Quad& q, bool live) {
   Quad4 r = {};
+  if (!live || q.t >= p.T || q.o >= p.O) return r;
+  const bool resid = p.epi == lt::E_RESID || p.epi == lt::E_RESID_OUT;
+  if (p.vec) {
+    if (p.epi != lt::E_RAW) load4(p.s, LT_F32, q.o, r.s);
+    if (p.epi == lt::E_SILU_PAIR) load4(p.s, LT_F32, q.o + p.up, r.su);
+    if (resid) load4(p.res, p.res_dtype, static_cast<long>(q.t) * p.O + q.o, r.res);
+    return r;
+  }
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int o = q.o + e;
-    if (live && q.t < p.T && o < p.O) {
-      r.s[e] = __ldg(p.s + o);
+    if (o < p.O) {
+      if (p.epi != lt::E_RAW) r.s[e] = __ldg(p.s + o);
       if (p.epi == lt::E_SILU_PAIR) r.su[e] = __ldg(p.s + o + p.up);
-      if (p.epi == lt::E_RESID || p.epi == lt::E_RESID_OUT)
-        r.res[e] = lt_load(p.res, p.res_dtype, static_cast<long>(q.t) * p.O + o);
+      if (resid) r.res[e] = lt_load(p.res, p.res_dtype, static_cast<long>(q.t) * p.O + o);
     }
   }
   return r;
@@ -315,154 +360,107 @@ __device__ __forceinline__ Quad4 quad_load(const Phase& p, const Quad& q, bool l
 __device__ __forceinline__ void epilogue(const Phase& p, const Quad& q, const float4& v4,
                                          const float4& u4, const Quad4& in, bool live) {
   const float v[4] = {v4.x, v4.y, v4.z, v4.w}, u[4] = {u4.x, u4.y, u4.z, u4.w};
-  float sq = 0.f;
+  const bool on = live && q.t < p.T && q.o < p.O;
+  float out[4], sq = 0.f;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int o = q.o + e;
-    if (!live || q.t >= p.T || o >= p.O) continue;
-    const long idx = static_cast<long>(q.t) * p.O + o;
-    if (p.epi == lt::E_SCALE) {
-      static_cast<float*>(p.y)[idx] = __fmul_rn(v[e], in.s[e]);
+    if (p.epi == lt::E_RAW) {
+      out[e] = v[e];
+    } else if (p.epi == lt::E_SCALE) {
+      out[e] = __fmul_rn(v[e], in.s[e]);
     } else if (p.epi == lt::E_SILU_PAIR) {
       const float gt = __fmul_rn(v[e], in.s[e]), up = __fmul_rn(u[e], in.su[e]);
-      static_cast<__nv_bfloat16*>(p.y)[idx] =
-          __float2bfloat16(__fmul_rn(__fmul_rn(gt, 1.0f / (1.0f + expf(-gt))), up));
+      out[e] = __fmul_rn(__fmul_rn(gt, 1.0f / (1.0f + expf(-gt))), up);
     } else {
-      const float r = __fadd_rn(in.res[e], __fmul_rn(__fmul_rn(v[e], in.s[e]), p.rs));
-      if (p.epi == lt::E_RESID) {
-        static_cast<float*>(p.y)[idx] = r;
-        sq = __fadd_rn(sq, __fmul_rn(r, r));
-      } else {
-        lt_store(p.y, p.y_dtype, idx, r);
-      }
+      out[e] = __fadd_rn(in.res[e], __fmul_rn(__fmul_rn(v[e], in.s[e]), p.rs));
+      if (p.epi == lt::E_RESID && q.o + e < p.O) sq = __fadd_rn(sq, __fmul_rn(out[e], out[e]));
     }
+  }
+  const int ydt = p.epi == lt::E_SILU_PAIR ? LT_BF16 : p.epi == lt::E_RESID_OUT ? p.y_dtype : LT_F32;
+  const long idx = static_cast<long>(q.t) * p.O + q.o;
+  if (on && p.vec) {
+    store4(p.y, ydt, idx, out);
+  } else if (on) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (q.o + e < p.O) lt_store(p.y, ydt, idx + e, out[e]);
   }
   if (p.epi == lt::E_RESID) {
     sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 1));
     sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
-    if (live && q.row == 0 && q.t < p.T && q.o < p.O)
+    if (on && q.row == 0)
       p.ssp_out[static_cast<long>(q.t) * ((p.O + kRows - 1) / kRows) + q.o / kRows] = sq;
   }
 }
 
-// Row block rb, all its slices stored: their sums added in order 0, 1, ...,
-// then the epilogue, by the finisher threads, 4 outputs a thread (float4
-// loads), kMc quads at a time: their scales and residuals loaded first, then
-// each 4 slices' sums of all of them together.
+// Warps 9-12: for each unit of the CTA in turn, its sums from the
+// consumers' parts (a group's parts in warp order), each finisher thread
+// taking quads ft, ft + 128, ...: with one slice into `fin`, then the parts
+// are free and the thread applies the epilogue to its quads; otherwise into
+// the unit's scratch, then the parts are free.
 template <int NF, bool PAIR>
-__device__ void complete_block(const Phase& p, int rb, int ft) {
-  constexpr int TP = 8 * NF, NH = PAIR ? 2 : 1, kMc = 1;
-  const int nout = p.g * kRows * TP, nq = nout / 4;
-  const float* ps = p.partial + static_cast<long>(rb) * NH * nout;
-  const long stride = static_cast<long>(p.nrb) * NH * nout;  // slice to slice
-  for (int m0 = 0; m0 * kFinishers < nq; m0 += kMc) {
-    Quad at[kMc];
-    Quad4 in[kMc];
-    float4 v[kMc], w[kMc];
-#pragma unroll
-    for (int m = 0; m < kMc; ++m) {
-      at[m] = quad_at(p, rb, ft + (m0 + m) * kFinishers, TP);
-      in[m] = quad_load(p, at[m], ft + (m0 + m) * kFinishers < nq);
-      v[m] = w[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ void finish(const Phase& p, Hand& hd, const float* red, float* fin, int ft, int u0,
+                       int u1) {
+  constexpr int NOUT = kRows * 8 * NF, NH = PAIR ? 2 : 1;
+  const int nout = p.g * NOUT, nq = nout / 4;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the residuals; y after its readers
+  for (int u = u0; u < u1; ++u) {
+    const int n = u - u0;
+    mbar_wait(&hd.full, n & 1);
+    float4* dst = p.splits == 1 ? reinterpret_cast<float4*>(fin)
+                                : reinterpret_cast<float4*>(p.partial + static_cast<long>(u) * NH * nout);
+    for (int qd = ft; qd < nq; qd += kFinishers) {
+      const int gi = 4 * qd / NOUT, r = 4 * qd - gi * NOUT;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
+      for (int j = 0; j < p.wpg; ++j) {
+        const int o = (gi * p.wpg + j) * NOUT + r;
+        add4(v, *reinterpret_cast<const float4*>(red + o));
+        if (PAIR) add4(w, *reinterpret_cast<const float4*>(red + kWarps * NOUT + o));
+      }
+      dst[qd] = v;
+      if (PAIR) dst[nq + qd] = w;
     }
-    for (int sl = 0; sl < p.splits; sl += 4) {
-      float4 a[4][kMc], b[4][kMc];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int m = 0; m < kMc; ++m) {
-          const int qd = ft + (m0 + m) * kFinishers;
-          a[j][m] = b[j][m] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (sl + j < p.splits && qd < nq) {
-            const float* at4 = ps + (sl + j) * stride + 4 * qd;
-            a[j][m] = __ldcg(reinterpret_cast<const float4*>(at4));
-            if (PAIR) b[j][m] = __ldcg(reinterpret_cast<const float4*>(at4 + nout));
-          }
-        }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int m = 0; m < kMc; ++m)
-          if (sl + j < p.splits) {
-            v[m].x += a[j][m].x, v[m].y += a[j][m].y, v[m].z += a[j][m].z, v[m].w += a[j][m].w;
-            w[m].x += b[j][m].x, w[m].y += b[j][m].y, w[m].z += b[j][m].z, w[m].w += b[j][m].w;
-          }
+    finisher_sync();  // every finisher has read the parts
+    if (ft == 0) mbar_arrive(&hd.free);
+    if (p.splits > 1) continue;
+    const float4* f = reinterpret_cast<const float4*>(fin);
+    for (int m0 = 0; m0 < nq; m0 += kFinishers) {  // every thread: the shuffles
+      const int qd = m0 + ft;
+      const bool live = qd < nq;
+      const Quad at = quad_at(p, u, qd, 8 * NF);
+      const Quad4 in = quad_load(p, at, live);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
+      if (live) {
+        v = f[qd];
+        if (PAIR) w = f[nq + qd];
+      }
+      epilogue(p, at, v, w, in, live);
     }
-#pragma unroll
-    for (int m = 0; m < kMc; ++m)
-      if ((m0 + m) * kFinishers < nq)  // every thread: the shuffles
-        epilogue(p, at[m], v[m], w[m], in[m], ft + (m0 + m) * kFinishers < nq);
   }
 }
 
-// Warps 9-12: for each unit of the CTA in turn, its sums from the
-// consumers' parts (a group's parts in warp order), read before the
-// consumers write the next unit's. With one slice, the epilogue. Otherwise
-// the sums go to scratch and thread 0 counts them towards the row block (at
-// GPU scope: release, so the stores go first; acquire, so the other slices'
-// sums are visible when this one completes the block); the CTA that
-// completes a block adds its slices' sums in order and applies the epilogue,
-// resetting the counter for the next launch. A unit's count is asked for
-// before the unit before is resolved, so its round trip hides behind that
-// work. The consumers wait for none of it.
-template <int NF, bool PAIR>
-__device__ void finish(const Phase& p, Hand& hd, const float* red, int ft, int u0, int u1) {
-  constexpr int NOUT = kRows * 8 * NF, NH = PAIR ? 2 : 1;
-  const int nout = p.g * NOUT, nq = nout / 4;
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  int prev = 0, cur = 0;  // thread 0: the previous and this unit's counts before their own
-  for (int u = u0; u <= u1; ++u) {
-    const int n = u - u0;
-    if (u < u1) {
-      mbar_wait(&hd.full, n & 1);
-      float* part = p.partial + static_cast<long>(u) * NH * nout;
-      // quad qd: outputs 4 qd .. 4 qd + 3, the sums of its group's parts; a
-      // one-slice unit's epilogue right away, else its sums to scratch
-      for (int m0 = 0; m0 < nq; m0 += kFinishers) {
-        const int qd = m0 + ft;
-        const bool live = qd < nq;
-        const Quad at = quad_at(p, u, qd, 8 * NF);
-        Quad4 in = {};
-        if (p.splits == 1) in = quad_load(p, at, live);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
-        if (live) {
-          const int gi = 4 * qd / NOUT, r = 4 * qd - gi * NOUT;
-          for (int j = 0; j < p.wpg; ++j) {
-            const int o = (gi * p.wpg + j) * NOUT + r;
-            const float4 a = *reinterpret_cast<const float4*>(red + o);
-            v.x += a.x, v.y += a.y, v.z += a.z, v.w += a.w;
-            if (PAIR) {
-              const float4 b = *reinterpret_cast<const float4*>(red + kWarps * NOUT + o);
-              w.x += b.x, w.y += b.y, w.z += b.z, w.w += b.w;
-            }
-          }
-        }
-        if (p.splits == 1) {
-          epilogue(p, at, v, w, in, live);  // every thread: the shuffles
-        } else if (live) {
-          *reinterpret_cast<float4*>(part + 4 * qd) = v;
-          if (PAIR) *reinterpret_cast<float4*>(part + nout + 4 * qd) = w;
-        }
-      }
-      finisher_sync();  // every finisher has read the parts (and stored the sums)
-      if (ft == 0) mbar_arrive(&hd.free);
-      if (p.splits == 1) continue;
-      if (ft == 0) cur = atom_add_acq_rel(p.counters + kCounterStride * (u % p.nrb), 1);
-    }
-    if (p.splits > 1 && n > 0) {  // resolve unit u - 1
-      const int rb = (u - 1) % p.nrb;
-      if (ft == 0) {
-        const bool last = prev == p.splits - 1;
-        if (last) p.counters[kCounterStride * rb] = 0;
-        hd.done = last;
-      }
-      finisher_sync();
-      const bool last = hd.done;
-      finisher_sync();  // everyone read it before thread 0 writes the next
-      if (last) complete_block<NF, PAIR>(p, rb, ft);
-    }
-    prev = cur;
+// A split phase's second launch: each output's slice sums added in order 0,
+// 1, ..., then the epilogue, a thread a quad (4 outputs of one x row); a
+// row block's g 16 Tp outputs are a multiple of 32 quads, so a warp's quads
+// lie in one block and E_RESID's 4 lanes of a 16-row group in one warp.
+template <int NF, bool PAIR, typename Tag>
+__global__ void __launch_bounds__(kReduceThreads) rowq_tc_reduce(const Phase p) {
+  constexpr int TP = 8 * NF, NH = PAIR ? 2 : 1;
+  const int nout = p.g * kRows * TP, nq = nout / 4;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the first launch's slice sums
+  const long i = static_cast<long>(blockIdx.x) * kReduceThreads + threadIdx.x;
+  const int rb = static_cast<int>(i / nq), qd = static_cast<int>(i - static_cast<long>(rb) * nq);
+  const bool live = rb < p.nrb;
+  const Quad at = quad_at(p, rb, qd, TP);
+  const Quad4 in = quad_load(p, at, live);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
+  for (int s = 0; live && s < p.splits; ++s) {
+    const float* part = p.partial + (static_cast<long>(s) * p.nrb + rb) * NH * nout + 4 * qd;
+    add4(v, __ldcg(reinterpret_cast<const float4*>(part)));
+    if (PAIR) add4(w, __ldcg(reinterpret_cast<const float4*>(part + nout)));
   }
+  epilogue(p, at, v, w, in, live);
 }
 
 template <int NF, bool PAIR>
@@ -534,7 +532,7 @@ __device__ void consume(const Phase& p, uint32_t ring, unsigned char* base, floa
   }
 }
 
-template <int NF, bool PAIR>
+template <int NF, bool PAIR, typename Tag>
 __global__ void __launch_bounds__(kThreads, 1)
     rowq_tc_kernel(const __grid_constant__ CUtensorMap mw, const Phase p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -564,7 +562,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (warp > kWarps) {
     finish<NF, PAIR>(p, hd, reinterpret_cast<const float*>(base + p.redoff),
-                     threadIdx.x - kConsumers - 32, u0, u1);
+                     reinterpret_cast<float*>(base + p.finoff), threadIdx.x - kConsumers - 32, u0,
+                     u1);
     return;
   }
   consume<NF, PAIR>(p, ring, base, rstd, hd, full, empty, &xbar, warp, lane, u0, u1);
@@ -585,23 +584,25 @@ inline int make_map(CUtensorMap* map, const void* w, long rows, int cols) {
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int NF, bool PAIR>
+template <int NF, bool PAIR, typename Tag>
 int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st) {
-  constexpr int TP = 8 * NF;
-  p.stage = (PAIR ? 2 : 1) * kWarps * kBoxBytes;
+  constexpr int TP = 8 * NF, NH = PAIR ? 2 : 1;
+  p.stage = NH * kWarps * kBoxBytes;
   p.xpitch = 2 * p.ksl + 32;  // 32 or 96 mod 128 bytes: a fragment's 8 rows in distinct banks
-  const int xbytes = TP * p.xpitch, red = (PAIR ? 2 : 1) * kWarps * kRows * TP * 4;
-  p.depth = min(kMaxDepth, (kDynSmem - 1024 - xbytes - red) / p.stage);
+  const int xbytes = TP * p.xpitch, red = NH * kWarps * kRows * TP * 4;
+  const int fin = p.splits == 1 ? NH * p.g * kRows * TP * 4 : 0;  // a unit's sums
+  p.depth = min(kMaxDepth, (kDynSmem - 1024 - xbytes - red - fin) / p.stage);
   if (p.depth < 2) return static_cast<int>(cudaErrorInvalidValue);
   p.xoff = p.depth * p.stage;
   p.redoff = p.xoff + xbytes;
-  const size_t smem = 1024 + static_cast<size_t>(p.redoff) + red;
+  p.finoff = p.redoff + red;
+  const size_t smem = 1024 + static_cast<size_t>(p.finoff) + fin;
   CUtensorMap mw;
   int e = make_map(&mw, w, wrows, p.I);
   if (e) return e;
   // set at every launch: a function-local static here would be one symbol
   // for every library that includes this header
-  const cudaError_t ce = lt_allow_smem(rowq_tc_kernel<NF, PAIR>, smem);
+  const cudaError_t ce = lt_allow_smem(rowq_tc_kernel<NF, PAIR, Tag>, smem);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.ctas);
@@ -613,12 +614,19 @@ int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, rowq_tc_kernel<NF, PAIR>, mw, p));
+  e = static_cast<int>(cudaLaunchKernelEx(&cfg, rowq_tc_kernel<NF, PAIR, Tag>, mw, p));
+  if (e || p.splits == 1) return e;
+  const long quads = static_cast<long>(p.nrb) * p.g * kRows * TP / 4;
+  cfg.gridDim = dim3(static_cast<unsigned>((quads + kReduceThreads - 1) / kReduceThreads));
+  cfg.blockDim = dim3(kReduceThreads);
+  cfg.dynamicSmemBytes = 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, rowq_tc_reduce<NF, PAIR, Tag>, p));
 }
 
 // One phase: its plan (splits, ksl, ctas) from ops/ffn_fused.py plan_tc,
-// checked here too; w [wrows, I] int8, 16-byte aligned; x 16-byte aligned.
-template <bool PAIR>
+// checked here too; w [wrows, I] int8, 16-byte aligned; x 16-byte aligned;
+// with more than one slice, partial holds the plan's units' sums.
+template <bool PAIR, typename Tag>
 int launch(Phase p, const void* w, long wrows, cudaStream_t st) {
   if (p.g < 1 || p.g > kMaxGroups || kWarps % p.g) return static_cast<int>(cudaErrorInvalidValue);
   p.wpg = kWarps / p.g;
@@ -627,14 +635,18 @@ int launch(Phase p, const void* w, long wrows, cudaStream_t st) {
   p.units = p.nrb * p.splits;
   if (p.T < 1 || p.T > 32 || p.I % 16 || p.ksl < kBoxCols || p.ksl % kBoxCols || p.splits < 1 ||
       static_cast<long>(p.splits) * p.ksl < p.I || (p.splits - 1) * p.ksl >= p.I ||
-      p.ctas < 1 || p.ctas > p.units ||
-      (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(p.x)) % 16)
+      p.ctas < 1 || p.ctas > p.units || (p.splits > 1 && p.partial == nullptr) ||
+      (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(p.x) |
+       reinterpret_cast<uintptr_t>(p.partial)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  p.vec = p.O % 4 == 0 &&
+          (reinterpret_cast<uintptr_t>(p.y) | reinterpret_cast<uintptr_t>(p.s) |
+           reinterpret_cast<uintptr_t>(p.res)) % 16 == 0;
   switch ((p.T + 7) / 8) {
-    case 1: return launch_nf<1, PAIR>(p, w, wrows, st);
-    case 2: return launch_nf<2, PAIR>(p, w, wrows, st);
-    case 3: return launch_nf<3, PAIR>(p, w, wrows, st);
-    default: return launch_nf<4, PAIR>(p, w, wrows, st);
+    case 1: return launch_nf<1, PAIR, Tag>(p, w, wrows, st);
+    case 2: return launch_nf<2, PAIR, Tag>(p, w, wrows, st);
+    case 3: return launch_nf<3, PAIR, Tag>(p, w, wrows, st);
+    default: return launch_nf<4, PAIR, Tag>(p, w, wrows, st);
   }
 }
 

@@ -20,10 +20,11 @@ takes the same kernel as the JAX package at every shape (ops/layer_fused.py
 reads `_VMEM_BUDGET` from here at each call, so a test can lower it).
 
 It also holds the plan of csrc/rowq_tc.cuh, the tensor-core template that
-runs K20's and K9's bf16 phases (`plan_tc`, `TcPlan`: 16-row output blocks
-times contraction slices, spread over persistent CTAs, the slices' sums
-added in order), and the rule that routes a K9 call there or to gemv.cuh
-(`tc_route`; K20 takes bf16 only at widths the rule admits).
+runs the bf16 GEMV phases of K1, K2, K9 and K20 (`plan_tc`, `TcPlan`:
+16-row output blocks times contraction slices, spread over persistent CTAs,
+the slices' sums added in order by a second launch), and the rule that
+routes a call there or to gemv.cuh (`tc_route`; K20 takes bf16 only at
+widths the rule admits).
 
 CUDA source: csrc/ffn_fused.cu (design and bound in its header note). A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises.
@@ -38,11 +39,15 @@ import torch
 from llamatpu_torch import _build
 from llamatpu_torch.models.weights import QTensor
 from llamatpu_torch.ops.gemm import _sm_count
-from llamatpu_torch.ops.quant_matmul import _dot_dtype
 
 _MAX_T = 32          # decode / small-batch rows; prefill takes the int8 GEMM
 _BLOCK_BYTES = 2.4 * 1024 * 1024
 _VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def _dot_dtype(x: torch.Tensor) -> torch.dtype:
+    """The working dtype: f32 for f32 activations, else bf16."""
+    return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
 
 
 def _pick_to(o: int, i: int) -> int:
@@ -118,6 +123,7 @@ TC_GROUPS = (1, 2, 4)    # 16-row groups a unit: 8, 4 or 2 consumer warps a grou
 TC_DYN_SMEM = 232448 - 1024 - 1024  # a CTA's dynamic shared memory, less the ring's alignment
 TC_RING_MIN = 3          # ring stages kept beside the x slice
 TC_UNIT_BYTES = 32 * 1024  # a unit's fixed cost (parts, sums, scratch), in weight bytes
+TC_REDUCE_BYTES = 48 * 1024  # a split phase's second launch (~2 us), in a CTA's weight bytes
 TC_SPLITS_TRIED = 8      # slice counts tried past the fewest that fit
 
 
@@ -125,8 +131,8 @@ def tc_route(dtype: torch.dtype, *widths: int) -> bool:
     """Whether a call may run on csrc/rowq_tc.cuh: bf16 activations (the
     tensor cores give no f32 products) and every contraction width a
     multiple of 16 (TMA needs row strides of 16-byte multiples). Otherwise
-    K9 takes gemv.cuh's tiled GEMV; K20 takes it for f32 and raises for
-    bf16."""
+    K1, K2 and K9 take gemv.cuh's tiled GEMV; K20 takes it for f32 and
+    raises for bf16."""
     return dtype == torch.bfloat16 and all(w % 16 == 0 for w in widths)
 
 
@@ -134,11 +140,14 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def tc_x_bytes(tp: int, pair: bool) -> int:
+def tc_x_bytes(tp: int, pair: bool, g: int, split: bool) -> int:
     """Shared memory for a CTA's bf16 x slice: what csrc/rowq_tc.cuh's
-    `launch_nf` leaves beside the warps' parts and TC_RING_MIN ring stages."""
+    `launch_nf` leaves beside the consumer warps' parts, a unit's sums of
+    16 g-row blocks (`fin`, a phase of one slice only) and TC_RING_MIN ring
+    stages."""
     nh = 2 if pair else 1
-    return TC_DYN_SMEM - nh * 8 * TC_ROWS * tp * 4 - TC_RING_MIN * nh * 8 * TC_ROWS * TC_BOX
+    fin = 0 if split else nh * g * TC_ROWS * tp * 4
+    return TC_DYN_SMEM - nh * 8 * TC_ROWS * tp * 4 - fin - TC_RING_MIN * nh * 8 * TC_ROWS * TC_BOX
 
 
 @dataclass(frozen=True)
@@ -149,8 +158,8 @@ class TcPlan:
     taken by 8 / g consumer warps splitting the columns) over contraction
     slice u // nrb (ksl columns, the last one shorter); CTA c takes the
     contiguous units [c U / ctas, (c + 1) U / ctas). With more than one slice,
-    each unit's sums go to scratch and a block's slices are added in slice
-    order 0, 1, ... by the CTA that stores its last one."""
+    each unit's sums go to scratch and a second launch adds each output's
+    slices in order 0, 1, ..."""
     t: int
     o: int
     i: int
@@ -206,45 +215,47 @@ def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132) -> TcPlan:
     """The row groups, slices and CTAs of one phase. For each g of TC_GROUPS
     and each slice count from the fewest whose bf16 x slice (tp rows of 2 ksl
     + 32 bytes) fits `tc_x_bytes` to TC_SPLITS_TRIED more, the busiest CTA's
-    cost: ceil(units / SMs) units of their weight bytes plus TC_UNIT_BYTES.
-    The cheapest wins, the fewest units on a tie; one CTA an SM, or one a
-    unit. Cached: a decode step asks for the same few plans every layer."""
+    cost: ceil(units / SMs) units of their weight bytes plus TC_UNIT_BYTES,
+    and TC_REDUCE_BYTES for the second launch of a split contraction. The
+    cheapest wins, the fewest units on a tie; one CTA an SM, or one a unit.
+    Cached: a decode step asks for the same few plans every layer."""
     tp = _ceil(t, 8) * 8
-    budget = tc_x_bytes(tp, pair)
 
     def ksl_of(s):
         return _ceil(_ceil(i, s), TC_BOX) * TC_BOX
-    s0 = 1
-    while tp * (2 * ksl_of(s0) + 32) > budget:
-        s0 += 1
+
+    def fits(g, s):
+        ksl = ksl_of(s)
+        return tp * (2 * ksl + 32) <= tc_x_bytes(tp, pair, g, _ceil(i, ksl) > 1)
     best = None
     for g in TC_GROUPS:
+        s0 = 1
+        while not fits(g, s0):
+            s0 += 1
         nrb = _ceil(o, g * TC_ROWS)
         for s in range(s0, s0 + TC_SPLITS_TRIED + 1):
             ksl = ksl_of(s)
             splits = _ceil(i, ksl)
             units = nrb * splits
             unit_bytes = g * TC_ROWS * ksl * (2 if pair else 1)
-            key = (_ceil(units, sm_count) * (unit_bytes + TC_UNIT_BYTES), units)
+            cost = _ceil(units, sm_count) * (unit_bytes + TC_UNIT_BYTES)
+            key = (cost + (TC_REDUCE_BYTES if splits > 1 else 0), units)
             if best is None or key < best[0]:
                 best = (key, TcPlan(t, o, i, pair, g, splits, ksl, min(units, sm_count)))
     return best[1]
 
 
-TC_COUNTER_STRIDE = 32   # ints between two row blocks' counters: one 128-byte line each
-_COUNTERS: dict[torch.device, torch.Tensor] = {}
+def tc_plan(t: int, o: int, i: int, pair: bool, dev: torch.device, sms=None) -> TcPlan:
+    """`plan_tc` for a call on dev's SMs (or on `sms`, where a test gives them)."""
+    return plan_tc(t, o, i, pair, sms or _sm_count(dev.index or 0))
 
 
-def tc_counters(dev: torch.device, n: int) -> torch.Tensor:
-    """The slice counters of n row blocks of rowq_tc.cuh on dev, one a 128-byte
-    line: zero before a launch and after it (the CTA that completes a block
-    resets its counter), so one buffer serves every call on the device's
-    stream in turn."""
-    c = _COUNTERS.get(dev)
-    if c is None or c.numel() < n * TC_COUNTER_STRIDE:
-        c = _COUNTERS[dev] = torch.zeros(max(n, 2048) * TC_COUNTER_STRIDE, dtype=torch.int32,
-                                         device=dev)
-    return c
+def tc_partial(dev: torch.device, *plans: TcPlan) -> torch.Tensor | None:
+    """f32 scratch for the slices' sums of the split phases among `plans`
+    (None if none is split); the phases run in stream order, so one buffer
+    serves them all."""
+    n = max(p.partial_floats for p in plans)
+    return torch.empty(n, dtype=torch.float32, device=dev) if n else None
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -274,23 +285,19 @@ def _ffn_launch(x2, qs13, s13, qs2, s2, lib=None, sms=None):
     x2 = aligned16(x2)
     dev = x2.device
     out = torch.empty((t, d), dtype=torch.float32, device=dev)
+    partial = None
     if x2.dtype == torch.bfloat16:
-        sms = sms or _sm_count(dev.index or 0)
-        p13, p2 = plan_tc(t, f, d, True, sms), plan_tc(t, d, f, False, sms)
+        p13, p2 = tc_plan(t, f, d, True, dev, sms), tc_plan(t, d, f, False, dev, sms)
         act = torch.empty((t, f), dtype=torch.bfloat16, device=dev)
-        partial = torch.empty(max(1, p13.partial_floats, p2.partial_floats),
-                              dtype=torch.float32, device=dev)
-        counters = tc_counters(dev, max(p13.nrb, p2.nrb))
+        partial = tc_partial(dev, p13, p2)
         plan = (*p13.args, *p2.args)
     else:
         act = torch.empty((t, f), dtype=torch.float32, device=dev)
-        partial = counters = None
         plan = (0,) * 8
     lib = lib or _build.load("ffn_fused")
     err = lib.lt_ffn_fused(x2.data_ptr(), _build.dtype_code(x2), qs13.data_ptr(),
                            s13.data_ptr(), qs2.data_ptr(), s2.data_ptr(), act.data_ptr(),
-                           None if partial is None else partial.data_ptr(),
-                           None if counters is None else counters.data_ptr(), out.data_ptr(),
+                           None if partial is None else partial.data_ptr(), out.data_ptr(),
                            t, d, f, *plan, _build.stream())
     _build.check(lib, err, "ffn_fused_rowq")
     return out

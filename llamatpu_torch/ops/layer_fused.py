@@ -18,14 +18,15 @@
   tile order. `layer_tail_fused_rowq` takes it instead of K9 while the module
   flag `_W2_KTILE` is set (read at each call), as the JAX function does;
   bench/sweep_tail.py times the two.
-K2 takes any number of rows; the forward calls it for B * T <= 32 rows where
-`qkv_fits` accepts, and K3 where `attn_tail_fits` does: the JAX package's
-rules, its VMEM fits included (the fits section below).
+K2 takes up to 32 rows on the card (any number on the CPU); the forward
+calls it for B * T <= 32 rows where `qkv_fits` accepts, and K3 where
+`attn_tail_fits` does: the JAX package's rules, its VMEM fits included (the
+fits section below).
 
 The working ("dot") dtype is f32 for f32 activations, else bf16. CUDA source:
-csrc/layer_fused.cu (design and bound in its header note); K9's bf16 phases
-run csrc/rowq_tc.cuh's tensor-core template on ops/ffn_fused.py `plan_tc`'s
-plans where `ffn_fused.tc_route` takes the call. Each entry point has its
+csrc/layer_fused.cu (design and bound in its header note); K2's and K9's
+bf16 GEMV phases run csrc/rowq_tc.cuh's tensor-core template on
+ops/ffn_fused.py `plan_tc`'s plans where `ffn_fused.tc_route` takes the call. Each entry point has its
 plain torch version here; a CPU tensor takes it, a CUDA tensor launches the
 kernel or raises.
 """
@@ -37,7 +38,6 @@ from llamatpu_torch import _build
 from llamatpu_torch.models.weights import QTensor
 from llamatpu_torch.ops import ffn_fused
 from llamatpu_torch.ops.ffn_fused import _MAX_T, _pick_to
-from llamatpu_torch.ops.gemm import _sm_count
 from llamatpu_torch.ops.rmsnorm import rmsnorm
 
 
@@ -196,25 +196,52 @@ def qkv_norm_plain(wqkv: QTensor, attn_norm, x, li: int, eps: float) -> torch.Te
     return ((h.float() @ qs.float().T) * s).to(x.dtype)
 
 
+def _qkv_launch(qs, s, nw, x2, eps: float, lib=None, sms=None) -> torch.Tensor:
+    """The checks, then one call of csrc/layer_fused.cu `lt_qkv_norm` (or of
+    `lib`, a library with the same entry point) for x2 [t <= 32, D]:
+    the norm phase and rowq_tc.cuh's GEMV on the plan of
+    `ffn_fused.plan_tc` where `ffn_fused.tc_route` takes the call, gemv.cuh's
+    tiled GEMV otherwise. Returns y [t, O] f32."""
+    t, d = x2.shape
+    o = qs.shape[0]
+    _build.require(1 <= t <= _MAX_T and x2.dtype in (torch.float32, torch.bfloat16)
+                   and qs.dtype == torch.int8 and tuple(qs.shape) == (o, d)
+                   and tuple(s.shape) == (o,) and tuple(nw.shape) == (d,),
+                   "qkv_norm_fused_rowq: x [T <= 32, D] f32 or bf16, wqkv [O, D], norm [D]")
+    _build.require(d % 4 == 0 and qs.is_contiguous() and s.is_contiguous()
+                   and qs.device == s.device == x2.device and qs.data_ptr() % 16 == 0,
+                   "qkv_norm_fused_rowq: contiguous, 16-byte aligned weights on x's device, "
+                   "D % 4 == 0")
+    dev = x2.device
+    x2 = ffn_fused.aligned16(x2)
+    nw = ffn_fused.aligned16(nw.float().contiguous())
+    y = torch.empty((t, o), dtype=torch.float32, device=dev)
+    h = partial = None
+    plan = (0, 0, 0, 0)
+    if ffn_fused.tc_route(x2.dtype, d):
+        p = ffn_fused.tc_plan(t, o, d, False, dev, sms)
+        h = torch.empty((t, d), dtype=torch.bfloat16, device=dev)
+        partial, plan = ffn_fused.tc_partial(dev, p), p.args
+    lib = lib or _build.load("layer_fused")
+    ptr = [None if a is None else a.data_ptr() for a in (h, partial)]
+    err = lib.lt_qkv_norm(x2.data_ptr(), _build.dtype_code(x2), nw.data_ptr(), float(eps),
+                          qs.data_ptr(), s.data_ptr(), y.data_ptr(), *ptr, t, o, d,
+                          _build.DTYPE_CODES[_dot_dtype(x2)], *plan, _build.stream())
+    _build.check(lib, err, "qkv_norm_fused_rowq")
+    return y
+
+
 def qkv_norm_fused_rowq(wqkv: QTensor, attn_norm: torch.Tensor, x: torch.Tensor,
                         li: int, eps: float) -> torch.Tensor:
     """y[..., O] = rmsnorm(x, attn_norm[li]) @ wqkv[li]^T, in x's dtype.
-    wqkv stacked q8_row [L, O, D], attn_norm [L, D]."""
+    wqkv stacked q8_row [L, O, D], attn_norm [L, D]. On the card x has at
+    most 32 rows (`ffn_fused._MAX_T`), as the JAX function takes."""
     if x.device.type == "cpu":
         return qkv_norm_plain(wqkv, attn_norm, x, li, eps)
     qs, s = _rowq_layer(wqkv, li)
     o, d = qs.shape
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, d).contiguous()
-    nw = attn_norm[li].float().contiguous()
-    _build.require(d % 4 == 0 and qs.is_contiguous() and s.is_contiguous(),
-                   "qkv_norm_fused_rowq: contiguous weights, D % 4 == 0")
-    y = torch.empty((x2.shape[0], o), dtype=torch.float32, device=x.device)
-    lib = _build.load("layer_fused")
-    err = lib.lt_qkv_norm(x2.data_ptr(), _build.dtype_code(x2), nw.data_ptr(), float(eps),
-                          qs.data_ptr(), s.data_ptr(), y.data_ptr(), x2.shape[0], o, d,
-                          _build.DTYPE_CODES[_dot_dtype(x)], _build.stream())
-    _build.check(lib, err, "qkv_norm_fused_rowq")
+    y = _qkv_launch(qs, s, attn_norm[li], x.reshape(-1, d).contiguous(), eps)
     qkv_norm_fused_rowq.launches += 1
     return y.reshape(*lead, o).to(x.dtype)
 
@@ -402,13 +429,11 @@ def layer_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torc
 
 def _tail_scratch(t: int, d: int, f: int, plans, dev):
     """rowq_tc.cuh's scratch for K9's three phases: act [t, F] bf16, the sums
-    of squares of x2 a 16-row block [t, D / 16], every split phase's slice
-    sums, and the row blocks' counters."""
+    of squares of x2 a 16-row block [t, D / 16], and the split phases'
+    slice sums (None if no phase is split)."""
     act = torch.empty((t, f), dtype=torch.bfloat16, device=dev)
     ssp = torch.empty((t, -(-d // ffn_fused.TC_ROWS)), dtype=torch.float32, device=dev)
-    partial = torch.empty(max(1, *(p.partial_floats for p in plans)), dtype=torch.float32,
-                          device=dev)
-    return act, ssp, partial, ffn_fused.tc_counters(dev, max(p.nrb for p in plans))
+    return act, ssp, ffn_fused.tc_partial(dev, *plans)
 
 
 def _tail_launch(parts, nw, a2, x2in, eps: float, residual_scale: float, lib=None, sms=None):
@@ -438,17 +463,17 @@ def _tail_launch(parts, nw, a2, x2in, eps: float, residual_scale: float, lib=Non
     x2 = torch.empty((t, d), dtype=torch.float32, device=dev)
     out = torch.empty_like(x2in)
     if ffn_fused.tc_route(x2in.dtype, d, hdim, f):
-        sms = sms or _sm_count(dev.index or 0)
-        plans = (ffn_fused.plan_tc(t, d, hdim, False, sms), ffn_fused.plan_tc(t, f, d, True, sms),
-                 ffn_fused.plan_tc(t, d, f, False, sms))
-        act, ssp, partial, counters = _tail_scratch(t, d, f, plans, dev)
+        plans = (ffn_fused.tc_plan(t, d, hdim, False, dev, sms),
+                 ffn_fused.tc_plan(t, f, d, True, dev, sms),
+                 ffn_fused.tc_plan(t, d, f, False, dev, sms))
+        act, ssp, partial = _tail_scratch(t, d, f, plans, dev)
         plan = tuple(v for p in plans for v in p.args)
     else:
         act = torch.empty((t, f), dtype=torch.float32, device=dev)
-        ssp = partial = counters = None
+        ssp = partial = None
         plan = (0,) * 12
     lib = lib or _build.load("layer_fused")
-    ptr = [None if a is None else a.data_ptr() for a in (ssp, partial, counters)]
+    ptr = [None if a is None else a.data_ptr() for a in (ssp, partial)]
     err = lib.lt_tail(a2.data_ptr(), _build.dtype_code(x2in), x2in.data_ptr(), nw.data_ptr(),
                       float(eps), float(residual_scale), wo_q.data_ptr(), so.data_ptr(),
                       w13_q.data_ptr(), s13.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),

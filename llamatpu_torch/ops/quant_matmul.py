@@ -5,7 +5,9 @@ layer view qs[li] of a stacked [L, O, I] tensor, and returns y[T, O] in f32.
 - K1 `rowq_gemv`, the q8_row projection at T < 128 (`_kernel_rowq` /
   `_kernel_rowq_li`): y = x . qs^T with the int8 weights converted exactly
   and an f32 sum; the per-row scale multiplies the output outside the
-  kernel (ops/matmul.py), as on the TPU. CUDA: csrc/quant_matmul.cu.
+  kernel (ops/matmul.py), as on the TPU. CUDA: csrc/quant_matmul.cu; bf16
+  x runs csrc/rowq_tc.cuh's tensor-core template in passes of up to 32
+  rows (`rowq_route`).
 - K5 `block_matmul`, Q8_0 / Q4_0 block quants (`_kernel` / `_kernel_li`):
   y = dot(x.to(dt), (qs.f32 * s[o, i / 32]).to(dt)) with f32 accumulation,
   dt the dot dtype (f32 for f32 activations, else bf16). The dequantized
@@ -24,6 +26,7 @@ import torch
 
 from llamatpu_torch import _build
 from llamatpu_torch.models.weights import unpack4_pairs
+from llamatpu_torch.ops.ffn_fused import _dot_dtype, aligned16, tc_partial, tc_plan, tc_route
 
 BLOCK = 32
 GEMM_MIN_T = 16  # K5/K7 switch from the GEMV to the tiled tensor-core path here
@@ -36,11 +39,63 @@ def rowq_gemv_plain(x2: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
 
 
 def _maxt(t: int, i: int) -> int:
-    """Activation rows per block pass: as many as fit 192 KB of shared memory."""
+    """Activation rows per block pass of gemv.cuh's gemv_kernel: as many as
+    fit 192 KB of shared memory."""
     for m in (8, 4, 2, 1):
         if m <= max(t, 1) and m * i * 4 <= 192 * 1024:
             return m
     raise ValueError(f"rowq_gemv: in-features {i} do not fit shared memory")
+
+
+TC_PASS_ROWS = 32     # rows of one pass of csrc/rowq_tc.cuh (its B fragments)
+TILED_MAX_T = 32      # rows gemv.cuh's tiled GEMV takes in one launch
+
+
+def rowq_route(t: int, i: int, dtype: torch.dtype) -> tuple[str, int]:
+    """K1's kernel for t rows of width i: ("tc", passes) on rowq_tc.cuh for
+    bf16 x at widths % 16 == 0, ceil(t / 32) passes; ("tiled", 1) on gemv.cuh's
+    tiled GEMV for other x up to 32 rows; ("gemv", maxt) on its gemv_kernel
+    above that, maxt rows a block pass."""
+    if tc_route(dtype, i):
+        return "tc", -(-t // TC_PASS_ROWS)
+    if t <= TILED_MAX_T:
+        return "tiled", 1
+    return "gemv", _maxt(t, i)
+
+
+def _rowq_launch(x2: torch.Tensor, qs: torch.Tensor, lib=None, sms=None,
+                 route=None) -> torch.Tensor:
+    """The checks, then one call of csrc/quant_matmul.cu `lt_rowq_gemv` (or
+    of `lib`, a library with the same entry point) on the route of
+    `rowq_route` (or `route`, to time another), with the plan of the
+    largest pass and its scratch on the tensor-core route. Returns y [t, O]
+    f32."""
+    t, i = x2.shape
+    o = qs.shape[0]
+    _build.require(x2.dtype in (torch.float32, torch.bfloat16) and x2.is_contiguous()
+                   and qs.is_contiguous(), "rowq_gemv: contiguous f32 or bf16 x, contiguous qs")
+    _build.require(qs.dtype == torch.int8 and qs.dim() == 2 and qs.shape[1] == i
+                   and qs.device == x2.device and t >= 1 and o >= 1,
+                   "rowq_gemv: qs int8 [O, I] on x's device, T >= 1")
+    route, n = route or rowq_route(t, i, x2.dtype)
+    align = 4 if route == "gemv" else 16  # TMA and 16-byte weight loads
+    _build.require(i % 4 == 0 and qs.data_ptr() % align == 0,
+                   f"rowq_gemv: I % 4 == 0, {align}-byte aligned weights")
+    dev = x2.device
+    x2 = aligned16(x2)
+    y = torch.empty((t, o), dtype=torch.float32, device=dev)
+    maxt, plan, passes, partial = 0, (0, 0, 0, 0), 0, None
+    if route == "tc":
+        p = tc_plan(-(-t // n), o, i, False, dev, sms)
+        plan, passes, partial = p.args, n, tc_partial(dev, p)
+    elif route == "gemv":
+        maxt = n
+    lib = lib or _build.load("quant_matmul")
+    err = lib.lt_rowq_gemv(x2.data_ptr(), _build.dtype_code(x2), qs.data_ptr(), y.data_ptr(),
+                           None if partial is None else partial.data_ptr(), t, o, i, maxt,
+                           *plan, passes, _build.stream())
+    _build.check(lib, err, "rowq_gemv")
+    return y
 
 
 def rowq_gemv(x2: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
@@ -49,17 +104,7 @@ def rowq_gemv(x2: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     tensor launches K1 (or raises)."""
     if x2.device.type == "cpu":
         return rowq_gemv_plain(x2, qs)
-    t, i = x2.shape
-    o = qs.shape[0]
-    _build.require(x2.is_contiguous() and qs.is_contiguous(), "rowq_gemv: contiguous inputs")
-    _build.require(qs.dtype == torch.int8 and qs.shape[1] == i and qs.device == x2.device,
-                   "rowq_gemv: qs int8 [O, I] on x's device")
-    _build.require(i % 4 == 0 and qs.data_ptr() % 4 == 0, "rowq_gemv: I % 4 == 0, aligned rows")
-    y = torch.empty((t, o), dtype=torch.float32, device=x2.device)
-    lib = _build.load("quant_matmul")
-    err = lib.lt_rowq_gemv(x2.data_ptr(), _build.dtype_code(x2), qs.data_ptr(), y.data_ptr(),
-                           t, o, i, _maxt(t, i), _build.stream())
-    _build.check(lib, err, "rowq_gemv")
+    y = _rowq_launch(x2, qs)
     rowq_gemv.launches += 1
     return y
 
@@ -68,10 +113,6 @@ rowq_gemv.launches = 0
 
 
 # ------------------------------------------------------------------ K5 / K7
-def _dot_dtype(x: torch.Tensor) -> torch.dtype:
-    return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
-
-
 def dequant_blocks(qs: torch.Tensor, scales: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """(qs.f32 * scale of its 32-block) rounded to dt: the TPU kernel's
     in-VMEM dequant."""

@@ -5,9 +5,9 @@ here what surrounds it and its arithmetic are held to the JAX package:
 
 - the plan (`ffn_fused.plan_tc`): every (16-row block, contraction slice)
   exactly once, the CTAs' shares within one unit of each other, the slices
-  added in order 0, 1, ..., a CTA's x slice within its shared memory with
-  at least two ring stages beside it, at Llama-3.2-1B, Phi-3-medium,
-  Qwen2.5-14B and tiny widths;
+  added in order 0, 1, ... (by the split phases' second launch), a CTA's x
+  slice within its shared memory with at least three ring stages beside
+  it, at Llama-3.2-1B, Phi-3-medium, Qwen2.5-14B and tiny widths;
 - the kernel's walk emulated in torch (bf16 operands, f32 sums per box, a
   unit's 8 warp parts in order, the slices' sums in plan order, the
   epilogues with the sums of squares of x2 per 16-row block) against the
@@ -16,9 +16,10 @@ here what surrounds it and its arithmetic are held to the JAX package:
   the largest output (the bf16 gate of tests/test_torch_batch.py and
   tests/test_torch_ffn_fused.py);
 - the launchers, with a fake library: bad shapes raise before the device,
-  the plans and scratch reach the C call; f32 activations take gemv.cuh's
-  route, and so do K9's widths that are not multiples of 16 (K20 raises
-  for them in bf16);
+  the plans and scratch reach the C call (the slices' sums only where a
+  phase splits its contraction); f32 activations take gemv.cuh's route, and
+  so do K9's widths that are not multiples of 16 (K20 raises for them in
+  bf16);
 - bench/tail_ab.py's variants, which edit the kernel's source.
 """
 import jax.numpy as jnp
@@ -63,11 +64,14 @@ def _phases(t, d, h, f, sms):
 
 def _ring_stages(p: ff.TcPlan) -> int:
     """The ring depth csrc/rowq_tc.cuh `launch_nf` derives: 227 KB less the
-    static room, the 1 KB alignment, the x slice and the warps' parts."""
+    static room, the 1 KB alignment, the x slice, the warps' parts and, with
+    one slice, a unit's sums."""
+    nh = 2 if p.pair else 1
     xbytes = p.tp * (2 * p.ksl + 32)
-    red = (2 if p.pair else 1) * 8 * 16 * p.tp * 4
-    stage = (2 if p.pair else 1) * 8 * 16 * 128
-    return min(8, (232448 - 1024 - 1024 - xbytes - red) // stage)
+    red = nh * 8 * 16 * p.tp * 4
+    fin = nh * p.g * 16 * p.tp * 4 if p.splits == 1 else 0
+    stage = nh * 8 * 16 * 128
+    return min(8, (232448 - 1024 - 1024 - xbytes - red - fin) // stage)
 
 
 @pytest.mark.parametrize("sms", [1, 3, 7, 132])
@@ -84,7 +88,8 @@ def test_plan_covers_each_block_and_slice_once(geo, t, sms):
     for p in _phases(t, d, h, f, sms):
         assert p.g in ff.TC_GROUPS and p.rows == 16 * p.g
         assert p.ksl % 128 == 0 and (p.splits - 1) * p.ksl < p.i <= p.splits * p.ksl
-        assert p.tp * (2 * p.ksl + 32) <= ff.tc_x_bytes(p.tp, p.pair) and _ring_stages(p) >= 3
+        assert p.tp * (2 * p.ksl + 32) <= ff.tc_x_bytes(p.tp, p.pair, p.g, p.splits > 1)
+        assert _ring_stages(p) >= 3
         assert p.ctas == min(p.units, sms) and list(p.order) == list(range(p.splits))
         seen = np.zeros((p.splits, p.nrb), dtype=np.int32)
         cols = np.zeros(p.i, dtype=np.int32)
@@ -300,8 +305,7 @@ def _no_device(monkeypatch):
     def no_device(*_):
         raise AssertionError("reached the device")
     monkeypatch.setattr(ff._build, "load", no_device)
-    monkeypatch.setattr(lf, "_sm_count", no_device)
-    monkeypatch.setattr(ff, "_sm_count", no_device)
+    monkeypatch.setattr(ff, "_sm_count", no_device)  # every plan's SMs (ffn_fused.tc_plan)
 
 
 def _tail_parts(d=256, h=384, f=640, dt=torch.bfloat16, t=8):
@@ -379,14 +383,15 @@ def test_tail_launcher_passes_plans_and_scratch(t, d, h, f, dt, tc, monkeypatch)
     out = lf._tail_launch(parts, nw, a2, x2in, EPS, 0.5, lib=lib, sms=5)
     (call,) = lib.calls
     assert out.shape == (t, d) and out.dtype == dt
-    assert call[18:23] == (t, d, h, f, 1 if dt == torch.bfloat16 else 0)
+    assert call[17:22] == (t, d, h, f, 1 if dt == torch.bfloat16 else 0)
     plans = _phases(t, d, h, f, 5)
     if tc:
-        assert call[23:35] == tuple(v for p in plans for v in p.args)
-        assert all(call[i] for i in (14, 15, 16))  # ssp, partial, counters
+        assert call[22:34] == tuple(v for p in plans for v in p.args)
+        assert call[14]  # ssp; the slices' sums only where a phase splits
+        assert (call[15] is not None) == any(p.splits > 1 for p in plans)
     else:
-        assert call[23:35] == (0,) * 12 and call[14:17] == (None, None, None)
-    assert len(call) == 36 and call[4:6] == (EPS, 0.5)
+        assert call[22:34] == (0,) * 12 and call[14:16] == (None, None)
+    assert len(call) == 35 and call[4:6] == (EPS, 0.5)
 
 
 @pytest.mark.parametrize("t,d,f,dt,tc", [
@@ -394,20 +399,22 @@ def test_tail_launcher_passes_plans_and_scratch(t, d, h, f, dt, tc, monkeypatch)
     (32, 256, 640, torch.float32, False), (8, 208, 656, torch.bfloat16, True),
     (8, 200, 644, torch.float32, False)])
 def test_ffn_launcher_passes_plans_and_scratch(t, d, f, dt, tc, monkeypatch):
-    """A valid K20 call reaches lt_ffn_fused with both phases' plans and the
-    split and counter scratch for bf16 x (rowq_tc.cuh); f32 x takes
-    gemv.cuh's route at any width that is a multiple of 4."""
+    """A valid K20 call reaches lt_ffn_fused with both phases' plans and,
+    where a phase splits its contraction, the slices' scratch for bf16 x
+    (rowq_tc.cuh); f32 x takes gemv.cuh's route at any width that is a
+    multiple of 4."""
     monkeypatch.setattr(ff._build, "stream", lambda: 0)
     lib = _FakeLib()
     out = ff._ffn_launch(*_ffn_parts(d, f, dt, t), lib=lib, sms=7)
     (call,) = lib.calls
-    assert out.shape == (t, d) and out.dtype == torch.float32 and call[10:13] == (t, d, f)
+    assert out.shape == (t, d) and out.dtype == torch.float32 and call[9:12] == (t, d, f)
     if tc:
         p13, p2 = ff.plan_tc(t, f, d, True, 7), ff.plan_tc(t, d, f, False, 7)
-        assert call[13:21] == (*p13.args, *p2.args) and call[7] and call[8]
+        assert call[12:20] == (*p13.args, *p2.args) and call[8]
+        assert (call[7] is not None) == (p13.splits > 1 or p2.splits > 1)
     else:
-        assert call[13:21] == (0,) * 8 and call[7:9] == (None, None)
-    assert len(call) == 22
+        assert call[12:20] == (0,) * 8 and call[7] is None
+    assert len(call) == 21
 
 
 @pytest.mark.parametrize("t,d,h,f", [(8, 5120, 5120, 17920), (32, 2048, 2048, 8192),
@@ -415,25 +422,16 @@ def test_ffn_launcher_passes_plans_and_scratch(t, d, f, dt, tc, monkeypatch):
 def test_tail_scratch_covers_every_phase(t, d, h, f):
     """K9's scratch holds what the kernel writes: act [t, F] bf16, the sums
     of squares of x2 for every 16-row block of D (whatever a phase's row
-    groups), every phase's units' sums, a counter for each row block."""
+    groups), and every split phase's units' sums (none if no phase splits)."""
     plans = _phases(t, d, h, f, 132)
-    act, ssp, partial, counters = lf._tail_scratch(t, d, f, plans, torch.device("cpu"))
+    act, ssp, partial = lf._tail_scratch(t, d, f, plans, torch.device("cpu"))
     assert act.shape == (t, f) and act.dtype == torch.bfloat16
     assert ssp.shape == (t, -(-d // 16)) and ssp.dtype == torch.float32
-    assert all(partial.numel() >= p.partial_floats for p in plans)
-    assert all(counters.numel() >= p.nrb * ff.TC_COUNTER_STRIDE for p in plans)
-
-
-def test_counters_are_kept_per_device():
-    """One zeroed counter buffer a device, a 128-byte line a row block, grown
-    when a call needs more blocks."""
-    a = ff.tc_counters(torch.device("cpu"), 10)
-    assert a.dtype == torch.int32 and not a.any() and a.numel() >= 10 * ff.TC_COUNTER_STRIDE
-    assert ff.TC_COUNTER_STRIDE * 4 == 128
-    assert ff.tc_counters(torch.device("cpu"), 100) is a
-    n = a.numel() // ff.TC_COUNTER_STRIDE + 1
-    b = ff.tc_counters(torch.device("cpu"), n)
-    assert b.numel() >= n * ff.TC_COUNTER_STRIDE and not b.any()
+    if any(p.splits > 1 for p in plans):
+        assert partial.dtype == torch.float32
+        assert all(partial.numel() >= p.partial_floats for p in plans)
+    else:
+        assert partial is None
 
 
 # ----------------------------------------------------------------- ablation

@@ -27,7 +27,14 @@ It runs every phase, needs one card, and exits non-zero
             0 to S - 1 and -1) and times at B = 1 and 8 lanes, pos 512, warm
             and cold, every cluster size; K14 fused bf16/int8 on a 33792-row cache at pos 0 to 32767
             and 8 mixed lanes, unfused, stats and f32; K15 over 4000 of 4128
-            rows in f32, bf16 and int8; K6-int8 at pos 0 to 1151 and 8
+            rows in f32, bf16 and int8, one lane at pos 3999 under the
+            path's plan; K14's and K15's one kernel (stripe_cluster_kernel)
+            at its edges (check_stripe_edges: unit, cluster and round
+            boundaries under the planner's plans at the path shapes and
+            the cluster sizes of STRIPE_EDGE_CLUSTERS, fused, unfused and
+            stats, s_use 3990 under the one-lane plans, Phi-3-medium's
+            geometry, two runs bit-equal), each timed under the planner's
+            plan, with K6 at pos 512 in the same call; K6-int8 at pos 0 to 1151 and 8
             lanes, K8-int8 at 8 lanes; quantize_kv card against CPU bit for bit) and of
             Qwen1.5-MoE-A2.7B (K10-K13 on one layer's folded stacks, E = 64,
             at 1, 8 and 512 tokens; their one kernel's edges,
@@ -269,7 +276,7 @@ def rand_rowq(L, o, i, dev, gen):
 
 
 MOE_KERNELS = ("grouped_tc_kernel",)  # K10-K13: one template, both tile regimes
-WALK = ("attn_walk_kernel", "attn_walk_combine_kernel")  # K14's and K15's two passes
+STRIPE = ("stripe_cluster_kernel",)  # K14 and K15: one launch, P clusters a head
 GEMV = ("gemv_kernel",)  # kernel names (profiler keys) of K1 / K2 / K3's GEMV phases
 # llama32-1b main-path shapes: layers, dim, hidden, kv heads, groups, head dim,
 # physical cache length (cache_len 1024 + one 128-row granule), vocab, prefill rows
@@ -876,16 +883,22 @@ PAGED = ("paged_cluster_kernel",)  # K8 and K8-int8: one launch, clusters of CTA
 PAGED_CLUSTERS = (1, 2, 4, 8)  # every cluster size ops/attention.plan_paged can pick
 
 
-def forced_cluster(attention, c: int, planner_name: str = "plan_paged", rows: int | None = None):
-    """A context in which K8's planner (or K6's, "plan_dense") keeps its
-    stages (or takes `rows`) but takes cluster c."""
+def forced_cluster(attention, c: int, planner_name: str = "plan_paged", rows: int | None = None,
+                   parts: int | None = None):
+    """A context in which K8's planner (or K6's, "plan_dense", or K14's and
+    K15's, "plan_stripe") keeps its stages (or takes `rows`) but takes
+    cluster c (and, "plan_stripe", `parts` clusters a head)."""
     import contextlib
     import dataclasses
 
     @contextlib.contextmanager
     def ctx():
         planner = getattr(attention, planner_name)
-        forced = dict(cluster=c) if rows is None else dict(cluster=c, rows=rows)
+        forced = dict(cluster=c)
+        if rows is not None:
+            forced["rows"] = rows
+        if parts is not None:
+            forced["parts"] = parts
         setattr(attention, planner_name,
                 lambda *a, **kw: dataclasses.replace(planner(*a, **kw), **forced))
         try:
@@ -1289,6 +1302,179 @@ def check_fused(A, dev, gen, kvh, g, hd, s_len, positions, dt, k6: bool = False)
     return got, want
 
 
+# K14's and K15's cluster sizes that the planner does not pick, held to the
+# plain version under forced plans at the edges (cluster, parts; the
+# planner's stage rows). Their times are bench/paged_ablation.py's.
+STRIPE_EDGE_CLUSTERS = ((1, 16), (4, 4), (8, 2))
+
+
+def check_stripe_edges(dev, dims=LLAMA32_1B) -> dict:
+    """K14 and K15 against their plain versions at the edges of their plans,
+    Llama-3.2-1B geometry unless said, two calls giving the same bits (plans
+    as (C, P, stage rows) on an H100's 132 SMs):
+    - the 33792-row cache (2 layers, 8 lanes), lanes at R - 1 and R (a unit
+      boundary), C R - 1 and C R (the second cluster's first unit), C P R -
+      1 and C P R (the second round), 20000 and 32767 under the 8 lanes'
+      plan (2, 1, 32), the one-lane plans of bf16 (2, 8, 32) and int8 (2,
+      16, 32), and the cluster sizes of STRIPE_EDGE_CLUSTERS: fused bf16
+      and int8 (the caches and scale rows as the plain version's, only row
+      pos changed), unfused bf16, stats bf16;
+    - K15 over s_use = 3990 of 4128 rows (not a multiple of the stage rows)
+      at pos 0, 15, 16, 3989, 3990 and 4127, f32, bf16 and int8, under the
+      plan of these 6 lanes, the one-lane plan of the dtype (f32 (2, 8,
+      16), bf16 and int8 (2, 8, 32): P > 1, the clusters combined through
+      the scratch and the counter) and (8, 2, 32) (not f32: its stages
+      would pass STRIPE_STAGE_BYTES);
+    - Phi-3-medium's geometry (KV 10, G 4, hd 128), bf16, one lane at pos
+      4000 of 4128 rows under its plan (2, 6, 16), K15 and K14 unfused.
+    Outputs (and m, l) within rel 1e-5 of max|plain|."""
+    import torch
+
+    from llamatpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    KV, G, HD = dims["KV"], dims["G"], dims["HD"]
+    W, scale = 2 * HD, HD ** -0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, cases = {}, 0
+
+    def hold(got, want, what, again=None):
+        nonlocal cases
+        if again is not None:
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: runs differ"
+        for a, b in zip(got, want):
+            abs_e, rel_e = max_err(a, b)
+            assert rel_e <= 1e-5 and bool(torch.isfinite(a).all()), \
+                f"K14/K15 edges {what}: max abs {abs_e} rel {rel_e}"
+            key = what.split(" plan")[0]
+            worst[key] = max(worst.get(key, 0.0), rel_e)
+        cases += 1
+
+    def plans_of(b, s_len, width, itemsize, extra):
+        """The planner's plan at b lanes, then each (cluster, parts, rows) of
+        extra (rows None: the planner's) whose stage fits STRIPE_STAGE_BYTES."""
+        base = A.plan_stripe(b, KV, s_len, width, itemsize, sms)
+        plans = [base]
+        for c, p, r in extra:
+            pl = A.StripePlan(c, p, r or base.rows)
+            if pl not in plans and pl.rows * width * itemsize <= A.STRIPE_STAGE_BYTES:
+                plans.append(pl)
+        return plans
+
+    def as_tuple(pl):
+        return pl.cluster, pl.parts, pl.rows
+
+    S = LONG_S
+    one = A.plan_stripe(1, KV, S, W, 2, sms)
+    one_int8 = A.plan_stripe(1, KV, S, W, 1, sms)
+    C, P, R = one.cluster, one.parts, one.rows
+    positions = [R - 1, R, C * R - 1, C * R, C * P * R - 1, C * P * R, min(20000, S // 2),
+                 min(32767, S - 1)]
+    B = len(positions)
+    pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+    q = torch.randn((B, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
+    new = torch.randn((B, KV, W), device=dev, generator=gen)
+    x = torch.randn((2, B, KV, S, W), device=dev, generator=gen)
+    written = torch.zeros((2, B, KV, S), dtype=torch.bool, device=dev)
+    written[1, torch.arange(B, device=dev), :, pv.long()] = True
+    plans = plans_of(B, S, W, 2, [as_tuple(one), as_tuple(one_int8)]
+                     + [(c, p, None) for c, p in STRIPE_EDGE_CLUSTERS])
+    for dt in (torch.bfloat16, torch.int8):
+        quant = dt == torch.int8
+        kvc, sc = int8_rows(x) if quant else (x.to(dt), None)
+        if quant:
+            kvn, sn = int8_rows(new[:, :, None])
+            kvn, sn = kvn[:, :, 0], sn[..., 0]
+        else:
+            kvn, sn = new.to(dt), None
+        c2, s2 = kvc.clone(), None if sc is None else sc.clone()
+        want = fused_split(A, True, q, kvn, sn, c2, s2, pv, scale, HD)
+        for pl in plans:
+            what = f"fused {dt} plan {pl}"
+            outs = []
+            for _ in range(2):
+                c1, s1 = kvc.clone(), None if sc is None else sc.clone()
+                with forced_cluster(A, pl.cluster, "plan_stripe", rows=pl.rows, parts=pl.parts):
+                    outs.append(fused_split(A, False, q, kvn, sn, c1, s1, pv, scale, HD))
+                torch.cuda.synchronize()
+                assert torch.equal(c1, c2), f"{what}: cache differs"
+                assert not ((c1 != kvc).any(dim=-1) & ~written).any(), f"{what}: another row"
+                if quant:
+                    assert torch.equal(s1, s2), f"{what}: scale rows differ"
+            hold([outs[0]], [want], what, [outs[1]])
+            if not quant:  # unfused and stats over the written cache
+                with forced_cluster(A, pl.cluster, "plan_stripe", rows=pl.rows, parts=pl.parts):
+                    got = [A.decode_attention_split(q, c2, pv, scale, HD, 1024, 1)
+                           for _ in range(2)]
+                    st = [A.decode_attention_split_stats(q, c2[1], pv, scale, HD, 1024)
+                          for _ in range(2)]
+                hold([got[0]], [A.decode_attention_split_plain(q, c2, pv, scale, HD, 1024, 1)],
+                     f"unfused {dt} plan {pl}", [got[1]])
+                hold(st[0], A.decode_attention_split_stats_plain(q, c2[1], pv, scale, HD, 1024),
+                     f"stats {dt} plan {pl}", st[1])
+        del kvc, sc, c1, s1, c2, s2
+    del x
+    torch.cuda.empty_cache()
+
+    # K15 over s_use rows not a multiple of the stage rows
+    S4, s_use = 4128, 3990
+    positions = [0, 15, 16, s_use - 1, s_use, S4 - 1]
+    pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+    x = torch.randn((2, len(positions), KV, S4, W), device=dev, generator=gen)
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        kvc, sc = int8_rows(x) if dt == torch.int8 else (x.to(dt), None)
+        q = torch.randn((len(positions), KV, G, HD), device=dev, generator=gen).to(
+            torch.float32 if dt == torch.float32 else torch.bfloat16)
+        if sc is None:
+            fn, plain = A.decode_attention, A.decode_attention_plain
+            args = (q, kvc, pv, scale, HD, s_use, 1)
+        else:
+            fn, plain = A.decode_attention_q, A.decode_attention_q_plain
+            args = (q, kvc, sc, pv, scale, HD, s_use, 1)
+        want = plain(*args)
+        lone = A.plan_stripe(1, KV, S4, W, kvc.element_size(), sms)  # the path's plan
+        for pl in plans_of(len(positions), S4, W, kvc.element_size(),
+                           (as_tuple(lone), (8, 2, 32))):
+            with forced_cluster(A, pl.cluster, "plan_stripe", rows=pl.rows, parts=pl.parts):
+                got = [fn(*args) for _ in range(2)]
+            hold([got[0]], [want], f"K15 s_use {s_use} {dt} plan {pl}", [got[1]])
+        del kvc, sc
+    del x
+
+    # Phi-3-medium's geometry at one lane, its own plan
+    kvh, hd = 10, 128
+    x = torch.randn((2, 1, kvh, S4, 2 * hd), device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn((1, kvh, G, hd), device=dev, generator=gen).to(torch.bfloat16)
+    pv = torch.tensor([4000], dtype=torch.int32, device=dev)
+    pl = A.plan_stripe(1, kvh, S4, 2 * hd, 2, sms)
+    got = [A.decode_attention(q, x, pv, hd ** -0.5, hd, 4000, 1) for _ in range(2)]
+    hold([got[0]], [A.decode_attention_plain(q, x, pv, hd ** -0.5, hd, 4000, 1)],
+         f"K15 phi3-medium plan {pl}", [got[1]])
+    got = [A.decode_attention_split(q, x, pv, hd ** -0.5, hd, 32, 1) for _ in range(2)]
+    hold([got[0]], [A.decode_attention_split_plain(q, x, pv, hd ** -0.5, hd, 32, 1)],
+         f"unfused phi3-medium plan {pl}", [got[1]])
+    del x
+    torch.cuda.empty_cache()
+    log(f"K14/K15 edges: {cases} cases (unit, cluster and round boundaries under "
+        f"{plans}, s_use {s_use} under the one-lane plans, Phi-3-medium's plan {pl}; two "
+        f"runs each bit-equal) within rel 1e-5: worst {worst}")
+    return dict(cases=cases, worst_rel_err=worst,
+                tolerance="rel to max|plain| <= 1e-5 (outputs, m, l); fused caches and scale "
+                          "rows as the plain version's, only row pos changed; two runs bit-equal")
+
+
+def fused_split(A, plain: bool, q, kvn, sn, kvc, sc, pv, scale, hd):
+    """One fused K14 call at layer 1 (or its int8 variant, or either plain
+    version): the output."""
+    if sc is None:
+        fn = A.decode_attention_split_fused_write_plain if plain \
+            else A.decode_attention_split_fused_write
+        return fn(q, kvn, kvc, pv, scale, 1, hd)[0]
+    fn = A.decode_attention_split_fused_write_q_plain if plain \
+        else A.decode_attention_split_fused_write_q
+    return fn(q, kvn, sn, kvc, sc, pv, scale, 1, hd)[0]
+
+
 def check_split_attention(dev, dims=LLAMA32_1B) -> dict:
     """K14 against its plain versions at llama32-1b geometry on a stacked
     2-layer cache of 33792 rows (the physical length of a 32768-row cache):
@@ -1296,7 +1482,9 @@ def check_split_attention(dev, dims=LLAMA32_1B) -> dict:
     lanes at mixed positions (each fused call leaves the cache equal to the
     plain version's and changes only row pos and its scales); unfused bf16
     and int8, stats mode (o, m, l), fused f32. Outputs within 1e-5 of the
-    largest plain value. Timed at pos 32767: fused bf16 (the row) and int8."""
+    largest plain value. Timed at pos 32767 under the planner's plan: fused
+    bf16 (the row) and int8, and K6 at pos 512 in the same call; the
+    stripe's edges by check_stripe_edges."""
     import torch
 
     from llamatpu_torch.ops import attention as A
@@ -1304,6 +1492,7 @@ def check_split_attention(dev, dims=LLAMA32_1B) -> dict:
     gen = torch.Generator(device=dev).manual_seed(14)
     KV, G, HD = dims["KV"], dims["G"], dims["HD"]
     S, W, scale = LONG_S, 2 * HD, HD ** -0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = {"rel": 0.0, "abs": 0.0}
 
     def hold(got, want, what):
@@ -1362,12 +1551,16 @@ def check_split_attention(dev, dims=LLAMA32_1B) -> dict:
         library, lib_name = sdpa_yardstick(q, *dense_kv(kvc, sc, 1, pos + 1, HD), scale)
         b_ms, b_by = bound(attn_bytes(1, KV, G, HD, pos + 1, row_bytes, new_bytes),
                            2 * KV * G * (pos + 1) * W, BF16_OPS_S)
-        per[key] = dict(bound_ms=b_ms, bound_by=b_by, **timings(fn, WALK, plain, library),
-                        library=lib_name, shape=f"B=1 pos={pos} S={S} KV={KV} G={G} hd={HD}")
-        log(f"K14 fused {key} at pos {pos}: {per[key]['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, "
-            f"plain {per[key]['plain_ms']:.4f}, sdpa {per[key]['library_ms']:.4f})")
+        plan = A.plan_stripe(1, KV, S, W, kvc.element_size(), sms)
+        per[key] = dict(bound_ms=b_ms, bound_by=b_by, **timings(fn, STRIPE, plain, library),
+                        library=lib_name, shape=f"B=1 pos={pos} S={S} KV={KV} G={G} hd={HD}",
+                        plan=dict(cluster=plan.cluster, parts=plan.parts, stage_rows=plan.rows))
+        log(f"K14 fused {key} at pos {pos}: {per[key]['ms']:.5f} ms (bound {b_ms:.5f} by {b_by}, "
+            f"plain {per[key]['plain_ms']:.4f}, sdpa {per[key]['library_ms']:.5f}); plan {plan}")
         del kvc, sc
     torch.cuda.empty_cache()
+    k6 = time_dense(dev, dims, quant=False, seed=4, sweep=False)  # the shared body, same call
+    log(f"K6 at pos 512 beside K14: {k6['ms']:.5f} ms ({k6['ms_source']})")
     return dict(
         name="decode_attention_split_fused_write", route="cuda",
         source="llamatpu_torch/csrc/attention.cu",
@@ -1376,8 +1569,8 @@ def check_split_attention(dev, dims=LLAMA32_1B) -> dict:
         tolerance="rel to max|plain| <= 1e-5; fused caches and scale rows equal the plain "
                   "version's, only row pos changed",
         **{k: per["bf16"][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by", "library", "shape")},
-        by_dtype=per)
+                                       "bound_ms", "bound_by", "library", "shape", "plan")},
+        by_dtype=per, k6_pos512_ms=k6["ms"], edges=check_stripe_edges(dev, dims))
 
 
 def check_full_attention(dev, dims=LLAMA32_1B) -> dict:
@@ -1385,7 +1578,10 @@ def check_full_attention(dev, dims=LLAMA32_1B) -> dict:
     s_use = 4000 of 4128 physical rows (a 4000-row cache's, prefill chunk
     512), f32 (the path's), bf16 and int8 caches: 3 lanes at 0, 1023, 3999
     and 8 lanes with one parked at the last physical row; within 1e-5 of the
-    largest plain value. Timed at pos 3999 in f32 (the row), bf16 and int8."""
+    largest plain value; and one lane at pos 3999 (the path's launch: the
+    one-lane plan, P clusters a head combined through the scratch and the
+    counter), held to the plain version and timed, in f32 (the row), bf16
+    and int8."""
     import torch
 
     from llamatpu_torch.ops import attention as A
@@ -1393,6 +1589,7 @@ def check_full_attention(dev, dims=LLAMA32_1B) -> dict:
     gen = torch.Generator(device=dev).manual_seed(15)
     KV, G, HD = dims["KV"], dims["G"], dims["HD"]
     S, s_use, W, scale = 4128, 4000, 2 * HD, HD ** -0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = [0.0, 0.0]
     per = {}
     for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
@@ -1427,15 +1624,21 @@ def check_full_attention(dev, dims=LLAMA32_1B) -> dict:
             fn = lambda: A.decode_attention_q(q, k1, s1, pv, scale, HD, s_use, 1)  # noqa: E731
             plain = lambda: A.decode_attention_q_plain(  # noqa: E731
                 q, k1, s1, pv, scale, HD, s_use, 1)
+        plan = A.plan_stripe(1, KV, S, W, k1.element_size(), sms)
+        abs_e, rel_e = max_err(fn(), plain())
+        assert rel_e <= 1e-5, f"K15 {key} B=1 pos {pos} plan {plan}: max abs {abs_e} rel {rel_e}"
+        worst = [max(worst[0], rel_e), max(worst[1], abs_e)]
+        log(f"K15 {key} B=1 pos {pos} plan {plan}: max abs {abs_e:.3g} rel {rel_e:.3g}")
         row_bytes = W + 8 if sc is not None else W * k1.element_size()
         library, lib_name = sdpa_yardstick(q, *dense_kv(k1, s1, 1, pos + 1, HD), scale)
         b_ms, b_by = bound(attn_bytes(1, KV, G, HD, pos + 1, row_bytes),
                            2 * KV * G * (pos + 1) * W, BF16_OPS_S)
-        per[key] = dict(bound_ms=b_ms, bound_by=b_by, **timings(fn, WALK, plain, library),
+        per[key] = dict(bound_ms=b_ms, bound_by=b_by, **timings(fn, STRIPE, plain, library),
                         library=lib_name, shape=f"B=1 pos={pos} s_use={s_use} S={S} KV={KV} "
-                                                f"G={G} hd={HD}")
-        log(f"K15 {key} at pos {pos}: {per[key]['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
-            f"{per[key]['plain_ms']:.4f}, sdpa {per[key]['library_ms']:.4f})")
+                                                f"G={G} hd={HD}",
+                        plan=dict(cluster=plan.cluster, parts=plan.parts, stage_rows=plan.rows))
+        log(f"K15 {key} at pos {pos}: {per[key]['ms']:.5f} ms (bound {b_ms:.5f} by {b_by}, plain "
+            f"{per[key]['plain_ms']:.4f}, sdpa {per[key]['library_ms']:.5f}); plan {plan}")
         del x, kvc, sc
     torch.cuda.empty_cache()
     return dict(
@@ -1443,7 +1646,7 @@ def check_full_attention(dev, dims=LLAMA32_1B) -> dict:
         replaces="llamatpu/ops/pallas_attention.py:119", max_abs_err=worst[1],
         max_rel_err=worst[0], tolerance="rel to max|plain| <= 1e-5 (f32, bf16, int8 caches)",
         **{k: per["f32"][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by", "library", "shape")},
+                                      "bound_ms", "bound_by", "library", "shape", "plan")},
         by_dtype=per)
 
 
@@ -2011,8 +2214,8 @@ IN_PATH = {
     "grouped_dense_matmul": ("moe_dense", "decode16_trace", MOE_KERNELS, 2),
     # slice 5: K14 on the 32k bf16 path, K15 on the f32 4000-row path, K6's
     # int8 variant at a 4000-row int8 cache, K8's in the int8 HTTP run
-    "decode_attention_split_fused_write": ("longctx", "decode16_trace", WALK, 1),
-    "decode_attention": ("k15", "decode16_trace", WALK, 1),
+    "decode_attention_split_fused_write": ("longctx", "decode16_trace", STRIPE, 1),
+    "decode_attention": ("k15", "decode16_trace", STRIPE, 1),
     "decode_attention_fused_write_q": ("k6_int8", "decode16_trace", DENSE, 1),
     "decode_attention_paged_q": ("serve_int8", "decode16_trace", PAGED, 1),
 }

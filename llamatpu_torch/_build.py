@@ -61,8 +61,8 @@ _SIGNATURES = {
                                _P, _I, _I, _P),
         "lt_paged_attention": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _P, _I, _I, _P),
-        "lt_attention_walk": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _F, _I, _I, _P, _P, _P, _P, _P, _I, _P),
+        "lt_stripe_attention": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "moe_grouped": {
         "lt_grouped_matmul": (_I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,

@@ -1,6 +1,5 @@
 // Decode attention of one layer (T = 1): K6 and K8 (each with its int8
-// variant), one cluster kernel body behind both, and the walk kernel behind
-// K14 and K15.
+// variant), K14 and K15, all on one cluster kernel body.
 //
 // ---- K6: fused KV-append + decode attention over the dense packed cache.
 //
@@ -123,7 +122,7 @@
 // are never read; a parked lane (every entry the trash block) reads the trash
 // block. Offsets are 64-bit (a stacked pool passes 2 GB).
 //
-// ---- The walk kernel: K14 and K15.
+// ---- K14 and K15: decode attention over a long dense stripe.
 //
 // K14 replaces `_split_kernel`'s dense callers (`_split_call`,
 // pallas_attention.py:349, and `_split_fused_call`, :481): S-tiled
@@ -132,47 +131,62 @@
 // pos written IN PLACE with kv_new, and under int8 its two scales, before it
 // is attended) or with the stripe's softmax statistics (m, l) for a
 // cross-shard combine. K15 replaces `_full_kernel` (:119): masked attention
-// over the first s_use rows, bf16/f32/int8; it is the same kernel without the
-// write, reading rows s <= min(pos, s_use - 1). Numerics of both: scores
-// (q . k) * scale in f32 (* k_scale under int8), masking s <= pos, online
-// softmax keeping m and l, the partial output adds exp(score - m)
-// (* v_scale) * v, out = acc / l.
+// over the first s_use rows, bf16/f32/int8, without the write. Both read
+// rows s <= min(pos, s_use - 1) (s_use = S but for K15); numerics as K6's,
+// the statistics' m in natural-log units (x ln 2 of the kernel's log2 max).
 //
 // Bound on the H100: bytes, the live rows once. Llama-3.2-1B, pos 32767, one
 // layer, B = 1: bf16 8 heads x 32768 rows x 256 B = 67.1 MB, 20.0 us at
-// 3.35 TB/s; int8 8 x 32768 x (128 + 8) B = 35.7 MB, 10.6 us. On the TPU the
-// grid walked the S tiles of one head in order, the DMA clamped to the tile
-// holding pos, with m, l and acc carried in VMEM scratch. Here the walk is
-// split across blocks so a long stripe fills the SMs:
-//   1. grid (ceil(s_use / R), KV, B), R rows per block (the wrapper picks R,
-//      a power of two from 64 to 1024, so that about two blocks run per SM
-//      at the longest position). A block past min(pos, s_use - 1) exits at
-//      once (the clamped DMA's counterpart). The block walks its rows in
-//      chunks of 64, each chunk's packed rows (and int8 scales) copied into
-//      shared memory by cp.async in 16-byte pieces, two stages, so the next
-//      chunk streams in while one is used. Four threads per row score a
-//      quarter of the staged K row each against all G heads, a warp per head
-//      updates m, l and the rescale factor, and a thread per (head, V
-//      element) rescales its accumulator in shared memory and adds the
-//      chunk. In fused mode the block holding pos first writes the row (and
-//      scales) to the cache and synchronises before its first copy; no other
-//      block reads it.
-//   2. grid (KV, B): the combine pass over at most ceil(s_use / R) partials
-//      (33 at a 32k cache), which also writes the stripe's m and l in stats
-//      mode.
-// Offsets into the cache are 64-bit: a 32k stacked cache is 1.1 GB.
+// 3.35 TB/s; int8 8 x 32768 x (128 + 8) B = 35.7 MB, 10.6 us; K15 in f32 at
+// pos 3999, 8 x 4000 x 512 B = 16.4 MB, 4.9 us. On the TPU the grid walked
+// the S tiles of one head in order, the DMA clamped to the tile holding pos,
+// with m, l and acc carried in VMEM scratch.
+//
+// The first design (the walk kernel) took 0.069 ms at pos 32767 on an H100
+// (3.4x the bound, 2.4x SDPA): a grid of ceil(s_use / rows) x KV x B blocks
+// walking 64-row chunks with four block barriers each, a two-stage cp.async
+// buffer filled 16 bytes a thread, P.V by one thread per (head, V element)
+// from shared memory into a shared-memory accumulator, expf, and the
+// partials through device memory to a second launch. This design,
+// stripe_cluster_kernel, is K6's body with more CTAs to a head:
+//   - grid (C * P * KV, B): P clusters of C CTAs per (lane, KV head);
+//     ops/attention.py plan_stripe picks C, P and the stage rows R from the
+//     shapes and the SM count, never from pos: clusters of 2 (clusters of 4
+//     and 8 were placed two CTAs an SM and ran 1.4x slower), a CTA an SM (two
+//     where the ring fits an SM twice and the stripe is long). Rank r of
+//     cluster p is the head's rank p C + r of C P and takes the R-row units
+//     p C + r, p C + r + C P, ... up to min(pos, s_use - 1)
+//     (ops/attention.py stripe_shares): one bulk copy a stage, the first
+//     issued before pos is read.
+//   - a ring of 16 stages (kStripeDepth), two a consumer warp: with K6's 8,
+//     a warp's next stage was copied only after it freed its one slot, so
+//     every stage paid the copy's full latency (the stream alone took ~29 us
+//     at pos 32767, 0.045 ms in all at C 8).
+//   - the consumers, and in fused mode the write of row pos, are K6's; each
+//     cluster combines its ranks through distributed shared memory, as K6's.
+//   - stripe_finish: where more than one cluster holds rows, each cluster's
+//     rank 0 stores its (m, l, sums) to scratch [B, KV, P, G, ...] and its
+//     thread 0 arrives on the (lane, head)'s counter (after a CTA barrier, an
+//     integer atom.add.acq_rel); the last to arrive reads the P states back,
+//     combines them in cluster order, writes the output (and in stats mode
+//     m and l) and sets the counter back to 0 for the next launch. No float
+//     atomics: the same bits on every run. A stripe whose rows one cluster
+//     holds (a short pos) skips the scratch.
+//   - its arguments beyond K6's are a kernel parameter of their own
+//     (StripeArgs): grown by them, ClusterArgs made K6 3 % slower.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 0.0309 ms at pos 32767
+// in bf16 (1.5x the bound, 1.08x SDPA), 0.0286 int8; K15 0.0099 f32. What is
+// left: ~6.5 us of launch, first copy and combines that nothing overlaps,
+// and the consumers' ~3 us past the stream (their rows' latency chains).
+// pos outside [0, S) writes nothing and gives NaN (m and l too).
 #include "common.cuh"
 
 LT_DEFINE_ERROR_STRING
 
 namespace {
 
-constexpr int kChunk = 64;     // rows per chunk of the walk
-constexpr int kThreads = 256;  // four threads per row of a chunk
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;       // query heads per KV head
 constexpr int kMaxW = 256;     // hd + vhd
-static_assert(kThreads == 4 * kChunk, "four threads score each row of a chunk");
 #define kNegInf (-__int_as_float(0x7f800000))  // -inf
 
 template <typename CT>
@@ -199,62 +213,6 @@ __device__ __forceinline__ int8_t f2c<int8_t>(float v) {  // exact integers
 __device__ __forceinline__ float load_any(const void* p, int dtype, long i) {
   return dtype == LT_I8 ? static_cast<float>(static_cast<const int8_t*>(p)[i])
                         : lt_load(p, dtype, i);
-}
-
-struct Args {
-  const void* q;    // [B, KV, G, hd] (in_dtype)
-  const void* kvn;  // fused mode: [B, KV, hd + vhd] (the walk's kvn_dtype)
-  int in_dtype;
-  void* kv;         // this layer's cache [B, KV, S, hd + vhd] (CT)
-  const int* pos;   // [B]
-  int B, KV, G, S, hd, vhd;
-  float scale;
-  float* part_o;    // [B, KV, nsplit, G, vhd]
-  float* part_ml;   // [B, KV, nsplit, G, 2]: local max, local sum
-  float* out;       // [B, KV, G, vhd]
-  int nsplit;
-  int rows;         // cache rows per pass-1 block
-  int s_use;        // rows read: s <= min(pos, s_use - 1)
-  float* m_out;     // [B, KV, G] stripe max (stats mode) or null
-  float* l_out;     // [B, KV, G] stripe sum (stats mode) or null
-};
-
-
-// The walk's pass 2: rescale the partials by exp(m_i - max m) and divide by
-// the rescaled sum; in stats mode also write that max and sum.
-__global__ void __launch_bounds__(kThreads) attn_walk_combine_kernel(Args a) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = a.G, vhd = a.vhd;
-  const long bh = static_cast<long>(b) * a.KV + h;
-  const int pos = a.pos[b];
-  float* out = a.out + bh * G * vhd;
-  if (pos < 0 || pos >= a.S) {  // no row was attended: make the fault visible
-    const float nan = __int_as_float(0x7fc00000);
-    for (int idx = threadIdx.x; idx < G * vhd; idx += blockDim.x) out[idx] = nan;
-    if (a.m_out != nullptr)
-      for (int g = threadIdx.x; g < G; g += blockDim.x)
-        a.m_out[bh * G + g] = a.l_out[bh * G + g] = nan;
-    return;
-  }
-  const int nvalid = min(pos, a.s_use - 1) / a.rows + 1;
-  const float* ml = a.part_ml + bh * a.nsplit * G * 2;
-  const float* po = a.part_o + bh * a.nsplit * G * vhd;
-  for (int idx = threadIdx.x; idx < G * vhd; idx += blockDim.x) {
-    const int g = idx / vhd;
-    float mx = kNegInf;
-    for (int i = 0; i < nvalid; ++i) mx = fmaxf(mx, ml[(i * G + g) * 2]);
-    float den = 0.f, num = 0.f;
-    for (int i = 0; i < nvalid; ++i) {
-      const float w = expf(ml[(i * G + g) * 2] - mx);
-      den += w * ml[(i * G + g) * 2 + 1];
-      num += w * po[i * G * vhd + idx];
-    }
-    out[idx] = num / den;
-    if (a.m_out != nullptr && idx == g * vhd) {
-      a.m_out[bh * G + g] = mx;
-      a.l_out[bh * G + g] = den;
-    }
-  }
 }
 
 // ------------------------------------------------------------------ K8
@@ -361,6 +319,15 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity
   }
 }
 
+// *p += v at gpu scope, acquiring what the earlier adders released and
+// releasing this thread's (and, through a CTA barrier before it, its CTA's)
+// writes; returns the old value.
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
 // Store v at the offset of `p` in the shared memory of the cluster's CTA `rank`.
 __device__ __forceinline__ void st_rank(float* p, unsigned rank, float v) {
   unsigned remote;
@@ -371,6 +338,7 @@ constexpr int kPagedConsumers = 256;                      // 8 consumer warps
 constexpr int kPagedWarps = kPagedConsumers / 32;
 constexpr int kPagedThreads = kPagedConsumers + 32;       // + the producer warp
 constexpr int kPagedDepth = 8;  // ring stages: one a consumer warp, so no warp waits two rounds ahead
+constexpr int kStripeDepth = 16;  // K14, K15: two a consumer warp, its next stage in flight
 constexpr int kMaxCluster = 8;
 constexpr int kTblCache = 256;  // table entries of a rank held in shared memory
 constexpr int kSub = 16;        // rows a consumer warp scores at once: two lanes a row
@@ -399,6 +367,19 @@ struct ClusterArgs {
   int cluster;
   int rows;  // rows of a ring stage: paged a power of two <= 16, dense one dividing 32
   float scale;
+};
+
+// K14's and K15's further arguments, a kernel parameter of their own (grown
+// by them, K6's parameters measured 3 % slower on the H100)
+struct StripeArgs {
+  int s_use;        // rows s <= min(pos, s_use - 1) are read
+  int fused;        // row pos written first (kvn, snew)
+  int parts;        // P: clusters a (lane, KV head)
+  float* part_o;    // P > 1: the clusters' sums [B, KV, P, G, vhd]
+  float* part_ml;   // P > 1: their m (log2 units) and l [B, KV, P, G, 2]
+  int* arrived;     // P > 1: clusters done a (lane, KV head) [B, KV], 0 between launches
+  float* m_out;     // stats mode: the stripe's max [B, KV, G] (natural-log units), else null
+  float* l_out;     // stats mode: its sum [B, KV, G]
 };
 
 // Two adjacent elements (the first at an even index of a 16-byte aligned row) as f32.
@@ -457,15 +438,15 @@ __device__ __forceinline__ void pv_rows(float (&acc)[GM][2 * NP], const unsigned
   }
 }
 
-// Dynamic shared memory: the ring [kPagedDepth][rows x (hd + vhd)] (each stage on
+// Dynamic shared memory: the ring [depth][rows x (hd + vhd)] (each stage on
 // a 128-byte boundary; at the end the consumer warps' sums [8][G][vhd] f32
 // reuse it), q f32 [GM][N / 4][kMaxW / N][4], this rank's sums [G][vhd] f32,
 // in a cluster rank 0's copy of the others' [C][G][vhd] f32, and under paged
 // int8 (SCALES) the stages' scales [kPagedDepth][2 * rows] f32.
 template <typename CT, bool SCALES, int GM>
-size_t cluster_smem(int G, int hd, int vhd, int rows, int cluster) {
+size_t cluster_smem(int G, int hd, int vhd, int rows, int cluster, int depth) {
   const size_t pitch = (static_cast<size_t>(rows) * (hd + vhd) * sizeof(CT) + 127) / 128 * 128;
-  size_t ring = kPagedDepth * pitch;
+  size_t ring = depth * pitch;
   const size_t red = static_cast<size_t>(kPagedWarps) * G * vhd * sizeof(float);
   ring = ((ring > red ? ring : red) + 127) / 128 * 128;
   return ring +
@@ -474,27 +455,110 @@ size_t cluster_smem(int G, int hd, int vhd, int rows, int cluster) {
          (SCALES ? static_cast<size_t>(kPagedDepth) * 2 * rows * sizeof(float) : 0);
 }
 
-// The body of K8 (DENSE = false: rows through the block tables) and K6
-// (DENSE = true: a contiguous stripe, row pos written). GM: G rounded up to
-// 1, 4 or 8; NP: V element pairs a lane (vhd <= 64, 128 or 256). Together
-// the size of the P.V sums in registers.
-template <typename CT, bool QUANT, bool DENSE, int GM, int NP>
-__device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
+// K14's and K15's end, in a cluster's rank 0 (the consumer threads) once its
+// ranks' states have arrived (cm, cl [rank][gm] and cacc [rank][G][vhd] of
+// ranks 1 .. nranks - 1 beside its own m_s, l_s, accs): the cluster's state,
+// as K6's rank 0 adds it up. Where one of the head's clusters holds rows
+// (nlive <= 1: a short pos, or P = 1) it is the output (and in stats mode m
+// in natural-log units and l). Else it goes to the scratch row of cluster
+// `part`, and the last of the head's nlive clusters to arrive on its counter
+// (each cluster's stores ordered by its barrier before its thread 0's
+// release, acquired by the last one's) combines the states in cluster order
+// and sets the counter back to 0.
+__device__ __forceinline__ void stripe_finish(const StripeArgs& sa, float* out, long bh, int P,
+                                              int part, int C, int G, int vhd, int nranks,
+                                              int nlive, bool valid, const float* m_s,
+                                              const float* l_s, const float* accs,
+                                              const float* cm, const float* cl, int gm,
+                                              const float* cacc, int tid, int& last_cluster) {
+  constexpr float kLn2 = 0.6931471805599453f;
+  nlive = min(P, nlive);
+  const bool scratch = nlive > 1;
+  const long bhp = (bh * P + part) * G;  // this cluster's scratch row
+  const float nan = __int_as_float(0x7fc00000);  // no row attended
+  for (int i = tid; i < G * vhd; i += kPagedConsumers) {
+    const int g = i / vhd;
+    float mx = m_s[g];
+    for (int r = 1; r < nranks; ++r) mx = fmaxf(mx, cm[r * gm + g]);
+    float num = 0.f, den = 0.f;
+    for (int r = 0; r < nranks; ++r) {
+      const float mr = r == 0 ? m_s[g] : cm[r * gm + g];
+      if (mr == kNegInf) continue;  // a rank with no rows
+      const float w = ex2(mr - mx);
+      den += w * (r == 0 ? l_s[g] : cl[r * gm + g]);
+      num += w * (r == 0 ? accs[i] : cacc[r * G * vhd + i]);
+    }
+    if (scratch) {
+      sa.part_o[bhp * vhd + i] = num;
+      if (i == g * vhd) {
+        sa.part_ml[(bhp + g) * 2] = mx;
+        sa.part_ml[(bhp + g) * 2 + 1] = den;
+      }
+    } else {
+      out[i] = valid ? __fdividef(num, den) : nan;
+      if (sa.m_out != nullptr && i == g * vhd) {
+        sa.m_out[bh * G + g] = valid ? mx * kLn2 : nan;
+        sa.l_out[bh * G + g] = valid ? den : nan;
+      }
+    }
+  }
+  if (!scratch) return;
+  paged_consumer_sync();
+  if (tid == 0) last_cluster = atom_add_acq_rel(sa.arrived + bh, 1) == nlive - 1;
+  paged_consumer_sync();
+  if (!last_cluster) return;
+  for (int i = tid; i < G * vhd; i += kPagedConsumers) {
+    const int g = i / vhd;
+    const float* ml = sa.part_ml + (bh * P * G + g) * 2;  // cluster q's at + 2 q G
+    float mx = kNegInf;
+    for (int q = 0; q < nlive; ++q) mx = fmaxf(mx, __ldcg(ml + 2 * q * G));
+    float num = 0.f, den = 0.f;
+    for (int q = 0; q < nlive; ++q) {
+      const float mq = __ldcg(ml + 2 * q * G);
+      if (mq == kNegInf) continue;
+      const float w = ex2(mq - mx);
+      den += w * __ldcg(ml + 2 * q * G + 1);
+      num += w * __ldcg(sa.part_o + (bh * P + q) * G * vhd + i);
+    }
+    out[i] = __fdividef(num, den);
+    if (sa.m_out != nullptr && i == g * vhd) {
+      sa.m_out[bh * G + g] = mx * kLn2;
+      sa.l_out[bh * G + g] = den;
+    }
+  }
+  if (tid == 0) sa.arrived[bh] = 0;  // ready for the next launch (stream order)
+}
+
+// The body of K8 (DENSE = false: rows through the block tables), K6 (DENSE
+// = true: a contiguous stripe, row pos written) and K14 / K15 (DENSE and
+// STRIPE: the stripe's rows up to s_use, row pos written in fused mode, P
+// clusters a head combined through scratch, the statistics out). GM: G
+// rounded up to 1, 4 or 8; NP: V element pairs a lane (vhd <= 64, 128 or
+// 256). Together the size of the P.V sums in registers.
+template <typename CT, bool QUANT, bool DENSE, bool STRIPE, int GM, int NP>
+__device__ __forceinline__ void cluster_attention(const ClusterArgs& a, const StripeArgs& sa) {
+  static_assert(DENSE || !STRIPE, "a stripe is dense");
+  constexpr int D = STRIPE ? kStripeDepth : kPagedDepth;  // ring stages
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[kPagedDepth], empty[kPagedDepth];
+  __shared__ __align__(8) uint64_t full[D], empty[D];
   __shared__ __align__(8) uint64_t pushed;  // rank 0: the other ranks' states have arrived
   __shared__ __align__(16) float pbuf[kPagedWarps][kSub * GM];  // each warp's stage weights
   __shared__ float mw[kPagedWarps][GM], lw[kPagedWarps][GM];  // the consumer warps' m, l
   __shared__ float m_s[GM], l_s[GM];                            // this rank's
   __shared__ float cm[kMaxCluster][GM], cl[kMaxCluster][GM];    // rank 0: the others'
+  __shared__ int last_cluster;  // stripe: this cluster arrived last on the head's counter
   __shared__ int tbl[DENSE ? 1 : kTblCache];
   __shared__ __align__(16) unsigned char newrow[DENSE ? kMaxW * sizeof(CT) : 16];  // dense: row pos, cast
   const int C = a.cluster, G = a.G, hd = a.hd, vhd = a.vhd, W = hd + vhd;
   const unsigned rank = cluster_rank();
-  const int h = blockIdx.x / C, b = blockIdx.y;
+  // the head's C P CTAs (P = 1 but for a stripe): cluster `part`'s rank r is
+  // the head's rank gr = part C + r, which deals the rows
+  const int P = STRIPE ? sa.parts : 1, CP = C * P;
+  const int h = blockIdx.x / CP, b = blockIdx.y;
+  const int gr = STRIPE ? static_cast<int>(blockIdx.x) - h * CP : static_cast<int>(rank);
+  const int part = STRIPE ? gr / C : 0;
   const int shift = a.bs_shift, bs = 1 << shift;
   const int R = a.rows;
-  constexpr int D = kPagedDepth;
   const int row_bytes = W * static_cast<int>(sizeof(CT));
   const int pitch = (R * row_bytes + 127) & ~127;
   const int SB = bs < R ? bs : R;  // paged: rows of a stage's scale piece [2][SB]
@@ -516,7 +580,8 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
       static_cast<const unsigned char*>(a.cache) + (DENSE ? bh * a.S * row_bytes : 0);
   const float* srows = DENSE && QUANT ? a.scales + bh * 2 * a.S : nullptr;
   const unsigned stage_tx = static_cast<unsigned>(R * row_bytes);  // dense: rows only
-  const bool first_ahead = DENSE && static_cast<int>(rank) * R < a.S;  // the stage issued before pos
+  const int s_lim = STRIPE ? sa.s_use : a.S;  // dense: rows past it are never read
+  const bool first_ahead = DENSE && gr * R < s_lim;  // the stage issued before pos
 
   // the rank's table entries (paged), entry p of stage k at k gpu + p: they
   // follow from the rank alone, so they load beside pos and q; the
@@ -530,7 +595,7 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
 #pragma unroll
       for (int u = 0; u < kTblCache / 32; ++u) {
         const int t = lane + 32 * u, k = t / gpu;
-        const int j = (((static_cast<int>(rank) + C * k) * R) >> shift) + t - k * gpu;
+        const int j = (((gr + CP * k) * R) >> shift) + t - k * gpu;
         tv[u] = j < a.maxblk ? trow[j] : 0;
       }
     }
@@ -543,7 +608,7 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
       if (first_ahead) {
         fence_proxy_async();  // the initialised barrier, seen by the copy
         mbar_expect_tx(&full[0], stage_tx);
-        const int s0 = static_cast<int>(rank) * R;
+        const int s0 = gr * R;
         bulk_load(smem, stripe + static_cast<long>(s0) * row_bytes,
                   static_cast<unsigned>(R * row_bytes), &full[0]);
       }
@@ -554,10 +619,11 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
     }
   }
 
-  // this rank's stages: stage k is the lane's R-row unit u = rank + C k,
-  // rows [u R, min(u R + R, pos + 1)) (paged: whole pool blocks, or a piece
-  // of one); ranks 0 .. nranks - 1 have rows. pos is loaded here and waited
-  // for only after q (and, dense, this token's row) are in flight.
+  // this rank's stages: stage k is the lane's R-row unit u = gr + C P k,
+  // rows [u R, min(u R + R, last + 1)) (paged: whole pool blocks, or a piece
+  // of one); the cluster's ranks 0 .. nranks - 1 have rows. pos is loaded
+  // here and waited for only after q (and, dense, this token's row) are in
+  // flight.
   const int pos = a.pos[b];
   // q in f32 [GM][N / 4][kQVecs][4] (zero past G): the float4 f of K vector
   // v of head g at (g N / 4 + f) kQVecs + v, so the lanes' rotated vectors
@@ -568,25 +634,27 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
         g < G ? lt_load(a.q, a.in_dtype, bh * G * hd + i) : 0.f;
   }
   static_assert(kMaxW <= kPagedThreads, "a thread holds one element of the new row");
-  const CT kv_e = DENSE && tid < W ? f2c<CT>(load_any(a.kvn, a.kvn_dtype, bh * W + tid)) : f2c<CT>(0.f);
-  const float sc_e = DENSE && QUANT && tid < 2 ? a.snew[bh * 2 + tid] : 0.f;
+  const bool write = DENSE && (!STRIPE || sa.fused);  // row pos := this token's
+  const CT kv_e = write && tid < W ? f2c<CT>(load_any(a.kvn, a.kvn_dtype, bh * W + tid)) : f2c<CT>(0.f);
+  const float sc_e = write && QUANT && tid < 2 ? a.snew[bh * 2 + tid] : 0.f;
   const bool valid = pos >= 0 && pos < (DENSE ? a.S : (a.maxblk << shift));
-  const int nu = valid ? pos / R + 1 : 0;
-  const int nstages = nu > static_cast<int>(rank) ? (nu - static_cast<int>(rank) + C - 1) / C : 0;
-  const int nranks = nu < C ? nu : C;
+  const int last = STRIPE ? min(pos, sa.s_use - 1) : pos;  // the last row attended
+  const int nu = valid ? last / R + 1 : 0;
+  const int nstages = nu > gr ? (nu - gr + CP - 1) / CP : 0;
+  const int nranks = STRIPE ? min(max(nu - part * C, 0), C) : nu < C ? nu : C;
   if (rank == 0 && warp == kPagedWarps && lane == 0) {
     mbar_init(&pushed, nranks > 1 ? nranks - 1 : 1);  // one arrive from each other rank with rows
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (C > 1) cluster_arrive_relaxed();  // waited for before the combine's stores
-  if (rank != 0 && static_cast<int>(rank) >= nranks) {  // no row: nothing to push
+  if ((rank != 0 || part != 0) && static_cast<int>(rank) >= nranks) {  // no row: nothing to push
     if (first_ahead && warp == kPagedWarps && lane == 0) mbar_wait(&full[0], 0);  // its copy lands
     return;
   }
   if constexpr (DENSE) {
     // the rank holding pos: row pos := kv_new cast to the cache dtype (and
     // its scales), in the cache and in shared memory for the stage holding it
-    if (valid && (pos / R) % C == static_cast<int>(rank)) {
+    if (write && valid && (pos / R) % CP == gr) {
       if (tid < W) {
         reinterpret_cast<CT*>(newrow)[tid] = kv_e;
         reinterpret_cast<CT*>(const_cast<unsigned char*>(stripe))[static_cast<long>(pos) * W + tid] = kv_e;
@@ -604,7 +672,7 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
         for (int k = 1; k < nstages; ++k) {  // stage 0 is in flight already
           const int slot = k % D;
           const unsigned phase = (k / D) & 1;
-          const int s0 = (static_cast<int>(rank) + C * k) * R;
+          const int s0 = (gr + CP * k) * R;
           mbar_wait(&empty[slot], phase ^ 1);
           mbar_expect_tx(&full[slot], stage_tx);
           bulk_load(smem + slot * pitch, stripe + static_cast<long>(s0) * row_bytes,
@@ -617,7 +685,7 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
       for (int k = 0; k < nstages; ++k) {
         const int slot = k % D;
         const unsigned phase = (k / D) & 1;
-        const int s0 = (static_cast<int>(rank) + C * k) * R, n = min(R, pos + 1 - s0);
+        const int s0 = (gr + CP * k) * R, n = min(R, last + 1 - s0);
         const int first = s0 >> shift, pieces = ((s0 + n - 1) >> shift) - first + 1;
         unsigned char* dst = smem + slot * pitch;
         float* sdst = scr + slot * 2 * R;
@@ -681,8 +749,8 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
   for (int k = warp; k < nstages; k += kPagedWarps) {
     const int slot = k % D;
     const unsigned phase = (k / D) & 1;
-    const int s0 = (static_cast<int>(rank) + C * k) * R;
-    const int n = min(R, pos + 1 - s0);
+    const int s0 = (gr + CP * k) * R;
+    const int n = min(R, last + 1 - s0);
     unsigned char* st = smem + slot * pitch;
     const float* ssc = scr + slot * 2 * R;  // paged int8: row j's K scale at (j / SB) * 2 SB + j % SB
     // dense int8: lane r's K and V scales of its row in each 16-row pass,
@@ -697,7 +765,7 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
       vq[t] = in ? srows[a.S + s0 + j] : 1.f;
     }
     mbar_wait(&full[slot], phase);
-    if (DENSE && pos < s0 + R) {  // the stage holding row pos: the cast row in place of the copy's
+    if (write && pos < s0 + R) {  // the stage holding row pos: the cast row in place of the copy's
       const int j = pos - s0;
       uint4* dst = reinterpret_cast<uint4*>(st + j * row_bytes);
       const uint4* src = reinterpret_cast<const uint4*>(newrow);
@@ -852,6 +920,11 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
   }
   if (nranks > 1) mbar_wait_cluster(&pushed, 0);
   float* out = a.out + bh * G * vhd;
+  if constexpr (STRIPE) {
+    stripe_finish(sa, out, bh, P, part, C, G, vhd, nranks, (nu + C - 1) / C, valid, m_s, l_s,
+                  accs, &cm[0][0], &cl[0][0], GM, cacc, tid, last_cluster);
+    return;
+  }
   for (int i = tid; i < G * vhd; i += kPagedConsumers) {
     const int g = i / vhd;
     float mx = m_s[g];
@@ -871,28 +944,39 @@ __device__ __forceinline__ void cluster_attention(const ClusterArgs& a) {
 template <typename CT, bool QUANT, int GM, int NP>
 __global__ void __launch_bounds__(kPagedThreads, GM * NP <= 8 ? 3 : GM * NP <= 16 ? 2 : 1)
     paged_cluster_kernel(ClusterArgs a) {
-  cluster_attention<CT, QUANT, false, GM, NP>(a);
+  cluster_attention<CT, QUANT, false, false, GM, NP>(a, StripeArgs{});
 }
 
 template <typename CT, bool QUANT, int GM, int NP>
 __global__ void __launch_bounds__(kPagedThreads, GM * NP <= 16 ? 2 : 1)
     dense_cluster_kernel(ClusterArgs a) {
-  cluster_attention<CT, QUANT, true, GM, NP>(a);
+  cluster_attention<CT, QUANT, true, false, GM, NP>(a, StripeArgs{});
 }
 
-template <typename CT, bool QUANT, bool DENSE, int GM, int NP>
-int launch_cluster(const ClusterArgs& a, int B, cudaStream_t st) {
-  void (*kernel)(ClusterArgs) = nullptr;
-  if constexpr (DENSE)
-    kernel = dense_cluster_kernel<CT, QUANT, GM, NP>;
+template <typename CT, bool QUANT, int GM, int NP>
+__global__ void __launch_bounds__(kPagedThreads, GM * NP <= 16 ? 2 : 1)
+    stripe_cluster_kernel(ClusterArgs a, StripeArgs s) {
+  cluster_attention<CT, QUANT, true, true, GM, NP>(a, s);
+}
+
+// KIND: 0 paged (K8), 1 dense (K6), 2 stripe (K14, K15; `s` its further
+// arguments).
+template <typename CT, bool QUANT, int KIND, int GM, int NP>
+int launch_cluster(const ClusterArgs& a, const StripeArgs& s, int B, cudaStream_t st) {
+  const void* kernel = nullptr;
+  if constexpr (KIND == 2)
+    kernel = reinterpret_cast<const void*>(stripe_cluster_kernel<CT, QUANT, GM, NP>);
+  else if constexpr (KIND == 1)
+    kernel = reinterpret_cast<const void*>(dense_cluster_kernel<CT, QUANT, GM, NP>);
   else
-    kernel = paged_cluster_kernel<CT, QUANT, GM, NP>;
-  const size_t smem = cluster_smem<CT, QUANT && !DENSE, GM>(a.G, a.hd, a.vhd, a.rows, a.cluster);
+    kernel = reinterpret_cast<const void*>(paged_cluster_kernel<CT, QUANT, GM, NP>);
+  const size_t smem = cluster_smem<CT, QUANT && KIND == 0, GM>(
+      a.G, a.hd, a.vhd, a.rows, a.cluster, KIND == 2 ? kStripeDepth : kPagedDepth);
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.cluster * a.KV, B, 1);
+  cfg.gridDim = dim3(a.cluster * a.KV * (KIND == 2 ? s.parts : 1), B, 1);
   cfg.blockDim = dim3(kPagedThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -903,223 +987,34 @@ int launch_cluster(const ClusterArgs& a, int B, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a));
+  if constexpr (KIND == 2)
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, stripe_cluster_kernel<CT, QUANT, GM, NP>, a, s));
+  else if constexpr (KIND == 1)
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, dense_cluster_kernel<CT, QUANT, GM, NP>, a));
+  else
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, paged_cluster_kernel<CT, QUANT, GM, NP>, a));
 }
 
-template <typename CT, bool QUANT, bool DENSE, int GM>
-int launch_cluster_v(const ClusterArgs& a, int B, cudaStream_t st) {
-  return a.vhd <= 64 ? launch_cluster<CT, QUANT, DENSE, GM, 1>(a, B, st)
-         : a.vhd <= 128 ? launch_cluster<CT, QUANT, DENSE, GM, 2>(a, B, st)
-                        : launch_cluster<CT, QUANT, DENSE, GM, 4>(a, B, st);
+template <typename CT, bool QUANT, int KIND, int GM>
+int launch_cluster_v(const ClusterArgs& a, const StripeArgs& s, int B, cudaStream_t st) {
+  return a.vhd <= 64 ? launch_cluster<CT, QUANT, KIND, GM, 1>(a, s, B, st)
+         : a.vhd <= 128 ? launch_cluster<CT, QUANT, KIND, GM, 2>(a, s, B, st)
+                        : launch_cluster<CT, QUANT, KIND, GM, 4>(a, s, B, st);
 }
 
-template <typename CT, bool QUANT, bool DENSE>
-int launch_cluster_g(const ClusterArgs& a, int B, cudaStream_t st) {
-  return a.G == 1 ? launch_cluster_v<CT, QUANT, DENSE, 1>(a, B, st)
-         : a.G <= 4 ? launch_cluster_v<CT, QUANT, DENSE, 4>(a, B, st)
-                    : launch_cluster_v<CT, QUANT, DENSE, 8>(a, B, st);
+template <typename CT, bool QUANT, int KIND>
+int launch_cluster_g(const ClusterArgs& a, const StripeArgs& s, int B, cudaStream_t st) {
+  return a.G == 1 ? launch_cluster_v<CT, QUANT, KIND, 1>(a, s, B, st)
+         : a.G <= 4 ? launch_cluster_v<CT, QUANT, KIND, 4>(a, s, B, st)
+                    : launch_cluster_v<CT, QUANT, KIND, 8>(a, s, B, st);
 }
 
-template <bool DENSE>
-int launch_cluster_t(const ClusterArgs& a, int cache_dtype, int B, cudaStream_t st) {
-  if (cache_dtype == LT_I8) return launch_cluster_g<int8_t, true, DENSE>(a, B, st);
-  if (cache_dtype == LT_F32) return launch_cluster_g<float, false, DENSE>(a, B, st);
-  return launch_cluster_g<__nv_bfloat16, false, DENSE>(a, B, st);
-}
-
-// The walk kernel's pass 1 (K14, K15).
-struct WalkArgs {
-  Args base;          // q, kvn, in_dtype (q's), kv, pos, sizes, scale, scratch, rows, s_use, stats
-  int kvn_dtype;      // fused mode: kv_new's dtype (the cache's for int8)
-  const float* snew;  // fused int8: this token's scales [B, KV, 2]
-  float* sc;          // int8: this layer's scale rows [B, KV, 2, S], else null
-  int fused;
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr int kRowPad = 16;  // bytes after each staged row: rows start on different banks
-
-// Dynamic shared memory of the walk kernel: two stages of kChunk packed rows
-// (and, under int8, their K and V scales).
-template <typename CT, bool QUANT>
-constexpr size_t walk_smem(int W) {
-  return 2 * kChunk * (W * sizeof(CT) + kRowPad) + (QUANT ? 2 * 2 * kChunk * sizeof(float) : 0);
-}
-
-template <typename CT, bool QUANT>
-__global__ void __launch_bounds__(kThreads) attn_walk_kernel(WalkArgs w) {
-  const Args& a = w.base;
-  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int pos = a.pos[b];
-  if (pos < 0 || pos >= a.S) return;
-  const int last = min(pos, a.s_use - 1);  // the last row attended
-  const int s_begin = sp * a.rows;
-  if (s_begin > last) return;
-  const int s_end = min(s_begin + a.rows, last + 1);
-  const int G = a.G, hd = a.hd, vhd = a.vhd, W = hd + vhd;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __shared__ float qf[kMaxG * kMaxW];
-  __shared__ float acc[kMaxG * kMaxW];
-  __shared__ float p[kMaxG][kChunk];
-  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
-  extern __shared__ __align__(16) unsigned char stage[];
-  const int row_bytes = W * static_cast<int>(sizeof(CT)), stride = row_bytes + kRowPad;
-  float* stage_sc = reinterpret_cast<float*>(stage + 2 * kChunk * stride);  // [2][2][kChunk]
-  const long bh = static_cast<long>(b) * a.KV + h;
-  const long S = a.S;
-  CT* kvh = static_cast<CT*>(a.kv) + bh * S * W;
-  const float* sch = QUANT ? w.sc + bh * 2 * S : nullptr;
-
-  for (int i = tid; i < G * hd; i += blockDim.x) qf[i] = lt_load(a.q, a.in_dtype, bh * G * hd + i);
-  for (int i = tid; i < G * vhd; i += blockDim.x) acc[i] = 0.f;
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  if (w.fused && pos < s_begin + a.rows) {  // this block holds row pos: write it first
-    for (int e = tid; e < W; e += blockDim.x)
-      kvh[pos * static_cast<long>(W) + e] = f2c<CT>(load_any(a.kvn, w.kvn_dtype, bh * W + e));
-    if (QUANT && tid < 2) w.sc[bh * 2 * S + tid * S + pos] = w.snew[bh * 2 + tid];
-  }
-  __syncthreads();  // the new row is visible to the whole block before it is read
-
-  // start copying the chunk of rows c0.. into stage `slot`: 16-byte pieces of
-  // the packed rows (and 4-byte scales), all in flight at once
-  const int pieces = row_bytes / 16;
-  auto fetch = [&](int c0, int slot) {
-    const int n = min(kChunk, s_end - c0);
-    const unsigned char* src =
-        reinterpret_cast<const unsigned char*>(kvh + c0 * static_cast<long>(W));
-    unsigned char* dst = stage + slot * kChunk * stride;
-    for (int i = tid; i < n * pieces; i += blockDim.x) {
-      const int r = i / pieces, o = i - r * pieces;
-      cp_async16(dst + r * stride + o * 16, src + static_cast<long>(r) * row_bytes + o * 16);
-    }
-    if (QUANT)
-      for (int i = tid; i < 2 * n; i += blockDim.x) {
-        const int kvs = i / n, r = i - kvs * n;  // 0: K scale, 1: V scale
-        cp_async4(stage_sc + (slot * 2 + kvs) * kChunk + r, sch + kvs * S + c0 + r);
-      }
-    cp_async_commit();
-  };
-
-  constexpr int N = 16 / sizeof(CT);
-  const int j = tid >> 2, quarter = tid & 3;
-  fetch(s_begin, 0);
-  for (int c0 = s_begin, slot = 0; c0 < s_end; c0 += kChunk, slot ^= 1) {
-    const int n = min(kChunk, s_end - c0);
-    if (c0 + kChunk < s_end) {  // the next chunk streams in while this one is used
-      fetch(c0 + kChunk, slot ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* rows = stage + slot * kChunk * stride;
-    const float* ks = stage_sc + slot * 2 * kChunk;  // int8: K scales, V scales at + kChunk
-
-    // scores: four threads per row, each a quarter of the K row in 16-byte
-    // vectors against all G heads; quarters summed by shuffles
-    float d[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) d[g] = 0.f;
-    if (j < n) {
-      const CT* kr = reinterpret_cast<const CT*>(rows + j * stride);
-      for (int e0 = quarter * N; e0 < hd; e0 += 4 * N) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kr + e0);
-        const CT* kv16 = reinterpret_cast<const CT*>(&raw);
-#pragma unroll
-        for (int u = 0; u < N; ++u) {
-          const float k = c2f<CT>(kv16[u]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) d[g] += qf[g * hd + e0 + u] * k;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      d[g] += __shfl_xor_sync(0xffffffffu, d[g], 1);
-      d[g] += __shfl_xor_sync(0xffffffffu, d[g], 2);
-    }
-    if (j < n && quarter == 0) {
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) p[g][j] = QUANT ? d[g] * a.scale * ks[j] : d[g] * a.scale;
-    }
-    __syncthreads();
-
-    // online softmax, a warp per query head: the new max, the rescale factor
-    // of what came before, and the chunk's weights (V scale folded in)
-    for (int g = warp; g < G; g += kWarps) {
-      const float m_old = m_s[g];
-      float mx = kNegInf;
-      for (int jj = lane; jj < n; jj += 32) mx = fmaxf(mx, p[g][jj]);
-      const float m_new = fmaxf(m_old, lt_warp_max(mx));
-      float sum = 0.f;
-      for (int jj = lane; jj < n; jj += 32) {
-        const float e = expf(p[g][jj] - m_new);
-        p[g][jj] = QUANT ? e * ks[kChunk + jj] : e;
-        sum += e;
-      }
-      sum = lt_warp_sum(sum);
-      if (lane == 0) {
-        const float al = expf(m_old - m_new);
-        alpha_s[g] = al;
-        l_s[g] = l_s[g] * al + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // accumulators: a thread per (query head, V element), the staged V rows
-    // read across the threads of a warp
-    for (int idx = tid; idx < G * vhd; idx += blockDim.x) {
-      const int g = idx / vhd, e = idx - g * vhd;
-      const unsigned char* vcol = rows + (hd + e) * sizeof(CT);
-      float s = 0.f;
-      for (int jj = 0; jj < n; ++jj)
-        s += p[g][jj] * c2f<CT>(*reinterpret_cast<const CT*>(vcol + jj * stride));
-      acc[idx] = acc[idx] * alpha_s[g] + s;
-    }
-    __syncthreads();  // p, alpha and this stage are rewritten by the next chunks
-  }
-
-  float* ml = a.part_ml + (bh * a.nsplit + sp) * G * 2;
-  if (tid < G) {
-    ml[tid * 2] = m_s[tid];
-    ml[tid * 2 + 1] = l_s[tid];
-  }
-  float* po = a.part_o + (bh * a.nsplit + sp) * G * vhd;
-  for (int i = tid; i < G * vhd; i += blockDim.x) po[i] = acc[i];
-}
-
-template <typename CT, bool QUANT>
-int launch_walk(const WalkArgs& w, dim3 grid, int W, cudaStream_t st) {
-  // the static arrays and the stages together pass 48 KB: opt in always
-  const size_t smem = walk_smem<CT, QUANT>(W);
-  const cudaError_t e = cudaFuncSetAttribute(
-      attn_walk_kernel<CT, QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  attn_walk_kernel<CT, QUANT><<<grid, kThreads, smem, st>>>(w);
-  return static_cast<int>(cudaGetLastError());
+template <int KIND>
+int launch_cluster_t(const ClusterArgs& a, const StripeArgs& s, int cache_dtype, int B,
+                     cudaStream_t st) {
+  if (cache_dtype == LT_I8) return launch_cluster_g<int8_t, true, KIND>(a, s, B, st);
+  if (cache_dtype == LT_F32) return launch_cluster_g<float, false, KIND>(a, s, B, st);
+  return launch_cluster_g<__nv_bfloat16, false, KIND>(a, s, B, st);
 }
 
 }  // namespace
@@ -1163,7 +1058,7 @@ LT_EXPORT int lt_dense_attention(const void* q, int in_dtype, const void* kvn, i
   a.cluster = cluster;
   a.rows = rows;
   a.scale = scale;
-  return launch_cluster_t<true>(a, cache_dtype, B, static_cast<cudaStream_t>(stream));
+  return launch_cluster_t<1>(a, StripeArgs{}, cache_dtype, B, static_cast<cudaStream_t>(stream));
 }
 
 // K8 and its int8 variant: one launch of paged_cluster_kernel. q [B, KV, G,
@@ -1205,41 +1100,66 @@ LT_EXPORT int lt_paged_attention(const void* q, int in_dtype, const void* pool, 
   a.cluster = cluster;
   a.rows = rows;
   a.scale = scale;
-  return launch_cluster_t<false>(a, pool_dtype, B, static_cast<cudaStream_t>(stream));
+  return launch_cluster_t<0>(a, StripeArgs{}, pool_dtype, B, static_cast<cudaStream_t>(stream));
 }
 
-// The walk kernel: K14 (unfused, fused, stats) and K15 (s_use < S). q [B, KV,
-// G, hd] (q_dtype); kv: this layer's cache [B, KV, S, hd + vhd] (cache_dtype:
-// f32, bf16 or int8); sc: int8 only, this layer's scale rows [B, KV, 2, S]
-// f32 (else null); fused: kvn [B, KV, hd + vhd] (kvn_dtype) written at pos[b]
-// first, and under int8 snew [B, KV, 2] f32 into sc; pos int32 [B]; rows per
-// pass-1 block, nsplit = ceil(s_use / rows); scratch part_o [B, KV, nsplit,
-// G, vhd], part_ml [B, KV, nsplit, G, 2] f32; out [B, KV, G, vhd] f32; m_out,
-// l_out [B, KV, G] f32 in stats mode (else null).
-LT_EXPORT int lt_attention_walk(const void* q, int q_dtype, const void* kvn, int kvn_dtype,
-                                const void* snew, void* kv, int cache_dtype, void* sc,
-                                const void* pos, int B, int KV, int G, int S, int s_use, int hd,
-                                int vhd, float scale, int rows, int fused, void* part_o,
-                                void* part_ml, void* out, void* m_out, void* l_out, int nsplit,
-                                void* stream) {
-  const int vec = cache_dtype == LT_I8 ? 16 : 8;
+// K14 and K15: one launch of stripe_cluster_kernel. q [B, KV, G, hd]
+// (in_dtype); kv: this layer's cache [B, KV, S, hd + vhd] (cache_dtype: f32,
+// bf16 or int8); sc: int8 only, this layer's scale rows [B, KV, 2, S] f32
+// (else null); fused: kvn [B, KV, hd + vhd] (kvn_dtype; int8 under int8)
+// written at pos[b] of kv, and under int8 snew [B, KV, 2] f32 into sc (s_use
+// = S); else kvn and snew null; pos int32 [B]; rows s <= min(pos, s_use - 1)
+// attended; out [B, KV, G, vhd] f32; m_out, l_out [B, KV, G] f32 in stats
+// mode (else null). cluster: 1, 2, 4 or 8 CTAs; parts: P clusters a
+// (lane, KV head), P > 1 with scratch part_o [B, KV, P, G, vhd], part_ml
+// [B, KV, P, G, 2] f32 and arrived int32 [B, KV], zero before the launch
+// and left zero after it; rows: rows of a ring stage, dividing 32 and S.
+// Cache and scale rows 16-byte aligned.
+LT_EXPORT int lt_stripe_attention(const void* q, int in_dtype, const void* kvn, int kvn_dtype,
+                                  const void* snew, void* kv, int cache_dtype, void* sc,
+                                  const void* pos, int B, int KV, int G, int S, int s_use,
+                                  int hd, int vhd, float scale, void* out, void* m_out,
+                                  void* l_out, void* part_o, void* part_ml, void* arrived,
+                                  int cluster, int parts, int rows, void* stream) {
   const bool quant = cache_dtype == LT_I8;
-  if (G < 1 || G > kMaxG || hd + vhd > kMaxW || hd % vec || vhd % vec || B < 1 || KV < 1 ||
-      rows < 1 || s_use < 1 || s_use > S || static_cast<long>(nsplit) * rows < s_use ||
-      quant != (sc != nullptr) || (fused && (s_use != S || (quant && snew == nullptr))) ||
-      (m_out == nullptr) != (l_out == nullptr))
+  const bool fused = kvn != nullptr;
+  const int vec = quant ? 16 : 8;
+  if (G < 1 || G > kMaxG || hd + vhd > kMaxW || hd < vec || vhd < vec || hd % vec || vhd % vec ||
+      B < 1 || B > 65535 || KV < 1 || S < 1 || S > (1 << 30) || s_use < 1 || s_use > S ||
+      quant != (sc != nullptr) || (fused && (s_use != S || quant != (snew != nullptr) ||
+                                             quant != (kvn_dtype == LT_I8))) ||
+      (!fused && snew != nullptr) || (m_out == nullptr) != (l_out == nullptr) ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || parts < 1 || static_cast<long>(cluster) * parts * KV > (1L << 30) ||
+      (parts > 1 && (part_o == nullptr || part_ml == nullptr || arrived == nullptr)) ||
+      rows < 1 || rows > 32 || 32 % rows || S % rows || reinterpret_cast<uintptr_t>(kv) % 16 ||
+      reinterpret_cast<uintptr_t>(sc) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = {q, kvn, q_dtype, kv, static_cast<const int*>(pos), B, KV, G, S, hd, vhd, scale,
-            static_cast<float*>(part_o), static_cast<float*>(part_ml), static_cast<float*>(out),
-            nsplit, rows, s_use, static_cast<float*>(m_out), static_cast<float*>(l_out)};
-  WalkArgs w = {a, kvn_dtype, static_cast<const float*>(snew), static_cast<float*>(sc), fused};
-  dim3 grid1(nsplit, KV, B);
-  const int W = hd + vhd;
-  const int err = quant ? launch_walk<int8_t, true>(w, grid1, W, st)
-                  : cache_dtype == LT_F32 ? launch_walk<float, false>(w, grid1, W, st)
-                                          : launch_walk<__nv_bfloat16, false>(w, grid1, W, st);
-  if (err != 0) return err;
-  attn_walk_combine_kernel<<<dim3(KV, B), kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  ClusterArgs a = {};
+  a.q = q;
+  a.in_dtype = in_dtype;
+  a.cache = kv;
+  a.scales = static_cast<const float*>(sc);
+  a.pos = static_cast<const int*>(pos);
+  a.out = static_cast<float*>(out);
+  a.kvn = kvn;
+  a.kvn_dtype = kvn_dtype;
+  a.snew = static_cast<const float*>(snew);
+  a.KV = KV;
+  a.G = G;
+  a.hd = hd;
+  a.vhd = vhd;
+  a.S = S;
+  a.cluster = cluster;
+  a.rows = rows;
+  a.scale = scale;
+  StripeArgs sa = {};
+  sa.s_use = s_use;
+  sa.fused = fused;
+  sa.parts = parts;
+  sa.part_o = static_cast<float*>(part_o);
+  sa.part_ml = static_cast<float*>(part_ml);
+  sa.arrived = static_cast<int*>(arrived);
+  sa.m_out = static_cast<float*>(m_out);
+  sa.l_out = static_cast<float*>(l_out);
+  return launch_cluster_t<2>(a, sa, cache_dtype, B, static_cast<cudaStream_t>(stream));
 }

@@ -37,9 +37,11 @@ before the call by `runtime/paged_cache.paged_write_stacked` (a plain index
 write, as the JAX package leaves it to XLA); unallocated table entries point
 at the trash block and lie past pos, so they are masked.
 
-K6 and K8 are one launch each of clusters of CTAs per (lane, KV head), each
-rank reading its share of the lane's live rows (`plan_dense`, `dense_shares`;
-`plan_paged`, `paged_shares`).
+K6, K8 and K14 / K15 are one launch each of clusters of CTAs per (lane, KV
+head), each rank reading its share of the lane's live rows (`plan_dense`,
+`dense_shares`; `plan_paged`, `paged_shares`; `plan_stripe`,
+`stripe_shares`: K14 and K15 spread a long stripe over P clusters, about one
+CTA an SM).
 
 CUDA source: csrc/attention.cu (designs and bounds in its header note). A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
@@ -48,6 +50,7 @@ raises. Each wrapper counts its launches in `.launches`.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
@@ -55,13 +58,12 @@ from llamatpu_torch import _build
 from llamatpu_torch.ops.gemm import _sm_count
 
 NEG_INF = -1e30
-CHUNK = 64  # rows per chunk of the walk kernel (csrc/attention.cu kChunk)
 # a cache of S_phys rows is long when S_phys * itemsize reaches this: the JAX
 # package's full-stripe kernel stops fitting its VMEM there and it takes the
 # split kernel instead (pallas_attention.py:888); the port keeps its rule
 SPLIT_THRESHOLD_BYTES = 16384
 SPLIT_TILE = 1024
-SMS = 132  # streaming multiprocessors of an H100 SXM: the walk's split target
+SMS = 132  # streaming multiprocessors of an H100 SXM: the planners' default
 CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # common.cuh LT_*
 
 
@@ -72,16 +74,6 @@ def pick_tile(s: int) -> int:
     while tile >= 128 and s % tile != 0:
         tile //= 2
     return tile
-
-
-def split_rows(s_use: int, kvh: int, b: int) -> int:
-    """Cache rows per pass-1 block of the walk kernel (K14, K15): a power of
-    two from 64 to 1024, the smallest at which the whole stripe needs at most
-    about two blocks per SM."""
-    rows = CHUNK
-    while rows < 1024 and -(-s_use // rows) * kvh * b > 2 * SMS:
-        rows *= 2
-    return rows
 
 
 def _layer(t: torch.Tensor | None, layer_index):
@@ -153,53 +145,6 @@ def _check_new(q, kv_new, kvc, s_new, scale_rows) -> None:
         raise ValueError(f"fused write: kv_new {tuple(kv_new.shape)} {kv_new.dtype}, s_new "
                          f"{None if s_new is None else tuple(s_new.shape)} for cache "
                          f"{tuple(kvc.shape)} {kvc.dtype}")
-
-
-def _walk(q, kvc, pos_vec, scale: float, hd: int, layer_index, scale_rows=None, kv_new=None,
-          s_new=None, s_use: int | None = None, stats: bool = False):
-    """Launch the walk kernel (K14, K15) on one layer:
-    (out [B, KV, G, vhd], m, l [B, KV, G, 1] or None) f32."""
-    kv, sc = _layer(kvc, layer_index), _layer(scale_rows, layer_index)
-    b, kvh, g, _ = q.shape
-    s_len, width = kv.shape[-2], kv.shape[-1]
-    vhd = width - hd
-    vec = 16 if kv.dtype == torch.int8 else 8
-    if g > 8 or hd % vec or vhd % vec or width > 256:
-        raise NotImplementedError(f"decode attention takes G <= 8, hd and vhd multiples of {vec} "
-                                  "(the 16-byte loads), hd + vhd <= 256")
-    s_use = s_use or s_len
-    rows = split_rows(s_use, kvh, b)
-    nsplit = -(-s_use // rows)
-    qc = q.contiguous()
-    pv = pos_vec.to(dtype=torch.int32).contiguous()
-    kvn = None if kv_new is None else kv_new.contiguous()
-    sn = None if s_new is None else s_new.to(torch.float32).contiguous()
-    _build.require(kv.is_contiguous() and (sc is None or sc.is_contiguous())
-                   and qc.device == kv.device == pv.device and tuple(pv.shape) == (b,)
-                   and (kvn is None or kvn.device == kv.device)
-                   and (sn is None or sn.device == kv.device)
-                   and (sc is None or sc.device == kv.device),
-                   "decode attention: contiguous cache and scale rows, inputs on the cache's "
-                   "device, pos_vec [B]")
-    dev = q.device
-    part_o = torch.empty((b, kvh, nsplit, g, vhd), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b, kvh, nsplit, g, 2), dtype=torch.float32, device=dev)
-    out = torch.empty((b, kvh, g, vhd), dtype=torch.float32, device=dev)
-    m = l = None
-    if stats:
-        m = torch.empty((b, kvh, g, 1), dtype=torch.float32, device=dev)
-        l = torch.empty((b, kvh, g, 1), dtype=torch.float32, device=dev)
-    kvn_code = 0 if kvn is None else (2 if kvn.dtype == torch.int8 else _build.dtype_code(kvn))
-    lib = _build.load("attention")
-    err = lib.lt_attention_walk(
-        qc.data_ptr(), _build.dtype_code(qc), None if kvn is None else kvn.data_ptr(), kvn_code,
-        None if sn is None else sn.data_ptr(), kv.data_ptr(), CACHE_CODES[kv.dtype],
-        None if sc is None else sc.data_ptr(), pv.data_ptr(), b, kvh, g, s_len, s_use, hd, vhd,
-        float(scale), rows, int(kvn is not None), part_o.data_ptr(), part_ml.data_ptr(),
-        out.data_ptr(), None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
-        nsplit, _build.stream())
-    _build.check(lib, err, "decode attention (walk kernel)")
-    return out, m, l
 
 
 # ----------------------------------------------------------------- K6
@@ -378,6 +323,140 @@ def _dense_launch(q, kv_new, s_new, kvc, scale_rows, pos_vec, scale, hd, layer_i
     return out
 
 
+# ------------------------------------------------------------ K14, K15
+# K14's and K15's launch: P clusters of `cluster` CTAs per (lane, KV head),
+# rank r of cluster p the head's rank p C + r of C P, each streaming its
+# share of the stripe's rows s <= min(pos, s_use - 1) through a ring of 16
+# stages of `rows` rows (csrc/attention.cu stripe_cluster_kernel, K6's body).
+STRIPE_STAGE_BYTES = 8192  # K|V bytes of a ring stage at most (fewer rows past it)
+STRIPE_RING = 16           # stages of the ring (csrc/attention.cu kStripeDepth)
+STRIPE_SHARED_RING = 65536  # a ring of at most these bytes lets two CTAs share an SM
+STRIPE_MIN_UNITS = 16      # stage units a rank streams at least where two CTAs share an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class StripePlan:
+    cluster: int  # C: CTAs of a cluster, 1 or 2 (the kernel takes 1, 2, 4 or 8)
+    parts: int    # P: clusters a (lane, KV head), combined through scratch
+    rows: int     # rows of a ring stage: a power of two dividing 32 and S
+
+
+def plan_stripe(b: int, kvh: int, s: int, width: int, itemsize: int,
+                sm_count: int = SMS) -> StripePlan:
+    """K14's and K15's launch, from the shapes alone (never pos: reading it
+    would sync the host). Stages of 32 rows, halved while a stage passes
+    STRIPE_STAGE_BYTES or does not divide S. The head's ranks C P: a CTA an
+    SM over the B * KV heads, two where the ring fits an SM twice
+    (STRIPE_SHARED_RING) and the stripe still gives each rank
+    STRIPE_MIN_UNITS stages; at least 1 and at most a unit of the stripe
+    each; clusters of 2 (1 for a single rank), P = ranks // 2. The fastest
+    measured on an H100 at the path's shapes (PERF.md): clusters of 4 and 8
+    were placed two CTAs an SM and ran 1.4x slower."""
+    rows = 32
+    while rows > 1 and (rows * width * itemsize > STRIPE_STAGE_BYTES or s % rows):
+        rows //= 2
+    one = sm_count // (b * kvh)  # ranks at a CTA an SM
+    per_sm = 2 if (STRIPE_RING * rows * width * itemsize <= STRIPE_SHARED_RING
+                   and s // rows >= 2 * one * STRIPE_MIN_UNITS) else 1
+    ranks = max(1, min(sm_count * per_sm // (b * kvh), s // rows))
+    c = 2 if ranks >= 2 else 1
+    return StripePlan(c, ranks // c, rows)
+
+
+def stripe_shares(pos: int, s: int, plan: StripePlan,
+                  s_use: int | None = None) -> list[list[tuple[int, int]]]:
+    """The rows [s0, s1) each of a head's C P ranks reads, stage by stage, in
+    rank order (cluster p's rank r at p C + r): the stripe's rows s <=
+    min(pos, s_use - 1) in units of plan.rows, rank r taking units r, r + C
+    P, ... (none for a pos outside [0, S), which gives NaN)."""
+    r_n, cp = plan.rows, plan.cluster * plan.parts
+    last = min(pos, (s_use or s) - 1)
+    nu = last // r_n + 1 if 0 <= pos < s else 0
+    return [[(u * r_n, min(u * r_n + r_n, last + 1)) for u in range(r, nu, cp)]
+            for r in range(cp)]
+
+
+# per (device, stream): the heads' arrival counters of a stripe launch with P
+# > 1, zero between launches (each launch's last cluster resets its head's);
+# a larger buffer replaces a smaller one, which stays allocated in _RETIRED
+# for CUDA graphs that captured its address
+_ARRIVED: dict = {}
+_RETIRED: list = []
+_ARRIVED_LOCK = threading.Lock()
+
+
+def _arrived(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _ARRIVED_LOCK:
+        buf = _ARRIVED.get(key)
+        if buf is None or buf.numel() < n:
+            if buf is not None:
+                _RETIRED.append(buf)
+            buf = _ARRIVED[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        return buf
+
+
+def _stripe_launch(q, kvc, pos_vec, scale: float, hd: int, layer_index, scale_rows=None,
+                   kv_new=None, s_new=None, s_use: int | None = None, stats: bool = False):
+    """One launch of K14 or K15 on layer layer_index (or the one layer of a
+    4-D cache), after the wrapper's shape checks: (out [B, KV, G, vhd], m, l
+    [B, KV, G, 1] or None) f32. Every check comes before the library is built
+    or the kernel launched; a CPU tensor raises here."""
+    kv, sc = _layer(kvc, layer_index), _layer(scale_rows, layer_index)
+    b, kvh, g, _ = q.shape
+    s_len, width = kv.shape[-2], kv.shape[-1]
+    vhd = width - hd
+    quant = sc is not None
+    vec = 16 if quant else 8
+    if g > 8 or hd % vec or vhd % vec or vhd < vec or width > 256:
+        raise NotImplementedError(f"K14 and K15 take G <= 8, hd and vhd multiples of {vec}, "
+                                  f"hd + vhd <= 256 (got G {g}, hd {hd}, vhd {vhd})")
+    s_use = s_use or s_len
+    kvn_dtypes = (torch.int8,) if quant else (torch.float32, torch.bfloat16)
+    _build.require(q.dtype in (torch.float32, torch.bfloat16)
+                   and (kv_new is None or kv_new.dtype in kvn_dtypes)
+                   and (s_new is None or s_new.dtype == torch.float32)
+                   and (sc is None or sc.dtype == torch.float32),
+                   "split attention: f32 or bf16 q and kv_new (int8 under int8), f32 scales")
+    _build.require(kv.is_contiguous() and (sc is None or sc.is_contiguous()),
+                   "split attention: contiguous cache and scale rows")
+    _build.require(tuple(pos_vec.shape) == (b,) and b <= 65535 and s_len <= 2 ** 30,
+                   "split attention: pos_vec [B], B <= 65535, S <= 2^30")
+    _build.require(kv.data_ptr() % 16 == 0 and (sc is None or sc.data_ptr() % 16 == 0),
+                   "split attention: 16-byte aligned cache and scale rows")
+    ins = [q, kv, pos_vec] + [t for t in (kv_new, s_new, sc) if t is not None]
+    _build.require(all(t.device.type == "cuda" and t.device == kv.device for t in ins),
+                   "split attention: every input on the cache's CUDA device")
+    plan = plan_stripe(b, kvh, s_len, width, kv.element_size(), _sm_count(kv.device.index or 0))
+    qc = q.contiguous()
+    kvn = None if kv_new is None else kv_new.contiguous()
+    sn = None if s_new is None else s_new.contiguous()
+    pv = pos_vec.to(dtype=torch.int32).contiguous()
+    dev = q.device
+    out = torch.empty((b, kvh, g, vhd), dtype=torch.float32, device=dev)
+    m = l = None
+    if stats:
+        m = torch.empty((b, kvh, g, 1), dtype=torch.float32, device=dev)
+        l = torch.empty((b, kvh, g, 1), dtype=torch.float32, device=dev)
+    part_o = part_ml = arrived = None
+    if plan.parts > 1:
+        part_o = torch.empty((b, kvh, plan.parts, g, vhd), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((b, kvh, plan.parts, g, 2), dtype=torch.float32, device=dev)
+        arrived = _arrived(dev, b * kvh)
+    lib = _build.load("attention")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = lib.lt_stripe_attention(
+        qc.data_ptr(), _build.dtype_code(qc), ptr(kvn),
+        0 if kvn is None else CACHE_CODES[kvn.dtype], ptr(sn), kv.data_ptr(),
+        CACHE_CODES[kv.dtype], ptr(sc), pv.data_ptr(), b, kvh, g, s_len, s_use, hd, vhd,
+        float(scale), out.data_ptr(), ptr(m), ptr(l), ptr(part_o), ptr(part_ml), ptr(arrived),
+        plan.cluster, plan.parts, plan.rows, _build.stream())
+    _build.check(lib, err, "split attention (stripe kernel)")
+    return out, m, l
+
+
 # ----------------------------------------------------------------- K14
 def decode_attention_split_plain(q, kvc, pos_vec, scale: float, hd: int | None = None,
                                  s_tile: int = SPLIT_TILE, layer_index=None):
@@ -395,7 +474,7 @@ def decode_attention_split(q, kvc, pos_vec, scale: float, hd: int | None = None,
         return decode_attention_split_plain(q, kvc, pos_vec, scale, hd, s_tile, layer_index)
     hd = _check_dense(q, kvc, hd, layer_index, what="decode_attention_split")
     _check_tile(kvc, s_tile)
-    out, _, _ = _walk(q, kvc, pos_vec, scale, hd, layer_index)
+    out, _, _ = _stripe_launch(q, kvc, pos_vec, scale, hd, layer_index)
     decode_attention_split.launches += 1
     return out
 
@@ -421,7 +500,7 @@ def decode_attention_split_q(q, kvc, scale_rows, pos_vec, scale: float, hd: int 
                                               layer_index)
     hd = _check_dense(q, kvc, hd, layer_index, scale_rows, "decode_attention_split_q")
     _check_tile(kvc, s_tile)
-    out, _, _ = _walk(q, kvc, pos_vec, scale, hd, layer_index, scale_rows)
+    out, _, _ = _stripe_launch(q, kvc, pos_vec, scale, hd, layer_index, scale_rows)
     decode_attention_split_q.launches += 1
     return out
 
@@ -447,7 +526,7 @@ def decode_attention_split_stats(q, kvc, pos_vec, scale: float, hd: int | None =
                                                   layer_index)
     hd = _check_dense(q, kvc, hd, layer_index, what="decode_attention_split_stats")
     _check_tile(kvc, s_tile)
-    out = _walk(q, kvc, pos_vec, scale, hd, layer_index, stats=True)
+    out = _stripe_launch(q, kvc, pos_vec, scale, hd, layer_index, stats=True)
     decode_attention_split_stats.launches += 1
     return out
 
@@ -476,7 +555,7 @@ def decode_attention_split_fused_write(q, kv_new, kvc, pos_vec, scale: float, la
     hd = _check_dense(q, kvc, hd, layer_index, what="decode_attention_split_fused_write")
     _check_tile(kvc, s_tile)
     _check_new(q, kv_new, kvc, None, None)
-    out, _, _ = _walk(q, kvc, pos_vec, scale, hd, layer_index, kv_new=kv_new)
+    out, _, _ = _stripe_launch(q, kvc, pos_vec, scale, hd, layer_index, kv_new=kv_new)
     decode_attention_split_fused_write.launches += 1
     return out, kvc
 
@@ -509,7 +588,7 @@ def decode_attention_split_fused_write_q(q, kv_new, s_new, kvc, scale_rows, pos_
     hd = _check_dense(q, kvc, hd, layer_index, scale_rows, "decode_attention_split_fused_write_q")
     _check_tile(kvc, s_tile)
     _check_new(q, kv_new, kvc, s_new, scale_rows)
-    out, _, _ = _walk(q, kvc, pos_vec, scale, hd, layer_index, scale_rows, kv_new, s_new)
+    out, _, _ = _stripe_launch(q, kvc, pos_vec, scale, hd, layer_index, scale_rows, kv_new, s_new)
     decode_attention_split_fused_write_q.launches += 1
     return out, kvc, scale_rows
 
@@ -541,7 +620,7 @@ def decode_attention(q, kvc, pos_vec, scale: float, hd: int | None = None,
     if kvc.device.type == "cpu":
         return decode_attention_plain(q, kvc, pos_vec, scale, hd, s_use, layer_index)
     hd = _check_dense(q, kvc, hd, layer_index, what="decode_attention")
-    out, _, _ = _walk(q, kvc, pos_vec, scale, hd, layer_index, s_use=_s_use(kvc, s_use))
+    out, _, _ = _stripe_launch(q, kvc, pos_vec, scale, hd, layer_index, s_use=_s_use(kvc, s_use))
     decode_attention.launches += 1
     return out
 
@@ -564,7 +643,7 @@ def decode_attention_q(q, kvc, scale_rows, pos_vec, scale: float, hd: int | None
         return decode_attention_q_plain(q, kvc, scale_rows, pos_vec, scale, hd, s_use,
                                         layer_index)
     hd = _check_dense(q, kvc, hd, layer_index, scale_rows, "decode_attention_q")
-    out, _, _ = _walk(q, kvc, pos_vec, scale, hd, layer_index, scale_rows,
+    out, _, _ = _stripe_launch(q, kvc, pos_vec, scale, hd, layer_index, scale_rows,
                       s_use=_s_use(kvc, s_use))
     decode_attention_q.launches += 1
     return out

@@ -377,14 +377,14 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(no_build):
 def test_ablation_variants_edit_the_dense_kernel(name):
     """bench/paged_ablation.py's variants edit the body that
     dense_cluster_kernel shares with paged_cluster_kernel (the phase clocks
-    every mark, once), and keep the walk kernel's source as it is."""
+    every mark, once), and keep the exported entry points' source as it is."""
     src = (_build.CSRC / "attention.cu").read_text()
     text = paged_ablation.VARIANTS[name][0](src)
-    body = src[src.index("cluster_attention(const ClusterArgs& a)"):
+    body = src[src.index("cluster_attention(const ClusterArgs& a, const StripeArgs& sa)"):
                src.index("    dense_cluster_kernel(ClusterArgs a)")]
     assert (body in text) == (name == "as built")
     assert text.count("dense_cluster_kernel") == src.count("dense_cluster_kernel")
-    assert src[src.index(paged_ablation.WALK_SECTION):] in text
+    assert src[src.index(paged_ablation.CLUSTER_END):] in text
     if name == "phase clocks":
-        assert all(text.count(f"g_marks[rank][warp][{m}] = ") == 1
+        assert all(text.count(f"g_marks[gr][warp][{m}] = ") == 1
                    for m in range(1, paged_ablation.N_MARKS))

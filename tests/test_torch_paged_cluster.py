@@ -303,8 +303,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(no_build):
 @pytest.mark.parametrize("name", list(paged_ablation.VARIANTS))
 def test_ablation_variants_edit_the_kernel(name):
     """Each variant of bench/paged_ablation.py still finds the statements it
-    edits in csrc/attention.cu (the phase clocks every mark's), and keeps K6's
-    and the walk kernel's source as it is."""
+    edits in csrc/attention.cu (the phase clocks every mark's, indexed by the
+    head's rank), and keeps the source before the cluster kernels' part as it
+    is."""
     src = (_build.CSRC / "attention.cu").read_text()
     text = paged_ablation.VARIANTS[name][0](src)
     assert (text == src) == (name == "as built")
@@ -312,4 +313,4 @@ def test_ablation_variants_edit_the_kernel(name):
     assert text.count("paged_cluster_kernel") == src.count("paged_cluster_kernel")
     assert head in text
     if name == "phase clocks":
-        assert all(f"g_marks[rank][warp][{m}]" in text for m in range(1, paged_ablation.N_MARKS))
+        assert all(f"g_marks[gr][warp][{m}]" in text for m in range(1, paged_ablation.N_MARKS))

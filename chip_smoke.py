@@ -539,81 +539,223 @@ def block_shapes(dims) -> dict:
             "w2": (D, F), "head": (V, D)}
 
 
-def check_block_matmul(dev, dims, packed: bool) -> dict:
-    """K5 (packed=False) or K7 (packed=True) against its plain version at
-    every main-path shape, T = 1 and T = T_prefill, bf16 and f32; timed in
-    bf16. The table row is one decode token: 16 layers' four projections +
-    the head at T = 1."""
+# K5 / K7's kernels as the profiler names them: the wgmma GEMM and its
+# stream-K second pass (`bq_wgmma_kernel`, `bq_wgmma_reduce`; bf16 prefill
+# chunks), rowq_tc.cuh's block kinds (`rowq_tc_bq_kernel<NF, rtc::K5>`, bf16
+# decode rows) and the CUDA-core routes (f32 x, widths % 128 != 0)
+K5_NAMES = ("bq_wgmma", "rtc::K5>", "bq_gemv_kernel", "bq_gemm_kernel")
+K7_NAMES = ("bq_wgmma", "rtc::K7>", "bq_gemv_kernel", "bq_gemm_kernel")
+BLOCK_CHECK_T = (1, 8, 17, 32, 33)  # + the prefill chunk: every route and its edges
+BLOCK_TIMED_T = (1, 8)              # + the prefill chunk
+
+
+def block_weight(o, i, packed: bool, dev, gen, layers: int = 1):
+    """Random Q8_0 (packed: Q4_0 packed two a byte) weights [layers, O, I]
+    with block scales whose products keep unit variance, and the values
+    [layers, O, I] int8 they hold."""
     import torch
 
     from llamatpu_torch.models.weights import unpack4_pairs
+
+    if packed:
+        q = torch.randint(-8, 8, (layers, o, i), dtype=torch.int8, device=dev, generator=gen)
+        lo, hi = q[..., 0::2].to(torch.int32) & 0xF, q[..., 1::2].to(torch.int32) & 0xF
+        w = (lo | (hi << 4)).to(torch.uint8).view(torch.int8).contiguous()
+        assert torch.equal(unpack4_pairs(w), q)
+    else:
+        q = w = torch.randint(-127, 128, (layers, o, i), dtype=torch.int8, device=dev,
+                              generator=gen)
+    s = (torch.rand((layers, o, i // 32), device=dev, generator=gen) * 0.001 + 0.0005) \
+        * (16.0 if packed else 1.0)
+    return w, s, q
+
+
+def hold_block(kern, plain, x, w, s, label: str) -> tuple[float, float]:
+    """One K5 / K7 call against its plain version, two runs bit-equal:
+    relative to max|plain|, f32 <= 1e-5 (sums in another order), bf16 <=
+    1e-3 (identical rounded operands, tensor-core f32 accumulation).
+    Returns (max abs, rel)."""
+    import torch
+
+    got, again, want = kern(x, w, s), kern(x, w, s), plain(x, w, s)
+    torch.cuda.synchronize()
+    abs_e, rel_e = max_err(got, want)
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-3
+    assert rel_e <= tol, f"{label}: max abs {abs_e} rel {rel_e}"
+    assert torch.equal(got, again), f"{label}: two runs differ"
+    assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
+    return abs_e, rel_e
+
+
+def check_block_matmul(dev, dims, packed: bool) -> dict:
+    """K5 (packed=False) or K7 (packed=True) against its plain version at
+    every main-path shape, at T in BLOCK_CHECK_T and the prefill chunk, bf16
+    and f32, two runs bit-equal (hold_block); timed in bf16 at T = 1, 8 and
+    the prefill chunk beside bf16 torch.matmul on the dequantized weight and
+    the bound. The table row is one decode token: 16 layers' four
+    projections + the head at T = 1; per_shape has every timed (shape, T)."""
+    import torch
+
     from llamatpu_torch.ops import quant_matmul as qm
 
     kern = qm.packed4_matmul if packed else qm.block_matmul
     plain = qm.packed4_matmul_plain if packed else qm.block_matmul_plain
-    names = ("bq_gemv_kernel", "bq_gemm_kernel")
+    names = K7_NAMES if packed else K5_NAMES
     gen = torch.Generator(device=dev).manual_seed(1 + packed)
     L, T = dims["L"], dims["T"]
     per, worst = {}, {"bf16": 0.0, "f32": 0.0}
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, wrapper_ms=0.0)
     abs_max = 0.0
-    # K5 also at T = 8: the eight lanes of a batched decode step
-    row_counts = (1, T) if packed else (1, 8, T)
     for name, (o, i) in block_shapes(dims).items():
-        if packed:
-            q = torch.randint(-8, 8, (o, i), dtype=torch.int8, device=dev, generator=gen)
-            lo, hi = q[:, 0::2].to(torch.int32) & 0xF, q[:, 1::2].to(torch.int32) & 0xF
-            w = (lo | (hi << 4)).to(torch.uint8).view(torch.int8).contiguous()
-            assert torch.equal(unpack4_pairs(w), q)
-        else:
-            q = torch.randint(-127, 128, (o, i), dtype=torch.int8, device=dev, generator=gen)
-            w = q
-        s = (torch.rand((o, i // 32), device=dev, generator=gen) * 0.001 + 0.0005) \
-            * (16.0 if packed else 1.0)
-        w_bf = qm.dequant_blocks(q, s, torch.bfloat16)
+        w, s, q = block_weight(o, i, packed, dev, gen)
+        w, s = w[0], s[0]
+        w_bf = qm.dequant_blocks(q[0], s, torch.bfloat16)
         del q
-        for t in row_counts:
+        for t in BLOCK_CHECK_T + (T,):
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((t, i), device=dev, generator=gen).to(dt)
-                got, want = kern(x, w, s), plain(x, w, s)
-                torch.cuda.synchronize()
-                abs_e, rel_e = max_err(got, want)
                 key = "f32" if dt == torch.float32 else "bf16"
-                # f32: sums in another order; bf16: identical rounded operands,
-                # tensor-core f32 accumulation (not IEEE round-to-nearest)
-                tol = 1e-5 if key == "f32" else 1e-3
-                assert rel_e <= tol, \
-                    f"{kern.__name__} {name} T={t} {key}: max abs {abs_e} rel {rel_e}"
+                abs_e, rel_e = hold_block(kern, plain, x, w, s,
+                                          f"{kern.__name__} {name} T={t} {key}")
                 worst[key] = max(worst[key], rel_e)
                 abs_max = max(abs_max, abs_e)
+            if t not in BLOCK_TIMED_T + (T,):
+                continue
             xb = torch.randn((t, i), device=dev, generator=gen).to(torch.bfloat16)
             wbytes = o * (i // 2 if packed else i) + o * (i // 32) * 4
             b_ms, b_by = bound(wbytes + t * i * 2 + t * o * 4, 2 * t * o * i, BF16_OPS_S)
-            iters = 4 if (name == "head" and t > 1) else 16
+            iters = 4 if (name == "head" and t > 8) else 16
+            route = qm.block_route(t, i, xb.dtype, packed)
+            # rowq_tc.cuh's launches use programmatic dependent launch: their
+            # profiler times count the overlap twice, so the CUDA graph's
             tm = timings(lambda: kern(xb, w, s), names, lambda: plain(xb, w, s),
-                         lambda: torch.matmul(xb, w_bf.T), iters=iters)
-            per[f"{name} T={t}"] = dict(**tm, bound_ms=b_ms, bound_by=b_by,
+                         lambda: torch.matmul(xb, w_bf.T), iters=iters, graph=route == "tc")
+            per[f"{name} T={t}"] = dict(**tm, bound_ms=b_ms, bound_by=b_by, route=route,
                                         shape=f"T={t} O={o} I={i}")
             if t == 1:
                 reps = 1 if name == "head" else L
                 for k in tot:
                     tot[k] += reps * (b_ms if k == "bound_ms" else tm[k])
-            log(f"{kern.__name__} {name} T={t}: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, "
-                f"plain {tm['plain_ms']:.4f}, bf16 matmul {tm['library_ms']:.4f})")
+            log(f"{kern.__name__} {name} T={t} ({per[f'{name} T={t}']['route']}): "
+                f"{tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain {tm['plain_ms']:.4f}, "
+                f"bf16 matmul {tm['library_ms']:.4f})")
         del w, s, w_bf
         torch.cuda.empty_cache()
+    for t in BLOCK_TIMED_T + (T,):  # one layer's four projections
+        row = [per[f"{n} T={t}"] for n in ("wqkv", "wo", "w13", "w2")]
+        per[f"layer T={t}"] = {k: sum(r[k] for r in row)
+                               for k in ("ms", "library_ms", "bound_ms", "plain_ms")}
+        log(f"{kern.__name__} a layer's four projections at T={t}: "
+            f"{per[f'layer T={t}']['ms']:.4f} ms (bound {per[f'layer T={t}']['bound_ms']:.4f}, "
+            f"bf16 matmul {per[f'layer T={t}']['library_ms']:.4f})")
+    edges = check_block_edges(dev, packed)
+    wide = check_block_wide(dev, packed)
     return dict(
         name=kern.__name__, route="cuda", source="llamatpu_torch/csrc/block_matmul.cu",
         replaces="llamatpu/ops/pallas_matmul.py:212" if packed
         else "llamatpu/ops/pallas_matmul.py:101",
-        max_abs_err=abs_max, max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst,
+        max_abs_err=max(abs_max, edges["max_abs_err"], wide["max_abs_err"]),
+        max_rel_err=max(*worst.values(), edges["max_rel_err"], wide["max_rel_err"]),
+        max_rel_err_by_dtype=worst,
         tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-3 (all shapes, T in "
-                  f"{row_counts})",
+                  f"{BLOCK_CHECK_T + (T,)}, the edges and the other paths' widths); two runs "
+                  "bit-equal",
         ms=tot["ms"], ms_source=per["wo T=1"]["ms_source"], wrapper_ms=tot["wrapper_ms"],
         plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
         library="bf16 torch.matmul against the bf16-dequantized weight",
         bound_ms=tot["bound_ms"], bound_by="bytes",
-        shape=f"one decode token at T=1: {L} x (wqkv+wo+w13+w2) + head", per_shape=per)
+        shape=f"one decode token at T=1: {L} x (wqkv+wo+w13+w2) + head", per_shape=per,
+        edges=edges, wide=wide)
+
+
+# K5 / K7's edges: a width whose block-scale rows are not 16-byte multiples
+# (the CUDA-core routes in bf16 too), a ragged O, and a layer view qs[li] of
+# a stacked weight at li > 0
+BLOCK_EDGES = ((200, 2080, 0), (200, 2048, 2), (1000, 4096, 1))
+
+
+def check_block_edges(dev, packed: bool) -> dict:
+    """K5 / K7 at BLOCK_EDGES (O, I, li) for T in BLOCK_CHECK_T and 512, bf16
+    and f32, through hold_block: the route each takes is logged."""
+    import torch
+
+    from llamatpu_torch.ops import quant_matmul as qm
+
+    kern = qm.packed4_matmul if packed else qm.block_matmul
+    plain = qm.packed4_matmul_plain if packed else qm.block_matmul_plain
+    gen = torch.Generator(device=dev).manual_seed(17 + packed)
+    worst, abs_max, routes = 0.0, 0.0, {}
+    for o, i, li in BLOCK_EDGES:
+        w, s, _ = block_weight(o, i, packed, dev, gen, layers=li + 1)
+        w, s = w[li], s[li]  # views: the layer's base pointer inside the stack
+        for t in BLOCK_CHECK_T + (512,):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((t, i), device=dev, generator=gen).to(dt)
+                label = f"{kern.__name__} edge O={o} I={i} li={li} T={t} {str(dt)[6:]}"
+                abs_e, rel_e = hold_block(kern, plain, x, w, s, label)
+                worst, abs_max = max(worst, rel_e), max(abs_max, abs_e)
+                routes[label] = qm.block_route(t, i, dt, packed)
+    log(f"{kern.__name__} edges {BLOCK_EDGES} at T {BLOCK_CHECK_T + (512,)}, bf16 and f32: "
+        f"worst rel {worst:.3g}, two runs bit-equal; routes "
+        f"{sorted(set(routes.values()))}")
+    return dict(max_rel_err=worst, max_abs_err=abs_max, routes=routes)
+
+
+def block_wide_cases() -> list[tuple[str, int, int, tuple]]:
+    """(label, O, I, rows) of K5 / K7 at the other GGUF paths' widths: the
+    Phi-3-medium GGUF's four projections at decode rows, served lanes, a
+    short chunk and the prefill chunk and its head at decode rows (`cli run`
+    and `serve`), and Qwen1.5-MoE's attention projection (its prefill chunk):
+    the plans the Llama widths do not reach (stream-K over 140 K stages of
+    w2, tiles shared beside whole ones, two x blocks a tile at I = 5120)."""
+    phi3 = block_shapes(PHI3_MEDIUM)
+    cases = [(f"phi3 {n}", *phi3[n], (1, 8, 33, 512)) for n in ("wqkv", "wo", "w13", "w2")]
+    cases.append(("phi3 head", *phi3["head"], (1, 8)))
+    cases.append(("qwen15 wqkv", QWEN15["KV"] * (QWEN15["G"] + 2) * QWEN15["HD"], QWEN15["D"],
+                  (8, QWEN15["T"])))
+    return cases
+
+
+def check_block_wide(dev, packed: bool) -> dict:
+    """K5 / K7 at `block_wide_cases`, bf16 and f32, through hold_block; each
+    bf16 case's route and plan logged (wgmma: x blocks a tile, shared tiles,
+    CTAs, tiles, whole tiles, K stages; tc: g, splits, ksl, CTAs)."""
+    import torch
+
+    from llamatpu_torch.ops import quant_matmul as qm
+    from llamatpu_torch.ops.gemm import _sm_count
+
+    kern = qm.packed4_matmul if packed else qm.block_matmul
+    plain = qm.packed4_matmul_plain if packed else qm.block_matmul_plain
+    gen = torch.Generator(device=dev).manual_seed(29 + packed)
+    sms = _sm_count(dev.index or 0)
+    worst, abs_max, plans = {"bf16": 0.0, "f32": 0.0}, 0.0, {}
+    for label, o, i, rows in block_wide_cases():
+        w, s, _ = block_weight(o, i, packed, dev, gen)
+        w, s = w[0], s[0]
+        for t in rows:
+            route = qm.block_route(t, i, torch.bfloat16, packed)
+            plan = qm.block_plan(t, o, i, route, packed, sms)
+            if route == "wgmma":
+                walk, nx = plan
+                desc = (f"nx {nx} split {walk.split} ctas {walk.ctas} tiles {walk.tiles} "
+                        f"whole {walk.tiles_dp} nk {walk.nk}")
+            else:
+                desc = f"(g, splits, ksl, ctas) {plan.args}"
+            for dt, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                x = torch.randn((t, i), device=dev, generator=gen).to(dt)
+                name = f"{kern.__name__} {label} O={o} I={i} T={t} {key}"
+                abs_e, rel_e = hold_block(kern, plain, x, w, s, name)
+                worst[key], abs_max = max(worst[key], rel_e), max(abs_max, abs_e)
+            plans[f"{label} T={t}"] = f"{route}: {desc}"
+            log(f"{kern.__name__} {label} O={o} I={i} T={t}: bf16 {route} {desc}; bf16 and f32 "
+                "within tolerance, two runs bit-equal")
+        del w, s
+        torch.cuda.empty_cache()
+    log(f"{kern.__name__} at the other paths' widths: worst rel bf16 {worst['bf16']:.3g}, "
+        f"f32 {worst['f32']:.3g}")
+    return dict(max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst,
+                max_abs_err=abs_max, plans=plans)
 
 
 def check_attention(dev, dims, sweep: bool = True) -> dict:
@@ -2197,9 +2339,9 @@ IN_PATH = {
         "attn_append_kernel", "gemv_kernel<1, 0, 2>", "gemv_kernel<1, 1, 4>",
         "gemv_kernel<1, 0, 3>"), 1),
     "rowq_gemm": ("main", "prefill_trace", K4_NAMES, 4),
-    "block_matmul": ("gguf", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 65),
+    "block_matmul": ("gguf", "decode16_trace", K5_NAMES, 65),
     "decode_attention_fused_write": ("gguf", "decode16_trace", DENSE, 1),
-    "packed4_matmul": ("pack4", "decode16_trace", ("bq_gemv_kernel", "bq_gemm_kernel"), 17),
+    "packed4_matmul": ("pack4", "decode16_trace", K7_NAMES, 17),
     "decode_attention_paged": ("serve", "decode16_trace", PAGED, 1),
     # K9's three phases: rowq_tc.cuh in bf16, gemv.cuh's tiled GEMV in f32
     "layer_tail_fused_rowq": ("serve_rowq", "decode16_trace", K9_TC + tuple(
@@ -2263,6 +2405,15 @@ def counters():
             "grouped_rowq_matmul": moe_grouped.grouped_rowq_matmul,
             "grouped_dense_matmul": moe_grouped.grouped_dense_matmul,
             **{n: getattr(attention, n) for n in K14_WRAPPERS + K15_WRAPPERS}}
+
+
+def require_kernels(res: dict, label: str, want: dict) -> None:
+    """Each trace of a path (want: {trace key: kernel names}) holds a launch
+    of every named kernel."""
+    for key, names in want.items():
+        seen = [k["name"] for k in res[key]["kernels"]]
+        for n in names:
+            assert any(n in k for k in seen), f"{label}: {key} holds no {n}: {seen[:12]}"
 
 
 def drive_engine(engine, prompt: list[int], tg: int, want_fn, label: str,
@@ -2617,6 +2768,8 @@ def run_gguf_path(dev, workdir: Path, overrides=None) -> dict:
     prompt = np.random.default_rng(42).integers(0, 128000, 512).tolist()
     res.update(drive_engine(engine, prompt, 128, lambda n: {
         "block_matmul": (4 * L + 1) * (1 + n), "decode_attention_fused_write": L * n}, "gguf"))
+    require_kernels(res, "gguf", {"prefill_trace": ("bq_wgmma_kernel",),
+                                  "decode16_trace": ("rtc::K5>",)})
     del engine
     # 3. sampled at the family's defaults, twice with one seed
     ids = model.chat_format.build_prompt([Message(Role.USER, "Why is the sky blue?")])
@@ -2652,6 +2805,8 @@ def run_pack4_path(dev, workdir: Path, overrides=None) -> dict:
     res = drive_engine(engine, prompt, 32, lambda n: {
         "packed4_matmul": (4 * L + 1) * (1 + n), "decode_attention_fused_write": L * n},
         "pack4", repeats=1)
+    require_kernels(res, "pack4", {"prefill_trace": ("bq_wgmma_kernel",),
+                                   "decode16_trace": ("rtc::K7>",)})
     del engine, model
     torch.cuda.empty_cache()
     res["convert"] = convert_and_validate(dev, path, workdir)
@@ -2883,6 +3038,8 @@ def run_serving_path(dev, path: Path, rowq: bool, latency: bool, label: str | No
         f"chunks, launches {launches}, chat finish {res['chat_finish']}, no scheduler error")
     res["decode16_trace"] = decode_window_trace(engine)
     tr = res["decode16_trace"]
+    if want_fn is None and not rowq:  # K5 at the 8 lanes' rows
+        require_kernels(res, label, {"decode16_trace": ("rtc::K5>",)})
     log(f"{label}: traced 16-step window at B=8: device busy {tr['busy_ms']:.3f} of "
         f"{tr['wall_ms']:.3f} ms (idle share {tr['idle_share']:.3f}); generate_batch "
         f"aggregate decode {tr['agg_decode_tok_s']:.1f} tok/s; top "
@@ -3402,9 +3559,9 @@ def check_qwen_geometry(dev, dims=QWEN15) -> dict:
         b_ms, b_by = bound(V * D + V * (D // 32) * 4 + t * D * 2 + t * V * 4, 2 * t * V * D,
                            BF16_OPS_S)
         k5[t] = dict(max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
-                     **timings(lambda: qm.block_matmul(xb, q, s), ("bq_gemv_kernel",),
+                     **timings(lambda: qm.block_matmul(xb, q, s), K5_NAMES,
                                lambda: qm.block_matmul_plain(xb, q, s),
-                               lambda: torch.matmul(xb, w_bf.T), iters=4))
+                               lambda: torch.matmul(xb, w_bf.T), iters=4, graph=True))
         log(f"K5 head O={V} T={t}: {k5[t]['ms']:.4f} ms (bound {b_ms:.4f})")
     out["block_matmul"] = dict(shape=f"head O={V} I={D}", by_rows=k5)
     del q, s, w_bf
@@ -3512,6 +3669,9 @@ def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
                 "grouped_block_matmul": 2 * L * (n + 1), "block_matmul": (2 * L + 1) * (n + 1),
                 "decode_attention_fused_write": L * n}
         out[label] = drive_engine(engine, prompt, 128, want, label)
+        if not rowq:
+            require_kernels(out[label], label, {"prefill_trace": ("bq_wgmma_kernel",),
+                                                "decode16_trace": ("rtc::K5>",)})
         out[label].update(build_s=build_s, load_s=load_s, host_rss_gb=host_rss_gb(), layers=L)
         del engine, m
         torch.cuda.empty_cache()
@@ -3541,6 +3701,7 @@ def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
     res = dict(wall_s=wall, decode_steps=steps, prefill_chunks=chunks, launches=launches,
                load_s=load_s, tok_s=8 * 32 / wall)
     res["decode16_trace"] = tr = decode_window_trace(engine)
+    require_kernels(res, "moe paged", {"decode16_trace": ("rtc::K5>",)})
     toks = np.array([engine.prefill_lane(i, p) for i, p in enumerate(prompts)], np.int32)
     res["experts_per_layer"] = experts_per_layer(engine, toks,
                                                  np.array([len(p) for p in prompts], np.int32))

@@ -54,7 +54,7 @@ _SIGNATURES = {
         "lt_rowq_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "block_matmul": {
-        "lt_block_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "lt_block_matmul": (_P, _I, _P, _P, _P, _P, *(_I,) * 9, _P),
     },
     "attention": {
         "lt_dense_attention": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,

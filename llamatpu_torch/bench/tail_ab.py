@@ -41,7 +41,7 @@ CASES = (("K9", "llama32-1b", LLAMA, 1), ("K9", "llama32-1b", LLAMA, 8),
          ("K20", "phi3-medium", PHI3, 17), ("K20", "phi3-medium", PHI3, 24))
 PRODUCTS = ("      mma16(acc[n], a, bx[n]);", "        mma16(accu[n], a, bx[n]);")
 STAGE_X = "      stage_x<NF>(p, xs, rstd, k0, k1, ct, xbar, xphase);\n"
-PRODUCTS_CALL = "      if (wb < nb)\n        products<NF, PAIR>("
+PRODUCTS_CALL = "      if (wb >= nb) {\n"
 UNIT_END = "    // the warp's part to the finishers:"
 FINISH = "    finish<NF, PAIR>(p, hd,"
 REDUCE = "if (e || p.splits == 1) return e;"
@@ -61,7 +61,7 @@ VARIANTS = {
         (PRODUCTS[0], "      acc[n][0] += __uint_as_float(a[0] ^ bx[n][0]);"),
         (PRODUCTS[1], "        accu[n][0] += __uint_as_float(a[1] ^ bx[n][1]);")]),
     "stream only": lambda s: _replace_all(s, [
-        (STAGE_X, ""), (PRODUCTS_CALL, PRODUCTS_CALL.replace("wb < nb", "false"))]),
+        (STAGE_X, ""), (PRODUCTS_CALL, PRODUCTS_CALL.replace("wb >= nb", "true"))]),
     "no unit ends": lambda s: _replace_all(s, [
         (UNIT_END, "    continue;\n" + UNIT_END), (FINISH, "    if (false)" + FINISH[3:])]),
     "no reduce launch": lambda s: _replace_all(s, [(REDUCE, "return e;")]),

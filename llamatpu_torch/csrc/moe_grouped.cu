@@ -155,12 +155,6 @@ __device__ __forceinline__ int sigma(int g) {
   return FB == 8 ? (2 * g) % 8 + g / 4 : FB == 16 ? 4 * (g % 2) + g / 2 : g;
 }
 
-__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
-  unsigned short r;
-  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(r) : "r"(addr));
-  return r;
-}
-
 __device__ __forceinline__ void lds128(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -199,20 +193,6 @@ __device__ __forceinline__ uint32_t s_addr(uint32_t sbase, int r, int b) {
   return sbase + swz<G::NS * 4>((r * G::NS + b) * 4);
 }
 
-// The 4 packed columns of raw's two bytes (low nibble first) as bytes n + 8.
-__device__ __forceinline__ uint32_t spread_nibbles(uint32_t raw) {
-  const uint32_t u = (raw ^ 0x8888u) & 0xffffu;
-  const uint32_t v = (u | (u << 8)) & 0x00ff00ffu;
-  return (v | (v << 4)) & 0x0f0f0f0fu;
-}
-
-// f32 of the 4 bytes of u, each biased by `bias` (2^23 + bias subtracted).
-__device__ __forceinline__ void bytes_to_f32(uint32_t u, float bias, float (&f)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    f[e] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + e)) - (8388608.f + bias);
-}
-
 // A row's raw fragment (columns col .. col + 3 of the stage) and (SC) its
 // block scale, loaded; then converted to the bf16 fragment, or to f32.
 template <class G, int KIND, bool SC = true>
@@ -235,15 +215,8 @@ __device__ __forceinline__ void load_row(uint32_t wb, uint32_t sb, int r, int co
 
 template <int KIND, int WDT>
 __device__ __forceinline__ void to_bf16(const uint32_t (&raw)[4], float sc, uint32_t (&b)[2]) {
-  if constexpr (KIND == K_BLOCK) {
-    const uint32_t s = __float_as_uint(sc);
-    const uint32_t sv[4] = {s, s, s, s};
-    dequant4<W_Q8_F32>(raw[0], sv, b);
-  } else if constexpr (KIND == K_PACKED) {
-    float f[4];
-    bytes_to_f32(spread_nibbles(raw[0]), 8.f, f);
-    b[0] = pack_bf16x2(__fmul_rn(f[0], sc), __fmul_rn(f[1], sc));
-    b[1] = pack_bf16x2(__fmul_rn(f[2], sc), __fmul_rn(f[3], sc));
+  if constexpr (KIND == K_BLOCK || KIND == K_PACKED) {
+    dequant_block<KIND == K_PACKED>(raw[0], sc, b[0], b[1]);
   } else if constexpr (KIND == K_ROWQ) {  // bf16(q) exact: the high half of f
     float f[4];
     bytes_to_f32(raw[0] ^ 0x80808080u, 128.f, f);

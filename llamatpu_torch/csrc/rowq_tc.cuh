@@ -3,7 +3,12 @@
 // (ffn_fused.cu `lt_ffn_fused`) on the tensor cores: one template,
 // `rowq_tc_kernel<NF, PAIR, Tag>`, run once per phase in stream order. Tag
 // (K1, K2, K9, K20) names the caller in the kernel's symbol, so a profiler
-// trace tells their launches apart.
+// trace tells their launches apart. K5 and K7's bf16 decode rows
+// (block_matmul.cu) run the same body as `rowq_tc_bq_kernel<NF, Tag>` on
+// their block-quant weights (`WeightKind`: Q8_0, Q4_0 packed two a byte),
+// each weight box's f32 block scales staged beside it, the A fragments
+// dequantized by them in registers; their bound is the same weight stream
+// at 1.125 and 0.625 bytes a weight.
 //
 // A phase computes, for T <= 32 bf16 activation rows x [T, I] and q8_row
 // weights w [rows, I] (int8, one f32 scale per row),
@@ -96,6 +101,34 @@ struct K1 {};
 struct K2 {};
 struct K9 {};
 struct K20 {};
+struct K5 {};
+struct K7 {};
+
+// The weight kind a caller streams: q8_row int8 (K1, K2, K9, K20; its row
+// scale in the epilogue or outside), Q8_0 int8 with f32 scales of each
+// 32-column block (K5), Q4_0 packed two's-complement nibbles, two columns a
+// byte, with the same block scales (K7). A box row is 128 bytes: 128 columns,
+// 256 packed; the block kinds stage each box's [16 rows, cols / 32] f32
+// scales beside it, by a TMA box of their own.
+enum WeightKind { WT_ROWQ = 0, WT_Q8 = 1, WT_Q4P = 2 };
+template <typename Tag>
+struct WeightOf {
+  static constexpr int kind = WT_ROWQ;
+};
+template <>
+struct WeightOf<K5> {
+  static constexpr int kind = WT_Q8;
+};
+template <>
+struct WeightOf<K7> {
+  static constexpr int kind = WT_Q4P;
+};
+template <int WK>
+struct WGeo {
+  static constexpr int cols = WK == WT_Q4P ? 2 * kBoxCols : kBoxCols;  // columns of a box
+  static constexpr int ns = WK == WT_ROWQ ? 0 : cols / 32;             // block scales a box row
+  static constexpr int sbox = kRows * ns * 4;                          // a box's scales, bytes
+};
 
 enum XKind { X_BF16 = 0, X_F32_NORM = 1 };
 
@@ -138,28 +171,34 @@ __device__ __forceinline__ void rowq_bf16(uint32_t raw, uint32_t& lo, uint32_t& 
 }
 
 // ------------------------------------------------------------- producer
-template <bool PAIR>
-__device__ void produce(const Phase& p, const CUtensorMap* mw, uint32_t ring, uint64_t* full,
-                        uint64_t* empty, int lane, int u0, int u1) {
+template <bool PAIR, int WK>
+__device__ void produce(const Phase& p, const CUtensorMap* mw, const CUtensorMap* ms,
+                        uint32_t ring, uint64_t* full, uint64_t* empty, int lane, int u0, int u1) {
+  using G = WGeo<WK>;
   int slot = 0;
   unsigned phase = 0;
   for (int u = u0; u < u1; ++u) {
     const int s = u / p.nrb, rb = u - s * p.nrb;
     const int k0 = s * p.ksl, k1 = min(p.I, k0 + p.ksl);
-    for (int k = k0; k < k1; k += kBoxCols * p.wpg) {
-      // warp w's box: group w / wpg's rows, columns k + 128 (w % wpg); those
+    for (int k = k0; k < k1; k += G::cols * p.wpg) {
+      // warp w's box: group w / wpg's rows, columns k + cols (w % wpg); those
       // past the slice are not loaded (nb a group)
-      const int nb = min(p.wpg, (k1 - k + kBoxCols - 1) / kBoxCols);
+      const int nb = min(p.wpg, (k1 - k + G::cols - 1) / G::cols);
       const int nbox = (PAIR ? 2 : 1) * p.g * nb;
       mbar_wait(&empty[slot], phase ^ 1);
       __syncwarp();
-      if (lane == 0) mbar_expect_tx(&full[slot], static_cast<unsigned>(nbox * kBoxBytes));
+      if (lane == 0)
+        mbar_expect_tx(&full[slot], static_cast<unsigned>(nbox * (kBoxBytes + G::sbox)));
       __syncwarp();
       if (lane < nbox) {  // box (w, h) of warp w = gi wpg + b (PAIR: h 0 gate, 1 up)
         const int h = PAIR ? lane & 1 : 0, j = PAIR ? lane >> 1 : lane;
         const int gi = j / nb, b = j - gi * nb, w = gi * p.wpg + b;
+        const int row = rb * p.rows + gi * kRows + h * p.up, col = k + b * G::cols;
         tma_load_2d(ring + slot * p.stage + ((PAIR ? 2 : 1) * w + h) * kBoxBytes, mw,
-                    k + b * kBoxCols, rb * p.rows + gi * kRows + h * p.up, &full[slot]);
+                    WK == WT_Q4P ? col / 2 : col, row, &full[slot]);
+        if constexpr (WK != WT_ROWQ)  // the box's block scales, after the weight boxes
+          tma_load_2d(ring + slot * p.stage + kWarps * kBoxBytes + w * G::sbox, ms, col / 32,
+                      row, &full[slot]);
       }
       if (++slot == p.depth) {
         slot = 0;
@@ -291,11 +330,63 @@ __device__ __forceinline__ void products(uint32_t wb, uint32_t xb, int xpitch, i
   }
 }
 
-// The epilogue of 4 outputs of a unit: one x row t, weight rows o .. o + 3
-// of one 16-row group (`row` of the first within it), from their full sums v
-// (and the up rows' u), with their row scales and residuals loaded
-// beforehand. Every lane of a warp takes part: E_RESID also writes each
-// group's sum of squares of x2 for each t, which 4 neighbouring lanes hold.
+__device__ __forceinline__ void lds128f(float (&r)[4], uint32_t addr) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3])
+               : "r"(addr));
+}
+
+// The block kinds' products on box w of a stage (K5, K7): lane (g, q) takes
+// the same k order and x rows as `products`, its A fragments of rows g and g
+// + 8 dequantized in registers by the scale of their 32-column block (f32
+// product rounded to nearest, then to bf16, as the TPU kernel rounds the
+// weight before the dot). Q8_0: 8 steps, the 4 int8 columns of a step one
+// 4-byte load; packed: 16 steps of the box's 256
+// columns, the step's 4 columns two bytes, their nibbles spread into bytes
+// under the exponent of 2^23 (tc_gemv.cuh's dequant_block, as K10 / K11). A row's
+// scales of the box are one or two 16-byte loads.
+template <int NF, int WK>
+__device__ __forceinline__ void products_block(uint32_t wb, uint32_t sb, uint32_t xb, int xpitch,
+                                               int g, float (&acc)[NF][4]) {
+  using G = WGeo<WK>;
+  constexpr int STEPS = G::cols / 16;
+  const int q = threadIdx.x & 3;
+  float sg[G::ns], s8[G::ns];
+#pragma unroll
+  for (int v = 0; v < G::ns / 4; ++v) {
+    float a[4], b[4];
+    lds128f(a, sb + g * G::ns * 4 + 16 * v);
+    lds128f(b, sb + (g + 8) * G::ns * 4 + 16 * v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sg[4 * v + e] = a[e], s8[4 * v + e] = b[e];
+  }
+  uint32_t w0[STEPS], w8[STEPS];
+  const uint32_t r0 = wb + g * kBoxCols, r8 = r0 + 8 * kBoxCols;
+#pragma unroll
+  for (int j = 0; j < STEPS; ++j) {
+    if (WK == WT_Q8) {  // columns 16 j + 4 q ..: 4 bytes of 16-byte chunk j
+      const uint32_t off = static_cast<uint32_t>(((j ^ g) << 4) + 4 * q);
+      w0[j] = lds32(r0 + off);
+      w8[j] = lds32(r8 + off);
+    } else {            // bytes 8 j + 2 q, + 1 of chunk j / 2
+      const uint32_t off = static_cast<uint32_t>((((j >> 1) ^ g) << 4) + 8 * (j & 1) + 2 * q);
+      w0[j] = lds16(r0 + off);
+      w8[j] = lds16(r8 + off);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < STEPS; ++j) {
+    uint32_t bx[NF][2];
+#pragma unroll
+    for (int n = 0; n < NF; ++n) lds64(bx[n], xb + n * 8 * xpitch + 32 * j);
+    uint32_t a[4];
+    dequant_block<WK == WT_Q4P>(w0[j], sg[j * 16 / 32], a[0], a[2]);
+    dequant_block<WK == WT_Q4P>(w8[j], s8[j * 16 / 32], a[1], a[3]);
+#pragma unroll
+    for (int n = 0; n < NF; ++n) mma16(acc[n], a, bx[n]);
+  }
+}
+
 // The epilogue of 4 outputs of a unit: one x row t, weight rows o .. o + 3
 // of one 16-row group (`row` of the first within it), from their full sums v
 // (and the up rows' u), with their row scales and residuals loaded
@@ -463,7 +554,7 @@ __global__ void __launch_bounds__(kReduceThreads) rowq_tc_reduce(const Phase p) 
   epilogue(p, at, v, w, in, live);
 }
 
-template <int NF, bool PAIR>
+template <int NF, bool PAIR, int WK>
 __device__ void consume(const Phase& p, uint32_t ring, unsigned char* base, float* rstd,
                         Hand& hd, uint64_t* full, uint64_t* empty, uint64_t* xbar, int warp,
                         int lane, int u0, int u1) {
@@ -501,14 +592,20 @@ __device__ void consume(const Phase& p, uint32_t ring, unsigned char* base, floa
     for (int n = 0; n < NF; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n][i] = accu[n][i] = 0.f;
+    using G = WGeo<WK>;
     const int wb = warp % p.wpg;  // the warp's box within its group's share of a stage
-    for (int k = k0; k < k1; k += kBoxCols * p.wpg) {
-      const int nb = min(p.wpg, (k1 - k + kBoxCols - 1) / kBoxCols);
+    for (int k = k0; k < k1; k += G::cols * p.wpg) {
+      const int nb = min(p.wpg, (k1 - k + G::cols - 1) / G::cols);
       mbar_wait(&full[slot], phase);
-      if (wb < nb)
-        products<NF, PAIR>(ring + slot * p.stage + (PAIR ? 2 : 1) * warp * kBoxBytes,
-                           smem_u32(xs) + g * p.xpitch + 8 * q + 2 * (k - k0 + wb * kBoxCols),
-                           p.xpitch, g, acc, accu);
+      const uint32_t st = ring + slot * p.stage;
+      const uint32_t xb = smem_u32(xs) + g * p.xpitch + 8 * q + 2 * (k - k0 + wb * G::cols);
+      if (wb >= nb) {
+      } else if constexpr (WK == WT_ROWQ) {
+        products<NF, PAIR>(st + (PAIR ? 2 : 1) * warp * kBoxBytes, xb, p.xpitch, g, acc, accu);
+      } else {
+        products_block<NF, WK>(st + warp * kBoxBytes, st + kWarps * kBoxBytes + warp * G::sbox,
+                               xb, p.xpitch, g, acc);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[slot]);
       if (++slot == p.depth) {
@@ -532,9 +629,11 @@ __device__ void consume(const Phase& p, uint32_t ring, unsigned char* base, floa
   }
 }
 
+// The kernel's body: ms is the block scales' map of K5 and K7, null otherwise.
 template <int NF, bool PAIR, typename Tag>
-__global__ void __launch_bounds__(kThreads, 1)
-    rowq_tc_kernel(const __grid_constant__ CUtensorMap mw, const Phase p) {
+__device__ __forceinline__ void rowq_tc_body(const CUtensorMap* mw, const CUtensorMap* ms,
+                                             const Phase& p) {
+  constexpr int WK = WeightOf<Tag>::kind;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxDepth], empty[kMaxDepth], xbar;
   __shared__ __align__(8) Hand hd;
@@ -557,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int u0 = static_cast<int>(static_cast<long>(blockIdx.x) * p.units / p.ctas);
   const int u1 = static_cast<int>(static_cast<long>(blockIdx.x + 1) * p.units / p.ctas);
   if (warp == kWarps) {
-    produce<PAIR>(p, &mw, ring, full, empty, lane, u0, u1);
+    produce<PAIR, WK>(p, mw, ms, ring, full, empty, lane, u0, u1);
     return;
   }
   if (warp > kWarps) {
@@ -566,28 +665,48 @@ __global__ void __launch_bounds__(kThreads, 1)
                      u1);
     return;
   }
-  consume<NF, PAIR>(p, ring, base, rstd, hd, full, empty, &xbar, warp, lane, u0, u1);
+  consume<NF, PAIR, WK>(p, ring, base, rstd, hd, full, empty, &xbar, warp, lane, u0, u1);
 }
 
-// int8 weights [rows, cols] as [16 rows, 128 bytes] boxes, the 128-byte
-// swizzle, zeros outside.
-inline int make_map(CUtensorMap* map, const void* w, long rows, int cols) {
+template <int NF, bool PAIR, typename Tag>
+__global__ void __launch_bounds__(kThreads, 1)
+    rowq_tc_kernel(const __grid_constant__ CUtensorMap mw, const Phase p) {
+  rowq_tc_body<NF, PAIR, Tag>(&mw, nullptr, p);
+}
+
+// K5 and K7: the weights' map and their block scales' map
+template <int NF, typename Tag>
+__global__ void __launch_bounds__(kThreads, 1)
+    rowq_tc_bq_kernel(const __grid_constant__ CUtensorMap mw, const __grid_constant__ CUtensorMap ms,
+                      const Phase p) {
+  rowq_tc_body<NF, false, Tag>(&mw, &ms, p);
+}
+
+// int8 weights [rows, cols] bytes as [16 rows, 128 bytes] boxes, the
+// 128-byte swizzle (f32 block scales [rows, cols]: [16 rows, box_cols] boxes,
+// no swizzle), zeros outside.
+inline int make_map(CUtensorMap* map, const void* w, long rows, int cols, bool f32 = false,
+                    int box_cols = kBoxCols) {
   const EncodeTiled f = encode_tiled();
   if (f == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const int es = f32 ? 4 : 1;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {kBoxCols, kRows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * es};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), kRows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = f(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides,
-                       box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r =
+      f(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+        const_cast<void*>(w), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int NF, bool PAIR, typename Tag>
-int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st) {
+int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st, const float* bs) {
   constexpr int TP = 8 * NF, NH = PAIR ? 2 : 1;
-  p.stage = NH * kWarps * kBoxBytes;
+  using G = WGeo<WeightOf<Tag>::kind>;
+  p.stage = NH * kWarps * kBoxBytes + kWarps * G::sbox;
   p.xpitch = 2 * p.ksl + 32;  // 32 or 96 mod 128 bytes: a fragment's 8 rows in distinct banks
   const int xbytes = TP * p.xpitch, red = NH * kWarps * kRows * TP * 4;
   const int fin = p.splits == 1 ? NH * p.g * kRows * TP * 4 : 0;  // a unit's sums
@@ -597,12 +716,17 @@ int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st) {
   p.redoff = p.xoff + xbytes;
   p.finoff = p.redoff + red;
   const size_t smem = 1024 + static_cast<size_t>(p.finoff) + fin;
-  CUtensorMap mw;
-  int e = make_map(&mw, w, wrows, p.I);
+  CUtensorMap mw, ms = {};
+  int e = make_map(&mw, w, wrows, p.I * kBoxCols / G::cols);
+  if (e == 0 && G::ns) e = make_map(&ms, bs, wrows, p.I / 32, true, G::ns);
   if (e) return e;
   // set at every launch: a function-local static here would be one symbol
   // for every library that includes this header
-  const cudaError_t ce = lt_allow_smem(rowq_tc_kernel<NF, PAIR, Tag>, smem);
+  cudaError_t ce;
+  if constexpr (G::ns > 0)
+    ce = lt_allow_smem(rowq_tc_bq_kernel<NF, Tag>, smem);
+  else
+    ce = lt_allow_smem(rowq_tc_kernel<NF, PAIR, Tag>, smem);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.ctas);
@@ -614,7 +738,10 @@ int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = static_cast<int>(cudaLaunchKernelEx(&cfg, rowq_tc_kernel<NF, PAIR, Tag>, mw, p));
+  if constexpr (G::ns > 0)
+    e = static_cast<int>(cudaLaunchKernelEx(&cfg, rowq_tc_bq_kernel<NF, Tag>, mw, ms, p));
+  else
+    e = static_cast<int>(cudaLaunchKernelEx(&cfg, rowq_tc_kernel<NF, PAIR, Tag>, mw, p));
   if (e || p.splits == 1) return e;
   const long quads = static_cast<long>(p.nrb) * p.g * kRows * TP / 4;
   cfg.gridDim = dim3(static_cast<unsigned>((quads + kReduceThreads - 1) / kReduceThreads));
@@ -624,16 +751,21 @@ int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st) {
 }
 
 // One phase: its plan (splits, ksl, ctas) from ops/ffn_fused.py plan_tc,
-// checked here too; w [wrows, I] int8, 16-byte aligned; x 16-byte aligned;
-// with more than one slice, partial holds the plan's units' sums.
+// checked here too; w [wrows, I] int8 (K7: [wrows, I / 2] packed bytes),
+// 16-byte aligned; x 16-byte aligned; with more than one slice, partial
+// holds the plan's units' sums. K5 and K7 read the block scales bs [wrows,
+// I / 32] f32 (I % 128 == 0 and bs 16-byte aligned: TMA row strides).
 template <bool PAIR, typename Tag>
-int launch(Phase p, const void* w, long wrows, cudaStream_t st) {
+int launch(Phase p, const void* w, long wrows, cudaStream_t st, const float* bs = nullptr) {
+  using G = WGeo<WeightOf<Tag>::kind>;
   if (p.g < 1 || p.g > kMaxGroups || kWarps % p.g) return static_cast<int>(cudaErrorInvalidValue);
+  if (G::ns && (PAIR || p.I % 128 || reinterpret_cast<uintptr_t>(bs) % 16 || bs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.wpg = kWarps / p.g;
   p.rows = p.g * kRows;
   p.nrb = (p.O + p.rows - 1) / p.rows;
   p.units = p.nrb * p.splits;
-  if (p.T < 1 || p.T > 32 || p.I % 16 || p.ksl < kBoxCols || p.ksl % kBoxCols || p.splits < 1 ||
+  if (p.T < 1 || p.T > 32 || p.I % 16 || p.ksl < G::cols || p.ksl % G::cols || p.splits < 1 ||
       static_cast<long>(p.splits) * p.ksl < p.I || (p.splits - 1) * p.ksl >= p.I ||
       p.ctas < 1 || p.ctas > p.units || (p.splits > 1 && p.partial == nullptr) ||
       (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(p.x) |
@@ -643,10 +775,10 @@ int launch(Phase p, const void* w, long wrows, cudaStream_t st) {
           (reinterpret_cast<uintptr_t>(p.y) | reinterpret_cast<uintptr_t>(p.s) |
            reinterpret_cast<uintptr_t>(p.res)) % 16 == 0;
   switch ((p.T + 7) / 8) {
-    case 1: return launch_nf<1, PAIR, Tag>(p, w, wrows, st);
-    case 2: return launch_nf<2, PAIR, Tag>(p, w, wrows, st);
-    case 3: return launch_nf<3, PAIR, Tag>(p, w, wrows, st);
-    default: return launch_nf<4, PAIR, Tag>(p, w, wrows, st);
+    case 1: return launch_nf<1, PAIR, Tag>(p, w, wrows, st, bs);
+    case 2: return launch_nf<2, PAIR, Tag>(p, w, wrows, st, bs);
+    case 3: return launch_nf<3, PAIR, Tag>(p, w, wrows, st, bs);
+    default: return launch_nf<4, PAIR, Tag>(p, w, wrows, st, bs);
   }
 }
 

@@ -10,8 +10,9 @@
 //   16-column step is permuted alike in A and B, so that a lane's fragment of
 //   a row is 4 adjacent columns: the mma's k = 2q, 2q + 1 and 2q + 8, 2q + 9
 //   of lane (g = lane / 4, q = lane % 4) are the step's columns 4q .. 4q + 3.
-// - dequant4: 4 int8 weights of one 4-byte load into a bf16 fragment, in
-//   registers, with no int-to-float conversion.
+// - dequant4, dequant_block: 4 int8 weights of one 4-byte load (or 4 packed
+//   nibbles) into a bf16 fragment, in registers, with no int-to-float
+//   conversion.
 #pragma once
 
 #include <cuda.h>
@@ -94,6 +95,12 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   return r;
 }
 
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  unsigned short r;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(r) : "r"(addr));
+  return r;
+}
+
 // c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 sums; lane (g, q) holds
 // a's rows g (a0, a2) and g + 8 (a1, a3), b's column g (b0, b1), and c0, c1
 // (row g) and c2, c3 (row g + 8) at columns 2q, 2q + 1.
@@ -111,11 +118,40 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {  // cvt.rn
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// f32 of the 4 bytes of u, each biased by `bias`, without the conversion
+// pipe: byte e permuted under the exponent of 2^23 reads 2^23 + byte, and one
+// subtraction of 2^23 + bias leaves the value exactly.
+__device__ __forceinline__ void bytes_to_f32(uint32_t u, float bias, float (&f)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + e)) - (8388608.f + bias);
+}
+
+// The 4 packed columns of raw's two bytes (low nibble first) as bytes n + 8.
+__device__ __forceinline__ uint32_t spread_nibbles(uint32_t raw) {
+  const uint32_t u = (raw ^ 0x8888u) & 0xffffu;
+  const uint32_t v = (u | (u << 8)) & 0x00ff00ffu;
+  return (v | (v << 4)) & 0x0f0f0f0fu;
+}
+
+// 4 columns of one block-quant row (Q8_0: the 4 int8 bytes of raw; PACKED:
+// the nibbles of its two low bytes) times their block scale sc, the f32
+// product rounded to nearest, as the two bf16x2 halves of a fragment.
+template <bool PACKED>
+__device__ __forceinline__ void dequant_block(uint32_t raw, float sc, uint32_t& lo, uint32_t& hi) {
+  float f[4];
+  if constexpr (PACKED)
+    bytes_to_f32(spread_nibbles(raw), 8.f, f);
+  else
+    bytes_to_f32(raw ^ 0x80808080u, 128.f, f);
+  lo = pack_bf16x2(__fmul_rn(f[0], sc), __fmul_rn(f[1], sc));
+  hi = pack_bf16x2(__fmul_rn(f[2], sc), __fmul_rn(f[3], sc));
+}
+
 // The fragment (two bf16x2) of the 4 int8 weights in raw (columns 4q .. 4q +
-// 3, the lowest byte first), dequantized by the kind with the lane's scales.
-// int8 -> f32 without the conversion pipe: byte e of raw ^ 0x80808080 is q +
-// 128, permuted under the exponent of 2^23 it reads 2^23 + q + 128, and one
-// subtraction leaves q exactly.
+// 3, the lowest byte first), dequantized by the kind with the lane's scales:
+// bytes_to_f32 of raw ^ 0x80808080 (q + 128), written out for the probes'
+// ablation copies to edit.
 template <int WK>
 __device__ __forceinline__ void dequant4(uint32_t raw, const uint32_t (&sv)[4], uint32_t (&b)[2]) {
   const uint32_t u = raw ^ 0x80808080u;

@@ -125,6 +125,11 @@ TC_RING_MIN = 3          # ring stages kept beside the x slice
 TC_UNIT_BYTES = 32 * 1024  # a unit's fixed cost (parts, sums, scratch), in weight bytes
 TC_REDUCE_BYTES = 48 * 1024  # a split phase's second launch (~2 us), in a CTA's weight bytes
 TC_SPLITS_TRIED = 8      # slice counts tried past the fewest that fit
+# the weight kinds of rowq_tc.cuh (its `WGeo`): columns of a 128-byte box row,
+# bytes streamed a weight, f32 block scales staged a box row. q8_row for K1,
+# K2, K9 and K20; Q8_0 (K5) and Q4_0 packed two a byte (K7) with their block
+# scales
+TC_KINDS = {"rowq": (128, 1.0, 0), "q8_0": (128, 1.125, 4), "q4p": (256, 0.625, 8)}
 
 
 def tc_route(dtype: torch.dtype, *widths: int) -> bool:
@@ -140,14 +145,16 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def tc_x_bytes(tp: int, pair: bool, g: int, split: bool) -> int:
+def tc_x_bytes(tp: int, pair: bool, g: int, split: bool, kind: str = "rowq") -> int:
     """Shared memory for a CTA's bf16 x slice: what csrc/rowq_tc.cuh's
     `launch_nf` leaves beside the consumer warps' parts, a unit's sums of
     16 g-row blocks (`fin`, a phase of one slice only) and TC_RING_MIN ring
-    stages."""
+    stages (8 weight boxes, or 16 for a pair, and the block kinds' 8 scale
+    boxes)."""
     nh = 2 if pair else 1
     fin = 0 if split else nh * g * TC_ROWS * tp * 4
-    return TC_DYN_SMEM - nh * 8 * TC_ROWS * tp * 4 - fin - TC_RING_MIN * nh * 8 * TC_ROWS * TC_BOX
+    stage = nh * 8 * TC_ROWS * TC_BOX + 8 * TC_ROWS * TC_KINDS[kind][2] * 4
+    return TC_DYN_SMEM - nh * 8 * TC_ROWS * tp * 4 - fin - TC_RING_MIN * stage
 
 
 @dataclass(frozen=True)
@@ -168,6 +175,7 @@ class TcPlan:
     splits: int
     ksl: int
     ctas: int
+    kind: str = "rowq"  # the weight kind (TC_KINDS)
 
     @property
     def tp(self) -> int:  # activation rows as the mma's B fragments (8 a fragment)
@@ -211,22 +219,26 @@ class TcPlan:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132) -> TcPlan:
+def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132,
+            kind: str = "rowq") -> TcPlan:
     """The row groups, slices and CTAs of one phase. For each g of TC_GROUPS
     and each slice count from the fewest whose bf16 x slice (tp rows of 2 ksl
     + 32 bytes) fits `tc_x_bytes` to TC_SPLITS_TRIED more, the busiest CTA's
-    cost: ceil(units / SMs) units of their weight bytes plus TC_UNIT_BYTES,
-    and TC_REDUCE_BYTES for the second launch of a split contraction. The
-    cheapest wins, the fewest units on a tie; one CTA an SM, or one a unit.
-    Cached: a decode step asks for the same few plans every layer."""
+    cost: ceil(units / SMs) units of their weight bytes (the kind's bytes a
+    weight, TC_KINDS) plus TC_UNIT_BYTES, and TC_REDUCE_BYTES for the second
+    launch of a split contraction. Slices are whole boxes of the kind (128
+    columns, 256 packed). The cheapest wins, the fewest units on a tie; one
+    CTA an SM, or one a unit. Cached: a decode step asks for the same few
+    plans every layer."""
     tp = _ceil(t, 8) * 8
+    box, wbytes, _ = TC_KINDS[kind]
 
     def ksl_of(s):
-        return _ceil(_ceil(i, s), TC_BOX) * TC_BOX
+        return _ceil(_ceil(i, s), box) * box
 
     def fits(g, s):
         ksl = ksl_of(s)
-        return tp * (2 * ksl + 32) <= tc_x_bytes(tp, pair, g, _ceil(i, ksl) > 1)
+        return tp * (2 * ksl + 32) <= tc_x_bytes(tp, pair, g, _ceil(i, ksl) > 1, kind)
     best = None
     for g in TC_GROUPS:
         s0 = 1
@@ -237,11 +249,11 @@ def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132) -> TcPlan:
             ksl = ksl_of(s)
             splits = _ceil(i, ksl)
             units = nrb * splits
-            unit_bytes = g * TC_ROWS * ksl * (2 if pair else 1)
+            unit_bytes = g * TC_ROWS * ksl * (2 if pair else 1) * wbytes
             cost = _ceil(units, sm_count) * (unit_bytes + TC_UNIT_BYTES)
             key = (cost + (TC_REDUCE_BYTES if splits > 1 else 0), units)
             if best is None or key < best[0]:
-                best = (key, TcPlan(t, o, i, pair, g, splits, ksl, min(units, sm_count)))
+                best = (key, TcPlan(t, o, i, pair, g, splits, ksl, min(units, sm_count), kind))
     return best[1]
 
 

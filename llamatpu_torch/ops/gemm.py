@@ -94,6 +94,11 @@ class GemmPlan:
         """Some tile is shared by CTAs: the workspace and the second pass."""
         return any(self.pieces(t) for t in range(self.tiles_dp, self.tiles))
 
+    @functools.cached_property
+    def busiest(self) -> int:
+        """The most (tile, K stage) iterations one CTA walks."""
+        return max(sum(k1 - k0 for _, k0, k1, _ in self.segments(c)) for c in range(self.ctas))
+
     @property
     def ws_slots(self) -> int:
         """Workspace slots of BM * BN 4-byte partial sums (two a CTA)."""
@@ -111,14 +116,16 @@ K4_WHOLE_TILES_MIN_SHARE = 0.4
 
 
 @functools.lru_cache(maxsize=256)
-def plan_gemm(t: int, o: int, i: int, sm_count: int = 132, bf16: bool = False) -> GemmPlan:
+def plan_gemm(t: int, o: int, i: int, sm_count: int = 132, bf16: bool = False,
+              rows: int = BM) -> GemmPlan:
     """K4 takes whole tiles, one a CTA in rounds, wherever there are enough
     of them to load the card's L2 (K4_WHOLE_TILES_MIN_SHARE). Otherwise, and
     for K17, one CTA per SM (fewer only when there are fewer iterations in
     all): whole tiles in rounds where rounds alone keep the SMs >= 90 % busy,
     else the last one to two rounds' tiles (all of them below one round) cut
-    into equal K ranges, so that every SM works for the whole call."""
-    tiles_m, tiles_n, nk = -(-t // BM), -(-o // BN), -(-i // BK)
+    into equal K ranges, so that every SM works for the whole call. `rows`:
+    the rows of T a tile (K5 / K7's wgmma GEMM takes 256 above 128 rows)."""
+    tiles_m, tiles_n, nk = -(-t // rows), -(-o // BN), -(-i // BK)
     tiles = tiles_m * tiles_n
     if not bf16 and tiles >= K4_WHOLE_TILES_MIN_SHARE * sm_count:
         return GemmPlan(t, o, i, tiles_m, tiles_n, nk, min(sm_count, tiles), tiles)

@@ -12,9 +12,12 @@ layer view qs[li] of a stacked [L, O, I] tensor, and returns y[T, O] in f32.
   y = dot(x.to(dt), (qs.f32 * s[o, i / 32]).to(dt)) with f32 accumulation,
   dt the dot dtype (f32 for f32 activations, else bf16). The dequantized
   weight is rounded to dt BEFORE the dot, as the TPU kernel does
-  (pallas_matmul.py:93). CUDA: csrc/block_matmul.cu.
+  (pallas_matmul.py:93). CUDA: csrc/block_matmul.cu, on the kernel of
+  `block_route`: bf16 prefill chunks on its TMA + wgmma GEMM
+  (`wgmma_plan`), bf16 decode rows on csrc/rowq_tc.cuh's
+  block-scale kinds (`plan_tc`), f32 x on its CUDA-core routes.
 - K7 `packed4_matmul`, the same over packed4 Q4_0 values, two per byte
-  (`_kernel_packed4` / `_kernel_packed4_li`). CUDA: csrc/block_matmul.cu.
+  (`_kernel_packed4` / `_kernel_packed4_li`), on the same routes.
 
 Each has its plain PyTorch version here; a CPU tensor takes it, a CUDA
 tensor launches the kernel or raises. K5 and K7 take any O and T: the
@@ -22,14 +25,21 @@ kernels mask the ragged edges themselves.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from llamatpu_torch import _build
 from llamatpu_torch.models.weights import unpack4_pairs
-from llamatpu_torch.ops.ffn_fused import _dot_dtype, aligned16, tc_partial, tc_plan, tc_route
+from llamatpu_torch.ops.ffn_fused import (_dot_dtype, aligned16, plan_tc, tc_partial, tc_plan,
+                                          tc_route)
+from llamatpu_torch.ops.gemm import BM as GEMM_TILE
+from llamatpu_torch.ops.gemm import GemmPlan, _sm_count, plan_gemm
 
 BLOCK = 32
-GEMM_MIN_T = 16  # K5/K7 switch from the GEMV to the tiled tensor-core path here
+GEMM_MIN_T = 16  # the CUDA-core routes of K5/K7 switch from the GEMV to the tiled kernel here
+TC_MAX_T = 32    # K5/K7's bf16 rows on rowq_tc.cuh; more take the wgmma GEMM
+SCALE_ROW_I = 128  # block-scale rows [I / 32] f32 are 16-byte multiples (TMA) for I % 128 == 0
 
 
 def rowq_gemv_plain(x2: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
@@ -140,26 +150,105 @@ def _gemv_rows(t: int, i: int) -> int:
     raise ValueError(f"block_matmul: in-features {i} do not fit shared memory")
 
 
+# csrc/block_matmul.cu's routes, by `lt_block_matmul`'s route code
+BLOCK_ROUTES = {"gemv": 0, "tiled": 1, "tc": 2, "wgmma": 3}
+
+
+def block_route(t: int, i: int, dtype: torch.dtype, packed: bool) -> str:
+    """K5's (packed: K7's) kernel for t rows of width i in dtype x:
+    - "wgmma": bf16, t > 32, i % 128 == 0: block_matmul.cu's TMA + wgmma GEMM;
+    - "tc": bf16, t <= 32, i % 128 == 0: rowq_tc.cuh's block-scale kinds;
+    - "gemv" (t < 16) and "tiled" (t >= 16) for the rest: f32 x (no f32
+      tensor-core products) and widths whose rows of block scales are not
+      16-byte multiples (TMA), on block_matmul.cu's CUDA-core kernels.
+    Both weight kinds take the same route at every shape."""
+    if dtype == torch.bfloat16 and i % SCALE_ROW_I == 0:
+        return "tc" if t <= TC_MAX_T else "wgmma"
+    return "gemv" if t < GEMM_MIN_T else "tiled"
+
+
+# The wgmma GEMM's cost model, in K stages of one 128-row x block (fitted on
+# the H100 to the four plans of each Llama-3.2-1B, Qwen1.5-MoE and
+# Phi-3-medium prefill shape at T = 128, 256 and 512; PERF.md, slice 17): a
+# stage of two x blocks costs 1.85 and its ring 2 more to fill (two stages
+# of 82 KB against four of 50), and a shared tile's partial sums and the
+# second pass that adds them 10.
+WGMMA_TWO_BLOCKS = (1.85, 2.0)
+WGMMA_SPLIT_COST = 10.0
+
+
+@functools.lru_cache(maxsize=512)
+def wgmma_plan(t: int, o: int, i: int, sms: int) -> tuple[GemmPlan, int]:
+    """The wgmma GEMM's walk and x blocks of 128 rows a tile (nx): of one or
+    two blocks (two only above 128 rows: each dequantized weight fragment
+    then feeds twice the products), each under plan_gemm's plan (K17's:
+    every SM busy, stream-K where the tiles are few) or whole tiles in
+    rounds, the cheapest by the cost model: the busiest CTA's stages at
+    their cost, the two-block ring's fill, the split's partial sums."""
+    best = None
+    for nx in (1, 2) if t > GEMM_TILE else (1,):
+        per, fill = WGMMA_TWO_BLOCKS if nx == 2 else (1.0, 0.0)
+        base = plan_gemm(t, o, i, sms, True, GEMM_TILE * nx)
+        whole = GemmPlan(t, o, i, base.tiles_m, base.tiles_n, base.nk, min(sms, base.tiles),
+                         base.tiles)
+        for plan in (base, whole):
+            cost = plan.busiest * per + fill + (WGMMA_SPLIT_COST if plan.split else 0.0)
+            if best is None or cost < best[0]:
+                best = (cost, plan, nx)
+    return best[1], best[2]
+
+
+def block_plan(t: int, o: int, i: int, route: str, packed: bool, sms: int):
+    """The plan of a route: plan_tc's (g, splits, ksl, ctas) for "tc",
+    `wgmma_plan`'s (walk, x blocks) for "wgmma", None for the CUDA-core
+    routes."""
+    if route == "tc":
+        return plan_tc(t, o, i, False, sms, "q4p" if packed else "q8_0")
+    if route == "wgmma":
+        return wgmma_plan(t, o, i, sms)
+    return None
+
+
 def _launch_block(x2: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, packed: bool,
-                  what: str) -> torch.Tensor:
+                  what: str, lib=None) -> torch.Tensor:
+    """The checks, then one call of csrc/block_matmul.cu `lt_block_matmul`
+    (or of `lib`, a library with the same entry point) on the route of
+    `block_route` with its plan and scratch. Returns y [t, O] f32."""
     t, i = x2.shape
     o = qs.shape[0]
     wbytes = i // 2 if packed else i
-    _build.require(x2.is_contiguous() and qs.is_contiguous() and scales.is_contiguous(),
-                   f"{what}: contiguous inputs")
+    _build.require(x2.dtype in (torch.float32, torch.bfloat16) and x2.is_contiguous()
+                   and qs.is_contiguous() and scales.is_contiguous(),
+                   f"{what}: contiguous f32 or bf16 x, contiguous weights")
     _build.require(qs.dtype == torch.int8 and tuple(qs.shape) == (o, wbytes)
                    and scales.dtype == torch.float32 and tuple(scales.shape) == (o, i // BLOCK)
-                   and qs.device == x2.device == scales.device,
+                   and qs.device == x2.device == scales.device and t >= 1 and o >= 1,
                    f"{what}: qs int8 [O, {'I/2' if packed else 'I'}], scales f32 [O, I/32] "
-                   "on x's device")
-    _build.require(i % BLOCK == 0 and qs.data_ptr() % 16 == 0 and x2.data_ptr() % 16 == 0,
+                   "on x's device, T >= 1")
+    route = block_route(t, i, x2.dtype, packed)
+    dev = x2.device
+    x2 = aligned16(x2)
+    _build.require(i % BLOCK == 0 and qs.data_ptr() % 16 == 0 and scales.data_ptr() % 16 == 0,
                    f"{what}: I % 32 == 0, 16-byte aligned rows")
-    y = torch.empty((t, o), dtype=torch.float32, device=x2.device)
-    lib = _build.load("block_matmul")
-    maxt = _gemv_rows(t, i) if t < GEMM_MIN_T else 0
+    sms = _sm_count(dev.index or 0)
+    plan = block_plan(t, o, i, route, packed, sms)
+    y = torch.empty((t, o), dtype=torch.float32, device=dev)
+    args, scratch = (0, 0, 0, 0), None
+    if route == "gemv":
+        args = (_gemv_rows(t, i), 0, 0, 0)
+    elif route == "tc":
+        args, scratch = plan.args, tc_partial(dev, plan)
+    elif route == "wgmma":
+        plan, nx = plan
+        args = (plan.ctas, plan.tiles_dp, nx, 0)
+        if plan.split:
+            scratch = torch.empty((plan.ws_slots, GEMM_TILE * GEMM_TILE * nx),
+                                  dtype=torch.float32, device=dev)
+    lib = lib or _build.load("block_matmul")
     err = lib.lt_block_matmul(x2.data_ptr(), _build.dtype_code(x2), qs.data_ptr(),
-                              scales.data_ptr(), y.data_ptr(), t, o, i, int(packed), maxt,
-                              _build.stream())
+                              scales.data_ptr(), y.data_ptr(),
+                              None if scratch is None else scratch.data_ptr(), t, o, i,
+                              int(packed), BLOCK_ROUTES[route], *args, _build.stream())
     _build.check(lib, err, what)
     return y
 

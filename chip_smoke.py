@@ -12,7 +12,9 @@ It runs every phase, needs one card, and exits non-zero
 2. build:   nvcc builds every kernel from llamatpu_torch/csrc into build/kernels.
 3. kernels: each kernel (K1-K20, with K6's and K8's int8 variants) against
             its plain PyTorch version on the card, at the main-path shapes of
-            llama32-1b (K1-K9; K4 and K17 at every prefill projection the
+            llama32-1b (K1-K9, K3 at pos 0, 31, 32, 511 and S - 1 in bf16
+            and 511 in f32, two runs bit-equal, timed beside K6 + K9 at
+            T = 1; K4 and K17 at every prefill projection the
             paths give them: llama32-1b's four at T = 512 and 128,
             Phi-3-medium's four at T = 128 and a ragged T = 200, O = 2560, I =
             2064, each logged with its CTAs and shared tiles; K1 on the
@@ -43,7 +45,8 @@ It runs every phase, needs one card, and exits non-zero
             tail tiles, I 1408, 2048 and 4608, ragged O, two runs
             bit-equal; K6 and K8 at hd 128, G 1; K2 at O = 6144; K5 on the
             151936-row head), with the stated tolerances;
-            slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32, K18a-j and
+            slice 6's: K16 at T = 1, 8 and 32 in bf16 and f32 (two runs
+            bit-equal, timed beside K9), K18a-j and
             K19a-c on the
             probe scripts' [24, 4096, 4096] stacks at every configuration
             of the scripts, the tensor-core GEMV also at ragged
@@ -76,8 +79,11 @@ It runs every phase, needs one card, and exits non-zero
 7. main:    slice 1's path, full-width llama32-1b (synthetic q8_0 -> q8_row,
             seed 0, built with context_length 32768): prefill 512 then 128
             greedy tokens through the port's Engine, with K1-K4's launch
-            counts read over that run; then 32 steps with
-            LLAMATPU_NO_ATTN_TAIL=1 (K3 = 0, K6 = K9 = 16 per step).
+            counts read over that run (K3 = 16 per step); a one-lane
+            BatchEngine on the same weights, 32 tokens (its device
+            positions take K3 = 16 per step, as the JAX BatchEngine takes
+            its megakernel); then 32 steps with LLAMATPU_NO_ATTN_TAIL=1
+            (K3 = 0, K6 = K9 = 16 per step).
 8. longctx: slice 5's path on the same weights: Engine at cache 32768,
             prefill chunk 512, a 32000-token prompt then 128 greedy tokens,
             with bf16 and with int8 KV (K14 fused = K2 = K9 = 16 and K1 = 1
@@ -277,7 +283,6 @@ def rand_rowq(L, o, i, dev, gen):
 
 MOE_KERNELS = ("grouped_tc_kernel",)  # K10-K13: one template, both tile regimes
 STRIPE = ("stripe_cluster_kernel",)  # K14 and K15: one launch, P clusters a head
-GEMV = ("gemv_kernel",)  # kernel names (profiler keys) of K1 / K2 / K3's GEMV phases
 # llama32-1b main-path shapes: layers, dim, hidden, kv heads, groups, head dim,
 # physical cache length (cache_len 1024 + one 128-row granule), vocab, prefill rows
 LLAMA32_1B = dict(L=16, D=2048, F=8192, KV=8, G=4, HD=64, S=1152, V=128256, T=512)
@@ -404,20 +409,25 @@ def check_k2(dev, gen, dims=LLAMA32_1B) -> dict:
     return row
 
 
-def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
+K3_NAMES = ("attn_tail_cluster_kernel", "rtc::K3>")  # K3's attention phase and GEMV phases
+
+
+def check_k3(dev, gen, dims=LLAMA32_1B) -> dict:
+    """K3 (append + attention + wo + FFN at T = 1) against its plain version
+    at pos 0, 31, 32, 511 and S - 1 in bf16 and at 511 in f32, pos an int32
+    on the card as the path passes it: the cache bit-equal, the output
+    within bf16 |d| <= 2e-2 + 1e-2|p| (1-2 ulp where the f32 sums, in
+    another order, round apart), f32 |d| <= 1e-3 + 5e-4|p| (the CPU tests'
+    tolerance); a second run bit-equal to the first. Timed at pos 512 on
+    the cluster attention + rowq_tc.cuh route (CUDA-graph time: the phases
+    overlap under programmatic dependent launch), beside the two-call
+    yardstick K6 + K9 at T = 1 on the same inputs."""
     import torch
 
-    from llamatpu_torch.ops import layer_fused
+    from llamatpu_torch.ops import attention, layer_fused
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    L, D, F, KV, G, HD, S, V, T = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD", "S", "V", "T"))
-    rows = []
-
-    rows.append(check_k1(dev, gen, dims))
-    rows.append(check_k2(dev, gen, dims))
+    L, D, F, KV, G, HD, S = (dims[k] for k in ("L", "D", "F", "KV", "G", "HD", "S"))
     li = iter(range(10**9))  # every layer of a stack in turn (L2 stays cold)
-
-    # ---- K3: append + attention + wo + FFN, T = 1 (gemv.cuh's gemv_kernel phases)
     hdim = KV * G * HD
     wo, w13, w2 = rand_rowq(L, D, hdim, dev, gen), rand_rowq(L, 2 * F, D, dev, gen), \
         rand_rowq(L, D, F, dev, gen)
@@ -431,45 +441,74 @@ def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
             q4 = torch.randn((1, KV, G, HD), device=dev, generator=gen).to(dt)
             kvn = torch.randn((1, KV, 2 * HD), device=dev, generator=gen).to(dt)
             x = torch.randn((1, 1, D), device=dev, generator=gen).to(dt)
-            c1, c2 = kvc.clone(), kvc.clone()
+            pv = torch.tensor([pos], dtype=torch.int32, device=dev)
+            c1, c2, c3 = kvc.clone(), kvc.clone(), kvc.clone()
             got, _ = layer_fused.layer_attn_tail_fused_rowq(
-                wo, w13, w2, nw, q4, kvn, c1, x, pos, 5 % L, 1e-5, scale, HD)
+                wo, w13, w2, nw, q4, kvn, c1, x, pv, 5 % L, 1e-5, scale, HD)
+            again, _ = layer_fused.layer_attn_tail_fused_rowq(
+                wo, w13, w2, nw, q4, kvn, c3, x, pv, 5 % L, 1e-5, scale, HD)
             want, _ = layer_fused.layer_attn_tail_plain(
                 wo, w13, w2, nw, q4, kvn, c2, x, pos, 5 % L, 1e-5, scale, HD)
             torch.cuda.synchronize()
             assert torch.equal(c1, c2), f"K3 cache differs at pos {pos} ({dt})"
+            assert torch.equal(got, again) and torch.equal(c1, c3), \
+                f"K3: two runs differ at pos {pos} ({dt})"
             d = (got.float() - want.float()).abs()
-            # bf16 output: 1-2 ulp where the f32 sums (other order) round apart;
-            # f32: the CPU tests' tolerance
             atol, rtol = (2e-2, 1e-2) if dt == torch.bfloat16 else (1e-3, 5e-4)
             assert bool((d <= atol + rtol * want.float().abs()).all()), \
                 f"K3 disagrees at pos {pos} ({dt}): max abs {d.max().item()}"
             e = max_err(got, want)
             worst = max(worst, e)
-            log(f"K3 pos {pos} {dt}: max abs {e[0]:.3g} rel {e[1]:.3g}, cache bit-equal")
+            log(f"K3 pos {pos} {dt}: max abs {e[0]:.3g} rel {e[1]:.3g}, cache bit-equal, two "
+                "runs bit-equal")
     pos = 512 % S
     kvc = torch.randn((L, 1, KV, S, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
     q4 = torch.randn((1, KV, G, HD), device=dev, generator=gen).to(torch.bfloat16)
     kvn = torch.randn((1, KV, 2 * HD), device=dev, generator=gen).to(torch.bfloat16)
     x = torch.randn((1, 1, D), device=dev, generator=gen).to(torch.bfloat16)
+    pv = torch.tensor([pos], dtype=torch.int32, device=dev)
     wbytes = D * hdim + 2 * F * D + D * F + (D + 2 * F + D) * 4
     nbytes = wbytes + KV * (pos + 1) * 2 * HD * 2 + KV * 2 * HD * 2 + 2 * D * 2 + D * 4 \
         + KV * (G + 2) * HD * 2
     ops = 2 * (D * hdim + 2 * F * D + D * F) + 2 * KV * G * (pos + 1) * 2 * HD
     b_ms, b_by = bound(nbytes, ops, BF16_OPS_S)
-    rows.append(dict(
+
+    def two_calls():  # the yardstick: K6, then K9 at T = 1, on the same inputs
+        k = next(li) % L
+        a, _ = attention.decode_attention_fused_write(q4, kvn, kvc, pv, scale, k, HD)
+        return layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, a.reshape(1, 1, hdim).to(x.dtype),
+                                                 x, k, 1e-5)
+    row = dict(
         name="layer_attn_tail_fused_rowq", route="cuda", source="llamatpu_torch/csrc/layer_fused.cu",
         replaces="llamatpu/ops/layer_fused.py:416", max_abs_err=worst[0], max_rel_err=worst[1],
-        tolerance="cache bit-equal; bf16 |d| <= 2e-2 + 1e-2|p|; f32 |d| <= 1e-3 + 5e-4|p|",
+        tolerance="cache bit-equal; bf16 |d| <= 2e-2 + 1e-2|p|; f32 |d| <= 1e-3 + 5e-4|p|; two "
+                  "runs bit-equal",
         **timings(lambda: layer_fused.layer_attn_tail_fused_rowq(
-                      wo, w13, w2, nw, q4, kvn, kvc, x, pos, next(li) % L, 1e-5, scale, HD),
-                  GEMV + ("attn_append_kernel",),
+                      wo, w13, w2, nw, q4, kvn, kvc, x, pv, next(li) % L, 1e-5, scale, HD),
+                  K3_NAMES,
                   lambda: layer_fused.layer_attn_tail_plain(
                       wo, w13, w2, nw, q4, kvn, kvc, x, pos, next(li) % L, 1e-5, scale, HD),
-                  None),
-        library=None, bound_ms=b_ms, bound_by=b_by,
-        shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD} D={D} F={F}"))
+                  None, graph=True),
+        k6_k9_ms=time_ms(two_calls), library=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD} D={D} F={F}")
+    log(f"K3 at pos {pos}: {row['ms']:.5f} ms (bound {b_ms:.5f}, K6 + K9 at T = 1 "
+        f"{row['k6_k9_ms']:.5f}, plain {row['plain_ms']:.4f})")
     del wo, w13, w2, kvc
+    return row
+
+
+def check_kernels(dev, dims=LLAMA32_1B) -> list[dict]:
+    import torch
+
+    from llamatpu_torch.ops import layer_fused
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+
+    rows.append(check_k1(dev, gen, dims))
+    rows.append(check_k2(dev, gen, dims))
+
+    rows.append(check_k3(dev, gen, dims))
 
     # ---- K4: every prefill projection shape of the paths (one layer at T = 512 is the row)
     rows.append(check_rowq_gemm(dev, bf16=False, dims=dims))
@@ -1898,11 +1937,16 @@ GEMV_Q8_EDGES = ((1, 3, 300, 528, 16), (3, 1, 300, 4096, 128), (8, 3, 300, 4096,
                  (8, 1, 1000, 9232, 16), (3, 1, 1000, 528, 528), (8, 2, 1000, 2048, 64))
 
 
+K16_NAMES = ("rtc::K9>", "rtc::K16>")  # K16's wo and w13 phases (K9's), its w2 phase (bf16)
+
+
 def check_tail_kt(dev, dims=LLAMA32_1B) -> dict:
     """K16 against its plain version at llama32-1b widths (F = 8192: 8
     contraction tiles of 1024), T in {1, 8, 32}, bf16 and f32 activations, K9's
     tolerances: f32 within 1e-5 of the largest plain output (sums in another
-    order), bf16 within 1e-2 (one bf16 ulp). Timed at each T, beside K9."""
+    order), bf16 within 1e-2 (one bf16 ulp); a second run bit-equal to the
+    first. Timed at each T in bf16 (CUDA-graph time: the phases overlap under
+    programmatic dependent launch), beside K9 in the same call."""
     import torch
 
     from llamatpu_torch.ops import layer_fused
@@ -1921,10 +1965,12 @@ def check_tail_kt(dev, dims=LLAMA32_1B) -> dict:
             attn = torch.randn((t, H), device=dev, generator=gen).to(dt)
             x = torch.randn((t, D), device=dev, generator=gen).to(dt)
             got = kt(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
+            again = kt(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
             want = layer_fused.layer_tail_kt_plain(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
             k9 = layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, attn, x, 5 % L, 1e-5, rs)
             torch.cuda.synchronize()
             assert got.dtype == dt and got.shape == x.shape
+            assert torch.equal(got, again), f"K16: two runs differ at T={t} rs={rs} ({key})"
             abs_e, rel_e = max_err(got, want)
             assert rel_e <= tol, f"K16 disagrees at T={t} rs={rs} ({key}): {abs_e} {rel_e}"
             worst[key] = max(worst[key], rel_e)
@@ -1940,19 +1986,20 @@ def check_tail_kt(dev, dims=LLAMA32_1B) -> dict:
         b_ms, b_by = bound(wbytes + t * (H + D + D) * 2, 2 * t * (D * H + 2 * F * D + D * F),
                            BF16_OPS_S)
         per[t] = dict(bound_ms=b_ms, bound_by=b_by, **timings(
-            lambda: kt(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
-            ("gemv_tiled_kernel", "w2_ktile_kernel", "ktile_sum_kernel"),
+            lambda: kt(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5), K16_NAMES,
             lambda: layer_fused.layer_tail_kt_plain(wo, w13, w2, nw, attn, x, next(li) % L, 1e-5),
-            None))
-        log(f"K16 T={t}: {per[t]['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
-            f"{per[t]['plain_ms']:.4f})")
+            None, graph=True), k9_ms=time_ms(lambda: layer_fused.layer_tail_fused_rowq(
+                wo, w13, w2, nw, attn, x, next(li) % L, 1e-5)))
+        log(f"K16 T={t}: {per[t]['ms']:.4f} ms (K9 {per[t]['k9_ms']:.4f}, bound {b_ms:.4f} by "
+            f"{b_by}, plain {per[t]['plain_ms']:.4f})")
     del wo, w13, w2
     torch.cuda.empty_cache()
     return dict(
         name="layer_tail_kt_fused_rowq", route="cuda", source="llamatpu_torch/csrc/layer_fused.cu",
         replaces="llamatpu/ops/layer_fused.py:110", max_abs_err=worst_abs,
         max_rel_err=max(worst.values()), max_rel_err_by_dtype=worst, max_rel_vs_k9=vs_k9,
-        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-2 (T in 1, 8, 32; rs 1 and 0.5)",
+        tolerance="rel to max|plain|: f32 <= 1e-5, bf16 <= 1e-2 (T in 1, 8, 32; rs 1 and 0.5); "
+                  "two runs bit-equal",
         **{k: per[8][k] for k in ("ms", "ms_source", "wrapper_ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")},
         library=None, shape=f"T=8 rows D={D} H={H} F={F} tf=1024", by_rows=per)
@@ -2335,9 +2382,7 @@ def device_breakdown(fn) -> dict:
 IN_PATH = {
     "rowq_gemv": ("main", "decode16_trace", K1_NAMES, 1),
     "qkv_norm_fused_rowq": ("main", "decode16_trace", K2_TC, 1),
-    "layer_attn_tail_fused_rowq": ("main", "decode16_trace", (
-        "attn_append_kernel", "gemv_kernel<1, 0, 2>", "gemv_kernel<1, 1, 4>",
-        "gemv_kernel<1, 0, 3>"), 1),
+    "layer_attn_tail_fused_rowq": ("main", "decode16_trace", K3_NAMES, 1),
     "rowq_gemm": ("main", "prefill_trace", K4_NAMES, 4),
     "block_matmul": ("gguf", "decode16_trace", K5_NAMES, 65),
     "decode_attention_fused_write": ("gguf", "decode16_trace", DENSE, 1),
@@ -2561,9 +2606,11 @@ def drive_long(engine, prompt: list[int], tg: int, want_fn, label: str) -> dict:
 
 
 def run_main_and_long_paths(dev, overrides=None) -> dict:
-    """Slice 1's path (synthetic q8_0 served as q8_row, K1-K4), then slice 5's
-    on the same Engine, the weights built once with context_length 32768 and
-    the cache swapped between runs:
+    """Slice 1's path (synthetic q8_0 served as q8_row, K1-K4), a one-lane
+    BatchEngine on the same weights (`batch1`: K3 at the device positions of
+    its decode step, as the JAX BatchEngine), then slice 5's on the same
+    Engine, the weights built once with context_length 32768 and the cache
+    swapped between runs:
     - longctx / longctx_int8: cache 32768 in bf16 and int8, prefill chunk
       512, a 32000-token seeded prompt, 128 greedy tokens (K14 fused, K2, K9
       and K1 per step; K4 in the prefill);
@@ -2577,6 +2624,7 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
     import torch
 
     from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.runtime.batch_engine import BatchEngine
     from llamatpu_torch.runtime.engine import Engine
 
     pp, tg = 512, 128
@@ -2592,6 +2640,15 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
     out = {"main": drive_engine(engine, prompt, tg, lambda n: {
         "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "layer_attn_tail_fused_rowq": L * n,
         "rowq_gemm": 4 * L}, "main")}
+    # a one-lane BatchEngine on the same weights: its positions live on the
+    # device, and K3 reads them there, so it takes K3 every layer and step
+    # where the JAX BatchEngine takes its megakernel
+    lane = BatchEngine(model, batch_size=1, cache_len=1024, prefill_chunk=128, decode_window=16,
+                       rowq=True, device=dev)
+    out["batch1"] = drive_batch(lane, [prompt[:100]], 32, lambda steps, chunks: dict(
+        rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
+        layer_attn_tail_fused_rowq=L * steps, rowq_gemm=4 * L * chunks), "one-lane batch")
+    del lane
 
     def want(kernel):  # per decode step K2 = K9 = K14 (or K15, K6-int8) = L, K1 = 1
         return lambda chunks, n: {"rowq_gemv": chunks + n, "rowq_gemm": 4 * L * chunks,

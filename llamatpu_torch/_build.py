@@ -40,12 +40,10 @@ _SIGNATURES = {
     },
     "layer_fused": {
         "lt_qkv_norm": (_P, _I, _P, _F, _P, _P, _P, _P, _P, *(_I,) * 8, _P),
-        "lt_attn_tail": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _P),
+        "lt_attn_tail": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                         _P, _P, _F, _F, *(_P,) * 12, *(_I,) * 15, _P),
         "lt_tail": (_P, _I, _P, _P, _F, _F, *(_P,) * 11, *(_I,) * 17, _P),
-        "lt_tail_kt": (_P, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                       _I, _I, _I, _I, _P),
+        "lt_tail_kt": (_P, _I, _P, _P, _F, _F, *(_P,) * 11, *(_I,) * 18, _P),
     },
     "ffn_fused": {
         "lt_ffn_fused": (_P, _I, *(_P,) * 7, *(_I,) * 11, _P),
@@ -90,9 +88,15 @@ def _nvcc() -> str:
     return path
 
 
+# sources a library includes besides the headers: layer_fused.cu runs
+# attention.cu's cluster body in K3
+INCLUDES = {"layer_fused": ("attention",)}
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in (sorted(CSRC.glob("*.cuh")) + [CSRC / f"{n}.cu" for n in INCLUDES.get(name, ())]
+                + [CSRC / f"{name}.cu"]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -181,7 +181,12 @@
 // pos outside [0, S) writes nothing and gives NaN (m and l too).
 #include "common.cuh"
 
+// layer_fused.cu includes this file inside a namespace of its own, with
+// LT_CLUSTER_BODY_ONLY defined, for K3's attention phase: the cluster body
+// and its launch templates, without this library's entry points.
+#ifndef LT_CLUSTER_BODY_ONLY
 LT_DEFINE_ERROR_STRING
+#endif
 
 namespace {
 
@@ -1019,6 +1024,7 @@ int launch_cluster_t(const ClusterArgs& a, const StripeArgs& s, int cache_dtype,
 
 }  // namespace
 
+#ifndef LT_CLUSTER_BODY_ONLY
 // K6 and its int8 variant: one launch of dense_cluster_kernel. q [B, KV, G,
 // hd] (in_dtype); kvn: this token's rows [B, KV, hd + vhd] (kvn_dtype; int8
 // under int8), written at pos[b] of kv, this layer's cache [B, KV, S, hd + vhd]
@@ -1163,3 +1169,4 @@ LT_EXPORT int lt_stripe_attention(const void* q, int in_dtype, const void* kvn, 
   sa.l_out = static_cast<float*>(l_out);
   return launch_cluster_t<2>(a, sa, cache_dtype, B, static_cast<cudaStream_t>(stream));
 }
+#endif  // LT_CLUSTER_BODY_ONLY

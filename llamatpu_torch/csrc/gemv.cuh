@@ -1,17 +1,21 @@
-// The int8-weight GEMV shared by K1 (quant_matmul.cu) and K2/K3
-// (layer_fused.cu): y[t, o] = epilogue( sum_i xs[t, i] * w[o, i] ).
+// The CUDA-core int8-weight GEMVs: y[t, o] = epilogue( sum_i xs[t, i] *
+// w[o, i] ). gemv_kernel serves K1 (quant_matmul.cu) above 32 rows in f32 and
+// at widths that are not multiples of 16; gemv_tiled_kernel (below) serves
+// the f32 routes, and those at widths that are not multiples of 16, of K1,
+// K2, K3, K9, K16 and K20, beside rowq_tc.cuh's tensor-core phases.
 //
 // What bounds it on the H100: the weight stream. At decode (T = 1) every
 // weight byte is used for one multiply-add, so the time floor is the int8
 // matrix's bytes over the 3.35 TB/s of HBM3; the activations are a few KB.
-// Design: the activation rows (after an optional rmsnorm prologue) sit in
-// shared memory as f32, computed once per block; each warp owns whole weight
+// gemv_kernel's design: the activation rows sit in shared memory as f32,
+// copied once per block; each warp owns whole weight
 // rows (grid-stride), each lane streams 4-byte words of its row (a warp reads
 // 128 contiguous bytes per load, unrolled 8 deep so enough bytes are in
 // flight) and multiplies them with the matching float4 of the shared
 // activations (contiguous across lanes: no bank conflicts); the row sum is a
-// warp shuffle reduction. 16 warps per block and a grid capped at a few
-// blocks per SM amortise the per-block prologue over many rows.
+// warp shuffle reduction, the raw sum stored (K1 scales outside). 16 warps
+// per block and a grid capped at a few blocks per SM amortise the per-block
+// copy over many rows.
 #pragma once
 
 #include "common.cuh"
@@ -26,7 +30,7 @@ constexpr int kGemvThreads = 512;
 struct GemvArgs {
   const void* x;        // [T, I] prologue input (x_dtype)
   int x_dtype;
-  const float* norm_w;  // [I] f32, P_RMSNORM only
+  const float* norm_w;  // [I] f32, P_RMSNORM only (gemv_tiled_kernel)
   float eps;
   int dot_dtype;        // activations are rounded to it (P_RMSNORM, E_SILU_PAIR)
   const int8_t* w;      // [O, I] int8, row-major, rows 4-byte aligned
@@ -38,32 +42,6 @@ struct GemvArgs {
   int y_dtype;
   int T, O, I;
 };
-
-template <int MAXT, int PRO>
-__device__ __forceinline__ void gemv_prologue(const GemvArgs& a, float* xs, int t0, int nt,
-                                              float* red) {
-  const int I = a.I;
-  if (PRO == P_COPY) {
-    for (int i = threadIdx.x; i < nt * I; i += blockDim.x)
-      xs[i] = lt_load(a.x, a.x_dtype, static_cast<long>(t0) * I + i);
-  } else {
-    // h = round(x * rsqrt(mean(x^2) + eps) * w): f32 reduction, eps after the mean
-    for (int t = 0; t < nt; ++t) {
-      const long base = static_cast<long>(t0 + t) * I;
-      float ss = 0.f;
-      for (int i = threadIdx.x; i < I; i += blockDim.x) {
-        const float v = lt_load(a.x, a.x_dtype, base + i);
-        xs[t * I + i] = v;
-        ss += v * v;
-      }
-      ss = lt_block_sum(ss, red);
-      const float r = 1.0f / sqrtf(ss / static_cast<float>(I) + a.eps);
-      for (int i = threadIdx.x; i < I; i += blockDim.x)
-        xs[t * I + i] = lt_round(xs[t * I + i] * r * a.norm_w[i], a.dot_dtype);
-    }
-  }
-  __syncthreads();
-}
 
 // acc[t] = sum_i xs[t, i] * w[row, i], reduced over the warp (every lane
 // gets the sums).
@@ -119,48 +97,45 @@ __device__ __forceinline__ void gemv_store(const GemvArgs& a, long idx, int o, i
   }
 }
 
-template <int MAXT, int PRO, int EPI>
+// K1's GEMV: raw sums (E_RAW) of MAXT rows a block pass.
+template <int MAXT>
 __global__ void __launch_bounds__(kGemvThreads) gemv_kernel(GemvArgs a) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [nt, I]
-  __shared__ float red[32];
   const int t0 = blockIdx.y * MAXT;
   const int nt = min(MAXT, a.T - t0);
-  gemv_prologue<MAXT, PRO>(a, xs, t0, nt, red);
+  for (int i = threadIdx.x; i < nt * a.I; i += blockDim.x)
+    xs[i] = lt_load(a.x, a.x_dtype, static_cast<long>(t0) * a.I + i);
+  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  // E_SILU_PAIR: rows o (gate) and o + O/2 (up) go to the same warp
-  const int rows = EPI == E_SILU_PAIR ? a.O / 2 : a.O;
-  for (int o = blockIdx.x * nwarps + (threadIdx.x >> 5); o < rows; o += gridDim.x * nwarps) {
+  for (int o = blockIdx.x * nwarps + (threadIdx.x >> 5); o < a.O; o += gridDim.x * nwarps) {
     float acc[MAXT];
     row_dot<MAXT>(a.w, o, xs, a.I, nt, acc);
-    float up[MAXT] = {};
-    if (EPI == E_SILU_PAIR) row_dot<MAXT>(a.w, o + rows, xs, a.I, nt, up);
     if (lane != 0) continue;
     for (int t = 0; t < nt; ++t)
-      gemv_store<EPI>(a, static_cast<long>(t0 + t) * rows + o, o, rows, acc[t], up[t]);
+      gemv_store<E_RAW>(a, static_cast<long>(t0 + t) * a.O + o, o, a.O, acc[t], 0.f);
   }
 }
 
 // Rows of T handled per block pass, and its shared-memory need.
 inline size_t gemv_smem(int maxt, int I) { return static_cast<size_t>(maxt) * I * sizeof(float); }
 
-template <int MAXT, int PRO, int EPI>
+template <int MAXT>
 inline int gemv_launch(const GemvArgs& a, cudaStream_t stream) {
   const int nwarps = kGemvThreads / 32;
   const size_t smem = gemv_smem(MAXT, a.I);
-  cudaError_t e = lt_allow_smem(gemv_kernel<MAXT, PRO, EPI>, smem);
+  cudaError_t e = lt_allow_smem(gemv_kernel<MAXT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rows = EPI == E_SILU_PAIR ? a.O / 2 : a.O;
-  const int row_blocks = (rows + nwarps - 1) / nwarps;
+  const int row_blocks = (a.O + nwarps - 1) / nwarps;
   const int cap = 4 * lt_sm_count();
   dim3 grid(row_blocks < cap ? row_blocks : cap, (a.T + MAXT - 1) / MAXT);
-  gemv_kernel<MAXT, PRO, EPI><<<grid, kGemvThreads, smem, stream>>>(a);
+  gemv_kernel<MAXT><<<grid, kGemvThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- The tiled GEMV of K9 (layer_fused.cu `lt_tail`): T <= MAXT rows.
+// ---- The tiled GEMV (K9's first design, layer_fused.cu): T <= MAXT rows.
 //
 // gemv_kernel keeps whole activation rows in f32 shared memory and runs a
 // grid row per MAXT rows, so at T rows it reads the weights T / MAXT times and

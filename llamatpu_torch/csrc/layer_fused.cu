@@ -25,22 +25,33 @@
 // w2 + residual. Bound on the H100: bytes, ~54.5 MB of weights per llama32-1b
 // layer plus 8 * (pos + 1) * 256 B of cache (~16.6 us at pos 512). On the TPU
 // one sequential grid carried scratch from phase to phase; on Hopper rmsnorm
-// needs all of x2 and w2 needs all of act, so the phases need grid-wide order.
-// Design of this version: one C entry point issuing four launches in stream
-// order, the scratch (aflat, x2, act) in device buffers the wrapper allocates:
-//   1. append + attention, one block per KV head (chunked online softmax);
-//   2. wo + residual          (gemv.cuh, P_COPY + E_RESID, x2 in f32);
-//   3. rmsnorm + w13 + silu * up (gemv.cuh, P_RMSNORM + E_SILU_PAIR: a warp
-//      takes gate row o and up row o + F, so act is written once);
-//   4. w2 + residual          (gemv.cuh, P_COPY + E_RESID_OUT).
-// A persistent cooperative kernel with grid-wide barriers (one launch per
-// layer) is later work.
+// needs all of x2 and w2 all of act, so the phases need grid-wide order.
+// The first design (0.0775 ms at pos 512, PERF.md) ran four launches: a
+// block per KV head for append + attention (8 of 132 SMs on Llama-3.2-1B),
+// then three CUDA-core GEMV phases, each waiting for the one before. This
+// design, one C entry point, is K6's attention feeding K9's phases:
+//   1. append + attention on attention.cu's cluster body (K6's
+//      dense_cluster_kernel, included below in a namespace of its own):
+//      clusters of CTAs per KV head, a TMA ring, the fused row write, pos
+//      read from the device (so the host never needs it). Its output, aflat
+//      in f32, is rounded to bf16 where the wo phase stages it (rowq_tc.cuh
+//      X_F32), the TPU kernel's rounding point. The kernel triggers its
+//      dependents at once: under programmatic dependent launch the wo
+//      phase's producers fill their rings with weight boxes while the
+//      attention runs (its CTAs take the SMs the clusters leave free);
+//   2.-4. K9's three rowq_tc.cuh phases at T = 1 (wo with the residual and
+//      the sums of squares, w13 on the rmsnorm of x2 with silu * up, w2 with
+//      the residual out), tagged rtc::K3.
+// f32 activations and widths that are not multiples of 16 keep gemv.cuh's
+// tiled GEMV phases (K9's route) behind the same attention phase; their bf16
+// staging rounds aflat.
 //
 // Numerics kept from the TPU kernel (layer_fused.py:454-567): the new KV row
 // is cast to the cache dtype before it is attended; aflat, h and act are
 // rounded to the working dtype; x2 stays f32; the output is cast to x's dtype;
-// the cache is written only at `pos`.
-//
+// the cache is written only at `pos` (a pos outside [0, S) writes nothing and
+// gives NaN, as K6).
+
 // K9 replaces llamatpu/ops/layer_fused.py `_tail_kernel` (through
 // `layer_tail_fused_rowq`): everything after attention for T <= 32 rows (the
 // B lanes of a batched decode step): x2 = x + rs * (attn . wo^T) * so (f32);
@@ -74,194 +85,29 @@
 // w2[:, j]^T) * s2 over the tiles j in order. Bound on the H100: K9's, the
 // 54.5 MB weight stream per llama32-1b layer (16.3 us). On the TPU one core
 // walked the tiles in order with the accumulator in VMEM; here the tiles run
-// in parallel. Design: K9's wo and w13 launches, then a split-K w2 phase, a
-// block per (16 rows of D, tile j): act's tile staged in shared memory in the
-// working dtype, a warp per row of w2 reading its tf bytes of the tile (16
-// per lane and load), writing f32 partial sums [n_tiles, T, D]; a last pass
-// sums each output's partials in tile order (deterministic; it differs from
-// K9 only in the f32 summation order) and applies s2, rs and the residual.
-// The partials cost 4 * n_tiles * T * D bytes of writes and reads (1 MB at T
-// = 32 on llama32-1b, against 16.8 MB of w2).
+// in parallel. The first design (0.1180 ms at T = 8, PERF.md) ran K9's
+// first-design CUDA-core phases and a split-K w2 of its own. This design, for
+// bf16 at widths that are multiples of 16: K9's rowq_tc.cuh phases, the w2
+// phase on a plan whose contraction slices are the tiles (ops/layer_fused.py
+// `kt_plan`: ksl = tf, splits = F / tf; tagged rtc::K16), the slices' sums
+// added in slice order, the TPU kernel's tile order, by rowq_tc_reduce. f32,
+// and widths that are not multiples of 16: gemv.cuh's wo and w13 phases,
+// then a block per (16 rows of D, tile j): act's tile staged in shared
+// memory in the working dtype, a warp per row of w2 reading its tf bytes of
+// the tile, f32 partial sums [n_tiles, T, D], summed in tile order by a last
+// pass that applies s2, rs and the residual.
 #include "rowq_tc.cuh"
 
+// K3's attention phase runs attention.cu's cluster body (K6's); the file is
+// included here without its entry points, in a namespace of its own (its
+// helpers share names with tc_gemv.cuh's)
+#define LT_CLUSTER_BODY_ONLY
+namespace ca {
+#include "attention.cu"
+}  // namespace ca
+#undef LT_CLUSTER_BODY_ONLY
+
 LT_DEFINE_ERROR_STRING
-
-namespace {
-
-constexpr int kAttnThreads = 512;
-constexpr int kAttnChunk = 512;  // positions scored per pass (shared memory)
-constexpr int kMaxG = 8;         // query heads per KV head
-constexpr int kMaxPL = 4;        // head elements per lane: hd, vhd <= 128
-constexpr int kVBatch = 4;       // V rows in flight per warp
-
-template <typename CT>
-__device__ __forceinline__ float to_f(CT v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename CT>
-__device__ __forceinline__ CT from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
-
-struct AttnArgs {
-  const void* q;    // [KV, G, hd] post-RoPE queries (q_dtype)
-  const void* kvn;  // [KV, hd + vhd] post-RoPE packed K|V row (q_dtype)
-  int q_dtype;
-  void* kv;         // this layer's cache [KV, S, hd + vhd] (CT), written at pos
-  int S, pos, G, hd, vhd;
-  float scale;
-  float* aflat;     // [KV * G * vhd] f32, values rounded to dot_dtype
-  int dot_dtype;
-};
-
-inline size_t attn_smem_bytes(int G, int hd, int vhd, int nwarps) {
-  return sizeof(float) * (G * hd + G * kAttnChunk + nwarps * G * vhd + 3 * G);
-}
-
-// One block per KV head (hd, vhd multiples of 32, <= 128; G <= 8). Scores
-// of a chunk of positions (a thread per position) go to shared memory; their
-// softmax statistics are updated online (running max / sum per query head);
-// then warps take positions in turn, lane e of a warp holding elements
-// lane + 32e of the head so each V row is one coalesced read, accumulate the
-// weighted V rows in registers, and the warps' partial sums are added at the
-// end. Cache reads use plain loads (not the read-only path): the block wrote
-// row `pos` itself just before.
-template <typename CT>
-__global__ void __launch_bounds__(kAttnThreads) attn_append_kernel(AttnArgs a) {
-  extern __shared__ float attn_smem[];
-  const int G = a.G, hd = a.hd, vhd = a.vhd, W = hd + vhd;
-  const int vpl = vhd >> 5;
-  const int kvh = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float* qs = attn_smem;                 // [G, hd]
-  float* p = qs + G * hd;                // [G, kAttnChunk] scores, then exp weights
-  float* part = p + G * kAttnChunk;      // [nwarps, G, vhd] per-warp partial sums
-  float* m = part + nwarps * G * vhd;    // [G] running max
-  float* l = m + G;                      // [G] running sum
-  float* alpha = l + G;                  // [G] rescale of this chunk
-  CT* kv = static_cast<CT*>(a.kv) + static_cast<long>(kvh) * a.S * W;
-
-  for (int i = tid; i < W; i += blockDim.x)
-    kv[static_cast<long>(a.pos) * W + i] =
-        from_f<CT>(lt_load(a.kvn, a.q_dtype, static_cast<long>(kvh) * W + i));
-  for (int i = tid; i < G * hd; i += blockDim.x)
-    qs[i] = lt_load(a.q, a.q_dtype, static_cast<long>(kvh) * G * hd + i);
-  if (tid < G) {
-    m[tid] = -1e30f;
-    l[tid] = 0.f;
-  }
-  float acc[kMaxG][kMaxPL];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int e = 0; e < kMaxPL; ++e) acc[g][e] = 0.f;
-  __syncthreads();
-
-  for (int c0 = 0; c0 <= a.pos; c0 += kAttnChunk) {
-    const int n = min(kAttnChunk, a.pos + 1 - c0);
-    // scores: a thread per position, its K row read in 16-byte vectors, q . k
-    // for every query head of this KV head (q reads are warp broadcasts)
-    for (int j = tid; j < n; j += blockDim.x) {
-      const CT* krow = kv + static_cast<long>(c0 + j) * W;
-      constexpr int N = 16 / sizeof(CT);
-      float d[kMaxG];
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) d[g] = 0.f;
-      for (int e0 = 0; e0 < hd; e0 += N) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(krow + e0);
-        const CT* kvals = reinterpret_cast<const CT*>(&raw);
-#pragma unroll
-        for (int u = 0; u < N; ++u) {
-          const float k = to_f<CT>(kvals[u]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) d[g] += qs[g * hd + e0 + u] * k;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) p[g * kAttnChunk + j] = d[g] * a.scale;
-    }
-    __syncthreads();
-    // online-softmax statistics, one warp per query head
-    for (int g = warp; g < G; g += nwarps) {
-      float* pg = p + g * kAttnChunk;
-      float mx = -1e30f;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, pg[j]);
-      mx = lt_warp_max(mx);
-      const float m_new = fmaxf(m[g], mx);
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float e = expf(pg[j] - m_new);
-        pg[j] = e;
-        sum += e;
-      }
-      sum = lt_warp_sum(sum);
-      if (lane == 0) {
-        const float al = expf(m[g] - m_new);
-        alpha[g] = al;
-        l[g] = l[g] * al + sum;
-        m[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc[g, v] = acc * alpha + sum over this warp's positions of p[g, j] * V[j, v]
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float al = alpha[g];
-#pragma unroll
-        for (int e = 0; e < kMaxPL; ++e) acc[g][e] *= al;
-      }
-    }
-    // kVBatch positions per warp per step, their V rows loaded before use so
-    // the loads are in flight together (a serial loop waits on each)
-    for (int j0 = warp; j0 < n; j0 += nwarps * kVBatch) {
-      float v[kVBatch][kMaxPL];
-#pragma unroll
-      for (int u = 0; u < kVBatch; ++u) {
-        const int j = j0 + u * nwarps;
-        const CT* vrow = kv + static_cast<long>(c0 + j) * W + hd;
-#pragma unroll
-        for (int e = 0; e < kMaxPL; ++e)
-          v[u][e] = (j < n && e < vpl) ? to_f<CT>(vrow[lane + 32 * e]) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kVBatch; ++u) {
-        const int j = j0 + u * nwarps;
-        if (j >= n) break;
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g < G) {
-            const float pj = p[g * kAttnChunk + j];
-#pragma unroll
-            for (int e = 0; e < kMaxPL; ++e) acc[g][e] += pj * v[u][e];
-          }
-        }
-      }
-    }
-    __syncthreads();  // p is rewritten by the next chunk
-  }
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int e = 0; e < kMaxPL; ++e)
-      if (g < G && e < vpl) part[(warp * G + g) * vhd + lane + 32 * e] = acc[g][e];
-  __syncthreads();
-  for (int idx = tid; idx < G * vhd; idx += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < nwarps; ++w) s += part[w * G * vhd + idx];
-    a.aflat[static_cast<long>(kvh) * G * vhd + idx] =
-        lt_round(s / fmaxf(l[idx / vhd], 1e-38f), a.dot_dtype);
-  }
-}
-
-}  // namespace
 
 namespace {
 
@@ -372,92 +218,176 @@ LT_EXPORT int lt_qkv_norm(const void* x, int x_dtype, const void* norm_w, float 
              : lt::gemv_tiled_launch<32, __nv_bfloat16, lt::P_RMSNORM, lt::E_SCALE>(a, st);
 }
 
-// K3. One decode layer after the qkv projection (B = 1, T = 1):
-//   q [KV, G, hd], kvn [KV, hd + vhd] (x_dtype); kv: this layer's cache
-//   [KV, S, hd + vhd] (cache_dtype), written at pos; x [D] (x_dtype);
-//   ffn_norm [D] f32; wo [D, KV*G*vhd], w13 [2F, D], w2 [D, F] int8 with f32
-//   row scales so, s13, s2; scratch aflat [KV*G*vhd], x2 [D], act [F] f32;
-//   out [D] (x_dtype).
-LT_EXPORT int lt_attn_tail(const void* q, const void* kvn, int x_dtype, void* kv, int cache_dtype,
-                           int S, int pos, int KV, int G, int hd, int vhd, float scale,
-                           const void* x, const void* ffn_norm, float eps, float rs,
-                           const void* wo, const void* so, const void* w13, const void* s13,
-                           const void* w2, const void* s2, void* aflat, void* x2, void* act,
-                           void* out, int D, int F, int dot_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || pos < 0 || pos >= S || hd % 32 || vhd % 32 || hd > 32 * kMaxPL ||
-      vhd > 32 * kMaxPL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int hdim = KV * G * vhd;
+namespace {
 
-  // 1. append + attention
-  AttnArgs at = {q, kvn, x_dtype, kv, S, pos, G, hd, vhd, scale,
-                 static_cast<float*>(aflat), dot_dtype};
-  const size_t smem = attn_smem_bytes(G, hd, vhd, kAttnThreads / 32);
-  if (cache_dtype == LT_F32) {
-    cudaError_t e = lt_allow_smem(attn_append_kernel<float>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attn_append_kernel<float><<<KV, kAttnThreads, smem, st>>>(at);
-  } else {
-    cudaError_t e = lt_allow_smem(attn_append_kernel<__nv_bfloat16>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attn_append_kernel<__nv_bfloat16><<<KV, kAttnThreads, smem, st>>>(at);
-  }
-  LT_RETURN_IF_ERROR();
-
-  // 2. x2 = x + rs * (aflat . wo^T) * so, f32
-  lt::GemvArgs b = {};
-  b.x = aflat;
-  b.x_dtype = LT_F32;
-  b.w = static_cast<const int8_t*>(wo);
-  b.s = static_cast<const float*>(so);
-  b.rs = rs;
-  b.res = x;
-  b.res_dtype = x_dtype;
-  b.y = x2;
-  b.y_dtype = LT_F32;
-  b.T = 1;
-  b.O = D;
-  b.I = hdim;
-  int e = lt::gemv_launch<1, lt::P_COPY, lt::E_RESID>(b, st);
-  if (e) return e;
-
-  // 3. h = round(rmsnorm(x2) * ffn_norm); gate | up = (h . w13^T) * s13;
-  //    act = round(silu(gate) * up), each warp taking a gate row and its up row
-  lt::GemvArgs c = {};
-  c.x = x2;
-  c.x_dtype = LT_F32;
-  c.norm_w = static_cast<const float*>(ffn_norm);
-  c.eps = eps;
-  c.dot_dtype = dot_dtype;
-  c.w = static_cast<const int8_t*>(w13);
-  c.s = static_cast<const float*>(s13);
-  c.y = act;
-  c.y_dtype = LT_F32;
-  c.T = 1;
-  c.O = 2 * F;
-  c.I = D;
-  e = lt::gemv_launch<1, lt::P_RMSNORM, lt::E_SILU_PAIR>(c, st);
-  if (e) return e;
-
-  // 4. out = x2 + rs * (act . w2^T) * s2, cast to x's dtype
-  lt::GemvArgs d = {};
-  d.x = act;
-  d.x_dtype = LT_F32;
-  d.w = static_cast<const int8_t*>(w2);
-  d.s = static_cast<const float*>(s2);
-  d.rs = rs;
-  d.res = x2;
-  d.res_dtype = LT_F32;
-  d.y = out;
-  d.y_dtype = x_dtype;
-  d.T = 1;
-  d.O = D;
-  d.I = F;
-  return lt::gemv_launch<1, lt::P_COPY, lt::E_RESID_OUT>(d, st);
+// ---------------------------------------------- K3's attention phase
+// K6's dense cluster body into aflat [KV, G, vhd] f32; the kernel lets its
+// dependents (the wo phase) launch at once
+template <typename CT, int GM, int NP>
+__global__ void __launch_bounds__(ca::kPagedThreads, GM * NP <= 16 ? 2 : 1)
+    attn_tail_cluster_kernel(ca::ClusterArgs a) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  ca::cluster_attention<CT, false, true, false, GM, NP>(a, ca::StripeArgs{});
 }
 
-namespace {
+template <typename CT, int GM, int NP>
+int attn_phase(const ca::ClusterArgs& a, cudaStream_t st) {
+  const size_t smem =
+      ca::cluster_smem<CT, false, GM>(a.G, a.hd, a.vhd, a.rows, a.cluster, ca::kPagedDepth);
+  const cudaError_t e = cudaFuncSetAttribute(attn_tail_cluster_kernel<CT, GM, NP>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster * a.KV, 1, 1);
+  cfg.blockDim = dim3(ca::kPagedThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, attn_tail_cluster_kernel<CT, GM, NP>, a));
+}
+
+template <typename CT>
+int attn_phase_t(const ca::ClusterArgs& a, cudaStream_t st) {  // vhd <= 128: NP 1 or 2
+  if (a.G == 1) return a.vhd <= 64 ? attn_phase<CT, 1, 1>(a, st) : attn_phase<CT, 1, 2>(a, st);
+  if (a.G <= 4) return a.vhd <= 64 ? attn_phase<CT, 4, 1>(a, st) : attn_phase<CT, 4, 2>(a, st);
+  return a.vhd <= 64 ? attn_phase<CT, 8, 1>(a, st) : attn_phase<CT, 8, 2>(a, st);
+}
+
+// ------------------------------------- the layer tail of K3, K9 and K16
+// The scratch and weights of a tail: x2 [T, D] f32, act [T, F] (bf16 on
+// the tensor cores, f32 on gemv.cuh), ssp [T, D / 16] f32 and the slices'
+// sums (tensor cores), K16's tile partials (gemv.cuh).
+struct Tail {
+  const void* attn;  // [T, H]: x's dtype (K9, K16) or K3's f32 aflat
+  int attn_dtype, x_dtype, dot_dtype;
+  const void* x;     // [T, D] residual (x_dtype)
+  const float* ffn_norm;
+  float eps, rs;
+  const void *wo, *w13, *w2;
+  const float *so, *s13, *s2;
+  void *x2, *act, *out;
+  float *ssp, *partial;
+  int T, D, H, F;
+};
+
+// rowq_tc.cuh's three phases, the plan of each (g, splits, ksl, ctas) from
+// ops/ffn_fused.py plan_tc: x2 = x + rs * (attn . wo^T) * so, f32, and each
+// 16-row block's sum of x2^2; h = round(rmsnorm(x2) * ffn_norm), act =
+// round(silu(gate) * up), bf16; out = x2 + rs * (act . w2^T) * s2, cast to
+// x's dtype. Tag names the caller's wo and w13 launches, W2 its w2 launch.
+template <typename Tag, typename W2, int MAXT>
+int tail_tc(const Tail& t, int xkind, const int* plan, cudaStream_t st) {
+  rtc::Phase b = {};
+  b.x = t.attn;
+  b.xkind = xkind;
+  b.s = t.so;
+  b.rs = t.rs;
+  b.res = t.x;
+  b.res_dtype = t.x_dtype;
+  b.y = t.x2;
+  b.epi = lt::E_RESID;
+  b.ssp_out = t.ssp;
+  b.partial = t.partial;
+  b.T = t.T;
+  b.O = t.D;
+  b.I = t.H;
+  b.g = plan[0];
+  b.splits = plan[1];
+  b.ksl = plan[2];
+  b.ctas = plan[3];
+  int e = rtc::launch<false, Tag, MAXT>(b, t.wo, t.D, st);
+  if (e) return e;
+  rtc::Phase c = b;
+  c.x = t.x2;
+  c.xkind = rtc::X_F32_NORM;
+  c.norm_w = t.ffn_norm;
+  c.ssp_in = t.ssp;
+  c.ssp_blocks = (t.D + rtc::kRows - 1) / rtc::kRows;
+  c.eps = t.eps;
+  c.s = t.s13;
+  c.res = nullptr;
+  c.y = t.act;
+  c.epi = lt::E_SILU_PAIR;
+  c.ssp_out = nullptr;
+  c.O = t.F;
+  c.I = t.D;
+  c.up = t.F;
+  c.g = plan[4];
+  c.splits = plan[5];
+  c.ksl = plan[6];
+  c.ctas = plan[7];
+  e = rtc::launch<true, Tag, MAXT>(c, t.w13, 2L * t.F, st);
+  if (e) return e;
+  rtc::Phase d = b;
+  d.x = t.act;
+  d.xkind = rtc::X_BF16;
+  d.s = t.s2;
+  d.res = t.x2;
+  d.res_dtype = LT_F32;
+  d.y = t.out;
+  d.y_dtype = t.x_dtype;
+  d.epi = lt::E_RESID_OUT;
+  d.ssp_out = nullptr;
+  d.I = t.F;
+  d.g = plan[8];
+  d.splits = plan[9];
+  d.ksl = plan[10];
+  d.ctas = plan[11];
+  return rtc::launch<false, W2, MAXT>(d, t.w2, t.D, st);
+}
+
+// gemv.cuh's tiled GEMV phases of the same function (act f32): b wo, c w13,
+// d w2
+void tail_gemv_args(const Tail& t, lt::GemvArgs& b, lt::GemvArgs& c, lt::GemvArgs& d) {
+  b = {};
+  b.x = t.attn;
+  b.x_dtype = t.attn_dtype;
+  b.dot_dtype = t.dot_dtype;
+  b.w = static_cast<const int8_t*>(t.wo);
+  b.s = t.so;
+  b.rs = t.rs;
+  b.res = t.x;
+  b.res_dtype = t.x_dtype;
+  b.y = t.x2;
+  b.y_dtype = LT_F32;
+  b.T = t.T;
+  b.O = t.D;
+  b.I = t.H;
+  c = {};
+  c.x = t.x2;
+  c.x_dtype = LT_F32;
+  c.norm_w = t.ffn_norm;
+  c.eps = t.eps;
+  c.dot_dtype = t.dot_dtype;
+  c.w = static_cast<const int8_t*>(t.w13);
+  c.s = t.s13;
+  c.y = t.act;
+  c.y_dtype = LT_F32;
+  c.T = t.T;
+  c.O = 2 * t.F;
+  c.I = t.D;
+  d = {};
+  d.x = t.act;
+  d.x_dtype = LT_F32;
+  d.dot_dtype = t.dot_dtype;
+  d.w = static_cast<const int8_t*>(t.w2);
+  d.s = t.s2;
+  d.rs = t.rs;
+  d.res = t.x2;
+  d.res_dtype = LT_F32;
+  d.y = t.out;
+  d.y_dtype = t.x_dtype;
+  d.T = t.T;
+  d.O = t.D;
+  d.I = t.F;
+}
 
 template <int MAXT, typename XT>
 int tail_phases(const lt::GemvArgs& b, const lt::GemvArgs& c, const lt::GemvArgs& d,
@@ -469,7 +399,110 @@ int tail_phases(const lt::GemvArgs& b, const lt::GemvArgs& c, const lt::GemvArgs
   return lt::gemv_tiled_launch<MAXT, XT, lt::P_COPY, lt::E_RESID_OUT>(d, st);
 }
 
+int tail_gemv(const Tail& t, cudaStream_t st) {
+  lt::GemvArgs b, c, d;
+  tail_gemv_args(t, b, c, d);
+  if (t.dot_dtype == LT_F32)
+    return t.T <= 8 ? tail_phases<8, float>(b, c, d, st) : tail_phases<32, float>(b, c, d, st);
+  return t.T <= 8 ? tail_phases<8, __nv_bfloat16>(b, c, d, st)
+                  : tail_phases<32, __nv_bfloat16>(b, c, d, st);
+}
+
+// the tensor-core route's inputs: bf16 x and working dtype, every width % 16
+bool tc_ok(const Tail& t) {
+  return t.x_dtype == LT_BF16 && t.dot_dtype == LT_BF16 && t.D % 16 == 0 && t.H % 16 == 0 &&
+         t.F % 16 == 0;
+}
+
+Tail make_tail(const void* attn, int attn_dtype, int x_dtype, const void* x, const void* ffn_norm,
+               float eps, float rs, const void* wo, const void* so, const void* w13,
+               const void* s13, const void* w2, const void* s2, void* x2, void* act, void* ssp,
+               void* partial, void* out, int T, int D, int H, int F, int dot_dtype) {
+  Tail t = {};
+  t.attn = attn;
+  t.attn_dtype = attn_dtype;
+  t.x_dtype = x_dtype;
+  t.dot_dtype = dot_dtype;
+  t.x = x;
+  t.ffn_norm = static_cast<const float*>(ffn_norm);
+  t.eps = eps;
+  t.rs = rs;
+  t.wo = wo;
+  t.w13 = w13;
+  t.w2 = w2;
+  t.so = static_cast<const float*>(so);
+  t.s13 = static_cast<const float*>(s13);
+  t.s2 = static_cast<const float*>(s2);
+  t.x2 = x2;
+  t.act = act;
+  t.out = out;
+  t.ssp = static_cast<float*>(ssp);
+  t.partial = static_cast<float*>(partial);
+  t.T = T;
+  t.D = D;
+  t.H = H;
+  t.F = F;
+  return t;
+}
+
 }  // namespace
+
+// K3. One decode layer after the qkv projection (B = 1, T = 1):
+//   q [KV, G, hd], kvn [KV, hd + vhd] (x_dtype); kv: this layer's cache
+//   [KV, S, hd + vhd] (cache_dtype f32 or bf16, 16-byte aligned), written at
+//   pos, an int32 on the device; cluster, rows: ops/attention.py plan_dense's
+//   plan of the attention phase; x [D] (x_dtype); ffn_norm [D] f32; wo [D,
+//   KV*G*vhd], w13 [2F, D], w2 [D, F] int8 with f32 row scales so, s13, s2;
+//   scratch aflat [KV*G*vhd] f32, x2 [D] f32, act [F] (bf16 on the tensor
+//   cores, else f32), ssp [D / 16] f32 and the split phases' sums (tensor
+//   cores); out [D] (x_dtype); the three phases' plans of plan_tc (splits_o
+//   = 0: gemv.cuh's route).
+LT_EXPORT int lt_attn_tail(const void* q, const void* kvn, int x_dtype, void* kv, int cache_dtype,
+                           const void* pos, int S, int KV, int G, int hd, int vhd, float scale,
+                           int cluster, int rows, const void* x, const void* ffn_norm, float eps,
+                           float rs, const void* wo, const void* so, const void* w13,
+                           const void* s13, const void* w2, const void* s2, void* aflat, void* x2,
+                           void* act, void* ssp, void* partial, void* out, int D, int F,
+                           int dot_dtype, int g_o, int splits_o, int ksl_o, int ctas_o, int g13,
+                           int splits13, int ksl13, int ctas13, int g2, int splits2, int ksl2,
+                           int ctas2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G < 1 || G > 8 || hd < 8 || vhd < 8 || hd % 8 || vhd % 8 || vhd > 128 ||
+      hd + vhd > ca::kMaxW || KV < 1 || S < 1 || S > (1 << 30) ||
+      (cache_dtype != LT_F32 && cache_dtype != LT_BF16) ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || rows < 1 || rows > 32 ||
+      32 % rows || S % rows || reinterpret_cast<uintptr_t>(kv) % 16 || D % 4 || F % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hdim = KV * G * vhd;
+  const int plan[12] = {g_o, splits_o, ksl_o, ctas_o, g13, splits13, ksl13, ctas13,
+                        g2, splits2, ksl2, ctas2};
+  const Tail t = make_tail(aflat, LT_F32, x_dtype, x, ffn_norm, eps, rs, wo, so, w13, s13, w2,
+                           s2, x2, act, ssp, partial, out, 1, D, hdim, F, dot_dtype);
+  if (splits_o > 0 && !tc_ok(t)) return static_cast<int>(cudaErrorInvalidValue);
+
+  // 1. append + attention: aflat [KV, G, vhd] f32
+  ca::ClusterArgs a = {};
+  a.q = q;
+  a.in_dtype = x_dtype;
+  a.cache = kv;
+  a.pos = static_cast<const int*>(pos);
+  a.out = static_cast<float*>(aflat);
+  a.kvn = kvn;
+  a.kvn_dtype = x_dtype;
+  a.KV = KV;
+  a.G = G;
+  a.hd = hd;
+  a.vhd = vhd;
+  a.S = S;
+  a.cluster = cluster;
+  a.rows = rows;
+  a.scale = scale;
+  int e = cache_dtype == LT_F32 ? attn_phase_t<float>(a, st) : attn_phase_t<__nv_bfloat16>(a, st);
+  if (e) return e;
+  // 2.-4. wo + residual, rmsnorm + w13 + silu * up, w2 + residual
+  if (splits_o > 0) return tail_tc<rtc::K3, rtc::K3, 1>(t, rtc::X_F32, plan, st);
+  return tail_gemv(t, st);
+}
 
 // K9. attn [T, H], x [T, D] (x_dtype); ffn_norm [D] f32; wo [D, H], w13
 // [2F, D], w2 [D, F] int8 with f32 row scales so, s13, s2; scratch x2 [T, D]
@@ -487,118 +520,15 @@ LT_EXPORT int lt_tail(const void* attn, int x_dtype, const void* x, const void* 
                       int ksl2, int ctas2, void* stream) {
   if (T < 1 || T > 32 || D % 4 || H % 4 || F % 4) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int plan[12] = {g_o, splits_o, ksl_o, ctas_o, g13, splits13, ksl13, ctas13,
+                        g2, splits2, ksl2, ctas2};
+  const Tail t = make_tail(attn, x_dtype, x_dtype, x, ffn_norm, eps, rs, wo, so, w13, s13, w2,
+                           s2, x2, act, ssp, partial, out, T, D, H, F, dot_dtype);
   if (splits_o > 0) {
-    if (x_dtype != LT_BF16 || dot_dtype != LT_BF16 || D % 16 || H % 16 || F % 16)
-      return static_cast<int>(cudaErrorInvalidValue);
-    // 1. x2 = x + rs * (attn . wo^T) * so, f32, and each 16-row block's sum of x2^2
-    rtc::Phase b = {};
-    b.x = attn;
-    b.xkind = rtc::X_BF16;
-    b.s = static_cast<const float*>(so);
-    b.rs = rs;
-    b.res = x;
-    b.res_dtype = x_dtype;
-    b.y = x2;
-    b.epi = lt::E_RESID;
-    b.ssp_out = static_cast<float*>(ssp);
-    b.partial = static_cast<float*>(partial);
-    b.T = T;
-    b.O = D;
-    b.I = H;
-    b.g = g_o;
-    b.splits = splits_o;
-    b.ksl = ksl_o;
-    b.ctas = ctas_o;
-    int e = rtc::launch<false, rtc::K9>(b, wo, D, st);
-    if (e) return e;
-    // 2. h = round(rmsnorm(x2) * ffn_norm); act = round(silu(gate) * up), bf16
-    rtc::Phase c = b;
-    c.x = x2;
-    c.xkind = rtc::X_F32_NORM;
-    c.norm_w = static_cast<const float*>(ffn_norm);
-    c.ssp_in = static_cast<const float*>(ssp);
-    c.ssp_blocks = (D + rtc::kRows - 1) / rtc::kRows;
-    c.eps = eps;
-    c.s = static_cast<const float*>(s13);
-    c.res = nullptr;
-    c.y = act;
-    c.epi = lt::E_SILU_PAIR;
-    c.ssp_out = nullptr;
-    c.O = F;
-    c.I = D;
-    c.up = F;
-    c.g = g13;
-    c.splits = splits13;
-    c.ksl = ksl13;
-    c.ctas = ctas13;
-    e = rtc::launch<true, rtc::K9>(c, w13, 2L * F, st);
-    if (e) return e;
-    // 3. out = x2 + rs * (act . w2^T) * s2, cast to x's dtype
-    rtc::Phase d = b;
-    d.x = act;
-    d.s = static_cast<const float*>(s2);
-    d.res = x2;
-    d.res_dtype = LT_F32;
-    d.y = out;
-    d.y_dtype = x_dtype;
-    d.epi = lt::E_RESID_OUT;
-    d.ssp_out = nullptr;
-    d.I = F;
-    d.g = g2;
-    d.splits = splits2;
-    d.ksl = ksl2;
-    d.ctas = ctas2;
-    return rtc::launch<false, rtc::K9>(d, w2, D, st);
+    if (!tc_ok(t)) return static_cast<int>(cudaErrorInvalidValue);
+    return tail_tc<rtc::K9, rtc::K9, 32>(t, rtc::X_BF16, plan, st);
   }
-  // gemv.cuh's route
-  // 1. x2 = x + rs * (attn . wo^T) * so, f32
-  lt::GemvArgs b = {};
-  b.x = attn;
-  b.x_dtype = x_dtype;
-  b.dot_dtype = dot_dtype;
-  b.w = static_cast<const int8_t*>(wo);
-  b.s = static_cast<const float*>(so);
-  b.rs = rs;
-  b.res = x;
-  b.res_dtype = x_dtype;
-  b.y = x2;
-  b.y_dtype = LT_F32;
-  b.T = T;
-  b.O = D;
-  b.I = H;
-  // 2. h = round(rmsnorm(x2) * ffn_norm); act = round(silu(gate) * up)
-  lt::GemvArgs c = {};
-  c.x = x2;
-  c.x_dtype = LT_F32;
-  c.norm_w = static_cast<const float*>(ffn_norm);
-  c.eps = eps;
-  c.dot_dtype = dot_dtype;
-  c.w = static_cast<const int8_t*>(w13);
-  c.s = static_cast<const float*>(s13);
-  c.y = act;
-  c.y_dtype = LT_F32;
-  c.T = T;
-  c.O = 2 * F;
-  c.I = D;
-  // 3. out = x2 + rs * (act . w2^T) * s2, cast to x's dtype
-  lt::GemvArgs d = {};
-  d.x = act;
-  d.x_dtype = LT_F32;
-  d.dot_dtype = dot_dtype;
-  d.w = static_cast<const int8_t*>(w2);
-  d.s = static_cast<const float*>(s2);
-  d.rs = rs;
-  d.res = x2;
-  d.res_dtype = LT_F32;
-  d.y = out;
-  d.y_dtype = x_dtype;
-  d.T = T;
-  d.O = D;
-  d.I = F;
-  if (dot_dtype == LT_F32)
-    return T <= 8 ? tail_phases<8, float>(b, c, d, st) : tail_phases<32, float>(b, c, d, st);
-  return T <= 8 ? tail_phases<8, __nv_bfloat16>(b, c, d, st)
-                : tail_phases<32, __nv_bfloat16>(b, c, d, st);
+  return tail_gemv(t, st);
 }
 
 namespace {
@@ -678,58 +608,32 @@ int tail_kt_phases(const lt::GemvArgs& b, const lt::GemvArgs& c, const lt::GemvA
 
 }  // namespace
 
-// K16. lt_tail's arguments, plus partial [F / tf, T, D] f32 scratch and the
-// contraction tile tf (a multiple of 16, at most 1024, dividing F).
+// K16. lt_tail's arguments, plus the contraction tile tf (a multiple of 16,
+// at most 1024, dividing F). Tensor-core route (splits_o > 0): the w2 plan's
+// slices are the tiles (ksl2 = tf, splits2 = F / tf), partial holds the
+// split phases' sums. gemv.cuh's route: partial [F / tf, T, D] f32.
 LT_EXPORT int lt_tail_kt(const void* attn, int x_dtype, const void* x, const void* ffn_norm,
                          float eps, float rs, const void* wo, const void* so, const void* w13,
                          const void* s13, const void* w2, const void* s2, void* x2, void* act,
-                         void* partial, void* out, int T, int D, int H, int F, int tf,
-                         int dot_dtype, void* stream) {
+                         void* ssp, void* partial, void* out, int T, int D, int H, int F, int tf,
+                         int dot_dtype, int g_o, int splits_o, int ksl_o, int ctas_o, int g13,
+                         int splits13, int ksl13, int ctas13, int g2, int splits2, int ksl2,
+                         int ctas2, void* stream) {
   if (T < 1 || T > 32 || D % 4 || H % 4 || tf % 16 || tf > lt::kTileK || tf < 16 || F % tf)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lt::GemvArgs b = {};
-  b.x = attn;
-  b.x_dtype = x_dtype;
-  b.dot_dtype = dot_dtype;
-  b.w = static_cast<const int8_t*>(wo);
-  b.s = static_cast<const float*>(so);
-  b.rs = rs;
-  b.res = x;
-  b.res_dtype = x_dtype;
-  b.y = x2;
-  b.y_dtype = LT_F32;
-  b.T = T;
-  b.O = D;
-  b.I = H;
-  lt::GemvArgs c = {};
-  c.x = x2;
-  c.x_dtype = LT_F32;
-  c.norm_w = static_cast<const float*>(ffn_norm);
-  c.eps = eps;
-  c.dot_dtype = dot_dtype;
-  c.w = static_cast<const int8_t*>(w13);
-  c.s = static_cast<const float*>(s13);
-  c.y = act;
-  c.y_dtype = LT_F32;
-  c.T = T;
-  c.O = 2 * F;
-  c.I = D;
-  lt::GemvArgs d = {};
-  d.x = act;
-  d.x_dtype = LT_F32;
-  d.dot_dtype = dot_dtype;
-  d.w = static_cast<const int8_t*>(w2);
-  d.s = static_cast<const float*>(s2);
-  d.rs = rs;
-  d.res = x2;
-  d.res_dtype = LT_F32;
-  d.y = out;
-  d.y_dtype = x_dtype;
-  d.T = T;
-  d.O = D;
-  d.I = F;
-  float* p = static_cast<float*>(partial);
+  const int plan[12] = {g_o, splits_o, ksl_o, ctas_o, g13, splits13, ksl13, ctas13,
+                        g2, splits2, ksl2, ctas2};
+  const Tail t = make_tail(attn, x_dtype, x_dtype, x, ffn_norm, eps, rs, wo, so, w13, s13, w2,
+                           s2, x2, act, ssp, partial, out, T, D, H, F, dot_dtype);
+  if (splits_o > 0) {
+    if (!tc_ok(t) || ksl2 != tf || splits2 != F / tf)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tail_tc<rtc::K9, rtc::K16, 32>(t, rtc::X_BF16, plan, st);
+  }
+  lt::GemvArgs b, c, d;
+  tail_gemv_args(t, b, c, d);
+  float* p = t.partial;
   if (dot_dtype == LT_F32)
     return T <= 8 ? tail_kt_phases<8, float>(b, c, d, p, tf, st)
                   : tail_kt_phases<32, float>(b, c, d, p, tf, st);

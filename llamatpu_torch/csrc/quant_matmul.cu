@@ -77,10 +77,10 @@ LT_EXPORT int lt_rowq_gemv(const void* x, int x_dtype, const void* qs, void* y, 
     case 0:
       return x_dtype == LT_F32 ? gemv_tiled_launch<32, float, P_COPY, E_RAW>(a, s)
                                : gemv_tiled_launch<32, __nv_bfloat16, P_COPY, E_RAW>(a, s);
-    case 1: return gemv_launch<1, P_COPY, E_RAW>(a, s);
-    case 2: return gemv_launch<2, P_COPY, E_RAW>(a, s);
-    case 4: return gemv_launch<4, P_COPY, E_RAW>(a, s);
-    case 8: return gemv_launch<8, P_COPY, E_RAW>(a, s);
+    case 1: return gemv_launch<1>(a, s);
+    case 2: return gemv_launch<2>(a, s);
+    case 4: return gemv_launch<4>(a, s);
+    case 8: return gemv_launch<8>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,11 @@
 // The batched q8_row GEMV phases of K1 (quant_matmul.cu `lt_rowq_gemv`), K2
-// (layer_fused.cu `lt_qkv_norm`), K9 (layer_fused.cu `lt_tail`) and K20
-// (ffn_fused.cu `lt_ffn_fused`) on the tensor cores: one template,
+// (layer_fused.cu `lt_qkv_norm`), K3 (layer_fused.cu `lt_attn_tail`, after its
+// attention phase), K9 (layer_fused.cu `lt_tail`), K16 (layer_fused.cu
+// `lt_tail_kt`: K9's phases, w2 on contraction tiles) and K20 (ffn_fused.cu
+// `lt_ffn_fused`) on the tensor cores: one template,
 // `rowq_tc_kernel<NF, PAIR, Tag>`, run once per phase in stream order. Tag
-// (K1, K2, K9, K20) names the caller in the kernel's symbol, so a profiler
-// trace tells their launches apart. K5 and K7's bf16 decode rows
+// (K1, K2, K3, K9, K16, K20) names the caller in the kernel's symbol, so a
+// profiler trace tells their launches apart. K5 and K7's bf16 decode rows
 // (block_matmul.cu) run the same body as `rowq_tc_bq_kernel<NF, Tag>` on
 // their block-quant weights (`WeightKind`: Q8_0, Q4_0 packed two a byte),
 // each weight box's f32 block scales staged beside it, the A fragments
@@ -22,9 +24,11 @@
 //   E_RESID_OUT  out = x2 + (sum . s) . rs, cast to out's dtype
 //   E_SCALE      out = sum . s                                   f32
 //   E_RAW        out = sum (K1: the row scale stays outside)    f32
-// The activations are staged as bf16 from x (X_BF16) or as the rmsnorm
+// The activations are staged as bf16 from x (X_BF16), as the rmsnorm
 // h = round(x2 . rsqrt(mean(x2^2) + eps) . nw) of f32 x2 rows (X_F32_NORM),
-// mean(x2^2) from the per-16-row sums of squares the E_RESID phase wrote.
+// mean(x2^2) from the per-16-row sums of squares the E_RESID phase wrote, or
+// as f32 rows rounded to bf16 (X_F32: K3's attention output, rounded where
+// the TPU kernel rounds aflat).
 // K2's rmsnorm of bf16 x is a small phase of its own (layer_fused.cu), whose
 // bf16 h this template stages as X_BF16.
 //
@@ -73,8 +77,8 @@
 // - The epilogue reads and writes 4 outputs of one x row as one 16-byte
 //   (f32) or 8-byte (bf16) access where O is a multiple of 4.
 // Where it does not apply (gemv.cuh's tiled GEMV stays): f32 activations
-// (the tensor cores give no f32 products), and K1's, K2's and K9's
-// contraction widths that are not multiples of 16 (TMA row strides are
+// (the tensor cores give no f32 products), and K1's, K2's, K3's, K9's and
+// K16's contraction widths that are not multiples of 16 (TMA row strides are
 // 16-byte multiples); K20 in bf16 raises for them, as no shape the JAX fit
 // admits has one.
 #pragma once
@@ -99,7 +103,9 @@ constexpr int kDynSmem = 232448 - 1024;           // 227 KB less the static barr
 // The callers, as the kernel's last template argument (its symbol names them)
 struct K1 {};
 struct K2 {};
+struct K3 {};
 struct K9 {};
+struct K16 {};
 struct K20 {};
 struct K5 {};
 struct K7 {};
@@ -130,10 +136,10 @@ struct WGeo {
   static constexpr int sbox = kRows * ns * 4;                          // a box's scales, bytes
 };
 
-enum XKind { X_BF16 = 0, X_F32_NORM = 1 };
+enum XKind { X_BF16 = 0, X_F32_NORM = 1, X_F32 = 2 };
 
 struct Phase {
-  const void* x;          // [T, I]: bf16 (X_BF16) or f32 x2 (X_F32_NORM)
+  const void* x;          // [T, I]: bf16 (X_BF16), f32 x2 (X_F32_NORM) or f32 (X_F32)
   int xkind;
   const float* norm_w;    // [I] (X_F32_NORM)
   const float* ssp_in;    // [T, ssp_blocks] sums of squares of x2 (X_F32_NORM)
@@ -229,7 +235,7 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
 // bytes: Tp rows, ksl columns, zeros past T and I (rows past T are zeroed
 // once, at the start). X_BF16: one bulk copy a row, issued by thread 0 and
 // completing on xbar (the columns past I zeroed by the threads first);
-// X_F32_NORM: the threads' loads, a batch issued before its stores.
+// X_F32_NORM and X_F32: the threads' loads, a batch issued before its stores.
 template <int NF>
 __device__ void stage_x(const Phase& p, unsigned char* xs, const float* rstd, int k0, int k1,
                         int ct, uint64_t* xbar, unsigned& xphase) {
@@ -273,7 +279,10 @@ __device__ void stage_x(const Phase& p, unsigned char* xs, const float* rstd, in
     for (int j = 0; j < kBatch; ++j) {
       const int i = i0 + j * kConsumers, t = i / vpr, c = 8 * (i - t * vpr), k = k0 + c;
       if (i >= n) break;
-      if (k < k1) {
+      if (k < k1 && p.xkind == X_F32) {  // round to bf16
+        v[j] = make_uint4(pack_bf16x2(a[j].x, a[j].y), pack_bf16x2(a[j].z, a[j].w),
+                          pack_bf16x2(b[j].x, b[j].y), pack_bf16x2(b[j].z, b[j].w));
+      } else if (k < k1) {
         // h = round(x2 * rstd * nw): f32 products in the JAX order
         const float r = rstd[t];
         const float4 na = __ldg(reinterpret_cast<const float4*>(p.norm_w + k));
@@ -755,7 +764,8 @@ int launch_nf(Phase p, const void* w, long wrows, cudaStream_t st, const float* 
 // 16-byte aligned; x 16-byte aligned; with more than one slice, partial
 // holds the plan's units' sums. K5 and K7 read the block scales bs [wrows,
 // I / 32] f32 (I % 128 == 0 and bs 16-byte aligned: TMA row strides).
-template <bool PAIR, typename Tag>
+// MAXT: the most rows the caller passes (K3's one row builds NF = 1 only).
+template <bool PAIR, typename Tag, int MAXT = 32>
 int launch(Phase p, const void* w, long wrows, cudaStream_t st, const float* bs = nullptr) {
   using G = WGeo<WeightOf<Tag>::kind>;
   if (p.g < 1 || p.g > kMaxGroups || kWarps % p.g) return static_cast<int>(cudaErrorInvalidValue);
@@ -765,7 +775,7 @@ int launch(Phase p, const void* w, long wrows, cudaStream_t st, const float* bs 
   p.rows = p.g * kRows;
   p.nrb = (p.O + p.rows - 1) / p.rows;
   p.units = p.nrb * p.splits;
-  if (p.T < 1 || p.T > 32 || p.I % 16 || p.ksl < G::cols || p.ksl % G::cols || p.splits < 1 ||
+  if (p.T < 1 || p.T > MAXT || p.I % 16 || p.ksl < G::cols || p.ksl % G::cols || p.splits < 1 ||
       static_cast<long>(p.splits) * p.ksl < p.I || (p.splits - 1) * p.ksl >= p.I ||
       p.ctas < 1 || p.ctas > p.units || (p.splits > 1 && p.partial == nullptr) ||
       (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(p.x) |
@@ -774,11 +784,16 @@ int launch(Phase p, const void* w, long wrows, cudaStream_t st, const float* bs 
   p.vec = p.O % 4 == 0 &&
           (reinterpret_cast<uintptr_t>(p.y) | reinterpret_cast<uintptr_t>(p.s) |
            reinterpret_cast<uintptr_t>(p.res)) % 16 == 0;
-  switch ((p.T + 7) / 8) {
-    case 1: return launch_nf<1, PAIR, Tag>(p, w, wrows, st, bs);
-    case 2: return launch_nf<2, PAIR, Tag>(p, w, wrows, st, bs);
-    case 3: return launch_nf<3, PAIR, Tag>(p, w, wrows, st, bs);
-    default: return launch_nf<4, PAIR, Tag>(p, w, wrows, st, bs);
+  static_assert(MAXT >= 1 && MAXT <= 32, "T <= 32 rows");
+  if constexpr (MAXT <= 8) {
+    return launch_nf<1, PAIR, Tag>(p, w, wrows, st, bs);
+  } else {
+    switch ((p.T + 7) / 8) {
+      case 1: return launch_nf<1, PAIR, Tag>(p, w, wrows, st, bs);
+      case 2: return launch_nf<2, PAIR, Tag>(p, w, wrows, st, bs);
+      case 3: return launch_nf<3, PAIR, Tag>(p, w, wrows, st, bs);
+      default: return launch_nf<4, PAIR, Tag>(p, w, wrows, st, bs);
+    }
   }
 }
 

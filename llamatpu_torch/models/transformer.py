@@ -28,11 +28,12 @@ Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
   16384); the KV append fuses into the attention kernel when S_phys % 32 ==
   0, LLAMATPU_NO_FUSED_ATTN is unset (read at call time) and, for a long
   cache, its tile `pick_tile(S_phys)` is at least 128 rows. Then: q8_row
-  weights at B = 1 (a host int pos, dense FFN, a short bf16/f32 cache,
+  weights at B = 1 (a dense FFN, a short bf16/f32 cache,
   LLAMATPU_NO_ATTN_TAIL unset, read at call time, a power-of-two value
-  head and `layer_fused.attn_tail_fits`) take K3, append +
-  attention + the whole tail in one call; a long cache takes K14 fused
-  (K14-int8 for int8), a short one K6 (K6-int8). Unfused, the rows are written by index and
+  head and `layer_fused.attn_tail_fits`) take K3, append + attention + the
+  whole tail in one call, reading pos on the device as the JAX kernel
+  does; a long cache takes K14 fused (K14-int8 for int8), a short one K6
+  (K6-int8). Unfused, the rows are written by index and
   `decode_attention_auto` takes K14 unfused (long) or K15 over the logical
   rows;
 - decode on the paged pool: the KV write (`runtime/paged_cache`) then K8
@@ -361,14 +362,14 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         fused = s_phys % 32 == 0 and not os.environ.get("LLAMATPU_NO_FUSED_ATTN")
         if long_cache:
             fused = fused and att.pick_tile(s_phys) >= 128
-        if (fused and not long_cache and not cache.quantized and b == 1 and isinstance(pos, int)
-                and rowq and not cfg.is_moe and _is_rowq(lw["wo"]) and _is_rowq(lw["w13"])
+        if (fused and not long_cache and not cache.quantized and b == 1 and rowq
+                and not cfg.is_moe and _is_rowq(lw["wo"]) and _is_rowq(lw["w13"])
                 and _is_rowq(lw["w2"]) and not os.environ.get("LLAMATPU_NO_ATTN_TAIL")
                 and attn_tail_fits(cfg.dim, lw["wo"].qs.shape[-1], lw["w2"].qs.shape[-1], nkv, g,
                                    cfg.v_head_dim, s_phys, cache.kv.element_size(), xbytes)):
             x, _ = layer_attn_tail_fused_rowq(
-                lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q4, kvnew[:, 0], cache.kv, x, pos,
-                li, eps, scale, hd, rs)
+                lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], q4, kvnew[:, 0], cache.kv, x,
+                pos_vec, li, eps, scale, hd, rs)
             return x
         tile = att.pick_tile(s_phys)
         if fused and cache.quantized and long_cache:

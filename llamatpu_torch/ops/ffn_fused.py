@@ -220,7 +220,7 @@ class TcPlan:
 
 @functools.lru_cache(maxsize=4096)
 def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132,
-            kind: str = "rowq") -> TcPlan:
+            kind: str = "rowq", ksl: int = 0) -> TcPlan:
     """The row groups, slices and CTAs of one phase. For each g of TC_GROUPS
     and each slice count from the fewest whose bf16 x slice (tp rows of 2 ksl
     + 32 bytes) fits `tc_x_bytes` to TC_SPLITS_TRIED more, the busiest CTA's
@@ -228,8 +228,10 @@ def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132,
     weight, TC_KINDS) plus TC_UNIT_BYTES, and TC_REDUCE_BYTES for the second
     launch of a split contraction. Slices are whole boxes of the kind (128
     columns, 256 packed). The cheapest wins, the fewest units on a tie; one
-    CTA an SM, or one a unit. Cached: a decode step asks for the same few
-    plans every layer."""
+    CTA an SM, or one a unit. `ksl` (a multiple of the box whose slice fits
+    every g) fixes the slices and leaves g to the cost: K16's w2 phase, whose
+    slices are its contraction tiles. Cached: a decode step asks for the
+    same few plans every layer."""
     tp = _ceil(t, 8) * 8
     box, wbytes, _ = TC_KINDS[kind]
 
@@ -240,13 +242,14 @@ def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132,
         ksl = ksl_of(s)
         return tp * (2 * ksl + 32) <= tc_x_bytes(tp, pair, g, _ceil(i, ksl) > 1, kind)
     best = None
+    fixed = ksl
     for g in TC_GROUPS:
-        s0 = 1
-        while not fits(g, s0):
+        s0 = _ceil(i, fixed) if fixed else 1
+        while not fixed and not fits(g, s0):
             s0 += 1
         nrb = _ceil(o, g * TC_ROWS)
-        for s in range(s0, s0 + TC_SPLITS_TRIED + 1):
-            ksl = ksl_of(s)
+        for s in range(s0, s0 + (0 if fixed else TC_SPLITS_TRIED) + 1):
+            ksl = fixed or ksl_of(s)
             splits = _ceil(i, ksl)
             units = nrb * splits
             unit_bytes = g * TC_ROWS * ksl * (2 if pair else 1) * wbytes
@@ -257,9 +260,10 @@ def plan_tc(t: int, o: int, i: int, pair: bool, sm_count: int = 132,
     return best[1]
 
 
-def tc_plan(t: int, o: int, i: int, pair: bool, dev: torch.device, sms=None) -> TcPlan:
+def tc_plan(t: int, o: int, i: int, pair: bool, dev: torch.device, sms=None,
+            ksl: int = 0) -> TcPlan:
     """`plan_tc` for a call on dev's SMs (or on `sms`, where a test gives them)."""
-    return plan_tc(t, o, i, pair, sms or _sm_count(dev.index or 0))
+    return plan_tc(t, o, i, pair, sms or _sm_count(dev.index or 0), ksl=ksl)
 
 
 def tc_partial(dev: torch.device, *plans: TcPlan) -> torch.Tensor | None:

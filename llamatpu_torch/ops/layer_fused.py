@@ -1,4 +1,4 @@
-"""K2, K3 and K9: the fused calls of a q8_row decode layer.
+"""K2, K3, K9 and K16: the fused calls of a q8_row decode layer.
 
 - K2 `qkv_norm_fused_rowq`, counterpart of llamatpu/ops/layer_fused.py
   `_qkv_kernel`: h = rmsnorm(x) * attn_norm[li] rounded to the working dtype,
@@ -7,7 +7,8 @@
   (megakernel v3): append the post-RoPE K|V row at `pos` (the cache is
   updated IN PLACE, where the JAX package aliased it), masked f32 GQA
   attention over s <= pos, wo + residual (x2 in f32), rmsnorm, w13,
-  silu * up, w2 + residual. B = 1, T = 1 on a dense cache.
+  silu * up, w2 + residual. B = 1, T = 1 on a dense cache; the position is
+  read on the device (the forward's pos_vec), as the JAX kernel reads it.
 - K9 `layer_tail_fused_rowq`, counterpart of `_tail_kernel`: everything after
   attention (wo + residual with x2 in f32, rmsnorm, w13, silu * up, w2 +
   residual) for T <= 32 rows (`ffn_fused._MAX_T`), e.g. the B lanes of a
@@ -24,19 +25,23 @@ calls it for B * T <= 32 rows where `qkv_fits` accepts, and K3 where
 fits section below).
 
 The working ("dot") dtype is f32 for f32 activations, else bf16. CUDA source:
-csrc/layer_fused.cu (design and bound in its header note); K2's and K9's
-bf16 GEMV phases run csrc/rowq_tc.cuh's tensor-core template on
-ops/ffn_fused.py `plan_tc`'s plans where `ffn_fused.tc_route` takes the call. Each entry point has its
-plain torch version here; a CPU tensor takes it, a CUDA tensor launches the
-kernel or raises.
+csrc/layer_fused.cu (design and bound in its header note); K2's, K3's, K9's
+and K16's bf16 GEMV phases run csrc/rowq_tc.cuh's tensor-core template on
+ops/ffn_fused.py `plan_tc`'s plans where `ffn_fused.tc_route` takes the
+call, and K3's attention phase runs K6's cluster body (csrc/attention.cu) on
+ops/attention.py `plan_dense`'s plan. Each entry point has its plain torch
+version here; a CPU tensor takes it, a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from llamatpu_torch import _build
 from llamatpu_torch.models.weights import QTensor
-from llamatpu_torch.ops import ffn_fused
+from llamatpu_torch.ops import attention, ffn_fused
 from llamatpu_torch.ops.ffn_fused import _MAX_T, _pick_to
 from llamatpu_torch.ops.rmsnorm import rmsnorm
 
@@ -260,11 +265,18 @@ def _check_attn_tail(q4, kvc, x, hd):
         raise NotImplementedError("head_dim != v_head_dim: family-deltas slice of the port")
 
 
+def _host_pos(pos) -> int:
+    """pos as a host int: an int, or the one element of a CPU tensor."""
+    return int(pos.reshape(-1)[0]) if isinstance(pos, torch.Tensor) else int(pos)
+
+
 def layer_attn_tail_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, q4, kv_new,
-                          kvc, x, pos: int, li: int, eps: float, scale: float, hd: int,
+                          kvc, x, pos, li: int, eps: float, scale: float, hd: int,
                           residual_scale: float = 1.0):
-    """Plain version of K3 (same arguments and results)."""
+    """Plain version of K3 (same arguments and results; pos an int or a CPU
+    tensor of one element)."""
     _check_attn_tail(q4, kvc, x, hd)
+    pos = _host_pos(pos)
     dot = _dot_dtype(x)
     wo_q, so = _rowq_layer(wo, li)
     w13_q, s13 = _rowq_layer(w13, li)
@@ -291,50 +303,156 @@ def layer_attn_tail_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, q4, 
     return (x2 + y2).to(x.dtype).reshape(x.shape), kvc
 
 
+def _align4(n: int) -> int:
+    """n f32 rounded up to 16 bytes."""
+    return -(-n // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnTailSetup:
+    """What K3's launch takes from its inputs' shapes alone, worked out once
+    a geometry (`_attn_tail_setup`): the layer strides in bytes, the
+    attention phase's plan, the three rowq_tc.cuh plans (zeros: gemv.cuh's
+    route) and the scratch pieces' f32 offsets in one buffer (aflat, x2,
+    act, the sums of squares, the slices' sums; -1: none)."""
+    layers: int
+    strides: tuple      # bytes a layer: wo, so, w13, s13, w2, s2, ffn_norm, cache
+    args: tuple         # lt_attn_tail's shape arguments after pos, before x
+    dims: tuple         # (D, F, dot dtype code)
+    plan: tuple         # 12 ints
+    offsets: tuple      # 5 f32 offsets into the scratch, -1 for none
+    floats: int         # scratch size in f32
+
+
+def _attn_tail_setup(wo, w13, w2, ffn_norm, q4, kv_new, kvc, x, pos, hd: int,
+                     scale: float, dev, sms) -> AttnTailSetup:
+    """The checks and plans of K3 for one geometry; raises on what the
+    kernel does not take."""
+    for w in (wo, w13, w2):
+        if not (isinstance(w, QTensor) and w.kind == "q8_row" and w.qs.dim() == 3
+                and not w.logical_out):
+            raise NotImplementedError("fused decode kernels take stacked q8_row weights")
+    _check_attn_tail(q4, kvc, x, hd)
+    n_l, d, hdim = wo.qs.shape
+    f = w2.qs.shape[-1]
+    _, kvh, g, _ = q4.shape
+    s_len, width = kvc.shape[-2], kvc.shape[-1]
+    vhd = width - hd
+    if g > 8 or hd % 8 or vhd % 8 or vhd > 128 or width > 256:
+        raise NotImplementedError(f"K3 takes G <= 8, hd and vhd multiples of 8, vhd <= 128, "
+                                  f"hd + vhd <= 256 (got G {g}, hd {hd}, vhd {vhd})")
+    _build.require(hdim == kvh * g * vhd and tuple(w13.qs.shape) == (n_l, 2 * f, d)
+                   and tuple(w2.qs.shape) == (n_l, d, f)
+                   and all(tuple(w.scales.shape) == (n_l, w.qs.shape[1], 1)
+                           and w.scales.dtype == torch.float32 for w in (wo, w13, w2))
+                   and tuple(ffn_norm.shape) == (n_l, d) and ffn_norm.dtype == torch.float32
+                   and tuple(x.shape) == (1, 1, d)
+                   and tuple(kv_new.shape) == (1, kvh, width) and kvc.dim() == 5
+                   and kvc.shape[0] == n_l and tuple(pos.shape) == (1,)
+                   and pos.dtype == torch.int32, "layer_attn_tail_fused_rowq: shapes")
+    _build.require(x.dtype in (torch.float32, torch.bfloat16)
+                   and q4.dtype == kv_new.dtype == x.dtype,
+                   "layer_attn_tail_fused_rowq: f32 or bf16 x, q and kv_new in x's dtype")
+    _build.require(min(d, hdim, f) % 4 == 0 and (d * hdim) % 16 == 0 and (d * f) % 16 == 0
+                   and (s_len * width * kvc.element_size()) % 16 == 0,
+                   "layer_attn_tail_fused_rowq: widths % 4 == 0, 16-byte aligned layers")
+    n_sm = sms or ffn_fused._sm_count(dev.index or 0)
+    ap = attention.plan_dense(1, kvh, s_len, width, kvc.element_size(), n_sm)
+    if s_len % ap.rows:
+        raise ValueError(f"layer_attn_tail_fused_rowq: S {s_len} is not a multiple of the "
+                         f"stage's {ap.rows} rows")
+    tc = ffn_fused.tc_route(x.dtype, d, hdim, f)
+    plan, split = (0,) * 12, 0
+    if tc:
+        plans = (ffn_fused.tc_plan(1, d, hdim, False, dev, n_sm),
+                 ffn_fused.tc_plan(1, f, d, True, dev, n_sm),
+                 ffn_fused.tc_plan(1, d, f, False, dev, n_sm))
+        plan = tuple(v for p in plans for v in p.args)
+        split = max(p.partial_floats for p in plans)
+    # aflat, x2, act (bf16 on the tensor cores: half the floats), the sums of
+    # squares, the slices' sums; each 16-byte aligned
+    sizes = (hdim, d, -(-f // 2) if tc else f, -(-d // ffn_fused.TC_ROWS) if tc else 0, split)
+    offsets, at = [], 0
+    for n in sizes:
+        offsets.append(at if n else -1)
+        at += _align4(n)
+    kvb = kvc.shape[1] * kvh * s_len * width * kvc.element_size()
+    return AttnTailSetup(
+        layers=n_l, strides=(d * hdim, d * 4, 2 * f * d, 2 * f * 4, d * f, d * 4, d * 4, kvb),
+        args=(s_len, kvh, g, hd, vhd, float(scale), ap.cluster, ap.rows),
+        dims=(d, f, _build.DTYPE_CODES[_dot_dtype(x)]), plan=plan, offsets=tuple(offsets),
+        floats=at)
+
+
+_ATTN_TAIL_SETUPS: dict = {}
+
+
+def _attn_tail_launch(wo, w13, w2, ffn_norm, q4, kv_new, kvc, x, pos, li: int, eps: float,
+                      scale: float, hd: int, residual_scale: float, lib=None, sms=None):
+    """One call of csrc/layer_fused.cu `lt_attn_tail` (or of `lib`, a
+    library with the same entry point) on layer li of the stacked weights
+    and cache: q [1, KV, G, hd] and kv_new [1, KV, hd + vhd] in x's dtype, x
+    [1, 1, D], pos int32 [1] on the device. The attention phase on
+    `attention.plan_dense`'s plan, then rowq_tc.cuh's three phases on
+    `ffn_fused.tc_plan`'s plans where `ffn_fused.tc_route` takes the call,
+    gemv.cuh's otherwise. The shape checks and plans are worked out once a
+    geometry (`_attn_tail_setup`); a call checks layout and alignment and
+    passes the layer's addresses (the host cost of a decode step's 16
+    calls). The scratch is one f32 buffer. Returns the new x [1, 1, D]."""
+    tensors = (wo.qs, wo.scales, w13.qs, w13.scales, w2.qs, w2.scales, ffn_norm, kvc)
+    _build.require(all(t.is_contiguous() for t in tensors) and q4.is_contiguous()
+                   and kv_new.is_contiguous() and x.is_contiguous(),
+                   "layer_attn_tail_fused_rowq: contiguous stacked weights, cache and inputs")
+    base = [t.data_ptr() for t in tensors]
+    dev = x.device
+    _build.require(all(b % 16 == 0 for b in base) and all(
+        t.device == dev for t in (wo.qs, w13.qs, w2.qs, kvc, q4, kv_new, pos)),
+        "layer_attn_tail_fused_rowq: 16-byte aligned weights and cache on x's device")
+    key = (wo.qs.shape, w13.qs.shape, w2.qs.shape, ffn_norm.shape, ffn_norm.dtype, q4.shape,
+           q4.dtype, kv_new.shape, kv_new.dtype, kvc.shape, kvc.dtype, x.shape, x.dtype,
+           pos.shape, pos.dtype, hd, float(scale), dev, sms)
+    su = _ATTN_TAIL_SETUPS.get(key)
+    if su is None:
+        su = _attn_tail_setup(wo, w13, w2, ffn_norm, q4, kv_new, kvc, x, pos, hd, scale, dev,
+                              sms)
+        _ATTN_TAIL_SETUPS[key] = su
+    _build.require(0 <= li < su.layers, f"layer_attn_tail_fused_rowq: layer {li} of {su.layers}")
+    ptr = [b + li * st for b, st in zip(base, su.strides)]
+    ws = torch.empty(su.floats, dtype=torch.float32, device=dev)
+    w0 = ws.data_ptr()
+    scratch = [None if o < 0 else w0 + 4 * o for o in su.offsets]
+    out = torch.empty_like(x)
+    lib = lib or _build.load("layer_fused")
+    err = lib.lt_attn_tail(
+        q4.data_ptr(), kv_new.data_ptr(), _build.DTYPE_CODES[x.dtype], ptr[7],
+        _build.DTYPE_CODES[kvc.dtype], pos.data_ptr(), *su.args, x.data_ptr(), ptr[6],
+        float(eps), float(residual_scale), *ptr[:6], *scratch, out.data_ptr(), *su.dims,
+        *su.plan, _build.stream())
+    _build.check(lib, err, "layer_attn_tail_fused_rowq")
+    return out
+
+
 def layer_attn_tail_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor,
                                ffn_norm: torch.Tensor, q4: torch.Tensor,
                                kv_new: torch.Tensor, kvc: torch.Tensor, x: torch.Tensor,
-                               pos: int, li: int, eps: float, scale: float, hd: int,
+                               pos, li: int, eps: float, scale: float, hd: int,
                                residual_scale: float = 1.0):
     """One decode layer after the qkv projection. q4 [1, KV, G, hd] and
     kv_new [1, KV, hd + vhd] post-RoPE; kvc the packed stacked cache
-    [L, 1, KV, S, hd + vhd], written IN PLACE at (li, pos) only; x [1, 1, D].
-    Returns (new x in x's dtype, kvc)."""
+    [L, 1, KV, S, hd + vhd], written IN PLACE at (li, pos) only; x [1, 1, D];
+    pos the position: an int32 tensor [1] on x's device (the forward's
+    pos_vec: the kernel reads it there, as the JAX kernel does), or a host
+    int. Returns (new x in x's dtype, kvc)."""
     if x.device.type == "cpu":
         return layer_attn_tail_plain(wo, w13, w2, ffn_norm, q4, kv_new, kvc, x, pos, li,
                                      eps, scale, hd, residual_scale)
-    _check_attn_tail(q4, kvc, x, hd)
-    wo_q, so = _rowq_layer(wo, li)
-    w13_q, s13 = _rowq_layer(w13, li)
-    w2_q, s2 = _rowq_layer(w2, li)
-    _, kvh, g, _ = q4.shape
-    s_len, width = kvc.shape[-2], kvc.shape[-1]
-    d, hdim = wo_q.shape
-    f = w2_q.shape[1]
-    _build.require(hdim == kvh * g * (width - hd) and w13_q.shape == (2 * f, d)
-                   and x.shape[-1] == d, "layer_attn_tail_fused_rowq: shapes")
-    _build.require(0 <= pos < s_len, f"layer_attn_tail_fused_rowq: pos {pos} outside [0, {s_len})")
-    if g > 8 or hd % 32 or hd > 128:
-        raise NotImplementedError("K3 attention takes G <= 8 and hd a multiple of 32 up to 128")
-    _build.require(all(t.is_contiguous() for t in (wo_q, w13_q, w2_q, so, s13, s2, kvc))
-                   and min(d, hdim, f) % 4 == 0, "layer_attn_tail_fused_rowq: layout")
-    q4c, kvn, xc = q4.contiguous(), kv_new.to(x.dtype).contiguous(), x.contiguous()
-    _build.require(q4c.dtype == x.dtype, "layer_attn_tail_fused_rowq: q in x's dtype")
-    nw = ffn_norm[li].float().contiguous()
-    dev = x.device
-    aflat = torch.empty(hdim, dtype=torch.float32, device=dev)
-    x2 = torch.empty(d, dtype=torch.float32, device=dev)
-    act = torch.empty(f, dtype=torch.float32, device=dev)
-    out = torch.empty_like(xc)
-    lib = _build.load("layer_fused")
-    err = lib.lt_attn_tail(
-        q4c.data_ptr(), kvn.data_ptr(), _build.dtype_code(xc), kvc[li, 0].data_ptr(),
-        _build.dtype_code(kvc), s_len, int(pos), kvh, g, hd, width - hd, float(scale),
-        xc.data_ptr(), nw.data_ptr(), float(eps), float(residual_scale),
-        wo_q.data_ptr(), so.data_ptr(), w13_q.data_ptr(), s13.data_ptr(),
-        w2_q.data_ptr(), s2.data_ptr(), aflat.data_ptr(), x2.data_ptr(), act.data_ptr(),
-        out.data_ptr(), d, f, _build.DTYPE_CODES[_dot_dtype(x)], _build.stream())
-    _build.check(lib, err, "layer_attn_tail_fused_rowq")
+    if not isinstance(pos, torch.Tensor):
+        s_len = kvc.shape[-2]
+        _build.require(0 <= pos < s_len,
+                       f"layer_attn_tail_fused_rowq: pos {pos} outside [0, {s_len})")
+        pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    out = _attn_tail_launch(wo, w13, w2, ffn_norm, q4, kv_new, kvc, x, pos, li, eps, scale, hd,
+                            residual_scale)
     layer_attn_tail_fused_rowq.launches += 1
     return out, kvc
 
@@ -436,50 +554,64 @@ def _tail_scratch(t: int, d: int, f: int, plans, dev):
     return act, ssp, ffn_fused.tc_partial(dev, *plans)
 
 
-def _tail_launch(parts, nw, a2, x2in, eps: float, residual_scale: float, lib=None, sms=None):
-    """The checks, then one call of csrc/layer_fused.cu `lt_tail` (or of
-    `lib`, a library with the same entry point) for a2 [t, H] and x2in [t, D]
-    in x's dtype: rowq_tc.cuh's three phases with their plans where
-    `ffn_fused.tc_route` takes the call, gemv.cuh's otherwise. Returns the
-    new x [t, D]."""
+def tail_plans(t: int, d: int, hdim: int, f: int, dev, sms=None, ksl: int = 0):
+    """rowq_tc.cuh's plans of the tail's three phases (`ffn_fused.tc_plan`):
+    wo [D, H], w13 [2F, D] as gate / up pairs, w2 [D, F]; `ksl` fixes the
+    w2 phase's contraction slices (K16's tiles)."""
+    return (ffn_fused.tc_plan(t, d, hdim, False, dev, sms),
+            ffn_fused.tc_plan(t, f, d, True, dev, sms),
+            ffn_fused.tc_plan(t, d, f, False, dev, sms, ksl=ksl))
+
+
+def _tail_launch(parts, nw, a2, x2in, eps: float, residual_scale: float, lib=None, sms=None,
+                 kt: bool = False):
+    """The checks, then one call of csrc/layer_fused.cu `lt_tail` (K9), or
+    with kt `lt_tail_kt` (K16), or of `lib`, a library with the same entry
+    points, for a2 [t, H] and x2in [t, D] in x's dtype: rowq_tc.cuh's three
+    phases on `tail_plans` (K16: `kt_plans`) where `ffn_fused.tc_route`
+    takes the call, gemv.cuh's otherwise (K16 there: its tile kernels on
+    partials [F / tf, t, D]). Returns the new x [t, D]."""
     (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
     d, hdim = wo_q.shape
     f = w2_q.shape[1]
     t = x2in.shape[0]
+    tf = ktile_width(f) if kt else 0
+    name = "layer_tail_kt_fused_rowq" if kt else "layer_tail_fused_rowq"
     _build.require(1 <= t <= _MAX_T and tuple(x2in.shape) == (t, d)
                    and tuple(a2.shape) == (t, hdim) and tuple(w13_q.shape) == (2 * f, d)
                    and tuple(w2_q.shape) == (d, f) and so.numel() == d
-                   and s13.numel() == 2 * f and s2.numel() == d,
-                   "layer_tail_fused_rowq: attn [T <= 32, H], x [T, D], wo [D, H], "
-                   "w13 [2F, D], w2 [D, F]")
+                   and s13.numel() == 2 * f and s2.numel() == d and (tf > 0 or not kt),
+                   f"{name}: attn [T <= 32, H], x [T, D], wo [D, H], w13 [2F, D], w2 [D, F] "
+                   "(K16: F a multiple of 128)")
     _build.require(all(w.is_contiguous() for w in (wo_q, w13_q, w2_q, so, s13, s2))
                    and min(d, hdim, f) % 4 == 0 and a2.device == x2in.device == wo_q.device
                    and all(w.data_ptr() % 16 == 0 for w in (wo_q, w13_q, w2_q)),
-                   "layer_tail_fused_rowq: contiguous, 16-byte aligned weights on x's device, "
-                   "widths % 4 == 0")
+                   f"{name}: contiguous, 16-byte aligned weights on x's device, widths % 4 == 0")
     dev = x2in.device
     a2, x2in = ffn_fused.aligned16(a2), ffn_fused.aligned16(x2in)
     nw = ffn_fused.aligned16(nw.float().contiguous())
     x2 = torch.empty((t, d), dtype=torch.float32, device=dev)
     out = torch.empty_like(x2in)
     if ffn_fused.tc_route(x2in.dtype, d, hdim, f):
-        plans = (ffn_fused.tc_plan(t, d, hdim, False, dev, sms),
-                 ffn_fused.tc_plan(t, f, d, True, dev, sms),
-                 ffn_fused.tc_plan(t, d, f, False, dev, sms))
+        plans = tail_plans(t, d, hdim, f, dev, sms, tf)
         act, ssp, partial = _tail_scratch(t, d, f, plans, dev)
         plan = tuple(v for p in plans for v in p.args)
     else:
         act = torch.empty((t, f), dtype=torch.float32, device=dev)
-        ssp = partial = None
-        plan = (0,) * 12
+        ssp, plan = None, (0,) * 12
+        partial = torch.empty((f // tf, t, d), dtype=torch.float32, device=dev) if kt else None
     lib = lib or _build.load("layer_fused")
-    ptr = [None if a is None else a.data_ptr() for a in (ssp, partial)]
-    err = lib.lt_tail(a2.data_ptr(), _build.dtype_code(x2in), x2in.data_ptr(), nw.data_ptr(),
-                      float(eps), float(residual_scale), wo_q.data_ptr(), so.data_ptr(),
-                      w13_q.data_ptr(), s13.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
-                      x2.data_ptr(), act.data_ptr(), *ptr, out.data_ptr(), t, d, hdim, f,
-                      _build.DTYPE_CODES[_dot_dtype(x2in)], *plan, _build.stream())
-    _build.check(lib, err, "layer_tail_fused_rowq")
+    args = (a2.data_ptr(), _build.dtype_code(x2in), x2in.data_ptr(), nw.data_ptr(), float(eps),
+            float(residual_scale), wo_q.data_ptr(), so.data_ptr(), w13_q.data_ptr(),
+            s13.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), x2.data_ptr(), act.data_ptr(),
+            *[None if a is None else a.data_ptr() for a in (ssp, partial)], out.data_ptr(), t, d,
+            hdim, f)
+    dot = _build.DTYPE_CODES[_dot_dtype(x2in)]
+    if kt:
+        err = lib.lt_tail_kt(*args, tf, dot, *plan, _build.stream())
+    else:
+        err = lib.lt_tail(*args, dot, *plan, _build.stream())
+    _build.check(lib, err, name)
     return out
 
 
@@ -520,6 +652,13 @@ def layer_tail_kt_plain(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm, attn, 
     return _tail_out(x2, acc, s2, x, residual_scale)
 
 
+def kt_plans(t: int, d: int, hdim: int, f: int, dev, sms=None):
+    """K16's three rowq_tc.cuh plans: K9's wo and w13 plans, and a w2 plan
+    whose contraction slices are the tiles (ksl = ktile_width(F), splits =
+    F / ksl), its row groups and CTAs by `plan_tc`'s cost."""
+    return tail_plans(t, d, hdim, f, dev, sms, ktile_width(f))
+
+
 def layer_tail_kt_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: torch.Tensor,
                              attn: torch.Tensor, x: torch.Tensor, li: int, eps: float,
                              residual_scale: float = 1.0):
@@ -531,29 +670,9 @@ def layer_tail_kt_fused_rowq(wo: QTensor, w13: QTensor, w2: QTensor, ffn_norm: t
     t = None if parts is None else _tail_rows(attn, x, parts, tail_kt_fits)
     if t is None:
         return None
-    (wo_q, so), (w13_q, s13), (w2_q, s2) = parts
-    d, hdim = wo_q.shape
-    f = w2_q.shape[1]
-    tf = ktile_width(f)
-    a2 = attn.reshape(t, hdim).to(x.dtype).contiguous()
-    x2in = x.reshape(t, d).contiguous()
-    _build.require(all(w.is_contiguous() for w in (wo_q, w13_q, w2_q, so, s13, s2))
-                   and min(d, hdim) % 4 == 0 and a2.device == x.device == wo_q.device
-                   and w2_q.data_ptr() % 16 == 0,
-                   "layer_tail_kt_fused_rowq: contiguous weights on x's device, widths % 4 == 0")
-    nw = ffn_norm[li].float().contiguous()
-    dev = x.device
-    x2 = torch.empty((t, d), dtype=torch.float32, device=dev)
-    act = torch.empty((t, f), dtype=torch.float32, device=dev)
-    partial = torch.empty((f // tf, t, d), dtype=torch.float32, device=dev)
-    out = torch.empty_like(x2in)
-    lib = _build.load("layer_fused")
-    err = lib.lt_tail_kt(a2.data_ptr(), _build.dtype_code(x2in), x2in.data_ptr(), nw.data_ptr(),
-                         float(eps), float(residual_scale), wo_q.data_ptr(), so.data_ptr(),
-                         w13_q.data_ptr(), s13.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
-                         x2.data_ptr(), act.data_ptr(), partial.data_ptr(), out.data_ptr(), t, d,
-                         hdim, f, tf, _build.DTYPE_CODES[_dot_dtype(x)], _build.stream())
-    _build.check(lib, err, "layer_tail_kt_fused_rowq")
+    d = x.shape[-1]
+    out = _tail_launch(parts, ffn_norm[li], attn.reshape(t, -1).to(x.dtype).contiguous(),
+                       x.reshape(t, d).contiguous(), eps, residual_scale, kt=True)
     layer_tail_kt_fused_rowq.launches += 1
     return out.reshape(x.shape)
 

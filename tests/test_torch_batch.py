@@ -245,3 +245,45 @@ def test_per_lane_draws_follow_the_nucleus():
         expected = probs[keep] * 2000
         chi2 = float((((counts[keep] - expected) ** 2) / expected).sum())
         assert chi2 < 40.0, (b, chi2)  # dof <= 15: p < 1e-3 at ~37.7
+
+
+def test_one_lane_batch_engine_takes_k3_where_jax_does(monkeypatch):
+    """A one-lane BatchEngine on q8_row weights at widths that are multiples
+    of 128 (where the JAX VMEM fit accepts the megakernel): its decode
+    positions are a device vector, and the port takes K3 (its plain version
+    on the CPU) every layer and decode step where the JAX BatchEngine's
+    decode program holds `layer_attn_tail_fused_rowq` (traced once: JAX
+    records trace-time calls) and no separate attention kernel; neither
+    takes K6 (and K9 after it) instead. The greedy ids are the JAX
+    engine's."""
+    import llamatpu.ops.layer_fused as jlf
+    import llamatpu.ops.pallas_attention as jpa
+
+    calls = {}
+
+    def rec(mod, name, side):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            if out is not None:  # the JAX megakernel returns None where it declines
+                calls[(side, name)] = calls.get((side, name), 0) + 1
+            return out
+        monkeypatch.setattr(mod, name, wrapped)
+
+    rec(jlf, "layer_attn_tail_fused_rowq", "jax")
+    rec(jpa, "decode_attention_fused_write", "jax")
+    rec(layer_fused, "layer_attn_tail_plain", "port")
+    rec(attention, "decode_attention_fused_write_plain", "port")
+    tm, jm = _models()
+    common = dict(batch_size=1, prefill_chunk=16, decode_window=4, rowq=True)
+    je = JBatchEngine(jm, cache_len=128, impl="pallas", cache_dtype=jnp.float32, **common)
+    te = BatchEngine(tm, cache_len=128, cache_dtype=torch.float32, device="cpu", **common)
+    ref = je.generate_batch(PROMPTS[1:2], 6)
+    got = te.generate_batch(PROMPTS[1:2], 6)
+    assert got == ref
+    assert calls.get(("jax", "layer_attn_tail_fused_rowq"), 0) >= 1
+    traced = calls[("jax", "layer_attn_tail_fused_rowq")]
+    assert calls == {("jax", "layer_attn_tail_fused_rowq"): traced,
+                     ("port", "layer_attn_tail_plain"): tm.cfg.n_layers * te.decode_steps}
+    assert layer_fused.layer_attn_tail_fused_rowq.launches == 0

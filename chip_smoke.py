@@ -53,7 +53,11 @@ It runs every phase, needs one card, and exits non-zero
             shapes (K18a / K18i: GEMV_TC_EDGES, T = 1, 3, 8; O = 300, 1000;
             K slices and their second pass; I = 9232; K18b / K18c / K18g in
             both weight kinds: GEMV_Q8_EDGES, also NB = 16 to I and two
-            runs bit-equal); slice 7's: K20 at
+            runs bit-equal; K18d / K18e / K18h, the W_S8 kind:
+            INT8DOT_EDGES, T = 1, 3, 5, 8, ragged O, I = 16 x 33 and 16 x
+            129, forced and planned K slices, block scales past the
+            registers, the +-127 / -128 worst case, exact without scales
+            and two runs bit-equal); slice 7's: K20 at
             Phi-3-medium widths, T = 17 and 24 in bf16, and at Qwen2.5-14B
             widths, T = 32 in f32, with K9 (T = 1, 8, 16), K2 (1, 8, 24, 32
             rows) and K1 (wo, w13, w2 at 24 and 32 rows) at Phi-3-medium
@@ -1935,6 +1939,22 @@ GEMV_TC_EDGES = ((1, 2, 300, 528), (3, 1, 300, 4096), (8, 1, 1000, 9232))
 # 128; three slices of I = 16 * 577; NB = I = 528; NB = 64 in one whole stage
 GEMV_Q8_EDGES = ((1, 3, 300, 528, 16), (3, 1, 300, 4096, 128), (8, 3, 300, 4096, 256),
                  (8, 1, 1000, 9232, 16), (3, 1, 1000, 528, 528), (8, 2, 1000, 2048, 64))
+# K18d / K18e / K18h: the GEMV's W_S8 kind and its K-slice pass (int32 sums)
+INT8DOT = ("probe_gemv_tc_kernel", "probe_s8_sum_kernel")
+# the int8 dot's edges (T, L, O, I, NB (0: no block scales), K slices (0:
+# the planner's), data): T = 1 over a ragged 2-layer O at I = 16 x 33 (an
+# odd count of 16-column halves in one short stage); T = 5 whole-K, without
+# and with NB = 96 (lanes past NB); a ragged O = 300 over the planner's K
+# slices; three forced slices of 16 x 43 columns (odd again) at I = 16 x
+# 129; block scales under a forced split (the second pass applies them) and
+# at NB = 600 (scales and xsc past a lane's registers, read at the unit's end);
+# the worst case (xq = 127, rows of w = 127 and -128: |sum| 66.6 M > 2^24)
+# whole-K and split
+INT8DOT_EDGES = ((1, 2, 300, 528, 0, 0, "random"), (5, 1, 1000, 4096, 0, 0, "random"),
+                 (5, 1, 1000, 4096, 96, 0, "random"), (8, 1, 300, 4096, 0, 0, "random"),
+                 (8, 1, 1000, 2064, 0, 3, "random"), (8, 2, 300, 4096, 128, 2, "random"),
+                 (8, 1, 1000, 528, 600, 0, "random"), (3, 1, 1000, 4096, 0, 0, "+-127"),
+                 (3, 1, 1000, 4096, 0, 2, "+-127"))
 
 
 K16_NAMES = ("rtc::K9>", "rtc::K16>")  # K16's wo and w13 phases (K9's), its w2 phase (bf16)
@@ -2154,26 +2174,37 @@ def check_roofline_probes(dev, w) -> list[dict]:
     # (prepared beforehand, as for K1 and K5), a layer in turn or the stack
     wdq = torch.stack([rf.deq_q8_current(w["qs"][i], w["ss"][i]) for i in range(L)])
     dq_flat = wdq.reshape(-1, I)
-    DOT = ("probe_int8dot_kernel",)
+    # the int8 dots' library call: torch._int_mm on xq padded with zero rows
+    # (prepared beforehand) to the fewest the call takes on the card
+    xq = rf.quantize_x(x)
+    xq_pad = int_mm_operand(xq, w["qs"][0].t())
+    xsc = torch.ones((tt, nb), dtype=torch.float32, device=dev)
+    assert torch.equal(torch._int_mm(xq_pad, w["qs"][3].t())[:tt].float(),
+                       rf.step_q8_int8dot_plain(tuple(t[3] for t in q8), x)), "_int_mm disagrees"
+    int_mm = f"torch._int_mm (int32 out; xq padded to {xq_pad.shape[0]} zero rows beforehand)"
+    dq_mm = "bf16 torch.matmul (dequantized weight, prepared beforehand)"
     # name, its line in scripts/bench_roofline.py, weights, stacked, exact,
-    # profiler names, weight bytes per layer, library yardstick
+    # profiler names, weight bytes per layer, library yardstick and its name
     spec = [("step_pallas_bf16", 99, bf, False, False, GEMV_TC, 2 * O * I,
-             lambda lw: torch.matmul(x, lw[0].T)),
+             lambda lw: torch.matmul(x, lw[0].T), "bf16 torch.matmul"),
             ("step_q8_current", 112, q8, False, False, GEMV_TC, O * I + O * nb * 4,
-             lambda lw: torch.matmul(x, wdq[next(lj) % L].T)),
+             lambda lw: torch.matmul(x, wdq[next(lj) % L].T), dq_mm),
             ("step_q8_bf16mul", 125, q8, False, False, GEMV_TC, O * I + O * nb * 4,
-             lambda lw: torch.matmul(x, wdq[next(lj) % L].T)),
-            ("step_q8_int8dot", 139, q8, False, True, DOT, O * I, None),
-            ("step_q8_int8dot_blockscale", 158, q8, False, False, DOT, O * I + O * nb * 4, None),
-            ("step_dma_probe", 172, bf, False, True, STREAM, 2 * O * I, None),
+             lambda lw: torch.matmul(x, wdq[next(lj) % L].T), dq_mm),
+            ("step_q8_int8dot", 139, q8, False, True, INT8DOT, O * I,
+             lambda lw: torch._int_mm(xq_pad, lw[0].t()), int_mm + ", a layer in turn"),
+            ("step_q8_int8dot_blockscale", 158, q8, False, False, INT8DOT, O * I + O * nb * 4,
+             None, None),
+            ("step_dma_probe", 172, bf, False, True, STREAM, 2 * O * I, None, None),
             ("call3_q8_current", 243, q8, True, False, GEMV_TC, O * I + O * nb * 4,
-             lambda lw: torch.matmul(x, dq_flat.T)),
-            ("call3_q8_int8dot", 256, qo, True, True, DOT, O * I, None),
+             lambda lw: torch.matmul(x, dq_flat.T), dq_mm),
+            ("call3_q8_int8dot", 256, qo, True, True, INT8DOT, O * I,
+             lambda lw: torch._int_mm(xq_pad, lw[0].reshape(-1, I).t()), int_mm + ", the stack"),
             ("call3_bf16", 267, bf, True, False, GEMV_TC, 2 * O * I,
-             lambda lw: torch.matmul(x, wflat.T)),
-            ("call3_dma_probe", 278, bf, True, True, STREAM, 2 * O * I, None)]
+             lambda lw: torch.matmul(x, wflat.T), "bf16 torch.matmul"),
+            ("call3_dma_probe", 278, bf, True, True, STREAM, 2 * O * I, None, None)]
     rows = []
-    for name, line, ws, stacked, exact, names, wbytes, lib in spec:
+    for name, line, ws, stacked, exact, names, wbytes, lib, lib_name in spec:
         fn, plain = getattr(rf, name), getattr(rf, name + "_plain")
         # timed calls take the layers in turn; the check takes one
         args = (lambda: ws) if stacked else (lambda: tuple(t[next(li) % L] for t in ws))
@@ -2196,19 +2227,22 @@ def check_roofline_probes(dev, w) -> list[dict]:
             name=name, route="cuda", source="llamatpu_torch/csrc/probes.cu",
             replaces=f"scripts/bench_roofline.py:{line}", max_abs_err=abs_e, max_rel_err=rel_e,
             tolerance="exact" if exact else "rel <= 1e-5 of max|plain|", **tm,
-            library=None if lib is None else "bf16 torch.matmul" + (
-                " (dequantized weight, prepared beforehand)" if "q8" in name else ""),
-            bound_ms=b_ms, bound_by=b_by,
+            library=lib_name, bound_ms=b_ms, bound_by=b_by,
             gbs=nbytes / tm["ms"] / 1e6,
             shape=(f"[{L}, {O}, {I}] stack, x [{tt}, {I}]" if stacked
                    else f"one [{O}, {I}] layer of {L} in turn, x [{tt}, {I}]")))
+        if name == "step_q8_int8dot_blockscale":  # no one call: the library route
+            rows[-1].update(library_route_ms=time_ms(lambda: (lambda lw: torch._int_mm(
+                xq_pad, lw[0].t())[:tt].float() * (lw[1] @ xsc.T).T)(args())),
+                library_route="torch._int_mm, then ss @ xsc^T and the f32 product")
         log(f"{name}: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}; {rows[-1]['gbs']:.1f} GB/s), "
-            f"plain {tm['plain_ms']:.4f}, err {abs_e:.3g}")
+            f"plain {tm['plain_ms']:.4f}, library {fmt_ms(tm['library_ms'])}, err {abs_e:.3g}")
     edges, q8_edges = check_gemv_tc_edges(dev), check_gemv_q8_edges(dev)
+    s8_edges = check_int8dot_edges(dev)
     for r in rows:
         e = edges if r["name"] in ("step_pallas_bf16", "call3_bf16") else (
             q8_edges if r["name"] in ("step_q8_current", "step_q8_bf16mul", "call3_q8_current")
-            else None)
+            else s8_edges if "int8dot" in r["name"] else None)
         if e is not None:
             r["edges"] = e
             r["max_rel_err"] = max(r["max_rel_err"], *(v["max_rel_err"] for v in e.values()))
@@ -2274,6 +2308,90 @@ def check_gemv_q8_edges(dev) -> dict:
                             ctas=plan.ctas, scales_fixed=probes.scales_fixed(nb))
             log(f"gemv {key}: {plan.nks} K slices on {plan.ctas} CTAs, rel err {rel_e:.3g}, "
                 "two runs bit-equal")
+    return out
+
+
+def int_mm_operand(xq, wt):
+    """xq [T, I] int8 padded with zero rows to the fewest that torch._int_mm
+    takes against wt [I, O] on this card (it refuses short operands)."""
+    import torch
+
+    for m in range(xq.shape[0], 129):
+        a = torch.zeros((m, xq.shape[1]), dtype=torch.int8, device=xq.device)
+        a[:xq.shape[0]] = xq
+        try:
+            torch._int_mm(a, wt)
+        except RuntimeError:
+            continue
+        return a
+    raise RuntimeError("torch._int_mm takes no operand of up to 128 rows")
+
+
+def forced_slices(probes, nks: int):
+    """A context in which ops/probes.py plans nks K slices over the SMs
+    (rounded down to a multiple of nks) whatever the shape."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        planner = probes.plan_gemv
+        probes.plan_gemv = lambda o, i, layers, sms=132: probes.GemvPlan(o, i, layers, nks,
+                                                                         sms - sms % nks)
+        try:
+            yield
+        finally:
+            probes.plan_gemv = planner
+    return ctx()
+
+
+def check_int8dot_edges(dev) -> dict:
+    """K18d / K18e / K18h's kernel (ops/probes.py int8dot, the GEMV's W_S8
+    kind) on every layer of the INT8DOT_EDGES stacks against the plain
+    product (bench/roofline.py's float64 dot): exactly without block scales,
+    within 1e-5 of the largest plain output with them; two runs bit-equal;
+    each with its plan (K slices, CTAs)."""
+    import contextlib
+
+    import torch
+
+    from llamatpu_torch.bench import roofline as rf
+    from llamatpu_torch.ops import probes
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for t, lay, o, i, nb, nks, data in INT8DOT_EDGES:
+        if data == "random":
+            xq = torch.randint(-127, 128, (t, i), dtype=torch.int8, generator=gen, device=dev)
+            w = torch.randint(-128, 128, (lay, o, i), dtype=torch.int8, generator=gen, device=dev)
+        else:  # the largest |sum| of each sign
+            xq = torch.full((t, i), 127, dtype=torch.int8, device=dev)
+            w = torch.full((lay, o, i), 127, dtype=torch.int8, device=dev)
+            w[:, 1::2] = -128
+        s = xsc = None
+        if nb:
+            s = torch.randn((lay, o, nb), generator=gen, device=dev).abs() * 0.01
+            xsc = torch.randn((t, nb), generator=gen, device=dev)
+        plan = probes.GemvPlan(o, i, lay, nks, sms - sms % nks) if nks else \
+            probes.plan_gemv(o, i, lay, sms)
+        with forced_slices(probes, nks) if nks else contextlib.nullcontext():
+            got, again = probes.int8dot(xq, w, s, xsc), probes.int8dot(xq, w, s, xsc)
+        want = rf._int_dot(xq, w)
+        if nb:
+            want = want * (s @ xsc.T).transpose(-1, -2)
+        torch.cuda.synchronize()
+        key = f"T={t} L={lay} O={o} I={i} NB={nb} {data}" + (f" forced {nks} slices" if nks else "")
+        assert got.shape == want.shape == (lay, t, o)
+        assert torch.equal(got, again), f"int8dot {key}: two runs differ"
+        abs_e, rel_e = max_err(got, want)
+        if nb:
+            assert rel_e <= 1e-5, f"int8dot {key} disagrees: {abs_e} {rel_e}"
+        else:
+            assert torch.equal(got, want), f"int8dot {key} not exact: {abs_e}"
+        out[key] = dict(max_abs_err=abs_e, max_rel_err=rel_e, k_slices=plan.nks, ctas=plan.ctas,
+                        max_abs_sum=want.abs().max().item())
+        log(f"int8dot {key}: {plan.nks} K slices on {plan.ctas} CTAs, rel err {rel_e:.3g}, "
+            "two runs bit-equal")
     return out
 
 

@@ -68,7 +68,7 @@ _SIGNATURES = {
     },
     "probes": {
         "lt_probe_gemv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-        "lt_probe_int8dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "lt_probe_int8dot": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "lt_probe_stream": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
     },
 }

@@ -1,26 +1,32 @@
-"""What bounds the tensor-core GEMV of K18a / K18i (bf16 weights) and K18b /
-K18c / K18g (int8 weights, the dequantization in the B fragments) on the
+"""What bounds the tensor-core GEMV of K18a / K18i (bf16 weights), K18b /
+K18c / K18g (int8 weights, the dequantization in the B fragments) and K18d /
+K18e / K18h (its W_S8 kind: int8 weights times int8 xq, int32 sums) on the
 card: csrc/probes.cu `probe_gemv_tc_kernel` as built beside copies of it with
 one piece changed, bf16 `torch.matmul` and the stream probe K18f / K18j over
 the bf16 and the int8 stack; and the per-row cost against the first
-CUDA-core design of the q8 forms, rebuilt as a variant, at T = 1 and 8.
+CUDA-core design of the q8 forms, and the first (dp4a) design of the int8
+dots, each rebuilt as a variant.
 
     python -m llamatpu_torch.bench.gemv_ablation     # the card; one JSON row a variant
+    python -m llamatpu_torch.bench.gemv_ablation --tables s8   # the int8 dots only
 
 Each variant is csrc/probes.cu (its shared header tc_gemv.cuh written in)
-with a constant or a few statements replaced
-(VARIANTS, timed on the bf16 stack; Q8_VARIANTS, timed on the int8 stack in
-the W_Q8_F32 kind), built by nvcc into build/ablation/ and called through its
-own `lt_probe_gemv` under `ops/probes.py plan_gemv`. Every variant that still
-computes the product is held to the plain one within 1e-5 of its largest
-output; those that drop x, the dequantization or the products (to time the
-rest alone) are not. Times as bench/roofline.py takes them (a CUDA graph
-replayed between CUDA events, best of 3): one [4096, 4096] layer of 24 in
-turn, per call, and the [24, 4096, 4096] stack, in two rounds of alternating
-order. Needs the card and nvcc.
+with a constant or a few statements replaced, or another plan (VARIANTS,
+timed on the bf16 stack; Q8_VARIANTS, timed on the int8 stack in the
+W_Q8_F32 kind; S8_VARIANTS, timed on the int8 stack as K18d and K18h, and
+with block scales as K18e), built by nvcc into build/ablation/ and called
+through its own `lt_probe_gemv` / `lt_probe_int8dot` under `ops/probes.py
+plan_gemv` (or a forced two-slice plan). Every variant that still computes
+the product is held to the plain one: within 1e-5 of its largest output, the
+int8 dots without scales exactly; those that drop x, the dequantization or
+the products (to time the rest alone) are not. Times as bench/roofline.py
+takes them (a CUDA graph replayed between CUDA events, best of 3): one [4096,
+4096] layer of 24 in turn, per call, and the [24, 4096, 4096] stack, in two
+rounds of alternating order. Needs the card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -39,13 +45,22 @@ PRODUCT = "if (!G || warp + kParts * (i0 + i) < steps)"
 MMA = "mma16(acc[(i0 + i) & 1], xq[(st * S::steps + i0 + i) / 2], bf[i]);"
 DEQUANT = "dequant4<WK>(ld[i][0], su, bf[i]);"  # and its form with a step's scales sv
 PERMUTE = "f[e] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + e)) - 8388736.f;"
+MMA_S8 = "mma_s8(acc[(i0 + i) & 1], xq[(st * S::steps + i0 + i) / 2], bf[i]);"
+CORR = "const float corr = block_corr(sv, xv, bs_row(u), a.xsc, a.NB, a.T, lane);"
+READ_SCALES = "read_block_scales(sv, bs_slot(n));"
 CVT = "const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n  return *reinterpret_cast<const uint32_t*>(&v);"
 
 # The first design of the q8 forms (a CUDA-core GEMV, since replaced),
 # appended to the source as `lt_probe_gemv_first`: a warp takes kRows weight
 # rows, each lane 16 int8 weights a load with their 16 f32 scales, x staged in
 # shared memory in f32 kTileK columns at a time.
-FIRST_DESIGN = r'''
+FIRST_CONSTS = r'''
+namespace {
+constexpr int kRows = 2;      // weight rows a warp
+constexpr int kTileK = 1024;  // x columns staged a pass
+}  // namespace
+'''
+FIRST_DESIGN = FIRST_CONSTS + r'''
 namespace {
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -140,6 +155,88 @@ LT_EXPORT int lt_probe_gemv_first(const void* x, const void* w, const void* s, v
   return static_cast<int>(cudaGetLastError());
 }
 '''
+# The first design of K18d, e, h (a dp4a GEMV, since replaced), appended as
+# `lt_probe_int8dot_first`: a warp takes kRows weight rows, a lane one
+# 16-byte load of a row at a time, xq staged in shared memory kTileK columns
+# at a time between two block barriers, the block-scale corrections a lane-0
+# loop of NB dependent products each.
+S8_FIRST_DESIGN = FIRST_CONSTS + r'''
+namespace {
+__global__ void __launch_bounds__(kThreads) probe_int8dot_first_kernel(
+    const int8_t* __restrict__ xq, const int8_t* __restrict__ w, const float* __restrict__ s,
+    const float* __restrict__ xsc, float* __restrict__ y, int T, int O, int I, int NB,
+    int blockscale) {
+  __shared__ __align__(16) int8_t xs[kMaxT][kTileK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const long layer = blockIdx.y;
+  const int o0 = (blockIdx.x * nwarps + warp) * kRows;
+  int acc[kRows][kMaxT];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0;
+  for (int k0 = 0; k0 < I; k0 += kTileK) {
+    const int kt = min(kTileK, I - k0);
+    for (int i = threadIdx.x; i < T * kt; i += blockDim.x) {
+      const int t = i / kt, k = i - t * kt;
+      xs[t][k] = xq[static_cast<long>(t) * I + k0 + k];
+    }
+    __syncthreads();
+    for (int c = lane; c < kt / 16; c += 32) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int o = o0 + r;
+        if (o >= O) break;
+        const int4 wv = __ldg(reinterpret_cast<const int4*>(w + (layer * O + o) * I + k0) + c);
+#pragma unroll
+        for (int t = 0; t < kMaxT; ++t) {
+          if (t < T) {
+            const int4 xv = *reinterpret_cast<const int4*>(&xs[t][c * 16]);
+            int a = acc[r][t];
+            a = __dp4a(wv.x, xv.x, a);
+            a = __dp4a(wv.y, xv.y, a);
+            a = __dp4a(wv.z, xv.z, a);
+            acc[r][t] = __dp4a(wv.w, xv.w, a);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int o = o0 + r;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      const int v = warp_isum(acc[r][t]);
+      if (lane == 0 && o < O && t < T) {
+        float out = static_cast<float>(v);
+        if (blockscale) {  // corr[o, t] = sum_b s[o, b] * xs[t, b], f32 in b order
+          const float* so = s + (layer * O + o) * NB;
+          float corr = 0.f;
+          for (int b = 0; b < NB; ++b) corr = __fadd_rn(corr, __fmul_rn(so[b], xsc[t * NB + b]));
+          out = __fmul_rn(out, corr);
+        }
+        y[(layer * T + t) * O + o] = out;
+      }
+    }
+  }
+}
+}  // namespace
+
+LT_EXPORT int lt_probe_int8dot_first(const void* xq, const void* w, const void* s,
+                                     const void* xsc, void* y, int T, int O, int I, int L, int NB,
+                                     int blockscale, void* stream) {
+  const int per_block = (kThreads / 32) * kRows;
+  dim3 grid((O + per_block - 1) / per_block, L);
+  probe_int8dot_first_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w), static_cast<const float*>(s),
+      static_cast<const float*>(xsc), static_cast<float*>(y), T, O, I, NB, blockscale);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+S8_FIRST_SIGNATURE = tuple(ctypes.c_void_p if i in (0, 1, 2, 3, 4, 11) else ctypes.c_int
+                           for i in range(12))
 FIRST_SIGNATURE = tuple(ctypes.c_void_p if i in (0, 1, 2, 3, 10) else ctypes.c_int
                         for i in range(11))
 
@@ -217,6 +314,27 @@ Q8_VARIANTS = {
     "q8: no products (conversions kept)": (_no_products, False),
     "q8: first design (CUDA-core GEMV)": (lambda s: s + FIRST_DESIGN, True),
 }
+# S8_VARIANTS time the W_S8 kind (K18d a layer, K18h the stack, K18e a layer):
+# name: (source transform, computes the product, a forced two-slice plan).
+S8_VARIANTS = {
+    "s8: as built": (lambda s: s, True, False),
+    "s8: forced two-slice plan": (lambda s: s, True, True),
+    "s8: no products (the stream)": (
+        lambda s: s.replace(MMA_S8, "acc[0][0] += static_cast<int>(bf[i][0] ^ bf[i][1]);"),
+        False, False),
+    "s8: block scales read at the unit's end (no lookahead)": (
+        lambda s: s.replace(READ_SCALES, "load_block_scales(sv, bs_row(u), a.NB, lane);"),
+        True, False),
+    "s8: block scales one unit ahead": (_const("kScaleAhead", 1), True, False),
+    "s8: block scales three units ahead": (_const("kScaleAhead", 3), True, False),
+    "s8: no block-scale reads (zero-filled copies)": (
+        lambda s: s.replace('"l"(row + min(b, NB - 1)), "r"(b < NB ? 4 : 0)', '"l"(row), "r"(0)'),
+        False, False),
+    "s8: no corrections (scales copied, corr a scale)": (
+        lambda s: s.replace(CORR, "const float corr = sv[0];"), False, False),
+    "s8: first design (dp4a GEMV)": (lambda s: s + S8_FIRST_DESIGN, True, False),
+}
+TABLES = {"bf16": VARIANTS, "q8": Q8_VARIANTS, "s8": S8_VARIANTS}
 
 
 def source() -> str:
@@ -227,29 +345,46 @@ def source() -> str:
     return (_build.CSRC / "probes.cu").read_text().replace('#include "tc_gemv.cuh"\n', header, 1)
 
 
-def build(out_dir) -> dict:
-    """{variant: ctypes library}, the variants of both tables compiled in parallel."""
+def build(out_dir, tables=("bf16", "q8", "s8")) -> dict:
+    """{variant: ctypes library} for the variants of the named tables,
+    compiled in parallel; variants with the same source share a library."""
     src = source()
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n, (name, (edit, _)) in enumerate({**VARIANTS, **Q8_VARIANTS}.items()):
+    edits = {}
+    for table in tables:
+        edits.update({n: v[0] for n, v in TABLES[table].items()})
+    if "q8" in tables:
+        edits.update({n: VARIANTS[n][0] for n in ("as built", "16 consumer warps")})
+    procs, by_text = {}, {}
+    for n, (name, edit) in enumerate(edits.items()):
         text = edit(src)
-        assert name == "as built" or text != src, f"variant {name!r} changed nothing"
+        assert text != src or "as built" in name or "plan" in name, \
+            f"variant {name!r} changed nothing"
+        if text in by_text:
+            procs[name] = procs[by_text[text]]
+            continue
+        by_text[text] = name
         cu, so = out_dir / f"probes_{n}.cu", out_dir / f"probes_{n}.so"
         cu.write_text(text)
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
+    libs, done = {}, {}
     for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.lt_probe_gemv.argtypes = list(_build._SIGNATURES["probes"]["lt_probe_gemv"])
-        if name in Q8_VARIANTS and "first design" in name:
-            lib.lt_probe_gemv_first.argtypes = list(FIRST_SIGNATURE)
-        libs[name] = lib
+        if so not in done:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
+            lib = ctypes.CDLL(str(so))
+            sig = _build._SIGNATURES["probes"]
+            lib.lt_probe_gemv.argtypes = list(sig["lt_probe_gemv"])
+            lib.lt_probe_int8dot.argtypes = list(sig["lt_probe_int8dot"])
+            if hasattr(lib, "lt_probe_gemv_first"):
+                lib.lt_probe_gemv_first.argtypes = list(FIRST_SIGNATURE)
+            if hasattr(lib, "lt_probe_int8dot_first"):
+                lib.lt_probe_int8dot_first.argtypes = list(S8_FIRST_SIGNATURE)
+            done[so] = lib
+        libs[name] = done[so]
     return libs
 
 
@@ -274,7 +409,35 @@ def gemv(lib, x, w, s, wkind: int, sms: int) -> torch.Tensor:
     return y
 
 
+def int8dot(lib, xq, w, s, xsc, sms: int, split: bool = False) -> torch.Tensor:
+    """ops/probes.py int8dot on the variant's library, under plan_gemv or a
+    forced two-slice plan (the first design's own launch where the variant
+    has it)."""
+    lay, o, i = w.shape
+    t, nb = xq.shape[0], 0 if s is None else s.shape[-1]
+    sp, xp = (0, 0) if s is None else (s.data_ptr(), xsc.data_ptr())
+    y = torch.empty((lay, t, o), dtype=torch.float32, device=xq.device)
+    if hasattr(lib, "lt_probe_int8dot_first"):
+        err = lib.lt_probe_int8dot_first(xq.data_ptr(), w.data_ptr(), sp, xp, y.data_ptr(), t, o,
+                                         i, lay, nb, int(s is not None), _build.stream())
+        _build.check(lib, err, "gemv ablation")
+        return y
+    plan = (probes.GemvPlan(o, i, lay, 2, sms - sms % 2) if split
+            else probes.plan_gemv(o, i, lay, sms))
+    part = (torch.empty((plan.nks, lay, t, o), dtype=torch.int32, device=xq.device)
+            if plan.nks > 1 else None)
+    err = lib.lt_probe_int8dot(xq.data_ptr(), w.data_ptr(), sp, xp, y.data_ptr(),
+                               0 if part is None else part.data_ptr(), t, o, i, lay, nb, plan.nks,
+                               plan.ctas, _build.stream())
+    _build.check(lib, err, "gemv ablation")
+    return y
+
+
 def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="the tensor-core GEMV's ablation variants")
+    ap.add_argument("--tables", default="bf16,q8,s8",
+                    help="comma-separated tables to time: bf16, q8 (with the yardsticks), s8")
+    tables = ap.parse_args(argv).tables.split(",")
     if not torch.cuda.is_available():
         raise RuntimeError("gemv_ablation times the card's kernels: no CUDA device")
     dev = torch.device("cuda")
@@ -282,7 +445,7 @@ def main(argv=None) -> int:
     x = w["x"]
     layers = w["bf16"].shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    libs = build(_build.BUILD_DIR.parent / "ablation")
+    libs = build(_build.BUILD_DIR.parent / "ablation", tables)
     deq = {probes.W_Q8_F32: roofline.deq_q8_current, probes.W_Q8_BF16: roofline.deq_q8_bf16mul}
     # (weights, scales, kind): the bf16 stack, the int8 stack in both kinds
     kinds = {"bf16": (w["bf16"], None, probes.W_BF16),
@@ -290,7 +453,7 @@ def main(argv=None) -> int:
              "q8_bf16": (w["qs"], w["ss"], probes.W_Q8_BF16)}
     want = {k: x.float() @ (ws.float() if s is None else torch.stack(
         [deq[kd](ws[li], s[li]) for li in range(layers)]).float()).transpose(-1, -2)
-        for k, (ws, s, kd) in kinds.items()}
+        for k, (ws, s, kd) in kinds.items() if ("bf16" if k == "bf16" else "q8") in tables}
     device = torch.cuda.get_device_name(dev)
 
     def row(variant, layer_run, stack_run, **extra):
@@ -315,15 +478,50 @@ def main(argv=None) -> int:
             (lambda: gemv(lib, xt, ws, s, kd, sms)) if stack else None, round=rnd,
             max_rel_err=err)
 
+    # K18d / K18h (no scales) and K18e (block scales, xsc = ones as the script)
+    qs, ss = w["qs"], w["ss"]
+    xq = roofline.quantize_x(x)
+    xsc = torch.ones((xq.shape[0], ss.shape[-1]), dtype=torch.float32, device=dev)
+    if "s8" in tables:
+        s8_want = roofline._int_dot(xq, qs)
+        bs_want = s8_want * (ss @ xsc.T).transpose(-1, -2)
+
+    def variant_s8(name, rnd):
+        lib, (_, computes, split) = libs[name], S8_VARIANTS[name]
+        for bs in (False, True):
+            s, xs = (ss, xsc) if bs else (None, None)
+            err = None
+            if computes:
+                got = int8dot(lib, xq, qs, s, xs, sms, split)
+                torch.cuda.synchronize()
+                if bs:
+                    err = ((got - bs_want).abs().max() / bs_want.abs().max()).item()
+                    assert err <= 1e-5, f"{name} (block scales): rel err {err}"
+                else:
+                    assert torch.equal(got, s8_want), f"{name}: not exact"
+                    err = 0.0
+            sl = (lambda li: None) if s is None else (lambda li: s[li:li + 1])
+            row(f"{name} [{'s8 block scales' if bs else 's8'}]",
+                lambda: [int8dot(lib, xq, qs[li:li + 1], sl(li), xs, sms, split)
+                         for li in range(layers)],
+                None if bs else (lambda: int8dot(lib, xq, qs, None, None, sms, split)),
+                round=rnd, max_rel_err=err)
+
     for rnd in range(2):
         order = (lambda d: list(d)) if rnd == 0 else (lambda d: list(reversed(d)))
-        for name in order(VARIANTS):
-            variant(name, "bf16", VARIANTS[name][1], rnd)
+        if "s8" in tables:
+            for name in order(S8_VARIANTS):
+                variant_s8(name, rnd)
+        if "bf16" in tables:
+            for name in order(VARIANTS):
+                variant(name, "bf16", VARIANTS[name][1], rnd)
+        if "q8" not in tables:
+            continue
         for kind in order(["q8_f32", "q8_bf16"]):
             variant("as built", kind, True, rnd)
         for name in order(["16 consumer warps", *Q8_VARIANTS]):
             variant(name, "q8_f32", {**VARIANTS, **Q8_VARIANTS}[name][1], rnd)
-        bf, qs = w["bf16"], w["qs"]
+        bf = w["bf16"]
         row("bf16 torch.matmul", lambda: [torch.matmul(x, bf[li].T) for li in range(layers)],
             lambda: torch.matmul(x, bf.reshape(-1, bf.shape[-1]).T), round=rnd)
         for stack in (bf, qs):

@@ -1,5 +1,5 @@
 // K18 and K19: the rate probes of scripts/bench_roofline.py and
-// scripts/bench_dma_sweep.py, on four kernel templates.
+// scripts/bench_dma_sweep.py, on two kernel templates and their second passes.
 //
 // The TPU probes ask what byte rate a weight stream reaches under each way of
 // consuming it. Their port asks the same of the H100: every byte of the
@@ -103,10 +103,54 @@
 //    probe (K18j); on one layer a call's fixed cost (launch, x copy, the
 //    ring's fill) weighs about twice what the conversions add
 //    (bench/gemv_ablation.py's "no dequantization" variant).
-// 3. probe_int8dot_kernel (K18d step_q8_int8dot, K18e
-//    step_q8_int8dot_blockscale, K18h call3_q8_int8dot): f32((xq . q)_int32),
-//    times (s . xs^T)^T for the blockscale form, by dp4a; xq int8 staged in
-//    shared memory. Bound: bytes.
+// 3. probe_gemv_tc_kernel<W_S8, false, BS> (K18d step_q8_int8dot, K18h
+//    call3_q8_int8dot; K18e step_q8_int8dot_blockscale with block scales):
+//    y[l, t, o] = f32((xq . w[l, o])_int32) for xq int8 [T <= 8, I], w int8
+//    [L, O, I]; the block-scale form times corr[l, o, t] = sum_b s[l, o, b] *
+//    xsc[t, b] (f32). Bound: bytes, the int8 weights (16.8 MB a [4096, 4096]
+//    layer: 5.0 us; 403 MB the stack: 120 us), and for K18e the scales (2.1
+//    MB more: 5.7 us); 2 operations a weight byte at T = 8, far under the
+//    int8 ridge, so mma.sync does. The first design (a dp4a GEMV, now gone:
+//    16 weight rows a block, one 16-byte load a lane and row in flight, xq
+//    restaged in shared memory every 1024 columns between two block
+//    barriers, 32 dp4a and 8 shared x loads a weight load, and K18e's
+//    corrections a lane-0 loop of 128 dependent scale products each) read a
+//    layer at 0.36 TB/s and the stack at 0.88. Here the walk is item 1's:
+//    - xq's slice arrives by TMA into the ring's first two slots (4 rows a
+//      slot at a pitch of 4096 + 32 bytes) and stays in registers as the A
+//      operand (32 a lane at I = 4096);
+//    - stages of [8 rows, 2048 int8 columns] at a row pitch 32 bytes over a
+//      multiple of 128 (conflict-free 8-byte loads), 12 deep, as the q8
+//      kinds' (the same 16 KB stages and ring bytes);
+//    - mma.sync m16n8k32 s8 -> s32 (mma_s8) with the raw stage bytes as the
+//      B operand: no conversion. Each 32-column step's contraction index is
+//      permuted alike in A and B (the mma's k = 4q .. 4q + 3 and 16 + 4q ..
+//      16 + 4q + 3 are the step's columns 8q .. 8q + 7), so a lane's
+//      fragment of a row is 8 adjacent bytes: one 8-byte load of B and of
+//      each x row. Even and odd steps fill A rows 0-7 and 8-15 and sum apart,
+//      as item 1's. A slice with an odd number of 16-column halves ends in a
+//      step whose second half (lanes q = 2, 3) has zero x: its B bytes lie
+//      within the stage's row pitch, stale, and multiply zeros;
+//    - exact: the mma sums, the parts and the K slices' partial sums are all
+//      int32 (|sum| <= I * 127 * 128 < 2^31 below I = 132104), the partial
+//      sums an int32 workspace that the second pass (probe_s8_sum_kernel)
+//      adds in int32 before the one conversion to f32. f32 partials would
+//      round above 2^24 (66,064,384 at I = 4096) where the script's int32
+//      dot does not;
+//    - block scales (BS, K18e whole-K): a lane holds its xsc values (b =
+//      lane + 32 m, m < kSRegs, every t) in registers for the walk; warp
+//      w's lanes copy their scales of stripe row w by cp.async into a
+//      shared ring kScaleAhead = 2 units ahead, waited for at the unit's end
+//      by cp.async.wait_group (a register lookahead's copy at each unit's
+//      start waited on the loads of the unit before, so no depth helped).
+//      At the unit's end warp w forms corr[t] of row w (block_corr): a lane
+//      over its b in order by FMA, then a butterfly over the lanes that
+//      hands half its sums on at each of its first three steps (9
+//      shuffles), in place of the first design's serial loop; scales past
+//      kSRegs * 32 are read there. A fixed order, so two runs are
+//      bit-equal; a split's second pass forms the same sums, one warp a
+//      row, after the int32 sum, so a split changes no bit.
+//      bench/gemv_ablation.py's S8_VARIANTS time each piece.
 // 4. probe_stream_kernel (K18f step_dma_probe, K18j call3_dma_probe, K19a
 //    probe_blockspec, K19b probe_manual_dma, K19c int8dot_manual_dma): the
 //    weight rows stream through a `depth`-deep ring of shared-memory stages,
@@ -131,6 +175,8 @@
 // [T, O] output in the TPU order: the last chunk's rows (+ x[t, 0]), or the
 // per-chunk sums in chunk order. So the result is deterministic and, for the
 // sums, in the reference's summation order.
+#include <type_traits>
+
 #include "tc_gemv.cuh"
 
 LT_DEFINE_ERROR_STRING
@@ -139,8 +185,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxT = 8;           // activation rows (the TPU harness pads T = 1 to 8)
-constexpr int kRows = 2;           // int8 dot: weight rows per warp
-constexpr int kTileK = 1024;       // int8 dot: activation columns staged per pass
 constexpr int kRingBytes = 128 * 1024;
 constexpr int kMaxDepth = 16;
 constexpr int kMaxSlices = 2;      // int8-dot stream: 16-byte column slices per thread
@@ -154,39 +198,51 @@ constexpr int kDepth = 6;                          // ring stages of bf16 weight
 constexpr int kMaxSlice = 4096;                    // x columns a CTA holds
 constexpr int kParts = 8;                          // consumer warps: column parts of a stage
 constexpr int kGroup = 4;                          // a warp's steps loaded, converted, multiplied together
-constexpr int kXFrags = kMaxSlice / 16 / kParts;   // a lane's x fragments
 constexpr int kConsumers = 32 * kParts;
 constexpr int kTcThreads = kConsumers + 32;        // + the producer warp
-constexpr int kXPitch = 2 * kMaxSlice + 32;        // bytes a staged x row
-constexpr int kRedPitch = kStripe + 1;             // floats a row t of a part's sums
+constexpr int kRedPitch = kStripe + 1;             // sums a row t of a part's
+constexpr int kSRegs = 4;                          // W_S8 block scales a lane holds (b = lane + 32 m)
+constexpr int kScaleAhead = 2;                     // W_S8: units whose block scales are in flight
+static_assert(kStripe == kParts, "W_S8 block scales: warp w forms the correction of stripe row w");
 
 // A ring stage of weight kind WK: K columns of 8 rows; int8 stages hold half
-// the bytes, and the ring twice as many of them (the same ring bytes). A
-// lane's fragment of a step is 4 adjacent columns (8 bytes bf16, 4 bytes
-// int8), and the row pitch (32 / 16 bytes over a multiple of 128) keeps a lane
-// group's fragment loads free of bank conflicts. x rows take the first
-// xslots slots, xrows a slot.
+// the bytes, and the ring twice as many of them (the same ring bytes). A step
+// is kstep columns (16; 32 for W_S8's int8 mma); a lane's fragment of a step's
+// row is lane_bytes adjacent bytes (4 columns of bf16 or int8, or 8 of W_S8's
+// int8), and the row pitch (32 bytes over a multiple of 128 for 8-byte
+// fragments, 16 for 4-byte ones) keeps a lane group's fragment loads free of
+// bank conflicts. x (bf16, or W_S8's int8 xq) takes the first xslots slots,
+// xrows rows a slot at the pitch xpitch; a lane's x fragment of a step is 8
+// bytes.
 template <int WK>
 struct Stage {
   static constexpr int esize = WK == W_BF16 ? 2 : 1;
+  static constexpr int xsize = WK == W_S8 ? 1 : 2;
+  static constexpr int kstep = WK == W_S8 ? 32 : 16;
   static constexpr int K = kStageK;
   static constexpr int depth = kDepth * 2 / esize;
-  static constexpr int steps = K / 16 / kParts;  // a warp's 16-column steps of a stage
-  static constexpr int pitch = K * esize + (WK == W_BF16 ? 32 : 16);
+  static constexpr int steps = K / kstep / kParts;  // a warp's steps of a stage
+  static constexpr int lane_bytes = kstep / 4 * esize;
+  static constexpr int pitch = K * esize + (lane_bytes == 8 ? 32 : 16);
   static constexpr int bytes = kStripe * pitch;
-  static constexpr int xrows = bytes / kXPitch;
+  static constexpr int xpitch = kMaxSlice * xsize + 32;
+  static constexpr int xrows = bytes / xpitch;
   static constexpr int xslots = (kMaxT + xrows - 1) / xrows;
+  static constexpr int xfrags = kMaxSlice / kstep / kParts;  // a lane's x fragments
   static_assert(xrows >= 1 && xslots < depth, "x fits the ring's first slots");
+  static_assert(kstep / 4 * xsize == 8, "a lane's x fragment of a step is 8 bytes");
 };
 
 // The walk: unit u is stripe u / nks (layer s / ns, rows (s % ns) * kStripe
 // ..) over K slice u % nks; CTA c takes u = c, c + ctas, ... (ctas % nks ==
 // 0: one slice a CTA). ops/probes.py GemvPlan mirrors it.
 struct TcWalk {
-  const __nv_bfloat16* x;  // [T, I]
+  const void* x;           // [T, I] bf16 (W_S8: int8 xq)
   const void* w;           // [L, O, I] bf16 or int8
-  const float* s;          // int8 w: the scales [L, O, NB]
-  float* out;              // y [L, T, O] (nks == 1) or the partial sums [nks, L, T, O]
+  const float* s;          // int8 w: the scales [L, O, NB] (W_S8: the block scales, or null)
+  const float* xsc;        // W_S8 block scales: xsc [T, NB]
+  void* out;               // y [L, T, O] f32 (nks == 1) or the partial sums [nks, L, T, O]
+                           // (f32; W_S8: int32)
   int T, O, I, L, NB, ns, nks, ctas;
   __device__ int units() const { return L * ns * nks; }
   // first column of slice ks (whole 16-column steps)
@@ -208,7 +264,8 @@ __device__ __forceinline__ void consumer_sync() {
 // a row are 4 adjacent columns. x takes rows 0-7 of one step and rows 8-15
 // of the next (a quad of registers holds both), so an even step's sums are
 // c0, c1 of one accumulator and an odd step's c2, c3 of another; the other
-// half of each is dropped (mma16, tc_gemv.cuh).
+// half of each is dropped (mma16, tc_gemv.cuh). W_S8's 32-column steps lay
+// out alike (mma_s8): a lane's fragments are columns 8q .. 8q + 7.
 
 // The lane's four scales s[c .. c + 3] (v) as the kind multiplies by them:
 // f32 bits (W_Q8_F32), or two bf16x2 of the scales rounded to bf16 (W_Q8_BF16).
@@ -230,15 +287,103 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// W_S8 block scales: the lane's s[row + b], b = lane + 32 m (m < kSRegs; 0 past NB).
+__device__ __forceinline__ void load_block_scales(float (&v)[kSRegs], const float* row, int NB,
+                                                  int lane) {
+#pragma unroll
+  for (int m = 0; m < kSRegs; ++m) {
+    const int b = lane + 32 * m;
+    v[m] = b < NB ? __ldg(row + b) : 0.f;
+  }
+}
+
+// The lane's xsc[t, b] for b = lane + 32 m (m < kSRegs), every t (clamped
+// to valid addresses: t >= T reads row T - 1, b >= NB column NB - 1).
+__device__ __forceinline__ void load_xsc(float (&xv)[kSRegs][kMaxT], const float* xsc, int NB,
+                                         int T, int lane) {
+#pragma unroll
+  for (int m = 0; m < kSRegs; ++m)
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t)
+      xv[m][t] = __ldg(xsc + min(t, T - 1) * NB + min(lane + 32 * m, NB - 1));
+}
+
+// corr[t] = sum over b of row[b] * xsc[t, b] (f32) for one weight row, by a
+// warp; returns corr[lane / 4] (t >= T: a copy of row T - 1's). Lane l sums
+// b = l + 32 m in order of m, one FMA each (sv and xv for m < kSRegs, row
+// and xsc themselves past them); then a butterfly over the lanes (offsets
+// 16, 8, 4, 2, 1) that hands half of its sums on at each of the first three
+// steps: 9 shuffles, not 40, and each t's sums added in the butterfly's
+// tree. Any warp that forms them for the row (the whole-K kernel's or the
+// split's second pass) gets the same bits.
+__device__ __forceinline__ float block_corr(const float (&sv)[kSRegs],
+                                            const float (&xv)[kSRegs][kMaxT], const float* row,
+                                            const float* xsc, int NB, int T, int lane) {
+  float c[kMaxT];
+#pragma unroll
+  for (int t = 0; t < kMaxT; ++t) c[t] = 0.f;
+#pragma unroll
+  for (int m = 0; m < kSRegs; ++m)
+    if (lane + 32 * m < NB)
+#pragma unroll
+      for (int t = 0; t < kMaxT; ++t) c[t] = fmaf(sv[m], xv[m][t], c[t]);
+  for (int b = lane + 32 * kSRegs; b < NB; b += 32) {
+    const float v = __ldg(row + b);
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) c[t] = fmaf(v, __ldg(xsc + min(t, T - 1) * NB + b), c[t]);
+  }
+  // step 1 keeps t with bit 2 = lane bit 4, step 2 bit 1 = lane bit 3,
+  // step 3 bit 0 = lane bit 2: lane l ends with t = l / 4
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+  float d4[4], d3[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    d4[i] = (h4 ? c[i + 4] : c[i]) + __shfl_xor_sync(0xffffffffu, h4 ? c[i] : c[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    d3[i] = (h3 ? d4[i + 2] : d4[i]) + __shfl_xor_sync(0xffffffffu, h3 ? d4[i] : d4[i + 2], 8);
+  float z = (h2 ? d3[1] : d3[0]) + __shfl_xor_sync(0xffffffffu, h2 ? d3[0] : d3[1], 4);
+  z += __shfl_xor_sync(0xffffffffu, z, 2);
+  return z + __shfl_xor_sync(0xffffffffu, z, 1);
+}
+
+// W_S8 block scales through shared memory: a lane's 4-byte copies (zero
+// past NB) of a unit's row, one commit group (empty where the walk has no
+// such unit), so no register waits on them until the unit that needs them
+// (cp.async.wait_group).
+__device__ __forceinline__ void copy_block_scales(uint32_t dst, const float* row, int NB,
+                                                  int lane, bool unit) {
+  if (unit)
+#pragma unroll
+    for (int m = 0; m < kSRegs; ++m) {
+      const int b = lane + 32 * m;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + 128 * m),
+                   "l"(row + min(b, NB - 1)), "r"(b < NB ? 4 : 0)
+                   : "memory");
+    }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void read_block_scales(float (&v)[kSRegs], const float* slot) {
+#pragma unroll
+  for (int m = 0; m < kSRegs; ++m) v[m] = slot[32 * m];
+}
+
 // Dynamic shared memory: the ring [S::depth][kStripe rows of S::pitch], then
-// two buffers of the parts' sums [kParts][kMaxT][kRedPitch] f32. TILED (int8
-// kinds): 16 * kParts % NB == 0, so a lane's scales are fixed for a unit.
-template <int WK, bool TILED>
+// two buffers of the parts' sums [kParts][kMaxT][kRedPitch] (f32; W_S8:
+// int32); BS (W_S8 whole-K with block scales): then two buffers of the
+// stripe's corrections [kMaxT][kStripe] f32 and the block scales' ring
+// [kScaleAhead][kParts][kSRegs * 32] f32.
+// TILED (int8 kinds): 16 * kParts % NB == 0, so a lane's scales are fixed for
+// a unit.
+template <int WK, bool TILED, bool BS>
 __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
   using S = Stage<WK>;
+  using Acc = typename std::conditional<WK == W_S8, int, float>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[S::depth], empty[S::depth];
-  float* red = reinterpret_cast<float*>(smem + S::depth * S::bytes);
+  Acc* red = reinterpret_cast<Acc*>(smem + S::depth * S::bytes);
+  float* cbuf = reinterpret_cast<float*>(red + 2 * kParts * kMaxT * kRedPitch);
   const int c = blockIdx.x, ks = c % a.nks;
   const int kbeg = a.slice_k(ks), kend = a.slice_k(ks + 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -255,12 +400,14 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
     // x's slice first, S::xrows rows a slot (rows t < T)
     for (int h = 0; h < S::xslots; ++h) {
       const int rows = max(0, min(S::xrows, a.T - S::xrows * h));
-      if (lane == 0) mbar_expect_tx(&full[h], static_cast<unsigned>(rows * (kend - kbeg) * 2));
+      if (lane == 0)
+        mbar_expect_tx(&full[h], static_cast<unsigned>(rows * (kend - kbeg) * S::xsize));
       __syncwarp();
       if (lane < rows)
-        bulk_load(smem + h * S::bytes + lane * kXPitch,
-                  a.x + static_cast<long long>(S::xrows * h + lane) * a.I + kbeg,
-                  (kend - kbeg) * 2, &full[h]);
+        bulk_load(smem + h * S::bytes + lane * S::xpitch,
+                  static_cast<const char*>(a.x) +
+                      (static_cast<long long>(S::xrows * h + lane) * a.I + kbeg) * S::xsize,
+                  (kend - kbeg) * S::xsize, &full[h]);
     }
     int slot = S::xslots;
     unsigned phase = 0;
@@ -298,34 +445,51 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
   float4 snext = make_float4(0.f, 0.f, 0.f, 0.f);
   if constexpr (TILED)
     if (c < a.units()) snext = ldg4(scale_row(c) + (kbeg + 16 * warp) % a.NB);
+  // BS: warp w's block scales of stripe row w (past O: row O - 1) of unit
+  // u, copied kScaleAhead units ahead into the lane's slots of the scale
+  // ring; the lane's xsc values in registers for the whole walk
+  auto bs_row = [&](int u) {
+    const int o = min((u % a.ns) * kStripe + warp, a.O - 1);
+    return a.s + (static_cast<long long>(u / a.ns) * a.O + o) * a.NB;
+  };
+  float* sring = cbuf + 2 * kMaxT * kStripe + warp * kSRegs * 32 + lane;
+  auto bs_slot = [&](int n) { return sring + (n % kScaleAhead) * kParts * kSRegs * 32; };
+  float xv[kSRegs][kMaxT];
+  if constexpr (BS) {
+#pragma unroll
+    for (int n = 0; n < kScaleAhead; ++n)
+      copy_block_scales(smem_u32(bs_slot(n)), bs_row(c + n * a.ctas), a.NB, lane,
+                        c + n * a.ctas < a.units());
+    load_xsc(xv, a.xsc, a.NB, a.T, lane);
+  }
   // This warp's x fragments of the slice, from the ring's first slots into
   // registers for the whole walk (the mma's A operand): step j = warp +
-  // kParts * i of stage st is f = st * S::steps + i, x[g][col + 4q .. + 3]
-  // for the step's first column col, in quad f / 2 (rows g for even f, g + 8
-  // for odd f); zero for t >= T and past the slice. Then the slots go back to
-  // the ring.
+  // kParts * i of stage st is f = st * S::steps + i, the lane's 8 bytes of
+  // x[g] at col + (S::kstep / 4) q for the step's first column col, in quad
+  // f / 2 (rows g for even f, g + 8 for odd f); zero for t >= T and past the
+  // slice. Then the slots go back to the ring.
   for (int h = 0; h < S::xslots; ++h) mbar_wait(&full[h], 0);
   const uint32_t x_lane =
-      smem_u32(smem) + (g / S::xrows) * S::bytes + (g % S::xrows) * kXPitch + 8 * q;
-  uint32_t xq[kXFrags / 2][4];
+      smem_u32(smem) + (g / S::xrows) * S::bytes + (g % S::xrows) * S::xpitch + 8 * q;
+  uint32_t xq[S::xfrags / 2][4];
 #pragma unroll
-  for (int f = 0; f < kXFrags; ++f) {
-    const int col = (f / S::steps) * S::K + (warp + kParts * (f % S::steps)) * 16;
+  for (int f = 0; f < S::xfrags; ++f) {
+    const int col = (f / S::steps) * S::K + (warp + kParts * (f % S::steps)) * S::kstep;
     uint32_t v[2] = {0u, 0u};
-    if (g < a.T && kbeg + col < kend) lds64(v, x_lane + col * 2);
+    if (g < a.T && kbeg + col + S::kstep / 4 * q < kend) lds64(v, x_lane + col * S::xsize);
     xq[f / 2][f % 2] = v[0];
     xq[f / 2][2 + f % 2] = v[1];
   }
 #pragma unroll
-  for (int m = 0; m < kXFrags / 2; ++m)
+  for (int m = 0; m < S::xfrags / 2; ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(xq[m][e]));
   __syncwarp();
   if (lane == 0)
     for (int h = 0; h < S::xslots; ++h) mbar_arrive(&empty[h]);
 
-  // this lane's B fragments: weight row g, columns 4q .. + 3 of a step
-  const uint32_t b_lane = smem_u32(smem) + g * S::pitch + 4 * S::esize * q;
+  // this lane's B fragments: weight row g, its lane_bytes of a step
+  const uint32_t b_lane = smem_u32(smem) + g * S::pitch + S::lane_bytes * q;
   int slot = S::xslots, buf = 0;
   unsigned phase = 0;
   for (int u = c; u < a.units(); u += a.ctas) {
@@ -335,21 +499,23 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
     if constexpr (TILED) {  // this unit's scales; the next unit's go out now
       to_scales<WK>(snext, su);
       if (u + a.ctas < a.units()) snext = ldg4(scale_row(u + a.ctas) + (kbeg + 16 * warp) % a.NB);
-    } else if constexpr (WK != W_BF16) {
+    } else if constexpr (WK == W_Q8_F32 || WK == W_Q8_BF16) {
       srow = scale_row(u);
     }
-    float acc[2][4] = {};  // even and odd steps
+    Acc acc[2][4] = {};  // even and odd steps
 #pragma unroll
     for (int st = 0; st < kMaxSlice / S::K; ++st) {
       const int k = kbeg + st * S::K;
       if (k >= kend) break;
-      const int steps = min(S::K, kend - k) / 16;  // this warp's: j = warp (mod kParts)
+      // this warp's: j = warp (mod kParts); W_S8's last may be half a step
+      const int steps = (min(S::K, kend - k) + S::kstep - 1) / S::kstep;
       mbar_wait(&full[slot], phase);
       const uint32_t wb = b_lane + slot * S::bytes;
-      // kGroup steps a group: their fragments are loaded (bf16, or the raw
-      // int8 in [.][0]), converted, then multiplied. A whole stage runs
-      // without the guards j < steps: no branches between its steps, so
-      // their loads and conversions interleave.
+      // kGroup steps a group: their fragments are loaded (bf16 and W_S8's
+      // int8 8 bytes, the q8 kinds' raw int8 4 bytes in [.][0]), converted
+      // (q8 kinds), then multiplied. A whole stage runs without the guards j
+      // < steps: no branches between its steps, so their loads and
+      // conversions interleave.
       auto products = [&](auto guard) {
         constexpr bool G = decltype(guard)::value;
 #pragma unroll
@@ -359,8 +525,8 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
           for (int i = 0; i < kGroup; ++i) {
             const int j = warp + kParts * (i0 + i);
             if (!G || j < steps) {
-              if constexpr (WK == W_BF16)
-                lds64(ld[i], wb + j * 32);
+              if constexpr (S::lane_bytes == 8)
+                lds64(ld[i], wb + j * S::kstep * S::esize);
               else
                 ld[i][0] = lds32(wb + j * 16);
             }
@@ -369,7 +535,7 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
           for (int i = 0; i < kGroup; ++i) {
             const int j = warp + kParts * (i0 + i);
             if (G && j >= steps) continue;
-            if constexpr (WK == W_BF16) {
+            if constexpr (WK == W_BF16 || WK == W_S8) {
               bf[i][0] = ld[i][0];
               bf[i][1] = ld[i][1];
             } else if constexpr (TILED) {
@@ -382,11 +548,15 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
           }
 #pragma unroll
           for (int i = 0; i < kGroup; ++i)
-            if (!G || warp + kParts * (i0 + i) < steps)
-              mma16(acc[(i0 + i) & 1], xq[(st * S::steps + i0 + i) / 2], bf[i]);
+            if (!G || warp + kParts * (i0 + i) < steps) {
+              if constexpr (WK == W_S8)
+                mma_s8(acc[(i0 + i) & 1], xq[(st * S::steps + i0 + i) / 2], bf[i]);
+              else
+                mma16(acc[(i0 + i) & 1], xq[(st * S::steps + i0 + i) / 2], bf[i]);
+            }
         }
       };
-      if (steps == S::K / 16)
+      if (steps == S::K / S::kstep)
         products(Flag<false>());
       else
         products(Flag<true>());
@@ -398,20 +568,41 @@ __global__ void __launch_bounds__(kTcThreads) probe_gemv_tc_kernel(TcWalk a) {
       }
     }
     // this warp's part: t = g, rows 2q and 2q + 1 of the stripe
-    float* r = red + (buf * kParts + warp) * kMaxT * kRedPitch + g * kRedPitch + 2 * q;
+    Acc* r = red + (buf * kParts + warp) * kMaxT * kRedPitch + g * kRedPitch + 2 * q;
     r[0] = acc[0][0] + acc[1][2];
     r[1] = acc[0][1] + acc[1][3];
+    if constexpr (BS) {  // warp w: the corrections of stripe row w, t = g in lanes (g, 0)
+      const int n = (u - c) / a.ctas;  // the unit's place in this CTA's walk
+      float sv[kSRegs];
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kScaleAhead - 1) : "memory");
+      read_block_scales(sv, bs_slot(n));
+      const float corr = block_corr(sv, xv, bs_row(u), a.xsc, a.NB, a.T, lane);
+      if (q == 0) cbuf[(buf * kMaxT + g) * kStripe + warp] = corr;
+      const int un = u + kScaleAhead * a.ctas;  // into the slot just read
+      copy_block_scales(smem_u32(bs_slot(n)), bs_row(un), a.NB, lane, un < a.units());
+    }
     consumer_sync();
-    // thread (t, row): the parts in order
+    // thread (t, row): the parts in order (W_S8: int32, exact in any order)
     if (threadIdx.x < kMaxT * kStripe) {
       const int t = threadIdx.x / kStripe, row = threadIdx.x % kStripe;
       const int o = o0 + row;
       if (t < a.T && o < a.O) {
-        const float* p = red + buf * kParts * kMaxT * kRedPitch + t * kRedPitch + row;
-        float v = p[0];
+        const Acc* p = red + buf * kParts * kMaxT * kRedPitch + t * kRedPitch + row;
+        Acc v = p[0];
 #pragma unroll
         for (int w = 1; w < kParts; ++w) v += p[w * kMaxT * kRedPitch];
-        a.out[((static_cast<long long>(ks) * a.L + l) * a.T + t) * a.O + o] = v;
+        const long long i = ((static_cast<long long>(ks) * a.L + l) * a.T + t) * a.O + o;
+        if constexpr (WK == W_S8) {
+          if (a.nks > 1) {
+            static_cast<int*>(a.out)[i] = v;
+          } else {
+            float y = static_cast<float>(v);
+            if constexpr (BS) y = __fmul_rn(y, cbuf[(buf * kMaxT + t) * kStripe + row]);
+            static_cast<float*>(a.out)[i] = y;
+          }
+        } else {
+          static_cast<float*>(a.out)[i] = v;
+        }
       }
     }
     buf ^= 1;  // the next unit writes the other buffer; the one after waits on its barrier
@@ -429,14 +620,88 @@ __global__ void probe_gemv_sum_kernel(const float* __restrict__ part, int nks, l
   }
 }
 
-template <int WK, bool TILED>
+// W_S8 over K slices: y[l, t, o] = f32(the int32 sum over the slices of
+// part[ks][l, t, o]), times corr[t] of row (l, o) where the block scales s
+// and xsc are given (block_corr: the bits of the whole-K kernel's, so a
+// split changes no bit of y). Without scales a thread an element (as
+// probe_gemv_sum_kernel); with them a warp a row (l, o), lane t its y[l, t, o].
+__global__ void probe_s8_sum_kernel(const int* __restrict__ part, const float* __restrict__ s,
+                                    const float* __restrict__ xsc, float* __restrict__ y, int nks,
+                                    int L, int T, int O, int NB) {
+  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (s == nullptr) {
+    const long long n = static_cast<long long>(L) * T * O;
+    for (long long i = tid; i < n; i += stride) {
+      int v = part[i];
+      for (int ks = 1; ks < nks; ++ks) v += part[ks * n + i];
+      y[i] = static_cast<float>(v);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const long long rows = static_cast<long long>(L) * O;
+  for (long long w = tid / 32; w < rows; w += stride / 32) {
+    const long long l = w / O;
+    const int o = static_cast<int>(w - l * O);
+    float sv[kSRegs], xv[kSRegs][kMaxT];
+    load_block_scales(sv, s + w * NB, NB, lane);
+    load_xsc(xv, xsc, NB, T, lane);
+    // lane t: corr[t] (block_corr leaves it in lane 4t)
+    const float corr = __shfl_sync(0xffffffffu, block_corr(sv, xv, s + w * NB, xsc, NB, T, lane),
+                                   (4 * lane) & 31);
+    if (lane < T) {
+      int v = 0;
+      for (int ks = 0; ks < nks; ++ks) v += part[((ks * L + l) * T + lane) * O + o];
+      y[(l * T + lane) * O + o] = __fmul_rn(static_cast<float>(v), corr);
+    }
+  }
+}
+
+template <int WK, bool TILED, bool BS = false>
 cudaError_t gemv_launch(const TcWalk& a, cudaStream_t st) {
   const size_t smem = static_cast<size_t>(Stage<WK>::depth) * Stage<WK>::bytes +
-                      sizeof(float) * 2 * kParts * kMaxT * kRedPitch;
-  const cudaError_t e = lt_allow_smem(probe_gemv_tc_kernel<WK, TILED>, smem);
+                      4 * 2 * kParts * kMaxT * kRedPitch +
+                      (BS ? 4 * (2 * kMaxT * kStripe + kScaleAhead * kParts * kSRegs * 32) : 0);
+  const cudaError_t e = lt_allow_smem(probe_gemv_tc_kernel<WK, TILED, BS>, smem);
   if (e != cudaSuccess) return e;
-  probe_gemv_tc_kernel<WK, TILED><<<a.ctas, kTcThreads, smem, st>>>(a);
+  probe_gemv_tc_kernel<WK, TILED, BS><<<a.ctas, kTcThreads, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The GEMV's plan (ops/probes.py plan_gemv) as the kernel takes it: nks K
+// slices of whole 16-column steps, ctas CTAs (a multiple of nks), every
+// slice at most kMaxSlice columns, a workspace where nks > 1.
+bool plan_ok(int T, int O, int I, int L, int nks, int ctas, const void* part) {
+  const int n16 = I / 16;
+  return T >= 1 && T <= kMaxT && I >= 16 && I % 16 == 0 && O >= 1 && L >= 1 && nks >= 1 &&
+         nks <= n16 && ctas >= nks && ctas % nks == 0 &&
+         (n16 + nks - 1) / nks * 16 <= kMaxSlice && (nks == 1 || part != nullptr);
+}
+
+TcWalk make_walk(const void* x, const void* w, const void* s, void* y, void* part, int T, int O,
+                 int I, int L, int NB, int nks, int ctas) {
+  TcWalk a;
+  a.x = x;
+  a.w = w;
+  a.s = static_cast<const float*>(s);
+  a.xsc = nullptr;
+  a.out = nks > 1 ? part : y;
+  a.T = T;
+  a.O = O;
+  a.I = I;
+  a.L = L;
+  a.NB = NB;
+  a.ns = (O + kStripe - 1) / kStripe;
+  a.nks = nks;
+  a.ctas = ctas;
+  return a;
+}
+
+// blocks of 256 threads for n items of a second pass, at most 4 an SM
+int pass_blocks(long long n) {
+  const long long cap = 4LL * lt_sm_count();
+  return static_cast<int>((n + 255) / 256 < cap ? (n + 255) / 256 : cap);
 }
 
 // ------------------------------------------------------------ int8 dot
@@ -444,67 +709,6 @@ __device__ __forceinline__ int warp_isum(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__global__ void __launch_bounds__(kThreads) probe_int8dot_kernel(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ w, const float* __restrict__ s,
-    const float* __restrict__ xsc, float* __restrict__ y, int T, int O, int I, int NB,
-    int blockscale) {
-  __shared__ __align__(16) int8_t xs[kMaxT][kTileK];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const long layer = blockIdx.y;
-  const int o0 = (blockIdx.x * nwarps + warp) * kRows;
-  int acc[kRows][kMaxT];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0;
-  for (int k0 = 0; k0 < I; k0 += kTileK) {
-    const int kt = min(kTileK, I - k0);
-    for (int i = threadIdx.x; i < T * kt; i += blockDim.x) {
-      const int t = i / kt, k = i - t * kt;
-      xs[t][k] = xq[static_cast<long>(t) * I + k0 + k];
-    }
-    __syncthreads();
-    for (int c = lane; c < kt / 16; c += 32) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int o = o0 + r;
-        if (o >= O) break;
-        const int4 wv = __ldg(reinterpret_cast<const int4*>(w + (layer * O + o) * I + k0) + c);
-#pragma unroll
-        for (int t = 0; t < kMaxT; ++t) {
-          if (t < T) {
-            const int4 xv = *reinterpret_cast<const int4*>(&xs[t][c * 16]);
-            int a = acc[r][t];
-            a = __dp4a(wv.x, xv.x, a);
-            a = __dp4a(wv.y, xv.y, a);
-            a = __dp4a(wv.z, xv.z, a);
-            acc[r][t] = __dp4a(wv.w, xv.w, a);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int o = o0 + r;
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) {
-      const int v = warp_isum(acc[r][t]);
-      if (lane == 0 && o < O && t < T) {
-        float out = static_cast<float>(v);
-        if (blockscale) {  // corr[o, t] = sum_b s[o, b] * xs[t, b], f32 in b order
-          const float* so = s + (layer * O + o) * NB;
-          float corr = 0.f;
-          for (int b = 0; b < NB; ++b) corr = __fadd_rn(corr, __fmul_rn(so[b], xsc[t * NB + b]));
-          out = __fmul_rn(out, corr);
-        }
-        y[(layer * T + t) * O + o] = out;
-      }
-    }
-  }
 }
 
 // -------------------------------------------------------------- stream
@@ -699,28 +903,13 @@ int stream_launch(StreamArgs a, float* out, int O, cudaStream_t st) {
 LT_EXPORT int lt_probe_gemv(const void* x, const void* w, const void* s, void* y, void* part,
                             int T, int O, int I, int L, int NB, int wkind, int nks, int ctas,
                             void* stream) {
-  const int n16 = I / 16;
   const bool q8 = wkind == W_Q8_F32 || wkind == W_Q8_BF16;
-  if (T < 1 || T > kMaxT || I < 16 || I % 16 || O < 1 || L < 1 || nks < 1 || nks > n16 ||
-      ctas < nks || ctas % nks || (n16 + nks - 1) / nks * 16 > kMaxSlice ||
-      (nks > 1 && part == nullptr) || (!q8 && wkind != W_BF16) ||
+  if (!plan_ok(T, O, I, L, nks, ctas, part) || (!q8 && wkind != W_BF16) ||
       (q8 && (s == nullptr || NB < 16 || NB % 16 || I % NB)) ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
        reinterpret_cast<uintptr_t>(s)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  TcWalk a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = w;
-  a.s = static_cast<const float*>(s);
-  a.out = static_cast<float*>(nks > 1 ? part : y);
-  a.T = T;
-  a.O = O;
-  a.I = I;
-  a.L = L;
-  a.NB = NB;
-  a.ns = (O + kStripe - 1) / kStripe;
-  a.nks = nks;
-  a.ctas = ctas;
+  const TcWalk a = make_walk(x, w, s, y, part, T, O, I, L, NB, nks, ctas);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool tiled = q8 && (16 * kParts) % NB == 0;
   cudaError_t e;
@@ -732,25 +921,39 @@ LT_EXPORT int lt_probe_gemv(const void* x, const void* w, const void* s, void* y
     e = tiled ? gemv_launch<W_Q8_BF16, true>(a, st) : gemv_launch<W_Q8_BF16, false>(a, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (nks > 1) {
-    const long long n = static_cast<long long>(L) * T * O, cap = 4LL * lt_sm_count();
-    const int blocks = static_cast<int>((n + 255) / 256 < cap ? (n + 255) / 256 : cap);
-    probe_gemv_sum_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(part), nks, n,
-                                                  static_cast<float*>(y));
+    const long long n = static_cast<long long>(L) * T * O;
+    probe_gemv_sum_kernel<<<pass_blocks(n), 256, 0, st>>>(static_cast<const float*>(part), nks,
+                                                          n, static_cast<float*>(y));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K18d, e, h. xq int8 [T, I]; w int8 [L, O, I]; blockscale: s [L, O, NB] and
-// xsc [T, NB] f32; y [L, T, O] f32.
+// K18d, e, h: the GEMV's W_S8 kind. xq int8 [T, I]; w int8 [L, O, I]; y [L,
+// T, O] f32 = f32((xq . w[l]^T)_int32), times corr[l, o, t] = sum_b s[l, o,
+// b] * xsc[t, b] (f32) where the block scales s [L, O, NB] and xsc [T, NB]
+// are given (both or neither). The plan as lt_probe_gemv's; part: int32
+// [nks, L, T, O] when nks > 1, the slices' sums, which the second pass adds
+// in int32 before it converts them and applies the block scales. xq and w
+// 16-byte aligned, s and xsc 4-byte.
 LT_EXPORT int lt_probe_int8dot(const void* xq, const void* w, const void* s, const void* xsc,
-                               void* y, int T, int O, int I, int L, int NB, int blockscale,
-                               void* stream) {
-  if (T < 1 || T > kMaxT || I % 16 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = (kThreads / 32) * kRows;
-  dim3 grid((O + per_block - 1) / per_block, L);
-  probe_int8dot_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w), static_cast<const float*>(s),
-      static_cast<const float*>(xsc), static_cast<float*>(y), T, O, I, NB, blockscale);
+                               void* y, void* part, int T, int O, int I, int L, int NB, int nks,
+                               int ctas, void* stream) {
+  if (!plan_ok(T, O, I, L, nks, ctas, part) || (s == nullptr) != (xsc == nullptr) ||
+      (s != nullptr && NB < 1) ||
+      (reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(w)) % 16 ||
+      (reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(xsc)) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcWalk a = make_walk(xq, w, s, y, part, T, O, I, L, NB, nks, ctas);
+  a.xsc = static_cast<const float*>(xsc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = s != nullptr && nks == 1 ? gemv_launch<W_S8, false, true>(a, st)
+                                                 : gemv_launch<W_S8, false>(a, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (nks > 1)
+    probe_s8_sum_kernel<<<pass_blocks((s != nullptr ? 32LL * O : static_cast<long long>(T) * O) * L),
+                          256, 0, st>>>(
+        static_cast<const int*>(part), static_cast<const float*>(s),
+        static_cast<const float*>(xsc), static_cast<float*>(y), nks, L, T, O, NB);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 // The building blocks of the port's TMA-fed tensor-core kernels: probes.cu's
-// `probe_gemv_tc_kernel` (K18a-c, g, i), moe_grouped.cu's `grouped_tc_kernel`
+// `probe_gemv_tc_kernel` (K18a-e, g-i), moe_grouped.cu's `grouped_tc_kernel`
 // (K10-K13) and gemm.cu's GEMM (K4, K17: mbarriers and tensor maps).
 //
 // - mbarriers and TMA copies: a producer warp fills a ring of shared-memory
@@ -10,6 +10,9 @@
 //   16-column step is permuted alike in A and B, so that a lane's fragment of
 //   a row is 4 adjacent columns: the mma's k = 2q, 2q + 1 and 2q + 8, 2q + 9
 //   of lane (g = lane / 4, q = lane % 4) are the step's columns 4q .. 4q + 3.
+// - mma_s8: mma.sync m16n8k32 s8 -> s32, permuted alike per 32-column step:
+//   the mma's k = 4q .. 4q + 3 and 16 + 4q .. 16 + 4q + 3 are the step's
+//   columns 8q .. 8q + 7, so a lane's fragment of a row is 8 adjacent bytes.
 // - dequant4, dequant_block: 4 int8 weights of one 4-byte load (or 4 packed
 //   nibbles) into a bf16 fragment, in registers, with no int-to-float
 //   conversion.
@@ -21,7 +24,8 @@
 
 namespace {
 
-enum WKind { W_BF16 = 0, W_Q8_F32 = 1, W_Q8_BF16 = 2 };  // ops/probes.py mirrors the codes
+// ops/probes.py mirrors the codes; W_S8: int8 weights times int8 x, int32 sums
+enum WKind { W_BF16 = 0, W_Q8_F32 = 1, W_Q8_BF16 = 2, W_S8 = 3 };
 
 // a compile-time flag as an argument (a stage's products with or without guards)
 template <bool B>
@@ -110,6 +114,19 @@ __device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[16 x 8] += a[16 x 32] . b[32 x 8], int8 in, int32 sums (exact, wrapping);
+// lane (g, q) holds a's rows g (a0, a2) and g + 8 (a1, a3) at k = 4q .. 4q + 3
+// (a0, a1) and 16 + 4q .. 16 + 4q + 3 (a2, a3), the lowest byte first, b's
+// column g at the same k (b0, b1), and c as mma16.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

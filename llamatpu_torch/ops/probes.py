@@ -1,20 +1,24 @@
-"""Launchers of the four probe kernels in csrc/probes.cu (design and bounds
-in its header note). bench/roofline.py (K18) and bench/dma_sweep.py (K19)
+"""Launchers of the probe kernels in csrc/probes.cu (design and bounds in
+its header note). bench/roofline.py (K18) and bench/dma_sweep.py (K19)
 build the TPU scripts' probe functions on them; those functions hold the
 plain versions and the launch counts, and take the plain version for a CPU
 tensor. These launchers take CUDA tensors only.
 
 The GEMV (K18a, K18i: `gemv_bf16`; K18b, K18c, K18g: `gemv`, int8 weights
-with tiled f32 scales) is one TMA-fed tensor-core kernel: persistent CTAs,
-one per SM, walk units of (layer, stripe of STRIPE weight rows, K slice); a
-CTA's x slice arrives first through its ring and stays in registers, then
-each stripe streams through the mbarrier ring of [STRIPE, STAGE_K] stages
-(6 of bf16 weights, 12 of int8) into `mma.sync` products, the int8 weights
-dequantized in the B fragments; PARTS consumer warps share
-each stage's 16-column steps and add their parts in order at the unit's
-end. `plan_gemv` lays the walk out (`GemvPlan.units`, mirrored by the
-kernel): the whole K as one slice unless stripes alone leave the SMs under
-90 % busy, then K slices whose partial sums a second pass adds in K order.
+with tiled f32 scales; K18d, K18h: `int8dot`, int8 weights times int8 xq,
+and K18e, the same with block scales) is one TMA-fed tensor-core kernel:
+persistent CTAs, one per SM, walk units of (layer, stripe of STRIPE weight
+rows, K slice); a CTA's x slice arrives first through its ring and stays in
+registers, then each stripe streams through the mbarrier ring of [STRIPE,
+STAGE_K] stages (6 of bf16 weights, 12 of int8) into `mma.sync` products:
+bf16 m16n8k16, the q8 weights dequantized in the B fragments, or int8
+m16n8k32 (kind W_S8) on the raw bytes with int32 sums. PARTS consumer warps
+share each stage's steps and add their parts in order at the unit's end
+(W_S8's block-scale corrections formed there, one warp a stripe row).
+`plan_gemv` lays the walk out (`GemvPlan.units`, mirrored by the kernel):
+the whole K as one slice unless stripes alone leave the SMs under 90 %
+busy, then K slices whose partial sums (f32; W_S8: int32, exact) a second
+pass adds in K order.
 """
 from __future__ import annotations
 
@@ -26,9 +30,9 @@ import torch
 from llamatpu_torch import _build
 from llamatpu_torch.ops.gemm import _sm_count
 
-# weight kinds of the GEMV (csrc/probes.cu WKind): bf16; int8 dequantized in
-# f32 or by a bf16 multiply
-W_BF16, W_Q8_F32, W_Q8_BF16 = 0, 1, 2
+# weight kinds of the GEMV (csrc/tc_gemv.cuh WKind): bf16; int8 dequantized in
+# f32 or by a bf16 multiply; int8 times int8 xq with int32 sums
+W_BF16, W_Q8_F32, W_Q8_BF16, W_S8 = 0, 1, 2, 3
 # stream modes (csrc/probes.cu SMode): the last chunk's first rows, the sum
 # over chunks of their first rows, the int8 dot of every row summed per chunk
 S_LAST, S_SUM, S_DOT = 0, 1, 2
@@ -124,44 +128,56 @@ def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
                    and w.shape[-1] % 16 == 0, f"{what}: contiguous x [T <= 8, I], I % 16 == 0")
 
 
-def _gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None, wkind: int,
-          what: str) -> torch.Tensor:
+def _gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None, wkind: int, what: str,
+          xsc: torch.Tensor | None = None) -> torch.Tensor:
     """The checks, then one launch (and the K-slice sum where the plan splits
-    K). Shapes, dtypes, contiguity and alignment raise (ValueError) before
-    the device is asked for."""
+    K). Shapes, dtypes, contiguity, alignment and devices raise (ValueError)
+    before the device is asked for anything."""
     w3 = _stacked(w)
+    s8 = wkind == W_S8
     _build.require(x.dim() == 2 and 1 <= x.shape[0] <= MAX_T and x.shape[1] == w3.shape[-1],
                    f"{what}: x [T <= 8, I] against w [L, O, I]")
     lay, o, i = w3.shape
     _build.require(i > 0 and i % 16 == 0 and o > 0 and lay > 0,
                    f"{what}: I % 16 == 0, nothing empty")
-    wdt = torch.bfloat16 if wkind == W_BF16 else torch.int8
-    _build.require(x.dtype == torch.bfloat16 and w3.dtype == wdt,
+    xdt, wdt = ((torch.int8, torch.int8) if s8 else
+                (torch.bfloat16, torch.bfloat16 if wkind == W_BF16 else torch.int8))
+    _build.require(x.dtype == xdt and w3.dtype == wdt, f"{what}: int8 xq and w" if s8 else
                    f"{what}: bf16 x and w ({'bf16' if wkind == W_BF16 else 'int8'} w)")
     ts = [x, w3]
     nb = 0
     if s is not None:
         s3 = _stacked(s)
         nb = s3.shape[-1]
-        _build.require(s3.dim() == 3 and tuple(s3.shape[:2]) == (lay, o),
+        _build.require(s3.dim() == 3 and tuple(s3.shape[:2]) == (lay, o) and nb > 0,
                        f"{what}: scales [L, O, NB]")
-        _build.require(nb > 0 and nb % 16 == 0 and i % nb == 0,
-                       f"{what}: NB % 16 == 0 and I % NB == 0")
-        _build.require(s3.dtype == torch.float32, f"{what}: f32 scales")
-        ts.append(s3)
+        if s8:
+            _build.require(xsc.dim() == 2 and tuple(xsc.shape) == (x.shape[0], nb),
+                           f"{what}: xsc [T, NB] beside scales [L, O, NB]")
+        else:
+            _build.require(nb % 16 == 0 and i % nb == 0, f"{what}: NB % 16 == 0 and I % NB == 0")
+        _build.require(s3.dtype == torch.float32 and (xsc is None or xsc.dtype == torch.float32),
+                       f"{what}: f32 scales")
+        ts += [s3] + ([xsc] if s8 else [])
     _build.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts),
-                   f"{what}: contiguous, 16-byte aligned x, w and scales")
+                   f"{what}: contiguous, 16-byte aligned operands")
     _build.require(all(t.device.type == "cuda" and t.device == x.device for t in ts),
                    f"{what}: CUDA tensors on one device (the plain versions take the CPU)")
     plan = plan_gemv(o, i, lay, _sm_count(x.device.index or 0))
     t = x.shape[0]
     y = torch.empty((lay, t, o), dtype=torch.float32, device=x.device)
-    part = (torch.empty((plan.nks, lay, t, o), dtype=torch.float32, device=x.device)
-            if plan.nks > 1 else None)
+    part = (torch.empty((plan.nks, lay, t, o), dtype=torch.int32 if s8 else torch.float32,
+                        device=x.device) if plan.nks > 1 else None)
+    sp = 0 if s is None else ts[2].data_ptr()
+    pp = 0 if part is None else part.data_ptr()
     lib = _build.load("probes")
-    err = lib.lt_probe_gemv(x.data_ptr(), w3.data_ptr(), 0 if s is None else ts[2].data_ptr(),
-                            y.data_ptr(), 0 if part is None else part.data_ptr(), t, o, i, lay,
-                            nb, wkind, plan.nks, plan.ctas, _build.stream())
+    if s8:
+        err = lib.lt_probe_int8dot(x.data_ptr(), w3.data_ptr(), sp,
+                                   0 if xsc is None else xsc.data_ptr(), y.data_ptr(), pp, t, o,
+                                   i, lay, nb, plan.nks, plan.ctas, _build.stream())
+    else:
+        err = lib.lt_probe_gemv(x.data_ptr(), w3.data_ptr(), sp, y.data_ptr(), pp, t, o, i, lay,
+                                nb, wkind, plan.nks, plan.ctas, _build.stream())
     _build.check(lib, err, what)
     return y
 
@@ -183,26 +199,13 @@ def gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, wkind: int) -> torch
 
 def int8dot(xq: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None,
             xsc: torch.Tensor | None = None) -> torch.Tensor:
-    """y [L, T, O] f32 = f32((xq [T, I] . w[l]^T)_int32), times (s[l] . xsc^T)^T
-    where the block scales s [L, O, NB] and xsc [T, NB] are given."""
-    w3 = _stacked(w)
-    _check(xq, w3, "probe int8dot")
-    lay, o, i = w3.shape
-    _build.require(xq.dtype == torch.int8 and w3.dtype == torch.int8, "probe int8dot: int8")
-    nb, sp, xp = 0, 0, 0
-    if s is not None:
-        s3 = _stacked(s)
-        nb = s3.shape[-1]
-        _build.require(s3.dtype == xsc.dtype == torch.float32 and s3.is_contiguous()
-                       and xsc.is_contiguous() and tuple(s3.shape[:2]) == (lay, o)
-                       and tuple(xsc.shape) == (xq.shape[0], nb), "probe int8dot: scales")
-        sp, xp = s3.data_ptr(), xsc.data_ptr()
-    y = torch.empty((lay, xq.shape[0], o), dtype=torch.float32, device=xq.device)
-    lib = _build.load("probes")
-    err = lib.lt_probe_int8dot(xq.data_ptr(), w3.data_ptr(), sp, xp, y.data_ptr(), xq.shape[0],
-                               o, i, lay, nb, int(s is not None), _build.stream())
-    _build.check(lib, err, "probe int8dot")
-    return y
+    """y [L, T, O] f32 = f32((xq [T, I] . w[l]^T)_int32) for int8 xq and w [L,
+    O, I] (or [O, I]), times (s[l] . xsc^T)^T where the block scales s [L, O,
+    NB] (or [O, NB]) and xsc [T, NB] are given (both or neither), f32; on the
+    tensor-core GEMV's int8 kind (W_S8): int32 sums, exact."""
+    _build.require((s is None) == (xsc is None), "probe int8dot: block scales s and xsc, "
+                   "both or neither")
+    return _gemv(xq, w, s, W_S8, "probe int8dot", xsc)
 
 
 def stream(w: torch.Tensor, x: torch.Tensor, ch: int, depth: int, mode: int, nr: int, nc: int,

@@ -154,6 +154,17 @@ It runs every phase, needs one card, and exits non-zero
             (K14 int8) and f32 KV at 8192 (K14 f32), with all 16 greedy ids
             equal.
 
+graph_decode, inside the phases above: every decode window on the card is
+replays of a captured CUDA graph of one step (runtime/decode_graph.py). For
+the main path, the one-lane and 8-lane dense BatchEngine, 32k bf16 and int8,
+the Q8_0 GGUF, paged serving at 8 lanes, paged MoE and Phi-3-medium at 24
+and 32 lanes, a greedy and a sampled 16-step window from the graph equal the
+same windows run eagerly (the engines' private `_graphs._eager_windows`)
+from one prefilled cache and generator state, their launches equal 16 x the
+launches each capture recorded, and the eager and graph windows are traced:
+device busy ms, idle share and tok/s, beside the capture's seconds and the
+graph pool's bytes (one `graph_decode:` log line at the end).
+
 Every path's launch counts are set to 0 just before it is driven and read
 just after. Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
@@ -2705,6 +2716,7 @@ def drive_long(engine, prompt: list[int], tg: int, want_fn, label: str) -> dict:
     res["decode16_trace"] = tr = device_breakdown(
         lambda: engine.decode_window_run(out[-1], pos, 16))
     tr["launches"] = {k: f.launches for k, f in fns.items()}
+    res["next"] = [out[-1], pos]  # where the window after the run starts
     # the prompt's last chunk again (the same rows rewritten with the same
     # values): where a prefill chunk's time goes at the end of the cache
     c = engine.prefill_chunk
@@ -2758,6 +2770,7 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
     out = {"main": drive_engine(engine, prompt, tg, lambda n: {
         "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "layer_attn_tail_fused_rowq": L * n,
         "rowq_gemm": 4 * L}, "main")}
+    out["main"]["graph"] = graph_decode(engine, "main")
     # a one-lane BatchEngine on the same weights: its positions live on the
     # device, and K3 reads them there, so it takes K3 every layer and step
     # where the JAX BatchEngine takes its megakernel
@@ -2766,6 +2779,7 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
     out["batch1"] = drive_batch(lane, [prompt[:100]], 32, lambda steps, chunks: dict(
         rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
         layer_attn_tail_fused_rowq=L * steps, rowq_gemm=4 * L * chunks), "one-lane batch")
+    out["batch1"]["graph"] = graph_decode(lane, "batch1")
     del lane
 
     def want(kernel):  # per decode step K2 = K9 = K14 (or K15, K6-int8) = L, K1 = 1
@@ -2790,6 +2804,7 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
             ("longctx_int8", torch.int8, "decode_attention_split_fused_write_q")):
         configure(engine, 32768, cdt, 512, 128)
         out[label] = drive_long(engine, long_prompt, 128, want(kernel), label)
+        out[label]["graph"] = graph_decode(engine, label, start=out[label]["next"])
     a, b = out["longctx"]["tokens"], out["longctx_int8"]["tokens"]
     out["longctx_int8"]["first_diff_vs_bf16"] = next(
         (i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -2945,6 +2960,7 @@ def run_gguf_path(dev, workdir: Path, overrides=None) -> dict:
         "block_matmul": (4 * L + 1) * (1 + n), "decode_attention_fused_write": L * n}, "gguf"))
     require_kernels(res, "gguf", {"prefill_trace": ("bq_wgmma_kernel",),
                                   "decode16_trace": ("rtc::K5>",)})
+    res["graph"] = graph_decode(engine, "gguf")
     del engine
     # 3. sampled at the family's defaults, twice with one seed
     ids = model.chat_format.build_prompt([Message(Role.USER, "Why is the sky blue?")])
@@ -3139,6 +3155,125 @@ def decode_window_trace(engine, prompt_len: int = 128, window: int = 16,
     return tr
 
 
+def graph_pool_bytes(pool) -> int | None:
+    """Bytes of the device segments of a CUDA graph memory pool (the
+    allocator's snapshot), or None where the snapshot names no pools."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def graph_table(paths: dict) -> dict:
+    """Eager against graph windows of every path that ran graph_decode, one
+    log line: device busy ms, idle share and tok/s of each traced window."""
+    rows = {}
+    for label, p in paths.items():
+        g = p.get("graph") if isinstance(p, dict) else None
+        if g:
+            rows[label] = {f"{side}_{k}": g[f"{side}_trace"][k] for side in ("eager", "graph")
+                           for k in ("busy_ms", "idle_share", "tok_s")}
+            rows[label].update(lanes=g["lanes"], capture_s=g["greedy"]["capture_s"],
+                               pool_bytes=g["pool_bytes"])
+    log("graph_decode: " + json.dumps(rows))
+    return rows
+
+
+def graph_decode(engine, label: str, prompt_len: int = 128, window: int = 16,
+                 start=None) -> dict:
+    """Decode windows from a captured graph against the same windows run
+    eagerly on the card (the engine's private `_graphs._eager_windows`), from
+    one prefilled cache: every lane prefilled with `prompt_len` seeded tokens
+    (or, for an Engine, `start` = (token, pos) on the cache as it is), then
+    `window` steps from the same tokens and positions each time (a window
+    rewrites the rows the one before it wrote, with the same values).
+    - greedy: the graph's tokens equal the eager window's;
+    - sampled (temperature 0.8, top-p 0.95): from one generator state, the
+      graph window equals the eager window and a second graph window;
+    - launches: each graph window counts `window` times the launches its
+      capture recorded, and so does the eager window, launch by launch;
+    - traced greedy windows, eager and graph: device busy ms, idle share,
+      tok/s (B * window over the traced wall time); the capture's seconds
+      and the graph pool's bytes."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.runtime.decode_graph import switches
+
+    batched = hasattr(engine, "prefill_lane")
+    b = engine.batch_size if batched else 1
+    rng = np.random.default_rng(11)
+    vocab = min(128000, engine.cfg.vocab_size)
+    prompts = [rng.integers(0, vocab, prompt_len).tolist() for _ in range(b)]
+    if batched:
+        engine.reset()
+        toks = np.array([engine.prefill_lane(i, p) for i, p in enumerate(prompts)], np.int32)
+        pos = np.full(b, prompt_len, np.int32)
+        assert engine.decode_window >= window, f"{label}: decode window {engine.decode_window}"
+
+        def run(temp):
+            t = None if temp == 0 else np.full(b, temp, np.float32)
+            p = None if temp == 0 else np.full(b, 0.95, np.float32)
+            return np.asarray(engine.decode_window_run(toks, pos, np.ones(b, bool), temps=t,
+                                                       topps=p, limit=window))
+    else:
+        if start is None:
+            engine.reset()
+            start = (int(engine.prefill(prompts[0])[0][0]), prompt_len)
+        tok0, pos0 = start
+
+        def run(temp):
+            out = engine.decode_window_run(tok0, pos0, window, temperature=temp, top_p=0.95)
+            assert len(out) == window, f"{label}: {len(out)} of {window} tokens"
+            return np.asarray(out)
+    fns = counters()
+
+    def counted(temp):
+        for f in fns.values():
+            f.launches = 0
+        out = run(temp)
+        return out, {k: f.launches for k, f in fns.items() if f.launches}
+
+    res = {"lanes": b, "window": window}
+    gen = engine.generator
+    for mode, temp in (("greedy", 0.0), ("sampled", 0.8)):
+        state = gen.get_state()
+        graph, graph_n = counted(temp)  # captures the mode's step where it has none
+        gen.set_state(state)
+        again, _ = counted(temp)
+        gen.set_state(state)
+        with engine._graphs._eager_windows():
+            eager, eager_n = counted(temp)
+        cap = engine._graphs.graphs[(temp != 0.0, switches())]
+        want = {k: cap.counts[f] * window for k, f in fns.items() if f in cap.counts}
+        assert np.array_equal(graph, eager), f"{label} {mode}: graph {graph} != eager {eager}"
+        assert np.array_equal(graph, again), f"{label} {mode}: graph windows differ"
+        assert graph_n == want == eager_n, \
+            f"{label} {mode}: launches graph {graph_n}, eager {eager_n}, captured x {window} {want}"
+        assert want, f"{label} {mode}: the captured step counted no kernel launch"
+        res[mode] = dict(tokens=graph.tolist(), launches=graph_n, capture_s=cap.seconds)
+    res["pool_bytes"] = graph_pool_bytes(engine._graphs.pool)
+    with engine._graphs._eager_windows():
+        eager_tr = device_breakdown(lambda: run(0.0))
+    graph_tr = device_breakdown(lambda: run(0.0))
+    for key, tr in (("eager_trace", eager_tr), ("graph_trace", graph_tr)):
+        tr["tok_s"] = b * window / (tr["wall_ms"] / 1e3)
+        res[key] = tr
+    pool = res["pool_bytes"]
+    log(f"{label}: graph decode, {b} lane(s) x {window} steps: graph == eager (greedy and "
+        f"sampled), launches {res['greedy']['launches']} = {window} x captured; capture "
+        f"{res['greedy']['capture_s']:.3f} s (greedy) {res['sampled']['capture_s']:.3f} s "
+        f"(sampled), pool {'not measured' if pool is None else f'{pool / 1e6:.1f} MB'}")
+    log(f"{label}: traced {window}-step window: eager busy {eager_tr['busy_ms']:.3f} ms idle "
+        f"{eager_tr['idle_share']:.3f} {eager_tr['tok_s']:.1f} tok/s | graph busy "
+        f"{graph_tr['busy_ms']:.3f} ms idle {graph_tr['idle_share']:.3f} "
+        f"{graph_tr['tok_s']:.1f} tok/s")
+    engine.reset()
+    return res
+
+
 def run_serving_path(dev, path: Path, rowq: bool, latency: bool, label: str | None = None,
                      want_fn=None, extra=()) -> dict:
     """`llamatpu_torch.cli serve -m <gguf> --batch-size 8 --paged -n 2048
@@ -3219,6 +3354,8 @@ def run_serving_path(dev, path: Path, rowq: bool, latency: bool, label: str | No
         f"{tr['wall_ms']:.3f} ms (idle share {tr['idle_share']:.3f}); generate_batch "
         f"aggregate decode {tr['agg_decode_tok_s']:.1f} tok/s; top "
         f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:6]]}")
+    if label == "serve":  # the graph against the eager window at the 8 lanes
+        res["graph"] = graph_decode(engine, label)
     if latency:
         t0 = time.perf_counter()
         lat = run_latency_bench(engine, n_requests=16, prompt_len=128, max_new=64,
@@ -3282,6 +3419,7 @@ def run_dense_batch_path(dev, overrides=None) -> dict:
         rowq_gemv=steps + chunks, qkv_norm_fused_rowq=L * steps,
         decode_attention_fused_write=L * steps, layer_tail_fused_rowq=L * steps,
         rowq_gemm=4 * L * chunks), "dense batch")
+    res["graph"] = graph_decode(engine, "dense_batch")
     del engine, model
     torch.cuda.empty_cache()
     return res
@@ -3763,7 +3901,8 @@ def host_rss_gb() -> float:
 
 def experts_per_layer(engine, toks, pos) -> list[int]:
     """Distinct experts each layer's grouped calls use in one 8-lane decode
-    step (the tile tables read on the host, outside every timed run)."""
+    step (the tile tables read on the host, outside every timed run, in an
+    eager step: a graph replay runs no host code)."""
     import numpy as np
 
     from llamatpu_torch.ops import moe_grouped as mg
@@ -3777,7 +3916,8 @@ def experts_per_layer(engine, toks, pos) -> list[int]:
         return out
     mg.sort_by_expert = spy
     try:
-        engine.decode_window_run(toks, pos, np.ones(len(toks), bool), limit=1)
+        with engine._graphs._eager_windows():
+            engine.decode_window_run(toks, pos, np.ones(len(toks), bool), limit=1)
     finally:
         mg.sort_by_expert = inner
     return seen
@@ -3885,6 +4025,7 @@ def run_moe_paths(dev, overrides=None, n_layers=None) -> dict:
         f"{tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms (idle share {tr['idle_share']:.3f}), "
         f"aggregate decode {tr['agg_decode_tok_s']:.1f} tok/s; distinct experts per layer at "
         f"8 lanes {res['experts_per_layer']}")
+    res["graph"] = graph_decode(engine, "moe_paged")
     out["moe_paged"] = res
     del engine, model
     torch.cuda.empty_cache()
@@ -3969,18 +4110,31 @@ def write_qwen_moe_gguf(model, path, quant: str = "q8_0") -> None:
 
 
 def count_forwards():
-    """Wrap the Engine's forward_tokens to count its calls: (restore, counts
-    {"chunks": prefill windows, "steps": one-token decode steps})."""
+    """Wrap the Engine's forward_tokens and decode_window_run to count its
+    prefill windows and its decode steps (a window's graph replays, read
+    from `Engine.decode_steps`): (restore, counts {"chunks", "steps"})."""
     from llamatpu_torch.runtime import engine as engine_mod
 
-    inner = engine_mod.forward_tokens
+    inner, inner_window = engine_mod.forward_tokens, engine_mod.Engine.decode_window_run
     counts = {"chunks": 0, "steps": 0}
 
     def counted(cfg, weights, tokens, *a, **kw):
-        counts["steps" if tokens.shape[1] == 1 else "chunks"] += 1
+        if tokens.shape[1] > 1:
+            counts["chunks"] += 1
         return inner(cfg, weights, tokens, *a, **kw)
+
+    def window(self, *a, **kw):
+        before = self.decode_steps
+        out = inner_window(self, *a, **kw)
+        counts["steps"] += self.decode_steps - before
+        return out
+
+    def restore():
+        engine_mod.forward_tokens = inner
+        engine_mod.Engine.decode_window_run = inner_window
     engine_mod.forward_tokens = counted
-    return (lambda: setattr(engine_mod, "forward_tokens", inner)), counts
+    engine_mod.Engine.decode_window_run = window
+    return restore, counts
 
 
 def cli_run(dev, path, extra=()) -> dict:
@@ -4167,8 +4321,14 @@ def run_harness_paths(dev, dims=LLAMA32_1B) -> dict:
     - dma_sweep: K19's rows on the same stacks."""
     import torch
 
+    import gc
+
     from llamatpu_torch.bench import bench_gemm, dma_sweep, roofline, sweep_tail
 
+    # the earlier phases' engines left in reference cycles (services, their
+    # threads) hold decode graphs: free them now, not by a collection during a
+    # harness's capture (global mode), which destroying a graph invalidates
+    gc.collect()
     fns = counters()
     out = {}
 
@@ -4657,6 +4817,8 @@ def run_phi3_paths(dev, n_layers=None) -> dict:
         prompts = [rng.integers(0, V, int(n)).tolist() for n in rng.integers(33, 128, lanes)]
         out[label] = drive_batch(engine, prompts, 16, want, label)
         tail_share(out[label], label)
+        if label in ("phi3_b24", "phi3_b32"):
+            out[label]["graph"] = graph_decode(engine, label, prompt_len=64)
         del engine
         torch.cuda.empty_cache()
     del served
@@ -4863,6 +5025,7 @@ def main() -> int:
             if r["name"] == "layer_tail_fused_rowq":  # K3's tail at T = 1, beside K9's
                 r["k3_in_path_ms"] = in_path_ms(paths, "layer_attn_tail_fused_rowq")
         summary["cpu"] = run_cpu_compare(dev, workdir)
+        summary["graph_decode"] = graph_table(paths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         while LOG_FILES:

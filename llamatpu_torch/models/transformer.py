@@ -421,8 +421,10 @@ def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache, pos,
     """Run T tokens at absolute positions pos..pos+T-1 through the model.
 
     tokens: int [B, T] on the weights' device. pos: a host int (every lane
-    at the same start) or an int [B] vector on the device (per-lane starts,
-    read on the card). cache: KVCache, or PagedKVCache with `tables`
+    at the same start: prefill) or an int [B] vector on the device
+    (per-lane starts, read on the card: every decode step, whose CUDA graph
+    would bake a host int into its kernels' arguments and the cache
+    writes' slices). cache: KVCache, or PagedKVCache with `tables`
     [B, MAXBLK] int32 block tables on the device. batch_offset (dense cache
     only): the window's B rows are cache rows [batch_offset, batch_offset +
     B), e.g. one lane's prefill into the batched cache. The cache is written

@@ -379,7 +379,11 @@ def stripe_shares(pos: int, s: int, plan: StripePlan,
 # per (device, stream): the heads' arrival counters of a stripe launch with P
 # > 1, zero between launches (each launch's last cluster resets its head's);
 # a larger buffer replaces a smaller one, which stays allocated in _RETIRED
-# for CUDA graphs that captured its address
+# for CUDA graphs that captured its address. A decode graph captures on its
+# engine's own side stream, after a warm-up there made the buffer outside
+# the graph's pool (runtime/decode_graph.py); graphs that share a buffer
+# replay one after another on the caller's stream, each launch leaving it
+# zero
 _ARRIVED: dict = {}
 _RETIRED: list = []
 _ARRIVED_LOCK = threading.Lock()

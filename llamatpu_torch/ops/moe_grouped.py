@@ -85,9 +85,10 @@ def sort_by_expert(top_i: torch.Tensor, n_experts: int, tm: int):
     eid = top_i.reshape(nk).long()
     sort_idx = torch.argsort(eid, stable=True)
     eid_s = eid[sort_idx]
-    # per-expert group starts and counts from the sorted ids (no bincount)
+    # per-expert group starts and counts from the sorted ids (no bincount;
+    # the last end made on the device: no host data in a captured step)
     starts = torch.searchsorted(eid_s, torch.arange(n_experts, device=dev))
-    counts = torch.cat([starts[1:], torch.tensor([nk], device=dev)]) - starts
+    counts = torch.cat([starts[1:], starts.new_full((1,), nk)]) - starts
     padded = (counts + tm - 1) // tm * tm
     grp_start = torch.cumsum(padded, 0) - padded
     j = torch.arange(nk, device=dev)

@@ -16,6 +16,13 @@ sampling.py `sample_dynamic`, llamatpu/runtime/batch_engine.py
 `_sample_lanes`): temperature and top-p are per-lane tensors [B] on the
 logits' device, so a batched decode step samples with no host sync; lanes at
 temperature 0 take the argmax.
+
+The decode step (runtime/decode_graph.py) samples through `sample_lanes`
+only, with temperature and top-p read from device tensors, so a captured
+step bakes in no sampling value: `any_sampled=False` is the greedy step form
+(no draw), True the sampled form (a draw from the generator registered with
+the graph). `is_stop` is its stop check, a compare against a fixed-size stop
+vector.
 """
 from __future__ import annotations
 
@@ -92,3 +99,10 @@ def sample_lanes(logits: torch.Tensor, temperatures: torch.Tensor, top_ps: torch
         return greedy_ids
     return torch.where(temperatures == 0.0, greedy_ids,
                        sample_dynamic(logits, temperatures, top_ps, generator))
+
+
+def is_stop(ids: torch.Tensor, stops: torch.Tensor) -> torch.Tensor:
+    """ids [...] against the stop vector [N] (padded with -1, which no id
+    is): [...] bool. A broadcast compare, where `torch.isin` may take a path
+    whose output size depends on the data."""
+    return (ids[..., None] == stops.to(ids.dtype)).any(-1)

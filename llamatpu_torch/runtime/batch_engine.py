@@ -17,9 +17,12 @@ Per-lane semantics:
   interleaved chunked prefill another request may be mid-prefill in that
   lane, and a write at its stale position would corrupt the fresh KV.
 
-The JAX package's device loop (`lax.while_loop`) exits early once every lane
-has stopped; the eager window runs all `limit` steps with the stopped lanes
-parked, and the slab is the same.
+A window is one step over static state (runtime/decode_graph.py), run
+eagerly on the CPU and replayed as a captured CUDA graph on the card, one
+graph per sampling mode (all lanes greedy, or any lane sampled). The JAX
+package's device loop (`lax.while_loop`) exits early once every lane has
+stopped; a window here runs all `limit` steps with the stopped lanes parked,
+and the slab is the same. `reset()` zeroes the cache in place.
 """
 from __future__ import annotations
 
@@ -33,27 +36,19 @@ from llamatpu_torch.models.transformer import (forward_tokens, init_cache, pad_c
                                                physical_cache_len)
 from llamatpu_torch.models.weights import serving_weights
 from llamatpu_torch.ops import sampling
+from llamatpu_torch.runtime.decode_graph import StepGraphs, stop_ids, tensors_key, zeroed_cache
 from llamatpu_torch.runtime.engine import resolve_device
 from llamatpu_torch.utils.metrics import RunMetrics, Timer
 
 
-def stops_tensor(stop_tokens, device, pad_to: int = 8) -> torch.Tensor:
-    """Fixed-size stop-token vector padded with -1 (the JAX package's
-    `Engine._stops_array`): no emitted id is -1, so padding never matches."""
-    stops = sorted(stop_tokens)[:pad_to]
-    arr = np.full((pad_to,), -1, np.int64)
-    arr[:len(stops)] = stops
-    return torch.from_numpy(arr).to(device)
-
-
-def lane_params(engine, temps, topps):
-    """Per-lane temperature and top-p as device tensors, and whether any lane
-    samples (all-greedy windows skip the draw)."""
+def window_inputs(engine, temps, topps):
+    """Per-lane temperature and top-p as host arrays [B], and whether any
+    lane samples (all-greedy windows take the greedy step, which skips the
+    draw)."""
     b = engine.batch_size
     t = np.zeros(b, np.float32) if temps is None else np.asarray(temps, np.float32)
     p = np.zeros(b, np.float32) if topps is None else np.asarray(topps, np.float32)
-    dev = engine.device
-    return (torch.from_numpy(t).to(dev), torch.from_numpy(p).to(dev), bool((t != 0).any()))
+    return t, p, bool((t != 0).any())
 
 
 def prefill_chunks(engine, tokens: list[int], start_pos: int, temperature: float,
@@ -168,13 +163,18 @@ class BatchEngine:
         self.decode_steps = 0    # device decode steps run (all lanes at once)
         self.prefill_chunks = 0  # lane prefill chunks run
         self.cache = self._new_cache()
+        self._graphs = StepGraphs(self.device, self.metrics)
 
     def _new_cache(self):
         return init_cache(self.cfg, self.batch_size, self.cache_dtype,
                           physical_cache_len(self.cache_len, self.prefill_chunk), self.device)
 
     def reset(self) -> None:
-        self.cache = self._new_cache()
+        """A zero cache: zeroed in place while its geometry holds (the
+        captured steps keep their addresses), else allocated anew."""
+        self.cache = zeroed_cache(self.cache, physical_cache_len(self.cache_len,
+                                                                 self.prefill_chunk),
+                                  self.cache_dtype, self._new_cache, self._graphs)
 
     def prefill_lane(self, lane: int, tokens: list[int], start_pos: int = 0,
                      temperature: float = 0.0, top_p: float = 0.0) -> int:
@@ -189,6 +189,25 @@ class BatchEngine:
 
         return prefill_chunks(self, tokens, start_pos, temperature, top_p, forward)
 
+    def _step(self, sampled: bool) -> None:
+        """One decode step of every lane over the static state: inactive lanes
+        re-feed their last token with their KV write parked in the last
+        physical row; out[step] = the sampled ids (-1 for inactive lanes);
+        a lane stops at a stop id or two rows before cache_len."""
+        st = self._graphs.state
+        park = self.cache.kv.shape[3] - 1
+        logits, _ = forward_tokens(self.cfg, self.weights, st.tok[:, None], self.cache,
+                                   torch.where(st.act, st.pos, park), last_logit_only=True,
+                                   s_limit=self.cache_len)
+        nxt = sampling.sample_lanes(logits, st.temps, st.topps, self.generator, sampled)
+        nxt = torch.where(st.act, nxt, st.tok)  # inactive lanes re-feed their last token
+        st.record(torch.where(st.act, nxt, -1))
+        stopped = sampling.is_stop(nxt, st.stops)
+        bounded = st.pos + 2 < self.cache_len
+        st.pos.copy_(torch.where(st.act, st.pos + 1, st.pos))
+        st.act &= ~stopped & bounded
+        st.tok.copy_(nxt)
+
     def decode_window_run(self, tokens: np.ndarray, pos: np.ndarray, active: np.ndarray,
                           stop_tokens=frozenset(), temps=None, topps=None,
                           limit: int | None = None) -> np.ndarray:
@@ -196,31 +215,16 @@ class BatchEngine:
         Returns the [decode_window, B] int32 token slab (-1 = lane inactive
         at that step); the caller derives each lane's new tokens and position
         from it."""
-        limit = self.decode_window if limit is None else min(limit, self.decode_window)
-        dev = self.device
-        temps_d, topps_d, any_sampled = lane_params(self, temps, topps)
-        stops = stops_tensor(stop_tokens, dev)
-        tok = torch.from_numpy(np.asarray(tokens, np.int64)).to(dev)
-        posd = torch.from_numpy(np.asarray(pos, np.int32)).to(dev)
-        act = torch.from_numpy(np.asarray(active, bool)).to(dev)
-        park = torch.full_like(posd, self.cache.kv.shape[3] - 1)
-        out = torch.full((self.decode_window, self.batch_size), -1, dtype=torch.int32,
-                         device=dev)
-        for i in range(max(limit, 0)):
-            logits, self.cache = forward_tokens(self.cfg, self.weights, tok[:, None],
-                                                self.cache, torch.where(act, posd, park),
-                                                last_logit_only=True, s_limit=self.cache_len)
-            self.decode_steps += 1
-            nxt = sampling.sample_lanes(logits, temps_d, topps_d, self.generator,
-                                        any_sampled).long()
-            nxt = torch.where(act, nxt, tok)  # inactive lanes re-feed their last token
-            out[i] = torch.where(act, nxt, -1).to(torch.int32)
-            stopped = torch.isin(nxt, stops)
-            bounded = posd + 2 < self.cache_len
-            posd = torch.where(act, posd + 1, posd)
-            act = act & ~stopped & bounded
-            tok = nxt
-        return out.cpu().numpy()  # the window's one device-to-host copy
+        limit = max(0, self.decode_window if limit is None else min(limit, self.decode_window))
+        temps, topps, sampled = window_inputs(self, temps, topps)
+        st = self._graphs.state_for(self.batch_size, self.decode_window)
+        geometry = (tensors_key(self.cache.kv, self.cache.scale), self.cache_len)
+        run = self._graphs.runner(geometry, sampled, lambda: self._step(sampled),
+                                  st.act.zero_, self.generator)
+        st.fill(tokens, pos, active, temps, topps, stop_ids(stop_tokens))
+        run(limit)
+        self.decode_steps += limit
+        return st.out.cpu().numpy()  # the window's one device-to-host copy
 
     def generate_batch(self, prompts, max_new_tokens, stop_tokens=frozenset(), temps=None,
                        topps=None):

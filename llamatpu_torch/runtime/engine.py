@@ -14,11 +14,17 @@ The port of llamatpu/runtime/engine.py `Engine`:
   `_resolve_sampling` does in the JAX package;
 - the KV cache is updated IN PLACE (the JAX package donated it).
 
-Within a window every step is enqueued without waiting for the device, so a
-stop token does not end the window early: the steps after it still run, and
-their cache rows lie past the returned length (overwritten before they are
-attended, as with padded prefill rows). Capturing the decode step in a CUDA
-graph is a later slice of the port.
+A decode window is one step over static state (runtime/decode_graph.py):
+run eagerly `limit` times on the CPU, captured once as a CUDA graph and
+replayed `limit` times on the card. With `aot_compile` (the default, as in
+the JAX package) the default sampling mode's step is captured at
+construction and its time recorded in `metrics.compile_s`. A window runs all
+its steps: a stop token does not end it early (the JAX `while_loop` does),
+and the steps after it write cache rows past the returned length
+(overwritten before they are attended, as with padded prefill rows).
+`reset()` zeroes the cache in place, so the captured addresses stay valid;
+a new geometry (`cache_len`, `prefill_chunk`, `cache_dtype` changed) gets a
+new cache and new graphs.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from llamatpu_torch.models.transformer import (forward_tokens, init_cache, pad_c
                                                physical_cache_len)
 from llamatpu_torch.models.weights import serving_weights
 from llamatpu_torch.ops import sampling
+from llamatpu_torch.runtime.decode_graph import StepGraphs, stop_ids, tensors_key, zeroed_cache
 from llamatpu_torch.utils.metrics import RunMetrics, Timer
 
 
@@ -67,6 +74,7 @@ class Engine:
         rowq_experts: bool | None = None,
         device: str | torch.device | None = None,
         metrics: RunMetrics | None = None,
+        aot_compile: bool = True,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -86,13 +94,25 @@ class Engine:
                 torch.cuda.synchronize(self.device)
         self.metrics.weight_upload_s = t.elapsed
         self.cache = self._new_cache()
+        self.decode_steps = 0  # device decode steps run (BatchEngine's counter)
+        self._graphs = StepGraphs(self.device, self.metrics)
+        if aot_compile and self.device.type == "cuda":
+            # the default mode's decode step, captured ahead of the first window
+            self._window(self.default_temperature != 0.0)
+            self.reset()
 
     def _new_cache(self):
         plen = physical_cache_len(self.cache_len, self.prefill_chunk)
         return init_cache(self.cfg, 1, self.cache_dtype, plen, self.device)
 
     def reset(self, seed: int | None = None) -> None:
-        self.cache = self._new_cache()
+        """A zero cache, as the JAX package's fresh one: zeroed in place
+        while its geometry holds (the captured steps keep their addresses),
+        else allocated anew for the engine's current cache_len,
+        prefill_chunk and cache_dtype."""
+        self.cache = zeroed_cache(self.cache, physical_cache_len(self.cache_len,
+                                                                 self.prefill_chunk),
+                                  self.cache_dtype, self._new_cache, self._graphs)
         if seed is not None:
             self.generator.manual_seed(seed)
 
@@ -134,6 +154,36 @@ class Engine:
             i += r
         return tok, logits
 
+    def _step(self, sampled: bool) -> None:
+        """One decode step over the static state: the forward at the device
+        position, the sample (greedy, or a draw with the state's temperature
+        and top-p), out[step], the count of tokens up to the first stop, and
+        the next token and position. No host value is read."""
+        st = self._graphs.state
+        logits, _ = forward_tokens(self.cfg, self.weights, st.tok.view(1, 1), self.cache, st.pos,
+                                   last_logit_only=True, s_limit=self.cache_len)
+        nxt = sampling.sample_lanes(logits, st.temps, st.topps, self.generator, sampled)
+        st.record(nxt)
+        st.count += (~st.done).to(torch.int32)
+        st.done |= sampling.is_stop(nxt, st.stops)
+        st.tok.copy_(nxt)
+        st.pos += 1
+
+    def _park(self) -> None:
+        """The warm-up step's state: the last physical row, which no query
+        attends (the cache's slack past cache_len)."""
+        st = self._graphs.state
+        st.pos.fill_(self.cache.kv.shape[3] - 1)
+        st.tok.zero_()
+
+    def _window(self, sampled: bool):
+        """The runner of this window's steps (runtime/decode_graph.py),
+        capturing the step for the current geometry and mode if needed."""
+        self._graphs.state_for(1, self.decode_window)
+        geometry = (tensors_key(self.cache.kv, self.cache.scale), self.cache_len)
+        return self._graphs.runner(geometry, sampled, lambda: self._step(sampled), self._park,
+                                   self.generator)
+
     def decode_window_run(self, token: int, pos: int, limit: int,
                           stop_tokens=frozenset(), temperature=None, top_p=None) -> list[int]:
         """One decode window: up to `limit` (<= decode_window) tokens after
@@ -143,24 +193,13 @@ class Engine:
         limit = min(limit, self.decode_window, self.cache_len - pos - 1)
         if limit <= 0:
             return []
-        dev = self.device
-        stops = (torch.tensor(sorted(stop_tokens), dtype=torch.int32, device=dev)
-                 if stop_tokens else None)
-        tok = torch.full((1, 1), token, dtype=torch.int64, device=dev)
-        out = torch.empty(limit + 1, dtype=torch.int32, device=dev)  # ids, then count
-        count = torch.zeros((), dtype=torch.int32, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        for i in range(limit):
-            nxt = self._sample(self._forward(tok, pos + i, last_logit_only=True),
-                               temp, top_p)
-            out[i] = nxt[0]
-            count += (~done).to(torch.int32)
-            if stops is not None:
-                done |= torch.isin(nxt, stops).any()
-            tok = nxt.view(1, 1)
-        out[limit] = count
-        host = out.cpu().tolist()  # the window's one device-to-host copy
-        return host[:host[limit]]
+        run = self._window(temp != 0.0)
+        st = self._graphs.state
+        st.fill([token], [pos], [True], [temp], [top_p], stop_ids(stop_tokens))
+        run(limit)
+        self.decode_steps += limit
+        host = torch.cat([st.out[:, 0], st.count]).cpu().tolist()  # the one device-to-host copy
+        return host[:host[-1]]
 
     def decode_step(self, token: int, pos: int, temperature=None, top_p=None) -> int:
         out = self.decode_window_run(token, pos, 1, frozenset(), temperature, top_p)

@@ -6,10 +6,12 @@ but the KV lives in a PagedKVCache: the host BlockAllocator grows each
 lane's block table on demand (prefill chunks, decode windows) and recycles
 blocks when a lane finishes, so memory is bounded by the tokens in flight,
 not lanes x max context. The block tables go to the device once per decode
-window and once per prefill chunk. Decode attention is K8 (ops/attention.py)
-through the tables; an inactive lane's table row is the trash block for the
-whole window, so its stale-position writes can land in no other request's
-blocks (`paged_engine.py:117-118`).
+window (a copy into the step's static [B, MAXBLK] tables, after the host
+allocator has grown them) and once per prefill chunk. Decode attention is K8
+(ops/attention.py) through the tables; an inactive lane's table row is the
+trash block, so its stale-position writes can land in no other request's
+blocks (`paged_engine.py:117-118`). A window is one step over static state
+(runtime/decode_graph.py), replayed as a captured CUDA graph on the card.
 
 With prefix_cache=True (the default) admission maps cached full blocks of
 the prompt into the lane's table and prefills only the novel suffix; release
@@ -26,8 +28,8 @@ from llamatpu_torch.models.loader import LoadedModel
 from llamatpu_torch.models.transformer import forward_tokens
 from llamatpu_torch.models.weights import serving_weights
 from llamatpu_torch.ops import sampling
-from llamatpu_torch.runtime.batch_engine import (generate_batch, lane_params, prefill_chunks,
-                                                 stops_tensor)
+from llamatpu_torch.runtime.batch_engine import generate_batch, prefill_chunks, window_inputs
+from llamatpu_torch.runtime.decode_graph import StepGraphs, stop_ids, tensors_key
 from llamatpu_torch.runtime.engine import resolve_device
 from llamatpu_torch.runtime.paged_cache import BlockAllocator, block_hashes, init_paged_cache
 from llamatpu_torch.utils.metrics import RunMetrics, Timer
@@ -79,6 +81,9 @@ class PagedBatchEngine:
         self.prefill_chunks = 0  # lane prefill chunks run
         self.cache = init_paged_cache(self.cfg, self.n_blocks, block_size, cache_dtype,
                                       self.device)
+        self._graphs = StepGraphs(self.device, self.metrics)
+        self._tables_d = torch.empty(self.alloc.tables.shape, dtype=torch.int32,
+                                     device=self.device)  # the step's static tables
 
     # -- scheduler hooks ---------------------------------------------------
     def can_admit(self, prompt_len: int) -> bool:
@@ -155,37 +160,39 @@ class PagedBatchEngine:
                             - int(pos[b]) - 2)
         if limit <= 0:
             return np.full((self.decode_window, b_size), -1, np.int32)
-        dev = self.device
-        temps_d, topps_d, any_sampled = lane_params(self, temps, topps)
-        stops = stops_tensor(stop_tokens, dev)
-        tables = self._tables()  # the window's one host-to-device copy of the tables
-        trash = torch.full_like(tables, self.alloc.trash_block)
-        tok = torch.from_numpy(np.asarray(tokens, np.int64)).to(dev)
-        posd = torch.from_numpy(np.asarray(pos, np.int32)).to(dev)
-        act = torch.from_numpy(np.asarray(active, bool)).to(dev)
-        out = torch.full((self.decode_window, b_size), -1, dtype=torch.int32, device=dev)
-        for i in range(limit):
-            tbl = torch.where(act[:, None], tables, trash)
-            logits, self.cache = forward_tokens(self.cfg, self.weights, tok[:, None],
-                                                self.cache, posd, last_logit_only=True,
-                                                tables=tbl)
-            self.decode_steps += 1
-            nxt = sampling.sample_lanes(logits, temps_d, topps_d, self.generator,
-                                        any_sampled).long()
-            nxt = torch.where(act, nxt, tok)
-            out[i] = torch.where(act, nxt, -1).to(torch.int32)
-            posd = torch.where(act, posd + 1, posd)
-            act = act & ~torch.isin(nxt, stops)
-            tok = nxt
-        return out.cpu().numpy()  # the window's one device-to-host copy
+        temps, topps, sampled = window_inputs(self, temps, topps)
+        st = self._graphs.state_for(b_size, self.decode_window)
+        geometry = (tensors_key(self.cache.kv_pool, self.cache.scale), self.alloc.trash_block)
+        run = self._graphs.runner(geometry, sampled, lambda: self._step(sampled), st.act.zero_,
+                                  self.generator)
+        st.fill(tokens, pos, active, temps, topps, stop_ids(stop_tokens))
+        self._tables_d.copy_(torch.from_numpy(self.alloc.tables))  # the tables, once a window
+        run(limit)
+        self.decode_steps += limit
+        return st.out.cpu().numpy()  # the window's one device-to-host copy
+
+    def _step(self, sampled: bool) -> None:
+        """One decode step of every lane over the static state (BatchEngine's
+        step): an inactive lane's table row is the trash block."""
+        st = self._graphs.state
+        tables = torch.where(st.act[:, None], self._tables_d, self.alloc.trash_block)
+        logits, _ = forward_tokens(self.cfg, self.weights, st.tok[:, None], self.cache, st.pos,
+                                   last_logit_only=True, tables=tables)
+        nxt = sampling.sample_lanes(logits, st.temps, st.topps, self.generator, sampled)
+        nxt = torch.where(st.act, nxt, st.tok)
+        st.record(torch.where(st.act, nxt, -1))
+        st.pos.copy_(torch.where(st.act, st.pos + 1, st.pos))
+        st.act &= ~sampling.is_stop(nxt, st.stops)
+        st.tok.copy_(nxt)
 
     def generate_batch(self, prompts, max_new_tokens, stop_tokens=frozenset(), temps=None,
                        topps=None):
         return generate_batch(self, prompts, max_new_tokens, stop_tokens, temps, topps)
 
     def reset(self) -> None:
-        """A fresh allocator (lane tables and the prefix cache dropped) and a
-        zeroed pool."""
+        """A fresh allocator (lane tables and the prefix cache dropped) and the
+        pool zeroed in place (the captured steps keep their addresses)."""
         self.alloc = BlockAllocator(self.n_blocks, self.batch_size, self.max_blocks_per_lane)
-        self.cache = init_paged_cache(self.cfg, self.n_blocks, self.block_size,
-                                      self.cache_dtype, self.device)
+        self.cache.kv_pool.zero_()
+        if self.cache.scale is not None:
+            self.cache.scale.zero_()

@@ -1,7 +1,8 @@
-"""Run metrics of the engine: load, weight upload, prefill and decode phases,
-rendered human/json/github or appended to a file (the part of
-llamatpu/utils/metrics.py that the port fills; the JAX package's trace and
-compile phases have no counterpart here)."""
+"""Run metrics of the engine: load, weight upload, decode-step capture,
+prefill and decode phases, rendered human/json/github or appended to a file
+(the part of llamatpu/utils/metrics.py that the port fills; `compile_s` is
+the JAX package's field, here the seconds spent capturing decode steps as
+CUDA graphs, runtime/decode_graph.py; its trace phase has no counterpart)."""
 from __future__ import annotations
 
 import json
@@ -14,6 +15,7 @@ from dataclasses import dataclass, field
 class RunMetrics:
     load_s: float = 0.0
     weight_upload_s: float = 0.0
+    compile_s: float = 0.0  # decode-step warm-up and graph capture
     prefill_tokens: int = 0
     prefill_s: float = 0.0
     decode_tokens: int = 0
@@ -32,6 +34,7 @@ class RunMetrics:
         return {
             "load_s": round(self.load_s, 4),
             "weight_upload_s": round(self.weight_upload_s, 4),
+            "compile_s": round(self.compile_s, 4),
             "prefill_tokens": self.prefill_tokens,
             "prefill_s": round(self.prefill_s, 4),
             "prefill_tok_s": round(self.prefill_tok_s, 2),
@@ -55,8 +58,8 @@ class RunMetrics:
             for k, v in d.items():
                 print(f"::notice title=llamatpu_torch::{k}={v}", file=stream)
         else:
-            print(f"\nllamatpu_torch: load {d['load_s']:.2f}s | upload "
-                  f"{d['weight_upload_s']:.2f}s", file=stream)
+            print(f"\nllamatpu_torch: load {d['load_s']:.2f}s | compile {d['compile_s']:.2f}s | "
+                  f"upload {d['weight_upload_s']:.2f}s", file=stream)
             print(f"llamatpu_torch: prefill {d['prefill_tokens']} tok in {d['prefill_s']:.3f}s "
                   f"({d['prefill_tok_s']:.1f} tok/s) | decode {d['decode_tokens']} tok in "
                   f"{d['decode_s']:.3f}s ({d['decode_tok_s']:.1f} tok/s)", file=stream)

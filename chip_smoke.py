@@ -165,6 +165,18 @@ launches each capture recorded, and the eager and graph windows are traced:
 device busy ms, idle share and tok/s, beside the capture's seconds and the
 graph pool's bytes (one `graph_decode:` log line at the end).
 
+spec, inside the main path's phase (slice 21): a K = 8 speculative Engine
+on the main path's weights (cache 1024, prefill chunk 512) and the plain
+main-path Engine each generate tg128 greedy after bench/spec_bench.py's
+tiled 512-token prompt: the spec run launches K2 and K9 16 times and K1
+once a verify forward (K + 1 = 9 rows, no K3), its greedy tokens equal the
+plain ones or part at a logged bf16 argmax near-tie of the plain step;
+spec windows from the captured verify step equal the same windows run
+eagerly, greedy and sampled, with launches = forwards x captured; plain
+and spec tok/s, acceptance, forwards, rounds, parked forwards, traced
+windows, capture seconds and pool bytes are logged; then bench/spec_bench.py
+on the same weights as Q8_0 block quants (K5 = 65 a forward or chunk).
+
 Every path's launch counts are set to 0 just before it is driven and read
 just after. Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
@@ -2735,6 +2747,219 @@ def drive_long(engine, prompt: list[int], tg: int, want_fn, label: str) -> dict:
     return res
 
 
+SPEC_K = 8
+
+
+def spec_graph_decode(engine, prompt: list[int], window: int) -> dict:
+    """Speculative windows from the captured verify step against the same
+    windows run eagerly on the card, from one prefilled cache, id history
+    and generator state (the history is put back before each window: its
+    rows at and past pos feed the drafts), greedy and sampled (0.8 / 0.95):
+    the graph's tokens equal the eager window's and a second graph window's,
+    and each window's launches equal the forwards it ran x the capture's.
+    Then a traced greedy window from the graph: busy ms, idle share, tok/s;
+    the capture's seconds and the pool's bytes."""
+    import torch
+
+    from llamatpu_torch.runtime.decode_graph import switches
+
+    engine.reset()
+    tok0, pos0 = int(engine.prefill(prompt)[0][0]), len(prompt)
+    ids0 = engine._ids.clone()
+    fns = counters()
+
+    def run(temp):
+        engine._ids.copy_(ids0)
+        for f in fns.values():
+            f.launches = 0
+        steps, rounds, parked = engine.decode_steps, engine.spec_rounds, engine.spec_parked
+        out = engine.decode_window_run(tok0, pos0, window, temperature=temp, top_p=0.95)
+        assert len(out) == window, f"spec: {len(out)} of {window} tokens"
+        return dict(tokens=out, launches={k: f.launches for k, f in fns.items() if f.launches},
+                    forwards_run=engine.decode_steps - steps,
+                    rounds=engine.spec_rounds - rounds, parked=engine.spec_parked - parked)
+
+    res = {"window": window}
+    gen = engine.generator
+    for mode, temp in (("greedy", 0.0), ("sampled", 0.8)):
+        state = gen.get_state()
+        graph = run(temp)  # captures the mode's verify step where it has none
+        gen.set_state(state)
+        again = run(temp)
+        gen.set_state(state)
+        with engine._graphs._eager_windows():
+            eager = run(temp)
+        cap = engine._graphs.graphs[(engine.spec_k, temp != 0.0, switches())]
+        assert graph["tokens"] == eager["tokens"] == again["tokens"], \
+            f"spec {mode}: graph {graph['tokens']} != eager {eager['tokens']} or again"
+        for r in (graph, again, eager):
+            want = {k: cap.counts[f] * r["forwards_run"] for k, f in fns.items()
+                    if f in cap.counts}
+            assert r["launches"] == want and want, \
+                f"spec {mode}: launches {r['launches']} != forwards x captured {want}"
+        res[mode] = dict(graph=graph, eager=eager, capture_s=cap.seconds,
+                         captured={k: cap.counts[f] for k, f in fns.items() if f in cap.counts})
+    res["pool_bytes"] = graph_pool_bytes(engine._graphs.pool)
+    tr = res["trace"] = device_breakdown(lambda: run(0.0))
+    tr["tok_s"] = window / (tr["wall_ms"] / 1e3)
+    pool = res["pool_bytes"]
+    log(f"spec: graph == eager (greedy and sampled) over {window}-token windows, launches = "
+        f"forwards x captured {res['greedy']['captured']}; greedy {graph_line(res['greedy'])}, "
+        f"sampled {graph_line(res['sampled'])}; capture {res['greedy']['capture_s']:.3f} s "
+        f"(greedy) {res['sampled']['capture_s']:.3f} s (sampled), pool "
+        f"{'not measured' if pool is None else f'{pool / 1e6:.1f} MB'}; traced greedy window: "
+        f"busy {tr['busy_ms']:.3f} ms idle {tr['idle_share']:.3f} {tr['tok_s']:.1f} tok/s; top "
+        f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:5]]}")
+    engine.reset()
+    return res
+
+
+def graph_line(mode: dict) -> str:
+    g = mode["graph"]
+    return f"{g['forwards_run']} forwards in {g['rounds']} rounds, {g['parked']} parked"
+
+
+def plain_gap(engine, prompt: list[int], tokens: list[int], i: int, other: int) -> dict:
+    """Where a spec greedy stream parts from the plain one at decode index
+    i (plain token tokens[i], spec token `other`): on the plain stream's
+    cache after the prefill and tokens[:i], the plain step's logits (the
+    decode step's forward_tokens at T = 1 on the device position) and the
+    verify forward's (T = K + 1 rows from the same position, its row 0,
+    which the later rows do not reach), both run eagerly: the plain
+    top-1 - top-2 gap, the two paths' differences there (max |d| over the
+    vocab, d at the two tokens) and the verify row's argmax."""
+    import torch
+
+    from llamatpu_torch.models.transformer import forward_tokens
+
+    engine.reset()
+    feed = int(engine.prefill(prompt)[0][0])
+    if i:
+        assert engine.decode_window_run(feed, len(prompt), i) == tokens[:i]
+        feed = tokens[i - 1]
+    dev = engine.device
+    pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+    runs = []
+    for t in (1, SPEC_K + 1):
+        x = torch.full((1, t), feed, dtype=torch.int32, device=dev)
+        logits, _ = forward_tokens(engine.cfg, engine.weights, x, engine.cache, pos,
+                                   s_limit=engine.cache_len)
+        runs.append(logits[0, 0])
+    plain, verify = runs
+    d = verify - plain
+    top = torch.topk(plain, 2).values.tolist()
+    engine.reset()
+    return dict(index=i, argmax=int(plain.argmax()), gap=top[0] - top[1],
+                std=float(plain.std()), max_abs_d=float(d.abs().max()),
+                d_plain_token=float(d[tokens[i]]), d_spec_token=float(d[other]),
+                verify_argmax=int(verify.argmax()))
+
+
+def run_spec_paths(dev, model, engine) -> dict:
+    """Slice 21's speculative decode on the main path's model (Llama-3.2-1B
+    q8_row, full width and depth): `engine` is the plain main-path Engine
+    (cache 1024, prefill chunk 512, window 128); a spec Engine of K = 8 on
+    the same weights and geometry. bench/spec_bench.py's tiled 512-token
+    prompt, tg128 greedy on each, counts set to 0 just before each run:
+    - the spec run's launches: K2 = K9 = L x forwards run (the JAX fits
+      take both at K + 1 = 9 rows), K1 = forwards run + prefill chunks, K4
+      = 4L x chunks, no K3;
+    - spec greedy tokens equal plain greedy's, or part at an argmax
+      near-tie: the plain step's top-1 - top-2 gap there is at most twice
+      the largest difference between the plain step's and the verify
+      forward's logits on the same cache (`plain_gap`), all logged;
+    - spec_graph_decode: graph == eager, greedy and sampled;
+    - plain and spec tok/s, accept rate, forwards, rounds, parked, and a
+      traced 128-token window of each;
+    then the harness bench/spec_bench.py on the same Q8_0 weights served as
+    block quants (K5): K5 = 65 x (chunks + forwards run), K6 only in the
+    plain run."""
+    import gc
+
+    import torch
+
+    from llamatpu_torch.bench import spec_bench
+    from llamatpu_torch.ops import layer_fused
+    from llamatpu_torch.runtime.engine import Engine
+
+    cfg = model.cfg
+    L, tg = cfg.n_layers, 128
+    prompt = spec_bench.tiled_prompt(min(cfg.vocab_size, 128000))
+    t0 = time.perf_counter()
+    spec = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=True,
+                  device=dev, spec_decode=SPEC_K)
+    log(f"spec: K = {SPEC_K} engine served in {time.perf_counter() - t0:.1f} s (capture "
+        f"{spec.metrics.compile_s:.3f} s)")
+    lw = spec.weights["layers"]
+    assert layer_fused.qkv_fits(SPEC_K + 1, lw["wqkv"].qs.shape[-2], cfg.dim, 2)
+    assert layer_fused.tail_fits(SPEC_K + 1, cfg.dim, lw["wo"].qs.shape[-1],
+                                 lw["w2"].qs.shape[-1], 2)
+    out = {}
+    for label, eng in (("plain", engine), ("spec", spec)):
+        r = spec_bench.timed_run(eng, prompt, tg)
+        r["decode_tok_s"] = len(r["tokens"]) / r["seconds"]
+        n, c = r["steps"], r["chunks"]
+        # K3 a layer and step on the plain path; K2 + K9 at K + 1 rows on the spec one
+        want = {"rowq_gemv": n + c, "qkv_norm_fused_rowq": L * n, "rowq_gemm": 4 * L * c,
+                "layer_tail_fused_rowq" if eng is spec else "layer_attn_tail_fused_rowq": L * n}
+        assert r["launches"] == want, f"spec: {label} launch counts {r['launches']} != {want}"
+        if eng is spec:
+            ex = spec.metrics.extra
+            r.update(spec_accept_rate=ex["spec_accept_rate"], spec_forwards=ex["spec_forwards"],
+                     rounds=spec.spec_rounds, parked=spec.spec_parked)
+            assert r["steps"] == r["spec_forwards"] + r["parked"]
+        assert len(r["tokens"]) == tg and all(0 <= t < cfg.vocab_size for t in r["tokens"])
+        out[label] = r
+    a, b = out["plain"]["tokens"], out["spec"]["tokens"]
+    part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    out["parting"] = None
+    if part is not None:
+        gap = out["parting"] = plain_gap(engine, prompt, a, part, b[part])
+        assert gap["argmax"] == a[part], f"spec: the plain step's argmax {gap} != {a[part]}"
+        # a near-tie: the two paths' logits differ by more than the plain gap
+        assert gap["gap"] <= 2 * gap["max_abs_d"], \
+            f"spec: greedy streams part at {part} where the plain gap is no near-tie: {gap}"
+    s = out["spec"]
+    log(f"spec: main path tg{tg}: plain {out['plain']['decode_tok_s']:.1f} tok/s, spec "
+        f"{s['decode_tok_s']:.1f} tok/s (host clock, prefill included); accept rate "
+        f"{s['spec_accept_rate']}, {s['spec_forwards']} forwards, {s['rounds']} rounds, "
+        f"{s['parked']} parked; launches {s['launches']}; greedy streams "
+        + ("equal" if part is None else f"part at index {part}: {json.dumps(out['parting'])}"))
+    out["spec_graph"] = spec_graph_decode(spec, prompt, tg)
+    engine.reset()
+    tok0 = int(engine.prefill(prompt)[0][0])
+    tr = out["plain_trace"] = device_breakdown(
+        lambda: engine.decode_window_run(tok0, len(prompt), tg))
+    tr["tok_s"] = tg / (tr["wall_ms"] / 1e3)
+    st = out["spec_graph"]["trace"]
+    fwd = out["spec_graph"]["greedy"]["graph"]["forwards_run"]
+    log(f"spec: traced {tg}-token windows: plain busy {tr['busy_ms']:.3f} ms "
+        f"({tr['busy_ms'] / tg:.4f} a step) idle {tr['idle_share']:.3f} {tr['tok_s']:.1f} "
+        f"tok/s | spec busy {st['busy_ms']:.3f} ms ({st['busy_ms'] / fwd:.4f} a forward of "
+        f"{fwd}) idle {st['idle_share']:.3f} {st['tok_s']:.1f} tok/s")
+    engine.reset()
+    del spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the harness: the same Q8_0 weights as block quants (K5 every projection and the head)
+    rows = out["bench"] = spec_bench.bench_rows(model, SPEC_K, dev, "llama32-1b")
+    for row in rows:
+        n, c = row["forwards_run"], row["prefill_chunks"]
+        want = {"block_matmul": (4 * L + 1) * (c + n)}
+        if not row["K"]:
+            want["decode_attention_fused_write"] = L * n
+        assert row["launches"] == want, f"spec_bench K={row['K']}: {row['launches']} != {want}"
+        assert row["tg"] == tg
+    a, b = rows[0]["tokens"], rows[1]["tokens"]
+    out["bench_parting"] = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    log("spec_bench: " + json.dumps([{k: v for k, v in r.items() if k != "tokens"}
+                                     for r in rows])
+        + f"; greedy streams first differ at {out['bench_parting']} (reported, not gated)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_main_and_long_paths(dev, overrides=None) -> dict:
     """Slice 1's path (synthetic q8_0 served as q8_row, K1-K4), a one-lane
     BatchEngine on the same weights (`batch1`: K3 at the device positions of
@@ -2771,6 +2996,7 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
         "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "layer_attn_tail_fused_rowq": L * n,
         "rowq_gemm": 4 * L}, "main")}
     out["main"]["graph"] = graph_decode(engine, "main")
+    out["spec"] = run_spec_paths(dev, model, engine)
     # a one-lane BatchEngine on the same weights: its positions live on the
     # device, and K3 reads them there, so it takes K3 every layer and step
     # where the JAX BatchEngine takes its megakernel

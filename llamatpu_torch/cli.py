@@ -30,9 +30,14 @@ to the model's context, and a long cache takes the split attention kernel.
 weights in Q8_0 (gguf/convert.py). --profile-dir on `run` writes a
 torch.profiler Chrome trace of the generation (utils/profiling.py).
 
+--spec-decode K (run, and serve at batch size 1) drafts K tokens a step
+from the token history's last-bigram continuation and verifies them in one
+forward of K + 1 rows (runtime/engine.py): greedy output is the plain
+greedy stream, sampled output is distributed as plain sampling.
+
 The JAX package's XLA-only flags (--impl, --dump-hlo) have no counterpart
 here. Flags of later slices of the port are accepted and raise, naming the
-slice: --tp/--dp/--sp/--pipeline/--ep, --spec-decode.
+slice: --tp/--dp/--sp/--pipeline/--ep.
 
 `serve` answers the OpenAI API (server/openai_server.py): --batch-size 1
 runs one Engine behind a lock with KV prefix reuse; --batch-size N runs N
@@ -47,8 +52,7 @@ import sys
 # later slices of the port: (flag attribute, its default, the slice)
 _LATER_FLAGS = (("tp", 0, "parallelism"), ("dp", 1, "parallelism"), ("sp", 1, "parallelism"),
                 ("pipeline", 1, "parallelism"),
-                ("ep", False, "parallelism (expert parallelism of MoE models)"),
-                ("spec_decode", 0, "speculative-decode"))
+                ("ep", False, "parallelism (expert parallelism of MoE models)"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--pipeline", type=int, default=1, help="(parallelism slice)")
         sp.add_argument("--ep", action="store_true", help="(parallelism slice)")
         sp.add_argument("--spec-decode", type=int, default=0,
-                        help="(speculative-decode slice)")
+                        help="prompt-lookup speculative decoding draft length K (run, and "
+                             "serve at batch size 1; 0 = off)")
 
     run = sub.add_parser("run", help="single-prompt or interactive generation")
     common(run)
@@ -205,7 +210,8 @@ def cmd_run(args) -> int:
     top_p = args.top_p if args.top_p is not None else fmt.default_top_p()
     engine = Engine(model, temperature=temp, top_p=top_p, seed=args.seed,
                     prefill_chunk=args.prefill_chunk, cache_dtype=cache_dtype(args),
-                    rowq=args.rowq, device=args.device, metrics=metrics)
+                    rowq=args.rowq, device=args.device, metrics=metrics,
+                    spec_decode=args.spec_decode)
     with trace(args.profile_dir):
         if args.interactive:
             run_interactive(model, engine, args.system_prompt, args.max_tokens)

@@ -184,6 +184,14 @@ def finish_logits(cfg: ModelConfig, weights, x, last_logit_only=False, logit_ind
     return logits
 
 
+def _window_rows(pos: torch.Tensor, t: int, s: int, device) -> torch.Tensor:
+    """Rows [B, T] of a T-row write at device positions pos [B] into s
+    rows, the start clamped to [0, s - T] as XLA's dynamic_update_slice
+    clamps it (a speculative verify window within T of the physical end)."""
+    start = torch.clamp(pos.to(device=device, dtype=torch.long), 0, s - t)
+    return start[:, None] + torch.arange(t, device=device)[None, :]
+
+
 def _write_rows(kv: torch.Tensor, new: torch.Tensor, li: int, pos, row0: int) -> None:
     """Write new [B, T, KV, hd + vhd] rows into the stacked cache
     [L, Ball, KV, S, hd + vhd] at layer li, batch rows row0.., positions
@@ -193,8 +201,7 @@ def _write_rows(kv: torch.Tensor, new: torch.Tensor, li: int, pos, row0: int) ->
         kv[li, row0:row0 + b, :, pos:pos + t] = new.transpose(1, 2).to(kv.dtype)
         return
     rows = torch.arange(row0, row0 + b, device=kv.device)[:, None]
-    positions = pos.to(device=kv.device, dtype=torch.long)[:, None] \
-        + torch.arange(t, device=kv.device)[None, :]
+    positions = _window_rows(pos, t, kv.shape[3], kv.device)
     kv[li][rows, :, positions] = new.to(kv.dtype)           # [B, T, KV, W]
 
 
@@ -207,8 +214,7 @@ def _write_scale_rows(sc: torch.Tensor, s_new: torch.Tensor, li: int, pos, row0:
         sc[li, row0:row0 + b, :, :, pos:pos + t] = s_new.permute(0, 2, 3, 1)
         return
     rows = torch.arange(row0, row0 + b, device=sc.device)[:, None]
-    positions = pos.to(device=sc.device, dtype=torch.long)[:, None] \
-        + torch.arange(t, device=sc.device)[None, :]
+    positions = _window_rows(pos, t, sc.shape[4], sc.device)
     sc[li][rows, :, :, positions] = s_new                   # [B, T, KV, 2]
 
 

@@ -23,6 +23,10 @@ step bakes in no sampling value: `any_sampled=False` is the greedy step form
 (no draw), True the sampled form (a draw from the generator registered with
 the graph). `is_stop` is its stop check, a compare against a fixed-size stop
 vector.
+
+`spec_verify_sample` is the speculative verify step's rejection sampling
+(llamatpu/ops/sampling.py `spec_verify_sample`) over `filtered_scaled_logits`,
+its acceptance uniforms and residual Gumbel draw from the same generator.
 """
 from __future__ import annotations
 
@@ -76,9 +80,58 @@ def _draw(logits, temperature, top_p, generator):
     masked = torch.where(keep, torch.log(sorted_probs.clamp_min(1e-38)),
                          torch.full_like(sorted_probs, float("-inf")))
     u = torch.rand(masked.shape, generator=generator, device=masked.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    choice = torch.argmax(masked + gumbel, dim=-1, keepdim=True)
+    choice = gumbel_argmax(masked, u)[..., None]
     return torch.gather(sorted_idx, -1, choice)[..., 0].to(torch.int32)
+
+
+def gumbel_argmax(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """argmax(logits + Gumbel noise) over the last axis from uniforms u in
+    [0, 1) of logits' shape: one categorical draw a row."""
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+def spec_residual_row(fl: torch.Tensor, drafts: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Row m of the filtered logits fl [K + 1, V], with the rejected draft
+    d_m masked to -inf where m < K (the bonus row m == K stays unmasked); a
+    row left with no finite entry falls back to the unmasked row (the
+    nucleus was {d_m} alone and the rejection came from round-off)."""
+    k = drafts.shape[0]
+    full = fl.index_select(0, m.view(1))[0]
+    d_m = drafts.index_select(0, torch.clamp(m, max=k - 1).view(1))
+    v_iota = torch.arange(fl.shape[-1], device=fl.device)
+    row = torch.where((m < k) & (v_iota == d_m), torch.full_like(full, float("-inf")), full)
+    return torch.where(torch.isfinite(row).any(), row, full)
+
+
+def spec_verify_sample(logits: torch.Tensor, drafts: torch.Tensor, temperature, top_p,
+                       generator: torch.Generator | None = None, draws=None):
+    """Rejection-sampling verification of deterministic drafts (the port of
+    llamatpu/ops/sampling.py `spec_verify_sample`): draft d_i is accepted
+    with probability p(d_i) under the filtered softmax; at the first
+    rejection m the token is drawn from p with d_m removed (the bonus row
+    when all K are accepted). The emitted stream is distributed as plain
+    nucleus sampling; the numbers are not JAX's.
+
+    logits [K + 1, V]; drafts [K] int; temperature / top_p floats or [1]
+    tensors. draws: (K acceptance uniforms, V residual uniforms), else both
+    from `generator`, in that order. Returns (cand [K + 1] int32, m int64
+    0-d): cand[:m] == drafts[:m], cand[m] the drawn token, entries past m
+    the drafts (callers take m + 1)."""
+    k = drafts.shape[0]
+    fl = filtered_scaled_logits(logits, temperature, top_p)
+    p = torch.softmax(fl, dim=-1)
+    if draws is None:
+        u_acc = torch.rand(k, generator=generator, device=fl.device)
+        u_res = torch.rand(fl.shape[-1], generator=generator, device=fl.device)
+    else:
+        u_acc, u_res = draws
+    pd = torch.gather(p[:k], -1, drafts.long()[:, None])[:, 0]
+    m = torch.cumprod((u_acc < pd).to(torch.int64), 0).sum()
+    final = gumbel_argmax(spec_residual_row(fl, drafts, m), u_res)
+    idxs = torch.arange(k + 1, device=fl.device)
+    drafts_ext = torch.cat([drafts.to(torch.int64), drafts.new_zeros(1, dtype=torch.int64)])
+    return torch.where(idxs == m, final, drafts_ext).to(torch.int32), m
 
 
 def sample_dynamic(logits: torch.Tensor, temperatures: torch.Tensor, top_ps: torch.Tensor,

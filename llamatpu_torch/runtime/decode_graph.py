@@ -46,6 +46,10 @@ does.
 
 Known difference: the JAX loop ends at a stop token (`cond`); a window here
 runs all `limit` steps, stopped lanes parked, and returns the same tokens.
+
+The speculative verify step (Engine with spec_decode=K) is keyed by K too
+and runs over `SpecState`; the engine replays it in rounds and reads the
+state between them (runtime/engine.py), its forwards after `done` parked.
 """
 from __future__ import annotations
 
@@ -94,6 +98,7 @@ class StepState:
     paged engine adds its block tables."""
 
     STOPS = 8
+    spec = 0  # the draft length of the verify step's state (SpecState)
 
     def __init__(self, batch: int, window: int, device: torch.device):
         i32 = torch.int32
@@ -127,6 +132,59 @@ class StepState:
         """out[step] = ids [B], then the step index advances (on the device)."""
         self.out.index_copy_(0, self.step, ids.view(1, self.batch))
         self.step += 1
+
+    def rewind(self) -> None:
+        """Before a capture's warm-up: out[0] for the step index."""
+        self.step.zero_()
+
+
+class SpecState:
+    """The static tensors of a speculative verify step (one sequence, K
+    drafts, the JAX `spec_decode_n_fn` loop's carry): the token and position
+    [1] int32, temperature and top-p [1], the stop ids (StepState.STOPS),
+    the window's budget `limit` and its emitted count `cnt`, the verify
+    forwards run `nfwd`, `done` (a stop emitted, the cache's end or the
+    budget reached: every later forward is parked), and the [W + K] output
+    slab (-1 = no token), as the JAX `out`."""
+
+    batch = 1
+
+    def __init__(self, window: int, spec: int, device: torch.device):
+        i32 = torch.int32
+        self.window, self.spec = window, spec
+        self.tok = torch.zeros(1, dtype=i32, device=device)
+        self.pos = torch.zeros(1, dtype=i32, device=device)
+        self.temps = torch.zeros(1, dtype=torch.float32, device=device)
+        self.topps = torch.zeros(1, dtype=torch.float32, device=device)
+        self.stops = torch.full((StepState.STOPS,), -1, dtype=i32, device=device)
+        self.limit = torch.zeros(1, dtype=i32, device=device)
+        self.cnt = torch.zeros(1, dtype=i32, device=device)
+        self.nfwd = torch.zeros(1, dtype=i32, device=device)
+        self.done = torch.zeros(1, dtype=torch.bool, device=device)
+        self.out = torch.full((window + spec,), -1, dtype=i32, device=device)
+
+    def fill(self, token: int, pos: int, temp: float, top_p: float, stop_ids,
+             limit: int) -> None:
+        """A window's inputs from the host, a zero count and a fresh slab."""
+        self.tok.fill_(token)
+        self.pos.fill_(pos)
+        self.temps.fill_(temp)
+        self.topps.fill_(top_p)
+        self.stops.copy_(stop_ids)
+        self.limit.fill_(limit)
+        self.cnt.zero_()
+        self.nfwd.zero_()
+        self.done.zero_()
+        self.out.fill_(-1)
+
+    def rewind(self) -> None:
+        """Before a capture's warm-up: a parked step, which writes no state."""
+        self.cnt.zero_()
+        self.done.fill_(True)
+
+    def host(self) -> list[int]:
+        """The slab, cnt, nfwd and done in one device-to-host copy."""
+        return torch.cat([self.out, self.cnt, self.nfwd, self.done.to(torch.int32)]).tolist()
 
 
 def zeroed_cache(cache, rows: int, dtype, new, graphs: "StepGraphs"):
@@ -182,13 +240,15 @@ class StepGraphs:
         self.graphs.clear()
         self.geometry = self.pool = None
 
-    def state_for(self, batch: int, window: int) -> StepState:
-        """The static state for B lanes and a window of W steps; a new one
-        (and no graph) when B or W changed."""
+    def state_for(self, batch: int, window: int, spec: int = 0):
+        """The static state for B lanes and a window of W steps (with
+        spec = K, the verify step's SpecState); a new one (and no graph)
+        when B, W or K changed."""
         st = self.state
-        if st is None or (st.batch, st.window) != (batch, window):
+        if st is None or (st.batch, st.window, st.spec) != (batch, window, spec):
             self.clear()
-            st = self.state = StepState(batch, window, self.device)
+            st = self.state = (SpecState(window, spec, self.device) if spec
+                               else StepState(batch, window, self.device))
         return st
 
     @contextlib.contextmanager
@@ -203,10 +263,11 @@ class StepGraphs:
 
     def runner(self, geometry, sampled: bool, step, park, generator=None):
         """A callable running `step` n times: eagerly on the CPU; on CUDA the
-        replays of the graph for (geometry, sampled, switches), captured now
-        if there is none (`park` puts the state where the warm-up step
-        writes only rows or blocks no query reads). Fill the state after this
-        call: the capture's warm-up step runs on it."""
+        replays of the graph for (geometry, the state's draft length K,
+        sampled, switches), captured now if there is none (`park` puts the
+        state where the warm-up step writes only rows or blocks no query
+        reads). Fill the state after this call: the capture's warm-up step
+        runs on it."""
         if self.device.type != "cuda" or self._eager:
             def eager(n: int) -> None:
                 for _ in range(n):
@@ -215,7 +276,8 @@ class StepGraphs:
         if geometry != self.geometry:
             self.clear()
             self.geometry = geometry
-        key = (sampled, switches())
+        key = (sampled, switches()) if not self.state.spec else \
+            (self.state.spec, sampled, switches())
         captured = self.graphs.get(key)
         if captured is None:
             captured = self.graphs[key] = self.capture(step, park, generator)
@@ -232,8 +294,8 @@ class StepGraphs:
         t0 = time.perf_counter()
         gen_state = None if generator is None else generator.get_state()
 
-        def parked():  # out[0] for the step index, the engine's park for the rest
-            self.state.step.zero_()
+        def parked():  # the state's rewind, the engine's park for the rest
+            self.state.rewind()
             park()
         parked()
         side, main = self.stream, torch.cuda.current_stream(dev)

@@ -25,9 +25,25 @@ and the steps after it write cache rows past the returned length
 `reset()` zeroes the cache in place, so the captured addresses stay valid;
 a new geometry (`cache_len`, `prefill_chunk`, `cache_dtype` changed) gets a
 new cache and new graphs.
+
+Prompt-lookup speculative decoding (`spec_decode=K`, the JAX `spec_decode_
+n_fn`): the engine keeps the token-id history [1, physical_len] on the
+device beside the cache (each padded prefill chunk is recorded; reset()
+zeroes it in place, reseed() keeps it). A decode step is then one verify
+forward of K + 1 rows: K drafts from the last bigram's latest earlier
+continuation in the history, verified greedily (the accepted argmax
+prefix) or by rejection sampling (`sampling.spec_verify_sample`), emitting
+up to K + 1 tokens. How many forwards a window needs depends on the data,
+which a graph cannot branch on, so a window replays the step in rounds:
+`_spec_round` forwards, then one small copy of the state to the host; a
+forward after the window is done is parked and changes nothing but cache
+rows at or past its position. Greedy spec output is the plain greedy
+stream wherever the forward is batch-invariant (f32 here; under bf16 on
+the card, argmax near-ties may part, as the JAX package notes).
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 
@@ -75,6 +91,7 @@ class Engine:
         device: str | torch.device | None = None,
         metrics: RunMetrics | None = None,
         aot_compile: bool = True,
+        spec_decode: int = 0,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -87,6 +104,11 @@ class Engine:
         self.cache_dtype = cache_dtype
         self.decode_window = max(1, int(decode_window))
         self.metrics = metrics or RunMetrics()
+        # prompt-lookup speculative decoding: K drafts a verify forward (0 = off)
+        self.spec_k = max(0, int(spec_decode))
+        self._ids = None  # [1, physical_len] int32 token-id history on the device (spec)
+        self.spec_rounds = self.spec_parked = 0  # verify rounds and parked forwards run
+        self._spec_tally = [0, 0]  # tokens emitted and verify forwards: the round plan's mean
         with Timer() as t:
             self.weights = serving_weights(self.cfg, model.weights, rowq=rowq,
                                            rowq_experts=rowq_experts, device=self.device)
@@ -94,7 +116,7 @@ class Engine:
                 torch.cuda.synchronize(self.device)
         self.metrics.weight_upload_s = t.elapsed
         self.cache = self._new_cache()
-        self.decode_steps = 0  # device decode steps run (BatchEngine's counter)
+        self.decode_steps = 0  # device decode steps (verify forwards) run
         self._graphs = StepGraphs(self.device, self.metrics)
         if aot_compile and self.device.type == "cuda":
             # the default mode's decode step, captured ahead of the first window
@@ -103,16 +125,20 @@ class Engine:
 
     def _new_cache(self):
         plen = physical_cache_len(self.cache_len, self.prefill_chunk)
+        if self.spec_k:
+            self._ids = torch.zeros((1, plen), dtype=torch.int32, device=self.device)
         return init_cache(self.cfg, 1, self.cache_dtype, plen, self.device)
 
     def reset(self, seed: int | None = None) -> None:
-        """A zero cache, as the JAX package's fresh one: zeroed in place
-        while its geometry holds (the captured steps keep their addresses),
-        else allocated anew for the engine's current cache_len,
-        prefill_chunk and cache_dtype."""
-        self.cache = zeroed_cache(self.cache, physical_cache_len(self.cache_len,
-                                                                 self.prefill_chunk),
+        """A zero cache (and token-id history), as the JAX package's fresh
+        one: zeroed in place while its geometry holds (the captured steps
+        keep their addresses), else allocated anew for the engine's current
+        cache_len, prefill_chunk and cache_dtype."""
+        cache = self.cache
+        self.cache = zeroed_cache(cache, physical_cache_len(self.cache_len, self.prefill_chunk),
                                   self.cache_dtype, self._new_cache, self._graphs)
+        if self.cache is cache and self._ids is not None:
+            self._ids.zero_()
         if seed is not None:
             self.generator.manual_seed(seed)
 
@@ -149,6 +175,9 @@ class Engine:
             if r < c:  # pad the final partial chunk to the next granule
                 chunk = chunk + [0] * (pad_chunk_len(r, c) - r)
             arr = torch.tensor([chunk], dtype=torch.int64, device=self.device)
+            if self._ids is not None:  # the padded chunk joins the draft corpus
+                at = min(start_pos + i, self._ids.shape[1] - len(chunk))  # XLA's clamp
+                self._ids[0, at:at + len(chunk)] = arr[0]
             logits = self._forward(arr, start_pos + i, logit_index=r - 1)
             tok = self._sample(logits, temp, top_p)
             i += r
@@ -169,20 +198,71 @@ class Engine:
         st.tok.copy_(nxt)
         st.pos += 1
 
-    def _park(self) -> None:
-        """The warm-up step's state: the last physical row, which no query
-        attends (the cache's slack past cache_len)."""
+    def _spec_step(self, sampled: bool) -> None:
+        """One verify forward of the JAX `spec_decode_n_fn` loop body, over
+        the static state (SpecState) with no host read: draft K tokens from
+        the last bigram's latest earlier continuation in the id history,
+        verify [tok, drafts] in one forward of K + 1 rows, emit the accepted
+        prefix and one token, clipped at a stop, the budget and the cache's
+        end. Once `done`, the forward is parked: ids, tok, pos, cnt, nfwd and
+        out keep their values (its cache rows land at or past pos, where a
+        later forward writes before it attends). Starts of K + 1 row writes
+        and reads clamp as XLA's dynamic slices do."""
+        st, ids, k = self._graphs.state, self._ids[0], self.spec_k
+        dev, s_phys = ids.device, ids.shape[0]
+        live = ~st.done
+        pos = st.pos.long()
+        a = ids.index_select(0, (pos - 1).clamp(min=0))
+        iota = torch.arange(s_phys - 1, device=dev)
+        hit = (iota <= pos - 2) & (ids[:-1] == a) & (ids[1:] == st.tok)
+        jstar = torch.where(hit, iota, -1).max()
+        start = torch.clamp(jstar + 2, 0, s_phys - k)
+        drafts = ids.index_select(0, start + torch.arange(k, device=dev))
+        drafts = torch.where(jstar >= 0, drafts, st.tok)
+        w = torch.cat([st.tok, drafts])                               # [K + 1]
+        rows = torch.clamp(pos, 0, s_phys - k - 1) + torch.arange(k + 1, device=dev)
+        ids.index_copy_(0, rows, torch.where(live, w, ids.index_select(0, rows)))
+        logits, _ = forward_tokens(self.cfg, self.weights, w.view(1, k + 1), self.cache, st.pos,
+                                   s_limit=self.cache_len)
+        if sampled:
+            cand, m = sampling.spec_verify_sample(logits[0], drafts, st.temps, st.topps,
+                                                  self.generator)
+        else:
+            cand = sampling.greedy(logits[0])
+            m = torch.cumprod((cand[:-1] == drafts).to(torch.int64), 0).sum()
+        idxs = torch.arange(k + 1, device=dev)
+        stop_at = torch.where(sampling.is_stop(cand, st.stops) & (idxs <= m), idxs, k + 1).min()
+        e = torch.where(stop_at <= m, stop_at + 1, m + 1)
+        e = torch.minimum(e, st.limit - st.cnt)                       # budget
+        e = torch.minimum(e, torch.clamp(self.cache_len - 1 - st.pos, min=1))
+        hit_stop = (stop_at <= m) & (stop_at + 1 <= e)
+        slots = torch.clamp(st.cnt.long(), 0, st.window - 1) + idxs
+        st.out.index_copy_(0, slots, torch.where(live, cand, st.out.index_select(0, slots)))
+        e = torch.where(live, e, 0).to(torch.int32)
+        st.tok.copy_(torch.where(live, cand.index_select(0, (e - 1).clamp(min=0).long()), st.tok))
+        st.pos += e
+        st.cnt += e
+        st.nfwd += live.to(torch.int32)
+        st.done |= hit_stop | (st.pos + 1 >= self.cache_len) | (st.cnt >= st.limit)
+
+    def _park(self, pos: int) -> None:
+        """The warm-up step's state. The plain step: the last physical row,
+        which no query attends (the cache's slack past cache_len). The
+        verify step: parked (the state's rewind) at the window's position,
+        where its cache rows are those the window's first forward rewrites."""
         st = self._graphs.state
-        st.pos.fill_(self.cache.kv.shape[3] - 1)
+        st.pos.fill_(pos if self.spec_k else self.cache.kv.shape[3] - 1)
         st.tok.zero_()
 
-    def _window(self, sampled: bool):
+    def _window(self, sampled: bool, pos: int = 0):
         """The runner of this window's steps (runtime/decode_graph.py),
-        capturing the step for the current geometry and mode if needed."""
-        self._graphs.state_for(1, self.decode_window)
-        geometry = (tensors_key(self.cache.kv, self.cache.scale), self.cache_len)
-        return self._graphs.runner(geometry, sampled, lambda: self._step(sampled), self._park,
-                                   self.generator)
+        capturing the step for the current geometry and mode if needed (the
+        verify step parks at `pos`, the window's start)."""
+        self._graphs.state_for(1, self.decode_window, self.spec_k)
+        geometry = (tensors_key(self.cache.kv, self.cache.scale, self._ids), self.cache_len)
+        step = self._spec_step if self.spec_k else self._step
+        return self._graphs.runner(geometry, sampled, lambda: step(sampled),
+                                   lambda: self._park(pos), self.generator)
 
     def decode_window_run(self, token: int, pos: int, limit: int,
                           stop_tokens=frozenset(), temperature=None, top_p=None) -> list[int]:
@@ -193,13 +273,54 @@ class Engine:
         limit = min(limit, self.decode_window, self.cache_len - pos - 1)
         if limit <= 0:
             return []
-        run = self._window(temp != 0.0)
+        run = self._window(temp != 0.0, pos)
         st = self._graphs.state
+        if self.spec_k:
+            return self._spec_window(run, token, pos, limit, stop_tokens, temp, top_p)
         st.fill([token], [pos], [True], [temp], [top_p], stop_ids(stop_tokens))
         run(limit)
         self.decode_steps += limit
         host = torch.cat([st.out[:, 0], st.count]).cpu().tolist()  # the one device-to-host copy
         return host[:host[-1]]
+
+    def _spec_round(self, remaining: int, emitted: int, forwards: int) -> int:
+        """Verify forwards to replay before the next read of the state: the
+        budget left over one plus the mean accepted drafts a forward of the
+        engine so far (emitted tokens over forwards, K before the first), so
+        a window takes about one round at any acceptance and never replays
+        more than it can still need."""
+        a = emitted / forwards - 1.0 if forwards else self.spec_k
+        return max(1, min(remaining, math.ceil(remaining / (1.0 + a))))
+
+    def _spec_window(self, run, token: int, pos: int, limit: int, stop_tokens, temp: float,
+                     top_p: float) -> list[int]:
+        """A speculative window in rounds: each replays `_spec_round`
+        forwards (a forward after `done` is parked), then reads the state in
+        one device-to-host copy; the last round's copy holds the tokens.
+        The JAX loop runs forwards while cnt < limit and not done."""
+        st = self._graphs.state
+        st.fill(token, pos, temp, top_p, stop_ids(stop_tokens), limit)
+        emitted, forwards = self._spec_tally
+        ran = cnt = nfwd = 0
+        while True:
+            n = self._spec_round(limit - cnt, emitted + cnt, forwards + nfwd)
+            run(n)
+            ran += n
+            self.spec_rounds += 1
+            host = st.host()
+            cnt, nfwd, done = host[-3:]
+            if done:
+                break
+        self._spec_tally = [emitted + cnt, forwards + nfwd]
+        self.decode_steps += ran
+        self.spec_parked += ran - nfwd
+        ex = self.metrics.extra
+        ex["spec_emitted"] = ex.get("spec_emitted", 0) + cnt
+        ex["spec_forwards"] = ex.get("spec_forwards", 0) + nfwd
+        if ex["spec_forwards"]:
+            # mean drafted tokens accepted per verify forward (0 = no speedup)
+            ex["spec_accept_rate"] = round(ex["spec_emitted"] / ex["spec_forwards"] - 1.0, 4)
+        return host[:cnt]
 
     def decode_step(self, token: int, pos: int, temperature=None, top_p=None) -> int:
         out = self.decode_window_run(token, pos, 1, frozenset(), temperature, top_p)

@@ -271,8 +271,9 @@ def make_server(service: InferenceService, host: str, port: int,
 
 def build_service(args, model):
     """The service `serve` runs for the parsed command line: the locked
-    single-sequence Engine (batch size 1) or the continuous batcher over a
-    BatchEngine / PagedBatchEngine."""
+    single-sequence Engine (batch size 1, with --spec-decode's speculation)
+    or the continuous batcher over a BatchEngine / PagedBatchEngine (no
+    speculation, as the JAX `serve`)."""
     from llamatpu_torch.cli import cache_dtype
 
     cache_len = min(args.max_tokens, model.cfg.context_length) if args.max_tokens else None
@@ -297,7 +298,7 @@ def build_service(args, model):
                                        interleave_decode_steps=args.interleave_decode_steps)
     from llamatpu_torch.runtime.engine import Engine
 
-    engine = Engine(model, cache_len=cache_len, **common)
+    engine = Engine(model, cache_len=cache_len, spec_decode=args.spec_decode, **common)
     return InferenceService(model, engine, prefix_cache=not args.no_prefix_cache)
 
 

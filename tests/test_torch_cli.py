@@ -123,11 +123,29 @@ def test_run_defaults_to_the_card(ggufs, monkeypatch):
 
 @pytest.mark.parametrize("argv,slice_name", [
     (["--tp", "2"], "parallelism"), (["--dp", "2"], "parallelism"),
-    (["--spec-decode", "4"], "speculative-decode"), (["--sp", "2"], "parallelism"),
-    (["--ep"], "MoE"), (["--pipeline", "2"], "parallelism")])
+    (["--sp", "2"], "parallelism"), (["--ep"], "MoE"), (["--pipeline", "2"], "parallelism")])
 def test_flags_of_later_slices_raise(ggufs, argv, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         cli.main(["run", "-m", str(ggufs["llama_q8_0"]), "-p", "hi", "--device", "cpu"] + argv)
+
+
+def test_spec_decode_reaches_the_run_engine(ggufs, monkeypatch):
+    """--spec-decode (since slice 21) is no later slice's flag: `run` builds
+    its Engine with spec_decode=K (0 without the flag)."""
+    from llamatpu_torch.runtime import engine
+
+    made = []
+
+    class Spy(engine.Engine):
+        def __init__(self, *a, **kw):
+            made.append(kw.get("spec_decode"))
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(engine, "Engine", Spy)
+    argv = ["run", "-m", str(ggufs["llama_q8_0"]), "-p", "hi", "--device", "cpu", "-n", "24",
+            "--metrics-format", "none", "--no-stream"]
+    assert cli.main(argv + ["--spec-decode", "4"]) == 0 and cli.main(argv) == 0
+    assert made == [4, 0]
 
 
 @pytest.mark.parametrize("command", ["serve"])

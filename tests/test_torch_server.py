@@ -272,13 +272,25 @@ def test_stop_string_matcher_equals_jax_on_random_feeds():
 
 def test_serve_command_line(servers, monkeypatch):
     """`serve` without --device asks for the card and raises without one,
-    before loading anything; flags of later slices raise naming them; the
-    parser takes the serving flags."""
+    before loading anything, --spec-decode too; --spec-decode (since slice
+    21) reaches the batch-1 Engine `build_service` makes; the parser takes
+    the serving flags."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["serve", "-m", "missing.gguf"])
-    with pytest.raises(NotImplementedError, match="speculative-decode"):
-        cli.main(["serve", "-m", "missing.gguf", "--device", "cpu", "--spec-decode", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve", "-m", "missing.gguf", "--spec-decode", "2"])
+    from types import SimpleNamespace
+
+    from llamatpu_torch.runtime import engine
+    from llamatpu_torch.server.openai_server import build_service
+
+    made = []
+    monkeypatch.setattr(engine, "Engine", lambda model, **kw: made.append(kw) or kw)
+    for extra, k in ((["--spec-decode", "2"], 2), ([], 0)):
+        args = cli.build_parser().parse_args(["serve", "-m", "m.gguf", "--device", "cpu"] + extra)
+        build_service(args, SimpleNamespace(cfg=SimpleNamespace(context_length=64)))
+        assert made[-1]["spec_decode"] == k
     args = cli.build_parser().parse_args(
         ["serve", "-m", "m.gguf", "--batch-size", "8", "--paged", "--kv-blocks", "64",
          "--kv-block-size", "8", "--no-prefix-cache", "--interleave-decode-steps", "2",

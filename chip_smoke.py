@@ -128,17 +128,41 @@ It runs every phase, needs one card, and exits non-zero
             Q8_0 and `cli validate` of the converted file on the card.
 14. dense batch: BatchEngine, q8_row, full width, 4 layers, 8 lanes:
             generate_batch through K6 at each lane's position and K2 + K9.
-14a. phi3:  slice 7's path, full-width, full-depth Phi-3-medium-4k
-            (synthetic Q8_0 served as q8_row, seed 0), where the JAX
+14a. phi3:  slice 7's path, full-width Phi-3-medium-4k at 20 of its 40
+            layers (a depth cut for the time limit since slice 22;
+            synthetic Q8_0 served as q8_row, seed 0), where the JAX
             package's VMEM fits decline K3 and, at 17-24 rows, K9: Engine
-            at one lane (K3 = 0, K6 = K9 = 40 per step), BatchEngine at 8
-            lanes (K9 = 40 per step), 24 lanes dense and paged (K20 = 40
+            at one lane (K3 = 0, K6 = K9 = 20 per step), BatchEngine at 8
+            lanes (K9 = 20 per step), 24 lanes dense and paged (K20 = 20
             per step, K9 = 0) and 32 lanes (the two-call FFN, K20 = 0); load
             s, peak host RSS, tok/s and a traced window's idle share each;
             then a 4-layer full-width phi3 Q8_0 GGUF with an SPM vocab
             through `cli run` and `cli serve --batch-size 8 --paged` over
             HTTP.
-14b. harnesses: slice 6's, each a path with its counts read over it:
+14b. qwen3: slice 22's paths. Full-width, full-depth Qwen3-0.6B (the
+            qwen3-0.6b preset: q/k norm, 16 heads of 128 on 8 KV heads, q
+            width 2048 on dim 1024; synthetic Q8_0 served as q8_row, seed
+            0) through Engine, pp512 then tg128 greedy (K4, K1, K2, the q/k
+            norm as a plain op, then K3 where the JAX fit takes it, else K6
+            + K9), the graph against the eager window; the card against
+            the CPU at 2 layers in f32, prefill and 4 decode-step logits
+            within 1e-4, q8_row and native Q4_K; a Q4_K_M-style GGUF
+            (Q4_K projections, Q6_K attn_v / ffn_down / token_embd, seeded
+            raw superblocks, a ChatML vocab with <think> / </think>) at full
+            width and depth through `cli run`, `cli run --no-thinking`,
+            `cli run --pack4` (K7) and `cli serve` (three HTTP requests);
+            a Q5_K copy at 4 layers through `cli run`; then `cli run` on
+            the tiny Q8_0 GGUF of each of the five families (DeepSeek-R1
+            distill, Qwen3, Mistral, Devstral 2, Granite: tests/tiny_models.py's
+            files, written by `tiny_family_gguf`), DeepSeek's streaming
+            its <think> primer. Slice 22's kernel holds, in the kernels
+            phase: K2 and K3 at Qwen3-0.6B's shapes and at Granite-3.2-2b's
+            µP scales, K1 on the 151936- and 49155-row heads, K5 on the
+            49155-row head, K5 / K7 on Q4_K and Q5_K values at Qwen3-0.6B's
+            projections (T = 1, 8, 512, with the offset epilogue), K13 on
+            the experts' offset term at Qwen1.5-MoE's widths (each row's
+            "slice22" entry).
+14c. harnesses: slice 6's, each a path with its counts read over it:
             bench/sweep_tail.py (K9 against K16 over the 16 layers, T = 1
             and 8), bench/bench_gemm.py (torch._int_mm, K4, K17 and bf16
             torch.matmul at T = 512 and 128),
@@ -197,6 +221,7 @@ from pathlib import Path
 HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
 INT8_OPS_S = 1979e12
+F32_OPS_S = 67e12  # float32 outside the tensor cores
 
 T0 = time.perf_counter()
 LOG_FILES = []  # the --log-dir copy of the progress lines
@@ -330,12 +355,12 @@ K9_TC = ("rtc::K9>",)
 K20_TC = ("rtc::K20>",)
 
 
-def check_k1(dev, gen, dims=LLAMA32_1B) -> dict:
+def check_k1(dev, gen, dims=LLAMA32_1B, edges: bool = True) -> dict:
     """K1 on the vocab head at T = 1, 8 and 32 bf16 rows against its plain
     version (within 1e-5 of the largest output, two runs bit-equal), timed
     beside its bound and bf16 torch.matmul, T = 1 also on gemv.cuh's
     gemv_kernel<1> (the route kept there if the template is more than 5 %
-    slower); then its edges (`check_rowq_edges`)."""
+    slower); then, with `edges`, its edges (`check_rowq_edges`)."""
     import torch
 
     from llamatpu_torch.ops import quant_matmul
@@ -374,7 +399,7 @@ def check_k1(dev, gen, dims=LLAMA32_1B) -> dict:
                                   "bound_ms", "bound_by")},
         library="bf16 torch.matmul", shape=f"T=1 O={V} I={D}",
         by_rows={t: per[t] for t in (8, 32)}, t1_gemv_kernel_ms=per[1]["gemv_kernel_ms"],
-        edges=check_rowq_edges(dev))
+        edges=check_rowq_edges(dev) if edges else None)
 
 
 def check_k2(dev, gen, dims=LLAMA32_1B) -> dict:
@@ -439,10 +464,11 @@ def check_k2(dev, gen, dims=LLAMA32_1B) -> dict:
 K3_NAMES = ("attn_tail_cluster_kernel", "rtc::K3>")  # K3's attention phase and GEMV phases
 
 
-def check_k3(dev, gen, dims=LLAMA32_1B) -> dict:
+def check_k3(dev, gen, dims=LLAMA32_1B, scale: float | None = None, rs: float = 1.0) -> dict:
     """K3 (append + attention + wo + FFN at T = 1) against its plain version
     at pos 0, 31, 32, 511 and S - 1 in bf16 and at 511 in f32, pos an int32
-    on the card as the path passes it: the cache bit-equal, the output
+    on the card as the path passes it, at the attention scale `scale`
+    (default HD ** -0.5) and residual scale `rs`: the cache bit-equal, the output
     within bf16 |d| <= 2e-2 + 1e-2|p| (1-2 ulp where the f32 sums, in
     another order, round apart), f32 |d| <= 1e-3 + 5e-4|p| (the CPU tests'
     tolerance); a second run bit-equal to the first. Timed at pos 512 on
@@ -459,7 +485,7 @@ def check_k3(dev, gen, dims=LLAMA32_1B) -> dict:
     wo, w13, w2 = rand_rowq(L, D, hdim, dev, gen), rand_rowq(L, 2 * F, D, dev, gen), \
         rand_rowq(L, D, F, dev, gen)
     nw = torch.rand((L, D), device=dev, generator=gen) + 0.5
-    scale = HD ** -0.5
+    scale = HD ** -0.5 if scale is None else scale
     worst = (0.0, 0.0)
     for dt, positions in ((torch.bfloat16, (0, 31, 32, 511 % S, S - 1)),
                           (torch.float32, (511 % S,))):
@@ -471,11 +497,11 @@ def check_k3(dev, gen, dims=LLAMA32_1B) -> dict:
             pv = torch.tensor([pos], dtype=torch.int32, device=dev)
             c1, c2, c3 = kvc.clone(), kvc.clone(), kvc.clone()
             got, _ = layer_fused.layer_attn_tail_fused_rowq(
-                wo, w13, w2, nw, q4, kvn, c1, x, pv, 5 % L, 1e-5, scale, HD)
+                wo, w13, w2, nw, q4, kvn, c1, x, pv, 5 % L, 1e-5, scale, HD, rs)
             again, _ = layer_fused.layer_attn_tail_fused_rowq(
-                wo, w13, w2, nw, q4, kvn, c3, x, pv, 5 % L, 1e-5, scale, HD)
+                wo, w13, w2, nw, q4, kvn, c3, x, pv, 5 % L, 1e-5, scale, HD, rs)
             want, _ = layer_fused.layer_attn_tail_plain(
-                wo, w13, w2, nw, q4, kvn, c2, x, pos, 5 % L, 1e-5, scale, HD)
+                wo, w13, w2, nw, q4, kvn, c2, x, pos, 5 % L, 1e-5, scale, HD, rs)
             torch.cuda.synchronize()
             assert torch.equal(c1, c2), f"K3 cache differs at pos {pos} ({dt})"
             assert torch.equal(got, again) and torch.equal(c1, c3), \
@@ -504,20 +530,20 @@ def check_k3(dev, gen, dims=LLAMA32_1B) -> dict:
         k = next(li) % L
         a, _ = attention.decode_attention_fused_write(q4, kvn, kvc, pv, scale, k, HD)
         return layer_fused.layer_tail_fused_rowq(wo, w13, w2, nw, a.reshape(1, 1, hdim).to(x.dtype),
-                                                 x, k, 1e-5)
+                                                 x, k, 1e-5, rs)
     row = dict(
         name="layer_attn_tail_fused_rowq", route="cuda", source="llamatpu_torch/csrc/layer_fused.cu",
         replaces="llamatpu/ops/layer_fused.py:416", max_abs_err=worst[0], max_rel_err=worst[1],
         tolerance="cache bit-equal; bf16 |d| <= 2e-2 + 1e-2|p|; f32 |d| <= 1e-3 + 5e-4|p|; two "
                   "runs bit-equal",
         **timings(lambda: layer_fused.layer_attn_tail_fused_rowq(
-                      wo, w13, w2, nw, q4, kvn, kvc, x, pv, next(li) % L, 1e-5, scale, HD),
+                      wo, w13, w2, nw, q4, kvn, kvc, x, pv, next(li) % L, 1e-5, scale, HD, rs),
                   K3_NAMES,
                   lambda: layer_fused.layer_attn_tail_plain(
-                      wo, w13, w2, nw, q4, kvn, kvc, x, pos, next(li) % L, 1e-5, scale, HD),
+                      wo, w13, w2, nw, q4, kvn, kvc, x, pos, next(li) % L, 1e-5, scale, HD, rs),
                   None, graph=True),
         k6_k9_ms=time_ms(two_calls), library=None, bound_ms=b_ms, bound_by=b_by,
-        shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD} D={D} F={F}")
+        shape=f"pos={pos} S={S} KV={KV} G={G} hd={HD} D={D} F={F} scale={scale:.6g} rs={rs}")
     log(f"K3 at pos {pos}: {row['ms']:.5f} ms (bound {b_ms:.5f}, K6 + K9 at T = 1 "
         f"{row['k6_k9_ms']:.5f}, plain {row['plain_ms']:.4f})")
     del wo, w13, w2, kvc
@@ -1002,7 +1028,7 @@ def time_dense(dev, dims, quant: bool, seed: int, sweep: bool = True) -> dict:
 
 # K6's edge geometries: (label, KV heads, G, head dim), each at 8 lanes
 DENSE_EDGE_GEOMETRIES = (("llama32-1b", 8, 4, 64), ("qwen15-moe", 16, 1, 128),
-                         ("phi3-medium", 10, 4, 128))
+                         ("phi3-medium", 10, 4, 128), ("qwen3-0.6b", 8, 2, 128))
 
 
 def check_dense_edges(dev) -> dict:
@@ -2055,17 +2081,20 @@ K17_NAMES = ("gemm_bf16_kernel", "gemm_bf16_reduce_kernel")
 def gemm_shapes(dims=LLAMA32_1B, phi3=PHI3_MEDIUM) -> dict:
     """{layer: {projection: (T, O, I)}} of every K4 call on the paths:
     llama32-1b's four projections at the 512-row prefill chunk and at the
-    128-row serving chunks, Phi-3-medium's at its 128-token prompt, and a
+    128-row serving chunks, Phi-3-medium's at its 128-token prompt,
+    Qwen3-0.6B's at its 512-row chunk (q width 2048 on dim 1024), and a
     ragged last chunk."""
     def layer(d):
         qkv = (d["G"] * d["KV"] + 2 * d["KV"]) * d["HD"]
         return {"wqkv": (qkv, d["D"]), "wo": (d["D"], d["KV"] * d["G"] * d["HD"]),
                 "w13": (2 * d["F"], d["D"]), "w2": (d["D"], d["F"])}
 
-    llama, phi = layer(dims), layer(phi3)
+    llama, phi, qwen3 = layer(dims), layer(phi3), layer(QWEN3_06B)
     return {f"llama32-1b T={dims['T']}": {k: (dims["T"], o, i) for k, (o, i) in llama.items()},
             "llama32-1b T=128": {k: (128, o, i) for k, (o, i) in llama.items()},
             "phi3-medium T=128": {k: (128, o, i) for k, (o, i) in phi.items()},
+            f"qwen3-0.6b T={QWEN3_06B['T']}": {k: (QWEN3_06B["T"], o, i)
+                                               for k, (o, i) in qwen3.items()},
             "ragged": {"T=200": (200, 2560, 2064)}}
 
 
@@ -4158,7 +4187,8 @@ def first_layers(model, n: int):
 
     def cut(v):
         if isinstance(v, QTensor):
-            return dataclasses.replace(v, qs=v.qs[:n], scales=v.scales[:n])
+            return dataclasses.replace(v, qs=v.qs[:n], scales=v.scales[:n],
+                                       offs=None if v.offs is None else v.offs[:n])
         return v[:n]
     layers = {k: cut(v) for k, v in model.weights["layers"].items()}
     return dataclasses.replace(model, cfg=dataclasses.replace(model.cfg, n_layers=n),
@@ -5164,6 +5194,723 @@ def run_phi3_gguf_paths(dev, workdir: Path, n_layers: int = 4) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- slice 22
+# Qwen3-0.6B's geometry (the qwen3-0.6b preset): q width 16 x 128 = 2048 is
+# not the dim 1024; physical cache 1152 (cache 1024 + one 128-row granule)
+QWEN3_06B = dict(L=28, D=1024, F=3072, KV=8, G=2, HD=128, S=1152, V=151936, T=512)
+# Granite-3.2-2b's (the granite-3.2-2b preset) with its µP scales: residual
+# 0.22, attention 1/64; L: the layers of the kernel checks' weight stacks
+GRANITE_2B = dict(L=8, D=2048, F=8192, KV=8, G=4, HD=64, S=1152, V=49155, T=512)
+GRANITE_SCALES = dict(scale=0.015625, rs=0.22)
+# Qwen3's <think> / </think> at their ids in the published vocab
+QWEN3_THINK = {151667: "<think>", 151668: "</think>"}
+KQUANT_T = (1, 8, 512)
+TINY_FAMILIES = ("deepseek", "qwen3", "mistral", "devstral", "granite")
+
+
+def check_family_kernels(dev) -> dict:
+    """K2 and K3 at Qwen3-0.6B's shapes (D 1024, q width 2048, head 128, G
+    2) and at Granite-3.2-2b's with its µP scales (attention 1/64, residual
+    0.22), through check_k2 / check_k3's holds and timings; K6 at Qwen3's
+    (check_attention: the Q4_K_M GGUF's decode attention); K1 on Qwen3's
+    151936-row and Granite's 49155-row heads (check_k1, no edges); K5 on
+    Granite's head (49155 rows: not a multiple of 16) at T = 1, 8 and 512,
+    bf16 and f32 (hold_block). Returns {kernel row name: {geometry: row}}."""
+    import torch
+
+    from llamatpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {"qkv_norm_fused_rowq": {}, "layer_attn_tail_fused_rowq": {}, "rowq_gemv": {},
+           "block_matmul": {}, "decode_attention_fused_write": {}}
+    log(f"family kernels: K6 at qwen3 {QWEN3_06B}")
+    out["decode_attention_fused_write"]["qwen3"] = check_attention(dev, QWEN3_06B, sweep=False)
+    for key, dims, scales in (("qwen3", QWEN3_06B, {}), ("granite", GRANITE_2B, GRANITE_SCALES)):
+        log(f"family kernels: {key} {dims} {scales}")
+        out["qkv_norm_fused_rowq"][key] = check_k2(dev, gen, dims)
+        out["layer_attn_tail_fused_rowq"][key] = check_k3(dev, gen, dims, **scales)
+        out["rowq_gemv"][key + "_head"] = check_k1(dev, gen, dims, edges=False)
+        torch.cuda.empty_cache()
+    D, V = GRANITE_2B["D"], GRANITE_2B["V"]
+    w, s, q = block_weight(V, D, False, dev, gen)
+    w, s = w[0], s[0]
+    w_bf = qm.dequant_blocks(q[0], s, torch.bfloat16)
+    per = {}
+    for t in KQUANT_T:
+        errs = [hold_block(qm.block_matmul, qm.block_matmul_plain,
+                           torch.randn((t, D), device=dev, generator=gen).to(dt), w, s,
+                           f"block_matmul granite head T={t} {dt}")
+                for dt in (torch.bfloat16, torch.float32)]
+        abs_e, rel_e = max(e[0] for e in errs), max(e[1] for e in errs)
+        xb = torch.randn((t, D), device=dev, generator=gen).to(torch.bfloat16)
+        b_ms, b_by = bound(V * D + V * (D // 32) * 4 + t * D * 2 + t * V * 4, 2 * t * V * D,
+                           BF16_OPS_S)
+        route = qm.block_route(t, D, xb.dtype, False)
+        per[t] = dict(max_abs_err=abs_e, max_rel_err=rel_e, bound_ms=b_ms, bound_by=b_by,
+                      route=route, shape=f"T={t} O={V} I={D}",
+                      **timings(lambda: qm.block_matmul(xb, w, s), K5_NAMES,
+                                lambda: qm.block_matmul_plain(xb, w, s),
+                                lambda: torch.matmul(xb, w_bf.T), iters=4,
+                                graph=route == "tc"))
+        log(f"block_matmul granite head T={t} ({route}): {per[t]['ms']:.4f} ms (bound "
+            f"{b_ms:.4f}, plain {per[t]['plain_ms']:.4f}, bf16 matmul "
+            f"{per[t]['library_ms']:.4f})")
+    out["block_matmul"]["granite_head"] = per
+    del w, s, q, w_bf
+    torch.cuda.empty_cache()
+    return out
+
+
+def kquant_weight(o: int, i: int, kind: str, packed: bool, dev, gen):
+    """Random native K-quant weights [O, I]: values of the kind's range
+    (Q4_K [-8, 7], packed two a byte under `packed`; Q5_K [-16, 15]), f32
+    per-32 scales and offsets of the size a checkpoint's d * sc and dmin * m
+    give. Returns (qs as the kernel takes it, scales, offsets, the int8
+    values)."""
+    import torch
+
+    lo, hi = (-8, 8) if kind == "q4_k" else (-16, 16)
+    q = torch.randint(lo, hi, (o, i), dtype=torch.int8, device=dev, generator=gen)
+    w = q
+    if packed:
+        lo4, hi4 = q[..., 0::2].to(torch.int32) & 0xF, q[..., 1::2].to(torch.int32) & 0xF
+        w = (lo4 | (hi4 << 4)).to(torch.uint8).view(torch.int8).contiguous()
+    s = torch.rand((o, i // 32), device=dev, generator=gen) * 0.002 + 0.001
+    offs = (torch.rand((o, i // 32), device=dev, generator=gen) - 0.5) * 0.02
+    return w, s, offs, q
+
+
+def check_kquant_kernels(dev, dims=QWEN3_06B) -> dict:
+    """K5 on Q4_K and Q5_K values and K7 on packed Q4_K values, f32 scales,
+    at Qwen3-0.6B's four projection shapes (and, for Q4_K, wq and wk apart,
+    as the Q4_K_M GGUF runs them beside its Q6_K wv) and T = 1, 8 and 512,
+    bf16 and f32, against the plain versions (hold_block); then the whole projection
+    through ops/matmul.matmul (the kernel, then the offset epilogue
+    xbsum @ offs^T) against the dense product of the reconstructed weight
+    (q * scale + offset, f32: rel <= 1e-5). Timed in bf16: the kernel beside
+    its plain version, bf16 torch.matmul on the dequantized values and the
+    bound of the values and scales; `with_offsets_ms` is the whole
+    projection's time. K5 on the Q8_0 values the load makes of Q6_K
+    (check_q6k_values) and K13 on the experts' offset term at Qwen1.5-MoE's
+    expert widths (check_grouped_offsets) follow. Returns {kernel row name:
+    {kind: per (shape, T)}}."""
+    import torch
+
+    from llamatpu_torch.models.weights import QTensor
+    from llamatpu_torch.ops import quant_matmul as qm
+    from llamatpu_torch.ops.matmul import matmul
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shapes = block_shapes(dims)
+    shapes.pop("head")
+    apart = {"wq": (dims["KV"] * dims["G"] * dims["HD"], dims["D"]),
+             "wk": (dims["KV"] * dims["HD"], dims["D"])}
+    out = {"block_matmul": {}, "packed4_matmul": {}}
+    for kind, packed in (("q4_k", False), ("q5_k", False), ("q4_k", True)):
+        kern = qm.packed4_matmul if packed else qm.block_matmul
+        plain = qm.packed4_matmul_plain if packed else qm.block_matmul_plain
+        names = K7_NAMES if packed else K5_NAMES
+        per = {}
+        for name, (o, i) in {**shapes, **(apart if kind == "q4_k" else {})}.items():
+            w, s, offs, q = kquant_weight(o, i, kind, packed, dev, gen)
+            qt = QTensor(w, s, kind, layout="packed4" if packed else "canonical", offs=offs)
+            dense = q.float() * s.repeat_interleave(32, -1) + offs.repeat_interleave(32, -1)
+            w_bf = (q.float() * s.repeat_interleave(32, -1)).to(torch.bfloat16)
+            for t in KQUANT_T:
+                errs = [hold_block(kern, plain,
+                                   torch.randn((t, i), device=dev, generator=gen).to(dt), w, s,
+                                   f"{kern.__name__} {kind} {name} T={t} {dt}")
+                        for dt in (torch.bfloat16, torch.float32)]
+                abs_e, rel_e = max(e[0] for e in errs), max(e[1] for e in errs)
+                xf = torch.randn((t, i), device=dev, generator=gen)
+                got, want = matmul(qt, xf), xf @ dense.T
+                torch.cuda.synchronize()
+                m_abs, m_rel = max_err(got, want)
+                assert m_rel <= 1e-5, f"{kind} {name} T={t} with offsets: {m_abs} rel {m_rel}"
+                xb = xf.to(torch.bfloat16)
+                wbytes = o * (i // 2 if packed else i) + o * (i // 32) * 4
+                b_ms, b_by = bound(wbytes + t * i * 2 + t * o * 4, 2 * t * o * i, BF16_OPS_S)
+                route = qm.block_route(t, i, xb.dtype, packed)
+                tm = timings(lambda: kern(xb, w, s), names, lambda: plain(xb, w, s),
+                             lambda: torch.matmul(xb, w_bf.T), iters=8, graph=route == "tc")
+                per[f"{name} T={t}"] = dict(
+                    **tm, bound_ms=b_ms, bound_by=b_by, route=route, max_abs_err=abs_e,
+                    max_rel_err=rel_e, offsets_max_rel_err=m_rel,
+                    with_offsets_ms=time_ms(lambda: matmul(qt, xb), iters=8),
+                    shape=f"T={t} O={o} I={i}")
+                log(f"{kern.__name__} {kind} {name} T={t} ({route}): {tm['ms']:.4f} ms (bound "
+                    f"{b_ms:.4f}, plain {tm['plain_ms']:.4f}, bf16 matmul "
+                    f"{tm['library_ms']:.4f}; with the offset epilogue "
+                    f"{per[f'{name} T={t}']['with_offsets_ms']:.4f}), rel err {rel_e:.3g}, "
+                    f"offsets rel {m_rel:.3g}")
+            del w, s, offs, q, dense, w_bf
+        for t in KQUANT_T:  # one layer's four projections
+            row = [per[f"{n} T={t}"] for n in shapes]
+            per[f"layer T={t}"] = {k: sum(r[k] for r in row)
+                                   for k in ("ms", "library_ms", "bound_ms", "plain_ms",
+                                             "with_offsets_ms")}
+        out[kern.__name__][kind] = per
+        torch.cuda.empty_cache()
+    out["block_matmul"]["q8_0_from_q6_k"] = check_q6k_values(dev, dims)
+    out["grouped_dense_matmul"] = {"offsets": check_grouped_offsets(dev)}
+    return out
+
+
+def q6k_as_q8_0(o: int, i: int, dev, seed: int):
+    """The Q8_0 values and f32 block scales [O, I], [O, I/32] the loader
+    makes of a Q6_K tensor (`quants.requantize_to_q8_0`, as `_load_matmul`),
+    from seeded raw superblocks (kquant_raw), on `dev`."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.gguf import GGMLType, quants
+
+    raw = kquant_raw(np.random.default_rng(seed), GGMLType.Q6_K, (o, i))
+    q8 = quants.requantize_to_q8_0(GGMLType.Q6_K, raw, o * i)
+    qs, sc = quants.q8_0_views(np.asarray(q8, np.uint8), o * i)
+    return (torch.from_numpy(np.ascontiguousarray(qs).reshape(o, i)).to(dev),
+            torch.from_numpy(np.asarray(sc, np.float32).reshape(o, i // 32)).to(dev))
+
+
+def check_q6k_values(dev, dims=QWEN3_06B) -> dict:
+    """K5 on the Q8_0 values of the Q4_K_M GGUF's Q6_K tensors, at the
+    shapes its forward runs them: attn_v, ffn_down and the tied head
+    (token_embd, 151936 rows), T = 1, 8 and 512, bf16 and f32, against the
+    plain version (hold_block); timed in bf16 beside bf16 torch.matmul on
+    the dequantized weight. Returns {(shape, T): row}."""
+    import torch
+
+    from llamatpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    shapes = {"wv": (dims["KV"] * dims["HD"], dims["D"]), "w2": (dims["D"], dims["F"]),
+              "head": (dims["V"], dims["D"])}
+    per = {}
+    for seed, (name, (o, i)) in enumerate(shapes.items()):
+        w, s = q6k_as_q8_0(o, i, dev, seed)
+        w_bf = qm.dequant_blocks(w, s, torch.bfloat16)
+        for t in KQUANT_T:
+            errs = [hold_block(qm.block_matmul, qm.block_matmul_plain,
+                               torch.randn((t, i), device=dev, generator=gen).to(dt), w, s,
+                               f"block_matmul q8_0 (from Q6_K) {name} T={t} {dt}")
+                    for dt in (torch.bfloat16, torch.float32)]
+            xb = torch.randn((t, i), device=dev, generator=gen).to(torch.bfloat16)
+            b_ms, b_by = bound(o * i + o * (i // 32) * 4 + t * i * 2 + t * o * 4, 2 * t * o * i,
+                               BF16_OPS_S)
+            route = qm.block_route(t, i, xb.dtype, False)
+            per[f"{name} T={t}"] = row = dict(
+                **timings(lambda: qm.block_matmul(xb, w, s), K5_NAMES,
+                          lambda: qm.block_matmul_plain(xb, w, s),
+                          lambda: torch.matmul(xb, w_bf.T), iters=4, graph=route == "tc"),
+                bound_ms=b_ms, bound_by=b_by, route=route, shape=f"T={t} O={o} I={i}",
+                max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
+            log(f"block_matmul q8_0 (from Q6_K) {name} T={t} ({route}): {row['ms']:.4f} ms "
+                f"(bound {b_ms:.4f}, plain {row['plain_ms']:.4f}, bf16 matmul "
+                f"{row['library_ms']:.4f}), rel err {row['max_rel_err']:.3g}")
+        del w, s, w_bf
+        torch.cuda.empty_cache()
+    return per
+
+
+def check_grouped_offsets(dev, dims=QWEN15) -> dict:
+    """K13 on the Q4_K experts' offset term (grouped_offset_term) at
+    Qwen1.5-MoE's folded expert widths: gate+up offs [E, 2816, 64] and down
+    offs [E, 2048, 44] (zero-padded to 64 for K13 as the load pads them,
+    weights.pad_offsets), N in {1, 8, 512} tokens
+    at the tile rule, bf16 and f32 activations: against the plain version on
+    the same padded operands (f32 <= 1e-5 of the largest |value|) and
+    against the unpadded product (the padding adds nothing). Timed with the
+    f32 xbsum; no PyTorch call computes this grouped f32 product."""
+    import torch
+    import torch.nn.functional as F
+
+    from llamatpu_torch.ops import moe_grouped as mg
+
+    E, D, MH, K = (dims[k] for k in ("E", "D", "MH", "K"))
+    gen = torch.Generator(device=dev).manual_seed(24)
+    per = {}
+    for proj, (o, i) in {"gu": (2 * MH, D), "down": (D, MH)}.items():
+        nb = i // 32
+        pad = -nb % 32
+        offs = (torch.rand((E, o, nb), device=dev, generator=gen) - 0.5) * 0.02
+        offp = F.pad(offs, (0, pad)).contiguous()
+        for n in (1, 8, dims["T"]):
+            top = moe_top(n, K, E, seed=n, dev=dev)
+            tm = mg.tile_rows(n, K)
+            rt, _, te = mg.sort_by_expert(top, E, tm)
+            used = te[te >= 0].unique().numel()
+            worst = 0.0
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((n, i), device=dev, generator=gen).to(dt)
+                xs = torch.cat([x, x.new_zeros((1, i))])[rt.long()]
+                got = mg.grouped_offset_term(xs, offp, te, tm, row_token=rt, n_tokens=n)
+                xb = xs.float().reshape(-1, nb, 32).sum(-1)
+                want = mg.grouped_dense_matmul_plain(F.pad(xb, (0, pad)), offp, te, tm)
+                unpadded = mg.grouped_dense_matmul_plain(xb, offs, te, tm)
+                torch.cuda.synchronize()
+                abs_e, rel_e = max_err(got, want)
+                assert rel_e <= 1e-5, f"K13 offsets {proj} N={n} {dt}: {abs_e} rel {rel_e}"
+                assert max_err(want, unpadded)[1] <= 1e-6, f"K13 offsets {proj}: padding"
+                worst = max(worst, rel_e)
+            xbp = F.pad(xs.float().reshape(-1, nb, 32).sum(-1), (0, pad)).contiguous()
+            kp = nb + pad
+            nbytes = used * o * kp * 4 + xbp.shape[0] * kp * 4 + xbp.shape[0] * o * 4
+            b_ms, b_by = bound(nbytes, 2 * n * K * o * nb, F32_OPS_S)  # f32 FMAs
+            own = kernel_ms(lambda: mg.grouped_dense_matmul(xbp, offp, te, tm, rt, n), MOE_KERNELS)
+            wrapper = time_ms(lambda: mg.grouped_dense_matmul(xbp, offp, te, tm, rt, n))
+            per[f"{proj} N={n}"] = dict(
+                ms=own if own is not None else wrapper,
+                ms_source="profiler" if own is not None else "cuda graph", wrapper_ms=wrapper,
+                plain_ms=events_ms(lambda: mg.grouped_dense_matmul_plain(xbp, offp, te, tm)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, used_experts=used, tm=tm,
+                term_ms=time_ms(lambda: mg.grouped_offset_term(xs, offp, te, tm, rt, n)),
+                shape=f"N={n} O={o} I/32={nb} (padded {kp})", max_rel_err=worst)
+            log(f"grouped_dense_matmul offsets {proj} N={n} tm={tm} ({used} experts): "
+                f"{per[f'{proj} N={n}']['ms']:.4f} ms (bound {b_ms:.5f} by {b_by}, plain "
+                f"{per[f'{proj} N={n}']['plain_ms']:.3f}; the term with its sums "
+                f"{per[f'{proj} N={n}']['term_ms']:.4f})")
+        del offs, offp
+    return per
+
+
+# ---- slice 22's GGUFs
+def kquant_raw(rng, ggml_type, shape) -> "np.ndarray":
+    """Seeded raw superblocks of a K-quant tensor of `shape`: random bytes,
+    with every f16 d (and Q4_K / Q5_K's dmin) set to a small finite value
+    (random bytes there could encode inf or NaN), sized so the weights have
+    the spread of a checkpoint's (|w| ~ 0.01-0.03)."""
+    import numpy as np
+
+    from llamatpu_torch.gguf import GGMLType
+
+    n = int(np.prod(shape))
+    nb = n // 256
+    size = {GGMLType.Q4_K: 144, GGMLType.Q5_K: 176, GGMLType.Q6_K: 210}[ggml_type]
+    raw = np.frombuffer(rng.bytes(nb * size), np.uint8).reshape(nb, size).copy()
+    if ggml_type == GGMLType.Q6_K:
+        d = (rng.random(nb, dtype=np.float32) * 2e-5 + 1e-5).astype(np.float16)
+        raw[:, 208:210] = d[:, None].view(np.uint8)
+    else:
+        top = 3e-5 if ggml_type == GGMLType.Q4_K else 1.5e-5  # q in [0, 15] or [0, 31]
+        d = (rng.random(nb, dtype=np.float32) * top + top / 2).astype(np.float16)
+        dmin = (rng.random(nb, dtype=np.float32) * 2e-5).astype(np.float16)
+        raw[:, 0:2] = d[:, None].view(np.uint8)
+        raw[:, 2:4] = dmin[:, None].view(np.uint8)
+    return raw.reshape(-1)
+
+
+def write_qwen3_gguf(cfg, path, main, seed: int = 0) -> None:
+    """A Qwen3 GGUF of `cfg`'s geometry through the port's writer, from
+    seeded raw superblocks (kquant_raw): the projections in `main` (Q4_K or
+    Q5_K), attn_v and ffn_down in Q6_K where main is Q4_K (as llama.cpp's
+    Q4_K_M; else main too), token_embd (the tied head) in Q6_K, norms f32
+    (q/k norm near 1); a ChatML vocab of 151936 ids with <think> / </think>
+    at Qwen3's ids."""
+    import numpy as np
+
+    from llamatpu_torch.gguf import GGMLType, GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    gw = GGUFWriter()
+    gw.add("general.architecture", "qwen3")
+    gw.add("general.name", f"synthetic Qwen3-0.6B {main.name}")
+    for key, v in (("embedding_length", cfg.dim), ("feed_forward_length", cfg.hidden_dim),
+                   ("block_count", cfg.n_layers), ("attention.head_count", cfg.n_heads),
+                   ("attention.head_count_kv", cfg.n_kv_heads),
+                   ("attention.key_length", cfg.head_dim),
+                   ("attention.value_length", cfg.head_dim),
+                   ("context_length", cfg.context_length),
+                   ("attention.layer_norm_rms_epsilon", float(cfg.rms_norm_eps)),
+                   ("rope.freq_base", float(cfg.rope_theta)), ("vocab_size", cfg.vocab_size)):
+        gw.add("qwen3." + key, v)
+    tokens, types, merges = qwen_vocab(cfg.vocab_size)
+    for i, t in QWEN3_THINK.items():
+        tokens[i] = t
+    gw.add("tokenizer.ggml.model", "gpt2")
+    gw.add("tokenizer.ggml.pre", "qwen2")
+    gw.add("tokenizer.ggml.tokens", tokens)
+    gw.add("tokenizer.ggml.merges", merges)
+    gw.add("tokenizer.ggml.token_type", np.array(types, dtype=np.int32))
+    gw.add("tokenizer.ggml.bos_token_id", 151643)
+    gw.add("tokenizer.ggml.eos_token_id", 151645)
+    side = GGMLType.Q6_K if main == GGMLType.Q4_K else main
+
+    def kq(name, t, shape):
+        gw.add_tensor_raw(name, shape, t, kquant_raw(rng, t, shape))
+
+    def norm(name, n, spread=0.0):
+        gw.add_tensor(name, (1.0 + spread * rng.standard_normal(n)).astype(np.float32))
+
+    d, q, kv, f = cfg.dim, cfg.q_dim, cfg.kv_dim, cfg.hidden_dim
+    kq("token_embd.weight", GGMLType.Q6_K, (cfg.vocab_size, d))
+    norm("output_norm.weight", d)
+    for li in range(cfg.n_layers):
+        b = f"blk.{li}."
+        norm(b + "attn_norm.weight", d)
+        norm(b + "ffn_norm.weight", d)
+        norm(b + "attn_q_norm.weight", cfg.head_dim, 0.1)
+        norm(b + "attn_k_norm.weight", cfg.head_dim, 0.1)
+        kq(b + "attn_q.weight", main, (q, d))
+        kq(b + "attn_k.weight", main, (kv, d))
+        kq(b + "attn_v.weight", side, (kv, d))
+        kq(b + "attn_output.weight", main, (d, q))
+        kq(b + "ffn_gate.weight", main, (f, d))
+        kq(b + "ffn_up.weight", main, (f, d))
+        kq(b + "ffn_down.weight", side, (d, f))
+    gw.write(str(path))
+
+
+def tiny_family_gguf(path, family: str, quant, seed: int = 0) -> None:
+    """The tiny GGUF of tests/tiny_models.py `build_tiny_gguf(path, family,
+    quant, seed, with_tokenizer=True)`, byte for byte (the same numpy draws
+    in the same order), written by the port's writer: dim 64, 2 layers, 4
+    heads of 16 over 2 KV heads, FFN 96, context 64, the family's keys,
+    tokenizer (byte-level BPE with its specials; SentencePiece for Mistral
+    and Phi-3) and tensors. For the dense families."""
+    import string
+
+    import numpy as np
+
+    from llamatpu_torch.gguf import GGUFWriter
+    from llamatpu_torch.gguf.ggml_type import GGMLType
+    from llamatpu_torch.tokenizer.bpe import bytes_to_unicode
+
+    rng = np.random.default_rng(seed)
+    dim, heads, kv_heads, hd, hidden, layers, ctx = 64, 4, 2, 16, 96, 2, 64
+    arch = {"llama": "llama", "mistral": "llama", "devstral": "llama", "qwen2": "qwen2",
+            "deepseek": "qwen2", "qwen3": "qwen3", "phi3": "phi3", "granite": "granite"}[family]
+    name = {"llama": "Llama Tiny", "mistral": "Mistral Tiny", "devstral": "Devstral Tiny",
+            "qwen2": "Qwen2 Tiny", "deepseek": "DeepSeek R1 Distill Tiny", "qwen3": "Qwen3 Tiny",
+            "phi3": "Phi3 Tiny", "granite": "Granite Tiny"}[family]
+    p = arch + "."
+    w = GGUFWriter()
+    w.add("general.architecture", arch)
+    w.add("general.name", name)
+    if family == "deepseek":
+        w.add("general.basename", "DeepSeek-R1-Distill-Qwen")
+    for key, v in (("embedding_length", dim), ("feed_forward_length", hidden),
+                   ("block_count", layers), ("attention.head_count", heads),
+                   ("attention.head_count_kv", kv_heads), ("context_length", ctx),
+                   ("attention.layer_norm_rms_epsilon", 1e-5), ("rope.freq_base", 10000.0)):
+        w.add(p + key, v)
+    if family in ("mistral", "phi3"):  # SentencePiece: <unk> <s> </s>, bytes, chars, pieces
+        tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+        scores, types = [0.0] * 3 + [0.0] * 256, [2, 3, 3] + [6] * 256
+        chars = "▁" + string.ascii_letters + string.digits + string.punctuation
+        tokens += list(chars)
+        scores += [-1.0] * len(chars)
+        types += [1] * len(chars)
+        pieces = ["▁the", "▁hello", "▁world", "he", "ll", "lo", "th", "er", "in", "ing", "ion"]
+        tokens += pieces
+        scores += [-2.0 - 0.1 * i for i in range(len(pieces))]
+        types += [1] * len(pieces)
+        if family == "phi3":
+            specials = ["<|end|>", "<|user|>", "<|assistant|>", "<|system|>"]
+            tokens += specials
+            scores += [0.0] * len(specials)
+            types += [3] * len(specials)
+        w.add("tokenizer.ggml.model", "llama")
+        w.add("tokenizer.ggml.tokens", tokens)
+        w.add("tokenizer.ggml.scores", np.array(scores, dtype=np.float32))
+        w.add("tokenizer.ggml.token_type", np.array(types, dtype=np.int32))
+        w.add("tokenizer.ggml.bos_token_id", 1)
+        w.add("tokenizer.ggml.eos_token_id", 2)
+        w.add("tokenizer.ggml.add_bos_token", True)
+    else:  # byte-level BPE: the 256 byte chars, nine merges, the family's specials
+        if family == "devstral":
+            w.add("tokenizer.ggml.pre", "tekken")
+        enc = bytes_to_unicode()
+        tokens = [enc[i] for i in range(256)]
+        pairs = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o"), ("Ġ", "w"),
+                 ("Ġw", "o"), ("Ġwo", "r"), ("Ġwor", "l"), ("Ġworl", "d")]
+        merges = [f"{a} {b}" for a, b in pairs]
+        tokens += [a + b for a, b in pairs]
+        specials = ["<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+                    "<|end_header_id|>", "<|eot_id|>"]
+        if family in ("qwen2", "qwen3"):
+            specials += ["<|im_start|>", "<|im_end|>"] + (
+                ["<think>", "</think>"] if family == "qwen3" else [])
+        elif family == "deepseek":
+            specials += ["<｜User｜>", "<｜Assistant｜>", "<think>", "</think>"]
+        tokens += specials
+        w.add("tokenizer.ggml.model", "gpt2")
+        w.add("tokenizer.ggml.tokens", tokens)
+        w.add("tokenizer.ggml.merges", merges)
+        w.add("tokenizer.ggml.token_type",
+              np.array([1] * (256 + len(pairs)) + [3] * len(specials), dtype=np.int32))
+        w.add("tokenizer.ggml.bos_token_id", 256 + len(pairs))
+        w.add("tokenizer.ggml.eos_token_id", 256 + len(pairs) + 1)
+    vocab = len(tokens)
+    w.add(p + "vocab_size", vocab)
+    if family == "qwen3":
+        w.add(p + "attention.key_length", hd)
+        w.add(p + "attention.value_length", hd)
+    if family == "devstral":
+        w.add(p + "attention.key_length", hd)
+        for key, v in (("type", "yarn"), ("factor", 2.0), ("yarn_beta_fast", 32.0),
+                       ("yarn_beta_slow", 1.0), ("yarn_log_multiplier", 1.0),
+                       ("original_context_length", ctx // 2)):
+            w.add(p + "rope.scaling." + key, v)
+    if family == "granite":
+        for key, v in (("embedding_scale", 12.0), ("residual_scale", 0.22),
+                       ("attention.scale", 0.0078125), ("logit_scale", 16.0)):
+            w.add("granite." + key, v)
+
+    def mat(out, inp, scale=None):
+        scale = scale if scale is not None else 1.0 / np.sqrt(inp)
+        return (rng.normal(size=(out, inp)) * scale).astype(np.float32)
+
+    def norm(n):
+        return (1.0 + 0.1 * rng.normal(size=n)).astype(np.float32)
+
+    q_dim, kv_dim = heads * hd, kv_heads * hd
+    w.add_tensor("token_embd.weight", mat(vocab, dim, scale=0.5), quant)
+    w.add_tensor("output_norm.weight", norm(dim), GGMLType.F32)
+    w.add_tensor("output.weight", mat(vocab, dim), quant)
+    for i in range(layers):
+        b = f"blk.{i}."
+        w.add_tensor(b + "attn_norm.weight", norm(dim), GGMLType.F32)
+        w.add_tensor(b + "ffn_norm.weight", norm(dim), GGMLType.F32)
+        w.add_tensor(b + "attn_output.weight", mat(dim, q_dim), quant)
+        if family == "phi3":
+            w.add_tensor(b + "attn_qkv.weight", mat(q_dim + 2 * kv_dim, dim), quant)
+            w.add_tensor(b + "ffn_up.weight", mat(2 * hidden, dim), quant)
+            w.add_tensor(b + "ffn_down.weight", mat(dim, hidden), quant)
+        else:
+            w.add_tensor(b + "attn_q.weight", mat(q_dim, dim), quant)
+            w.add_tensor(b + "attn_k.weight", mat(kv_dim, dim), quant)
+            w.add_tensor(b + "attn_v.weight", mat(kv_dim, dim), quant)
+            w.add_tensor(b + "ffn_gate.weight", mat(hidden, dim), quant)
+            w.add_tensor(b + "ffn_up.weight", mat(hidden, dim), quant)
+            w.add_tensor(b + "ffn_down.weight", mat(dim, hidden), quant)
+        if family in ("qwen2", "deepseek"):
+            for t, n in (("attn_q.bias", q_dim), ("attn_k.bias", kv_dim), ("attn_v.bias", kv_dim)):
+                w.add_tensor(b + t, (rng.normal(size=n) * 0.1).astype(np.float32), GGMLType.F32)
+        if family == "qwen3":
+            w.add_tensor(b + "attn_q_norm.weight", norm(hd), GGMLType.F32)
+            w.add_tensor(b + "attn_k_norm.weight", norm(hd), GGMLType.F32)
+    w.write(str(path))
+
+
+def compare_decode(dev, model, n: int, steps: int, label: str, **kw) -> dict:
+    """Prefill logits of an n-token prompt and the logits of `steps` decode
+    steps after it (T = 1 through the forward, fed the CPU's greedy ids on
+    both sides), f32 on the card and on the CPU (plain versions): the largest
+    difference relative to the largest CPU logit of each."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.transformer import forward_tokens
+    from llamatpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(7).integers(0, min(model.cfg.vocab_size, 128000), n).tolist()
+    res = {}
+    feed = None
+    for where in ("cpu", dev):
+        e = Engine(model, cache_len=1024, prefill_chunk=n, cache_dtype=torch.float32,
+                   device=where, **kw)
+        tok, logits = e.prefill(prompt, 0)
+        rows = [logits.float().cpu()]
+        ids = feed or [int(tok[0])]
+        for s in range(steps):
+            t = torch.tensor([[ids[s]]], device=e.device)
+            lg, _ = forward_tokens(e.cfg, e.weights, t, e.cache, n + s, last_logit_only=True)
+            rows.append(lg.float().cpu())
+            if feed is None:
+                ids.append(int(lg.argmax()))
+        feed = feed or ids
+        res[str(where)] = rows
+        del e
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(res[str(dev)], res["cpu"])]
+    log(f"cpu {label}: {n}-token prefill and {steps} decode steps, logits card vs cpu rel "
+        f"{[float(f'{r:.3g}') for r in rel]}")
+    return dict(prompt=n, steps=steps, logits_rel=rel)
+
+
+def run_qwen3_paths(dev, workdir: Path, overrides=None, n_layers=None) -> dict:
+    """Slice 22's Qwen3-0.6B paths (q/k norm between K2 and K3; q width 2048
+    on dim 1024):
+    - qwen3: the qwen3-0.6b preset at full width and depth (synthetic Q8_0
+      served as q8_row, seed 0) through Engine, pp512 then tg128 greedy (K4,
+      K1, K2 and, where the JAX fit takes it, K3; else K6 + K9), the graph
+      against the eager window;
+    - qwen3_cpu / qwen3_q4k_cpu: the card against the CPU at 2 layers, f32:
+      q8_row (K1 prefill, K2 + K3 decode) and native Q4_K weights (K5 + the
+      offset epilogue, K6), prefill and decode-step logits within 1e-4;
+    - qwen3_q4km_*: a Q4_K_M-style GGUF at full width and depth (Q4_K, Q6_K
+      attn_v / ffn_down / token_embd, seeded raw superblocks) through `cli
+      run` (K5 on Q4_K and Q8_0 values, the offsets, K6), `cli run
+      --no-thinking`, `cli run --pack4` (K7) and `cli serve` (three HTTP
+      requests);
+    - qwen3_q5k_cli: a Q5_K copy at 4 layers through `cli run` (K5 on Q5_K
+      values)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.gguf import GGMLType
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.ops.layer_fused import attn_tail_fits
+    from llamatpu_torch.runtime.engine import Engine
+
+    out = {}
+    t0 = time.perf_counter()
+    model = build_synthetic_model("qwen3-0.6b", quant="q8_0", seed=0, context_length=4096,
+                                  n_layers=n_layers, overrides=overrides)
+    cfg = model.cfg
+    engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, rowq=True,
+                    device=dev)
+    L, V = cfg.n_layers, cfg.vocab_size
+    s_phys = engine.cache.kv.shape[3]
+    k3 = attn_tail_fits(cfg.dim, cfg.q_dim, cfg.hidden_dim, cfg.n_kv_heads, cfg.gqa_groups,
+                        cfg.v_head_dim, s_phys, 2, 2)
+    log(f"qwen3: {L} layers, dim {cfg.dim}, q width {cfg.q_dim}, built and served in "
+        f"{time.perf_counter() - t0:.1f} s; decode takes {'K3' if k3 else 'K6 + K9'} "
+        f"(the JAX fit at S = {s_phys}, bf16)")
+    prompt = np.random.default_rng(42).integers(0, V, 512).tolist()
+    attn = {"layer_attn_tail_fused_rowq": 1} if k3 else \
+        {"decode_attention_fused_write": 1, "layer_tail_fused_rowq": 1}
+    out["qwen3"] = drive_engine(engine, prompt, 128, lambda n: {
+        "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "rowq_gemm": 4 * L,
+        **{k: L * n * v for k, v in attn.items()}}, "qwen3")
+    out["qwen3"]["decode_takes"] = "K3" if k3 else "K6 + K9"
+    out["qwen3"]["graph"] = graph_decode(engine, "qwen3")
+    del engine, model
+    torch.cuda.empty_cache()
+    for key, quant, kw in (("qwen3_cpu", "q8_0", dict(rowq=True)), ("qwen3_q4k_cpu", "q4_k", {})):
+        small = build_synthetic_model("qwen3-0.6b", quant=quant, seed=1, n_layers=2, dtype="f32",
+                                      context_length=1024, overrides=overrides)
+        rng = np.random.default_rng(3)
+        for k in ("q_norm", "k_norm"):  # the preset's are ones
+            small.weights["layers"][k] = (1.0 + 0.1 * rng.standard_normal(
+                small.weights["layers"][k].shape)).astype(np.float32)
+        out[key] = compare_decode(dev, small, 64, 4, key, **kw)
+        assert max(out[key]["logits_rel"]) <= 1e-4, f"card and CPU disagree ({key}): {out[key]}"
+        del small
+    # the Q4_K_M-style GGUF at full width and depth, and its Q5_K copy at 4 layers
+    files = {}
+    for main, depth in ((GGMLType.Q4_K, cfg.n_layers), (GGMLType.Q5_K, min(4, cfg.n_layers))):
+        t0 = time.perf_counter()
+        files[main] = workdir / f"qwen3-0.6b-{main.name.lower()}-L{depth}.gguf"
+        write_qwen3_gguf(dataclasses.replace(cfg, n_layers=depth, context_length=4096),
+                         files[main], main)
+        log(f"qwen3 gguf: wrote {files[main].name} ({files[main].stat().st_size / 1e9:.3f} GB) "
+            f"in {time.perf_counter() - t0:.1f} s")
+    for label, extra in (("qwen3_q4km_cli", ()), ("qwen3_q4km_no_thinking", ("--no-thinking",)),
+                         ("qwen3_q4km_pack4", ("--pack4",))):
+        res = cli_run(dev, files[GGMLType.Q4_K], extra)
+        fwd = res["chunks"] + res["steps"]
+        want = {k: 0 for k in res["launches"]}
+        if extra == ("--pack4",):  # q, k, o, gate+up packed; v, down and the head Q8_0
+            want.update(packed4_matmul=4 * L * fwd, block_matmul=(2 * L + 1) * fwd)
+        else:  # q, k, v apart (v's kind differs), o, gate+up, down, the head
+            want.update(block_matmul=(6 * L + 1) * fwd)
+        want["decode_attention_fused_write"] = L * res["steps"]
+        assert res["launches"] == want, f"{label}: {res['launches']} != {want}"
+        log(f"{label}: cli run rc 0 in {res['seconds']:.1f} s, {res['chunks']} chunks + "
+            f"{res['steps']} steps, {res['chars']} chars streamed: {res['text']!r}")
+        out[label] = res
+    out["qwen3_q4km_serve"] = serve_kquant(dev, files[GGMLType.Q4_K], L)
+    files[GGMLType.Q4_K].unlink()
+    res = cli_run(dev, files[GGMLType.Q5_K])
+    d5 = min(4, L)
+    fwd = res["chunks"] + res["steps"]
+    want = {k: 0 for k in res["launches"]}
+    want.update(block_matmul=(4 * d5 + 1) * fwd, decode_attention_fused_write=d5 * res["steps"])
+    assert res["launches"] == want, f"qwen3_q5k_cli: {res['launches']} != {want}"
+    log(f"qwen3_q5k_cli: cli run rc 0, {res['chunks']} chunks + {res['steps']} steps, "
+        f"launches {res['launches']}")
+    out["qwen3_q5k_cli"] = res
+    files[GGMLType.Q5_K].unlink()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_kquant(dev, path: Path, L: int) -> dict:
+    """`llamatpu_torch.cli serve -m <gguf> -n 1024 --no-prefix-cache` in-process
+    (one Engine behind a lock) on 127.0.0.1: a chat with a system turn, a
+    streamed chat and a text completion, one after another; the launches held
+    to the Engine's forwards (K5 per projection as in `cli run`, K6 per layer
+    and step)."""
+    import threading
+
+    from llamatpu_torch import cli
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.server.openai_server import build_service, make_server
+
+    args = cli.build_parser().parse_args(["serve", "-m", str(path), "-n", "1024",
+                                          "--no-prefix-cache", "--device", str(dev)])
+    model = load_model(str(path), max_tokens=args.max_tokens)
+    svc = build_service(args, model)
+    srv = make_server(svc, "127.0.0.1", 0, model_id="qwen3-q4_k_m")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    fns = counters()
+    restore, fw = count_forwards()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    try:
+        status, raw = http(url + "/v1/chat/completions", {
+            "messages": [{"role": "system", "content": "Answer briefly."},
+                         {"role": "user", "content": "Why is the sky blue?"}],
+            "max_tokens": 32, "temperature": 0})
+        assert status == 200, f"qwen3 serve chat: HTTP {status} {raw[:200]!r}"
+        chat = json.loads(raw)
+        assert chat["usage"]["completion_tokens"] > 0
+        status, raw = http(url + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Tell me about rivers."}],
+            "max_tokens": 16, "temperature": 0, "stream": True})
+        assert status == 200
+        events = sse_events(raw)
+        assert events[-1]["choices"][0]["finish_reason"] in ("stop", "length")
+        status, raw = http(url + "/v1/completions", {"prompt": "The printing press",
+                                                     "max_tokens": 16})
+        assert status == 200 and json.loads(raw)["object"] == "text_completion"
+    finally:
+        restore()
+        srv.shutdown()
+        srv.server_close()
+    launches = {k: f.launches for k, f in fns.items()}
+    fwd = fw["chunks"] + fw["steps"]
+    want = {k: 0 for k in fns}
+    want.update(block_matmul=(6 * L + 1) * fwd, decode_attention_fused_write=L * fw["steps"])
+    assert launches == want, f"qwen3 serve: {launches} != {want} ({fw})"
+    res = dict(requests=3, seconds=time.perf_counter() - t0, launches=launches, **fw,
+               chat_tokens=chat["usage"]["completion_tokens"], stream_events=len(events))
+    log(f"qwen3_q4km_serve: 3 HTTP requests in {res['seconds']:.1f} s, {fw['chunks']} chunks + "
+        f"{fw['steps']} steps, launches {launches}")
+    del svc, model
+    return res
+
+
+def run_family_runs(dev, workdir: Path) -> dict:
+    """`cli run` on the tiny Q8_0 GGUF of each of the five families of slice
+    22 (tiny_family_gguf: tests/tiny_models.py's files): exit 0 and streamed
+    text, DeepSeek's opening with its <think> primer; K5 on every projection
+    and the head, K6 per layer and step."""
+    from llamatpu_torch.gguf.ggml_type import GGMLType
+
+    out = {}
+    for fam in TINY_FAMILIES:
+        path = workdir / f"tiny-{fam}-q8_0.gguf"
+        tiny_family_gguf(path, fam, GGMLType.Q8_0)
+        res = cli_run(dev, path)
+        fwd = res["chunks"] + res["steps"]
+        want = {k: 0 for k in res["launches"]}
+        want.update(block_matmul=(4 * 2 + 1) * fwd, decode_attention_fused_write=2 * res["steps"])
+        assert res["launches"] == want, f"{fam} cli run: {res['launches']} != {want}"
+        if fam == "deepseek":
+            assert res["text"].startswith("<think>\n"), f"deepseek: {res['text']!r}"
+        log(f"family {fam}: cli run rc 0 in {res['seconds']:.1f} s, {res['chunks']} chunks + "
+            f"{res['steps']} steps, {res['chars']} chars: {res['text']!r}")
+        out[f"family_{fam}"] = res
+        path.unlink()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-dir", default=None, help="write the ptxas report and results here")
@@ -5207,6 +5954,9 @@ def main() -> int:
         for key, check in (("qwen15", check_qwen_geometry), ("phi3_medium", check_phi3_geometry)):
             for name, sub in check(dev).items():
                 next(r for r in rows if r["name"] == name)[key] = sub
+        for check in (check_family_kernels, check_kquant_kernels):  # slice 22's shapes
+            for name, subs in check(dev).items():
+                next(r for r in rows if r["name"] == name).setdefault("slice22", {}).update(subs)
         paths = run_moe_paths(dev, n_layers=6)  # a depth cut for the time limit
         paths.update(run_moe_gguf_paths(dev, workdir))
         cpu_moe = run_moe_cpu_and_dense(dev)
@@ -5222,8 +5972,10 @@ def main() -> int:
         gguf.unlink()
         paths["pack4"] = run_pack4_path(dev, workdir)
         paths["dense_batch"] = run_dense_batch_path(dev)
-        paths.update(run_phi3_paths(dev))
+        paths.update(run_phi3_paths(dev, n_layers=20))  # a depth cut for the time limit
         paths.update(run_phi3_gguf_paths(dev, workdir))
+        paths.update(run_qwen3_paths(dev, workdir))
+        paths.update(run_family_runs(dev, workdir))
         harness = run_harness_paths(dev)
         summary["harness"] = harness
         summary.update(paths)

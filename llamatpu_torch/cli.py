@@ -10,15 +10,21 @@ default:
     python -m llamatpu_torch.cli ppl -m model.gguf --text-file wiki.txt
     python -m llamatpu_torch.cli convert -m model-q4_0.gguf -o model-q8_0.gguf
 
-A Llama 3, Qwen2, Qwen2-MoE or Phi-3 GGUF (Qwen1.5-MoE-A2.7B: routed
-experts through the grouped kernels) in Q8_0 or Q4_0 loads as block quants
-(`--pack4` packs Q4_0 two values per byte; `--rowq` requantizes Q8_0, the
-expert stacks included, to per-row int8 and takes the q8_row kernels),
-F32/F16/BF16 as dense weights; the prompt goes through the family's chat
-template (Llama 3 headers, Qwen's ChatML, Phi-3's <|user|> ... <|end|>),
-and the answer is sampled at the family's defaults (Llama 3: temperature
-0.3, top-p 0.95; Qwen: 0.8, 0.9; Phi-3: 0.7, 0.9) unless --temperature /
---top-p say otherwise, and streamed to stdout.
+A GGUF of any of the nine families (Llama 3, Mistral, Devstral 2, Granite,
+Phi-3, Qwen2, Qwen3, the DeepSeek-R1 Qwen distills, Qwen2-MoE: routed
+experts through the grouped kernels) in Q8_0, Q4_0, or native Q4_K / Q5_K
+(values plus per-32 offsets; Q6_K tensors requantized to Q8_0, so a
+Q4_K_M file loads) loads as block quants (`--pack4` packs Q4_0 and Q4_K two
+values per byte; `--rowq` requantizes Q8_0, the expert stacks included, to
+per-row int8 and takes the q8_row kernels), F32/F16/BF16 as dense weights;
+the prompt goes through the family's chat template (Llama 3 headers,
+Mistral's [INST], Granite's roles, Qwen's ChatML, the DeepSeek distills'
+<｜User｜> markers and <think> primer, Phi-3's <|user|> ... <|end|>), and
+the answer is sampled at the family's defaults (Llama 3: temperature 0.3,
+top-p 0.95; Qwen and DeepSeek: 0.8, 0.9; the others 0.7, 0.9) unless
+--temperature / --top-p say otherwise, and streamed to stdout.
+--no-thinking pre-closes Qwen3's <think></think>, so it answers without
+reasoning.
 
 --kv-dtype int8 keeps the KV cache (or the paged pool) in int8 with one f32
 scale per token and KV head, half the bytes of a bf16 cache; -n reaches up
@@ -73,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="KV cache dtype (auto = the compute dtype; int8 = per-row "
                              "quantized with f32 scales)")
         sp.add_argument("--pack4", action="store_true",
-                        help="store Q4_0 weights two values per byte (packed4 kernel)")
+                        help="store Q4_0 and Q4_K weights two values per byte (packed4 "
+                             "kernel)")
         sp.add_argument("--rowq", action="store_true",
                         help="serve Q8_0 weights as per-row int8 (q8_row kernels)")
         sp.add_argument("--prefill-chunk", type=int, default=128)
@@ -97,13 +104,15 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--system-prompt", "-sp", default=None)
     run.add_argument("--interactive", "-i", action="store_true")
     run.add_argument("--temperature", "-temp", type=float, default=None,
-                     help="default: the family's (Llama 3: 0.3, Qwen: 0.8)")
+                     help="default: the family's (Llama 3: 0.3, Qwen: 0.8, others 0.7)")
     run.add_argument("--top-p", type=float, default=None,
-                     help="default: the family's (Llama 3: 0.95, Qwen: 0.9)")
+                     help="default: the family's (Llama 3: 0.95, others 0.9)")
     run.add_argument("--stream", action=argparse.BooleanOptionalAction, default=True)
     run.add_argument("--echo", action="store_true")
     run.add_argument("--profile-dir", default=None,
                      help="write a torch.profiler Chrome trace of the run into this directory")
+    run.add_argument("--no-thinking", action="store_true",
+                     help="suppress Qwen3 reasoning with a pre-closed <think></think>")
 
     val = sub.add_parser("validate", help="one-command checkpoint validation: "
                          "tokenizer fidelity, finite forward, greedy sample, "
@@ -189,10 +198,6 @@ def load(args):
         model = load_model(args.model, max_tokens=args.max_tokens,
                            param_dtype=param_dtype(args), pack4=args.pack4)
     metrics.load_s = t.elapsed
-    if model.chat_format is None:
-        raise NotImplementedError(
-            f"{model.family.name} checkpoints: family-deltas slice of the port "
-            "(the port runs Llama 3, Qwen2, Qwen2-MoE and Phi-3)")
     return model, metrics
 
 
@@ -214,11 +219,12 @@ def cmd_run(args) -> int:
                     spec_decode=args.spec_decode)
     with trace(args.profile_dir):
         if args.interactive:
-            run_interactive(model, engine, args.system_prompt, args.max_tokens)
+            run_interactive(model, engine, args.system_prompt, args.max_tokens,
+                            enable_thinking=not args.no_thinking)
         else:
             run_instruct_once(model, engine, args.prompt, args.system_prompt,
                               max_new_tokens=args.max_tokens, stream=args.stream,
-                              echo=args.echo)
+                              echo=args.echo, enable_thinking=not args.no_thinking)
     if args.metrics_format != "none":
         metrics.render(args.metrics_format)
     if args.metrics_file:

@@ -1,7 +1,8 @@
-"""Chat formats of the port (the Llama 3, Qwen2 and Phi-3 parts of
-llamatpu/format)."""
-from llamatpu_torch.format.chat_format import (ChatFormat, LlamaChatFormat, Message,
-                                               Phi3ChatFormat, Role, build_chat_format)
+"""Chat formats of the port (llamatpu/format), all nine families."""
+from llamatpu_torch.format.chat_format import (ChatFormat, DevstralChatFormat, GraniteChatFormat,
+                                               LlamaChatFormat, Message, MistralChatFormat,
+                                               Phi3ChatFormat, QwenChatFormat, Role,
+                                               build_chat_format)
 
-__all__ = ["ChatFormat", "LlamaChatFormat", "Message", "Phi3ChatFormat", "Role",
-           "build_chat_format"]
+__all__ = ["ChatFormat", "DevstralChatFormat", "GraniteChatFormat", "LlamaChatFormat", "Message",
+           "MistralChatFormat", "Phi3ChatFormat", "QwenChatFormat", "Role", "build_chat_format"]

@@ -1,11 +1,14 @@
 """Chat formats: prompt templates, stop tokens, default sampling
-parameters and tool-calling encodings. The port's copy of the Llama 3,
-Qwen2 and Phi-3 parts of llamatpu/format/chat_format.py (`Message`, `Role`,
-the `ChatFormat` base with its tool-calling defaults, `LlamaChatFormat`,
-`QwenChatFormat` for Qwen2 and Qwen2-MoE, `Phi3ChatFormat`,
-`build_chat_format`). The other families' formats (Qwen3's thinking
-control, the DeepSeek distills, Mistral, Granite) belong to the
-family-deltas slice of the port.
+parameters, thinking control and tool-calling encodings, for all nine
+families. The port's copy of llamatpu/format/chat_format.py: `Message`,
+`Role`, the `ChatFormat` base with its tool-calling defaults,
+`LlamaChatFormat` (Llama 3 headers), `MistralChatFormat` ([INST] turns,
+[AVAILABLE_TOOLS] / [TOOL_CALLS] / [TOOL_RESULTS] tokens, fill-in-the-middle)
+and `DevstralChatFormat`, `QwenChatFormat` (ChatML for Qwen2 / Qwen2-MoE /
+Qwen3 with Qwen3's <think> control, and the DeepSeek-R1 distills' variant
+with <｜User｜> / <｜Assistant｜> markers and a forced "<think>\n" primer),
+`Phi3ChatFormat`, `GraniteChatFormat` and `build_chat_format`. Token lists
+equal the JAX package's (tests/test_torch_families.py).
 """
 from __future__ import annotations
 
@@ -204,41 +207,140 @@ class LlamaChatFormat(ChatFormat):
         return s
 
 
-class QwenChatFormat(ChatFormat):
-    """ChatML (<|im_start|>role\n ... <|im_end|>\n) of Qwen2 and Qwen2-MoE,
-    with no begin-of-text token, stops at <|im_end|>, <|end_of_text|> and
-    <|endoftext|>, sampling defaults 0.8 / 0.9, the fill-in-the-middle roles
-    as their single tokens, and Hermes-style tool calls in <tool_call> tags
-    (the JAX package's `QwenChatFormat` without its DeepSeek and Qwen3
-    thinking variants)."""
+class MistralChatFormat(ChatFormat):
+    """[INST] role [/INST] content [/INST] turns with <s> as begin-of-text
+    and </s> as the stop; tools through the [AVAILABLE_TOOLS],
+    [TOOL_CALLS] and [TOOL_RESULTS] tokens where the vocab has them (the
+    <unk> id stands in where it does not). Also Devstral's."""
 
-    add_begin_of_text = False
+    add_system_prompt = True
 
     def __init__(self, tokenizer):
         super().__init__(tokenizer)
-        self.bot = -1
-        self.im_start = self._sp("<|im_start|>")
-        self.im_end = self._sp("<|im_end|>")
-        self.eos = self._sp("<|end_of_text|>")
-        self.eot_fim = self._sp("<|endoftext|>")
-        self.fim = {Role.FIM_PREFIX: self._sp("<|fim_prefix|>"),
-                    Role.FIM_SUFFIX: self._sp("<|fim_suffix|>"),
-                    Role.FIM_MIDDLE: self._sp("<|fim_middle|>")}
+        self.unk = self._sp("<unk>")
+        self.bos = self._sp("<s>")
+        self.eos = self._sp("</s>")
+        self.boi = self._sp("[INST]")
+        self.eoi = self._sp("[/INST]")
+        self.tool_calls_tok = self._sp("[TOOL_CALLS]", self.unk)
+        self.b_avail = self._sp("[AVAILABLE_TOOLS]", self.unk)
+        self.e_avail = self._sp("[/AVAILABLE_TOOLS]", self.unk)
+        self.b_res = self._sp("[TOOL_RESULTS]", self.unk)
+        self.e_res = self._sp("[/TOOL_RESULTS]", self.unk)
+        self.prefix = self._sp("[PREFIX]", self.unk)
+        self.suffix = self._sp("[SUFFIX]", self.unk)
+        self.middle = self._sp("[MIDDLE]", self.unk)
 
     def begin_of_text(self):
-        return self.im_start
+        return self.bos
+
+    def stop_tokens(self):
+        return {self.eos}
+
+    def encode_header(self, m):
+        return [self.boi, *self._enc(m.role), self.eoi]
+
+    def encode_message(self, m):
+        return [*self.encode_header(m), *self._enc(m.content.strip()), self.eoi]
+
+    def encode_fill_in_the_middle(self, prefix: str, suffix: str) -> list[int]:
+        return [self.suffix, *self._enc_ord(suffix), self.prefix, *self._enc_ord(prefix)]
+
+    def supports_tool_calling(self):
+        return self.b_avail not in (-1, self.unk)
+
+    def tool_system_prompt_suffix(self, tools_json):
+        return ""  # Mistral carries tools in [AVAILABLE_TOOLS] tokens instead
+
+    def encode_available_tools(self, tools_json: str) -> list[int]:
+        return [self.b_avail, *self._enc_ord(tools_json), self.e_avail]
+
+    def encode_tool_call_assistant_turn(self, tool_calls):
+        body = ",".join('{"name": "%s", "arguments": %s}' % (tc.name, tc.arguments_json)
+                        for tc in tool_calls)
+        return [self.tool_calls_tok, *self._enc_ord("[" + body + "]"), self.eos]
+
+    def encode_tool_result_turn(self, call_id, tool_name, result):
+        return [self.b_res, *self._enc_ord(result), self.e_res]
+
+    def extract_tool_call(self, text):
+        return parse_tool_call_response(text)
+
+    def extract_all_tool_calls(self, text):
+        return parse_all_tool_calls(text)
+
+
+class DevstralChatFormat(MistralChatFormat):
+    """Devstral: Mistral's format on the Tekken vocab."""
+
+
+class QwenChatFormat(ChatFormat):
+    """ChatML (<|im_start|>role\n ... <|im_end|>\n) of Qwen2, Qwen2-MoE and
+    Qwen3, with no begin-of-text token, stops at <|im_end|>, <|end_of_text|>
+    and <|endoftext|>, sampling defaults 0.8 / 0.9, the fill-in-the-middle
+    roles as their single tokens, Hermes-style tool calls in <tool_call>
+    tags and, for Qwen3 (thinking=True), the pre-closed <think></think>
+    that turns reasoning off. deepseek=True: the DeepSeek-R1 distills'
+    variant, <｜begin▁of▁sentence｜> then <｜User｜> / <｜Assistant｜>
+    markers, no <|im_end|>, no system prompt, no tools, and a forced
+    "<think>\n" primer after the assistant marker."""
+
+    add_begin_of_text = False
+
+    def __init__(self, tokenizer, deepseek: bool = False, thinking: bool = False):
+        super().__init__(tokenizer)
+        self.deepseek = deepseek
+        self.thinking = thinking
+        if deepseek:
+            self.bot = self._sp("<｜begin▁of▁sentence｜>")
+            self.im_start = -1
+            self.im_end = -1
+            self.eos = self._sp("<｜end▁of▁sentence｜>")
+            self.add_begin_of_text = True
+            self.add_system_prompt = False
+            self.include_reasoning = True
+        else:
+            self.bot = -1
+            self.im_start = self._sp("<|im_start|>")
+            self.im_end = self._sp("<|im_end|>")
+            self.eos = self._sp("<|end_of_text|>")
+        self.eot_fim = self._sp("<|endoftext|>")
+        self.fim_prefix = self._sp("<|fim_prefix|>")
+        self.fim_suffix = self._sp("<|fim_suffix|>")
+        self.fim_middle = self._sp("<|fim_middle|>")
+        vocab = tokenizer.vocabulary
+        self.think_start = vocab.index_of("<think>")
+        self.think_end = vocab.index_of("</think>")
+
+    def begin_of_text(self):
+        return self.bot if self.bot != -1 else self.im_start
 
     def stop_tokens(self):
         return {self.im_end, self.eos, self.eot_fim} - {-1}
 
     def encode_header(self, m):
-        if m.role in self.fim:
-            return [self.fim[m.role]]
+        if self.im_end == -1:  # the DeepSeek-R1 distills
+            marker = {"user": "<｜User｜>", "assistant": "<｜Assistant｜>",
+                      "fim_prefix": "<|fim_prefix|>", "fim_middle": "<|fim_middle|>",
+                      "fim_suffix": "<|fim_suffix|>"}.get(m.role)
+            if marker is None:
+                return []
+            tid = self.tokenizer.special_tokens.get(marker)
+            if tid is None:
+                raise ValueError(f"unknown token {marker!r}")
+            return [tid]
+        if m.role == Role.FIM_PREFIX:
+            return [self.fim_prefix]
+        if m.role == Role.FIM_SUFFIX:
+            return [self.fim_suffix]
+        if m.role == Role.FIM_MIDDLE:
+            return [self.fim_middle]
         return [self.im_start, *self._enc_ord(m.role), *self._enc_ord("\n")]
 
     def encode_message(self, m):
         tokens = [*self.encode_header(m), *self._enc_ord(m.content.strip())]
-        if self.im_end != -1 and m.role not in self.fim:
+        is_fim = m.role in (Role.FIM_PREFIX, Role.FIM_SUFFIX, Role.FIM_MIDDLE)
+        if self.im_end != -1 and not is_fim:
             tokens.append(self.im_end)
             tokens.extend(self._enc_ord("\n"))
         return tokens
@@ -249,8 +351,21 @@ class QwenChatFormat(ChatFormat):
     def default_top_p(self):
         return 0.9
 
+    # thinking control (Qwen3 only; DeepSeek always thinks)
+    def supports_thinking(self):
+        return not self.deepseek and self.thinking
+
+    def encode_thinking_control(self, enable_thinking):
+        if enable_thinking or not self.supports_thinking():
+            return []
+        if self.think_start is None or self.think_end is None:
+            return self._enc_ord("<think>\n\n</think>\n\n")
+        nl = self._enc_ord("\n\n")
+        return [self.think_start, *nl, self.think_end, *nl]
+
+    # tools
     def supports_tool_calling(self):
-        return True
+        return not self.deepseek
 
     def tool_system_prompt_suffix(self, tools_json):
         return (
@@ -318,11 +433,48 @@ class Phi3ChatFormat(ChatFormat):
                 *self._enc_ord("\n")]
 
 
+class GraniteChatFormat(ChatFormat):
+    """<|start_of_role|>role<|end_of_role|> content <|end_of_text|>, no
+    begin-of-text token; stops at <|end_of_text|>."""
+
+    def __init__(self, tokenizer):
+        super().__init__(tokenizer)
+        self.start_role = self._sp("<|start_of_role|>")
+        self.end_role = self._sp("<|end_of_role|>")
+        self.eos = self._sp("<|end_of_text|>", 0)
+
+    def begin_of_text(self):
+        return -1  # Granite's template carries no BOS
+
+    def stop_tokens(self):
+        return {self.eos}
+
+    def encode_header(self, m):
+        tokens = []
+        if self.start_role != -1:
+            tokens.append(self.start_role)
+        tokens.extend(self._enc(m.role))
+        if self.end_role != -1:
+            tokens.append(self.end_role)
+        return tokens
+
+    def encode_message(self, m):
+        return [*self.encode_header(m), *self._enc(m.content.strip()), self.eos]
+
+
 def build_chat_format(family: Family, tokenizer, md: dict | None = None) -> ChatFormat:
-    if family == Family.LLAMA_3:
-        return LlamaChatFormat(tokenizer)
+    if family == Family.MISTRAL:
+        return MistralChatFormat(tokenizer)
+    if family == Family.DEVSTRAL_2:
+        return DevstralChatFormat(tokenizer)
+    if family == Family.PHI_3:  # no begin-of-text token (a class attribute)
+        return Phi3ChatFormat(tokenizer)
+    if family == Family.GRANITE:
+        return GraniteChatFormat(tokenizer)
+    if family == Family.DEEPSEEK_R1_DISTILL_QWEN:
+        return QwenChatFormat(tokenizer, deepseek=True)
     if family in (Family.QWEN_2, Family.QWEN_2_MOE):
         return QwenChatFormat(tokenizer)
-    if family == Family.PHI_3:
-        return Phi3ChatFormat(tokenizer)
-    raise NotImplementedError(f"{family.name} chat format: family-deltas slice of the port")
+    if family == Family.QWEN_3:
+        return QwenChatFormat(tokenizer, thinking=True)
+    return LlamaChatFormat(tokenizer)

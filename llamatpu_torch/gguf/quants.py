@@ -6,11 +6,13 @@ llamatpu/gguf/quants.py this slice needs, bit-exact with it
   scales), dequantization for the dense embedding, ggml-order quantization
   for the writer, and the inverse of the views (`q8_0_blocks`,
   `q4_0_blocks`) for writing values that are already quantized.
-- Q6_K: decode only, for `requantize_to_q8_0` (llama.cpp Q4_0 files often
-  keep a Q6_K vocab head).
-
-Native Q4_K/Q5_K (values plus per-32 additive offsets) belong to the
-quant-breadth slice of the port: decoding them raises here.
+- Q4_K / Q5_K: the native compute views (`q4_k_views`, `q5_k_views`: int8
+  values, f32 per-32 scales and per-32 additive offsets, w = q * scale +
+  off), the ggml-layout encoders (`quantize_q4_k`, `quantize_q5_k`: a
+  single-pass scale search, for tests and synthetic checkpoints) and the
+  decoders.
+- Q6_K: decode only, for `requantize_to_q8_0` (llama.cpp Q4_0 and Q4_K_M
+  files keep a Q6_K vocab head, attn_v and ffn_down).
 """
 from __future__ import annotations
 
@@ -115,6 +117,183 @@ def q4_0_blocks(qs: np.ndarray, scales: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Q4_K / Q5_K (256-element super-blocks of eight 32-element sub-blocks)
+# ---------------------------------------------------------------------------
+
+def _kquant_scales_mins(scale_bytes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Unpack the 12-byte 6-bit scale/min encoding of Q4_K/Q5_K into ([nb,8], [nb,8])."""
+    b = scale_bytes.astype(np.uint16)  # [nb, 12]
+    sc = np.empty(b.shape[:1] + (8,), dtype=np.int32)
+    mn = np.empty_like(sc)
+    for j in range(4):
+        sc[:, j] = b[:, j] & 63
+        mn[:, j] = b[:, j + 4] & 63
+    for j in range(4, 8):
+        sc[:, j] = (b[:, j + 4] & 0x0F) | ((b[:, j - 4] >> 6) << 4)
+        mn[:, j] = (b[:, j + 4] >> 4) | ((b[:, j] >> 6) << 4)
+    return sc, mn
+
+
+def _kquant_head(blocks: np.ndarray):
+    """(d, dmin, sub-block scales, sub-block mins) of [nb, bytes] superblocks."""
+    nb = blocks.shape[0]
+    d = _f16(np.ascontiguousarray(blocks[:, 0:2]).view(np.uint16).reshape(nb))
+    dmin = _f16(np.ascontiguousarray(blocks[:, 2:4]).view(np.uint16).reshape(nb))
+    sc, mn = _kquant_scales_mins(blocks[:, 4:16])
+    return d, dmin, sc, mn
+
+
+def _q4_k_nibbles(blocks: np.ndarray) -> np.ndarray:
+    """The 4-bit values q in [0, 15] of Q4_K superblocks, [nb, 256] int16:
+    pair p's 32 bytes hold sub-block 2p in the low nibbles, 2p + 1 in the high."""
+    qsrc = blocks[:, 16:]
+    q = np.empty((blocks.shape[0], QK_K), dtype=np.int16)
+    for pair in range(4):
+        chunk = qsrc[:, pair * 32:(pair + 1) * 32]
+        q[:, pair * 64:pair * 64 + 32] = chunk & 0x0F
+        q[:, pair * 64 + 32:pair * 64 + 64] = chunk >> 4
+    return q
+
+
+def _q5_k_values(blocks: np.ndarray) -> np.ndarray:
+    """The 5-bit values q in [0, 31] of Q5_K superblocks, [nb, 256] int16: the
+    Q4_K nibble layout at bytes 48.., the fifth bits in qh (bytes 16..48),
+    bit 2p for sub-block 2p and bit 2p + 1 for 2p + 1."""
+    qh = blocks[:, 16:48].astype(np.int16)
+    qsrc = blocks[:, 48:176]
+    q = np.empty((blocks.shape[0], QK_K), dtype=np.int16)
+    for pair in range(4):
+        chunk = qsrc[:, pair * 32:(pair + 1) * 32]
+        q[:, pair * 64:pair * 64 + 32] = (chunk & 0x0F) | (((qh >> (pair * 2)) & 1) << 4)
+        q[:, pair * 64 + 32:pair * 64 + 64] = (chunk >> 4) | (((qh >> (pair * 2 + 1)) & 1) << 4)
+    return q
+
+
+def _kquant_views(blocks: np.ndarray, q: np.ndarray, centre: int):
+    """(qs int8 [nb * 8, 32] = q - centre, scales f32 [nb * 8], offs f32
+    [nb * 8]) with w = qs * scale + off equal to d * sc * q - dmin * m:
+    scale = d * sc, off = centre * scale - dmin * m (f32 holds both exactly:
+    an f16 times a 6-bit integer needs 17 significand bits)."""
+    d, dmin, sc, mn = _kquant_head(blocks)
+    scales = d[:, None] * sc.astype(np.float32)                     # [nb, 8]
+    offs = float(centre) * scales - dmin[:, None] * mn.astype(np.float32)
+    return ((q - centre).astype(np.int8).reshape(-1, 32),
+            np.ascontiguousarray(scales, dtype=np.float32).reshape(-1),
+            np.ascontiguousarray(offs, dtype=np.float32).reshape(-1))
+
+
+def q4_k_views(raw: np.ndarray, n_elements: int):
+    """Raw Q4_K -> the native compute layout (qs int8 [n/32, 32] in [-8, 7],
+    scales f32 [n/32], offs f32 [n/32]), w = qs * scale + off exactly: the
+    Q4_0 kernels take the values, and the offset term is xbsum @ offs^T over
+    the activation's per-32 sums (ops/matmul.py)."""
+    nb = n_elements // QK_K
+    blocks = raw[: nb * 144].reshape(nb, 144)
+    return _kquant_views(blocks, _q4_k_nibbles(blocks), 8)
+
+
+def q5_k_views(raw: np.ndarray, n_elements: int):
+    """Raw Q5_K -> (qs int8 [n/32, 32] in [-16, 15], scales f32, offs f32),
+    w = qs * scale + off exactly: small int8 values for the Q8_0 kernels."""
+    nb = n_elements // QK_K
+    blocks = raw[: nb * 176].reshape(nb, 176)
+    return _kquant_views(blocks, _q5_k_values(blocks), 16)
+
+
+def _kquant_encode(values: np.ndarray, qmax: int):
+    """The single-pass scale search of both encoders: per sub-block the ideal
+    scale (max + min) / qmax and min, their 6-bit codes against the f16
+    superblock d / dmin, and the values q in [0, qmax]. Returns (d16,
+    dmin16, sc, mn, q [nb, 256] uint8)."""
+    v = np.asarray(values, dtype=np.float32)
+    assert v.size % QK_K == 0
+    v = v.reshape(-1, 8, 32)                          # [nb, sub, 32]
+    vmax = v.max(axis=-1)
+    mins_f = np.maximum(-v.min(axis=-1), 0.0)         # ggml mins are >= 0
+    scales_f = np.maximum(vmax + mins_f, 0.0) / float(qmax)
+    d16 = (scales_f.max(axis=-1) / 63.0).astype(np.float16)
+    dmin16 = (mins_f.max(axis=-1) / 63.0).astype(np.float16)
+    df, dminf = d16.astype(np.float32), dmin16.astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sc = np.where(df[:, None] > 0,
+                      np.clip(np.round(scales_f / df[:, None]), 0, 63), 0).astype(np.int32)
+        mn = np.where(dminf[:, None] > 0,
+                      np.clip(np.round(mins_f / dminf[:, None]), 0, 63), 0).astype(np.int32)
+        eff_s = df[:, None] * sc                      # [nb, 8]
+        q = np.where(eff_s[..., None] > 0,
+                     np.clip(np.round((v + (dminf[:, None] * mn)[..., None])
+                                      / np.where(eff_s[..., None] > 0, eff_s[..., None], 1.0)),
+                             0, qmax), 0).astype(np.uint8)
+    return d16, dmin16, sc, mn, q.reshape(v.shape[0], QK_K)
+
+
+def _kquant_pack_head(out: np.ndarray, d16, dmin16, sc, mn) -> None:
+    """d, dmin and the 12-byte 6-bit pack (the inverse of _kquant_scales_mins)."""
+    out[:, 0:2] = d16[:, None].view(np.uint8)
+    out[:, 2:4] = dmin16[:, None].view(np.uint8)
+    for j in range(4):
+        out[:, 4 + j] = (sc[:, j] & 63) | ((sc[:, j + 4] >> 4) << 6)
+        out[:, 8 + j] = (mn[:, j] & 63) | ((mn[:, j + 4] >> 4) << 6)
+        out[:, 12 + j] = (sc[:, j + 4] & 0x0F) | ((mn[:, j + 4] & 0x0F) << 4)
+
+
+def quantize_q4_k(values: np.ndarray) -> np.ndarray:
+    """f32 values -> Q4_K superblocks (ggml layout; a single-pass scale
+    search, coarser than llama.cpp's iterative one: for tests and synthetic
+    checkpoints)."""
+    d16, dmin16, sc, mn, q = _kquant_encode(values, 15)
+    out = np.zeros((q.shape[0], 144), dtype=np.uint8)
+    _kquant_pack_head(out, d16, dmin16, sc, mn)
+    for pair in range(4):
+        lo = q[:, pair * 64:pair * 64 + 32]
+        hi = q[:, pair * 64 + 32:pair * 64 + 64]
+        out[:, 16 + pair * 32:16 + (pair + 1) * 32] = lo | (hi << 4)
+    return out.reshape(-1)
+
+
+def quantize_q5_k(values: np.ndarray) -> np.ndarray:
+    """f32 values -> Q5_K superblocks (ggml layout; the search of quantize_q4_k)."""
+    d16, dmin16, sc, mn, q = _kquant_encode(values, 31)
+    nb = q.shape[0]
+    out = np.zeros((nb, 176), dtype=np.uint8)
+    _kquant_pack_head(out, d16, dmin16, sc, mn)
+    qh = np.zeros((nb, 32), dtype=np.uint8)
+    for pair in range(4):
+        lo = q[:, pair * 64:pair * 64 + 32]
+        hi = q[:, pair * 64 + 32:pair * 64 + 64]
+        out[:, 48 + pair * 32:48 + (pair + 1) * 32] = (lo & 0x0F) | ((hi & 0x0F) << 4)
+        qh |= ((lo >> 4) & 1).astype(np.uint8) << (pair * 2)
+        qh |= ((hi >> 4) & 1).astype(np.uint8) << (pair * 2 + 1)
+    out[:, 16:48] = qh
+    return out.reshape(-1)
+
+
+def _kquant_decode(blocks: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """d * sc * q - dmin * m per sub-block, f32 [nb * 256]. Every product is
+    exact in f32 (an f16 times a 6-bit and a 5-bit integer), so the one
+    rounding is the f32 difference, as in ggml's (and native/quantops.cpp's)
+    f32 loop."""
+    d, dmin, sc, mn = _kquant_head(blocks)
+    nb = blocks.shape[0]
+    qf = q.astype(np.float32).reshape(nb, 8, 32)
+    a = (d[:, None] * sc.astype(np.float32))[..., None]     # f32 [nb, 8, 1]
+    b = (dmin[:, None] * mn.astype(np.float32))[..., None]
+    return (a * qf - b).reshape(-1)
+
+
+def dequantize_q4_k(raw: np.ndarray, n_elements: int) -> np.ndarray:
+    nb = n_elements // QK_K
+    blocks = raw[: nb * 144].reshape(nb, 144)
+    return _kquant_decode(blocks, _q4_k_nibbles(blocks))
+
+
+def dequantize_q5_k(raw: np.ndarray, n_elements: int) -> np.ndarray:
+    nb = n_elements // QK_K
+    blocks = raw[: nb * 176].reshape(nb, 176)
+    return _kquant_decode(blocks, _q5_k_values(blocks))
+
+
+# ---------------------------------------------------------------------------
 # Q6_K (256-element super-blocks): decode only
 # ---------------------------------------------------------------------------
 
@@ -150,6 +329,8 @@ def dequantize_q6_k(raw: np.ndarray, n_elements: int) -> np.ndarray:
 _DEQUANT = {
     GGMLType.Q8_0: dequantize_q8_0,
     GGMLType.Q4_0: dequantize_q4_0,
+    GGMLType.Q4_K: dequantize_q4_k,
+    GGMLType.Q5_K: dequantize_q5_k,
     GGMLType.Q6_K: dequantize_q6_k,
 }
 
@@ -163,9 +344,6 @@ def dequantize(ggml_type: GGMLType, raw: np.ndarray, n_elements: int) -> np.ndar
     if ggml_type == GGMLType.BF16:
         u = np.ascontiguousarray(raw[: n_elements * 2]).view(np.uint16).astype(np.uint32) << 16
         return u.view(np.float32)
-    if ggml_type in (GGMLType.Q4_K, GGMLType.Q5_K):
-        raise NotImplementedError(
-            f"{ggml_type.name} (native K-quant with offsets): quant-breadth slice of the port")
     fn = _DEQUANT.get(ggml_type)
     if fn is None:
         raise NotImplementedError(f"dequantize: {ggml_type!r} not supported")

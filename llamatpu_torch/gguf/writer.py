@@ -66,6 +66,10 @@ class GGUFWriter:
             data = quants.quantize_q8_0(array.reshape(-1))
         elif ggml_type == GGMLType.Q4_0:
             data = quants.quantize_q4_0(array.reshape(-1))
+        elif ggml_type == GGMLType.Q4_K:
+            data = quants.quantize_q4_k(array.reshape(-1))
+        elif ggml_type == GGMLType.Q5_K:
+            data = quants.quantize_q5_k(array.reshape(-1))
         else:
             raise NotImplementedError(f"writer: {ggml_type!r}")
         self._tensors.append((name, tuple(array.shape), ggml_type, data))

@@ -2,10 +2,8 @@
 `models/config.py` (`Family`, `ModelConfig`).
 
 Every architectural delta is a field on ONE config consumed by ONE
-transformer graph (models/transformer.py). This slice of the port runs the
-dense Llama family; the other families' fields are kept so configs compare
-field for field with the JAX package's, and the forward raises on the ones it
-does not run yet (qkv bias, q/k norm, MoE).
+transformer graph (models/transformer.py), which runs every family of the
+JAX package; the configs compare field for field with the JAX package's.
 """
 from __future__ import annotations
 

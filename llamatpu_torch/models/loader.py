@@ -5,18 +5,18 @@ llamatpu/models/loader.py.
   granite./qwen2moe.); tensor names follow llama.cpp (blk.N.attn_q.weight,
   ...); Phi-3's fused attn_qkv / ffn_up (gate||up) split by rows at load.
 - weights mode "quant": Q8_0 and Q4_0 become int8 + f32-scale QTensors
-  (canonical columns; `pack4` packs Q4_0 two values per byte), Q6_K is
-  requantized to Q8_0, F32/F16/BF16 load dense. Native Q4_K/Q5_K raise: they
-  are the quant-breadth slice of the port.
+  (canonical columns; `pack4` packs Q4_0 and Q4_K two values per byte),
+  Q4_K / Q5_K load native (their values plus f32 per-32 offsets `offs`
+  [..., O, I/32], canonical block order under pack4 too), Q6_K is
+  requantized to Q8_0, F32/F16/BF16 load dense.
 - the vocab head: `output.weight`, or `token_embd` when the checkpoint ties
   them (Llama-3.2-1B ships that way); the embedding is the dequantized
   `token_embd` cast to the parameter dtype.
 
 The tree stays on the host (numpy, with torch CPU tensors where the dtype is
-bf16) unless `device` is given; `Engine` moves it to its device. Every
-family's config and tensors load, but only Llama 3, Qwen2, Qwen2-MoE and
-Phi-3 have a tokenizer and chat format in the port so far (the others keep
-None there), and `forward_tokens` raises on what it does not run yet.
+bf16) unless `device` is given; `Engine` moves it to its device. All nine
+families load with their tokenizer and chat format (tokenizer/builders.py,
+format/chat_format.py).
 """
 from __future__ import annotations
 
@@ -141,12 +141,20 @@ def _load_matmul(reader: GGUFReader, name: str, dtype: torch.dtype, pack4: bool)
     t = info.ggml_type
     if not (t.is_quantized and t.supported):
         return _load_dense(reader, name, dtype)
-    if t in (GGMLType.Q4_K, GGMLType.Q5_K):
-        raise NotImplementedError(
-            f"{name}: native {t.name} (values + per-32 offsets) is the quant-breadth "
-            "slice of the port")
     n, shape = info.n_elements, info.shape
     raw = reader.tensor_raw(name)
+    if t in (GGMLType.Q4_K, GGMLType.Q5_K):
+        # native K-quants: the values run through the Q4_0 / Q8_0 kernels and
+        # the per-32 offsets through the matmul's epilogue (ops/matmul.py)
+        kind = "q4_k" if t == GGMLType.Q4_K else "q5_k"
+        views = quants.q4_k_views if t == GGMLType.Q4_K else quants.q5_k_views
+        qs, scales, offs = views(np.asarray(raw, np.uint8), n)
+        blocks = (*shape[:-1], shape[-1] // 32)
+        qs = np.ascontiguousarray(qs).reshape(shape)
+        scales, offs = scales.reshape(blocks), offs.reshape(blocks)
+        if pack4 and kind == "q4_k":
+            return QTensor(pack4_pairs(qs), scales, kind, layout="packed4", offs=offs)
+        return QTensor(qs, scales, kind, offs=offs)
     if t == GGMLType.Q6_K:  # requantized to Q8_0, as the JAX package does
         raw, t = quants.requantize_to_q8_0(t, raw, n), GGMLType.Q8_0
     views = quants.q8_0_views if t == GGMLType.Q8_0 else quants.q4_0_views
@@ -160,14 +168,16 @@ def _load_matmul(reader: GGUFReader, name: str, dtype: torch.dtype, pack4: bool)
 
 def _row_slice(w, a: int, b: int):
     if isinstance(w, QTensor):
-        return QTensor(w.qs[a:b], w.scales[a:b], w.kind, layout=w.layout)
+        return QTensor(w.qs[a:b], w.scales[a:b], w.kind, layout=w.layout,
+                       offs=None if w.offs is None else w.offs[a:b])
     return w[a:b]
 
 
 def _stack(ws: list):
     if isinstance(ws[0], QTensor):
+        offs = None if ws[0].offs is None else np.stack([t.offs for t in ws])
         return QTensor(np.stack([t.qs for t in ws]), np.stack([t.scales for t in ws]),
-                       ws[0].kind, layout=ws[0].layout)
+                       ws[0].kind, layout=ws[0].layout, offs=offs)
     if isinstance(ws[0], torch.Tensor):
         return torch.stack(ws)
     return np.stack(ws)
@@ -261,8 +271,7 @@ def load_model(path: str, max_tokens: int = 0, param_dtype: torch.dtype = torch.
 
     model = LoadedModel(cfg=cfg, weights=weights, metadata=md, family=family,
                         quant_label=quant_label)
-    if load_tokenizer and family in (Family.LLAMA_3, Family.QWEN_2, Family.QWEN_2_MOE,
-                                     Family.PHI_3):
+    if load_tokenizer:
         from llamatpu_torch.format import build_chat_format
         from llamatpu_torch.tokenizer import build_tokenizer
 

@@ -15,7 +15,7 @@ import torch
 
 from llamatpu_torch.models.config import Family, ModelConfig
 from llamatpu_torch.models.loader import LoadedModel
-from llamatpu_torch.models.weights import QTensor
+from llamatpu_torch.models.weights import QTensor, pack4_pairs
 from llamatpu_torch.ops.rope import precompute_rope_tables
 
 # geometry sources: the models' published GGUF metadata (same keys the
@@ -89,18 +89,30 @@ PRESETS: dict[str, dict] = {
 }
 
 
-def _rand_qtensor(rng: np.random.Generator, shape: tuple[int, ...],
-                  kind: str = "q8_0") -> QTensor:
-    """Random Q8_0 values from raw bytes (values need only be in range) plus
-    f32 block scales in [0.0005, 0.0015)."""
-    if kind != "q8_0":
-        raise NotImplementedError(f"synthetic {kind}: quant-breadth slice")
+def _rand_qtensor(rng: np.random.Generator, shape: tuple[int, ...], kind: str = "q8_0",
+                  pack4: bool = False) -> QTensor:
+    """Random values of `kind` from raw bytes (values need only be in range:
+    Q8_0 [-127, 127], Q4_0 / Q4_K [-8, 7], Q5_K [-16, 15]) plus f32 block
+    scales in [0.0005, 0.0015) and, for the native K-quants, f32 per-32
+    offsets in [-0.001, 0.001). pack4 packs Q4_0 / Q4_K two values a byte."""
+    if kind not in ("q8_0", "q4_0", "q4_k", "q5_k"):
+        raise ValueError(f"synthetic weights of kind {kind!r}")
     n = int(np.prod(shape))
     raw = np.frombuffer(rng.bytes(n), dtype=np.uint8)
-    qs = np.maximum(raw.view(np.int8), -127).reshape(shape)
+    if kind in ("q4_0", "q4_k"):
+        qs = ((raw & 0x0F).astype(np.int8) - 8).reshape(shape)
+    elif kind == "q5_k":
+        qs = ((raw & 0x1F).astype(np.int8) - 16).reshape(shape)
+    else:
+        qs = np.maximum(raw.view(np.int8), -127).reshape(shape)
     scales = (rng.random(size=(*shape[:-1], shape[-1] // 32), dtype=np.float32)
               * 0.001 + 0.0005)
-    return QTensor(qs, scales, kind)
+    offs = None
+    if kind in ("q4_k", "q5_k"):
+        offs = (rng.random(size=scales.shape, dtype=np.float32) - 0.5) * 0.002
+    if pack4 and kind in ("q4_0", "q4_k"):
+        return QTensor(pack4_pairs(qs), scales, kind, layout="packed4", offs=offs)
+    return QTensor(qs, scales, kind, offs=offs)
 
 
 def _rand_dense(rng, shape, dtype):
@@ -112,12 +124,12 @@ def _rand_dense(rng, shape, dtype):
 
 def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
                           dtype: str = "bf16", context_length: int | None = None,
-                          n_layers: int | None = None,
+                          n_layers: int | None = None, pack4: bool = False,
                           overrides: dict | None = None) -> LoadedModel:
-    """Random Q8_0 weights at a preset's geometry (other quants raise until
-    the quant-breadth slice). An MoE preset draws the dense FFN too, as the
-    JAX package does before it replaces it by the routed experts and the
-    shared expert, so the stream stays the same."""
+    """Random block-quant weights (`quant` q8_0, q4_0, q4_k or q5_k; pack4
+    packs the 4-bit kinds) at a preset's geometry. An MoE preset draws the
+    dense FFN too, as the JAX package does before it replaces it by the
+    routed experts and the shared expert, so the stream stays the same."""
     kw = dict(PRESETS[preset])
     if context_length:
         kw["context_length"] = context_length
@@ -129,7 +141,7 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
     rng = np.random.default_rng(seed)
 
     def mat(out_dim, in_dim):
-        return _rand_qtensor(rng, (cfg.n_layers, out_dim, in_dim), quant)
+        return _rand_qtensor(rng, (cfg.n_layers, out_dim, in_dim), quant, pack4)
 
     layers = {
         "attn_norm": np.ones((cfg.n_layers, cfg.dim), np.float32),
@@ -152,7 +164,8 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
 
     if cfg.is_moe:
         def emat(out_dim, in_dim):
-            return _rand_qtensor(rng, (cfg.n_layers, cfg.n_experts, out_dim, in_dim), quant)
+            return _rand_qtensor(rng, (cfg.n_layers, cfg.n_experts, out_dim, in_dim), quant,
+                                 pack4)
 
         del layers["w1"], layers["w2"], layers["w3"]
         layers["router"] = _rand_dense(rng, (cfg.n_layers, cfg.n_experts, cfg.dim), "f32")
@@ -165,7 +178,7 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
         layers["shared_gate_inp"] = _rand_dense(rng, (cfg.n_layers, cfg.dim), "f32")
 
     cos, sin = precompute_rope_tables(cfg)
-    wcls = _rand_qtensor(rng, (cfg.vocab_size, cfg.dim), quant)
+    wcls = _rand_qtensor(rng, (cfg.vocab_size, cfg.dim), quant, pack4)
     weights = {
         "tok_emb": _rand_dense(rng, (cfg.vocab_size, cfg.dim), dtype),
         "final_norm": np.ones((cfg.dim,), np.float32),

@@ -1,8 +1,10 @@
-"""The transformer forward of the port: the Llama family and Qwen2 (qkv bias,
-NeoX RoPE) with a dense FFN or Qwen2-MoE's routed experts, packed KV cache
+"""The transformer forward of the port, for all nine families: Llama 3,
+Mistral, Devstral (YaRN RoPE), Granite (µP scales), Phi-3, Qwen2 and the
+DeepSeek-R1 distills (qkv bias, NeoX RoPE), Qwen3 (per-head q/k RMSNorm)
+and Qwen2-MoE (routed experts; the others a dense FFN). Packed KV cache
 (dense per lane, or a shared paged block pool) in bf16, f32 or int8 with
-per-row scales, q8_row or block-quant (Q8_0 / Q4_0 / packed4) or dense
-weights.
+per-row scales; q8_row, block-quant (Q8_0 / Q4_0 / packed4, native Q4_K /
+Q5_K with their per-32 offsets) or dense weights.
 
 The port of llamatpu/models/transformer.py's main path. Prefill and decode
 are one function over a [B, T] token window at per-lane start positions
@@ -20,6 +22,11 @@ Per layer, with R = B * T rows (the JAX package's rule, `transformer.py:
   dispatch (K1 below 128 rows, K4 at 128 and above);
 - the qkv bias (Qwen2) is added to the projection's output, rounded to its
   dtype (`transformer.py:451-454`);
+- q/k norm (Qwen3, `transformer.py:458-460`): every q head through
+  RMSNorm with q_norm and every k head with k_norm, in the projection's
+  dtype, before RoPE, as one plain op over the q and k heads together
+  (the weights stacked per head at load, `weights.fuse_layer_weights`):
+  the same values as two;
 - an int8 cache stores K and V quantized per (token, KV head)
   (ops/kv_quant.py) with their scales in `KVCache.scale`;
 - decode (T = 1, no batch_offset) on a dense cache follows the JAX
@@ -62,7 +69,8 @@ accepts the widths (multiples of 128); the port takes K2, K3 and K9 at every
 width, and at multiples of 128 exactly where the JAX package's VMEM fits
 accept (a Phi-3-medium layer at 17-24 rows declines K9 and takes K20).
 
-Q/k norm and sharding raise until their slices of the port.
+Sharding (tensor, pipeline, sequence parallelism) is a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -246,11 +254,6 @@ def _prefill_attention(cfg: ModelConfig, q, kvd, scd, pos_vec: torch.Tensor, t: 
                       pos_vec, t)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.qk_norm:
-        raise NotImplementedError("q-k norm: family-deltas slice of the port")
-
-
 def _expert_count(w) -> int:
     """Experts in a stacked [L, E, O, I] expert weight."""
     return w.qs.shape[1] if isinstance(w, QTensor) else w.shape[1]
@@ -303,7 +306,11 @@ def _moe_shared(h, hf, routed, lw: dict, li: int) -> torch.Tensor:
 
 def _dense_ffn(h: torch.Tensor, lw: dict, li: int) -> torch.Tensor:
     """The dense FFN of layer li (`transformer.py:186-200`): K20 in one call
-    where `ffn_fused_rowq` takes it, else w13, silu * up in h's dtype, w2."""
+    where `ffn_fused_rowq` takes it, else w13 (or w1 and w3 where they did
+    not fuse), silu * up in h's dtype, w2."""
+    if "w13" not in lw:
+        gate, up = matmul(lw["w1"], h, li), matmul(lw["w3"], h, li)
+        return matmul(lw["w2"], F.silu(gate.float()).to(h.dtype) * up, li)
     y = ffn_fused_rowq(lw["w13"], lw["w2"], h, li)
     if y is not None:
         return y
@@ -322,23 +329,27 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
     b, t = x.shape[:2]
     nkv, g, hd = cfg.n_kv_heads, cfg.gqa_groups, cfg.head_dim
     eps, rs = cfg.rms_norm_eps, cfg.residual_scale
-    if "wqkv" not in lw or ("w13" not in lw and not cfg.is_moe):
-        raise NotImplementedError("unfused projections: the port serves fused wqkv/w13")
     paged = isinstance(cache, PagedKVCache)
     rows = b * t
-    rowq = _is_rowq(lw["wqkv"])
+    rowq = _is_rowq(lw.get("wqkv"))
     xbytes = x.element_size()
     if rowq and qkv_fits(rows, lw["wqkv"].qs.shape[-2], cfg.dim, xbytes):
         qkv = qkv_norm_fused_rowq(lw["wqkv"], lw["attn_norm"], x, li, eps)
     else:
-        qkv = matmul(lw["wqkv"], rmsnorm(x, lw["attn_norm"][li], eps), li)
+        h = rmsnorm(x, lw["attn_norm"][li], eps)
+        # wq, wk and wv stay apart where their kinds differ (a Q4_K_M file's
+        # Q6_K attn_v): the same values as the fused projection
+        qkv = (matmul(lw["wqkv"], h, li) if "wqkv" in lw
+               else torch.cat([matmul(lw[k], h, li) for k in ("wq", "wk", "wv")], dim=-1))
     if cfg.qkv_bias:
         qkv = qkv + torch.cat([lw["q_bias"][li], lw["k_bias"][li],
                                lw["v_bias"][li]]).to(qkv.dtype)
     qd, kd = cfg.q_dim, cfg.kv_dim
+    qk = qkv[..., :qd + kd].reshape(b, t, cfg.n_heads + nkv, hd)
+    if cfg.qk_norm:  # per head: row h of the stacked weights norms head h
+        qk = rmsnorm(qk, lw["qk_norm"][li], eps)
     # q and k heads rotate in one call (elementwise: the same values as two)
-    qk = apply_rope(qkv[..., :qd + kd].reshape(b, t, cfg.n_heads + nkv, hd), cos, sin,
-                    cfg.rope_style)
+    qk = apply_rope(qk, cos, sin, cfg.rope_style)
     q, k = qk[:, :, :cfg.n_heads], qk[:, :, cfg.n_heads:]
     v = qkv[..., qd + kd:].reshape(b, t, nkv, cfg.v_head_dim)
     kvnew = torch.cat([k, v], dim=-1)                 # [B, T, KV, hd + vhd]
@@ -369,7 +380,7 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         if long_cache:
             fused = fused and att.pick_tile(s_phys) >= 128
         if (fused and not long_cache and not cache.quantized and b == 1 and rowq
-                and not cfg.is_moe and _is_rowq(lw["wo"]) and _is_rowq(lw["w13"])
+                and not cfg.is_moe and _is_rowq(lw["wo"]) and _is_rowq(lw.get("w13"))
                 and _is_rowq(lw["w2"]) and not os.environ.get("LLAMATPU_NO_ATTN_TAIL")
                 and attn_tail_fits(cfg.dim, lw["wo"].qs.shape[-1], lw["w2"].qs.shape[-1], nkv, g,
                                    cfg.v_head_dim, s_phys, cache.kv.element_size(), xbytes)):
@@ -405,7 +416,7 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         else:
             attn = _prefill_attention(cfg, q, kvd, scd, pos_vec, t, s_limit)
     attn = attn.reshape(b, t, -1).to(x.dtype)
-    if not cfg.is_moe:
+    if not cfg.is_moe and "w13" in lw:
         new_x = layer_tail_fused_rowq(lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], attn, x, li,
                                       eps, rs)
         if new_x is not None:
@@ -437,7 +448,6 @@ def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache, pos,
     in place. Returns (f32 logits, cache): [B, T, V], or [B, V] with
     last_logit_only or logit_index (the last REAL token of a padded final
     prefill chunk)."""
-    _check_supported(cfg)
     paged = isinstance(cache, PagedKVCache)
     if paged and (tables is None or batch_offset is not None):
         raise ValueError("a paged cache takes block tables and no batch_offset")

@@ -3,13 +3,22 @@ bridge from the JAX package's parameters.
 
 A QTensor of logical shape [out, in] stores
 
-    qs:     int8 [..., out, in]        values: Q8_0 in [-127, 127], Q4_0 in
-                                       [-8, 7] (canonical column order)
-            int8 [..., out, in // 2]   layout "packed4" (Q4_0): byte c holds
+    qs:     int8 [..., out, in]        values: Q8_0 in [-127, 127], Q4_0 and
+                                       Q4_K in [-8, 7], Q5_K in [-16, 15]
+                                       (canonical column order)
+            int8 [..., out, in // 2]   layout "packed4" (Q4_0, Q4_K): byte c holds
                                        canonical columns 2c (low nibble) and
                                        2c + 1 (high nibble), two's complement
-    scales: f32  [..., out, in // 32]  for "q8_0" / "q4_0" (ggml block scales)
+    scales: f32  [..., out, in // 32]  for "q8_0" / "q4_0" / "q4_k" / "q5_k"
+                                       (per-32 block scales)
             f32  [..., out, 1]         for "q8_row" (one scale per out row)
+    offs:   f32  [..., out, in // 32]  native K-quants only ("q4_k" values in
+                                       [-8, 7], "q5_k" in [-16, 15]): the
+                                       per-32 additive offsets, w = q *
+                                       scale + off, in canonical block order
+                                       under every layout; an expert stack's
+                                       last dim is zero-padded to a multiple
+                                       of 32 once fused (`pad_offsets`)
 
 Leading dims stack layers ([L, ...]). At load time the fields are numpy
 arrays and every transform here is numpy, or torch where a step is an
@@ -44,12 +53,12 @@ BLOCK = 32  # ggml Q8_0 block size
 class QTensor:
     """Quantized tensor: int8 values plus f32 scales (see module docstring).
 
-    kind: "q8_0" / "q4_0" (per-32 block scales) | "q8_row" (per-out-row
-    scales). logical_out: real out-features when rows are zero-padded (0 =
-    all rows are real). layout: "canonical", "packed4" (Q4_0 only) or, for
-    tensors taken from the JAX package before `from_numpy_weights`,
-    "interleaved". offs: per-32 additive offsets of native K-quants (the
-    quant-breadth slice; always None here)."""
+    kind: "q8_0" / "q4_0" / "q4_k" / "q5_k" (per-32 block scales) |
+    "q8_row" (per-out-row scales). logical_out: real out-features when rows
+    are zero-padded (0 = all rows are real). layout: "canonical", "packed4"
+    (Q4_0 and Q4_K) or, for tensors taken from the JAX package before
+    `from_numpy_weights`, "interleaved". offs: the per-32 additive offsets
+    of "q4_k" / "q5_k" (None for the other kinds)."""
 
     qs: Any
     scales: Any
@@ -297,18 +306,20 @@ def rowq_convert_weights(weights: dict, experts: bool = True,
 
 def _concat_rows(ts: list[QTensor]) -> QTensor:
     if isinstance(ts[0].qs, torch.Tensor):  # a tree already on a device
-        qs = torch.cat([t.qs for t in ts], dim=-2)
-        scales = torch.cat([t.scales for t in ts], dim=-2)
+        def cat(parts):
+            return torch.cat(parts, dim=-2)
     else:
-        qs = np.concatenate([_np(t.qs) for t in ts], axis=-2)
-        scales = np.concatenate([_np(t.scales) for t in ts], axis=-2)
-    return QTensor(qs, scales, ts[0].kind, logical_out=0, layout=ts[0].layout)
+        def cat(parts):
+            return np.concatenate([_np(a) for a in parts], axis=-2)
+    offs = None if ts[0].offs is None else cat([t.offs for t in ts])
+    return QTensor(cat([t.qs for t in ts]), cat([t.scales for t in ts]), ts[0].kind,
+                   logical_out=0, layout=ts[0].layout, offs=offs)
 
 
 def _fusable(ts: list[QTensor]) -> bool:
     return (all(isinstance(t, QTensor) for t in ts)
             and len({t.kind for t in ts}) == 1
-            and all(t.offs is None for t in ts)
+            and len({t.offs is None for t in ts}) == 1
             and len({t.layout for t in ts}) == 1
             and all(not t.logical_out for t in ts)
             and len({t.qs.shape[-1] for t in ts}) == 1)
@@ -321,7 +332,8 @@ def _dense_fusable(ts) -> bool:
 
 
 def _qt_parts(t: QTensor):
-    return _np(t.qs), _np(t.scales)
+    """(qs, scales, offs or None) as numpy."""
+    return _np(t.qs), _np(t.scales), None if t.offs is None else _np(t.offs)
 
 
 def _filled(shape, dtype, pieces) -> np.ndarray:
@@ -338,17 +350,23 @@ def _shared_chunks(layers: dict, s: int, mh: int) -> dict:
     rows [L, S*MH, D] -> [L, S, MH, D] and down columns [L, D, S*MH] ->
     [L, S, D, MH], cut in canonical column space (a packed4 byte holds two
     adjacent columns, so chunks of MH columns are MH/2 bytes), as
-    (qs, scales) views."""
+    (qs, scales, offs) views (offs None for kinds without offsets)."""
     out = {}
     for k in ("shared_gate", "shared_up"):
-        qs, sc = _qt_parts(layers[k])
-        out[k] = (qs.reshape(qs.shape[0], s, mh, qs.shape[-1]),
-                  sc.reshape(sc.shape[0], s, mh, sc.shape[-1]))
-    qs, sc = _qt_parts(layers["shared_down"])
-    n, d = qs.shape[:2]
-    out["shared_down"] = (qs.reshape(n, d, s, qs.shape[-1] // s).transpose(0, 2, 1, 3),
-                          sc.reshape(n, d, s, sc.shape[-1] // s).transpose(0, 2, 1, 3))
+        out[k] = tuple(None if a is None else a.reshape(a.shape[0], s, mh, a.shape[-1])
+                       for a in _qt_parts(layers[k]))
+    out["shared_down"] = tuple(
+        None if a is None else a.reshape(*a.shape[:2], s, a.shape[-1] // s).transpose(0, 2, 1, 3)
+        for a in _qt_parts(layers["shared_down"]))
     return out
+
+
+def _expert_cat(parts, extras, n: int, e: int, s: int):
+    """Each part [L, E, ...] followed by its extra [L, S, ...] along the
+    expert axis, one copy each (None where the kind has no offsets)."""
+    return [None if a is None else
+            _filled((n, e + s, *a.shape[2:]), a.dtype, [(np.s_[:, :e], a), (np.s_[:, e:], c)])
+            for a, c in zip(parts, extras)]
 
 
 def _foldable(cfg, layers: dict) -> int:
@@ -360,7 +378,7 @@ def _foldable(cfg, layers: dict) -> int:
     if os.environ.get("LLAMATPU_NO_SHARED_FOLD") or not all(k in layers for k in need):
         return 0
     ts = [layers[k] for k in need]
-    if not all(isinstance(t, QTensor) and t.offs is None for t in ts):
+    if not all(isinstance(t, QTensor) for t in ts):
         return 0
     if len({t.kind for t in ts}) != 1 or len({t.layout for t in ts}) != 1 \
             or any(t.logical_out for t in ts):
@@ -388,14 +406,9 @@ def fold_shared_expert(cfg, layers: dict) -> dict:
     for k, sk in (("gate_exps", "shared_gate"), ("up_exps", "shared_up"),
                   ("down_exps", "shared_down")):
         t = layers[k]
-        (qs, sc), (cq, cs) = _qt_parts(t), chunks[sk]
-        e = qs.shape[1]
-        out[k] = QTensor(
-            _filled((qs.shape[0], e + s, *qs.shape[2:]), qs.dtype,
-                    [(np.s_[:, :e], qs), (np.s_[:, e:], cq)]),
-            _filled((sc.shape[0], e + s, *sc.shape[2:]), sc.dtype,
-                    [(np.s_[:, :e], sc), (np.s_[:, e:], cs)]),
-            t.kind, layout=t.layout)
+        n, e = t.qs.shape[:2]
+        qs, sc, offs = _expert_cat(_qt_parts(t), chunks[sk], n, e, s)
+        out[k] = QTensor(qs, sc, t.kind, layout=t.layout, offs=offs)
         del out[sk]
     return out
 
@@ -409,24 +422,22 @@ def _fold_and_fuse_experts(cfg, layers: dict) -> dict:
         return layers
     out = dict(layers)
     g, u = layers["gate_exps"], layers["up_exps"]
-    (gq, gs), (uq, us) = _qt_parts(g), _qt_parts(u)
-    chunks = _shared_chunks(layers, s, gq.shape[-2])
-    (cgq, cgs), (cuq, cus) = chunks["shared_gate"], chunks["shared_up"]
-    n, e, mh = gq.shape[:3]
+    n, e, mh = g.qs.shape[:3]
+    chunks = _shared_chunks(layers, s, mh)
 
     def fused(a, b, ca, cb):
+        if a is None:
+            return None
         return _filled((n, e + s, 2 * mh, a.shape[-1]), a.dtype,
                        [(np.s_[:, :e, :mh], a), (np.s_[:, e:, :mh], ca),
                         (np.s_[:, :e, mh:], b), (np.s_[:, e:, mh:], cb)])
 
-    out["gu_exps"] = QTensor(fused(gq, uq, cgq, cuq), fused(gs, us, cgs, cus), g.kind,
-                             layout=g.layout)
+    gu = [fused(*parts) for parts in zip(_qt_parts(g), _qt_parts(u), chunks["shared_gate"],
+                                         chunks["shared_up"])]
+    out["gu_exps"] = QTensor(gu[0], gu[1], g.kind, layout=g.layout, offs=gu[2])
     d = layers["down_exps"]
-    (dq, ds), (cdq, cds) = _qt_parts(d), chunks["shared_down"]
-    out["down_exps"] = QTensor(
-        _filled((n, e + s, *dq.shape[2:]), dq.dtype, [(np.s_[:, :e], dq), (np.s_[:, e:], cdq)]),
-        _filled((n, e + s, *ds.shape[2:]), ds.dtype, [(np.s_[:, :e], ds), (np.s_[:, e:], cds)]),
-        d.kind, layout=d.layout)
+    dq, ds, doffs = _expert_cat(_qt_parts(d), chunks["shared_down"], n, e, s)
+    out["down_exps"] = QTensor(dq, ds, d.kind, layout=d.layout, offs=doffs)
     for k in ("gate_exps", "up_exps", "shared_gate", "shared_up", "shared_down"):
         del out[k]
     return out
@@ -441,7 +452,9 @@ def fuse_layer_weights(cfg, weights: dict) -> dict:
     folded into the routed stacks first where it folds
     (`fold_shared_expert`), and its shared_* keys are then gone. Dense
     F32/F16/BF16 projections fuse the same way, where the JAX package leaves
-    them unfused (the same values either way)."""
+    them unfused (the same values either way). Native K-quant expert stacks
+    get their offsets padded for K13 (`pad_offsets`), and Qwen3's q_norm /
+    k_norm become one per-head stack, qk_norm (`_stack_qk_norm`)."""
     layers = dict(weights["layers"])
     if getattr(cfg, "is_moe", False):
         layers = _fold_and_fuse_experts(cfg, layers)
@@ -460,9 +473,39 @@ def fuse_layer_weights(cfg, weights: dict) -> dict:
             continue
         for k in parts:
             del layers[k]
+    for k in ("gate_exps", "up_exps", "down_exps", "gu_exps"):
+        if isinstance(layers.get(k), QTensor):
+            layers[k] = pad_offsets(layers[k])
+    if getattr(cfg, "qk_norm", False) and "q_norm" in layers:
+        layers["qk_norm"] = _stack_qk_norm(cfg, layers.pop("q_norm"), layers.pop("k_norm"))
     out = dict(weights)
     out["layers"] = layers
     return out
+
+
+def pad_offsets(t: QTensor) -> QTensor:
+    """An expert stack whose offsets [..., O, I/32] are zero-padded to a
+    width % 32 == 0, the contraction widths K13 takes (the experts' offset
+    term, `moe_grouped.grouped_offset_term`; Qwen1.5-MoE's down projection
+    1408 / 32 = 44 -> 64). Zero columns add nothing to the term."""
+    if t.offs is None or t.offs.shape[-1] % BLOCK == 0:
+        return t
+    pad = -t.offs.shape[-1] % BLOCK
+    if isinstance(t.offs, torch.Tensor):
+        return replace(t, offs=torch.nn.functional.pad(t.offs, (0, pad)))
+    return replace(t, offs=np.pad(t.offs, [(0, 0)] * (t.offs.ndim - 1) + [(0, pad)]))
+
+
+def _stack_qk_norm(cfg, q, k):
+    """Qwen3's q_norm / k_norm [L, hd] -> qk_norm [L, H + KV, hd]: row h of
+    a layer norms head h of the projection's q heads then k heads, so the
+    forward norms them in one op with no per-step concat."""
+    n, hd = q.shape
+    parts = ((q, cfg.n_heads), (k, cfg.n_kv_heads))
+    if isinstance(q, torch.Tensor):
+        return torch.cat([a[:, None].expand(n, h, hd) for a, h in parts], dim=1)
+    return np.concatenate([np.broadcast_to(np.asarray(a)[:, None], (n, h, hd))
+                           for a, h in parts], axis=1)
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -483,7 +526,8 @@ def tree_to(tree, device):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, QTensor):
         return replace(tree, qs=_to_torch(tree.qs, device),
-                       scales=_to_torch(tree.scales, device))
+                       scales=_to_torch(tree.scales, device),
+                       offs=None if tree.offs is None else _to_torch(tree.offs, device))
     return _to_torch(tree, device)
 
 
@@ -512,8 +556,6 @@ def from_numpy_weights(tree: dict, device: str | torch.device = "cpu") -> dict:
     if isinstance(tree, dict):
         return {k: from_numpy_weights(v, device) for k, v in tree.items()}
     if all(hasattr(tree, f) for f in ("qs", "scales", "kind", "layout")):
-        if getattr(tree, "offs", None) is not None:
-            raise NotImplementedError(f"{tree.kind} weights with offsets: quant-breadth slice")
         qs = np.asarray(tree.qs)
         layout = "canonical"
         if tree.layout == "packed4":
@@ -521,6 +563,8 @@ def from_numpy_weights(tree: dict, device: str | torch.device = "cpu") -> dict:
             layout = "packed4"
         elif tree.layout == "interleaved":
             qs = deinterleave_columns(qs)
+        offs = getattr(tree, "offs", None)  # canonical block order in both packages
         return QTensor(_to_torch(qs, device), _to_torch(np.asarray(tree.scales), device),
-                       tree.kind, int(tree.logical_out), layout)
+                       tree.kind, int(tree.logical_out), layout,
+                       None if offs is None else _to_torch(np.asarray(offs), device))
     return _to_torch(np.asarray(tree), device)

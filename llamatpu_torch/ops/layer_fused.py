@@ -262,7 +262,8 @@ def _check_attn_tail(q4, kvc, x, hd):
         raise NotImplementedError(f"{kvc.dtype} KV cache: K3 takes bf16/f32 caches, as the "
                                   "JAX megakernel does")
     if kvc.shape[-1] != 2 * hd:
-        raise NotImplementedError("head_dim != v_head_dim: family-deltas slice of the port")
+        raise NotImplementedError("head_dim != v_head_dim: K3 takes equal key and value "
+                                  "head widths, as the JAX megakernel does")
 
 
 def _host_pos(pos) -> int:

@@ -8,9 +8,10 @@ rides along as S more experts per token, models/weights.py
    expert's rows padded to the tile size tm, so every tm-row tile belongs to
    one expert (`tile_expert`, -1 for the tail tiles past the last group);
 2. `grouped_matmul` runs each tile against its expert's weights only, by
-   weight kind: K10 `grouped_block_matmul` (Q8_0 / Q4_0), K11
-   `grouped_packed4_matmul`, K12 `grouped_rowq_matmul` (q8_row), K13
-   `grouped_dense_matmul` (F32 / F16 / BF16 checkpoints);
+   weight kind: K10 `grouped_block_matmul` (Q8_0 / Q4_0 / Q4_K / Q5_K
+   values), K11 `grouped_packed4_matmul`, K12 `grouped_rowq_matmul`
+   (q8_row), K13 `grouped_dense_matmul` (F32 / F16 / BF16 checkpoints, and
+   the native K-quants' offset term: `grouped_offset_term`);
 3. `grouped_ffn` gathers the sorted rows, runs gate+up, silu(gate) * up in
    f32 rounded once to the activation dtype, and down, then combines each
    token's rows weighted by its routing weights in f32.
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from llamatpu_torch import _build
 from llamatpu_torch.models.weights import QTensor, unpack4_pairs
+from llamatpu_torch.ops.quant_matmul import block_sums
 
 BLOCK = 32
 # front ends of csrc/moe_grouped.cu
@@ -294,6 +296,26 @@ for _f in (grouped_block_matmul, grouped_packed4_matmul, grouped_rowq_matmul,
     _f.launches = 0
 
 
+def grouped_offset_term(x_sorted: torch.Tensor, offs: torch.Tensor, tile_expert: torch.Tensor,
+                        tm: int, row_token=None, n_tokens: int = 0) -> torch.Tensor:
+    """The K-quant experts' offset term (moe_grouped.py:413-422), y[Mp, O] f32
+    = xbsum[Mp, I/32] @ offs[tile_expert[row // tm]]^T through K13 on the
+    same tile maps, xbsum the f32 sums of the canonical 32-blocks of
+    x_sorted [Mp, I]. K13 takes contraction widths % 32 == 0: offs [E, O, W]
+    come padded to such a width W at load (`weights.pad_offsets`;
+    Qwen1.5-MoE's down projection: 1408 / 32 = 44 -> 64), and xbsum is
+    zero-padded to W here, which adds nothing to the sums; the plain version
+    on the CPU takes the same padded operands."""
+    xbsum = block_sums(x_sorted)
+    width = offs.shape[-1]
+    if width % BLOCK or width < xbsum.shape[1]:
+        raise ValueError(f"grouped_offset_term: offs width {width} is not I/32 = "
+                         f"{xbsum.shape[1]} padded to a multiple of {BLOCK} (weights.pad_offsets)")
+    if width > xbsum.shape[1]:
+        xbsum = F.pad(xbsum, (0, width - xbsum.shape[1]))
+    return grouped_dense_matmul(xbsum.contiguous(), offs, tile_expert, tm, row_token, n_tokens)
+
+
 def grouped_matmul(w, x_sorted: torch.Tensor, tile_expert: torch.Tensor, tm: int,
                    li: int | None = None, row_token=None, n_tokens: int = 0) -> torch.Tensor:
     """y[Mp, O] f32 = x_sorted[Mp, I] @ W[tile_expert[row // tm]]^T. W: a
@@ -302,18 +324,19 @@ def grouped_matmul(w, x_sorted: torch.Tensor, tile_expert: torch.Tensor, tm: int
     if not isinstance(w, QTensor):
         wd = w if li is None else w[li]
         return grouped_dense_matmul(x_sorted, wd, tile_expert, tm, row_token, n_tokens)
-    if w.offs is not None:
-        raise NotImplementedError(f"{w.kind} experts with offsets: quant-breadth slice of the port")
     qs, sc = (w.qs, w.scales) if li is None else (w.qs[li], w.scales[li])
     args = (x_sorted, qs, sc, tile_expert, tm, row_token, n_tokens)
     if w.kind == "q8_row":
         y = grouped_rowq_matmul(*args)
     elif w.layout == "packed4":
         y = grouped_packed4_matmul(*args)
-    elif w.kind in ("q8_0", "q4_0") and w.layout == "canonical":
+    elif w.kind in ("q8_0", "q4_0", "q4_k", "q5_k") and w.layout == "canonical":
         y = grouped_block_matmul(*args)
     else:
         raise NotImplementedError(f"{w.kind}/{w.layout} experts: not served by the port")
+    if w.offs is not None:
+        y = y + grouped_offset_term(x_sorted, w.offs if li is None else w.offs[li],
+                                    tile_expert, tm, row_token, n_tokens)
     return y[:, : w.logical_out] if w.logical_out else y
 
 

@@ -42,6 +42,13 @@ TC_MAX_T = 32    # K5/K7's bf16 rows on rowq_tc.cuh; more take the wgmma GEMM
 SCALE_ROW_I = 128  # block-scale rows [I / 32] f32 are 16-byte multiples (TMA) for I % 128 == 0
 
 
+def block_sums(x2: torch.Tensor) -> torch.Tensor:
+    """xbsum [T, I/32]: the f32 sums of x2 [T, I]'s canonical 32-blocks, the
+    activation side of the native K-quants' offset term."""
+    t, i = x2.shape
+    return x2.float().reshape(t, i // BLOCK, BLOCK).sum(dim=-1)
+
+
 def rowq_gemv_plain(x2: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     """Plain version: the dot in f32 (bf16 x bf16-exact-int8 products are
     exact in f32, so this is the TPU's bf16 dot with f32 accumulation)."""

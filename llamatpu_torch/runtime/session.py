@@ -106,8 +106,8 @@ class ChatSession:
 
 
 def run_interactive(model: LoadedModel, engine: Engine, system_prompt=None,
-                    max_new_tokens: int = 512) -> None:
-    session = ChatSession(model, engine, system_prompt)
+                    max_new_tokens: int = 512, enable_thinking: bool = True) -> None:
+    session = ChatSession(model, engine, system_prompt, enable_thinking)
     print("llamatpu_torch interactive — /exit to quit", file=sys.stderr)
     while True:
         try:

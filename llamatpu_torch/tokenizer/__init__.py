@@ -1,6 +1,7 @@
-"""Tokenizers of the port: the Llama 3 / Qwen byte-level BPE, the
-SentencePiece BPE of Phi-3, their vocabulary and the streaming UTF-8 decoder
-(copies of llamatpu/tokenizer/*, no `regex`)."""
+"""Tokenizers of the port: the byte-level BPE (Llama 3, Qwen, Granite,
+Tekken pretokenizers), the SentencePiece BPE of Mistral and Phi-3, their
+vocabulary and the streaming UTF-8 decoder (copies of llamatpu/tokenizer/*,
+no `regex`)."""
 from llamatpu_torch.tokenizer.bpe import BPETokenizer
 from llamatpu_torch.tokenizer.builders import build_tokenizer
 from llamatpu_torch.tokenizer.spm import SPMTokenizer

@@ -1,5 +1,6 @@
-"""GPT-2-style byte-level BPE with an explicit merges list: the Llama 3 and
-Qwen tokenizers of the port (llamatpu/tokenizer/bpe.py).
+"""GPT-2-style byte-level BPE with an explicit merges list: the Llama 3,
+Qwen, Granite and Tekken (Devstral) tokenizers of the port
+(llamatpu/tokenizer/bpe.py).
 
 Text is split by the family's pretokenizer, each piece mapped
 bytes -> printable unicode (bytes_to_unicode), then pairs are merged by
@@ -15,11 +16,13 @@ The JAX package splits with the third-party `regex` module's pattern
 which the port does not import, and Qwen's QWEN_PATTERN, the same but for
 two alternatives: the contractions fold ASCII case only
 (`'[sS]|'[tT]|...`), and `\\p{N}` matches one digit, not 1-3.
-`llama3_pieces` and `qwen_pieces` are those patterns written out as a
-scanner (the standard library's `re` has no \\p{L} / \\p{N}): at each
-position the alternatives are tried in order, with the backtracking each
-implies resolved by hand. Letters and numbers are the Unicode categories L*
-and N* of `unicodedata`; whitespace is the Unicode White_Space set, as
+Granite's `dbrx` pretokenizer is Qwen's pattern with `\\p{N}{1,3}`
+(`granite_dbrx_pieces`); its `refact` default and Tekken are the Llama 3
+pattern. `llama3_pieces`, `qwen_pieces` and `granite_dbrx_pieces` are those
+patterns written out as a scanner (the standard library's `re` has no
+\\p{L} / \\p{N}): at each position the alternatives are tried in order, with
+the backtracking each implies resolved by hand. Letters and numbers are
+the Unicode categories L* and N* of `unicodedata`; whitespace is the Unicode White_Space set, as
 `regex`'s \\s. A character assigned in a later Unicode version than the
 interpreter's `unicodedata` may split differently from `regex`'s tables.
 """
@@ -120,6 +123,12 @@ def llama3_pieces(text: str) -> list[str]:
 def qwen_pieces(text: str) -> list[str]:
     """The Qwen pretokenizer's pieces of `text` (QWEN_PATTERN's findall)."""
     return _pieces(text, _fold_ascii, 1)
+
+
+def granite_dbrx_pieces(text: str) -> list[str]:
+    """Granite's `dbrx` pretokenizer (GRANITE_DBRX_PATTERN's findall): Qwen's
+    ASCII-folded contractions with numbers of 1-3 digits."""
+    return _pieces(text, _fold_ascii, 3)
 
 
 def _pieces(text: str, fold, max_digits: int) -> list[str]:

@@ -1,7 +1,7 @@
 """SentencePiece-style score-based BPE with byte fallback (the port's copy of
 llamatpu/tokenizer/spm.py, with `re` for the special-token split).
 
-Used by Phi-3 (and Mistral, a later slice): spaces become '▁', each
+Used by Mistral and Phi-3: spaces become '▁', each
 codepoint maps to a vocab entry or falls back to its '<0xNN>' byte tokens,
 then the highest-scoring adjacent pair whose concatenation is in the vocab
 merges, leftmost on ties, until no such pair is left.

@@ -16,7 +16,7 @@ from llamatpu.models.weights import prepare_qtensor
 from llamatpu.models.weights import serving_weights as j_serving
 from llamatpu.ops import sampling as jsampling
 from llamatpu.ops.pallas_attention import decode_attention_fused_write as j_fused_write
-from llamatpu.ops.pallas_matmul import _quant_matmul_2d, _quant_matmul_2d_li
+from llamatpu.ops.pallas_matmul import _quant_matmul_2d, _quant_matmul_2d_li, quant_matmul_pallas
 from llamatpu.runtime.engine import Engine as JEngine
 from llamatpu_torch.models import transformer as ttr
 from llamatpu_torch.models.synthetic import build_synthetic_model as t_build
@@ -235,14 +235,19 @@ def test_engine_sampled_generation_is_seeded():
 
 def test_dispatch_routes_and_dense_weights():
     """Dense (F32 checkpoint) weights go through torch.matmul with f32
-    accumulation, cast back to x's dtype; offsets raise."""
+    accumulation, cast back to x's dtype; a Q4_K weight with offsets
+    matches `quant_matmul_pallas(interpret=True)` (f32, 1e-5)."""
     rng = np.random.default_rng(2)
     w = _t(rng.normal(size=(2, 40, 64)).astype(np.float32))
     x = _t(rng.normal(size=(1, 3, 64)).astype(np.float32)).to(torch.bfloat16)
     y = matmul(w, x, li=1)
     assert y.dtype == torch.bfloat16 and y.shape == (1, 3, 40)
     assert torch.equal(y, (x.float() @ w[1].T).to(torch.bfloat16))
-    q = QTensor(torch.zeros((40, 64), dtype=torch.int8), torch.zeros((40, 2)), "q4_k",
-                offs=torch.zeros((40, 2)))
-    with pytest.raises(NotImplementedError, match="quant-breadth"):
-        matmul(q, x)
+    qs = rng.integers(-8, 8, size=(40, 64), dtype=np.int8)
+    sc = rng.random((40, 2), dtype=np.float32) * 0.02
+    offs = rng.random((40, 2), dtype=np.float32) * 0.02 - 0.01
+    jw = prepare_qtensor(JQTensor(qs, sc, "q4_k", offs=offs))
+    xf = x.float()
+    want = np.asarray(quant_matmul_pallas(jw, jnp.asarray(xf.numpy()), interpret=True))
+    got = matmul(QTensor(_t(qs), _t(sc), "q4_k", offs=_t(offs)), xf)
+    np.testing.assert_allclose(got.numpy(), want[..., :40], rtol=1e-5, atol=1e-5)

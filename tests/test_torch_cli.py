@@ -156,13 +156,6 @@ def test_commands_of_later_slices_raise(command):
         cli.main([command, "-m", "x.gguf", "--tp", "2"])
 
 
-def test_other_families_raise_naming_the_slice(tmp_path):
-    path = tmp_path / "qwen3.gguf"
-    build_tiny_gguf(path, family="qwen3", quant=GGMLType.Q8_0, seed=0, with_tokenizer=True)
-    with pytest.raises(NotImplementedError, match="family-deltas"):
-        cli.main(["run", "-m", str(path), "-p", "hi", "--device", "cpu"])
-
-
 def test_metrics_file_appends_json_lines(ggufs, tmp_path, capsys):
     import json
 

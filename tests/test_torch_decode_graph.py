@@ -38,6 +38,8 @@ from llamatpu_torch.utils.metrics import RunMetrics
 TINY = dict(dim=256, hidden_dim=512, n_heads=4, n_kv_heads=2, head_dim=64, vocab_size=300)
 MOE = dict(dim=128, hidden_dim=512, moe_hidden_dim=128, n_experts=8, n_experts_used=2,
            n_heads=2, n_kv_heads=2, head_dim=64, vocab_size=300)
+# Qwen3-0.6B shrunk: q/k norm, q width 512 != dim 256, head 128
+QWEN3 = dict(dim=256, hidden_dim=512, n_heads=4, n_kv_heads=2, head_dim=128, vocab_size=300)
 PROMPTS = [[(7 * i + 3) % 300 for i in range(n)] for n in (5, 19, 11)]
 
 
@@ -201,11 +203,13 @@ def _step_case(kind):
     a first window."""
     if kind == "moe":
         tm, _ = _models("qwen15-moe-a2.7b", MOE, seed=3)
+    elif kind == "qwen3":
+        tm, _ = _models("qwen3-0.6b", QWEN3)
     else:
         tm, _ = _models()
-    lanes = 1 if kind == "engine" else 2
+    lanes = 1 if kind in ("engine", "qwen3") else 2
     kw = dict(prefill_chunk=16, decode_window=4, device="cpu")
-    if kind == "engine":
+    if kind in ("engine", "qwen3"):
         e = Engine(tm, cache_len=64, rowq=True, cache_dtype=torch.float32, **kw)
         tok = int(e.prefill(PROMPTS[0])[0][0])
         e.decode_window_run(tok, 5, 2)
@@ -223,13 +227,13 @@ def _step_case(kind):
     return e
 
 
-@pytest.mark.parametrize("kind", ["engine", "dense", "paged", "int8", "moe"])
+@pytest.mark.parametrize("kind", ["engine", "dense", "paged", "int8", "moe", "qwen3"])
 def test_one_step_makes_no_host_read(kind):
     """One greedy and one sampled step run to their end under NoHostData:
     Engine (q8_row, K2 + K3), a 2-lane dense BatchEngine (q8_row), a 2-lane
-    paged engine (K8), a 2-lane int8-KV BatchEngine (K6-int8) and a 2-lane
-    MoE BatchEngine (the N > 1 routing, K10). The step advances the state on
-    the device."""
+    paged engine (K8), a 2-lane int8-KV BatchEngine (K6-int8), a 2-lane
+    MoE BatchEngine (the N > 1 routing, K10) and a Qwen3 Engine (K2, the q/k
+    norm, K3). The step advances the state on the device."""
     e = _step_case(kind)
     st = e._graphs.state
     st.temps.fill_(0.7)

@@ -62,8 +62,9 @@ def test_views_blocks_and_requant_bit_exact():
     raw = _q6k_raw()
     assert np.array_equal(quants.requantize_to_q8_0(GGMLType.Q6_K, raw, 2048),
                           jq.requantize_to_q8_0(JT.Q6_K, raw, 2048))
-    with pytest.raises(NotImplementedError, match="quant-breadth"):
-        quants.dequantize(GGMLType.Q4_K, np.zeros(144, np.uint8), 256)
+    for t, enc in ((GGMLType.Q4_K, jq.quantize_q4_k), (GGMLType.Q5_K, jq.quantize_q5_k)):
+        raw = enc(v[:2048])
+        assert np.array_equal(quants.dequantize(t, raw, 2048), jq.dequantize(JT[t.name], raw, 2048))
 
 
 def test_writer_read_back_by_both_readers(tmp_path):
@@ -195,7 +196,7 @@ def test_tied_head(tmp_path):
 
 def test_k_quant_tensors(tmp_path):
     """A Q6_K projection requantizes to Q8_0 exactly as the JAX loader does;
-    native Q4_K raises, naming the quant-breadth slice."""
+    native Q4_K loads as the JAX loader's values, scales and offsets."""
     from llamatpu.gguf import quants as jqq
     from llamatpu.models import loader as jloader
     from llamatpu_torch.models import loader
@@ -211,5 +212,8 @@ def test_k_quant_tensors(tmp_path):
         ref = jloader._load_matmul(jr, "x.q6k", "quant", np.float32)
         assert got.kind == ref.kind == "q8_0"
         assert np.array_equal(got.qs, ref.qs) and np.array_equal(got.scales, ref.scales)
-        with pytest.raises(NotImplementedError, match="quant-breadth"):
-            loader._load_matmul(r, "x.q4k", torch.float32, False)
+        got = loader._load_matmul(r, "x.q4k", torch.float32, False)
+        ref = jloader._load_matmul(jr, "x.q4k", "quant", np.float32)
+        assert got.kind == ref.kind == "q4_k"
+        for a, b in ((got.qs, ref.qs), (got.scales, ref.scales), (got.offs, ref.offs)):
+            assert np.array_equal(a, b)

@@ -116,11 +116,13 @@ def test_grouped_plain_matches_pallas(kind, pack4, tm):
 
 def test_grouped_dispatch_routes_by_weight_kind(monkeypatch):
     """grouped_matmul takes K10 for canonical Q8_0 / Q4_0, K11 for packed4,
-    K12 for q8_row and K13 for dense stacks, and raises on what it does not
-    serve."""
+    K12 for q8_row and K13 for dense stacks; native K-quants take K10 on
+    their values and K13 on their offset term (offsets padded as the load
+    pads them)."""
     calls = []
     for f in KERNELS:
-        monkeypatch.setattr(tmg, f.__name__, lambda *a, _n=f.__name__, **k: calls.append(_n))
+        monkeypatch.setattr(tmg, f.__name__, lambda *a, _n=f.__name__, **k:
+                            calls.append(_n) or torch.zeros((8, 32)))
     x, te = torch.zeros((8, 64)), torch.zeros(1, dtype=torch.int32)
     q = torch.zeros((1, 32, 64), dtype=torch.int8)
     for w in (tw.QTensor(q, torch.zeros((1, 32, 2)), "q8_0"),
@@ -128,9 +130,10 @@ def test_grouped_dispatch_routes_by_weight_kind(monkeypatch):
               tw.QTensor(q, torch.zeros((1, 32, 1)), "q8_row"), torch.zeros((1, 32, 64))):
         tmg.grouped_matmul(w, x, te, 8)
     assert calls == [f.__name__ for f in KERNELS]
-    with pytest.raises(NotImplementedError, match="quant-breadth"):
-        tmg.grouped_matmul(tw.QTensor(q, torch.zeros((1, 32, 2)), "q4_k",
-                                      offs=torch.zeros((1, 32, 2))), x, te, 8)
+    calls.clear()
+    tmg.grouped_matmul(tw.pad_offsets(tw.QTensor(q, torch.zeros((1, 32, 2)), "q4_k",
+                                                 offs=torch.zeros((1, 32, 2)))), x, te, 8)
+    assert calls == ["grouped_block_matmul", "grouped_dense_matmul"]
 
 
 def test_grouped_bf16_rounds_act_once_from_f32():

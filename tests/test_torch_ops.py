@@ -99,13 +99,16 @@ def test_matmul_dispatch_slices_logical_rows_and_casts():
         x = torch.from_numpy(rng.normal(size=(1, t, 128)).astype(np.float32)).bfloat16()
         y = matmul(w, x)
         assert y.shape == (1, t, 200) and y.dtype == torch.bfloat16
-    # block quants route to K5 (slicing and cast alike); K-quants with
-    # offsets still raise
+    # block quants route to K5 (slicing and cast alike); K-quants add their
+    # offset term to K5's f32 sums before the cast
     sb = (rng.random((256, 4)) * 0.01).astype(np.float32)
     yb = matmul(QTensor(_t(qs), _t(sb), "q8_0", logical_out=200), x)
     assert yb.shape == (1, 128, 200) and yb.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="quant-breadth"):
-        matmul(QTensor(_t(qs), _t(sb), "q4_k", offs=_t(sb)), x)
+    yk = matmul(QTensor(_t(qs), _t(sb), "q4_k", logical_out=200, offs=_t(sb)), x)
+    x2 = x.reshape(128, 128)
+    want = (quant_matmul.block_matmul(x2, _t(qs), _t(sb))
+            + x2.float().reshape(128, 4, 32).sum(-1) @ _t(sb).T).to(torch.bfloat16)
+    assert torch.equal(yk[0], want[:, :200])
 
 
 # ------------------------------------------------------------------- K2

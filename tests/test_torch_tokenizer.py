@@ -14,10 +14,9 @@ from llamatpu.tokenizer.adversarial import ADVERSARIAL_TEXTS
 from llamatpu.tokenizer.bpe import LLAMA3_PATTERN
 from llamatpu.tokenizer.stream import StreamDecoder as JStreamDecoder
 from llamatpu_torch.bench.validate import PROBE_TEXTS
-from llamatpu_torch.format import Message, Role, build_chat_format
-from llamatpu_torch.models.config import Family
+from llamatpu_torch.format import Message, Role
 from llamatpu_torch.models.loader import load_model
-from llamatpu_torch.tokenizer import StreamDecoder, build_tokenizer
+from llamatpu_torch.tokenizer import StreamDecoder
 from llamatpu_torch.tokenizer.bpe import llama3_pieces
 
 EXTRA = ["", " ", "\n\n\n", "x  ", "x  y", " \t\n \t", "?!\n\n\rx", "a \r\n\r\n b",
@@ -79,11 +78,3 @@ def test_stream_decoder_holds_back_partial_utf8(models):
         assert got == [jsd.push(t) for t in ids] + [jsd.flush()]
         assert "".join(got) == text
         assert all("�" not in g for g in got)
-
-
-def test_other_families_raise_naming_the_slice(models):
-    md = models[0].metadata
-    with pytest.raises(NotImplementedError, match="family-deltas"):
-        build_tokenizer(Family.MISTRAL, md)
-    with pytest.raises(NotImplementedError, match="family-deltas"):
-        build_chat_format(Family.QWEN_3, models[0].tokenizer)

@@ -61,7 +61,11 @@ It runs every phase, needs one card, and exits non-zero
             Phi-3-medium widths, T = 17 and 24 in bf16, and at Qwen2.5-14B
             widths, T = 32 in f32, with K9 (T = 1, 8, 16), K2 (1, 8, 24, 32
             rows) and K1 (wo, w13, w2 at 24 and 32 rows) at Phi-3-medium
-            widths; times from CUDA events and
+            widths; slice 23's int8_dot (the int8 mode's block dot) at the
+            five Llama-3.2-1B projections, T = 1, 8, 16, bf16 and f32 x, its
+            edges (I = 32, ragged O, a zero row, an f16-subnormal scale,
+            grouped expert rows) and an exact case held bit for bit; times
+            from CUDA events and
             torch.profiler (kernel,
             plain version, one-call library yardstick) beside the bound
             from the published H100 SXM peaks.
@@ -123,6 +127,21 @@ It runs every phase, needs one card, and exits non-zero
 12. int8:   on that GGUF, `cli run --kv-dtype int8` (K5, K6-int8) and the
             HTTP run of `serve --kv-dtype int8 --batch-size 8 --paged` (K5,
             K8-int8 = 16 per step) with serve's gates.
+12b. int8 mode: slice 23's exact int8 mode on that GGUF (`run_int8_paths`):
+            `cli run --impl int8` (int8_dot = 65 a decode step), `cli ppl
+            --chunk 16` with --impl int8 (int8_dot alone) beside --impl
+            auto (K5 alone), Engine(impl="int8") pp512 + tg128 as graph
+            replays (a 16-step window: int8_dot = 65 a step, K5 none) with
+            the graph held to the eager window; a 4-layer BatchEngine at 8
+            lanes in int8 mode, graph == eager; the same 4 layers as q8_row
+            in int8 mode (K1 at a 512-row chunk, never K4; graph == eager);
+            Qwen1.5-MoE-A2.7B at full width and 2 layers, int8 mode (the
+            experts' (token, slot) rows in grouped int8_dot calls): prefill
+            and 4 decode steps held to the same forwards with the plain
+            version on the card, and a 128-token prefill chunk timed in int8
+            and auto mode. The kernels phase holds K1 at the int8 mode's
+            prefill rows (Llama-3.2-1B's four projections at T = 128 and
+            512, the rowq_gemv row's "int8_mode_rows").
 13. pack4:  the GGUF in Q4_0 at 4 layers, loaded with pack4: prefill 128 +
             32 decode steps through K7 (K5 at 0); then `cli convert` of it to
             Q8_0 and `cli validate` of the converted file on the card.
@@ -162,7 +181,15 @@ It runs every phase, needs one card, and exits non-zero
             projections (T = 1, 8, 512, with the offset epilogue), K13 on
             the experts' offset term at Qwen1.5-MoE's widths (each row's
             "slice22" entry).
-14c. harnesses: slice 6's, each a path with its counts read over it:
+14c. parity: bench/parity.py on the card (`run_parity_path`): the f32
+            master at Llama-3.2-1B width and 2 layers (a depth cut for
+            time), a 128-token corpus, f32 / bf16 / q8_0 / q8_0-int8dot /
+            q8_0-kvint8 / q8_row / q4_0 inside tests/test_parity_gate.py's
+            bounds. The qwen3 phase also loads its Q4_K_M file with the
+            native codecs (gguf/native.py, built with the host compiler) and
+            with LLAMATPU_NO_NATIVE=1 (seconds each, equal trees), and
+            holds every `cli run` of it to native decoding.
+14d. harnesses: slice 6's, each a path with its counts read over it:
             bench/sweep_tail.py (K9 against K16 over the 16 layers, T = 1
             and 8), bench/bench_gemm.py (torch._int_mm, K4, K17 and bf16
             torch.matmul at T = 512 and 128),
@@ -353,6 +380,7 @@ K1_NAMES = ("rtc::K1>",)  # K1's passes (bf16)
 K2_TC = ("qkv_rmsnorm_kernel", "rtc::K2>")  # K2's norm phase and GEMV phases (bf16)
 K9_TC = ("rtc::K9>",)
 K20_TC = ("rtc::K20>",)
+INT8_NAMES = ("q8_quantize_kernel", "q8_dot_kernel")  # the int8 mode's two launches a call
 
 
 def check_k1(dev, gen, dims=LLAMA32_1B, edges: bool = True) -> dict:
@@ -2575,6 +2603,9 @@ IN_PATH = {
     "decode_attention": ("k15", "decode16_trace", STRIPE, 1),
     "decode_attention_fused_write_q": ("k6_int8", "decode16_trace", DENSE, 1),
     "decode_attention_paged_q": ("serve_int8", "decode16_trace", PAGED, 1),
+    # slice 23: the int8 mode's block dot, one decode token (65 calls) of the
+    # int8-mode Engine on the Q8_0 GGUF
+    "int8_dot": ("int8", "decode16_trace", INT8_NAMES, 65),
 }
 
 
@@ -2598,8 +2629,8 @@ ROW_WRAPPERS = {"decode_attention_split_fused_write": K14_WRAPPERS,
 
 def counters():
     from llamatpu_torch.bench import dma_sweep, roofline
-    from llamatpu_torch.ops import (attention, ffn_fused, gemm, layer_fused, moe_grouped,
-                                    quant_matmul)
+    from llamatpu_torch.ops import (attention, ffn_fused, gemm, int8_matmul, layer_fused,
+                                    moe_grouped, quant_matmul)
 
     return {"rowq_gemv": quant_matmul.rowq_gemv, "rowq_gemm": gemm.rowq_gemm,
             "rowq_gemm_bf16": gemm.rowq_gemm_bf16,
@@ -2619,7 +2650,8 @@ def counters():
             "grouped_packed4_matmul": moe_grouped.grouped_packed4_matmul,
             "grouped_rowq_matmul": moe_grouped.grouped_rowq_matmul,
             "grouped_dense_matmul": moe_grouped.grouped_dense_matmul,
-            **{n: getattr(attention, n) for n in K14_WRAPPERS + K15_WRAPPERS}}
+            **{n: getattr(attention, n) for n in K14_WRAPPERS + K15_WRAPPERS},
+            "int8_dot": int8_matmul.int8_dot}
 
 
 def require_kernels(res: dict, label: str, want: dict) -> None:
@@ -2818,7 +2850,7 @@ def spec_graph_decode(engine, prompt: list[int], window: int) -> dict:
         gen.set_state(state)
         with engine._graphs._eager_windows():
             eager = run(temp)
-        cap = engine._graphs.graphs[(engine.spec_k, temp != 0.0, switches())]
+        cap = engine._graphs.graphs[(engine.spec_k, temp != 0.0, engine.impl, switches())]
         assert graph["tokens"] == eager["tokens"] == again["tokens"], \
             f"spec {mode}: graph {graph['tokens']} != eager {eager['tokens']} or again"
         for r in (graph, again, eager):
@@ -3501,7 +3533,7 @@ def graph_decode(engine, label: str, prompt_len: int = 128, window: int = 16,
         gen.set_state(state)
         with engine._graphs._eager_windows():
             eager, eager_n = counted(temp)
-        cap = engine._graphs.graphs[(temp != 0.0, switches())]
+        cap = engine._graphs.graphs[(temp != 0.0, engine.impl, switches())]
         want = {k: cap.counts[f] * window for k, f in fns.items() if f in cap.counts}
         assert np.array_equal(graph, eager), f"{label} {mode}: graph {graph} != eager {eager}"
         assert np.array_equal(graph, again), f"{label} {mode}: graph windows differ"
@@ -4400,11 +4432,13 @@ def cli_run(dev, path, extra=()) -> dict:
     import io
 
     from llamatpu_torch import cli
+    from llamatpu_torch.gguf import native
 
     fns = counters()
     for f in fns.values():
         f.launches = 0
     restore, fw = count_forwards()
+    calls = native.calls
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -4417,7 +4451,8 @@ def cli_run(dev, path, extra=()) -> dict:
     text = buf.getvalue()
     assert rc == 0 and text.strip(), f"cli run: rc {rc}, output {text[:200]!r}"
     return dict(rc=rc, seconds=time.perf_counter() - t0, chars=len(text), text=text[:80],
-                launches={k: f.launches for k, f in fns.items()}, **fw)
+                launches={k: f.launches for k, f in fns.items()},
+                native_calls=native.calls - calls, **fw)
 
 
 def run_moe_gguf_paths(dev, workdir: Path, overrides=None) -> dict:
@@ -5798,6 +5833,7 @@ def run_qwen3_paths(dev, workdir: Path, overrides=None, n_layers=None) -> dict:
                          files[main], main)
         log(f"qwen3 gguf: wrote {files[main].name} ({files[main].stat().st_size / 1e9:.3f} GB) "
             f"in {time.perf_counter() - t0:.1f} s")
+    out["native"] = native_loads(files[GGMLType.Q4_K])
     for label, extra in (("qwen3_q4km_cli", ()), ("qwen3_q4km_no_thinking", ("--no-thinking",)),
                          ("qwen3_q4km_pack4", ("--pack4",))):
         res = cli_run(dev, files[GGMLType.Q4_K], extra)
@@ -5809,8 +5845,10 @@ def run_qwen3_paths(dev, workdir: Path, overrides=None, n_layers=None) -> dict:
             want.update(block_matmul=(6 * L + 1) * fwd)
         want["decode_attention_fused_write"] = L * res["steps"]
         assert res["launches"] == want, f"{label}: {res['launches']} != {want}"
-        log(f"{label}: cli run rc 0 in {res['seconds']:.1f} s, {res['chunks']} chunks + "
-            f"{res['steps']} steps, {res['chars']} chars streamed: {res['text']!r}")
+        assert res["native_calls"] > 0, f"{label}: the load decoded nothing natively"
+        log(f"{label}: cli run rc 0 in {res['seconds']:.1f} s ({res['native_calls']} native "
+            f"codec calls), {res['chunks']} chunks + {res['steps']} steps, {res['chars']} chars "
+            f"streamed: {res['text']!r}")
         out[label] = res
     out["qwen3_q4km_serve"] = serve_kquant(dev, files[GGMLType.Q4_K], L)
     files[GGMLType.Q4_K].unlink()
@@ -5911,6 +5949,516 @@ def run_family_runs(dev, workdir: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ slice 23
+INT8_T = (1, 8, 16)
+# the kernel's edges (T, O, I, experts E or 0): I = 32 (one block), O not a
+# multiple of the CTA's 8 rows, widths past one warp pass of 16 blocks that
+# are not multiples of it, grouped rows (each its own expert) past 16
+INT8_EDGES = ((1, 40, 32, 0), (16, 1003, 2080, 0), (5, 777, 1408, 0), (20, 300, 2048, 6),
+              (64, 2816, 2048, 8))
+
+
+def int8_case(t: int, o: int, i: int, dev, gen, e: int = 0):
+    """Q8_0 values [O, I] (or [E, O, I]) and f32 block scales whose products
+    keep unit variance, and x [T, I] f32 with (T > 2) an all-zero row and a
+    block whose scale d = amax / 127 is f16-subnormal."""
+    import torch
+
+    shape = (e, o, i) if e else (o, i)
+    qs = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+    s = torch.rand((*shape[:-1], i // 32), device=dev, generator=gen) * 0.001 + 0.0005
+    x = torch.randn((t, i), device=dev, generator=gen)
+    if t > 2:
+        x[1] = 0.0
+        x[2, :32] *= 1e-4
+    return qs, s, x
+
+
+def int8_exact_case(t: int, o: int, i: int, dev, gen):
+    """A case whose result is exact under any summation order: each block of
+    x is integers in [-127, 127] with one 127, times 2^k of its row (so d and
+    its f16 round are 2^k), the weights integers in [-15, 15] with one
+    power-of-two scale a row: every block sum, scale product and partial sum
+    is an integer times 2^(j + k) below 2^24."""
+    import torch
+
+    nb = i // 32
+    xq = torch.randint(-127, 128, (t, nb, 32), device=dev, generator=gen).float()
+    xq[:, :, 0] = 127.0
+    k = torch.randint(-6, 4, (t, 1, 1), device=dev, generator=gen).float()
+    x = (xq * torch.exp2(k)).reshape(t, i)
+    qs = torch.randint(-15, 16, (o, i), dtype=torch.int8, device=dev, generator=gen)
+    j = torch.randint(-12, -4, (o, 1), device=dev, generator=gen).float()
+    return qs, torch.exp2(j).expand(o, nb).contiguous(), x
+
+
+def int8_bytes(t: int, o: int, i: int, xbytes: int) -> int:
+    """The bytes the dot must move: the int8 values and f32 block scales once
+    (K5's bytes for the same weight), x in and y out."""
+    return o * i + o * (i // 32) * 4 + t * i * xbytes + t * o * 4
+
+
+def check_int8_dot(dev, dims=LLAMA32_1B) -> dict:
+    """The exact int8 mode's kernel (ops/int8_matmul.int8_dot,
+    csrc/int8_matmul.cu) against `quant_matmul_int8_ref` on the card: the
+    five Llama-3.2-1B projections at T = 1, 8, 16 in bf16 and f32 x and
+    INT8_EDGES (grouped rows against `int8_dot_plain`), max|d| <= 1e-5 *
+    max|y| (the two sum the blocks in other orders), two runs bit-equal; the
+    exact case bit-equal at wqkv and w2 in both dtypes. Timed in bf16 (the
+    Q8_0 GGUF's activations) beside the plain version, the bound (bytes) and
+    bf16 torch.matmul on the dequantized weight (a yardstick: no PyTorch call
+    computes a block-scaled int8 dot). The row is one decode token at T = 1:
+    16 layers' four projections + the head (65 calls)."""
+    import torch
+
+    from llamatpu_torch.ops import int8_matmul as im
+    from llamatpu_torch.ops.quant_matmul import dequant_blocks
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    L = dims["L"]
+    per, worst, abs_max = {}, [0.0], [0.0]
+    tot = dict(ms=0.0, plain_ms=0.0, yardstick_ms=0.0, bound_ms=0.0, wrapper_ms=0.0)
+
+    def hold(got, again, want, label):
+        torch.cuda.synchronize()
+        a, r = max_err(got, want)
+        assert r <= 1e-5, f"int8_dot {label}: max abs {a} rel {r}"
+        assert torch.equal(got, again), f"int8_dot {label}: two runs differ"
+        assert bool(torch.isfinite(got).all()), f"int8_dot {label}: non-finite output"
+        worst[0], abs_max[0] = max(worst[0], r), max(abs_max[0], a)
+        return r
+
+    for name, (o, i) in block_shapes(dims).items():
+        qs, s, _ = int8_case(1, o, i, dev, gen)
+        w_bf = dequant_blocks(qs, s, torch.bfloat16)
+        for t in INT8_T:
+            for dt in (torch.bfloat16, torch.float32):
+                x = int8_case(t, 1, i, dev, gen)[2].to(dt)
+                hold(im.int8_dot(x, qs, s), im.int8_dot(x, qs, s),
+                     im.quant_matmul_int8_ref(x, qs, s), f"{name} T={t} {dt}")
+            xb = torch.randn((t, i), device=dev, generator=gen).to(torch.bfloat16)
+            b_ms, b_by = bound(int8_bytes(t, o, i, 2), 2 * t * o * i, INT8_OPS_S)
+            tm = timings(lambda: im.int8_dot(xb, qs, s), INT8_NAMES,
+                         lambda: im.quant_matmul_int8_ref(xb, qs, s),
+                         lambda: torch.matmul(xb, w_bf.T), iters=4 if name == "head" else 16)
+            tm["yardstick_ms"] = tm.pop("library_ms")
+            per[f"{name} T={t}"] = dict(**tm, bound_ms=b_ms, bound_by=b_by,
+                                        shape=f"T={t} O={o} I={i}")
+            if t == 1:
+                reps = 1 if name == "head" else L
+                for k in tot:
+                    tot[k] += reps * (b_ms if k == "bound_ms" else tm[k])
+            log(f"int8_dot {name} T={t}: {tm['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, plain "
+                f"{tm['plain_ms']:.4f}, bf16 matmul {tm['yardstick_ms']:.4f})")
+        del qs, s, w_bf
+        torch.cuda.empty_cache()
+    exact = []
+    for name in ("wqkv", "w2"):
+        o, i = block_shapes(dims)[name]
+        for dt in (torch.float32, torch.bfloat16):
+            qs, s, x = int8_exact_case(16, o, i, dev, gen)
+            got = im.int8_dot(x.to(dt), qs, s)
+            want = im.quant_matmul_int8_ref(x.to(dt), qs, s)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"int8_dot exact {name} {dt}: {max_err(got, want)}"
+            exact.append(f"{name} {str(dt)[6:]}")
+    edges = {}
+    for t, o, i, e in INT8_EDGES:
+        qs, s, x = int8_case(t, o, i, dev, gen, e)
+        ex = torch.randint(0, e, (t,), device=dev, generator=gen, dtype=torch.int32) if e \
+            else None
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            got, again = im.int8_dot(xd, qs, s, ex), im.int8_dot(xd, qs, s, ex)
+            want = im.int8_dot_plain(xd, qs, s, ex)
+            key = f"T={t} O={o} I={i} E={e} {str(dt)[6:]}"
+            edges[key] = hold(got, again, want, f"edge {key}")
+            if t > 2:
+                assert not bool(got[1].any()), f"int8_dot {key}: an all-zero row gives y != 0"
+    log(f"int8_dot: every shape and edge within rel 1e-5 (worst {worst[0]:.3g}), two runs "
+        f"bit-equal, exact cases bit-equal {exact}; a decode token (65 calls) "
+        f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f}, plain {tot['plain_ms']:.4f}, "
+        f"bf16 matmul {tot['yardstick_ms']:.4f}")
+    return dict(
+        name="int8_dot", route="cuda", source="llamatpu_torch/csrc/int8_matmul.cu",
+        replaces="llamatpu/ops/int8_matmul.py:44 (an XLA dot_general; no TPU kernel)",
+        max_abs_err=abs_max[0], max_rel_err=worst[0],
+        tolerance="max|d| <= 1e-5 * max|plain| at every shape, T and edge, bf16 and f32 x; "
+                  "two runs bit-equal; the exact cases bit-equal",
+        ms=tot["ms"], ms_source=per["wo T=1"]["ms_source"], wrapper_ms=tot["wrapper_ms"],
+        plain_ms=tot["plain_ms"], library_ms=None, yardstick_ms=tot["yardstick_ms"],
+        library="none (no PyTorch call computes a block-scaled int8 dot); yardstick_ms: bf16 "
+                "torch.matmul on the dequantized weight",
+        bound_ms=tot["bound_ms"], bound_by="bytes",
+        shape=f"one decode token at T=1: {L} x (wqkv+wo+w13+w2) + head", per_shape=per,
+        exact=exact, edges=edges)
+
+
+# the prefill chunk rows at which q8_row weights take K1 in the int8 mode
+# (ops/matmul.py: every T there, never K4's activation quantization)
+K1_INT8_T = (128, 512)
+
+
+def check_k1_int8_rows(dev, dims=LLAMA32_1B) -> dict:
+    """K1 (rowq_gemv) at the rows the int8 mode gives it in a prefill chunk:
+    Llama-3.2-1B's wqkv, wo, w13 and w2 as q8_row values at T = 128 and 512,
+    bf16 and f32 x, within 1e-5 of the largest plain output (exact
+    products, f32 sums in another order), two runs bit-equal. Timed in bf16
+    in a CUDA graph beside its plain version, its bound and K4 (the auto
+    mode's route: the activation rows quantized, then rowq_gemm) on the same
+    weight and rows."""
+    import torch
+
+    from llamatpu_torch.ops import gemm, quant_matmul
+    from llamatpu_torch.ops.int8_prefill import quantize_activation_rows
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    per, worst = {}, 0.0
+    for name, (o, i) in block_shapes(dims).items():
+        if name == "head":  # a prefill chunk's head takes its last row alone
+            continue
+        qs = torch.randint(-127, 128, (o, i), dtype=torch.int8, device=dev, generator=gen)
+        scales = torch.rand((o, 1), device=dev, generator=gen) * 1e-2 + 1e-3
+        for t in K1_INT8_T:
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((t, i), device=dev, generator=gen).to(dt)
+                got, again = quant_matmul.rowq_gemv(x, qs), quant_matmul.rowq_gemv(x, qs)
+                want = quant_matmul.rowq_gemv_plain(x, qs)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), f"K1 int8 rows {name} T={t} {dt}: two runs differ"
+                abs_e, rel_e = max_err(got, want)
+                assert rel_e <= 1e-5, f"K1 int8 rows {name} T={t} {dt}: max abs {abs_e} rel {rel_e}"
+                worst = max(worst, rel_e)
+            xb = torch.randn((t, i), device=dev, generator=gen).to(torch.bfloat16)
+            b_ms, b_by = bound(o * i + t * i * 2 + t * o * 4, 2 * t * o * i, BF16_OPS_S)
+
+            def k4(xb=xb):
+                xi8, ax = quantize_activation_rows(xb)
+                return gemm.rowq_gemm(qs, scales, xi8, ax)
+            r = dict(ms=time_ms(lambda xb=xb: quant_matmul.rowq_gemv(xb, qs), iters=8),
+                     plain_ms=time_ms(lambda xb=xb: quant_matmul.rowq_gemv_plain(xb, qs), iters=4),
+                     k4_ms=time_ms(k4, iters=8), bound_ms=b_ms, bound_by=b_by,
+                     shape=f"T={t} O={o} I={i}")
+            per[f"{name} T={t}"] = r
+            log(f"K1 int8-mode rows {name} T={t}: {r['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                f"plain {r['plain_ms']:.4f}, K4 on the same rows {r['k4_ms']:.4f})")
+        del qs, scales
+    log(f"K1 int8-mode rows: every shape at T = {K1_INT8_T}, bf16 and f32, within rel 1e-5 "
+        f"(worst {worst:.3g}), two runs bit-equal")
+    return dict(worst_rel=worst, per_shape=per)
+
+
+def moe_int8_hold(dev, n_layers: int = 2, overrides=None) -> dict:
+    """Qwen1.5-MoE-A2.7B at full width and 2 layers (synthetic Q8_0, f32
+    activations), int8 mode: a 16-token prefill and 4 decode steps through
+    the kernel (each layer's (token, slot) expert rows in grouped calls):
+    - every int8_dot call of that run against its plain version on the same
+      inputs, max|d| <= 1e-5 * max|y|;
+    - the logits against the same forwards with int8_dot's plain version
+      throughout, max|d| <= 5e-2 * max|logit|: the two sum the blocks in
+      other orders, and a 1-ulp difference moves an activation's int8
+      rounding by a step, which the later layers carry (0.6-1.3e-2
+      measured on the H100); a fault would differ by the logits' size;
+    - a 128-token prefill chunk traced in int8 and in auto mode (device
+      busy ms, wall ms, the top kernels)."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models import transformer as tr
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.ops import int8_matmul as im
+    from llamatpu_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    model = build_synthetic_model("qwen15-moe-a2.7b", quant="q8_0", seed=0, dtype="f32",
+                                  context_length=1024, n_layers=n_layers, overrides=overrides)
+    engine = Engine(model, cache_len=256, prefill_chunk=16, cache_dtype=torch.float32,
+                    impl="int8", device=dev, aot_compile=False)
+    assert "gu_exps" in engine.weights["layers"], "moe int8: the stacks did not fold and fuse"
+    prompt = np.random.default_rng(7).integers(0, model.cfg.vocab_size, 16).tolist()
+
+    def forwards():
+        engine.reset()
+        logits, _ = tr.forward_tokens(engine.cfg, engine.weights,
+                                      torch.tensor([prompt], device=dev), engine.cache, 0,
+                                      s_limit=256, impl="int8")
+        outs = [logits[0, -1]]
+        for s in range(4):
+            tok = int(outs[-1].argmax())
+            lg, _ = tr.forward_tokens(engine.cfg, engine.weights,
+                                      torch.tensor([[tok]], device=dev), engine.cache, 16 + s,
+                                      last_logit_only=True, s_limit=256, impl="int8")
+            outs.append(lg[0])
+        torch.cuda.synchronize()
+        return torch.stack(outs)
+
+    kernel, calls = im.int8_dot, []
+
+    def held(x2, qs, scales, experts=None):
+        """The kernel, and its plain version on the same inputs; the kernel's
+        body counts its launch on the name it is called by, this one."""
+        y = kernel(x2, qs, scales, experts)
+        calls.append(max_err(y, im.int8_dot_plain(x2, qs, scales, experts))[1])
+        return y
+
+    def using(fn):
+        im.int8_dot = tr.int8_dot = fn
+        try:
+            return forwards()
+        finally:
+            im.int8_dot = tr.int8_dot = kernel
+
+    held.launches = 0
+    got = using(held)
+    launches = held.launches
+    want = using(im.int8_dot_plain)
+    rel = [max_err(g, w)[1] for g, w in zip(got, want)]
+    L = model.cfg.n_layers
+    # a forward: wqkv and wo (dense), gate+up and down (grouped) a layer, the head
+    assert launches == len(calls) == 5 * (4 * L + 1), f"moe int8: {launches} launches"
+    assert max(calls) <= 1e-5, f"moe int8: a call against its plain version: {max(calls)}"
+    assert max(rel) <= 5e-2, f"moe int8: logits kernel vs plain rel {rel}"
+    top1 = [int(g.argmax()) == int(w.argmax()) for g, w in zip(got, want)]
+    # a 128-token prefill chunk in int8 mode (every (token, slot) row in the
+    # grouped int8 dot) beside the auto mode's (the grouped Q8_0 kernels)
+    chunk = torch.tensor([np.random.default_rng(8).integers(0, 32000, 128).tolist()],
+                         device=dev)
+    chunk_tr, chunk_launches = {}, 0
+    for impl in ("int8", "auto"):
+        def fwd(impl=impl):
+            return tr.forward_tokens(engine.cfg, engine.weights, chunk, engine.cache, 0,
+                                     last_logit_only=True, s_limit=256, impl=impl)
+        fwd()
+        torch.cuda.synchronize()
+        if impl == "int8":
+            im.int8_dot.launches = 0
+            fwd()
+            chunk_launches = im.int8_dot.launches
+        t = device_breakdown(fwd)
+        chunk_tr[impl] = dict(busy_ms=t["busy_ms"], wall_ms=t["wall_ms"],
+                              idle_share=t["idle_share"], top=t["kernels"][:3])
+    # 128 rows: wqkv and wo take K5 (above 16 rows), the grouped gate+up and
+    # down the int8 dot (no row limit), the head its last row
+    assert chunk_launches == 2 * L + 1, f"moe int8 chunk: {chunk_launches} int8_dot launches"
+    log(f"moe int8: a 128-token prefill chunk at {L} layers, traced: int8 mode busy "
+        f"{chunk_tr['int8']['busy_ms']:.3f} of {chunk_tr['int8']['wall_ms']:.3f} ms (top "
+        f"{[(k['name'][:40], round(k['ms'], 3)) for k in chunk_tr['int8']['top']]}), auto mode "
+        f"busy {chunk_tr['auto']['busy_ms']:.3f} of {chunk_tr['auto']['wall_ms']:.3f} ms")
+    log(f"moe int8: {L} layers, prefill 16 + 4 steps ({time.perf_counter() - t0:.1f} s with the "
+        f"build): {len(calls)} int8_dot calls each within rel {max(calls):.2g} of the plain "
+        f"version; logits against the plain forwards rel {[f'{r:.2g}' for r in rel]}, argmax "
+        f"agree {top1}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return dict(calls=len(calls), calls_rel=max(calls), logits_rel=rel, argmax_agree=top1,
+                int8_dot_launches=launches, prefill128=chunk_tr)
+
+
+def cli_json(argv) -> dict:
+    """The port's CLI in-process; the last line of its stdout as JSON."""
+    import contextlib
+    import io
+
+    from llamatpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    assert rc == 0, f"cli {argv[0]}: rc {rc}, output {buf.getvalue()[:400]!r}"
+    return dict(json.loads(buf.getvalue().strip().splitlines()[-1]),
+                seconds=time.perf_counter() - t0)
+
+
+def run_int8_paths(dev, gguf: Path, L: int = LLAMA32_1B["L"], overrides=None,
+                   moe_overrides=None) -> dict:
+    """Slice 23's paths, the exact int8 mode, on the full-width, full-depth
+    Q8_0 GGUF of the gguf phase:
+    - int8_cli: `cli run --impl int8` (int8_dot 65 a decode step; a
+      128-row prompt chunk takes K5, the dequantised route above 16 rows,
+      and its one-row head the int8 dot);
+    - int8_ppl: `cli ppl --chunk 16` on one text, --impl int8 (int8_dot
+      alone) beside --impl auto (K5 alone): both finite, within 4 % of each
+      other (each Q8_0 path stays within 2 % of f32 in the parity phase);
+    - int8: Engine(impl="int8"), pp512 (K5) + tg128 (int8_dot 65 a step,
+      K6) as graph replays; a 16-step graph window equals the eager one and
+      counts int8_dot 65 a step and no K5;
+    - int8_batch: a 4-layer full-width Q8_0 BatchEngine at 8 lanes in int8
+      mode (8 rows a step: int8_dot 17 a step), graph == eager;
+    - int8_rowq: the same weights as q8_row in an int8-mode Engine: a
+      512-row prefill chunk through K1 (17 launches, no K4), then a 16-step
+      graph window == eager (K1 17 a step);
+    - int8_moe: moe_int8_hold."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.models.synthetic import build_synthetic_model
+    from llamatpu_torch.runtime.batch_engine import BatchEngine
+    from llamatpu_torch.runtime.engine import Engine
+
+    out = {}
+    res = cli_run(dev, gguf, ("--impl", "int8"))
+    want = {k: 0 for k in res["launches"]}
+    # a prompt chunk's projections take K5 (more than 16 rows), its head the
+    # int8 dot (one row: the logits of the last real token)
+    want.update(int8_dot=(4 * L + 1) * res["steps"] + res["chunks"],
+                block_matmul=4 * L * res["chunks"], decode_attention_fused_write=L * res["steps"])
+    assert res["launches"] == want, f"int8_cli: {res['launches']} != {want}"
+    log(f"int8_cli: cli run --impl int8 rc 0 in {res['seconds']:.1f} s, {res['chunks']} chunks "
+        f"+ {res['steps']} steps, {res['chars']} chars: {res['text']!r}")
+    out["int8_cli"] = res
+    ppl = {}
+    fns = counters()
+    for impl in ("int8", "auto"):
+        for f in fns.values():
+            f.launches = 0
+        r = cli_json(["ppl", "-m", str(gguf), "--device", str(dev), "--text", PPL_TEXT,
+                      "--chunk", "16", "--impl", impl])
+        r["launches"] = {k: f.launches for k, f in fns.items() if f.launches}
+        assert r["tokens"] > 64 and 1.0 < r["ppl"] < float("inf"), r
+        only = "int8_dot" if impl == "int8" else "block_matmul"
+        assert set(r["launches"]) == {only}, f"ppl --impl {impl}: {r['launches']}"
+        ppl[impl] = r
+    rel = abs(ppl["int8"]["ppl"] - ppl["auto"]["ppl"]) / ppl["auto"]["ppl"]
+    assert ppl["int8"]["tokens"] == ppl["auto"]["tokens"] and rel < 0.04, ppl
+    out["int8_ppl"] = dict(ppl, rel=rel)
+    log(f"int8_ppl: --chunk 16 --impl int8 {ppl['int8']['ppl']} against --impl auto "
+        f"{ppl['auto']['ppl']} (rel {rel:.4f}) over {ppl['int8']['tokens']} tokens, launches "
+        f"{ppl['int8']['launches']} / {ppl['auto']['launches']}")
+    model = load_model(str(gguf), max_tokens=1024)
+    engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=128, impl="int8",
+                    device=dev)
+    prompt = np.random.default_rng(42).integers(0, 128000, 512).tolist()
+    out["int8"] = drive_engine(engine, prompt, 128, lambda n: {
+        "int8_dot": (4 * L + 1) * n + 1, "block_matmul": 4 * L,
+        "decode_attention_fused_write": L * n}, "int8")
+    g = out["int8"]["graph"] = graph_decode(engine, "int8")
+    # the 16-step window as graph replays: int8_dot 4 L + 1 a step, no K5 at T = 1
+    assert g["greedy"]["launches"] == {"int8_dot": (4 * L + 1) * 16,
+                                       "decode_attention_fused_write": L * 16}, g["greedy"]
+    del engine, model
+    torch.cuda.empty_cache()
+    model = build_synthetic_model("llama32-1b", quant="q8_0", context_length=1024, n_layers=4,
+                                  overrides=overrides)
+    engine = BatchEngine(model, batch_size=8, cache_len=1024, prefill_chunk=128,
+                         decode_window=16, impl="int8", device=dev)
+    g = graph_decode(engine, "int8_batch")
+    assert g["greedy"]["launches"]["int8_dot"] == 17 * 16, g["greedy"]["launches"]
+    out["int8_batch"] = dict(graph=g)
+    del engine
+    torch.cuda.empty_cache()
+    out["int8_rowq"] = run_int8_rowq(dev, model)
+    del model
+    out["int8_moe"] = moe_int8_hold(dev, overrides=moe_overrides)
+    return out
+
+
+def run_int8_rowq(dev, model) -> dict:
+    """`model`'s Q8_0 weights as q8_row in an int8-mode Engine, where q8_row
+    takes K1 at every row count and never K4: a 512-row prefill chunk counts
+    K1 for each projection and the head's last row and nothing else, then a
+    16-step graph window equals the eager one, K1 4 L + 1 a step."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.runtime.engine import Engine
+
+    engine = Engine(model, cache_len=1024, prefill_chunk=512, decode_window=16, rowq=True,
+                    impl="int8", device=dev)
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    tok, logits = engine.prefill(np.random.default_rng(43).integers(0, 128000, 512).tolist(), 0)
+    launches = {k: f.launches for k, f in fns.items() if f.launches}
+    nl = model.cfg.n_layers
+    assert launches == {"rowq_gemv": 4 * nl + 1}, f"int8_rowq prefill: {launches}"
+    assert bool(torch.isfinite(logits).all()), "int8_rowq prefill: non-finite logits"
+    g = graph_decode(engine, "int8_rowq", start=(int(tok[0]), 512))
+    assert g["greedy"]["launches"] == {"rowq_gemv": (4 * nl + 1) * 16,
+                                       "decode_attention_fused_write": nl * 16}, g["greedy"]
+    log(f"int8_rowq: {nl}-layer q8_row Engine in int8 mode, a 512-row chunk {launches}, "
+        f"graph == eager, a window {g['greedy']['launches']}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(launches=launches, graph=g)
+
+
+# the parity phase: Llama-3.2-1B width (vocab 128256 too) at 2 of its 16
+# layers (a depth cut for time), corpus 128, tests/test_parity_gate.py's bounds
+PARITY_VARIANTS = ("f32", "bf16", "q8_0", "q8_0-int8dot", "q8_0-kvint8", "q8_row", "q4_0")
+PARITY_BOUNDS = {"bf16": 0.02, "q8_0": 0.02, "q8_0-int8dot": 0.02, "q8_0-kvint8": 0.03,
+                 "q8_row": 0.05, "q4_0": 0.6}
+
+
+def run_parity_path(dev) -> dict:
+    """bench/parity.py's table on the card: the dense f32 master at
+    Llama-3.2-1B width and 2 layers, its own 128-token sample as the corpus,
+    PARITY_VARIANTS scored at chunk 16 (q8_0-int8dot through int8_dot),
+    every |rel| inside PARITY_BOUNDS, every variant scoring the whole
+    corpus."""
+    from llamatpu_torch.bench import parity
+    from llamatpu_torch.ops import int8_matmul as im
+
+    t0 = time.perf_counter()
+    im.int8_dot.launches = 0
+    rows = parity.parity_table("llama32-1b", corpus_len=128, cache_len=128, seed=0,
+                               variants=PARITY_VARIANTS, device=dev, n_layers=2)
+    for r in rows:
+        log(f"parity: {r['variant']:13s} ppl {r['ppl']:.4f} delta {r['delta']:+.4f} "
+            f"rel {r['rel']:+.4%} tokens {r['tokens']} ({r['seconds']:.1f} s)")
+    assert len({r["tokens"] for r in rows}) == 1, rows
+    for r in rows:
+        if r["variant"] in PARITY_BOUNDS:
+            assert abs(r["rel"]) < PARITY_BOUNDS[r["variant"]], f"parity: {r}"
+    assert im.int8_dot.launches > 0, "parity: q8_0-int8dot launched no int8_dot"
+    res = dict(rows=rows, seconds=time.perf_counter() - t0, int8_dot=im.int8_dot.launches)
+    log(f"parity: {len(rows)} variants within tests/test_parity_gate.py's bounds in "
+        f"{res['seconds']:.1f} s ({im.int8_dot.launches} int8_dot launches)")
+    return res
+
+
+def native_loads(path: Path) -> dict:
+    """A GGUF loaded with the native codecs and with the numpy ones
+    (LLAMATPU_NO_NATIVE=1): each load's seconds and native calls; the two
+    trees' head and embedding equal."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.gguf import native
+    from llamatpu_torch.models.loader import load_model
+    from llamatpu_torch.models.weights import QTensor
+
+    assert native.available(), "the native codecs are not serving"
+    res, trees = {}, {}
+    for label, env in (("native", None), ("numpy", "1")):
+        if env:
+            os.environ["LLAMATPU_NO_NATIVE"] = env
+        calls = native.calls
+        t0 = time.perf_counter()
+        try:
+            trees[label] = load_model(str(path), max_tokens=1024).weights
+        finally:
+            os.environ.pop("LLAMATPU_NO_NATIVE", None)
+        res[f"{label}_s"] = time.perf_counter() - t0
+        res[f"{label}_calls"] = native.calls - calls
+    assert res["native_calls"] > 0 and res["numpy_calls"] == 0, res
+
+    def arr(a):
+        return a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    for key in ("wcls", "tok_emb"):
+        a, b = trees["native"][key], trees["numpy"][key]
+        if isinstance(a, QTensor):
+            assert np.array_equal(arr(a.qs), arr(b.qs)) and \
+                np.array_equal(arr(a.scales), arr(b.scales)), key
+        else:
+            assert np.array_equal(arr(a), arr(b)), key
+    log(f"native: {path.name} loads in {res['native_s']:.2f} s with the native codecs "
+        f"({res['native_calls']} calls) against {res['numpy_s']:.2f} s with LLAMATPU_NO_NATIVE=1;"
+        f" the head and the embedding equal")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-dir", default=None, help="write the ptxas report and results here")
@@ -5946,7 +6494,9 @@ def main() -> int:
     try:
         rows = check_kernels(dev) + check_block_kernels(dev) + check_serving_kernels(dev) \
             + check_moe_kernels(dev) + check_long_kernels(dev) + check_slice6_kernels(dev) \
-            + [check_ffn_fused(dev)]
+            + [check_ffn_fused(dev), check_int8_dot(dev)]
+        next(r for r in rows if r["name"] == "rowq_gemv")["int8_mode_rows"] = \
+            check_k1_int8_rows(dev)
         edges = check_moe_edges(dev)
         for r in rows:
             if r["name"].startswith("grouped_"):
@@ -5969,6 +6519,7 @@ def main() -> int:
         paths["serve"] = run_serving_path(dev, gguf, rowq=False, latency=True)
         paths["serve_rowq"] = run_serving_path(dev, gguf, rowq=True, latency=False)
         paths.update(run_int8_serving_paths(dev, gguf))
+        paths.update(run_int8_paths(dev, gguf))
         gguf.unlink()
         paths["pack4"] = run_pack4_path(dev, workdir)
         paths["dense_batch"] = run_dense_batch_path(dev)
@@ -5976,6 +6527,7 @@ def main() -> int:
         paths.update(run_phi3_gguf_paths(dev, workdir))
         paths.update(run_qwen3_paths(dev, workdir))
         paths.update(run_family_runs(dev, workdir))
+        summary["parity"] = run_parity_path(dev)
         harness = run_harness_paths(dev)
         summary["harness"] = harness
         summary.update(paths)

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("quant_matmul", "layer_fused", "ffn_fused", "gemm", "block_matmul", "attention",
-           "moe_grouped", "probes")
+           "moe_grouped", "probes", "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,6 +33,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every exported function, by library
 _SIGNATURES = {
     "quant_matmul": {
@@ -70,6 +71,9 @@ _SIGNATURES = {
         "lt_probe_gemv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "lt_probe_int8dot": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "lt_probe_stream": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
+    },
+    "int8_matmul": {
+        "lt_int8_dot": (_P, _I, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _P),
     },
 }
 

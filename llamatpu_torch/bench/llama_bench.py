@@ -193,7 +193,7 @@ def run_bench(args) -> None:
     cache_len = min(model.cfg.context_length, max(need, 256))
     engine = Engine(model, cache_len=cache_len, prefill_chunk=args.prefill_chunk,
                     temperature=0.0, cache_dtype=cache_dtype(args), rowq=args.rowq,
-                    device=args.device)
+                    device=args.device, impl=args.impl)
     results = []
     for d in args.depth:
         for p in args.pp:
@@ -206,7 +206,7 @@ def run_bench(args) -> None:
     if args.batch > 1:
         be = BatchEngine(model, batch_size=args.batch, cache_len=cache_len,
                          prefill_chunk=args.prefill_chunk, cache_dtype=cache_dtype(args),
-                         rowq=args.rowq, device=args.device)
+                         rowq=args.rowq, device=args.device, impl=args.impl)
         for t in args.tg:
             results.append(bench_tg_batch(be, t, max(args.depth), args.reps))
     name = model.metadata.get("general.name", "unknown")

@@ -20,10 +20,13 @@ from llamatpu_torch.runtime.engine import resolve_device
 
 def perplexity(model: LoadedModel, token_ids: list[int], chunk: int = 128,
                cache_len: int | None = None, dtype: torch.dtype = torch.float32,
-               stride: int | None = None, device=None, weights=None) -> dict:
+               stride: int | None = None, device=None, weights=None,
+               impl: str = "auto") -> dict:
     """ppl of `token_ids`: each position t >= 1 is scored with the logits
     produced after ingesting its predecessors. `weights`: an already served
-    tree on `device` (else the model's weights are served here)."""
+    tree on `device` (else the model's weights are served here). impl:
+    "auto" or "int8" (the exact int8 mode; its block dot covers chunks of
+    up to 16 rows, so the parity harness scores at chunk 16)."""
     cfg = model.cfg
     dev = resolve_device(device)
     n = len(token_ids)
@@ -57,7 +60,7 @@ def perplexity(model: LoadedModel, token_ids: list[int], chunk: int = 128,
                 tgts = tgts + [0] * (chunk - c)
                 valid = valid + [False] * (chunk - c)
             logits, cache = forward_tokens(cfg, weights, torch.tensor([toks], device=dev),
-                                           cache, i)
+                                           cache, i, impl=impl)
             logp = torch.log_softmax(logits.float(), dim=-1)[0]             # [C, V]
             tgt_lp = logp.gather(-1, torch.tensor(tgts, device=dev)[:, None])[:, 0]
             vmask = torch.tensor(valid, device=dev)

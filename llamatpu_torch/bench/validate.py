@@ -86,7 +86,7 @@ def validate(args) -> int:
     # 4. forward + greedy sample
     engine = Engine(model, temperature=0.0, prefill_chunk=args.prefill_chunk,
                     cache_dtype=cache_dtype(args), rowq=args.rowq, device=args.device,
-                    metrics=metrics)
+                    metrics=metrics, impl=args.impl)
     res = engine.generate(ids, 32, stop_tokens=stops)
     sample_ids = list(res.tokens)
     text = tok.decode(sample_ids)
@@ -96,7 +96,7 @@ def validate(args) -> int:
     from llamatpu_torch.bench.perplexity import perplexity_of_text
 
     ppl = perplexity_of_text(model, PPL_PARAGRAPH, chunk=64, device=engine.device,
-                             weights=engine.weights)["ppl"]
+                             weights=engine.weights, impl=args.impl)["ppl"]
     check("ppl-finite", bool(np.isfinite(ppl)) and ppl > 1.0, f"ppl={ppl:.4f}")
 
     # 5. golden fixture

@@ -8,6 +8,7 @@ default:
     python -m llamatpu_torch.cli serve -m model.gguf --batch-size 8 --paged
     python -m llamatpu_torch.cli bench -m model.gguf --rowq --pp 512 --tg 128 -o jsonl
     python -m llamatpu_torch.cli ppl -m model.gguf --text-file wiki.txt
+    python -m llamatpu_torch.cli ppl -m model-q8_0.gguf --impl int8 --chunk 16 --text "..."
     python -m llamatpu_torch.cli convert -m model-q4_0.gguf -o model-q8_0.gguf
 
 A GGUF of any of the nine families (Llama 3, Mistral, Devstral 2, Granite,
@@ -41,9 +42,15 @@ from the token history's last-bigram continuation and verifies them in one
 forward of K + 1 rows (runtime/engine.py): greedy output is the plain
 greedy stream, sampled output is distributed as plain sampling.
 
-The JAX package's XLA-only flags (--impl, --dump-hlo) have no counterpart
-here. Flags of later slices of the port are accepted and raise, naming the
-slice: --tp/--dp/--sp/--pipeline/--ep.
+--impl (every command) picks the projections' implementation: auto (the
+default) runs the port's kernels; int8 is the exact int8 mode, llama.cpp's
+Q8_0 x Q8_0 block dot (activations quantized per 32-block, int32 block
+sums; ops/int8_matmul.py) for Q8_0 weights at up to 16 rows, the
+dequantised kernels above that and for other kinds, no fused layer kernel:
+the ppl-parity mode (score with --chunk 16). xla and pallas name the JAX
+package's lowerings and raise. --dump-hlo is XLA-only and has no
+counterpart. Flags of later slices of the port are accepted and raise,
+naming the slice: --tp/--dp/--sp/--pipeline/--ep.
 
 `serve` answers the OpenAI API (server/openai_server.py): --batch-size 1
 runs one Engine behind a lock with KV prefix reuse; --batch-size N runs N
@@ -83,6 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "kernel)")
         sp.add_argument("--rowq", action="store_true",
                         help="serve Q8_0 weights as per-row int8 (q8_row kernels)")
+        sp.add_argument("--impl", choices=["auto", "xla", "pallas", "int8"], default="auto",
+                        help="auto = the port's kernels; int8 = the exact ggml Q8_0 x Q8_0 "
+                             "block dot (ppl parity); xla / pallas name JAX lowerings and "
+                             "raise")
         sp.add_argument("--prefill-chunk", type=int, default=128)
         sp.add_argument("--seed", type=int, default=42)
         sp.add_argument("--metrics-format", choices=["human", "json", "github", "none"],
@@ -182,6 +193,9 @@ def cache_dtype(args):
 
 
 def _check_flags(args) -> None:
+    from llamatpu_torch.ops.matmul import check_impl
+
+    check_impl(args.impl)  # before anything loads
     for attr, default, slice_name in _LATER_FLAGS:
         if getattr(args, attr) != default:
             flag = "--" + attr.replace("_", "-")
@@ -216,7 +230,7 @@ def cmd_run(args) -> int:
     engine = Engine(model, temperature=temp, top_p=top_p, seed=args.seed,
                     prefill_chunk=args.prefill_chunk, cache_dtype=cache_dtype(args),
                     rowq=args.rowq, device=args.device, metrics=metrics,
-                    spec_decode=args.spec_decode)
+                    spec_decode=args.spec_decode, impl=args.impl)
     with trace(args.profile_dir):
         if args.interactive:
             run_interactive(model, engine, args.system_prompt, args.max_tokens,
@@ -246,7 +260,7 @@ def cmd_ppl(args) -> int:
         with open(args.text_file, encoding="utf-8") as f:
             text = f.read()
     model, _ = load(args)
-    res = perplexity_of_text(model, text, chunk=args.chunk, device=args.device)
+    res = perplexity_of_text(model, text, chunk=args.chunk, device=args.device, impl=args.impl)
     print(json.dumps({"ppl": round(res["ppl"], 4), "tokens": res["tokens"]}))
     return 0
 

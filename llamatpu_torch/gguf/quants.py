@@ -13,6 +13,10 @@ llamatpu/gguf/quants.py this slice needs, bit-exact with it
   decoders.
 - Q6_K: decode only, for `requantize_to_q8_0` (llama.cpp Q4_0 and Q4_K_M
   files keep a Q6_K vocab head, attn_v and ffn_down).
+
+`dequantize` and `requantize_to_q8_0` take the native C++ codecs
+(gguf/native.py, the same values bit for bit) unless LLAMATPU_NO_NATIVE=1,
+as llamatpu/gguf/quants.py:373-390 does.
 """
 from __future__ import annotations
 
@@ -335,8 +339,18 @@ _DEQUANT = {
 }
 
 
+_NATIVE_KIND = {
+    GGMLType.Q8_0: ("q8_0", 32),
+    GGMLType.Q4_0: ("q4_0", 32),
+    GGMLType.Q4_K: ("q4_k", QK_K),
+    GGMLType.Q5_K: ("q5_k", QK_K),
+    GGMLType.Q6_K: ("q6_k", QK_K),
+}
+
+
 def dequantize(ggml_type: GGMLType, raw: np.ndarray, n_elements: int) -> np.ndarray:
-    """Decode a supported GGML format to float32."""
+    """Decode a supported GGML format to float32 (the native codec unless
+    LLAMATPU_NO_NATIVE=1, else numpy)."""
     if ggml_type == GGMLType.F32:
         return np.ascontiguousarray(raw[: n_elements * 4]).view(np.float32).copy()
     if ggml_type == GGMLType.F16:
@@ -344,6 +358,13 @@ def dequantize(ggml_type: GGMLType, raw: np.ndarray, n_elements: int) -> np.ndar
     if ggml_type == GGMLType.BF16:
         u = np.ascontiguousarray(raw[: n_elements * 2]).view(np.uint16).astype(np.uint32) << 16
         return u.view(np.float32)
+    if ggml_type in _NATIVE_KIND:
+        from llamatpu_torch.gguf import native
+
+        kind, bs = _NATIVE_KIND[ggml_type]
+        out = native.dequant(kind, raw, n_elements // bs, bs)
+        if out is not None:
+            return out
     fn = _DEQUANT.get(ggml_type)
     if fn is None:
         raise NotImplementedError(f"dequantize: {ggml_type!r} not supported")
@@ -351,5 +372,10 @@ def dequantize(ggml_type: GGMLType, raw: np.ndarray, n_elements: int) -> np.ndar
 
 
 def requantize_to_q8_0(ggml_type: GGMLType, raw: np.ndarray, n_elements: int) -> np.ndarray:
-    """K-quant -> Q8_0: full dequant, then the ggml Q8_0 encode."""
-    return quantize_q8_0(dequantize(ggml_type, raw, n_elements))
+    """K-quant -> Q8_0: full dequant, then the ggml Q8_0 encode (both native
+    unless LLAMATPU_NO_NATIVE=1)."""
+    from llamatpu_torch.gguf import native
+
+    values = dequantize(ggml_type, raw, n_elements)
+    out = native.quantize_q8_0(values)
+    return quantize_q8_0(values) if out is None else out

@@ -127,9 +127,11 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
                           n_layers: int | None = None, pack4: bool = False,
                           overrides: dict | None = None) -> LoadedModel:
     """Random block-quant weights (`quant` q8_0, q4_0, q4_k or q5_k; pack4
-    packs the 4-bit kinds) at a preset's geometry. An MoE preset draws the
-    dense FFN too, as the JAX package does before it replaces it by the
-    routed experts and the shared expert, so the stream stays the same."""
+    packs the 4-bit kinds), or dense ones in `dtype` (quant "none": the
+    parity harness's f32 master), at a preset's geometry. An MoE preset
+    draws the dense FFN too, as the JAX package does before it replaces it
+    by the routed experts and the shared expert, so the stream stays the
+    same."""
     kw = dict(PRESETS[preset])
     if context_length:
         kw["context_length"] = context_length
@@ -140,8 +142,13 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
     cfg = ModelConfig(**kw)
     rng = np.random.default_rng(seed)
 
+    def draw(shape):
+        if quant == "none":
+            return _rand_dense(rng, shape, dtype)
+        return _rand_qtensor(rng, shape, quant, pack4)
+
     def mat(out_dim, in_dim):
-        return _rand_qtensor(rng, (cfg.n_layers, out_dim, in_dim), quant, pack4)
+        return draw((cfg.n_layers, out_dim, in_dim))
 
     layers = {
         "attn_norm": np.ones((cfg.n_layers, cfg.dim), np.float32),
@@ -164,8 +171,7 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
 
     if cfg.is_moe:
         def emat(out_dim, in_dim):
-            return _rand_qtensor(rng, (cfg.n_layers, cfg.n_experts, out_dim, in_dim), quant,
-                                 pack4)
+            return draw((cfg.n_layers, cfg.n_experts, out_dim, in_dim))
 
         del layers["w1"], layers["w2"], layers["w3"]
         layers["router"] = _rand_dense(rng, (cfg.n_layers, cfg.n_experts, cfg.dim), "f32")
@@ -178,7 +184,7 @@ def build_synthetic_model(preset: str, quant: str = "q8_0", seed: int = 0,
         layers["shared_gate_inp"] = _rand_dense(rng, (cfg.n_layers, cfg.dim), "f32")
 
     cos, sin = precompute_rope_tables(cfg)
-    wcls = _rand_qtensor(rng, (cfg.vocab_size, cfg.dim), quant, pack4)
+    wcls = draw((cfg.vocab_size, cfg.dim))
     weights = {
         "tok_emb": _rand_dense(rng, (cfg.vocab_size, cfg.dim), dtype),
         "final_norm": np.ones((cfg.dim,), np.float32),

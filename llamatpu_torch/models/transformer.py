@@ -69,6 +69,17 @@ accepts the widths (multiples of 128); the port takes K2, K3 and K9 at every
 width, and at multiples of 128 exactly where the JAX package's VMEM fits
 accept (a Phi-3-medium layer at 17-24 rows declines K9 and takes K20).
 
+impl="int8" (`--impl int8`): the JAX package takes its fused kernels only
+under impl "pallas" (`transformer.py:187, 429, 467, 660, 684`), so the
+int8 mode declines K2, K3, K9 and K20, and every projection goes through
+`matmul(..., impl="int8")` (ops/matmul.py: Q8_0 weights the exact block dot
+at up to 16 rows). Attention keeps the port's kernels. An MoE layer with
+Q8_0 experts follows the JAX scan (`transformer.py:279-299`): each (token,
+slot) expert projection is the int8 dot at T = 1 (all of them in one
+grouped call, `int8_dot(..., experts=)`, at any token count), weighted and
+summed in f32 in slot order; other expert kinds take the grouped kernels
+(the same function as the JAX scan's dequantised dots).
+
 Sharding (tensor, pipeline, sequence parallelism) is a later slice of the
 port.
 """
@@ -85,6 +96,7 @@ from llamatpu_torch.models.weights import QTensor
 from llamatpu_torch.ops import attention as att
 from llamatpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from llamatpu_torch.ops.ffn_fused import ffn_fused_rowq
+from llamatpu_torch.ops.int8_matmul import int8_dot
 from llamatpu_torch.ops.layer_fused import (attn_tail_fits, layer_attn_tail_fused_rowq,
                                             layer_tail_fused_rowq, qkv_fits,
                                             qkv_norm_fused_rowq)
@@ -178,7 +190,8 @@ def rope_slices(weights, pos_vec: torch.Tensor, t: int):
     return table[positions][:, :, None, :], weights["rope_sin"][positions][:, :, None, :]
 
 
-def finish_logits(cfg: ModelConfig, weights, x, last_logit_only=False, logit_index=None):
+def finish_logits(cfg: ModelConfig, weights, x, last_logit_only=False, logit_index=None,
+                  impl: str = "auto"):
     """Final norm + vocab projection (+ logit scale); x [B, T, D] -> f32
     logits [B, T, V], or [B, V] with last_logit_only / logit_index."""
     if logit_index is not None:
@@ -186,7 +199,7 @@ def finish_logits(cfg: ModelConfig, weights, x, last_logit_only=False, logit_ind
     elif last_logit_only:
         x = x[:, -1]
     x = rmsnorm(x, weights["final_norm"], cfg.rms_norm_eps)
-    logits = matmul(weights["wcls"], x).float()
+    logits = matmul(weights["wcls"], x, impl=impl).float()
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
     return logits
@@ -264,15 +277,17 @@ def _shared_weight(lw: dict, hf: torch.Tensor, li: int) -> torch.Tensor:
     return torch.sigmoid(hf.float() @ lw["shared_gate_inp"][li].float())
 
 
-def _moe_ffn(cfg: ModelConfig, h: torch.Tensor, lw: dict, li: int) -> torch.Tensor:
+def _moe_ffn(cfg: ModelConfig, h: torch.Tensor, lw: dict, li: int,
+             impl: str = "auto") -> torch.Tensor:
     """Qwen2-MoE FFN of layer li: softmax-over-all-experts router, top-k
     WITHOUT renormalization, the routed experts through the grouped
-    matmuls, plus the always-on shared expert gated by sigmoid(shared_gate_inp
-    . h): folded (the stacks hold S more experts, routed to by every token)
-    or explicit. h [B, T, D] -> [B, T, D] in h's dtype."""
+    matmuls (the int8 scan under impl "int8" with Q8_0 experts), plus the
+    always-on shared expert gated by sigmoid(shared_gate_inp . h): folded
+    (the stacks hold S more experts, routed to by every token) or explicit.
+    h [B, T, D] -> [B, T, D] in h's dtype."""
     b, t, d = h.shape
     hf = h.reshape(b * t, d)
-    probs = torch.softmax(matmul(lw["router"], hf, li).float(), dim=-1)
+    probs = torch.softmax(matmul(lw["router"], hf, li, impl).float(), dim=-1)
     top_w, top_i = torch.topk(probs, cfg.n_experts_used, dim=-1)
     e_have = _expert_count(lw["gu_exps"] if "gu_exps" in lw else lw["gate_exps"])
     folded = e_have > cfg.n_experts and "shared_gate_inp" in lw
@@ -281,43 +296,84 @@ def _moe_ffn(cfg: ModelConfig, h: torch.Tensor, lw: dict, li: int) -> torch.Tens
         vir = torch.arange(cfg.n_experts, e_have, device=hf.device, dtype=top_i.dtype)
         top_i = torch.cat([top_i, vir[None].expand(b * t, s)], dim=1)
         top_w = torch.cat([top_w, _shared_weight(lw, hf, li)[:, None].expand(b * t, s)], dim=1)
-    tm = tile_rows(b * t, top_i.shape[1])
-    routed = moe_ffn_grouped(cfg, hf, top_w, top_i, lw, tm=tm, li=li,
-                             n_experts=e_have).to(h.dtype)
+    if impl == "int8" and _int8_experts(lw):
+        routed = _moe_int8_scan(hf, top_w, top_i, lw, li).to(h.dtype)
+    else:
+        tm = tile_rows(b * t, top_i.shape[1])
+        routed = moe_ffn_grouped(cfg, hf, top_w, top_i, lw, tm=tm, li=li,
+                                 n_experts=e_have).to(h.dtype)
     if folded:  # the shared expert is inside the routed combine
         return routed.reshape(b, t, d)
-    return _moe_shared(h, hf, routed, lw, li)
+    return _moe_shared(h, hf, routed, lw, li, impl)
 
 
-def _moe_shared(h, hf, routed, lw: dict, li: int) -> torch.Tensor:
+def _int8_experts(lw: dict) -> bool:
+    """Every expert stack canonical Q8_0: the int8 scan's weights."""
+    keys = ("gu_exps", "down_exps") if "gu_exps" in lw else ("gate_exps", "up_exps", "down_exps")
+    return all(isinstance(lw[k], QTensor) and lw[k].kind == "q8_0"
+               and lw[k].layout == "canonical" for k in keys)
+
+
+def _moe_int8_scan(hf: torch.Tensor, top_w: torch.Tensor, top_i: torch.Tensor, lw: dict,
+                   li: int) -> torch.Tensor:
+    """The JAX package's per-token expert scan under impl "int8": token n's
+    slot j projects through expert top_i[n, j] as the exact int8 dot at one
+    row (all N * K rows in one grouped call a projection), silu(gate) * up
+    in h's dtype, and out[n] = sum_j top_w[n, j] * down[n, j] in f32,
+    accumulated from zero in slot order. Returns f32 [N, D]."""
+    n, k = top_i.shape
+    experts = top_i.reshape(-1).to(torch.int32)
+    xg = hf.repeat_interleave(k, dim=0)                      # row n * K + j = token n
+
+    def proj(key, x):
+        w = lw[key]
+        y = int8_dot(x, w.qs[li], w.scales[li], experts).to(x.dtype)
+        return y[:, :w.logical_out] if w.logical_out else y  # padded rows (a bridged tree)
+
+    if "gu_exps" in lw:  # fused gate+up stacks
+        g13 = proj("gu_exps", xg)
+        mh = g13.shape[-1] // 2
+        gate, up = g13[:, :mh], g13[:, mh:]
+    else:
+        gate, up = proj("gate_exps", xg), proj("up_exps", xg)
+    act = F.silu(gate.float()).to(hf.dtype) * up
+    down = proj("down_exps", act).float().reshape(n, k, -1)
+    w = top_w.float()
+    out = torch.zeros((n, down.shape[-1]), dtype=torch.float32, device=hf.device)
+    for j in range(k):
+        out = out + w[:, j:j + 1] * down[:, j]
+    return out
+
+
+def _moe_shared(h, hf, routed, lw: dict, li: int, impl: str = "auto") -> torch.Tensor:
     """routed + sigmoid gate * shared expert (unfolded stacks), summed in f32."""
     b, t, d = h.shape
     if "shared_g13" in lw:  # fused shared gate+up
-        g13 = matmul(lw["shared_g13"], hf, li)
+        g13 = matmul(lw["shared_g13"], hf, li, impl)
         ff = g13.shape[-1] // 2
         sg, su = g13[..., :ff], g13[..., ff:]
     else:
-        sg, su = matmul(lw["shared_gate"], hf, li), matmul(lw["shared_up"], hf, li)
+        sg, su = matmul(lw["shared_gate"], hf, li, impl), matmul(lw["shared_up"], hf, li, impl)
     sact = F.silu(sg.float()).to(h.dtype) * su
-    sdown = matmul(lw["shared_down"], sact, li)
+    sdown = matmul(lw["shared_down"], sact, li, impl)
     out = routed.float() + _shared_weight(lw, hf, li)[:, None] * sdown.float()
     return out.to(h.dtype).reshape(b, t, d)
 
 
-def _dense_ffn(h: torch.Tensor, lw: dict, li: int) -> torch.Tensor:
+def _dense_ffn(h: torch.Tensor, lw: dict, li: int, impl: str = "auto") -> torch.Tensor:
     """The dense FFN of layer li (`transformer.py:186-200`): K20 in one call
-    where `ffn_fused_rowq` takes it, else w13 (or w1 and w3 where they did
-    not fuse), silu * up in h's dtype, w2."""
+    where `ffn_fused_rowq` takes it (impl "auto" only), else w13 (or w1 and
+    w3 where they did not fuse), silu * up in h's dtype, w2."""
     if "w13" not in lw:
-        gate, up = matmul(lw["w1"], h, li), matmul(lw["w3"], h, li)
-        return matmul(lw["w2"], F.silu(gate.float()).to(h.dtype) * up, li)
-    y = ffn_fused_rowq(lw["w13"], lw["w2"], h, li)
+        gate, up = matmul(lw["w1"], h, li, impl), matmul(lw["w3"], h, li, impl)
+        return matmul(lw["w2"], F.silu(gate.float()).to(h.dtype) * up, li, impl)
+    y = ffn_fused_rowq(lw["w13"], lw["w2"], h, li) if impl == "auto" else None
     if y is not None:
         return y
-    g13 = matmul(lw["w13"], h, li)
+    g13 = matmul(lw["w13"], h, li, impl)
     ff = g13.shape[-1] // 2
     act = F.silu(g13[..., :ff].float()).to(h.dtype) * g13[..., ff:]
-    return matmul(lw["w2"], act, li)
+    return matmul(lw["w2"], act, li, impl)
 
 
 def _is_rowq(w) -> bool:
@@ -325,22 +381,23 @@ def _is_rowq(w) -> bool:
 
 
 def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Tensor, cos, sin,
-           s_limit: int | None, tables, batch_offset: int | None):
+           s_limit: int | None, tables, batch_offset: int | None, impl: str = "auto"):
     b, t = x.shape[:2]
     nkv, g, hd = cfg.n_kv_heads, cfg.gqa_groups, cfg.head_dim
     eps, rs = cfg.rms_norm_eps, cfg.residual_scale
     paged = isinstance(cache, PagedKVCache)
     rows = b * t
+    fused_ok = impl == "auto"  # the JAX package's fused kernels: impl "pallas" only
     rowq = _is_rowq(lw.get("wqkv"))
     xbytes = x.element_size()
-    if rowq and qkv_fits(rows, lw["wqkv"].qs.shape[-2], cfg.dim, xbytes):
+    if fused_ok and rowq and qkv_fits(rows, lw["wqkv"].qs.shape[-2], cfg.dim, xbytes):
         qkv = qkv_norm_fused_rowq(lw["wqkv"], lw["attn_norm"], x, li, eps)
     else:
         h = rmsnorm(x, lw["attn_norm"][li], eps)
         # wq, wk and wv stay apart where their kinds differ (a Q4_K_M file's
         # Q6_K attn_v): the same values as the fused projection
-        qkv = (matmul(lw["wqkv"], h, li) if "wqkv" in lw
-               else torch.cat([matmul(lw[k], h, li) for k in ("wq", "wk", "wv")], dim=-1))
+        qkv = (matmul(lw["wqkv"], h, li, impl) if "wqkv" in lw
+               else torch.cat([matmul(lw[k], h, li, impl) for k in ("wq", "wk", "wv")], dim=-1))
     if cfg.qkv_bias:
         qkv = qkv + torch.cat([lw["q_bias"][li], lw["k_bias"][li],
                                lw["v_bias"][li]]).to(qkv.dtype)
@@ -379,7 +436,7 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         fused = s_phys % 32 == 0 and not os.environ.get("LLAMATPU_NO_FUSED_ATTN")
         if long_cache:
             fused = fused and att.pick_tile(s_phys) >= 128
-        if (fused and not long_cache and not cache.quantized and b == 1 and rowq
+        if (fused_ok and fused and not long_cache and not cache.quantized and b == 1 and rowq
                 and not cfg.is_moe and _is_rowq(lw["wo"]) and _is_rowq(lw.get("w13"))
                 and _is_rowq(lw["w2"]) and not os.environ.get("LLAMATPU_NO_ATTN_TAIL")
                 and attn_tail_fits(cfg.dim, lw["wo"].qs.shape[-1], lw["w2"].qs.shape[-1], nkv, g,
@@ -416,17 +473,17 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
         else:
             attn = _prefill_attention(cfg, q, kvd, scd, pos_vec, t, s_limit)
     attn = attn.reshape(b, t, -1).to(x.dtype)
-    if not cfg.is_moe and "w13" in lw:
+    if fused_ok and not cfg.is_moe and "w13" in lw:
         new_x = layer_tail_fused_rowq(lw["wo"], lw["w13"], lw["w2"], lw["ffn_norm"], attn, x, li,
                                       eps, rs)
         if new_x is not None:
             return new_x
-    attn_out = matmul(lw["wo"], attn, li)
+    attn_out = matmul(lw["wo"], attn, li, impl)
     if rs != 1.0:
         attn_out = (attn_out.float() * rs).to(x.dtype)
     x = x + attn_out
     h2 = rmsnorm(x, lw["ffn_norm"][li], eps)
-    ffn = _moe_ffn(cfg, h2, lw, li) if cfg.is_moe else _dense_ffn(h2, lw, li)
+    ffn = _moe_ffn(cfg, h2, lw, li, impl) if cfg.is_moe else _dense_ffn(h2, lw, li, impl)
     if rs != 1.0:
         ffn = (ffn.float() * rs).to(x.dtype)
     return x + ffn
@@ -434,7 +491,8 @@ def _layer(cfg: ModelConfig, lw: dict, x, cache, li: int, pos, pos_vec: torch.Te
 
 def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache, pos,
                    last_logit_only=False, logit_index=None, s_limit: int | None = None,
-                   tables: torch.Tensor | None = None, batch_offset: int | None = None):
+                   tables: torch.Tensor | None = None, batch_offset: int | None = None,
+                   impl: str = "auto"):
     """Run T tokens at absolute positions pos..pos+T-1 through the model.
 
     tokens: int [B, T] on the weights' device. pos: a host int (every lane
@@ -447,7 +505,8 @@ def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache, pos,
     B), e.g. one lane's prefill into the batched cache. The cache is written
     in place. Returns (f32 logits, cache): [B, T, V], or [B, V] with
     last_logit_only or logit_index (the last REAL token of a padded final
-    prefill chunk)."""
+    prefill chunk). impl: "auto" (the port's kernels) or "int8" (the exact
+    int8 mode: module docstring)."""
     paged = isinstance(cache, PagedKVCache)
     if paged and (tables is None or batch_offset is not None):
         raise ValueError("a paged cache takes block tables and no batch_offset")
@@ -461,5 +520,5 @@ def forward_tokens(cfg: ModelConfig, weights, tokens: torch.Tensor, cache, pos,
     cos, sin = rope_slices(weights, pos_vec, t)
     for li in range(cfg.n_layers):
         x = _layer(cfg, weights["layers"], x, cache, li, pos, pos_vec, cos, sin, s_limit,
-                   tables, batch_offset)
-    return finish_logits(cfg, weights, x, last_logit_only, logit_index), cache
+                   tables, batch_offset, impl)
+    return finish_logits(cfg, weights, x, last_logit_only, logit_index, impl), cache

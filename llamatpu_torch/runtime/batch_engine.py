@@ -37,6 +37,7 @@ from llamatpu_torch.models.transformer import (forward_tokens, init_cache, pad_c
 from llamatpu_torch.models.weights import serving_weights
 from llamatpu_torch.ops import sampling
 from llamatpu_torch.runtime.decode_graph import StepGraphs, stop_ids, tensors_key, zeroed_cache
+from llamatpu_torch.ops.matmul import check_impl
 from llamatpu_torch.runtime.engine import resolve_device
 from llamatpu_torch.utils.metrics import RunMetrics, Timer
 
@@ -143,8 +144,10 @@ class BatchEngine:
         rowq: bool = False,
         rowq_experts: bool | None = None,
         device: str | torch.device | None = None,
+        impl: str = "auto",
     ):
         self.device = resolve_device(device)
+        self.impl = check_impl(impl)
         self.model = model
         self.cfg = model.cfg
         self.batch_size = batch_size
@@ -183,8 +186,8 @@ class BatchEngine:
         def forward(arr, pos, logit_index):
             self.prefill_chunks += 1
             logits, self.cache = forward_tokens(self.cfg, self.weights, arr, self.cache, pos,
-                                                logit_index=logit_index,
-                                                s_limit=self.cache_len, batch_offset=lane)
+                                                logit_index=logit_index, s_limit=self.cache_len,
+                                                batch_offset=lane, impl=self.impl)
             return logits
 
         return prefill_chunks(self, tokens, start_pos, temperature, top_p, forward)
@@ -198,7 +201,7 @@ class BatchEngine:
         park = self.cache.kv.shape[3] - 1
         logits, _ = forward_tokens(self.cfg, self.weights, st.tok[:, None], self.cache,
                                    torch.where(st.act, st.pos, park), last_logit_only=True,
-                                   s_limit=self.cache_len)
+                                   s_limit=self.cache_len, impl=self.impl)
         nxt = sampling.sample_lanes(logits, st.temps, st.topps, self.generator, sampled)
         nxt = torch.where(st.act, nxt, st.tok)  # inactive lanes re-feed their last token
         st.record(torch.where(st.act, nxt, -1))
@@ -220,7 +223,7 @@ class BatchEngine:
         st = self._graphs.state_for(self.batch_size, self.decode_window)
         geometry = (tensors_key(self.cache.kv, self.cache.scale), self.cache_len)
         run = self._graphs.runner(geometry, sampled, lambda: self._step(sampled),
-                                  st.act.zero_, self.generator)
+                                  st.act.zero_, self.generator, self.impl)
         st.fill(tokens, pos, active, temps, topps, stop_ids(stop_tokens))
         run(limit)
         self.decode_steps += limit

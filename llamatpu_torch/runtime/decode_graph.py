@@ -21,6 +21,8 @@ A graph bakes in what its capture saw, so `StepGraphs` keys it by:
   graph of the engine;
 - the sampling mode (greedy skips the draw, as the JAX `_programs(greedy)`
   keeps two programs);
+- the engine's `impl` ("auto" or the exact "int8" mode): a step captured
+  in one mode never replays in the other;
 - the call-time switches the forward reads (`switches`).
 
 Capture: the step first runs once eagerly on the engine's own side stream,
@@ -261,10 +263,10 @@ class StepGraphs:
         finally:
             self._eager = False
 
-    def runner(self, geometry, sampled: bool, step, park, generator=None):
+    def runner(self, geometry, sampled: bool, step, park, generator=None, impl: str = "auto"):
         """A callable running `step` n times: eagerly on the CPU; on CUDA the
         replays of the graph for (geometry, the state's draft length K,
-        sampled, switches), captured now if there is none (`park` puts the
+        sampled, impl, switches), captured now if there is none (`park` puts the
         state where the warm-up step writes only rows or blocks no query
         reads). Fill the state after this call: the capture's warm-up step
         runs on it."""
@@ -276,8 +278,8 @@ class StepGraphs:
         if geometry != self.geometry:
             self.clear()
             self.geometry = geometry
-        key = (sampled, switches()) if not self.state.spec else \
-            (self.state.spec, sampled, switches())
+        key = (sampled, impl, switches()) if not self.state.spec else \
+            (self.state.spec, sampled, impl, switches())
         captured = self.graphs.get(key)
         if captured is None:
             captured = self.graphs[key] = self.capture(step, park, generator)

@@ -40,6 +40,10 @@ forward after the window is done is parked and changes nothing but cache
 rows at or past its position. Greedy spec output is the plain greedy
 stream wherever the forward is batch-invariant (f32 here; under bf16 on
 the card, argmax near-ties may part, as the JAX package notes).
+
+`impl` ("auto": the port's kernels; "int8": the exact int8 mode,
+models/transformer.py) reaches every forward: prefill chunks, the decode
+step and the verify forward (at K + 1 <= 16 rows it takes the int8 dot).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from llamatpu_torch.models.transformer import (forward_tokens, init_cache, pad_c
                                                physical_cache_len)
 from llamatpu_torch.models.weights import serving_weights
 from llamatpu_torch.ops import sampling
+from llamatpu_torch.ops.matmul import check_impl
 from llamatpu_torch.runtime.decode_graph import StepGraphs, stop_ids, tensors_key, zeroed_cache
 from llamatpu_torch.utils.metrics import RunMetrics, Timer
 
@@ -92,8 +97,10 @@ class Engine:
         metrics: RunMetrics | None = None,
         aot_compile: bool = True,
         spec_decode: int = 0,
+        impl: str = "auto",
     ):
         self.device = resolve_device(device)
+        self.impl = check_impl(impl)
         self.model = model
         self.default_temperature = temperature
         self.default_top_p = top_p
@@ -158,7 +165,7 @@ class Engine:
 
     def _forward(self, tokens: torch.Tensor, pos: int, **kw):
         logits, self.cache = forward_tokens(self.cfg, self.weights, tokens, self.cache, pos,
-                                            s_limit=self.cache_len, **kw)
+                                            s_limit=self.cache_len, impl=self.impl, **kw)
         return logits
 
     def prefill(self, tokens: list[int], start_pos: int = 0, temperature=None, top_p=None):
@@ -190,7 +197,7 @@ class Engine:
         the next token and position. No host value is read."""
         st = self._graphs.state
         logits, _ = forward_tokens(self.cfg, self.weights, st.tok.view(1, 1), self.cache, st.pos,
-                                   last_logit_only=True, s_limit=self.cache_len)
+                                   last_logit_only=True, s_limit=self.cache_len, impl=self.impl)
         nxt = sampling.sample_lanes(logits, st.temps, st.topps, self.generator, sampled)
         st.record(nxt)
         st.count += (~st.done).to(torch.int32)
@@ -223,7 +230,7 @@ class Engine:
         rows = torch.clamp(pos, 0, s_phys - k - 1) + torch.arange(k + 1, device=dev)
         ids.index_copy_(0, rows, torch.where(live, w, ids.index_select(0, rows)))
         logits, _ = forward_tokens(self.cfg, self.weights, w.view(1, k + 1), self.cache, st.pos,
-                                   s_limit=self.cache_len)
+                                   s_limit=self.cache_len, impl=self.impl)
         if sampled:
             cand, m = sampling.spec_verify_sample(logits[0], drafts, st.temps, st.topps,
                                                   self.generator)
@@ -262,7 +269,7 @@ class Engine:
         geometry = (tensors_key(self.cache.kv, self.cache.scale, self._ids), self.cache_len)
         step = self._spec_step if self.spec_k else self._step
         return self._graphs.runner(geometry, sampled, lambda: step(sampled),
-                                   lambda: self._park(pos), self.generator)
+                                   lambda: self._park(pos), self.generator, self.impl)
 
     def decode_window_run(self, token: int, pos: int, limit: int,
                           stop_tokens=frozenset(), temperature=None, top_p=None) -> list[int]:

@@ -30,6 +30,7 @@ from llamatpu_torch.models.weights import serving_weights
 from llamatpu_torch.ops import sampling
 from llamatpu_torch.runtime.batch_engine import generate_batch, prefill_chunks, window_inputs
 from llamatpu_torch.runtime.decode_graph import StepGraphs, stop_ids, tensors_key
+from llamatpu_torch.ops.matmul import check_impl
 from llamatpu_torch.runtime.engine import resolve_device
 from llamatpu_torch.runtime.paged_cache import BlockAllocator, block_hashes, init_paged_cache
 from llamatpu_torch.utils.metrics import RunMetrics, Timer
@@ -52,8 +53,10 @@ class PagedBatchEngine:
         rowq: bool = False,
         rowq_experts: bool | None = None,
         device: str | torch.device | None = None,
+        impl: str = "auto",
     ):
         self.device = resolve_device(device)
+        self.impl = check_impl(impl)
         self.model = model
         self.cfg = model.cfg
         self.batch_size = batch_size
@@ -142,7 +145,8 @@ class PagedBatchEngine:
             self.prefill_chunks += 1
             logits, self.cache = forward_tokens(self.cfg, self.weights, arr, self.cache, pos,
                                                 logit_index=logit_index,
-                                                tables=self._tables(slice(lane, lane + 1)))
+                                                tables=self._tables(slice(lane, lane + 1)),
+                                                impl=self.impl)
             return logits
 
         return prefill_chunks(self, tokens, start_pos, temperature, top_p, forward)
@@ -164,7 +168,7 @@ class PagedBatchEngine:
         st = self._graphs.state_for(b_size, self.decode_window)
         geometry = (tensors_key(self.cache.kv_pool, self.cache.scale), self.alloc.trash_block)
         run = self._graphs.runner(geometry, sampled, lambda: self._step(sampled), st.act.zero_,
-                                  self.generator)
+                                  self.generator, self.impl)
         st.fill(tokens, pos, active, temps, topps, stop_ids(stop_tokens))
         self._tables_d.copy_(torch.from_numpy(self.alloc.tables))  # the tables, once a window
         run(limit)
@@ -177,7 +181,7 @@ class PagedBatchEngine:
         st = self._graphs.state
         tables = torch.where(st.act[:, None], self._tables_d, self.alloc.trash_block)
         logits, _ = forward_tokens(self.cfg, self.weights, st.tok[:, None], self.cache, st.pos,
-                                   last_logit_only=True, tables=tables)
+                                   last_logit_only=True, tables=tables, impl=self.impl)
         nxt = sampling.sample_lanes(logits, st.temps, st.topps, self.generator, sampled)
         nxt = torch.where(st.act, nxt, st.tok)
         st.record(torch.where(st.act, nxt, -1))

@@ -278,7 +278,7 @@ def build_service(args, model):
 
     cache_len = min(args.max_tokens, model.cfg.context_length) if args.max_tokens else None
     common = dict(prefill_chunk=args.prefill_chunk, cache_dtype=cache_dtype(args),
-                  rowq=args.rowq, seed=args.seed, device=args.device)
+                  rowq=args.rowq, seed=args.seed, device=args.device, impl=args.impl)
     if args.batch_size > 1:
         from llamatpu_torch.server.service import BatchedInferenceService
 

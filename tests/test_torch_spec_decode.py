@@ -438,7 +438,7 @@ def test_reset_zeroes_the_history_in_place_and_reseed_keeps_it(f32):
 
 def test_the_capture_keys_and_parks_the_verify_step(f32, fake_cuda):
     """On a (stand-in) card the verify step's graph is keyed by K, the
-    sampling mode and the switches, apart from any plain step's; its
+    sampling mode, the engine's impl and the switches, apart from any plain step's; its
     warm-up and capture run parked at the window's position, writing no
     id; n replays add n times the captured launches."""
     e = Engine(f32[0], cache_dtype=torch.float32, device="cpu", decode_window=6,
@@ -448,7 +448,7 @@ def test_the_capture_keys_and_parks_the_verify_step(f32, fake_cuda):
     e._graphs.state_for(1, 6, 4)
     e._graphs.device = torch.device("cuda")
     run = e._window(False, len(REPETITIVE))
-    assert list(e._graphs.graphs) == [(4, False, switches())]
+    assert list(e._graphs.graphs) == [(4, False, "auto", switches())]
     st = e._graphs.state
     assert st.done.item() and st.pos.item() == len(REPETITIVE) and torch.equal(e._ids, ids)
     e._window(True, len(REPETITIVE))

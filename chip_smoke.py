@@ -223,10 +223,26 @@ tiled 512-token prompt: the spec run launches K2 and K9 16 times and K1
 once a verify forward (K + 1 = 9 rows, no K3), its greedy tokens equal the
 plain ones or part at a logged bf16 argmax near-tie of the plain step;
 spec windows from the captured verify step equal the same windows run
-eagerly, greedy and sampled, with launches = forwards x captured; plain
-and spec tok/s, acceptance, forwards, rounds, parked forwards, traced
-windows, capture seconds and pool bytes are logged; then bench/spec_bench.py
-on the same weights as Q8_0 block quants (K5 = 65 a forward or chunk).
+eagerly, greedy and sampled, with launches = forwards x captured, one host
+read a window and no forward past a window's end, and a window with a stop
+equals the eager one and the no-stop stream up to the stop; plain and spec
+tok/s, acceptance, forwards, host reads, traced windows, capture seconds
+and pool bytes are logged; then bench/spec_bench.py on the same weights as
+Q8_0 block quants (K5 = 65 a forward or chunk).
+
+early_exit, inside the main path's phase (slice 24): every captured decode
+step sits under a CUDA-graph IF node (csrc/graph_cond.cu's cond_guard), so
+a window ends at a stop as the JAX `while_loop` does. On the main path's
+Engine: a 128-step greedy window with no stop gives the stream; windows
+from the same state with the stop stream[j] (j = 3 and a mid-window one,
+where that id first occurs) from the graph and eagerly give stream[:j + 1]
+in j + 1 steps, (j + 1) x the captured launches, and leave the cache rows
+from pos + j + 1 on byte-equal; traced busy of a stopped window against the
+full one; the host and device cost of one guarded-off replay; two
+consecutive sampled windows (0.8 / 0.95), the first stopped early, equal
+the eager ones. An 8-lane PagedBatchEngine whose lanes stop at different
+steps ends when the last lane stops, its slab the eager one's. The spec
+phase checks one host read a window and a stopped spec window.
 
 Every path's launch counts are set to 0 just before it is driven and read
 just after. Then one {"kernels": [...]} line, the nvidia-smi line, and last
@@ -236,6 +252,7 @@ The GGUF files go to build/smoke/ in the checkout and are deleted at the end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -2538,7 +2555,7 @@ def check_slice6_kernels(dev) -> list[dict]:
     return rows
 
 
-def device_breakdown(fn) -> dict:
+def device_breakdown(fn, eager=None) -> dict:
     """Run fn() once under torch.profiler (device activity only, so the host
     is barely slowed): device busy time, the traced window's host wall time,
     the idle share between them, and the kernels that take most of the time.
@@ -2547,19 +2564,47 @@ def device_breakdown(fn) -> dict:
     with programmatic dependent launch (rowq_tc.cuh's phases) starts while
     the one before it runs and waits for it, and that wait is the earlier
     kernel's time, counted once. `overlap_ms` is what a sum of the
-    activities' own times would count twice."""
+    activities' own times would count twice.
+
+    A trace that holds fewer device activities than fn() counted kernel
+    launches is marked `dropped`: on the H100 the profiler stops recording
+    the kernels of CUDA-graph IF-node bodies (every decode step's) once a
+    process has had enough of them instrumented, while the graphs' own
+    nodes and every host launch stay recorded. With
+    `eager` (a context in which the engine runs its windows eagerly), fn()
+    is then traced again inside it: the same kernels at the same shapes,
+    host-launched, and `traced` says so. The launch counts are put back
+    before that run, so they count one run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    fns = list(counters().values())
+    saved = [f.launches for f in fns]
+
+    def trace():
+        for f, n in zip(fns, saved):
+            f.launches = n
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and e.time_range.end > e.time_range.start)
+        return spans, wall, sum(f.launches for f in fns) - sum(saved)
+
+    spans, wall_ms, launched = trace()
+    traced = "as run"
+    if len(spans) < launched:
+        log(f"profiler dropped records: {len(spans)} device activities for {launched} kernel "
+            f"launches" + ("; the eager window traced instead" if eager else ""))
+        if eager is not None:
+            with eager():
+                spans, wall_ms, launched = trace()
+            traced = "eager: the profiler dropped the graph body's records"
     own, count, reach = {}, {}, float("-inf")
     for start, end, name in spans:  # microseconds
         own[name] = own.get(name, 0.0) + max(0.0, end - max(start, reach)) / 1e3
@@ -2570,7 +2615,8 @@ def device_breakdown(fn) -> dict:
     rows = sorted(own.items(), key=lambda r: -r[1])
     return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
             "overlap_ms": sum(e - s for s, e, _ in spans) / 1e3 - busy,
-            "kernels": [{"name": k[:120], "ms": ms, "count": count[k]} for k, ms in rows]}
+            "kernels": [{"name": k[:120], "ms": ms, "count": count[k]} for k, ms in rows],
+            "traced": traced, "dropped": len(spans) < launched}
 
 
 # each kernel's launches as the profiler names them, and where they are read:
@@ -2727,11 +2773,11 @@ def drive_engine(engine, prompt: list[int], tg: int, want_fn, label: str,
                     ("decode16_trace", lambda: engine.decode_window_run(first, pp, 16))):
         for f in fns.values():
             f.launches = 0
-        res[key] = device_breakdown(fn)
+        res[key] = device_breakdown(fn, engine._graphs._eager_windows)
         res[key]["launches"] = {k: f.launches for k, f in fns.items()}
         tr = res[key]
-        log(f"{label}: {key}: device busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms "
-            f"(idle share {tr['idle_share']:.3f}); top "
+        log(f"{label}: {key} ({tr['traced']}): device busy {tr['busy_ms']:.3f} of "
+            f"{tr['wall_ms']:.3f} ms (idle share {tr['idle_share']:.3f}); top "
             f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:6]]}")
     return res
 
@@ -2787,7 +2833,7 @@ def drive_long(engine, prompt: list[int], tg: int, want_fn, label: str) -> dict:
     for f in fns.values():
         f.launches = 0
     res["decode16_trace"] = tr = device_breakdown(
-        lambda: engine.decode_window_run(out[-1], pos, 16))
+        lambda: engine.decode_window_run(out[-1], pos, 16), engine._graphs._eager_windows)
     tr["launches"] = {k: f.launches for k, f in fns.items()}
     res["next"] = [out[-1], pos]  # where the window after the run starts
     # the prompt's last chunk again (the same rows rewritten with the same
@@ -2799,7 +2845,8 @@ def drive_long(engine, prompt: list[int], tg: int, want_fn, label: str) -> dict:
         f"GB), prefill {len(prompt)} tok in {pp_s:.3f} s ({res['prefill_tok_s']:.1f} tok/s), "
         f"decode {len(out)} tok in {tg_s:.3f} s ({res['decode_tok_s']:.2f} tok/s), peak "
         f"{res['peak_mem_gb']:.2f} GB, launches {({k: v for k, v in launches.items() if v})}; "
-        f"traced 16 steps at pos {pos}: busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.3f} ms (idle "
+        f"traced 16 steps at pos {pos} ({tr['traced']}): busy {tr['busy_ms']:.3f} of "
+        f"{tr['wall_ms']:.3f} ms (idle "
         f"share {tr['idle_share']:.3f}); top "
         f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:5]]}; traced prefill "
         f"chunk at pos {last}: busy {pt['busy_ms']:.3f} of {pt['wall_ms']:.3f} ms (idle share "
@@ -2817,9 +2864,13 @@ def spec_graph_decode(engine, prompt: list[int], window: int) -> dict:
     and generator state (the history is put back before each window: its
     rows at and past pos feed the drafts), greedy and sampled (0.8 / 0.95):
     the graph's tokens equal the eager window's and a second graph window's,
-    and each window's launches equal the forwards it ran x the capture's.
-    Then a traced greedy window from the graph: busy ms, idle share, tok/s;
-    the capture's seconds and the pool's bytes."""
+    and each window's launches equal the forwards it ran x the capture's,
+    with one host read a window and as many forwards run as the window's
+    spec_forwards (none past its end). A greedy window with a stop (the
+    stream's id that first occurs at step 3 or after) from the graph and
+    eagerly: the stream up to the stop, in the same forwards. Then a traced
+    greedy window from the graph: busy ms, idle share, tok/s; the capture's
+    seconds and the pools' bytes."""
     import torch
 
     from llamatpu_torch.runtime.decode_graph import switches
@@ -2828,17 +2879,23 @@ def spec_graph_decode(engine, prompt: list[int], window: int) -> dict:
     tok0, pos0 = int(engine.prefill(prompt)[0][0]), len(prompt)
     ids0 = engine._ids.clone()
     fns = counters()
+    stops = frozenset()
 
     def run(temp):
         engine._ids.copy_(ids0)
         for f in fns.values():
             f.launches = 0
-        steps, rounds, parked = engine.decode_steps, engine.spec_rounds, engine.spec_parked
-        out = engine.decode_window_run(tok0, pos0, window, temperature=temp, top_p=0.95)
-        assert len(out) == window, f"spec: {len(out)} of {window} tokens"
-        return dict(tokens=out, launches={k: f.launches for k, f in fns.items() if f.launches},
-                    forwards_run=engine.decode_steps - steps,
-                    rounds=engine.spec_rounds - rounds, parked=engine.spec_parked - parked)
+        steps, reads = engine.decode_steps, engine.spec_reads
+        fwd = engine.metrics.extra.get("spec_forwards", 0)
+        out = engine.decode_window_run(tok0, pos0, window, stop_tokens=stops, temperature=temp,
+                                       top_p=0.95)
+        assert len(out) == window or stops, f"spec: {len(out)} of {window} tokens"
+        r = dict(tokens=out, launches={k: f.launches for k, f in fns.items() if f.launches},
+                 forwards_run=engine.decode_steps - steps, reads=engine.spec_reads - reads)
+        assert r["reads"] == 1, f"spec: {r['reads']} host reads in a window"
+        assert r["forwards_run"] == engine.metrics.extra["spec_forwards"] - fwd, \
+            f"spec: {r['forwards_run']} forwards run, {r} (a forward past the window's end)"
+        return r
 
     res = {"window": window}
     gen = engine.generator
@@ -2860,7 +2917,25 @@ def spec_graph_decode(engine, prompt: list[int], window: int) -> dict:
                 f"spec {mode}: launches {r['launches']} != forwards x captured {want}"
         res[mode] = dict(graph=graph, eager=eager, capture_s=cap.seconds,
                          captured={k: cap.counts[f] for k, f in fns.items() if f in cap.counts})
-    res["pool_bytes"] = graph_pool_bytes(engine._graphs.pool)
+    # a stopped window: the stop is the greedy stream's id that first occurs
+    # at step 3 or after; graph and eager from the same state give the
+    # stream up to it, in one read, the forwards it needed
+    stream = res["greedy"]["graph"]["tokens"]
+    j, stop = first_at(stream, 3)
+    stops = {stop}
+    stopped = {}
+    for side in ("graph", "eager"):
+        with engine._graphs._eager_windows() if side == "eager" else contextlib.nullcontext():
+            stopped[side] = run(0.0)
+    cap = engine._graphs.graphs[(engine.spec_k, False, engine.impl, switches())]
+    for side, r in stopped.items():
+        assert r["tokens"] == stream[:j + 1], f"spec stop at {j} ({side}): {r['tokens']}"
+        want = {k: cap.counts[f] * r["forwards_run"] for k, f in fns.items() if f in cap.counts}
+        assert r["launches"] == want, f"spec stop ({side}): launches {r['launches']} != {want}"
+    assert stopped["graph"]["forwards_run"] == stopped["eager"]["forwards_run"]
+    res["stopped"] = dict(j=j, forwards_run=stopped["graph"]["forwards_run"], reads=1)
+    stops = frozenset()
+    res["pool_bytes"] = graph_pool_bytes(engine._graphs)
     tr = res["trace"] = device_breakdown(lambda: run(0.0))
     tr["tok_s"] = window / (tr["wall_ms"] / 1e3)
     pool = res["pool_bytes"]
@@ -2870,14 +2945,16 @@ def spec_graph_decode(engine, prompt: list[int], window: int) -> dict:
         f"(greedy) {res['sampled']['capture_s']:.3f} s (sampled), pool "
         f"{'not measured' if pool is None else f'{pool / 1e6:.1f} MB'}; traced greedy window: "
         f"busy {tr['busy_ms']:.3f} ms idle {tr['idle_share']:.3f} {tr['tok_s']:.1f} tok/s; top "
-        f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:5]]}")
+        f"{[(t['name'][:40], round(t['ms'], 3)) for t in tr['kernels'][:5]]}; a window stopped "
+        f"at step {j}: graph == eager == the stream's first {j + 1} tokens in "
+        f"{res['stopped']['forwards_run']} forwards, one host read")
     engine.reset()
     return res
 
 
 def graph_line(mode: dict) -> str:
     g = mode["graph"]
-    return f"{g['forwards_run']} forwards in {g['rounds']} rounds, {g['parked']} parked"
+    return f"{g['forwards_run']} forwards, {g['reads']} host read"
 
 
 def plain_gap(engine, prompt: list[int], tokens: list[int], i: int, other: int) -> dict:
@@ -2930,7 +3007,7 @@ def run_spec_paths(dev, model, engine) -> dict:
       the largest difference between the plain step's and the verify
       forward's logits on the same cache (`plain_gap`), all logged;
     - spec_graph_decode: graph == eager, greedy and sampled;
-    - plain and spec tok/s, accept rate, forwards, rounds, parked, and a
+    - plain and spec tok/s, accept rate, forwards, host reads, and a
       traced 128-token window of each;
     then the harness bench/spec_bench.py on the same Q8_0 weights served as
     block quants (K5): K5 = 65 x (chunks + forwards run), K6 only in the
@@ -2960,15 +3037,17 @@ def run_spec_paths(dev, model, engine) -> dict:
         r = spec_bench.timed_run(eng, prompt, tg)
         r["decode_tok_s"] = len(r["tokens"]) / r["seconds"]
         n, c = r["steps"], r["chunks"]
-        # K3 a layer and step on the plain path; K2 + K9 at K + 1 rows on the spec one
+        # K3 a layer and step on the plain path; K2 + K9 at K + 1 rows on the spec one;
+        # one guarded replay a token: with no stop every window runs its whole budget
         want = {"rowq_gemv": n + c, "qkv_norm_fused_rowq": L * n, "rowq_gemm": 4 * L * c,
-                "layer_tail_fused_rowq" if eng is spec else "layer_attn_tail_fused_rowq": L * n}
+                "layer_tail_fused_rowq" if eng is spec else "layer_attn_tail_fused_rowq": L * n,
+                "cond_guard": tg}
         assert r["launches"] == want, f"spec: {label} launch counts {r['launches']} != {want}"
         if eng is spec:
             ex = spec.metrics.extra
-            r.update(spec_accept_rate=ex["spec_accept_rate"], spec_forwards=ex["spec_forwards"],
-                     rounds=spec.spec_rounds, parked=spec.spec_parked)
-            assert r["steps"] == r["spec_forwards"] + r["parked"]
+            r.update(spec_accept_rate=ex["spec_accept_rate"], spec_forwards=ex["spec_forwards"])
+            assert r["steps"] == r["spec_forwards"] and r["reads"] == r["windows"], \
+                f"spec: forwards {r['steps']} != {r['spec_forwards']} or reads {r['reads']}"
         assert len(r["tokens"]) == tg and all(0 <= t < cfg.vocab_size for t in r["tokens"])
         out[label] = r
     a, b = out["plain"]["tokens"], out["spec"]["tokens"]
@@ -2983,8 +3062,8 @@ def run_spec_paths(dev, model, engine) -> dict:
     s = out["spec"]
     log(f"spec: main path tg{tg}: plain {out['plain']['decode_tok_s']:.1f} tok/s, spec "
         f"{s['decode_tok_s']:.1f} tok/s (host clock, prefill included); accept rate "
-        f"{s['spec_accept_rate']}, {s['spec_forwards']} forwards, {s['rounds']} rounds, "
-        f"{s['parked']} parked; launches {s['launches']}; greedy streams "
+        f"{s['spec_accept_rate']}, {s['spec_forwards']} forwards, {s['reads']} host reads in "
+        f"{s['windows']} windows; launches {s['launches']}; greedy streams "
         + ("equal" if part is None else f"part at index {part}: {json.dumps(out['parting'])}"))
     out["spec_graph"] = spec_graph_decode(spec, prompt, tg)
     engine.reset()
@@ -3006,7 +3085,7 @@ def run_spec_paths(dev, model, engine) -> dict:
     rows = out["bench"] = spec_bench.bench_rows(model, SPEC_K, dev, "llama32-1b")
     for row in rows:
         n, c = row["forwards_run"], row["prefill_chunks"]
-        want = {"block_matmul": (4 * L + 1) * (c + n)}
+        want = {"block_matmul": (4 * L + 1) * (c + n), "cond_guard": tg}
         if not row["K"]:
             want["decode_attention_fused_write"] = L * n
         assert row["launches"] == want, f"spec_bench K={row['K']}: {row['launches']} != {want}"
@@ -3019,6 +3098,266 @@ def run_spec_paths(dev, model, engine) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+EARLY_STOPS = (3, 61)  # where a stop ends a 128-step window: early and mid-window
+PAGED_STOP_STEPS = tuple(4 + 6 * b for b in range(8))  # one a lane of 8
+
+
+def first_at(stream: list[int], j: int) -> tuple[int, int]:
+    """(i, stream[i]) for the first i >= j whose id occurs nowhere before
+    it: a stop on that id ends the stream's window at step i."""
+    for i in range(j, len(stream)):
+        if stream[i] not in stream[:i]:
+            return i, stream[i]
+    raise AssertionError(f"no id first occurs at or after step {j} of {stream}")
+
+
+def rows_bytes(kv, start: int):
+    """The bf16 cache rows from `start` on (dim 3), as raw 16-bit words, and
+    their checksum (the words' sum)."""
+    import torch
+
+    words = kv[:, :, :, start:].contiguous().view(torch.int16)
+    return words, int(words.sum(dtype=torch.int64))
+
+
+def guarded_off_cost(engine, n: int = 2000) -> dict:
+    """One guarded-off replay of the engine's greedy step graph (its state's
+    `live` false: no lane active): the host's enqueue time a replay, the
+    device's elapsed time a replay between two events around n back-to-back
+    replays, and the device busy time a replay in a trace of n (the guard's
+    and the predicate kernel's launches), in microseconds."""
+    import torch
+
+    from llamatpu_torch.runtime.decode_graph import switches
+
+    cap = engine._graphs.graphs[(False, engine.impl, switches())]
+    st = engine._graphs.state
+    st.act.zero_()
+    st.steps.zero_()
+    torch.cuda.synchronize()
+    for _ in range(50):
+        cap.graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(n):
+        cap.graph.replay()
+    e1.record()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    dev_us = e0.elapsed_time(e1) / n * 1e3
+    tr = device_breakdown(lambda: [cap.graph.replay() for _ in range(200)])
+    assert int(st.steps) == 0, "a guarded-off replay ran the step"
+    return dict(host_us=host_us, device_elapsed_us=dev_us, device_busy_us=tr["busy_ms"] * 5,
+                kernels=[(k["name"][:60], k["count"]) for k in tr["kernels"][:6]])
+
+
+def early_exit_engine(engine, prompt: list[int], window: int = 128) -> dict:
+    """Slice 24's early exit on an Engine (the main path's): the stream of a
+    greedy window with no stop; for each of EARLY_STOPS, windows from the
+    same state (a reset and the prefill) with the stop that first occurs at
+    or after that step, from the graph and eagerly: the stream up to the
+    stop, j + 1 steps run, (j + 1) x the captured launches, the cache rows
+    from pos + j + 1 on byte-equal to theirs before the window; traced busy
+    of the first stopped window against the full one; the guarded-off
+    replay's cost; two consecutive sampled windows (0.8 / 0.95), the first
+    stopped early, graph == eager."""
+    import torch
+
+    from llamatpu_torch.runtime.decode_graph import cond_guard, switches
+
+    fns = counters()
+    pos0 = len(prompt)
+
+    def start() -> int:
+        engine.reset()
+        tok = int(engine.prefill(prompt)[0][0])
+        torch.cuda.synchronize()
+        return tok
+
+    def side_ctx(side):
+        return engine._graphs._eager_windows() if side == "eager" else contextlib.nullcontext()
+
+    tok0 = start()
+    for f in fns.values():
+        f.launches = 0
+    cond_guard.launches = 0
+    stream = engine.decode_window_run(tok0, pos0, window)
+    torch.cuda.synchronize()
+    assert len(stream) == window, f"early_exit: {len(stream)} of {window} tokens"
+    cap = engine._graphs.graphs[(False, engine.impl, switches())]
+    res = dict(window=window, replays=cond_guard.launches,
+               main_launches={k: f.launches for k, f in fns.items() if f.launches},
+               captured={k: cap.counts[f] for k, f in fns.items() if f in cap.counts},
+               capture_s=cap.seconds, pool_bytes=graph_pool_bytes(engine._graphs), stops=[])
+    assert res["replays"] == window, f"early_exit: {res['replays']} guarded replays"
+    for target in EARLY_STOPS:
+        j, stop = first_at(stream, target)
+        case = dict(target=target, j=j, stop=stop)
+        for side in ("graph", "eager"):
+            tok = start()
+            before, check0 = rows_bytes(engine.cache.kv, pos0 + j + 1)
+            before = before.clone()
+            for f in fns.values():
+                f.launches = 0
+            steps0 = engine.decode_steps
+            with side_ctx(side):
+                out = engine.decode_window_run(tok, pos0, window, stop_tokens={stop})
+            torch.cuda.synchronize()
+            after, check1 = rows_bytes(engine.cache.kv, pos0 + j + 1)
+            launches = {k: f.launches for k, f in fns.items() if f.launches}
+            steps = engine.decode_steps - steps0
+            want = {k: c * (j + 1) for k, c in res["captured"].items()}
+            assert out == stream[:j + 1], f"early_exit {side} stop at {j}: {out}"
+            assert steps == j + 1, f"early_exit {side} stop at {j}: {steps} steps run"
+            assert launches == want, f"early_exit {side} stop at {j}: {launches} != {want}"
+            assert torch.equal(before, after) and check0 == check1, \
+                f"early_exit {side} stop at {j}: cache rows past the stop changed"
+            case[side] = dict(steps=steps, launches=launches, checksum=[check0, check1])
+        res["stops"].append(case)
+    j, stop = res["stops"][0]["j"], res["stops"][0]["stop"]
+    tok = start()
+    res["full_trace"] = device_breakdown(lambda: engine.decode_window_run(tok, pos0, window))
+    tok = start()
+    res["stopped_trace"] = device_breakdown(
+        lambda: engine.decode_window_run(tok, pos0, window, stop_tokens={stop}))
+    res["guarded_off"] = guarded_off_cost(engine)
+    # the eager yardstick's check of the predicate a step: the guard and a host read
+    st = engine._graphs.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        st.guard()
+        bool(st.live)
+    res["eager_check_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    # two consecutive sampled windows, the first stopped early
+    gen = engine.generator
+    tok = start()
+    g0 = gen.get_state()
+    sampled = engine.decode_window_run(tok, pos0, window, temperature=0.8, top_p=0.95)
+    js, stop_s = first_at(sampled, 5)
+    pair = {}
+    for side in ("graph", "eager"):
+        tok = start()
+        gen.set_state(g0)
+        with side_ctx(side):
+            w1 = engine.decode_window_run(tok, pos0, window, {stop_s}, 0.8, 0.95)
+            w2 = engine.decode_window_run(w1[-1], pos0 + len(w1), 32, frozenset(), 0.8, 0.95)
+        pair[side] = [w1, w2]
+    assert pair["graph"] == pair["eager"], f"early_exit sampled: graph {pair['graph']} != " \
+                                           f"eager {pair['eager']}"
+    assert pair["graph"][0] == sampled[:js + 1] and len(pair["graph"][1]) == 32, \
+        f"early_exit sampled: {pair['graph'][0]} is not the stream up to step {js}"
+    res["sampled"] = dict(j=js, tokens=pair["graph"])
+    engine.reset()
+    full, stp, off = res["full_trace"], res["stopped_trace"], res["guarded_off"]
+    log(f"early_exit: stops at steps {[c['j'] for c in res['stops']]} of a {window}-step window: "
+        f"graph == eager == the stream's prefix, steps run = j + 1, launches = (j + 1) x "
+        f"captured {res['captured']}, cache rows past the stop byte-equal; traced busy "
+        f"{stp['busy_ms']:.3f} ms stopped at step {j} against {full['busy_ms']:.3f} ms full "
+        f"(wall {stp['wall_ms']:.3f} / {full['wall_ms']:.3f} ms); a guarded-off replay: host "
+        f"{off['host_us']:.2f} us, device elapsed {off['device_elapsed_us']:.2f} us, busy "
+        f"{off['device_busy_us']:.2f} us {off['kernels']}; eager check {res['eager_check_us']:.1f}"
+        f" us; two sampled windows (stop at {js}) graph == eager; capture "
+        f"{res['capture_s']:.3f} s, pools {res['pool_bytes']} bytes")
+    return res
+
+
+def early_exit_paged(dev, model, lanes: int = 8, window: int = 64) -> dict:
+    """An 8-lane PagedBatchEngine on the main path's weights (q8_row, cache
+    1024, window 64): a no-stop greedy window gives each lane's stream; then
+    one stop id a lane (first occurring at or after step 4 + 6 b of lane b),
+    windows from the same state from the graph and eagerly: each lane's
+    column is its stream up to its first stop (any lane's id), the window
+    ends when the last lane stops (steps run = the longest column), graph
+    slab == eager slab, launches = steps x captured."""
+    import numpy as np
+    import torch
+
+    from llamatpu_torch.runtime.decode_graph import switches
+    from llamatpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    eng = PagedBatchEngine(model, batch_size=lanes, max_len=1024, prefill_chunk=128,
+                           decode_window=window, rowq=True, device=dev)
+    rng = np.random.default_rng(24)
+    vocab = min(128000, model.cfg.vocab_size)
+    prompts = [rng.integers(0, vocab, 40 + 9 * b).tolist() for b in range(lanes)]
+    act = np.ones(lanes, bool)
+    fns = counters()
+
+    def start():
+        eng.reset()
+        toks = np.array([eng.prefill_lane(b, p) for b, p in enumerate(prompts)], np.int32)
+        return toks, np.array([len(p) for p in prompts], np.int32)
+
+    toks, pos = start()
+    slab0 = eng.decode_window_run(toks, pos, act, limit=window)
+    assert (slab0 >= 0).all(), "early_exit paged: a lane idled in the no-stop window"
+    stops = {first_at(slab0[:, b].tolist(), j)[1] for b, j in enumerate(PAGED_STOP_STEPS)}
+    want = np.full_like(slab0, -1)
+    emitted = []
+    for b in range(lanes):
+        col = slab0[:, b].tolist()
+        n = next((i + 1 for i, t in enumerate(col) if t in stops), window)
+        want[:n, b] = col[:n]
+        emitted.append(n)
+    assert len(set(emitted)) > 1, f"early_exit paged: every lane stops at {emitted}"
+    cap = eng._graphs.graphs[(False, eng.impl, switches())]
+    res = dict(lanes=lanes, window=window, emitted=emitted, steps_want=max(emitted))
+    for side in ("graph", "eager"):
+        toks, pos = start()
+        for f in fns.values():
+            f.launches = 0
+        steps0 = eng.decode_steps
+        with eng._graphs._eager_windows() if side == "eager" else contextlib.nullcontext():
+            slab = eng.decode_window_run(toks, pos, act, stops, limit=window)
+        steps = eng.decode_steps - steps0
+        launches = {k: f.launches for k, f in fns.items() if f.launches}
+        wl = {k: cap.counts[f] * steps for k, f in fns.items() if f in cap.counts}
+        assert np.array_equal(slab, want), f"early_exit paged {side}: slab != the streams cut"
+        assert steps == max(emitted), f"early_exit paged {side}: {steps} steps, {emitted}"
+        assert launches == wl and wl, f"early_exit paged {side}: {launches} != {wl}"
+        res[side] = dict(steps=steps, launches=launches)
+    log(f"early_exit paged: {lanes} lanes emit {emitted} tokens before their stops; the "
+        f"window ends after {max(emitted)} of {window} steps, graph slab == eager slab == the "
+        f"no-stop streams cut at the stops, launches = steps x captured")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_early_exit(dev, model, engine) -> dict:
+    """The early-exit phase on the main path's model and Engine (module
+    docstring), and its kernels row: cond_guard, the IF node's predicate
+    kernel (csrc/graph_cond.cu), launched once a guarded replay."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    prompt = np.random.default_rng(7).integers(0, min(128000, model.cfg.vocab_size),
+                                               128).tolist()
+    res = early_exit_engine(engine, prompt)
+    res["paged"] = early_exit_paged(dev, model)
+    off = res["guarded_off"]
+    res["row"] = dict(
+        name="cond_guard", route="cuda", source="llamatpu_torch/csrc/graph_cond.cu",
+        replaces="llamatpu/runtime/engine.py:256 (the decode while_loop's cond; no TPU kernel)",
+        launches=res["replays"], max_abs_err=max(
+            abs(c["graph"]["steps"] - c["eager"]["steps"]) for c in res["stops"]),
+        tolerance="steps run, tokens, launches and the cache rows past the stop equal the "
+                  "eager window's exactly",
+        ms=off["device_elapsed_us"] / 1e3, ms_source="one guarded-off replay of the main "
+        "path's step graph (guard + predicate kernel + IF node), CUDA events over 2000",
+        host_ms=off["host_us"] / 1e3, busy_ms=off["device_busy_us"] / 1e3,
+        plain_ms=res["eager_check_us"] / 1e3, library_ms=None,
+        library="none (torch 2.11 has no IF node; the eager check is the plain version)",
+        # the guard reads act (1 byte) and steps (4), writes live (1) and steps (4)
+        bound_ms=bound(10, 0, INT8_OPS_S)[0], bound_by="bytes",
+        shape="one guarded step of the main path's Engine (1 lane)")
+    log(f"early_exit: phase took {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def run_main_and_long_paths(dev, overrides=None) -> dict:
@@ -3057,6 +3396,7 @@ def run_main_and_long_paths(dev, overrides=None) -> dict:
         "rowq_gemv": 1 + n, "qkv_norm_fused_rowq": L * n, "layer_attn_tail_fused_rowq": L * n,
         "rowq_gemm": 4 * L}, "main")}
     out["main"]["graph"] = graph_decode(engine, "main")
+    out["early_exit"] = run_early_exit(dev, model, engine)
     out["spec"] = run_spec_paths(dev, model, engine)
     # a one-lane BatchEngine on the same weights: its positions live on the
     # device, and K3 reads them there, so it takes K3 every layer and step
@@ -3416,8 +3756,10 @@ def decode_window_trace(engine, prompt_len: int = 128, window: int = 16,
     """Traced decode window of a batched engine with every lane active after
     a `prompt_len`-token prefill, and the aggregate decode tok/s: of a
     generate_batch run of `agg_tokens` per lane (host clock), or with
-    agg_tokens=0 of the traced window itself."""
+    agg_tokens=0 of the traced window itself (of an untraced graph window
+    where the trace fell back to the eager window)."""
     import numpy as np
+    import torch
 
     rng = np.random.default_rng(5)
     b = engine.batch_size
@@ -3435,22 +3777,31 @@ def decode_window_trace(engine, prompt_len: int = 128, window: int = 16,
     for f in fns.values():
         f.launches = 0
     tr = device_breakdown(lambda: engine.decode_window_run(toks, pos, np.ones(b, bool),
-                                                          limit=window))
+                                                          limit=window),
+                          engine._graphs._eager_windows)
     tr["launches"] = {k: f.launches for k, f in fns.items()}
+    if agg is None and tr["traced"] != "as run":  # the graph window's rate, untraced
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode_window_run(toks, pos, np.ones(b, bool), limit=window)
+        torch.cuda.synchronize()
+        agg = b * window / (time.perf_counter() - t0)
     tr["agg_decode_tok_s"] = agg if agg is not None else b * window / (tr["wall_ms"] / 1e3)
     engine.reset()
     return tr
 
 
-def graph_pool_bytes(pool) -> int | None:
-    """Bytes of the device segments of a CUDA graph memory pool (the
-    allocator's snapshot), or None where the snapshot names no pools."""
+def graph_pool_bytes(graphs) -> int | None:
+    """Bytes of the device segments of an engine's decode-graph memory pools
+    (the guards' graph pool and the step bodies' pool, from the allocator's
+    snapshot), or None where the snapshot names no pools."""
     import torch
 
     segs = torch.cuda.memory_snapshot()
     if not segs or "segment_pool_id" not in segs[0]:
         return None
-    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(pool))
+    pools = {tuple(graphs.pool), tuple(graphs.body_pool.id)}
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) in pools)
 
 
 def graph_table(paths: dict) -> dict:
@@ -3541,13 +3892,15 @@ def graph_decode(engine, label: str, prompt_len: int = 128, window: int = 16,
             f"{label} {mode}: launches graph {graph_n}, eager {eager_n}, captured x {window} {want}"
         assert want, f"{label} {mode}: the captured step counted no kernel launch"
         res[mode] = dict(tokens=graph.tolist(), launches=graph_n, capture_s=cap.seconds)
-    res["pool_bytes"] = graph_pool_bytes(engine._graphs.pool)
+    res["pool_bytes"] = graph_pool_bytes(engine._graphs)
     with engine._graphs._eager_windows():
         eager_tr = device_breakdown(lambda: run(0.0))
     graph_tr = device_breakdown(lambda: run(0.0))
     for key, tr in (("eager_trace", eager_tr), ("graph_trace", graph_tr)):
         tr["tok_s"] = b * window / (tr["wall_ms"] / 1e3)
         res[key] = tr
+    if graph_tr["dropped"]:  # the profiler recorded no step body: busy not measured
+        graph_tr["busy_ms"] = graph_tr["idle_share"] = None
     pool = res["pool_bytes"]
     log(f"{label}: graph decode, {b} lane(s) x {window} steps: graph == eager (greedy and "
         f"sampled), launches {res['greedy']['launches']} = {window} x captured; capture "
@@ -3555,8 +3908,9 @@ def graph_decode(engine, label: str, prompt_len: int = 128, window: int = 16,
         f"(sampled), pool {'not measured' if pool is None else f'{pool / 1e6:.1f} MB'}")
     log(f"{label}: traced {window}-step window: eager busy {eager_tr['busy_ms']:.3f} ms idle "
         f"{eager_tr['idle_share']:.3f} {eager_tr['tok_s']:.1f} tok/s | graph busy "
-        f"{graph_tr['busy_ms']:.3f} ms idle {graph_tr['idle_share']:.3f} "
-        f"{graph_tr['tok_s']:.1f} tok/s")
+        + (f"{graph_tr['busy_ms']:.3f} ms idle {graph_tr['idle_share']:.3f} "
+           if graph_tr["busy_ms"] is not None else "not measured (records dropped) ")
+        + f"{graph_tr['tok_s']:.1f} tok/s")
     engine.reset()
     return res
 
@@ -6554,6 +6908,7 @@ def main() -> int:
                     f"window, {r['phi3_in_path_ms']:.5f} ms in Phi-3-medium's at one lane")
             if r["name"] == "layer_tail_fused_rowq":  # K3's tail at T = 1, beside K9's
                 r["k3_in_path_ms"] = in_path_ms(paths, "layer_attn_tail_fused_rowq")
+        rows.append(paths["early_exit"].pop("row"))  # slice 24's IF-node predicate kernel
         summary["cpu"] = run_cpu_compare(dev, workdir)
         summary["graph_decode"] = graph_table(paths)
     finally:

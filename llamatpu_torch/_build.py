@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("quant_matmul", "layer_fused", "ffn_fused", "gemm", "block_matmul", "attention",
-           "moe_grouped", "probes", "int8_matmul")
+           "moe_grouped", "probes", "int8_matmul", "graph_cond")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,6 +74,10 @@ _SIGNATURES = {
     },
     "int8_matmul": {
         "lt_int8_dot": (_P, _I, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _P),
+    },
+    "graph_cond": {
+        "lt_cond_begin": (_P, _P, _P),
+        "lt_cond_end": (_P,),
     },
 }
 

@@ -13,11 +13,13 @@ output; the row's point is the verify forward's cost beside a plain step's.
 
 One JSON row a run: decode tok/s (host clock, after a warm-up window, the
 engine's decode steps replayed as CUDA graphs on the card), tokens, and
-for K > 0 spec_accept_rate, spec_forwards, the rounds and parked forwards;
-the launches of every kernel wrapper over the timed run (prefill and
-decode; none on the CPU, where the plain versions run), the prefill chunks
-and the forwards run; the card's name and power limit (or "cpu"). Without
---device it needs the card.
+for K > 0 spec_accept_rate and spec_forwards; the launches of every kernel
+wrapper over the timed run (prefill and decode; none on the CPU, where the
+plain versions run), the prefill chunks, the forwards run (each window
+ends at its stop or budget, so these are the forwards the tokens needed),
+the decode windows and the host reads of the decode state (one a window);
+the card's name and power limit (or "cpu"). Without --device it needs the
+card.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ def timed_run(engine, prompt: list[int], tg: int) -> dict:
     """A warm-up window, a reset, then prefill and greedy decode windows up
     to tg tokens; the kernel wrappers' launches and the engine's spec
     telemetry count the timed part only: (tokens, seconds, launches, decode
-    steps, prefill chunks)."""
+    steps, prefill chunks, decode windows, host reads of the verify state)."""
     from llamatpu_torch.runtime.decode_graph import launch_counters
 
     tok, _ = engine.prefill(prompt, 0)
@@ -56,13 +58,15 @@ def timed_run(engine, prompt: list[int], tg: int) -> dict:
         f.launches = 0
     for key in ("spec_emitted", "spec_forwards", "spec_accept_rate"):
         engine.metrics.extra.pop(key, None)
-    engine.spec_rounds = engine.spec_parked = 0
+    engine.spec_reads = 0
     steps0 = engine.decode_steps
+    windows = 0
     t0 = time.perf_counter()
     tok, _ = engine.prefill(prompt, 0)
     cur, pos, out = int(tok[0]), len(prompt), []
     while len(out) < tg:
         w = engine.decode_window_run(cur, pos, tg - len(out))
+        windows += 1
         if not w:
             break
         out += w
@@ -71,7 +75,8 @@ def timed_run(engine, prompt: list[int], tg: int) -> dict:
     return dict(tokens=out, seconds=seconds,
                 launches={f.__name__: f.launches for f in fns if f.launches},
                 steps=engine.decode_steps - steps0,
-                chunks=-(-len(prompt) // engine.prefill_chunk))
+                chunks=-(-len(prompt) // engine.prefill_chunk), windows=windows,
+                reads=engine.spec_reads if engine.spec_k else windows)
 
 
 def bench_rows(model, k: int = 8, device=None, label: str = "") -> list[dict]:
@@ -88,12 +93,12 @@ def bench_rows(model, k: int = 8, device=None, label: str = "") -> list[dict]:
         row = {"bench": "spec-decode", "model": label, "K": spec,
                "decode_tok_s": len(r["tokens"]) / r["seconds"], "tg": len(r["tokens"]),
                "seconds": r["seconds"], "launches": r["launches"], "forwards_run": r["steps"],
-               "prefill_chunks": r["chunks"], "tokens": r["tokens"]}
+               "prefill_chunks": r["chunks"], "windows": r["windows"],
+               "host_reads": r["reads"], "tokens": r["tokens"]}
         if spec:
             ex = eng.metrics.extra
             row.update(spec_accept_rate=ex.get("spec_accept_rate"),
-                       spec_forwards=ex.get("spec_forwards"), rounds=eng.spec_rounds,
-                       parked=eng.spec_parked)
+                       spec_forwards=ex.get("spec_forwards"))
         rows.append(row)
         del eng
     return rows

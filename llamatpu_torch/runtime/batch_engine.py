@@ -8,7 +8,7 @@ Per-lane semantics:
 - prefill: a lane's prompt runs as a [1, T] window written straight into
   cache row `lane` (`forward_tokens(..., batch_offset=lane)`), in chunks of
   `prefill_chunk`, the final partial chunk padded as `Engine` does;
-- decode window: `limit` steps for all lanes, each lane at its own position
+- decode window: up to `limit` steps for all lanes, each lane at its own position
   (a [B] vector on the device), sampling (temperature 0 = argmax) and the
   stop check on the device, ONE device-to-host copy of the [W, B] token slab
   per window (-1 marks a lane inactive at that step);
@@ -19,10 +19,11 @@ Per-lane semantics:
 
 A window is one step over static state (runtime/decode_graph.py), run
 eagerly on the CPU and replayed as a captured CUDA graph on the card, one
-graph per sampling mode (all lanes greedy, or any lane sampled). The JAX
-package's device loop (`lax.while_loop`) exits early once every lane has
-stopped; a window here runs all `limit` steps with the stopped lanes parked,
-and the slab is the same. `reset()` zeroes the cache in place.
+graph per sampling mode (all lanes greedy, or any lane sampled). Each step
+is guarded by "any lane active", the JAX `while_loop`'s `cond`: the window
+ends once every lane has stopped (a window that starts with no lane active
+runs no step), and `decode_steps` counts the steps run. `reset()` zeroes the
+cache in place.
 """
 from __future__ import annotations
 
@@ -216,7 +217,7 @@ class BatchEngine:
                           limit: int | None = None) -> np.ndarray:
         """One batched decode window. tokens/pos/active: [B] host arrays.
         Returns the [decode_window, B] int32 token slab (-1 = lane inactive
-        at that step); the caller derives each lane's new tokens and position
+        at that step, and every row after the window ended); the caller derives each lane's new tokens and position
         from it."""
         limit = max(0, self.decode_window if limit is None else min(limit, self.decode_window))
         temps, topps, sampled = window_inputs(self, temps, topps)
@@ -226,8 +227,10 @@ class BatchEngine:
                                   st.act.zero_, self.generator, self.impl)
         st.fill(tokens, pos, active, temps, topps, stop_ids(stop_tokens))
         run(limit)
-        self.decode_steps += limit
-        return st.out.cpu().numpy()  # the window's one device-to-host copy
+        slab, steps = st.host()  # the window's one device-to-host copy
+        run.done(steps)
+        self.decode_steps += steps
+        return slab.numpy()
 
     def generate_batch(self, prompts, max_new_tokens, stop_tokens=frozenset(), temps=None,
                        topps=None):

@@ -1,18 +1,27 @@
 """The device-side decode window of the port: one decode step written over
-static state, run `limit` times per window.
+static state, guarded by the window's condition and run up to `limit` times
+per window.
 
 The JAX package runs a window as one device program, a `lax.while_loop`
 over the step (llamatpu/runtime/engine.py:252-273, batch_engine.py:106-138,
 paged_engine.py:103-132), built ahead of time by `Engine._aot_compile`
-(engine.py:294-318). Here a window is the same step body over tensors that
-keep their addresses from window to window (`StepState`):
-- on the CPU the engine runs the body eagerly `limit` times;
-- on CUDA the body is captured once as a `torch.cuda.CUDAGraph` and the graph
-  is replayed `limit` times, so the host enqueues one launch a step instead
-  of every op of every layer.
+(engine.py:294-318); its `cond` ends the window at a stop. Here a window is
+the same step body over tensors that keep their addresses from window to
+window (`StepState`, `SpecState`), and each step is guarded by the state's
+`live` predicate, the JAX `cond`: `guard()` sets `live` from the state and
+adds it to `steps`, the count of steps run, and the body runs only while
+`live` holds:
+- on the CPU the engine runs guard and body eagerly, reading `live` on the
+  host before each body, and stops when it turns false;
+- on CUDA guard and body are captured once as a `torch.cuda.CUDAGraph`: the
+  guard, then a conditional IF node on `live` (csrc/graph_cond.cu) whose body
+  graph is the step. The host enqueues `limit` replays; a replay after `live`
+  turned false runs only the guard and the node. So the window ends where
+  the JAX loop ends it, and no step after a stop writes the cache.
 The engine fills the state with `copy_` / `fill_` before the replays and
-reads the window's output with one device-to-host copy after them. There is
-no eager fallback on CUDA: a failed capture or replay raises.
+reads the window's output and `steps` with one device-to-host copy after
+them, then calls the runner's `done(steps)`. There is no eager fallback on
+CUDA and no unguarded replay: a failed capture or replay raises.
 
 A graph bakes in what its capture saw, so `StepGraphs` keys it by:
 - the geometry: the cache tensors' addresses, shapes and dtypes and the
@@ -25,33 +34,37 @@ A graph bakes in what its capture saw, so `StepGraphs` keys it by:
   in one mode never replays in the other;
 - the call-time switches the forward reads (`switches`).
 
-Capture: the step first runs once eagerly on the engine's own side stream,
-from a parked state (every write lands in a row or block no query reads), so
-the kernels are built and their setups, plans and workspaces exist (the stripe
-kernels' arrival counters, `ops/attention._arrived`, are keyed by that
-stream). Then the step is captured from the parked state again, on that
-stream, with `capture_error_mode="thread_local"` (the scheduler decodes from
-its own thread), the engine's generator registered with the graph so every
-replay draws new numbers, into a memory pool the engine's graphs share and
-free with it. The generator's state is put back after the warm-up and after
-the capture: a window from the graph draws what an eager window from the
-same state draws. The cyclic garbage collector (process-wide) is off while
-a step is captured: an engine left in a reference cycle (a service, a
-thread) is freed by the collector, and a graph destroyed during a capture
-invalidates that capture.
+Capture: the step first runs once eagerly on the stream its body is captured
+on, from a parked state (every write lands in a row or block no query reads,
+or is put back), so the kernels are built and their setups, plans and
+workspaces exist (the stripe kernels' arrival counters, `ops/attention.
+_arrived`, are keyed by that stream). Then the guard is captured on the
+engine's side stream and the body, from the parked state again, on the body
+stream into the IF node's body graph, with `capture_error_mode=
+"thread_local"` (the scheduler decodes from its own thread) and the engine's
+generator registered with the graph so every replay draws new numbers. The
+guard's temporaries go to a memory pool the engine's graphs share, the
+body's to a second pool (`torch.cuda.MemPool`) that every graph captured
+into it keeps alive. The whole body is under the node. The generator's
+state is put back after the warm-up and after the capture. Every replay
+advances the generator by the capture's whole increment, guarded off or
+not; `done(steps)` sets it to its value before the window plus `steps`
+increments, so a window from the graph draws what an eager window from the
+same state draws, and so does the next window. The cyclic garbage collector
+(process-wide) is off while a step is captured: an engine left in a
+reference cycle (a service, a thread) is freed by the collector, and a
+graph destroyed during a capture invalidates that capture.
 
 Launch counts: the wrappers count on the host, which a replay does not run.
 The counts a capture made are recorded and every counter is put back to its
-value before the warm-up; each replay then adds the recorded counts, so a
-window of n steps counts n times one step's launches, as an eager window
-does.
-
-Known difference: the JAX loop ends at a stop token (`cond`); a window here
-runs all `limit` steps, stopped lanes parked, and returns the same tokens.
+value before the warm-up; `done(steps)` then adds `steps` times the recorded
+counts, so a window counts what an eager window of the same steps counts.
+`cond_guard`, the node's predicate kernel, counts every replay it runs in.
 
 The speculative verify step (Engine with spec_decode=K) is keyed by K too
-and runs over `SpecState`; the engine replays it in rounds and reads the
-state between them (runtime/engine.py), its forwards after `done` parked.
+and runs over `SpecState`: its `live` is `~done`, and `done` folds in the
+budget and the cache's end, so `limit` guarded replays always suffice (a
+live forward emits at least one token) and a window takes one host read.
 """
 from __future__ import annotations
 
@@ -60,7 +73,7 @@ import gc
 import os
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -93,10 +106,11 @@ def tensors_key(*tensors) -> tuple:
 
 class StepState:
     """The static tensors of a decode step, on the engine's device: the
-    tokens [B] and positions [B] int32, the active lanes [B], per-lane
-    temperature and top-p [B], the stop ids padded with -1 (STOPS), the step
-    index, the [W, B] output slab (-1 = no token), and the tokens counted
-    up to the first stop and whether one was hit (Engine's window). The
+    tokens [B] and positions [B] int32, the active lanes [B] (Engine's one
+    lane turns inactive at a stop), per-lane temperature and top-p [B], the
+    stop ids padded with -1 (STOPS), the step index, the [W, B] output slab
+    (-1 = no token), the window's predicate `live` (0-d bool: any lane
+    active, the JAX batch loop's `cond`) and the steps run [1] int32. The
     paged engine adds its block tables."""
 
     STOPS = 8
@@ -113,12 +127,12 @@ class StepState:
         self.stops = torch.full((self.STOPS,), -1, dtype=i32, device=device)
         self.step = torch.zeros(1, dtype=torch.long, device=device)
         self.out = torch.full((window, batch), -1, dtype=i32, device=device)
-        self.count = torch.zeros(1, dtype=i32, device=device)
-        self.done = torch.zeros(1, dtype=torch.bool, device=device)
+        self.live = torch.zeros((), dtype=torch.bool, device=device)
+        self.steps = torch.zeros(1, dtype=i32, device=device)
 
     def fill(self, tokens, pos, active, temps, topps, stop_ids) -> None:
         """A window's inputs from the host (copies into the static tensors),
-        and a fresh step index and slab."""
+        and a fresh step index, slab and step count."""
         self.tok.copy_(torch.as_tensor(tokens, dtype=torch.int32).reshape(self.batch))
         self.pos.copy_(torch.as_tensor(pos, dtype=torch.int32).reshape(self.batch))
         self.act.copy_(torch.as_tensor(active, dtype=torch.bool).reshape(self.batch))
@@ -127,8 +141,12 @@ class StepState:
         self.stops.copy_(stop_ids)
         self.step.zero_()
         self.out.fill_(-1)
-        self.count.zero_()
-        self.done.zero_()
+        self.steps.zero_()
+
+    def guard(self) -> None:
+        """live = any lane active; steps += live (on the device)."""
+        torch.any(self.act, out=self.live)
+        self.steps += self.live
 
     def record(self, ids: torch.Tensor) -> None:
         """out[step] = ids [B], then the step index advances (on the device)."""
@@ -139,15 +157,21 @@ class StepState:
         """Before a capture's warm-up: out[0] for the step index."""
         self.step.zero_()
 
+    def host(self) -> tuple[torch.Tensor, int]:
+        """The slab [W, B] and the steps run, in one device-to-host copy."""
+        flat = torch.cat([self.out.view(-1), self.steps]).cpu()
+        return flat[:-1].view(self.window, self.batch), int(flat[-1])
+
 
 class SpecState:
     """The static tensors of a speculative verify step (one sequence, K
     drafts, the JAX `spec_decode_n_fn` loop's carry): the token and position
     [1] int32, temperature and top-p [1], the stop ids (StepState.STOPS),
     the window's budget `limit` and its emitted count `cnt`, the verify
-    forwards run `nfwd`, `done` (a stop emitted, the cache's end or the
-    budget reached: every later forward is parked), and the [W + K] output
-    slab (-1 = no token), as the JAX `out`."""
+    forwards run `steps` (the JAX `nfwd`), `done` (a stop emitted, the
+    cache's end or the budget reached), the predicate `live` (0-d bool,
+    ~done: the JAX loop's `cond`, whose `cnt < limit` `done` folds in), and
+    the [W + K] output slab (-1 = no token), as the JAX `out`."""
 
     batch = 1
 
@@ -161,8 +185,9 @@ class SpecState:
         self.stops = torch.full((StepState.STOPS,), -1, dtype=i32, device=device)
         self.limit = torch.zeros(1, dtype=i32, device=device)
         self.cnt = torch.zeros(1, dtype=i32, device=device)
-        self.nfwd = torch.zeros(1, dtype=i32, device=device)
+        self.steps = torch.zeros(1, dtype=i32, device=device)
         self.done = torch.zeros(1, dtype=torch.bool, device=device)
+        self.live = torch.zeros((), dtype=torch.bool, device=device)
         self.out = torch.full((window + spec,), -1, dtype=i32, device=device)
 
     def fill(self, token: int, pos: int, temp: float, top_p: float, stop_ids,
@@ -175,18 +200,22 @@ class SpecState:
         self.stops.copy_(stop_ids)
         self.limit.fill_(limit)
         self.cnt.zero_()
-        self.nfwd.zero_()
+        self.steps.zero_()
         self.done.zero_()
         self.out.fill_(-1)
 
+    def guard(self) -> None:
+        """live = not done; steps += live (on the device)."""
+        torch.logical_not(self.done.view(()), out=self.live)
+        self.steps += self.live
+
     def rewind(self) -> None:
-        """Before a capture's warm-up: a parked step, which writes no state."""
-        self.cnt.zero_()
-        self.done.fill_(True)
+        """Before a capture's warm-up: nothing to rewind (the step clamps
+        every slot and row it writes)."""
 
     def host(self) -> list[int]:
-        """The slab, cnt, nfwd and done in one device-to-host copy."""
-        return torch.cat([self.out, self.cnt, self.nfwd, self.done.to(torch.int32)]).tolist()
+        """The slab, cnt, steps and done in one device-to-host copy."""
+        return torch.cat([self.out, self.cnt, self.steps, self.done.to(torch.int32)]).tolist()
 
 
 def zeroed_cache(cache, rows: int, dtype, new, graphs: "StepGraphs"):
@@ -209,38 +238,96 @@ def stop_ids(stop_tokens, pad_to: int = StepState.STOPS) -> torch.Tensor:
     return torch.tensor(stops + [-1] * (pad_to - len(stops)), dtype=torch.int32)
 
 
-@dataclass
-class Captured:
-    """One captured step and the launches its capture counted."""
-    graph: object
-    counts: dict
-    seconds: float
+def cond_guard(capture_stream, body_stream, pred: torch.Tensor) -> None:
+    """While `capture_stream` is captured: capture the IF node on `pred` (a
+    0-d CUDA bool) there and start capturing `body_stream` into its body
+    (csrc/graph_cond.cu); `cond_end` ends the body. Counts one launch of its
+    predicate kernel a call; a captured step's replays add theirs."""
+    from llamatpu_torch import _build
+
+    lib = _build.load("graph_cond")
+    _build.check(lib, lib.lt_cond_begin(capture_stream.cuda_stream, body_stream.cuda_stream,
+                                        pred.data_ptr()), "cond_guard")
+    cond_guard.launches += 1
+
+
+cond_guard.launches = 0
+
+
+def cond_end(body_stream) -> None:
+    from llamatpu_torch import _build
+
+    lib = _build.load("graph_cond")
+    _build.check(lib, lib.lt_cond_end(body_stream.cuda_stream), "cond_end")
+
+
+class Eager:
+    """A window's steps run eagerly: before each body the guard, and a host
+    read of `live`, which ends the window once it is false."""
+
+    def __init__(self, state, step):
+        self.state, self.step = state, step
 
     def __call__(self, n: int) -> None:
         for _ in range(n):
+            self.state.guard()
+            if not bool(self.state.live):
+                break
+            self.step()
+
+    def done(self, steps: int) -> None:
+        """The wrappers counted their launches as they ran."""
+
+
+@dataclass
+class Captured:
+    """One captured guarded step, the launches its body's capture counted,
+    the engine's generator (None: not registered) and the body's memory
+    pool, which lives as long as the graph."""
+    graph: object
+    counts: dict
+    seconds: float
+    generator: object = None
+    pool: object = None
+    _start: tuple = field(default=(0, None), init=False, repr=False)  # (n, offset)
+
+    def __call__(self, n: int) -> None:
+        """Enqueue n guarded replays."""
+        self._start = (n, None if self.generator is None else self.generator.get_offset())
+        for _ in range(n):
             self.graph.replay()
+        cond_guard.launches += n
+
+    def done(self, steps: int) -> None:
+        """After the window's read: credit `steps` steps' launches, and set
+        the generator to where `steps` eager steps would have left it (each
+        replay advanced it by one step's increment)."""
         for f, c in self.counts.items():
-            f.launches += c * n
+            f.launches += c * steps
+        n, start = self._start
+        if start is not None and n:
+            step_inc = (self.generator.get_offset() - start) // n
+            self.generator.set_offset(start + steps * step_inc)
 
 
 class StepGraphs:
-    """One engine's decode windows: eager steps on the CPU, replays of a
-    captured step on CUDA (module docstring). Owned by the engine: its
-    graphs and their memory pool are freed with it."""
+    """One engine's decode windows: guarded eager steps on the CPU, guarded
+    replays of a captured step on CUDA (module docstring). Owned by the
+    engine: its graphs and their memory pools are freed with it."""
 
     def __init__(self, device: torch.device, metrics=None):
         self.device = device
         self.metrics = metrics
         self.graphs: dict = {}
         self.geometry = None
-        self.pool = None
-        self.stream = None
+        self.pool = self.body_pool = None
+        self.stream = self.body_stream = None
         self.state: StepState | None = None
         self._eager = False
 
     def clear(self) -> None:
         self.graphs.clear()
-        self.geometry = self.pool = None
+        self.geometry = self.pool = self.body_pool = None
 
     def state_for(self, batch: int, window: int, spec: int = 0):
         """The static state for B lanes and a window of W steps (with
@@ -264,17 +351,16 @@ class StepGraphs:
             self._eager = False
 
     def runner(self, geometry, sampled: bool, step, park, generator=None, impl: str = "auto"):
-        """A callable running `step` n times: eagerly on the CPU; on CUDA the
-        replays of the graph for (geometry, the state's draft length K,
-        sampled, impl, switches), captured now if there is none (`park` puts the
-        state where the warm-up step writes only rows or blocks no query
-        reads). Fill the state after this call: the capture's warm-up step
-        runs on it."""
+        """The window's runner: `run(n)` runs up to n guarded steps, and
+        `run.done(steps)` follows the window's read. Eager on the CPU; on CUDA
+        the replays of the graph for (geometry, the state's draft length K,
+        sampled, impl, switches), captured now if there is none (`park` puts
+        the state where the warm-up step writes only rows or blocks no query
+        reads, and may return a callable that puts back what it did write).
+        Fill the state after this call: the capture's warm-up step runs on
+        it."""
         if self.device.type != "cuda" or self._eager:
-            def eager(n: int) -> None:
-                for _ in range(n):
-                    step()
-            return eager
+            return Eager(self.state, step)
         if geometry != self.geometry:
             self.clear()
             self.geometry = geometry
@@ -286,31 +372,37 @@ class StepGraphs:
         return captured
 
     def capture(self, step, park, generator=None) -> Captured:
-        dev = self.device
+        dev, st = self.device, self.state
         counters = launch_counters()
         before = [f.launches for f in counters]
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)
+            self.body_stream = torch.cuda.Stream(dev)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
+            self.body_pool = torch.cuda.MemPool()
         t0 = time.perf_counter()
         gen_state = None if generator is None else generator.get_state()
 
         def parked():  # the state's rewind, the engine's park for the rest
-            self.state.rewind()
-            park()
-        parked()
-        side, main = self.stream, torch.cuda.current_stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):  # warm-up: kernels, setups, workspaces
+            st.rewind()
+            return park()
+        side, body, main = self.stream, self.body_stream, torch.cuda.current_stream(dev)
+        undo = parked()
+        body.wait_stream(main)
+        with torch.cuda.stream(body):  # warm-up: kernels, setups, workspaces
+            st.guard()
             step()
-        main.wait_stream(side)
+        main.wait_stream(body)
+        if callable(undo):
+            undo()
         warm = [f.launches for f in counters]
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             generator.set_state(gen_state)
             graph.register_generator_state(generator)
         parked()
+        side.wait_stream(main)
         # no cyclic collection mid-capture: it may free another engine's
         # graph, and destroying a graph invalidates the capture
         collecting = gc.isenabled()
@@ -318,17 +410,24 @@ class StepGraphs:
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                   capture_error_mode="thread_local"):
-                step()
+                st.guard()
+                cond_guard(side, body, st.live)
+                try:
+                    with torch.cuda.stream(body), torch.cuda.use_mem_pool(self.body_pool):
+                        step()
+                finally:
+                    cond_end(body)
         finally:
             if collecting:
                 gc.enable()
         if generator is not None:
             generator.set_state(gen_state)
-        counts = {f: f.launches - w for f, w in zip(counters, warm) if f.launches != w}
+        counts = {f: f.launches - w for f, w in zip(counters, warm)
+                  if f.launches != w and f is not cond_guard}
         for f, b in zip(counters, before):
             f.launches = b
         torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
         if self.metrics is not None:
             self.metrics.compile_s += seconds
-        return Captured(graph, counts, seconds)
+        return Captured(graph, counts, seconds, generator, self.body_pool)

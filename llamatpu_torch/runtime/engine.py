@@ -14,17 +14,17 @@ The port of llamatpu/runtime/engine.py `Engine`:
   `_resolve_sampling` does in the JAX package;
 - the KV cache is updated IN PLACE (the JAX package donated it).
 
-A decode window is one step over static state (runtime/decode_graph.py):
-run eagerly `limit` times on the CPU, captured once as a CUDA graph and
-replayed `limit` times on the card. With `aot_compile` (the default, as in
-the JAX package) the default sampling mode's step is captured at
-construction and its time recorded in `metrics.compile_s`. A window runs all
-its steps: a stop token does not end it early (the JAX `while_loop` does),
-and the steps after it write cache rows past the returned length
-(overwritten before they are attended, as with padded prefill rows).
-`reset()` zeroes the cache in place, so the captured addresses stay valid;
-a new geometry (`cache_len`, `prefill_chunk`, `cache_dtype` changed) gets a
-new cache and new graphs.
+A decode window is one step over static state (runtime/decode_graph.py),
+guarded by the window's condition as the JAX `while_loop`'s `cond` guards
+it: run eagerly up to `limit` times on the CPU, captured once as a CUDA
+graph whose step sits under a conditional node and replayed up to `limit`
+times on the card. A window ends at a stop token: no step after it runs, so
+no cache row past the returned length is written, and `decode_steps` counts
+the steps run. With `aot_compile` (the default, as in the JAX package) the
+default sampling mode's step is captured at construction and its time
+recorded in `metrics.compile_s`. `reset()` zeroes the cache in place, so the
+captured addresses stay valid; a new geometry (`cache_len`,
+`prefill_chunk`, `cache_dtype` changed) gets a new cache and new graphs.
 
 Prompt-lookup speculative decoding (`spec_decode=K`, the JAX `spec_decode_
 n_fn`): the engine keeps the token-id history [1, physical_len] on the
@@ -33,13 +33,13 @@ zeroes it in place, reseed() keeps it). A decode step is then one verify
 forward of K + 1 rows: K drafts from the last bigram's latest earlier
 continuation in the history, verified greedily (the accepted argmax
 prefix) or by rejection sampling (`sampling.spec_verify_sample`), emitting
-up to K + 1 tokens. How many forwards a window needs depends on the data,
-which a graph cannot branch on, so a window replays the step in rounds:
-`_spec_round` forwards, then one small copy of the state to the host; a
-forward after the window is done is parked and changes nothing but cache
-rows at or past its position. Greedy spec output is the plain greedy
-stream wherever the forward is batch-invariant (f32 here; under bf16 on
-the card, argmax near-ties may part, as the JAX package notes).
+up to K + 1 tokens. A window is `limit` guarded replays of the verify step
+(a live forward emits at least one token, so they always suffice) and one
+small copy of the state to the host; a forward after the window is done
+does not run, and writes nothing, as in the JAX loop. Greedy spec output is
+the plain greedy stream wherever the forward is batch-invariant (f32 here;
+under bf16 on the card, argmax near-ties may part, as the JAX package
+notes).
 
 `impl` ("auto": the port's kernels; "int8": the exact int8 mode,
 models/transformer.py) reaches every forward: prefill chunks, the decode
@@ -47,7 +47,6 @@ step and the verify forward (at K + 1 <= 16 rows it takes the int8 dot).
 """
 from __future__ import annotations
 
-import math
 import time
 from dataclasses import dataclass
 
@@ -114,8 +113,7 @@ class Engine:
         # prompt-lookup speculative decoding: K drafts a verify forward (0 = off)
         self.spec_k = max(0, int(spec_decode))
         self._ids = None  # [1, physical_len] int32 token-id history on the device (spec)
-        self.spec_rounds = self.spec_parked = 0  # verify rounds and parked forwards run
-        self._spec_tally = [0, 0]  # tokens emitted and verify forwards: the round plan's mean
+        self.spec_reads = 0  # host reads of the verify state: one a window
         with Timer() as t:
             self.weights = serving_weights(self.cfg, model.weights, rowq=rowq,
                                            rowq_experts=rowq_experts, device=self.device)
@@ -123,7 +121,7 @@ class Engine:
                 torch.cuda.synchronize(self.device)
         self.metrics.weight_upload_s = t.elapsed
         self.cache = self._new_cache()
-        self.decode_steps = 0  # device decode steps (verify forwards) run
+        self.decode_steps = 0  # decode steps (verify forwards) run on the device
         self._graphs = StepGraphs(self.device, self.metrics)
         if aot_compile and self.device.type == "cuda":
             # the default mode's decode step, captured ahead of the first window
@@ -193,15 +191,15 @@ class Engine:
     def _step(self, sampled: bool) -> None:
         """One decode step over the static state: the forward at the device
         position, the sample (greedy, or a draw with the state's temperature
-        and top-p), out[step], the count of tokens up to the first stop, and
-        the next token and position. No host value is read."""
+        and top-p), out[step], the lane's `act` cleared at a stop (the
+        state's `live`, the JAX `cond`, is then false), and the next token
+        and position. No host value is read."""
         st = self._graphs.state
         logits, _ = forward_tokens(self.cfg, self.weights, st.tok.view(1, 1), self.cache, st.pos,
                                    last_logit_only=True, s_limit=self.cache_len, impl=self.impl)
         nxt = sampling.sample_lanes(logits, st.temps, st.topps, self.generator, sampled)
         st.record(nxt)
-        st.count += (~st.done).to(torch.int32)
-        st.done |= sampling.is_stop(nxt, st.stops)
+        st.act &= ~sampling.is_stop(nxt, st.stops)
         st.tok.copy_(nxt)
         st.pos += 1
 
@@ -211,13 +209,12 @@ class Engine:
         the last bigram's latest earlier continuation in the id history,
         verify [tok, drafts] in one forward of K + 1 rows, emit the accepted
         prefix and one token, clipped at a stop, the budget and the cache's
-        end. Once `done`, the forward is parked: ids, tok, pos, cnt, nfwd and
-        out keep their values (its cache rows land at or past pos, where a
-        later forward writes before it attends). Starts of K + 1 row writes
-        and reads clamp as XLA's dynamic slices do."""
+        end. The state's guard runs it only while not `done`, as the JAX
+        loop's `cond` does. Starts of K + 1 row writes and reads clamp as
+        XLA's dynamic slices do (so does the emitted count's last index: a
+        capture's warm-up may find the budget spent)."""
         st, ids, k = self._graphs.state, self._ids[0], self.spec_k
         dev, s_phys = ids.device, ids.shape[0]
-        live = ~st.done
         pos = st.pos.long()
         a = ids.index_select(0, (pos - 1).clamp(min=0))
         iota = torch.arange(s_phys - 1, device=dev)
@@ -228,7 +225,7 @@ class Engine:
         drafts = torch.where(jstar >= 0, drafts, st.tok)
         w = torch.cat([st.tok, drafts])                               # [K + 1]
         rows = torch.clamp(pos, 0, s_phys - k - 1) + torch.arange(k + 1, device=dev)
-        ids.index_copy_(0, rows, torch.where(live, w, ids.index_select(0, rows)))
+        ids.index_copy_(0, rows, w)
         logits, _ = forward_tokens(self.cfg, self.weights, w.view(1, k + 1), self.cache, st.pos,
                                    s_limit=self.cache_len, impl=self.impl)
         if sampled:
@@ -244,22 +241,27 @@ class Engine:
         e = torch.minimum(e, torch.clamp(self.cache_len - 1 - st.pos, min=1))
         hit_stop = (stop_at <= m) & (stop_at + 1 <= e)
         slots = torch.clamp(st.cnt.long(), 0, st.window - 1) + idxs
-        st.out.index_copy_(0, slots, torch.where(live, cand, st.out.index_select(0, slots)))
-        e = torch.where(live, e, 0).to(torch.int32)
-        st.tok.copy_(torch.where(live, cand.index_select(0, (e - 1).clamp(min=0).long()), st.tok))
+        st.out.index_copy_(0, slots, cand)
+        e = e.to(torch.int32)
+        st.tok.copy_(cand.index_select(0, (e - 1).clamp(min=0).long()))
         st.pos += e
         st.cnt += e
-        st.nfwd += live.to(torch.int32)
         st.done |= hit_stop | (st.pos + 1 >= self.cache_len) | (st.cnt >= st.limit)
 
-    def _park(self, pos: int) -> None:
+    def _park(self, pos: int):
         """The warm-up step's state. The plain step: the last physical row,
         which no query attends (the cache's slack past cache_len). The
-        verify step: parked (the state's rewind) at the window's position,
-        where its cache rows are those the window's first forward rewrites."""
+        verify step: the window's position, where its cache rows are those
+        the window's first forward rewrites; it returns the putting back of
+        the id history, which the warm-up writes and the first forward's
+        drafts read."""
         st = self._graphs.state
         st.pos.fill_(pos if self.spec_k else self.cache.kv.shape[3] - 1)
         st.tok.zero_()
+        if self.spec_k:
+            saved = self._ids.clone()
+            return lambda: self._ids.copy_(saved)
+        return None
 
     def _window(self, sampled: bool, pos: int = 0):
         """The runner of this window's steps (runtime/decode_graph.py),
@@ -274,8 +276,8 @@ class Engine:
     def decode_window_run(self, token: int, pos: int, limit: int,
                           stop_tokens=frozenset(), temperature=None, top_p=None) -> list[int]:
         """One decode window: up to `limit` (<= decode_window) tokens after
-        `token` at position `pos`. Returns the generated ids, the stop token
-        included if one was hit."""
+        `token` at position `pos`, ending at a stop. Returns the generated
+        ids, the stop token included if one was hit."""
         temp, top_p = self._resolve_sampling(temperature, top_p)
         limit = min(limit, self.decode_window, self.cache_len - pos - 1)
         if limit <= 0:
@@ -286,44 +288,27 @@ class Engine:
             return self._spec_window(run, token, pos, limit, stop_tokens, temp, top_p)
         st.fill([token], [pos], [True], [temp], [top_p], stop_ids(stop_tokens))
         run(limit)
-        self.decode_steps += limit
-        host = torch.cat([st.out[:, 0], st.count]).cpu().tolist()  # the one device-to-host copy
-        return host[:host[-1]]
-
-    def _spec_round(self, remaining: int, emitted: int, forwards: int) -> int:
-        """Verify forwards to replay before the next read of the state: the
-        budget left over one plus the mean accepted drafts a forward of the
-        engine so far (emitted tokens over forwards, K before the first), so
-        a window takes about one round at any acceptance and never replays
-        more than it can still need."""
-        a = emitted / forwards - 1.0 if forwards else self.spec_k
-        return max(1, min(remaining, math.ceil(remaining / (1.0 + a))))
+        out, steps = st.host()  # the one device-to-host copy
+        run.done(steps)
+        self.decode_steps += steps
+        return out[:steps, 0].tolist()
 
     def _spec_window(self, run, token: int, pos: int, limit: int, stop_tokens, temp: float,
                      top_p: float) -> list[int]:
-        """A speculative window in rounds: each replays `_spec_round`
-        forwards (a forward after `done` is parked), then reads the state in
-        one device-to-host copy; the last round's copy holds the tokens.
-        The JAX loop runs forwards while cnt < limit and not done."""
+        """A speculative window: `limit` guarded verify forwards (the JAX
+        loop runs them while cnt < limit and not done), then one
+        device-to-host copy of the state, which holds the tokens."""
         st = self._graphs.state
         st.fill(token, pos, temp, top_p, stop_ids(stop_tokens), limit)
-        emitted, forwards = self._spec_tally
-        ran = cnt = nfwd = 0
-        while True:
-            n = self._spec_round(limit - cnt, emitted + cnt, forwards + nfwd)
-            run(n)
-            ran += n
-            self.spec_rounds += 1
-            host = st.host()
-            cnt, nfwd, done = host[-3:]
-            if done:
-                break
-        self._spec_tally = [emitted + cnt, forwards + nfwd]
-        self.decode_steps += ran
-        self.spec_parked += ran - nfwd
+        run(limit)
+        host = st.host()
+        self.spec_reads += 1
+        cnt, steps, _ = host[-3:]
+        run.done(steps)
+        self.decode_steps += steps
         ex = self.metrics.extra
         ex["spec_emitted"] = ex.get("spec_emitted", 0) + cnt
-        ex["spec_forwards"] = ex.get("spec_forwards", 0) + nfwd
+        ex["spec_forwards"] = ex.get("spec_forwards", 0) + steps
         if ex["spec_forwards"]:
             # mean drafted tokens accepted per verify forward (0 = no speedup)
             ex["spec_accept_rate"] = round(ex["spec_emitted"] / ex["spec_forwards"] - 1.0, 4)

@@ -11,7 +11,9 @@ allocator has grown them) and once per prefill chunk. Decode attention is K8
 (ops/attention.py) through the tables; an inactive lane's table row is the
 trash block, so its stale-position writes can land in no other request's
 blocks (`paged_engine.py:117-118`). A window is one step over static state
-(runtime/decode_graph.py), replayed as a captured CUDA graph on the card.
+(runtime/decode_graph.py), replayed as a captured CUDA graph on the card,
+and ends once every lane has stopped, as BatchEngine's does. The block
+pre-allocation still covers `limit` steps.
 
 With prefix_cache=True (the default) admission maps cached full blocks of
 the prompt into the lane's table and prefills only the novel suffix; release
@@ -172,8 +174,10 @@ class PagedBatchEngine:
         st.fill(tokens, pos, active, temps, topps, stop_ids(stop_tokens))
         self._tables_d.copy_(torch.from_numpy(self.alloc.tables))  # the tables, once a window
         run(limit)
-        self.decode_steps += limit
-        return st.out.cpu().numpy()  # the window's one device-to-host copy
+        slab, steps = st.host()  # the window's one device-to-host copy
+        run.done(steps)
+        self.decode_steps += steps
+        return slab.numpy()
 
     def _step(self, sampled: bool) -> None:
         """One decode step of every lane over the static state (BatchEngine's

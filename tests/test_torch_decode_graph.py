@@ -9,8 +9,8 @@ card.
   paged, int8 KV, a 2-lane MoE step, greedy and sampled);
 - reset() zeroes the cache in place, and windows after it equal a fresh
   engine's;
-- the capture's launch bookkeeping, with the CUDA graph replaced by a CPU
-  stand-in.
+- the capture's launch bookkeeping, with the CUDA graph and the IF node
+  replaced by CPU stand-ins.
 """
 import contextlib
 import gc
@@ -26,6 +26,7 @@ from llamatpu.models.synthetic import build_synthetic_model as j_build
 from llamatpu.runtime.batch_engine import BatchEngine as JBatchEngine
 from llamatpu.runtime.engine import Engine as JEngine
 from llamatpu.runtime.paged_engine import PagedBatchEngine as JPagedBatchEngine
+from llamatpu_torch import _build
 from llamatpu_torch.models.synthetic import build_synthetic_model as t_build
 from llamatpu_torch.models.transformer import physical_cache_len
 from llamatpu_torch.ops import attention, layer_fused, moe_grouped, sampling
@@ -290,14 +291,19 @@ def test_reset_keeps_the_cache_in_place_and_windows_equal_a_fresh_engine():
 
 # ------------------------------------------------------ launch bookkeeping
 class _Stream:
+    def __init__(self, handle=0):
+        self.cuda_stream = handle
+
     def wait_stream(self, other):
         pass
 
 
 class _Graph:
-    """A CPU stand-in for torch.cuda.CUDAGraph: capture runs the step's host
-    code once (as a real capture does), a replay runs none."""
+    """A CPU stand-in for torch.cuda.CUDAGraph: capture runs the guard's and
+    the step's host code once (as a real capture does), a replay runs none
+    and advances each registered generator by `increment`."""
     made = []
+    increment = 0
 
     def __init__(self):
         self.replays = 0
@@ -309,41 +315,92 @@ class _Graph:
 
     def replay(self):
         self.replays += 1
+        for gen in self.generators:
+            if isinstance(gen, _Gen):
+                gen.set_offset(gen.get_offset() + self.increment)
+
+
+class _Gen(torch.Generator):
+    """A CPU generator with the CUDA generator's Philox offset."""
+    offset = 0
+
+    def get_offset(self):
+        return self.offset
+
+    def set_offset(self, offset):
+        self.offset = offset
+
+
+class _CondLib:
+    """The stand-in of csrc/graph_cond.cu: records the IF node's predicate,
+    the streams and the order of the calls (`events`)."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def lt_cond_begin(self, capture_stream, body_stream, pred):
+        self.events.append(("begin", capture_stream, body_stream, pred))
+        return 0
+
+    def lt_cond_end(self, body_stream):
+        self.events.append(("end", body_stream))
+        return 0
 
 
 @contextlib.contextmanager
 def _capture(graph, pool=None, stream=None, capture_error_mode=None):
     assert capture_error_mode == "thread_local" and stream is not None and pool is not None
     assert not gc.isenabled()  # no collection may free a graph mid-capture
+    _capture.events.append(("capture", stream.cuda_stream))
     yield
+    _capture.events.append(("captured",))
 
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
     _Graph.made = []
+    _Graph.increment = 0
+    events = _capture.events = []
+    streams = iter(range(1, 100))
+
+    @contextlib.contextmanager
+    def mem_pool(pool, device=None):
+        events.append(("pool", pool))
+        yield
+        events.append(("unpool", pool))
+
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "graph", _capture)
-    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream(next(streams)))
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(torch.cuda, "MemPool", lambda: "body-pool")
+    monkeypatch.setattr(torch.cuda, "use_mem_pool", mem_pool)
+    monkeypatch.setattr(_build, "load", lambda name: _CondLib(events))
     monkeypatch.delenv("LLAMATPU_NO_ATTN_TAIL", raising=False)
     paged, tail = attention.decode_attention_paged, layer_fused.layer_tail_fused_rowq
-    saved = paged.launches, tail.launches
-    yield
-    paged.launches, tail.launches = saved
+    saved = paged.launches, tail.launches, decode_graph.cond_guard.launches
+    yield events
+    paged.launches, tail.launches, decode_graph.cond_guard.launches = saved
 
 
 def test_replays_add_the_captured_launch_counts(fake_cuda, monkeypatch):
     """The step stand-in counts 2 K8 and 3 K9 launches and draws from the
-    generator. A capture (from step index 0, whatever the last window left) (warm-up + capture) leaves every counter as it
-    found it and the generator's state too; n replays add n times the
-    captured counts; the same key replays the same graph, a switch or a new
-    geometry captures anew; compile_s records the captures."""
+    generator. A capture (from step index 0, whatever the last window left)
+    (warm-up + capture) leaves every counter as it found it and the
+    generator's state too; after n replays and the window's read of s steps
+    run, the counters hold s (not n) times the captured counts, and the
+    predicate kernel's count n, and the generator is where s eager steps
+    leave it (each replay advanced it by one step's increment); the same
+    key replays the same graph, a switch or a new geometry captures anew;
+    compile_s records the captures."""
     paged, tail = attention.decode_attention_paged, layer_fused.layer_tail_fused_rowq
     assert paged in decode_graph.launch_counters() and tail in decode_graph.launch_counters()
-    gen = torch.Generator().manual_seed(3)
+    gen = _Gen().manual_seed(3)
+    gen.offset = 100
+    _Graph.increment = 8
     parks = []
 
     def step():  # the warm-up and the capture run from step index 0
@@ -357,14 +414,19 @@ def test_replays_add_the_captured_launch_counts(fake_cuda, monkeypatch):
     g.state = decode_graph.StepState(1, 4, torch.device("cpu"))
     g.state.step.fill_(4)  # where a full window left it
     paged.launches, tail.launches = 5, 7
+    cond = decode_graph.cond_guard.launches
     state = gen.get_state()
     run = g.runner(("geom", 1), False, step, lambda: parks.append(1), gen)
     assert (paged.launches, tail.launches) == (5, 7) and parks == [1, 1] and gc.isenabled()
+    assert decode_graph.cond_guard.launches == cond
     assert torch.equal(gen.get_state(), state)
     assert run.counts == {paged: 2, tail: 3} and m.compile_s > 0
     assert _Graph.made[0].generators == [gen]
     run(4)
-    assert (paged.launches, tail.launches) == (13, 19) and _Graph.made[0].replays == 4
+    assert (paged.launches, tail.launches) == (5, 7) and _Graph.made[0].replays == 4
+    assert decode_graph.cond_guard.launches == cond + 4 and gen.get_offset() == 132
+    run.done(3)  # the window stopped after 3 steps
+    assert (paged.launches, tail.launches) == (11, 16) and gen.get_offset() == 124
     assert g.runner(("geom", 1), False, step, lambda: parks.append(1), gen) is run
     assert len(_Graph.made) == 1 and parks == [1, 1]
     sampled = g.runner(("geom", 1), True, step, lambda: None, gen)
@@ -373,18 +435,19 @@ def test_replays_add_the_captured_launch_counts(fake_cuda, monkeypatch):
     assert len({id(run), id(sampled), id(switched)}) == 3 and len(g.graphs) == 3
     g.runner(("geom", 2), False, step, lambda: None, gen)
     assert len(g.graphs) == 1 and len(_Graph.made) == 4
-    assert (paged.launches, tail.launches) == (13, 19)
+    assert (paged.launches, tail.launches) == (11, 16)
 
 
 def test_engine_captures_at_construction_and_counts_replays(fake_cuda):
     """On a (stand-in) card the capture that Engine(aot_compile=True) makes
     at construction (`_window` of the default mode) records compile_s, its
-    warm-up writes only the park row, and reset() zeroes it; a window of n
-    steps replays the graph n times, and the other sampling mode captures
-    its own graph, with the generator registered."""
+    warm-up writes only the park row, and reset() zeroes it; a window of
+    limit n enqueues n guarded replays of the graph, and the other sampling
+    mode captures its own graph, with the generator registered."""
     tm, _ = _models()
     e = Engine(tm, cache_len=64, prefill_chunk=16, decode_window=4, rowq=True,
                cache_dtype=torch.float32, device="cpu", aot_compile=False)
+    e.generator = _Gen().manual_seed(42)
     assert e.metrics.compile_s == 0.0 and not e._graphs.graphs
     e._graphs.state_for(1, 4)  # the static state on the CPU, then the graph path
     e._graphs.device = torch.device("cuda")

@@ -14,9 +14,11 @@ against the JAX package's `Engine(spec_decode=K)` on tiny models:
 - `spec_verify_sample` on given uniforms equals the numpy formulas over the
   JAX `filtered_scaled_logits`, its first token's marginal is the filtered
   softmax, and it never emits a token outside the nucleus;
-- the verify step reads no host value; a parked forward changes no state;
-  any round plan gives the same window; reset() zeroes the history where it
-  lies; the capture keys and parks the verify step;
+- the verify step reads no host value; a guarded-off step changes no
+  state; a window enqueues its whole budget of guarded steps and reads the
+  state once, one step an enqueue giving the same window; reset() zeroes
+  the history where it lies; the capture keys and parks the verify step
+  under its IF node;
 - `run --spec-decode` and a batch-1 `serve --spec-decode` give the text of
   their plain counterparts.
 """
@@ -25,7 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_decode_graph import NoHostData, _Graph, fake_cuda  # noqa: F401
+from test_torch_decode_graph import NoHostData, _Gen, _Graph, fake_cuda  # noqa: F401
 from tiny_models import build_tiny_gguf
 
 from llamatpu.gguf import GGMLType
@@ -38,6 +40,7 @@ from llamatpu_torch.models import loader as tloader
 from llamatpu_torch.models.synthetic import build_synthetic_model as t_build
 from llamatpu_torch.models.transformer import physical_cache_len
 from llamatpu_torch.ops import layer_fused, quant_matmul, sampling
+from llamatpu_torch.runtime import decode_graph
 from llamatpu_torch.runtime.decode_graph import switches
 from llamatpu_torch.runtime.engine import Engine
 
@@ -347,72 +350,109 @@ def _spec_engine(f32, k=4, **kw):
 
 
 def test_the_verify_step_makes_no_host_read(f32, rowq):
-    """A greedy and a sampled verify forward run under NoHostData (f32 and
-    q8_row: K2, K9 and K1 at K + 1 rows) and advance the state on the
-    device."""
+    """A greedy and a sampled verify forward, each after its guard, run
+    under NoHostData (f32 and q8_row: K2, K9 and K1 at K + 1 rows) and
+    advance the state on the device."""
     tm = rowq[0]
     q = Engine(tm, rowq=True, cache_len=128, prefill_chunk=32, decode_window=8,
                cache_dtype=torch.float32, device="cpu", spec_decode=4)
     q.decode_window_run(int(q.prefill(list(range(19)))[0][0]), 19, 2)
     for e in (_spec_engine(f32), q):
         st = e._graphs.state
-        n = st.nfwd.item() + 2
+        n = st.steps.item() + 2
         st.done.zero_()
         st.limit.fill_(st.cnt.item() + 10)
         st.temps.fill_(0.7)
         st.topps.fill_(0.9)
         with NoHostData():
+            st.guard()
             e._spec_step(False)
+            st.guard()
             e._spec_step(True)
-        assert st.nfwd.item() == n and not st.done.item()
+        assert st.steps.item() == n and not st.done.item() and st.live.item()
 
 
 def test_parked_forwards_change_no_state(f32):
-    """After a window's `done`, further forwards (greedy and sampled) leave
-    the ids, tok, pos, cnt, nfwd, done and the slab as they were."""
+    """A guarded-off step changes no state: after a window's `done`, more
+    guarded steps (greedy and sampled) run no forward, and the ids, tok,
+    pos, cnt, steps, done, the slab and the whole cache keep their values
+    (exact)."""
     e = _spec_engine(f32)
     st = e._graphs.state
     assert st.done.item()
-    names = ("tok", "pos", "cnt", "nfwd", "done", "out")
-    before = [getattr(st, n).clone() for n in names] + [e._ids.clone()]
-    e._spec_step(False)
-    e._spec_step(True)
-    after = [getattr(st, n) for n in names] + [e._ids]
+    names = ("tok", "pos", "cnt", "steps", "done", "out")
+    before = [getattr(st, n).clone() for n in names] + [e._ids.clone(), e.cache.kv.clone()]
+    bodies = []
+    for sampled in (False, True):
+        decode_graph.Eager(st, lambda: bodies.append(e._spec_step(sampled)))(3)
+    after = [getattr(st, n) for n in names] + [e._ids, e.cache.kv]
+    assert not bodies and not st.live.item()
     assert all(torch.equal(a, b) for a, b in zip(after, before))
+
+
+def _counting_runs(monkeypatch, one_at_a_time=False):
+    """Wrap each window's runner: record the n of every run(n), and with
+    one_at_a_time split run(n) into n runs of one guarded step each.
+    Returns (the n's, the bodies run)."""
+    ns, bodies = [], []
+    window = Engine._window
+
+    def counted(self, sampled, pos=0):
+        run = window(self, sampled, pos)
+        step = run.step
+        run.step = lambda: (bodies.append(1), step())
+
+        def call(n):
+            ns.append(n)
+            for _ in range(n) if one_at_a_time else [n]:
+                decode_graph.Eager.__call__(run, 1 if one_at_a_time else n)
+        run.__class__ = type("Counted", (decode_graph.Eager,), {"__call__": lambda r, n: call(n)})
+        return run
+    monkeypatch.setattr(Engine, "_window", counted)
+    return ns, bodies
 
 
 @pytest.mark.parametrize("plan", ["one", "all"])
 def test_any_round_plan_gives_the_same_window(f32, plan, monkeypatch):
-    """One forward a round, or the whole budget in one round (the rest
-    parked): the same windows, history and metrics as the engine's own
-    plan; the rounds and parked forwards are counted."""
+    """A window enqueues its whole budget of guarded verify steps ("all":
+    the guard runs the body spec_forwards times, decode_steps ==
+    spec_forwards, one host read a window), or one step an enqueue ("one":
+    the guarded-off calls past `done` change nothing): the same windows,
+    history and metrics as the engine's own run (exact)."""
     def run():
         e = Engine(f32[0], cache_dtype=torch.float32, device="cpu", decode_window=6,
                    spec_decode=4)
         return _drive(e, RANDOM, 56), e
 
     ref, e0 = run()
-    monkeypatch.setattr(Engine, "_spec_round",
-                        (lambda self, r, *a: 1) if plan == "one" else (lambda self, r, *a: r))
+    ns, bodies = _counting_runs(monkeypatch, one_at_a_time=plan == "one")
     got, e = run()
     assert got[:2] == ref[:2] and got[3] == ref[3]
     assert all(np.array_equal(a, b) for a, b in zip(got[2], ref[2]))
     fwd = ref[3]["spec_forwards"]
-    if plan == "one":
-        assert e.spec_rounds == fwd and e.spec_parked == 0
-    else:
-        assert e.spec_rounds == len(ref[1]) and e.spec_parked == e.decode_steps - fwd > 0
-    assert e0.decode_steps == fwd + e0.spec_parked and e0.spec_rounds >= len(ref[1])
+    assert len(ns) == len(ref[1]) == e.spec_reads == e0.spec_reads
+    assert len(bodies) == e.decode_steps == e0.decode_steps == fwd
+    if plan == "all":
+        assert sum(ns) > fwd  # budgets past the stops and the accepted drafts: guarded off
 
 
-def test_round_plan_follows_the_acceptance(f32):
-    """The plan replays ceil(left / (1 + a)) forwards, a the engine's mean
-    accepted drafts a forward (K before any), never more than is left."""
-    e = Engine(f32[0], cache_dtype=torch.float32, device="cpu", spec_decode=4)
-    assert e._spec_round(32, 0, 0) == 7
-    assert e._spec_round(32, 20, 20) == 32
-    assert e._spec_round(32, 40, 20) == 16
-    assert e._spec_round(3, 100, 10) == 1
+def test_round_plan_follows_the_acceptance(f32, monkeypatch):
+    """There is no round plan left to follow the acceptance: at any
+    acceptance (a repetitive and a random prompt) each window enqueues its
+    whole budget, min(left, W, cache room), once, and reads the state once;
+    the forwards run are the JAX window's (exact)."""
+    ns, bodies = _counting_runs(monkeypatch)
+    for prompt in (REPETITIVE, RANDOM):
+        e = Engine(f32[0], cache_dtype=torch.float32, device="cpu", spec_decode=4,
+                   decode_window=8)
+        del ns[:], bodies[:]
+        first, wins, _, metrics = _drive(e, prompt, 30)
+        left, pos, want = 29, len(prompt), []
+        for w in wins:
+            want.append(min(left, 8, e.cache_len - pos - 1))
+            left, pos = left - len(w), pos + len(w)
+        assert ns == want and e.spec_reads == len(wins)
+        assert len(bodies) == e.decode_steps == metrics["spec_forwards"]
 
 
 def test_reset_zeroes_the_history_in_place_and_reseed_keeps_it(f32):
@@ -438,11 +478,13 @@ def test_reset_zeroes_the_history_in_place_and_reseed_keeps_it(f32):
 
 def test_the_capture_keys_and_parks_the_verify_step(f32, fake_cuda):
     """On a (stand-in) card the verify step's graph is keyed by K, the
-    sampling mode, the engine's impl and the switches, apart from any plain step's; its
-    warm-up and capture run parked at the window's position, writing no
-    id; n replays add n times the captured launches."""
+    sampling mode, the engine's impl and the switches, apart from any plain
+    step's; its warm-up and capture run parked at the window's position, the
+    id history put back after the warm-up; the body is captured under one IF
+    node on `live`; n replays enqueue n guarded steps."""
     e = Engine(f32[0], cache_dtype=torch.float32, device="cpu", decode_window=6,
                spec_decode=4, aot_compile=False)
+    e.generator = _Gen().manual_seed(42)
     e.prefill(REPETITIVE)
     ids = e._ids.clone()
     e._graphs.state_for(1, 6, 4)
@@ -450,7 +492,10 @@ def test_the_capture_keys_and_parks_the_verify_step(f32, fake_cuda):
     run = e._window(False, len(REPETITIVE))
     assert list(e._graphs.graphs) == [(4, False, "auto", switches())]
     st = e._graphs.state
-    assert st.done.item() and st.pos.item() == len(REPETITIVE) and torch.equal(e._ids, ids)
+    assert st.pos.item() == len(REPETITIVE) and torch.equal(e._ids, ids)
+    assert [ev[0] for ev in fake_cuda] == ["capture", "begin", "pool", "unpool", "end",
+                                           "captured"]
+    assert fake_cuda[1][3] == st.live.data_ptr()
     e._window(True, len(REPETITIVE))
     assert len(_Graph.made) == 2 and _Graph.made[1].generators == [e.generator]
     run(3)
@@ -531,8 +576,8 @@ def test_spec_bench_rows_on_the_cpu():
     (cache 1024, prefill chunk 512, window 32, tg128): scripts/bench_spec.py's
     prompt (32 seeded ids tiled to 512), a plain and a K = 4 row with the
     same greedy tokens, the spec telemetry of the timed run, forwards run =
-    spec_forwards + parked, and no kernel launch counted (the plain versions
-    ran)."""
+    spec_forwards (no forward past a window's end), one host read a window,
+    and no kernel launch counted (the plain versions ran)."""
     from llamatpu_torch.bench import spec_bench
 
     base = np.random.default_rng(42).integers(0, 32, 32)
@@ -546,7 +591,8 @@ def test_spec_bench_rows_on_the_cpu():
     plain, spec = spec_bench.bench_rows(model, k=4, device="cpu")
     assert (plain["K"], spec["K"]) == (0, 4) and plain["tg"] == spec["tg"] == 128
     assert spec["tokens"] == plain["tokens"] and plain["forwards_run"] == 128
-    assert spec["forwards_run"] == spec["spec_forwards"] + spec["parked"]
-    assert spec["rounds"] >= 4 and spec["prefill_chunks"] == 1
+    assert spec["forwards_run"] == spec["spec_forwards"] < 128
+    assert spec["host_reads"] == spec["windows"] >= 4 and spec["prefill_chunks"] == 1
+    assert plain["host_reads"] == plain["windows"] == 4
     assert plain["launches"] == spec["launches"] == {}
     assert spec_bench.card_name("cpu") == "cpu"
